@@ -1,0 +1,119 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
+a shared library with a plain C interface and loaded with ``ctypes``. The
+build runs at first use, into ``multitreegp_tpu_torch/_build/`` (listed in
+``.gitignore``); the library's file name carries a hash of its source and
+flags, so an edited source is rebuilt and a current one is reused. A failed
+build raises; nothing falls back.
+
+Flags: ``-fmad=false`` keeps ``a*b+c`` from being contracted into an FMA, so
+the kernels round exactly as their plain PyTorch versions do; division and
+square root stay IEEE (no fast-math).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Dict
+
+PACKAGE_DIR = Path(__file__).resolve().parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false", "-lineinfo",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+# seconds spent in nvcc per library in this process (0.0 when reused)
+build_seconds: Dict[str, float] = {}
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin`` or PATH."""
+    candidates = [
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc",
+        Path("/usr/local/cuda/bin/nvcc"),
+    ]
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless a library of the same source exists."""
+    out = library_path(name)
+    if out.exists():
+        build_seconds.setdefault(name, 0.0)
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        tmp_out = Path(tmp) / out.name
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp_out), str(CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
+                f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp_out, out)  # atomic: a concurrent loader sees all or nothing
+    build_seconds[name] = time.perf_counter() - t0
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``; cached per process.
+
+    Every library exports ``const char* mtgp_error_string(int)``."""
+    if name not in _loaded:
+        lib = ctypes.CDLL(str(build(name)))
+        lib.mtgp_error_string.argtypes = [ctypes.c_int]
+        lib.mtgp_error_string.restype = ctypes.c_char_p
+        _loaded[name] = lib
+    return _loaded[name]
+
+
+def build_host(name: str, out_dir: Path) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` for the host with the C++ compiler and load
+    it. Without ``__CUDACC__`` the source builds its per-lane code into a
+    plain lane loop (``<name>_host``), so tests can check the kernel's logic
+    against its plain version where there is no card. Contraction is off
+    (``-ffp-contract=off``) as on the card."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError("no host C++ compiler found")
+    out = Path(out_dir) / f"{name}_host.so"
+    cmd = [cxx, "-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
+           "-o", str(out), str(CSRC_DIR / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"host build of {name}.cu failed:\n{proc.stderr}")
+    return ctypes.CDLL(str(out))
+
+
+def check(lib: ctypes.CDLL, status: int, what: str) -> None:
+    """Raise if a C launcher returned a non-zero ``cudaError_t``."""
+    if status != 0:
+        msg = lib.mtgp_error_string(status).decode(errors="replace")
+        raise RuntimeError(f"{what}: CUDA error {status}: {msg}")

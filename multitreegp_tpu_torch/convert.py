@@ -1,0 +1,58 @@
+"""Carry trees, function sets and SR data over from the JAX package.
+
+Everything crosses as numpy arrays (or objects read attribute by attribute),
+so this module never imports ``multitreegp_tpu`` or JAX: the caller hands in
+``np.asarray(...)`` of the JAX side's arrays.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from .core.registry import FunctionSet, build_function_set
+from .core.trees import TreeTensors
+
+
+def trees_from_numpy(ops, c1, c2, const, device=None) -> TreeTensors:
+    """``TreeTensors`` from four arrays of equal shape ``(..., N)``."""
+    return TreeTensors(
+        torch.tensor(np.asarray(ops, np.int32), device=device),
+        torch.tensor(np.asarray(c1, np.int32), device=device),
+        torch.tensor(np.asarray(c2, np.int32), device=device),
+        torch.tensor(np.asarray(const, np.float32), device=device),
+    )
+
+
+def trees_to_numpy(trees: TreeTensors) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """``(ops, c1, c2, const)`` as host numpy arrays."""
+    return tuple(t.detach().cpu().numpy() for t in trees)  # type: ignore[return-value]
+
+
+def function_set_from_jax(fset) -> FunctionSet:
+    """The port's :class:`FunctionSet` equal to a JAX ``FunctionSet``: same
+    operator names (hence opcodes), arities, probabilities, variable names,
+    per-tree variable mask and layer sizes. ``fset`` is read by attribute; its
+    arrays are converted with ``np.asarray``."""
+    arities = np.asarray(fset.arities).tolist()
+    probs = np.asarray(fset.operator_probs, np.float32).tolist()
+    mask = np.asarray(fset.variable_mask)
+    names = list(fset.variable_names)
+    variable_list, row = [], 0
+    for size in fset.layer_sizes:
+        variable_list.append([names[v] for v in np.flatnonzero(mask[row] > 0)])
+        row += size
+    out = build_function_set(
+        [(name, int(a), float(p)) for name, a, p in zip(fset.operator_names, arities, probs)],
+        variable_list, fset.layer_sizes,
+    )
+    if out.variable_names != tuple(names) or not np.array_equal(out.variable_mask.numpy(), mask):
+        raise ValueError("variable order or mask does not round-trip")
+    return out
+
+
+def sr_data_from_numpy(x0s, ts, ys, device=None) -> Tuple:
+    """SR data tuple ``(x0s (B, d), ts (T,), ys (B, T, d), None)``."""
+    as_f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    return as_f32(x0s), as_f32(ts), as_f32(ys), None

@@ -1,0 +1,313 @@
+// Fused symbolic-regression fitness: fixed-step rollout + squared error.
+//
+// Replaces the TPU kernel `_make_fitness_kernel` of
+// multitreegp_tpu/core/pallas_rollout.py (reached through
+// `rollout_sr_fitness_pallas` -> `_fitness_prepare` -> `pl.pallas_call`).
+// It computes what that kernel computes, per lane (candidate x trajectory):
+// the euler/heun/rk4 rollout of dx = trees(x) over the save grid `ts`, the
+// alive freeze (a lane whose state is non-finite or reaches |x| >= 1e8 keeps
+// its frozen state) and err = sum_t sum_d (x_t - y_t)^2, the x0 row included.
+// No trajectory is written; the outputs are err and alive per lane.
+//
+// What bounds it on this card: instruction issue. Each lane evaluates m
+// trees of up to N rows at every RK stage of every step (4 x 49 x 2 tree
+// evaluations per lane on the main path) and reads only a few KB: the trees
+// once per block and its own ground-truth row. Bytes are negligible; the
+// per-row opcode dispatch is the work.
+//
+// Design: one thread per lane. Lanes are candidate-major, so the B
+// trajectories of one candidate are B neighbouring threads that run the
+// same tree program on different states (uniform branches across them). A
+// block holds `cpb` candidates; their trees (ops and const only) are staged
+// once into shared memory. Trees are evaluated as a postorder stack machine:
+// in the root-last layout a binary row's first operand is the top of the
+// stack and its second the entry below, so no child pointers are read.
+// State, RK stages and the stage sums live in registers (the state dim is a
+// template parameter). The TPU kernel's size sort and lane layout existed for
+// Mosaic's `pl.when` row skip; here the padding prefix is skipped per lane.
+//
+// Numerics copy the JAX integrator (multitreegp_tpu/models/integrators.py):
+// stage inputs x + (0.5*dt)*k, final x + (dt/6)*(((k1 + 2k2) + 2k3) + k4),
+// dt = (ts[t+1] - ts[t]) / substeps per interval from the float32 grid. Built
+// with -fmad=false and IEEE division, so x/0 -> inf kills the lane as in JAX.
+//
+// The per-lane code is plain C++ under MTGP_HD, so the same file also
+// compiles for the host (without __CUDACC__) into a lane loop that tests can
+// run against the plain version on machines without a card.
+#include <math.h>
+#include <stddef.h>
+#include <stdint.h>
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#define MTGP_HD __host__ __device__
+#else
+#define MTGP_HD
+#endif
+
+namespace {
+
+constexpr int kEmpty = 0;
+constexpr int kConst = 1;
+constexpr int kOpStart = 2;
+constexpr int kMaxNodes = 256;
+constexpr float kBound = 1e8f;
+
+// device op ids: multitreegp_tpu_torch/core/registry.py DEVICE_OPS
+constexpr int kAdd = 0;
+constexpr int kSub = 1;
+constexpr int kMul = 2;
+constexpr int kDiv = 3;
+
+enum Method { kEuler = 0, kHeun = 1, kRk4 = 2 };
+
+// read-only cached load on the card, a plain load on the host
+MTGP_HD inline int load_ro(const int* p) {
+#ifdef __CUDA_ARCH__
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+
+MTGP_HD inline float apply_binary(int id, float a, float b) {
+  switch (id) {
+    case kAdd: return a + b;
+    case kSub: return a - b;
+    case kMul: return a * b;
+    default: return a / b;  // kDiv
+  }
+}
+
+template <int D>
+MTGP_HD inline float leaf_value(int var, const float (&x)[D]) {
+  float v = 0.0f;  // a variable past the state width reads 0, as in JAX
+#pragma unroll
+  for (int q = 0; q < D; ++q)
+    if (q == var) v = x[q];
+  return v;
+}
+
+// Root value of one tree (rows `ops[0..n)`, padding first) at state x.
+template <int D>
+MTGP_HD float eval_tree(const int* ops, const float* cst, int n,
+                           const int* __restrict__ devop, int var_start,
+                           const float (&x)[D], float* stack) {
+  int sp = 0;
+  int i = 0;
+  while (i < n && ops[i] == kEmpty) ++i;
+  for (; i < n; ++i) {
+    const int op = ops[i];
+    float v;
+    if (op == kConst) {
+      v = cst[i];
+    } else if (op >= var_start) {
+      v = leaf_value<D>(op - var_start, x);
+    } else {
+      // first operand: the row directly below; second: the subtree below it
+      // (the guards only keep a malformed tree inside the stack)
+      const float a = sp > 0 ? stack[--sp] : 0.0f;
+      const float b = sp > 0 ? stack[--sp] : 0.0f;
+      v = apply_binary(load_ro(devop + (op - kOpStart)), a, b);
+    }
+    if (sp < kMaxNodes) stack[sp++] = v;
+  }
+  return sp ? stack[sp - 1] : 0.0f;
+}
+
+template <int D>
+MTGP_HD inline void drift(const int* ops, const float* cst, int n,
+                                      const int* __restrict__ devop, int var_start,
+                                      const float (&x)[D], float (&k)[D], float* stack) {
+#pragma unroll
+  for (int mi = 0; mi < D; ++mi)
+    k[mi] = eval_tree<D>(ops + mi * n, cst + mi * n, n, devop, var_start, x, stack);
+}
+
+template <int D>
+MTGP_HD inline bool finite_state(const float (&x)[D]) {
+  bool ok = true;
+#pragma unroll
+  for (int q = 0; q < D; ++q) ok = ok && isfinite(x[q]) && fabsf(x[q]) < kBound;
+  return ok;
+}
+
+template <int D>
+MTGP_HD inline float sq_err(const float (&x)[D], const float* y) {
+  float e = (x[0] - y[0]) * (x[0] - y[0]);
+#pragma unroll
+  for (int q = 1; q < D; ++q) {
+    const float dl = x[q] - y[q];
+    e = e + dl * dl;
+  }
+  return e;
+}
+
+// One lane: trajectory b of a candidate whose d trees are t_ops/t_cst.
+template <int D>
+MTGP_HD void fitness_lane(const int* t_ops, const float* t_cst, const int* __restrict__ devop,
+                          const float* __restrict__ x0s, const float* __restrict__ ts,
+                          const float* __restrict__ ys, int n, int b, int T, int var_start,
+                          int method, int substeps, float* err, uint8_t* alive_out) {
+  float stack[kMaxNodes];
+  float x[D];
+#pragma unroll
+  for (int q = 0; q < D; ++q) x[q] = x0s[b * D + q];
+  bool alive = finite_state<D>(x);
+  const float* y = ys + static_cast<size_t>(b) * T * D;
+  float e_sum = sq_err<D>(x, y);
+
+  for (int t = 0; t + 1 < T; ++t) {
+    if (alive) {
+      const float h = (ts[t + 1] - ts[t]) / static_cast<float>(substeps);
+      for (int s = 0; s < substeps && alive; ++s) {
+        float k1[D], xn[D];
+        drift<D>(t_ops, t_cst, n, devop, var_start, x, k1, stack);
+        if (method == kEuler) {
+#pragma unroll
+          for (int q = 0; q < D; ++q) xn[q] = x[q] + h * k1[q];
+        } else if (method == kHeun) {
+          float xs[D], k2[D];
+#pragma unroll
+          for (int q = 0; q < D; ++q) xs[q] = x[q] + h * k1[q];
+          drift<D>(t_ops, t_cst, n, devop, var_start, xs, k2, stack);
+          const float hh = 0.5f * h;
+#pragma unroll
+          for (int q = 0; q < D; ++q) xn[q] = x[q] + hh * (k1[q] + k2[q]);
+        } else {
+          float xs[D], k2[D], k3[D], k4[D];
+          const float hh = 0.5f * h;
+#pragma unroll
+          for (int q = 0; q < D; ++q) xs[q] = x[q] + hh * k1[q];
+          drift<D>(t_ops, t_cst, n, devop, var_start, xs, k2, stack);
+#pragma unroll
+          for (int q = 0; q < D; ++q) xs[q] = x[q] + hh * k2[q];
+          drift<D>(t_ops, t_cst, n, devop, var_start, xs, k3, stack);
+#pragma unroll
+          for (int q = 0; q < D; ++q) xs[q] = x[q] + h * k3[q];
+          drift<D>(t_ops, t_cst, n, devop, var_start, xs, k4, stack);
+          const float h6 = h / 6.0f;
+#pragma unroll
+          for (int q = 0; q < D; ++q)
+            xn[q] = x[q] + h6 * (((k1[q] + 2.0f * k2[q]) + 2.0f * k3[q]) + k4[q]);
+        }
+        alive = finite_state<D>(xn);
+        if (alive) {
+#pragma unroll
+          for (int q = 0; q < D; ++q) x[q] = xn[q];
+        }
+      }
+    }
+    e_sum = e_sum + sq_err<D>(x, y + (t + 1) * D);
+  }
+  *err = e_sum;
+  *alive_out = alive ? 1 : 0;
+}
+
+#ifdef __CUDACC__
+template <int D>
+__global__ void sr_fitness_kernel(const int* __restrict__ ops, const float* __restrict__ cst,
+                                  const int* __restrict__ devop, const float* __restrict__ x0s,
+                                  const float* __restrict__ ts, const float* __restrict__ ys,
+                                  float* __restrict__ err, uint8_t* __restrict__ alive_out,
+                                  int P, int n, int B, int T, int var_start, int method,
+                                  int substeps, int cpb) {
+  extern __shared__ unsigned char smem[];
+  const int tree_words = D * n;  // m == D trees per candidate
+  int* s_ops = reinterpret_cast<int*>(smem);
+  float* s_cst = reinterpret_cast<float*>(s_ops + cpb * tree_words);
+
+  const int c0 = blockIdx.x * cpb;
+  const int ncand = min(cpb, P - c0);
+  const size_t base = static_cast<size_t>(c0) * tree_words;
+  for (int i = threadIdx.x; i < ncand * tree_words; i += blockDim.x) {
+    s_ops[i] = ops[base + i];
+    s_cst[i] = cst[base + i];
+  }
+  __syncthreads();
+
+  const int lc = threadIdx.x / B;
+  const int b = threadIdx.x - lc * B;
+  if (lc >= ncand) return;
+  const size_t lane = static_cast<size_t>(c0 + lc) * B + b;
+  fitness_lane<D>(s_ops + lc * tree_words, s_cst + lc * tree_words, devop, x0s, ts, ys, n, b,
+                  T, var_start, method, substeps, err + lane, alive_out + lane);
+}
+
+template <int D>
+cudaError_t launch(const int* ops, const float* cst, const int* devop, const float* x0s,
+                   const float* ts, const float* ys, float* err, uint8_t* alive, int P, int n,
+                   int B, int T, int var_start, int method, int substeps, int cpb,
+                   cudaStream_t stream) {
+  const int grid = (P + cpb - 1) / cpb;
+  const size_t smem = static_cast<size_t>(cpb) * D * n * (sizeof(int) + sizeof(float));
+  sr_fitness_kernel<D><<<grid, cpb * B, smem, stream>>>(
+      ops, cst, devop, x0s, ts, ys, err, alive, P, n, B, T, var_start, method, substeps, cpb);
+  return cudaGetLastError();
+}
+#else
+template <int D>
+void launch(const int* ops, const float* cst, const int* devop, const float* x0s,
+            const float* ts, const float* ys, float* err, uint8_t* alive, int P, int n, int B,
+            int T, int var_start, int method, int substeps) {
+  for (int p = 0; p < P; ++p)
+    for (int b = 0; b < B; ++b) {
+      const size_t lane = static_cast<size_t>(p) * B + b;
+      const size_t tree = static_cast<size_t>(p) * D * n;
+      fitness_lane<D>(ops + tree, cst + tree, devop, x0s, ts, ys, n, b, T, var_start, method,
+                      substeps, err + lane, alive + lane);
+    }
+}
+#endif
+
+bool bad_args(int P, int n, int B, int T, int method, int substeps) {
+  return P <= 0 || n <= 0 || n > kMaxNodes || B <= 0 || T <= 0 || substeps <= 0 ||
+         method < kEuler || method > kRk4;
+}
+
+}  // namespace
+
+#define MTGP_FITNESS_ARGS                                                                     \
+  const int *ops, const float *cst, const int *devop, const float *x0s, const float *ts,     \
+      const float *ys, float *err, uint8_t *alive, int P, int d, int n, int B, int T,         \
+      int var_start, int method, int substeps
+#define MTGP_FITNESS_INPUTS \
+  ops, cst, devop, x0s, ts, ys, err, alive, P, n, B, T, var_start, method, substeps
+
+extern "C" {
+
+// ops/cst (P, d, n) with d trees per candidate; x0s (B, d); ts (T,);
+// ys (B, T, d); err/alive (P, B).
+#ifdef __CUDACC__
+const char* mtgp_error_string(int status) {
+  return cudaGetErrorString(static_cast<cudaError_t>(status));
+}
+
+// Launches on `stream`; returns cudaGetLastError() of the launch.
+int sr_fitness_launch(MTGP_FITNESS_ARGS, int cpb, void* stream) {
+  if (bad_args(P, n, B, T, method, substeps) || cpb <= 0 || cpb * B > 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 1: return launch<1>(MTGP_FITNESS_INPUTS, cpb, s);
+    case 2: return launch<2>(MTGP_FITNESS_INPUTS, cpb, s);
+    case 3: return launch<3>(MTGP_FITNESS_INPUTS, cpb, s);
+    case 4: return launch<4>(MTGP_FITNESS_INPUTS, cpb, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+#else
+// host build of the same per-lane code (tests without a card)
+int sr_fitness_host(MTGP_FITNESS_ARGS) {
+  if (bad_args(P, n, B, T, method, substeps)) return 1;
+  switch (d) {
+    case 1: launch<1>(MTGP_FITNESS_INPUTS); return 0;
+    case 2: launch<2>(MTGP_FITNESS_INPUTS); return 0;
+    case 3: launch<3>(MTGP_FITNESS_INPUTS); return 0;
+    case 4: launch<4>(MTGP_FITNESS_INPUTS); return 0;
+    default: return 1;
+  }
+}
+#endif
+
+}  // extern "C"

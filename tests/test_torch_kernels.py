@@ -1,0 +1,149 @@
+"""PyTorch port: the CUDA kernels against their plain versions.
+
+Two routes:
+
+* host build (runs here): each ``csrc/*.cu`` also compiles for the host
+  with the system C++ compiler (``-ffp-contract=off``), where its per-lane
+  code runs as a plain lane loop. The fitness lanes must equal the plain
+  version bit for bit (same float32 operations in the same order, no FMA);
+  the reproduction lanes must give identical opcodes and constants within
+  rtol 1e-6 (the host's ``logf``/``cosf`` and PyTorch's may round an ulp
+  apart).
+* on the card (marker ``cuda``; skipped without a GPU): the kernels through
+  their wrappers, same criteria.
+"""
+import ctypes
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from multitreegp_tpu_torch import _build
+from multitreegp_tpu_torch.core import tile_surgery as tts
+from multitreegp_tpu_torch.core.cuda_reproduction import (
+    decay_table, reproduce_lanes, reproduce_lanes_plain, rows_per_lane,
+)
+from multitreegp_tpu_torch.core.cuda_rollout import METHODS, sr_fitness, sr_fitness_cuda, sr_fitness_plain
+from multitreegp_tpu_torch.core.registry import build_function_set
+from multitreegp_tpu_torch.models.environments import VanDerPolOscillator
+from multitreegp_tpu_torch.models.evaluators import generate_sr_data
+from multitreegp_tpu_torch.ops.initialization import make_population_sampler
+
+torch.set_num_threads(1)
+
+N = 32
+ARITH = [("+", 2, 0.5), ("-", 2, 0.1), ("*", 2, 0.5), ("/", 2, 0.1)]
+
+
+def fitness_case(device="cpu", pop=24, b=4, t_end=1.6):
+    fset = build_function_set(ARITH, [["x0", "x1"]], [2])
+    g = torch.Generator(device=device).manual_seed(0)
+    ts = torch.arange(0.0, t_end, 0.2, device=device)
+    x0s, ts, ys, _ = generate_sr_data(VanDerPolOscillator(), g, ts, batch_size=b)
+    trees = make_population_sampler(fset, 4, N)(g, pop)[0]
+    return fset, trees, x0s, ts, ys
+
+
+def reproduce_case(device="cpu", lanes=192):
+    fset = build_function_set(ARITH + [("sin", 1, 0.3)], [["x0", "x1"], ["x1"]], [1, 1])
+    cfg = tts.make_config(fset, N, 4)
+    g = torch.Generator(device=device).manual_seed(1)
+    sample = lambda depth, k: make_population_sampler(fset, depth, N)(g, k)[0].map(
+        lambda a: a.reshape(-1, N))
+    parents = [sample(d, lanes // 8) for d in (1, 2, 4, 5)]  # 2 trees per candidate
+    ops = torch.cat([p.ops for p in parents]).T.contiguous()
+    const = torch.cat([p.const for p in parents]).T.contiguous()
+    lane = torch.arange(lanes, device=device)
+    cx = lane % 4 == 0
+    act1 = torch.where(cx, 0, (lane // 4) % 3).to(torch.int32)
+    act2 = torch.where(cx, 0, (lane // 12) % 3).to(torch.int32)
+    vmask = torch.stack([torch.ones(lanes, device=device), (lane % 2 == 0).float()])
+    u = torch.rand((rows_per_lane(cfg), lanes), generator=g, device=device)
+    args = (ops, const, ops.roll(1, dims=1).contiguous(), const.roll(1, dims=1).contiguous(),
+            cx, act1, act2, vmask, u)
+    return cfg, args
+
+
+@pytest.fixture(scope="module")
+def host_libs(tmp_path_factory):
+    if shutil.which("g++") is None and shutil.which("c++") is None:
+        pytest.skip("no host C++ compiler")
+    out = tmp_path_factory.mktemp("host_kernels")
+    return {name: _build.build_host(name, out) for name in ("sr_fitness", "reproduce")}
+
+
+@pytest.mark.parametrize("method,substeps", [("euler", 2), ("heun", 1), ("rk4", 1), ("rk4", 3)])
+def test_fitness_host_build_bit_exact(host_libs, method, substeps):
+    fset, trees, x0s, ts, ys = fitness_case()
+    mse, alive = sr_fitness_plain(trees, x0s, ts, ys, fset, method, substeps)
+    p, b = mse.shape
+    err = np.zeros((p, b), np.float32)
+    alive_h = np.zeros((p, b), np.uint8)
+    fn = host_libs["sr_fitness"].sr_fitness_host
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+    arrays = [np.ascontiguousarray(a.numpy()) for a in (trees.ops, trees.const, fset.device_ops(),
+                                                        x0s, ts, ys)]
+    status = fn(*(a.ctypes.data for a in arrays), err.ctypes.data, alive_h.ctypes.data,
+                p, 2, N, b, ts.shape[0], fset.var_start, METHODS[method], substeps)
+    assert status == 0
+    np.testing.assert_array_equal(alive_h.astype(bool), alive.numpy())
+    np.testing.assert_array_equal(err / np.float32(ts.shape[0]), mse.numpy())
+    assert (~alive.numpy()).any() and alive.numpy().any()
+
+
+def test_reproduce_host_build_matches_plain(host_libs):
+    cfg, args = reproduce_case()
+    ref = reproduce_lanes_plain(*args, cfg)
+    n, lanes = args[0].shape
+    outs = [np.zeros((n, lanes), dt) for dt in (np.int32, np.float32, np.int32, np.float32)]
+    ins = [np.ascontiguousarray(a.numpy().astype(np.uint8) if a.dtype == torch.bool else a.numpy())
+           for a in args]
+    tables = [np.asarray(cfg.slots, np.int32), np.asarray(cfg.operator_probs, np.float32),
+              decay_table(cfg).numpy()]
+    fn = host_libs["reproduce"].reproduce_host
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int]
+    status = fn(*(a.ctypes.data for a in ins + outs + tables), lanes, n, cfg.num_vars,
+                cfg.num_operators, cfg.var_start, cfg.max_init_depth, cfg.cx_retries,
+                cfg.mut_retries, cfg.coefficient_sd, args[-1].shape[0])
+    assert status == 0
+    np.testing.assert_array_equal(outs[0], ref[0].numpy())
+    np.testing.assert_array_equal(outs[2], ref[2].numpy())
+    np.testing.assert_allclose(outs[1], ref[1].numpy(), rtol=1e-6, atol=0)
+    np.testing.assert_allclose(outs[3], ref[3].numpy(), rtol=1e-6, atol=0)
+    # a wrong row count is refused
+    assert fn(*(a.ctypes.data for a in ins + outs + tables), lanes, n, cfg.num_vars,
+              cfg.num_operators, cfg.var_start, cfg.max_init_depth, cfg.cx_retries,
+              cfg.mut_retries, cfg.coefficient_sd, args[-1].shape[0] - 1) != 0
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_fitness_kernel_matches_plain_on_card(cuda):
+    fset, trees, x0s, ts, ys = fitness_case(cuda, pop=512, b=16, t_end=2.0)
+    before = sr_fitness_cuda.launches
+    mse, alive = sr_fitness(trees, x0s, ts, ys, fset, "rk4", 1)
+    ref, ref_alive = sr_fitness_plain(trees, x0s, ts, ys, fset, "rk4", 1)
+    torch.cuda.synchronize()
+    assert sr_fitness_cuda.launches == before + 1
+    assert torch.equal(alive, ref_alive)
+    both = alive & ref_alive
+    rel = ((mse - ref).abs() / ref.abs().clamp(min=1e-30))[both]
+    assert float(rel.max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_reproduce_kernel_matches_plain_on_card(cuda):
+    cfg, args = reproduce_case(cuda, lanes=1024)
+    out = reproduce_lanes(*args, cfg)
+    ref = reproduce_lanes_plain(*args, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[2], ref[2])
+    torch.testing.assert_close(out[1], ref[1], rtol=1e-6, atol=0)
+    torch.testing.assert_close(out[3], ref[3], rtol=1e-6, atol=0)

@@ -5,18 +5,28 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU::
 
     python3 chip_smoke.py [--out results.json]
 
-It builds both hand-written kernels from ``multitreegp_tpu_torch/csrc`` with
-``nvcc`` and drives the port's main path at the full width of the flagship
-workload (symbolic regression of Van der Pol; 8 islands x 512 candidates,
-2 trees of ``max_nodes=32``, operators + - * /, 16 trajectories, 50 save
-points, RK4 with one substep). Phases, one line each:
+It builds the hand-written kernels from ``multitreegp_tpu_torch/csrc`` with
+``nvcc`` (one process per source, in parallel) and drives the port's paths at
+the full width of the flagship workload (symbolic regression of Van der Pol;
+8 islands x 512 candidates, 2 trees of ``max_nodes=32``, operators + - * /,
+16 trajectories, 50 save points, RK4 with one substep). Phases, one line or
+a few each:
 
 1. device: ``nvidia-smi`` name and power limit, torch/CUDA versions, build time;
 2. fitness kernel vs its plain PyTorch version (T = 5 and T = 50);
 3. reproduction kernel vs its plain version on the main path's 3696 lanes;
 4. the main path: ``initialize_population`` then 5 x (``evaluate_population``
    + ``evolve``), with the kernels' launch counters read around it;
-5. kernel and plain-version times (CUDA events, median of several runs).
+5. kernel and plain-version times (CUDA events, median of several runs);
+6. interpreter forward and VJP kernels vs their plain versions, per lane, at
+   the constant-optimisation recompute's 50 x 16 x 2 lanes and at the whole
+   population's 4096 x 16 x 2 lanes;
+7. the constant-optimisation path: ``fit()`` for 20 generations with
+   ``coefficient_optimisation=True`` (top-k 50, 10 Adam steps), so rounds run
+   at generations 14 and 19; all four launch counters read around it, the
+   refined top-k fitness against the unrefined, ms per generation and per
+   round (split into the fused forward, the recompute and its backward);
+8. interpreter kernel and plain-version times at both shapes (CUDA events).
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last lines are a JSON line of per-kernel numbers, the card's name and
@@ -26,13 +36,20 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
 
 FULL = dict(islands=8, pop=512, max_nodes=32, depth=4, batch=16, horizon=10.0, dt=0.2,
-            generations=5, timing_runs=5, plain_runs=3)
+            generations=5, timing_runs=5, plain_runs=3,
+            fit_generations=20, top_k=50, gradient_steps=10, elite=0.1, interp_runs=20)
+KERNELS = ("sr_fitness", "reproduce", "interpreter")  # csrc/<name>.cu
+# NVIDIA H100 SXM data sheet: HBM3 bytes/s, float32 FLOP/s outside the tensor
+# cores (both at the full 700 W power limit)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
 OPERATORS = [("+", 2, 0.5), ("-", 2, 0.1), ("*", 2, 0.5), ("/", 2, 0.1)]
 
 
@@ -41,8 +58,16 @@ def check(ok: bool, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
+_T0 = time.perf_counter()
+
+
 def say(*parts) -> None:
     print(*parts, flush=True)
+
+
+def phase_line(*parts) -> None:
+    """A phase's line, prefixed with the seconds since the script started."""
+    say(f"[{time.perf_counter() - _T0:6.1f} s]", *parts)
 
 
 def cuda_time_ms(fn, runs: int, torch) -> float:
@@ -60,8 +85,82 @@ def cuda_time_ms(fn, runs: int, torch) -> float:
     return statistics.median(times)
 
 
+def profile_device(fn, torch) -> dict:
+    """Device-side view of ``fn()`` by ``torch.profiler``: wall ms, device
+    busy ms (the union of kernel intervals), kernel launches, and ms and
+    count per kernel name. Busy 0 and no kernels mean the profiler saw no
+    device activity. Only device activity is recorded: tracing every host
+    op of a constant-optimisation round (~10^5 of them) slows the host and
+    takes tens of seconds to process."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(torch.device("cuda"))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end, per = 0.0, float("-inf"), {}
+    for t0_, t1, name in spans:
+        busy += max(0.0, t1 - max(t0_, end))
+        end = max(end, t1)
+        n, ms = per.get(name, (0, 0.0))
+        per[name] = (n + 1, ms + (t1 - t0_) / 1e3)
+    return dict(wall_ms=wall, busy_ms=busy / 1e3, kernels=len(spans), per_kernel=per)
+
+
+def ptxas_report(log: str):
+    """``[(kernel<instance>, registers, stack bytes, spill store bytes)]``
+    from ``nvcc -Xptxas -v`` output."""
+    out, name, stack, spill = [], None, None, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            k = re.search(r"\d([a-z_]+_kernel)(?:ILi(\d+)E)?", m.group(1))
+            name = f"{k.group(1)}<{k.group(2)}>" if k and k.group(2) else (k.group(1) if k else m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
+        if m:
+            stack, spill = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), stack, spill))
+            name = None
+    return out
+
+
+def bound(nbytes: float, ops: float):
+    """``(ms, "bytes" | "operations")``: the least time the card could take
+    to move ``nbytes`` and do ``ops`` float32 operations, and which sets it."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# float32 operations of one operator row per device op id (+ - * /): the
+# forward's one, and the VJP's cotangent expressions plus the two adds that
+# accumulate them (csrc/interpreter.cu binary_vjp)
+VJP_OPS = {0: 2, 1: 3, 2: 4, 3: 6}
+
+
+def operator_rows(trees, fset):
+    """Per device op id, the count of operator rows in ``trees``."""
+    import torch
+
+    ids = torch.tensor([-1, -1] + list(fset.device_op_ids), device=trees.ops.device)
+    is_op = (trees.ops >= 2) & (trees.ops < fset.var_start)
+    dev = ids[trees.ops.clamp(0, len(ids) - 1).long()]
+    return {k: int(((dev == k) & is_op).sum()) for k in VJP_OPS}
+
+
 def run(device, sizes=FULL) -> dict:
-    """Phases 2-5 on ``device``; returns the numbers the script prints."""
+    """Phases 2-8 on ``device``; returns the numbers the script prints."""
     import torch
 
     from multitreegp_tpu_torch import GeneticProgramming
@@ -107,7 +206,7 @@ def run(device, sizes=FULL) -> dict:
     bit_equal = bool(torch.equal(mse[both], ref[both]) and torch.equal(alive, ref_alive))
     check(agree >= 0.999, f"T=50 alive agreement {agree}")
     check(within >= 0.999, f"T=50 lanes within 1e-4: {within}")
-    say(f"phase 2 fitness kernel vs plain: T=5 max rel {rel5:.3e}; T={ts_full.shape[0]} alive "
+    phase_line(f"phase 2 fitness kernel vs plain: T=5 max rel {rel5:.3e}; T={ts_full.shape[0]} alive "
         f"agreement {agree:.6f}, max rel {float(rel.max()):.3e}, max abs {a_err:.3e}, "
         f"bit-equal {bit_equal}; lanes {total_pop * b}, alive {int(alive.sum())}")
     out["fitness"] = dict(rel_t5=rel5, alive_agreement=agree, max_rel=float(rel.max()),
@@ -143,7 +242,7 @@ def run(device, sizes=FULL) -> dict:
         ops = ops_t.T.contiguous()
         c1, c2 = rebuild_pointers(ops, slots)
         validate_host(TreeTensors(ops, c1, c2, const_t.T), slots)
-    say(f"phase 3 reproduction kernel vs plain: {lanes} lanes, ops identical on {ops_same:.6f}, "
+    phase_line(f"phase 3 reproduction kernel vs plain: {lanes} lanes, ops identical on {ops_same:.6f}, "
         f"const max abs {c_err:.3e} max rel {c_rel:.3e}; all {2 * lanes} children valid; "
         f"uniform rows per lane {u.shape[0]}")
     out["reproduce"] = dict(lanes=lanes, ops_identical=ops_same, max_abs_err=c_err, max_rel=c_rel)
@@ -184,9 +283,9 @@ def run(device, sizes=FULL) -> dict:
         check(launches["reproduce"] >= s["generations"], f"reproduction kernel launches {launches}")
     best_str = gp.to_string(gp.get_statistics(s["generations"] - 1)[1])
     for i, rec in enumerate(gens):
-        say(f"phase 4 main path gen {i}: eval {rec['eval_ms']:.3f} ms, evolve {rec['evolve_ms']:.3f} ms, "
+        phase_line(f"phase 4 main path gen {i}: eval {rec['eval_ms']:.3f} ms, evolve {rec['evolve_ms']:.3f} ms, "
             f"{rec['node_evals_per_s']:.4e} node-evals/s, best fitness {rec['best']:.6g}")
-    say(f"phase 4 main path: {islands}x{pop} candidates, launches {launches}, best {best_str}")
+    phase_line(f"phase 4 main path: {islands}x{pop} candidates, launches {launches}, best {best_str}")
     out["main_path"] = dict(generations=gens, launches=launches, best=best_str)
 
     # -- phase 5: kernel vs plain times ----------------------------------------
@@ -201,21 +300,301 @@ def run(device, sizes=FULL) -> dict:
         for name, fn, runs in (("fit_plain", fit_p, s["plain_runs"]), ("fit_kernel", fit_k, s["timing_runs"]),
                                ("rep_kernel", rep_k, s["timing_runs"]), ("rep_plain", rep_p, s["plain_runs"])):
             times[name] = cuda_time_ms(fn, runs, torch)
-        say(f"phase 5 times (median ms): fitness kernel {times['fit_kernel']:.3f} vs plain "
+        phase_line(f"phase 5 times (median ms): fitness kernel {times['fit_kernel']:.3f} vs plain "
             f"{times['fit_plain']:.3f}; reproduction kernel {times['rep_kernel']:.3f} vs plain "
             f"{times['rep_plain']:.3f}; fitness kernel rate {node_evals / times['fit_kernel'] * 1e3:.4e} node-evals/s")
         out["times_ms"] = times
+    out.update(interpreter_phase(device, s, trees, fset, g))
+    out.update(const_opt_phase(device, s, data))
+    if device.type == "cuda":
+        out.update(interpreter_times(device, s, trees, fset, g))
+
+    # -- the kernels line --------------------------------------------------------
+    times = out.get("times_ms", {})
+    # rk4 per step and lane: 4 tree evaluations (one operation per operator
+    # row), stage inputs 6d, the update 7d, the error 3d; a lane that dies
+    # stops stepping, and is counted for one step
+    rows_p = ((trees.ops >= 2) & (trees.ops < fset.var_start)).sum(dim=(1, 2))
+    steps = torch.where(alive, ts_full.shape[0] - 1, 1)  # (P, B); one substep
+    fit_ops = float((steps * (4 * rows_p[:, None] + 16 * 2)).sum())
+    fit_bytes = nbytes(trees.ops, trees.const, x0s, ts_full, ys_full) + total_pop * b * 5
+    rep_bytes = nbytes(*args) + nbytes(*got)
+    interp = out["interpreter"]
+    rows_k = interp["recompute"]["rows"]
+    k_lanes = interp["recompute"]["lanes"]
+    fwd_ops = sum(rows_k.values()) * b  # every tree on every trajectory
+    bwd_ops = sum((1 + VJP_OPS[k]) * v for k, v in rows_k.items()) * b
+    kb = interp["recompute"]["bytes"]
+    fwd_bound, bwd_bound = bound(kb["fwd"], fwd_ops), bound(kb["bwd"], bwd_ops)
+    fit_bound, rep_bound = bound(fit_bytes, fit_ops), bound(rep_bytes, 0)
+    it = out.get("interp_times_ms", {}).get("recompute", {})
+    launches7 = out["const_opt"]["launches"]
+
+    def row(name, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
+        return dict(name=name, route="cuda", source=f"multitreegp_tpu_torch/csrc/{source}",
+                    replaces=replaces, launches=launches, max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
+                    **extra)
+
     out["kernels"] = [
-        dict(name="sr_fitness", route="cuda", source="multitreegp_tpu_torch/csrc/sr_fitness.cu",
-             replaces="multitreegp_tpu/core/pallas_rollout.py:279", launches=launches["sr_fitness"],
-             max_abs_err=a_err, ms=out.get("times_ms", {}).get("fit_kernel"),
-             plain_ms=out.get("times_ms", {}).get("fit_plain")),
-        dict(name="reproduce", route="cuda", source="multitreegp_tpu_torch/csrc/reproduce.cu",
-             replaces="multitreegp_tpu/core/pallas_reproduction.py:53", launches=launches["reproduce"],
-             max_abs_err=c_err, ms=out.get("times_ms", {}).get("rep_kernel"),
-             plain_ms=out.get("times_ms", {}).get("rep_plain")),
+        row("sr_fitness", "sr_fitness.cu", "multitreegp_tpu/core/pallas_rollout.py:279",
+            launches["sr_fitness"], a_err, times.get("fit_kernel"), times.get("fit_plain"),
+            fit_bound, launches_const_opt=launches7["sr_fitness"]),
+        row("reproduce", "reproduce.cu", "multitreegp_tpu/core/pallas_reproduction.py:53",
+            launches["reproduce"], c_err, times.get("rep_kernel"), times.get("rep_plain"),
+            rep_bound, launches_const_opt=launches7["reproduce"]),
+        row("interpret_fwd", "interpreter.cu", "multitreegp_tpu/core/pallas_interpreter.py:142",
+            launches7["interpret_fwd"], interp["max_abs_err_fwd"], it.get("fwd_kernel"),
+            it.get("fwd_plain"), fwd_bound, lanes=k_lanes, device_ms=it.get("fwd_device")),
+        row("interpret_bwd", "interpreter.cu", "multitreegp_tpu/core/pallas_interpreter.py:178",
+            launches7["interpret_bwd"], interp["max_abs_err_bwd"], it.get("bwd_kernel"),
+            it.get("bwd_plain"), bwd_bound, lanes=k_lanes, device_ms=it.get("bwd_device")),
     ]
     return out
+
+
+def interpreter_cases(device, s, trees, fset, g):
+    """The interpreter's two shapes, in the layout the recompute gives it:
+    trees ``(K, 1, m, N)`` against states ``(K, B, 1, d)``, with the roots'
+    cotangent ``(K, B, m)``. K is the top-k (recompute) or the population."""
+    import torch
+
+    b = s["batch"]
+    cases = {}
+    for name, k in (("recompute", s["top_k"]), ("population", s["islands"] * s["pop"])):
+        k = min(k, trees.ops.shape[0])
+        cands = trees[:k]
+        states = torch.randn((k, b, 1, 2), generator=g, device=device) * 2
+        cot = torch.randn((k, b, cands.ops.shape[1]), generator=g, device=device)
+        cases[name] = (cands, states, cot)
+    return cases
+
+
+def interpreter_phase(device, s, trees, fset, g) -> dict:
+    """Phase 6: kernels #8 (forward) and #9 (VJP) through ``evaluate_trees``
+    and autograd, against the plain interpreter and autograd through it, per
+    lane: trees and states expanded to one per lane, so no sum intervenes."""
+    import torch
+
+    from multitreegp_tpu_torch.core.interpreter import (
+        evaluate_trees, evaluate_trees_plain, evaluate_trees_vjp_plain,
+    )
+
+    def compare(got, ref, what):
+        fin = torch.isfinite(ref)
+        check(torch.equal(torch.isfinite(got), fin), f"{what}: finite masks differ")
+        diff = (got - ref).abs()[fin]
+        rel = float((diff / ref.abs()[fin].clamp(min=1e-30)).max()) if fin.any() else 0.0
+        check(rel <= 1e-6, f"{what}: max relative difference {rel}")
+        nan = torch.isnan(ref)
+        same = torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan], ref[~nan])
+        return float(diff.max()) if fin.any() else 0.0, rel, same, float(fin.float().mean())
+
+    res, err_f, err_b = {}, 0.0, 0.0
+    for name, (cands, states, cot) in interpreter_cases(device, s, trees, fset, g).items():
+        k, b, m = cot.shape
+        n = cands.max_nodes
+        full = cands.map(lambda a: a[:, None].expand((k, b) + a.shape[1:]).contiguous())
+        x = states.expand(k, b, m, 2).contiguous()
+        const = full.const.clone().requires_grad_(True)
+        xg = x.clone().requires_grad_(True)
+        out = evaluate_trees(full._replace(const=const), xg, fset)
+        dconst, ddata = torch.autograd.grad(out, (const, xg), cot)
+        ref = evaluate_trees_plain(full, x, fset)
+        ref_c, ref_d = evaluate_trees_vjp_plain(full, x, cot, fset)
+        sync(device)
+        f = compare(out.detach(), ref, f"{name} forward")
+        c = compare(dconst, ref_c, f"{name} dconst")
+        d = compare(ddata, ref_d, f"{name} ddata")
+        err_f, err_b = max(err_f, f[0]), max(err_b, c[0], d[0])
+        rows = operator_rows(cands, fset)
+        res[name] = dict(
+            lanes=k * b * m, rows=rows, bit_equal=dict(fwd=f[2], dconst=c[2], ddata=d[2]),
+            max_rel=dict(fwd=f[1], dconst=c[1], ddata=d[1]), finite=dict(fwd=f[3], dconst=c[3]),
+            bytes=dict(fwd=nbytes(cands.ops, cands.c2, cands.const, states) + k * b * m * 4,
+                       bwd=nbytes(cands.ops, cands.c2, cands.const, states, cot)
+                       + nbytes(cands.const, states)))
+        phase_line(f"phase 6 interpreter kernels vs plain, {name}: {k}x{b}x{m} = {k * b * m} lanes, "
+            f"N {n}; forward max rel {f[1]:.3e} bit-equal {f[2]} (finite {f[3]:.4f}); dconst "
+            f"max rel {c[1]:.3e} bit-equal {c[2]}; ddata max rel {d[1]:.3e} bit-equal {d[2]}")
+    res.update(max_abs_err_fwd=err_f, max_abs_err_bwd=err_b)
+    return {"interpreter": res}
+
+
+def const_opt_phase(device, s, data) -> dict:
+    """Phase 7: ``fit()`` with constant optimisation at full width, with the
+    four kernels' launch counters read around it. Timers that synchronise
+    the device run only inside the constant-optimisation rounds."""
+    import torch
+
+    from multitreegp_tpu_torch import GeneticProgramming
+    from multitreegp_tpu_torch.core import cuda_interpreter as ci
+    from multitreegp_tpu_torch.core import cuda_reproduction as cr
+    from multitreegp_tpu_torch.core import cuda_rollout as cf
+    from multitreegp_tpu_torch.core.trees import validate_host
+    from multitreegp_tpu_torch.models.evaluators import SREvaluator
+
+    gens, n, b = s["fit_generations"], s["max_nodes"], s["batch"]
+    t_steps = data[1].shape[0]
+    gp = GeneticProgramming(
+        num_generations=gens, population_size=s["pop"], fitness_function=SREvaluator(substeps=1),
+        operator_list=OPERATORS, variable_list=[["x0", "x1"]], layer_sizes=[2],
+        num_populations=s["islands"], max_nodes=n, max_init_depth=s["depth"],
+        coefficient_optimisation=True, gradient_steps=s["gradient_steps"],
+        coefficient_opt_top_k=s["top_k"], elite_percentage=s["elite"], device=device,
+    )
+    scheduled = [gen for gen in range(gens) if gp._optimise_due(gen)]
+
+    spans = dict(forward=0.0, recompute=0.0, backward=0.0)
+    in_round = [False]
+
+    def timed(fn, key):
+        def wrapper(*args):
+            if not in_round[0]:
+                return fn(*args)
+            sync(device)
+            t0 = time.perf_counter()
+            result = fn(*args)
+            sync(device)
+            spans[key] += time.perf_counter() - t0
+            return result
+        return wrapper
+
+    rounds, fitnesses, marks = [], [], []
+    optimise_core, evaluate, evolve = gp._optimise_core, gp.evaluate_population, gp.evolve
+
+    def optimise_core_timed(populations, fitness, data_):
+        flat = fitness.reshape(-1)
+        top = torch.argsort(flat, stable=True)[: gp.coefficient_opt_top_k]
+        before = dict(spans)
+        sync(device)
+        t0 = time.perf_counter()
+        in_round[0] = True
+        pops, fit = optimise_core(populations, fitness, data_)
+        in_round[0] = False
+        sync(device)
+        split = {k: (spans[k] - before[k]) * 1e3 for k in spans}
+        split["backward"] -= split["recompute"]  # the backward's span holds the recompute
+        rounds.append(dict(generation=gp.current_generation, ms=(time.perf_counter() - t0) * 1e3,
+                           unrefined=flat[top].clone(), refined=fit.reshape(-1)[top].clone(),
+                           split_ms=split))
+        return pops, fit
+
+    def evaluate_recorded(populations, data_):
+        fitness, pops = evaluate(populations, data_)
+        fitnesses.append(fitness)
+        return fitness, pops
+
+    def evolve_marked(*args):
+        result = evolve(*args)
+        sync(device)
+        marks.append(time.perf_counter())
+        return result
+
+    gp._optimise_core, gp.evaluate_population, gp.evolve = (
+        optimise_core_timed, evaluate_recorded, evolve_marked)
+    patched = [(cf, "sr_fitness", cf.sr_fitness), (cf, "sr_mse_unfused", cf.sr_mse_unfused)]
+    cf.sr_fitness = timed(cf.sr_fitness, "forward")
+    cf.sr_mse_unfused = timed(cf.sr_mse_unfused, "recompute")
+    backward = cf.SRFitness.backward
+    cf.SRFitness.backward = staticmethod(timed(backward, "backward"))
+    counters = dict(sr_fitness=cf.sr_fitness_cuda, reproduce=cr.reproduce_lanes_cuda,
+                    interpret_fwd=ci.evaluate_trees_cuda, interpret_bwd=ci.evaluate_trees_vjp_cuda)
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        sync(device)
+        t0 = time.perf_counter()
+        best, _, final_pops, _ = gp.fit(torch.Generator(device=device).manual_seed(2), data)
+        launches = {k: fn.launches for k, fn in counters.items()}
+    finally:
+        for mod, name, fn in patched:
+            setattr(mod, name, fn)
+        cf.SRFitness.backward = staticmethod(backward)
+
+    drift_calls = (t_steps - 1) * 4  # rk4, one substep
+    check([r["generation"] for r in rounds] == scheduled, f"rounds at {rounds} != {scheduled}")
+    for r in rounds:
+        worse = r["refined"] > r["unrefined"] * (1 + 1e-6)
+        check(not bool(worse.any()), f"refinement made {int(worse.sum())} candidates worse")
+    for fitness in fitnesses:
+        check(bool(torch.isfinite(fitness).all()), "non-finite fitness")
+        check(bool(((fitness >= 0) & (fitness <= 1e5)).all()), "fitness outside [0, 1e5]")
+    best_l = best.tolist()
+    check(all(b1 <= b0 for b0, b1 in zip(best_l, best_l[1:])), f"best fitness increased: {best_l}")
+    validate_host(final_pops.map(lambda a: a.reshape(-1, n)), gp.fset.slots(device))
+    if device.type == "cuda":
+        need = len(scheduled) * s["gradient_steps"] * drift_calls
+        check(launches["interpret_fwd"] >= need and launches["interpret_bwd"] >= need,
+              f"interpreter kernel launches {launches} < {need}")
+        check(launches["sr_fitness"] >= gens and launches["reproduce"] >= gens,
+              f"fitness / reproduction kernel launches {launches} < {gens}")
+    profile = None
+    if device.type == "cuda":  # one more round, profiled: where its time goes
+        flat = final_pops.map(lambda a: a.reshape((-1,) + a.shape[2:]))
+        top = torch.argsort(fitnesses[-1].reshape(-1), stable=True)[: gp.coefficient_opt_top_k]
+        profile = profile_device(lambda: gp.optimise(flat[top], data), torch)
+        heavy = sorted(profile["per_kernel"].items(), key=lambda kv: -kv[1][1])[:4]
+        phase_line(f"phase 7 profiled round: wall {profile['wall_ms']:.1f} ms, device busy "
+            f"{profile['busy_ms']:.2f} ms ({profile['busy_ms'] / profile['wall_ms']:.2%}), "
+            f"{profile['kernels']} kernel launches; heaviest: " + "; ".join(
+                f"{k[:40]} {n} x, {ms:.2f} ms" for k, (n, ms) in heavy))
+        profile["per_kernel"] = {k: list(v) for k, v in heavy}
+    gen_ms = [(t1 - t0_) * 1e3 for t0_, t1 in zip([t0] + marks, marks)]
+    plain_gens = [ms for i, ms in enumerate(gen_ms) if i and i not in scheduled]
+    summary = [dict(generation=r["generation"], ms=r["ms"], split_ms=r["split_ms"],
+                    unrefined_sum=float(r["unrefined"].sum()), refined_sum=float(r["refined"].sum()),
+                    improved=int((r["refined"] < r["unrefined"]).sum()),
+                    best_unrefined=float(r["unrefined"].min()), best_refined=float(r["refined"].min()))
+               for r in rounds]
+    phase_line(f"phase 7 const-opt fit: {s['islands']}x{s['pop']} candidates, {gens} generations, top-k "
+        f"{gp.coefficient_opt_top_k}, {s['gradient_steps']} Adam steps, rounds at {scheduled}; "
+        f"launches {launches} (interpreter needs >= {len(scheduled) * s['gradient_steps'] * drift_calls})")
+    for r in summary:
+        sp = r["split_ms"]
+        phase_line(f"phase 7 round at gen {r['generation']}: {r['ms']:.1f} ms (fused forward "
+            f"{sp['forward']:.1f}, recompute {sp['recompute']:.1f}, backward {sp['backward']:.1f}); "
+            f"top-k fitness sum {r['unrefined_sum']:.6g} -> {r['refined_sum']:.6g}, "
+            f"{r['improved']} improved, best {r['best_unrefined']:.6g} -> {r['best_refined']:.6g}")
+    phase_line(f"phase 7 ms per generation: without a round median {statistics.median(plain_gens):.3f} "
+        f"(first {gen_ms[0]:.1f}); with a round "
+        f"{', '.join(f'{gen_ms[g_]:.1f}' for g_ in scheduled)}; best fitness "
+        f"{best_l[0]:.6g} -> {best_l[-1]:.6g}")
+    return {"const_opt": dict(launches=launches, rounds=summary, generation_ms=gen_ms,
+                              best=best_l, drift_calls=drift_calls, round_profile=profile)}
+
+
+def interpreter_times(device, s, trees, fset, g) -> dict:
+    """Phase 8: CUDA-event times of kernels #8 and #9 and their plain
+    versions at both shapes, in turns (plain, kernel, kernel, plain)."""
+    import torch
+
+    from multitreegp_tpu_torch.core import cuda_interpreter as ci
+    from multitreegp_tpu_torch.core.interpreter import evaluate_trees_plain, evaluate_trees_vjp_plain
+
+    res = {}
+    for name, (cands, states, cot) in interpreter_cases(device, s, trees, fset, g).items():
+        trees_b = cands.map(lambda a: a[:, None])
+        fns = dict(
+            fwd_plain=(lambda: evaluate_trees_plain(trees_b, states, fset), s["plain_runs"]),
+            fwd_kernel=(lambda: ci.evaluate_trees_cuda(trees_b, states, fset), s["interp_runs"]),
+            bwd_kernel=(lambda: ci.evaluate_trees_vjp_cuda(trees_b, states, cot, fset), s["interp_runs"]),
+            bwd_plain=(lambda: evaluate_trees_vjp_plain(trees_b, states, cot, fset), s["plain_runs"]),
+        )
+        res[name] = {k: cuda_time_ms(fn, runs, torch) for k, (fn, runs) in fns.items()}
+        t = res[name]
+        # the kernels' own device time, without the wrapper's host work
+        for key, kernel in (("fwd", "interpret_fwd_kernel"), ("bwd", "interpret_bwd_kernel")):
+            fn, runs = fns[f"{key}_kernel"]
+            prof = profile_device(lambda: [fn() for _ in range(runs)], torch)
+            hits = [v for k_, v in prof["per_kernel"].items() if kernel in k_]
+            t[f"{key}_device"] = sum(ms for _, ms in hits) / max(1, sum(c for c, _ in hits)) if hits else None
+        dev = lambda v: "not measured" if v is None else f"{v:.4f}"
+        phase_line(f"phase 8 interpreter times (median ms), {name} {cot.numel()} lanes: forward kernel "
+            f"{t['fwd_kernel']:.4f} (device {dev(t['fwd_device'])}) vs plain {t['fwd_plain']:.3f}; "
+            f"VJP kernel {t['bwd_kernel']:.4f} (device {dev(t['bwd_device'])}) vs plain "
+            f"{t['bwd_plain']:.3f}")
+    return {"interp_times_ms": res}
 
 
 def sync(device) -> None:
@@ -243,16 +622,21 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    for name in ("sr_fitness", "reproduce"):
+    _build.build(*KERNELS)  # one nvcc per source, in parallel
+    for name in KERNELS:
         _build.load(name)
     build_s = time.perf_counter() - t0
-    say(f"phase 1 device: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    phase_line(f"phase 1 device: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; kernels built in {build_s:.1f} s "
         f"(nvcc {', '.join(f'{k} {v:.1f} s' for k, v in _build.build_seconds.items())})")
+    resources = {name: ptxas_report(log) for name, log in _build.build_logs.items()}
+    for name, rows in resources.items():
+        phase_line(f"phase 1 ptxas {name}: " + "; ".join(
+            f"{k} {r} registers, {st} B stack, {sp} B spilled" for k, r, st, sp in rows))
 
     out = run(device)
     out["device"] = dict(nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
-                         nvcc_s=dict(_build.build_seconds))
+                         nvcc_s=dict(_build.build_seconds), ptxas=resources)
     if opts.out:
         with open(opts.out, "w") as f:
             json.dump(out, f, indent=1)

@@ -9,7 +9,9 @@ build raises; nothing falls back.
 
 Flags: ``-fmad=false`` keeps ``a*b+c`` from being contracted into an FMA, so
 the kernels round exactly as their plain PyTorch versions do; division and
-square root stay IEEE (no fast-math).
+square root stay IEEE (no fast-math). ``-Xptxas -v`` makes ``ptxas`` report
+each kernel's registers, stack frame and spills; the report of a build in
+this process is kept in :data:`build_logs`.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -29,13 +31,16 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false", "-lineinfo",
+    "-std=c++17", "-O3", "-fmad=false", "-lineinfo", "-Xptxas", "-v",
     "-shared", "-Xcompiler", "-fPIC",
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
-# seconds spent in nvcc per library in this process (0.0 when reused)
+# seconds from the start of a build until its nvcc finished, per library built
+# in this process (0.0 when reused)
 build_seconds: Dict[str, float] = {}
+# nvcc's output (the ptxas resource report) per library built in this process
+build_logs: Dict[str, str] = {}
 
 
 def find_nvcc() -> str:
@@ -59,27 +64,46 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library of the same source exists."""
-    out = library_path(name)
-    if out.exists():
-        build_seconds.setdefault(name, 0.0)
-        return out
+def build(*names: str) -> List[Path]:
+    """Compile each ``csrc/<name>.cu`` unless a library of the same source
+    exists; the ``nvcc`` processes run in parallel, one per source."""
+    outs = [library_path(name) for name in names]
+    todo = []
+    for name, out in zip(names, outs):
+        if out.exists():
+            build_seconds.setdefault(name, 0.0)
+        else:
+            todo.append((name, out))
+    if not todo:
+        return outs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        tmp_out = Path(tmp) / out.name
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp_out), str(CSRC_DIR / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
-                f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp_out, out)  # atomic: a concurrent loader sees all or nothing
-    build_seconds[name] = time.perf_counter() - t0
-    return out
+        jobs = []
+        for name, out in todo:
+            tmp_out = Path(tmp) / out.name
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp_out), str(CSRC_DIR / f"{name}.cu")]
+            log = open(Path(tmp) / f"{name}.log", "w+")  # a file, so no pipe fills up
+            jobs.append((name, out, tmp_out, cmd, log,
+                         subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, text=True)))
+        failed, pending = [], jobs
+        while pending:
+            time.sleep(0.05)
+            for name, out, tmp_out, cmd, log, proc in [j for j in pending if j[-1].poll() is not None]:
+                build_seconds[name] = time.perf_counter() - t0
+                log.seek(0)
+                build_logs[name] = log.read()
+                log.close()
+                if proc.returncode != 0:
+                    failed.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
+                                  f"{' '.join(cmd)}\n{build_logs[name]}")
+                else:
+                    os.replace(tmp_out, out)  # atomic: a concurrent loader sees all or nothing
+            pending = [j for j in pending if j[-1].returncode is None]
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -87,7 +111,7 @@ def load(name: str) -> ctypes.CDLL:
 
     Every library exports ``const char* mtgp_error_string(int)``."""
     if name not in _loaded:
-        lib = ctypes.CDLL(str(build(name)))
+        lib = ctypes.CDLL(str(build(name)[0]))
         lib.mtgp_error_string.argtypes = [ctypes.c_int]
         lib.mtgp_error_string.restype = ctypes.c_char_p
         _loaded[name] = lib

@@ -11,6 +11,13 @@ integrator's frozen-lane semantics. The trajectory is never materialised.
 * CPU tensors run :func:`sr_fitness_plain`, the same computation in plain
   PyTorch (the interpreter + integrator steppers), in the same float32
   expression order as the kernel.
+
+:class:`SRFitness` makes it differentiable in the constants and the initial
+states, as ``rollout_sr_fitness_pallas``'s ``custom_vjp`` does: the forward is
+:func:`sr_fitness`; the backward recomputes the unfused MSE
+(:func:`sr_mse_unfused`, the integrator with ``evaluate_trees`` as the
+drift: the interpreter kernels on CUDA, the plain interpreter on CPU) and
+differentiates that.
 """
 from __future__ import annotations
 
@@ -20,8 +27,8 @@ from typing import Tuple
 import torch
 
 from .. import _build
-from ..models.integrators import STEPPERS, finite, step_interval
-from .interpreter import evaluate_trees
+from ..models.integrators import STEPPERS, finite, integrate, step_interval
+from .interpreter import evaluate_trees, evaluate_trees_plain
 from .registry import FunctionSet
 from .trees import TreeTensors
 
@@ -46,7 +53,7 @@ def sr_fitness_plain(
     batched = trees.map(lambda a: a[:, None])  # (P, 1, d, N) broadcasts over B
 
     def drift(t, x):  # x (P, B, d)
-        return evaluate_trees(batched, x[:, :, None, :], fset)
+        return evaluate_trees_plain(batched, x[:, :, None, :], fset)
 
     def sq_err(x, y):  # same summation order as the kernel
         dl = x - y
@@ -148,3 +155,49 @@ def sr_fitness(
         _check_method(method)
         return sr_fitness_plain(trees, x0s, ts, ys, fset, method, substeps)
     raise NotImplementedError(f"no fitness implementation for device {dev}")
+
+
+def sr_mse_unfused(
+    trees: TreeTensors, x0s: torch.Tensor, ts: torch.Tensor, ys: torch.Tensor,
+    fset: FunctionSet, method: str = "rk4", substeps: int = 1,
+) -> torch.Tensor:
+    """``mse (P, B)`` by the integrator over the whole trajectory, with the
+    dispatching interpreter as the drift (the VJP's recompute;
+    ``pallas_rollout.rollout_sr_fitness_pallas``'s ``default_unfused``)."""
+    p = trees.ops.shape[0]
+    b, d = x0s.shape
+    batched = trees.map(lambda a: a[:, None])  # (P, 1, d, N)
+
+    def drift(t, x):  # x (P, B, d)
+        return evaluate_trees(batched, x[:, :, None, :], fset)
+
+    xs, _ = integrate(drift, x0s[None].expand(p, b, d), ts, method, substeps)
+    err = xs - ys.transpose(0, 1)[:, None]
+    return (err * err).sum(dim=-1).mean(dim=0)
+
+
+class SRFitness(torch.autograd.Function):
+    """:func:`sr_fitness` differentiable in ``const`` and ``x0s``; the
+    cotangent of ``alive`` is ignored. Apply as
+    ``SRFitness.apply(ops, c1, c2, const, x0s, ts, ys, fset, method, substeps)``."""
+
+    @staticmethod
+    def forward(ctx, ops, c1, c2, const, x0s, ts, ys, fset, method, substeps):
+        ctx.save_for_backward(ops, c1, c2, const, x0s, ts, ys)
+        ctx.config = (fset, method, substeps)
+        mse, alive = sr_fitness(TreeTensors(ops, c1, c2, const), x0s, ts, ys, fset, method, substeps)
+        ctx.mark_non_differentiable(alive)
+        return mse, alive
+
+    @staticmethod
+    def backward(ctx, g_mse, _g_alive):
+        ops, c1, c2, const, x0s, ts, ys = ctx.saved_tensors
+        fset, method, substeps = ctx.config
+        want_x0 = ctx.needs_input_grad[4]
+        with torch.enable_grad():
+            c = const.detach().requires_grad_(True)
+            x0 = x0s.detach().requires_grad_(want_x0)
+            mse = sr_mse_unfused(TreeTensors(ops, c1, c2, c), x0, ts, ys, fset, method, substeps)
+            grads = torch.autograd.grad(mse, (c, x0) if want_x0 else (c,), g_mse)
+        dx0 = grads[1] if want_x0 else None
+        return None, None, None, grads[0], dx0, None, None, None, None, None

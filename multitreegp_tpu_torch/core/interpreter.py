@@ -1,25 +1,32 @@
-"""Batched tree interpreter in plain PyTorch.
+"""Batched tree interpreter: the plain version, its VJP, and the dispatcher.
 
 Semantics of the JAX package's ``evaluate_trees_ladder`` / ``_dispatch``
 (``multitreegp_tpu/core/interpreter.py``): every lane advances one tree row
 per step, bottom to top; a row's first operand is the row directly below it
 (``c1 == i-1`` in the root-last layout), its second operand the value of row
-``c2`` (0 when ``c2 == -1``). EMPTY rows evaluate to 0, CONST rows to their
-constant, variable rows to the matching data column (0 for a variable past
-the data's width).
+``c2`` (0 unless ``0 <= c2 < i``). EMPTY rows evaluate to 0, CONST rows to
+their constant, variable rows to the matching data column (0 for a variable
+past the data's width).
 
-This is the plain version behind the fitness kernel (``cuda_rollout``) and
-the CPU path. The double ``where`` feeds not-selected lanes safe operands, so
-autograd through it never sees NaN from a branch that was not taken.
+* :func:`evaluate_trees_plain` is the plain PyTorch version. The double
+  ``where`` feeds not-selected lanes safe operands, so autograd through it
+  never sees NaN from a branch that was not taken; the rows are kept in a
+  list (not written into one buffer in place), so autograd can run through
+  it. Every plain version of a kernel (``sr_fitness_plain``, ...) calls it.
+* :func:`evaluate_trees` is what the rest of the port calls: on CUDA tensors
+  :class:`EvaluateTrees` (the forward kernel ``csrc/interpreter.cu``, with the
+  reverse-sweep kernel as its backward), or a raise for an operator the
+  kernel lacks; on CPU tensors the plain version.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Tuple
 
 import torch
 
+from .cuda_interpreter import evaluate_trees_cuda, evaluate_trees_vjp_cuda
 from .registry import FunctionSet
-from .trees import CONST, OP_START, TreeTensors
+from .trees import CONST, EMPTY, OP_START, TreeTensors
 
 
 def dispatch(
@@ -40,8 +47,8 @@ def dispatch(
     return torch.where(op >= fset.var_start, leaf, val)
 
 
-def evaluate_trees(trees: TreeTensors, data: torch.Tensor, fset: FunctionSet) -> torch.Tensor:
-    """Root value of every tree on every data vector.
+def evaluate_trees_plain(trees: TreeTensors, data: torch.Tensor, fset: FunctionSet) -> torch.Tensor:
+    """Root value of every tree on every data vector (plain PyTorch).
 
     Args:
         trees: batch shape ``B``.
@@ -52,21 +59,78 @@ def evaluate_trees(trees: TreeTensors, data: torch.Tensor, fset: FunctionSet) ->
     Returns float32 root values of the joint batch shape.
     """
     n = trees.max_nodes
-    batch = torch.broadcast_shapes(trees.batch_shape, data.shape[:-1])
+    batch = torch.broadcast_shapes(trees.batch_shape, trees.const.shape[:-1], data.shape[:-1])
     nvar = data.shape[-1]
-    vals = torch.zeros(batch + (n,), dtype=torch.float32, device=data.device)
     zero = torch.zeros(batch, dtype=torch.float32, device=data.device)
-    for i in range(n):
+    # Rows below the lowest non-EMPTY row of any tree are EMPTY on every
+    # lane: they evaluate to 0 and feed nothing, so the sweep starts there.
+    used = (trees.ops != EMPTY).reshape(-1, n).any(dim=0)
+    start = int(torch.where(used.any(), used.int().argmax(), n - 1)) if used.numel() else n - 1
+    rows = []  # rows[i - start] is row i
+    for i in range(start, n):
         op = trees.ops[..., i].expand(batch)
         c2 = trees.c2[..., i].expand(batch)
-        x = vals[..., i - 1] if i else zero
-        y = torch.gather(vals, -1, c2.clamp(min=0).long()[..., None])[..., 0]
-        y = torch.where(c2 >= 0, y, zero)
+        x = rows[-1] if rows else zero
+        y = zero
+        if rows:
+            below = torch.stack(rows, -1)
+            y = torch.gather(below, -1, (c2 - start).clamp(0, i - 1 - start).long()[..., None])[..., 0]
+            y = torch.where((c2 >= start) & (c2 < i), y, zero)
         leaf = zero
         for j in range(nvar):
             leaf = torch.where(op == fset.var_start + j, data[..., j].expand(batch), leaf)
-        vals[..., i] = dispatch(fset, op, x, y, leaf, trees.const[..., i].expand(batch))
-    return vals[..., -1].clone()
+        rows.append(dispatch(fset, op, x, y, leaf, trees.const[..., i].expand(batch)))
+    return rows[-1]
+
+
+def evaluate_trees_vjp_plain(
+    trees: TreeTensors, data: torch.Tensor, g: torch.Tensor, fset: FunctionSet,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the reverse-sweep kernel: ``(dconst like
+    trees.const, ddata like data)`` by autograd through
+    :func:`evaluate_trees_plain`."""
+    with torch.enable_grad():
+        const = trees.const.detach().requires_grad_(True)
+        x = data.detach().requires_grad_(True)
+        out = evaluate_trees_plain(trees._replace(const=const), x, fset)
+        grads = torch.autograd.grad(out, (const, x), g, allow_unused=True)
+    return tuple(torch.zeros_like(t) if d is None else d for t, d in zip((const, x), grads))
+
+
+class EvaluateTrees(torch.autograd.Function):
+    """``evaluate_trees`` with the reverse-sweep kernel as its backward:
+    kernels on CUDA tensors, the plain versions on CPU tensors. No gradient
+    goes to ``ops``, ``c1`` or ``c2``."""
+
+    @staticmethod
+    def forward(ctx, ops, c1, c2, const, data, fset: FunctionSet):
+        trees = TreeTensors(ops, c1, c2, const)
+        ctx.fset = fset
+        ctx.save_for_backward(ops, c1, c2, const, data)
+        if ops.device.type == "cuda":
+            return evaluate_trees_cuda(trees, data, fset)
+        return evaluate_trees_plain(trees, data, fset)
+
+    @staticmethod
+    def backward(ctx, g):
+        ops, c1, c2, const, data = ctx.saved_tensors
+        trees = TreeTensors(ops, c1, c2, const)
+        vjp = evaluate_trees_vjp_cuda if ops.device.type == "cuda" else evaluate_trees_vjp_plain
+        dconst, ddata = vjp(trees, data, g, ctx.fset)
+        return None, None, None, dconst, ddata, None
+
+
+def evaluate_trees(trees: TreeTensors, data: torch.Tensor, fset: FunctionSet) -> torch.Tensor:
+    """Root value of every tree on every data vector: the kernels on CUDA
+    tensors (differentiable in ``const`` and ``data``), the plain version on
+    CPU tensors. Shapes as :func:`evaluate_trees_plain`."""
+    dev = trees.ops.device
+    if dev.type == "cuda":
+        fset.require_device_ops()
+        return EvaluateTrees.apply(trees.ops, trees.c1, trees.c2, trees.const, data, fset)
+    if dev.type == "cpu":
+        return evaluate_trees_plain(trees, data, fset)
+    raise NotImplementedError(f"no interpreter for device {dev}")
 
 
 def make_candidate_evaluator(fset: FunctionSet) -> Callable[[TreeTensors, torch.Tensor], torch.Tensor]:

@@ -6,10 +6,13 @@ from every initial state over the save grid; its fitness is the trajectory
 MSE against the ground truth, with dead lanes and non-finite errors counted
 as ``max_fitness`` and the trajectory mean clipped to ``[0, max_fitness]``.
 
-Population evaluation goes through :func:`core.cuda_rollout.sr_fitness`:
-the fused kernel on CUDA tensors, its plain version on CPU tensors. The data
-tuple is the JAX package's ``(x0s (B, d), ts (T,), ys (B, T, d), keys)``;
-``keys`` is accepted and unused.
+Population evaluation goes through :class:`core.cuda_rollout.SRFitness`:
+the fused kernel on CUDA tensors, its plain version on CPU tensors, and
+differentiable in the constants (constant optimisation) by the unfused
+recompute. Single-candidate rollouts (``evaluate_candidate``) integrate with
+the dispatching interpreter: its kernel on CUDA tensors. The data tuple is
+the JAX package's ``(x0s (B, d), ts (T,), ys (B, T, d), keys)``; ``keys`` is
+accepted and unused.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ...core.cuda_rollout import sr_fitness
+from ...core.cuda_rollout import SRFitness
 from ...core.interpreter import evaluate_trees
 from ...core.registry import FunctionSet
 from ...core.trees import TreeTensors
@@ -55,7 +58,7 @@ class SREvaluator:
         """population: batch shape ``(P, m)``; returns fitness ``(P,)``."""
         self._check()
         x0s, ts, ys, _keys = data
-        mse, alive = sr_fitness(population, x0s, ts, ys, self.fset, self.method, self.substeps)
+        mse, alive = SRFitness.apply(*population, x0s, ts, ys, self.fset, self.method, self.substeps)
         bad = ~alive | ~torch.isfinite(mse)
         per_traj = torch.where(bad, torch.full_like(mse, self.max_fitness), mse)
         fitness = per_traj.mean(dim=-1)
@@ -63,7 +66,7 @@ class SREvaluator:
         return fitness.clamp(0.0, self.max_fitness)
 
     def _rollout(self, population: TreeTensors, x0s: torch.Tensor, ts: torch.Tensor):
-        """Trajectories ``(T, P, B, d)`` and liveness ``(T, P, B)`` (plain)."""
+        """Trajectories ``(T, P, B, d)`` and liveness ``(T, P, B)``."""
         self._check()
         p = population.batch_shape[0]
         b, d = x0s.shape

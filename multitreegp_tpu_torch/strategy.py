@@ -1,15 +1,17 @@
 """Top-level strategy: ``GeneticProgramming`` on PyTorch.
 
-Port of the host-loop API of ``multitreegp_tpu/strategy.py``: the same
-constructor keywords and the same loop methods — ``initialize_population`` /
-``evaluate_population`` / ``evolve`` / ``get_statistics`` / ``to_string``.
-PyTorch runs eagerly, so there are no compiled-program caches. Randomness
-comes from explicit ``torch.Generator``s, and every tensor lives on the
-``device`` given to the constructor.
+Port of ``multitreegp_tpu/strategy.py``: the same constructor keywords, the
+host-loop methods — ``initialize_population`` / ``evaluate_population`` /
+``evolve`` / ``get_statistics`` / ``to_string`` — constant optimisation of
+the top-k candidates (``coefficient_optimisation``, ``optimise``), ``fit()``
+with checkpoint/resume, and ``to_callable``. PyTorch runs eagerly, so there
+are no compiled-program caches and ``fit()`` is the host loop itself.
+Randomness comes from explicit ``torch.Generator``s, and every tensor lives
+on the ``device`` given to the constructor.
 
-Not ported yet (they raise ``NotImplementedError``): ``fit()``, constant
-optimisation, meshes/sharding, the non-fused reproduction path and
-``to_callable`` (ROADMAP Queue 1 #11, #12 and #18).
+Not ported yet (they raise ``NotImplementedError``): meshes and sharding
+(``mesh=``, ``fit(shard=True)``; ROADMAP Queue 1 #18) and the non-fused
+reproduction path.
 """
 from __future__ import annotations
 
@@ -17,12 +19,14 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from .core.interpreter import make_candidate_evaluator
+from .core.interpreter import evaluate_trees, make_candidate_evaluator
 from .core.registry import FunctionSet, build_function_set
 from .core.trees import TreeTensors, tree_sizes
+from .ops.constant_opt import make_constant_optimiser
 from .ops.fused_evolve import make_evolve_populations_fused
 from .ops.initialization import make_population_sampler
 from .ops.reproduction import island_hyperparams
+from .utils.checkpoint import load_checkpoint, save_checkpoint
 from .utils.render import candidate_to_string
 
 
@@ -49,7 +53,7 @@ class GeneticProgramming:
         elite_percentage: float = 0.1,
         coefficient_optimisation: bool = False,
         gradient_steps: int = 10,
-        optimiser=None,
+        optimiser=None,  # ops.optim.GradientTransformation; default Adam at 1e-3
         coefficient_opt_top_k: int = 50,
         selection_pressure_factors: Tuple[float, float] = (0.6, 0.9),
         reproduction_probability_factors: Tuple[float, float] = (1.0, 0.5),
@@ -65,8 +69,6 @@ class GeneticProgramming:
             size_parsimony = kwargs.pop("size_parsinomy")
         if kwargs:
             raise TypeError(f"unknown arguments: {sorted(kwargs)}")
-        if coefficient_optimisation:
-            raise NotImplementedError("constant optimisation is ROADMAP Queue 1 #12")
         if mesh is not None:
             raise NotImplementedError("meshes and sharding are ROADMAP Queue 1 #18")
         if fused_reproduction is False:
@@ -97,6 +99,9 @@ class GeneticProgramming:
                                          population_size))
         # rounded down to even so the non-elite remainder stays pair-producible
         self.elite_size = (int(elite_percentage * population_size) // 2) * 2
+        self.coefficient_optimisation = coefficient_optimisation
+        self.gradient_steps = gradient_steps
+        self.coefficient_opt_top_k = min(coefficient_opt_top_k, num_populations * population_size)
 
         self.fset: FunctionSet = build_function_set(operator_list, variable_list, layer_sizes)
         self.num_trees = self.fset.num_trees
@@ -122,6 +127,10 @@ class GeneticProgramming:
             self.reproduction_probabilities, self.tournament_probabilities, max_nodes,
             max_init_depth, coefficient_sd,
         )
+        self._optimise = make_constant_optimiser(
+            lambda pop, data: self.evaluator.evaluate_population(pop, data),
+            optimiser, gradient_steps,
+        )
 
         # best-so-far history
         self.current_generation = 0
@@ -136,25 +145,64 @@ class GeneticProgramming:
         """``(islands, pop, trees, nodes)`` tree tensors."""
         return self.sample_population(generator, self.population_size, self.num_populations)
 
-    def evaluate_population(self, populations: TreeTensors, data) -> Tuple[torch.Tensor, TreeTensors]:
-        """Fitness ``(islands, pop)`` of every candidate (plus
-        ``size_parsimony`` x node count) and the populations; records the
-        generation's best candidate."""
+    def _evaluate(self, populations: TreeTensors, data) -> torch.Tensor:
+        """Fitness ``(islands, pop)``: the evaluator's plus ``size_parsimony``
+        x node count."""
         islands = populations.ops.shape[0]
         flat = populations.map(lambda x: x.reshape((-1,) + x.shape[2:]))
         fitness = self.evaluator.evaluate_population(flat, data)
         if self.size_parsimony:
             fitness = fitness + self.size_parsimony * tree_sizes(flat).sum(dim=-1)
-        fitness = fitness.reshape(islands, -1)
+        return fitness.reshape(islands, -1)
+
+    def _optimise_with_parsimony(self, cands: TreeTensors, data):
+        """Refine constants, then re-add the parsimony term (the optimiser's
+        loss is the raw evaluator fitness; tree sizes do not change), so
+        refined entries stay comparable with the rest of the population."""
+        opt_fit, opt_cands = self._optimise(cands, data)
+        if self.size_parsimony:
+            opt_fit = opt_fit + self.size_parsimony * tree_sizes(cands).sum(dim=-1)
+        return opt_fit, opt_cands
+
+    def _optimise_core(self, populations: TreeTensors, fitness: torch.Tensor, data):
+        """Refine the constants of the global top-k and splice the results
+        back (reference :418-422). The best epoch includes the unrefined
+        constants, so no fitness gets worse."""
+        flat_pop = populations.map(lambda x: x.reshape((-1,) + x.shape[2:]))
+        flat_fit = fitness.reshape(-1)
+        best_idx = torch.argsort(flat_fit, stable=True)[: self.coefficient_opt_top_k]
+        opt_fit, opt_cands = self._optimise_with_parsimony(flat_pop[best_idx], data)
+
+        def splice(x, o):
+            x = x.clone()
+            x[best_idx] = o
+            return x.reshape(populations.ops.shape[:2] + x.shape[1:])
+
+        pop = TreeTensors(*(splice(x, o) for x, o in zip(flat_pop, opt_cands)))
+        return pop, splice(flat_fit, opt_fit)
+
+    def _optimise_due(self, generation: int) -> bool:
+        """The reference's schedule: after generation 10, every 5th."""
+        return self.coefficient_optimisation and generation > 10 and (generation + 1) % 5 == 0
+
+    def evaluate_population(self, populations: TreeTensors, data) -> Tuple[torch.Tensor, TreeTensors]:
+        """Fitness ``(islands, pop)`` of every candidate (plus
+        ``size_parsimony`` x node count) and the populations, whose top-k
+        constants are refined on the constant-optimisation schedule; records
+        the generation's best candidate."""
+        fitness = self._evaluate(populations, data)
+        if self._optimise_due(self.current_generation):
+            populations, fitness = self._optimise_core(populations, fitness, data)
 
         flat_fit = fitness.reshape(-1)
         best = int(torch.argmin(flat_fit))
-        best_solution = flat[best]
+        best_solution = populations.map(lambda x: x.reshape((-1,) + x.shape[2:]))[best]
+        history = self.best_fitnesses.shape[0]
         if self.best_solutions is None:
             self.best_solutions = best_solution.map(
-                lambda x: torch.zeros((self.num_generations,) + x.shape, dtype=x.dtype, device=x.device)
+                lambda x: torch.zeros((history,) + x.shape, dtype=x.dtype, device=x.device)
             )
-        gen = min(self.current_generation, self.num_generations - 1)
+        gen = min(self.current_generation, history - 1)
         self.best_fitnesses[gen] = flat_fit[best]
         for hist, value in zip(self.best_solutions, best_solution):
             hist[gen] = value
@@ -176,11 +224,77 @@ class GeneticProgramming:
     def to_string(self, candidate: TreeTensors) -> str:
         return candidate_to_string(candidate, self.fset)
 
-    def fit(self, *args, **kwargs):
-        raise NotImplementedError("fit() (whole run on the device) is ROADMAP Queue 1 #11")
+    def optimise(self, candidates: TreeTensors, data) -> Tuple[torch.Tensor, TreeTensors]:
+        """Constant optimisation of ``candidates`` (batch ``(K, trees)``):
+        ``(best fitness (K,), refined candidates)`` (reference :454-473)."""
+        return self._optimise(candidates, data)
 
-    def optimise(self, *args, **kwargs):
-        raise NotImplementedError("constant optimisation is ROADMAP Queue 1 #12")
+    def to_callable(self, candidate: TreeTensors):
+        """``f(data (..., V)) -> (..., num_trees)`` root values of an evolved
+        candidate, through the interpreter (its kernel on CUDA tensors;
+        differentiable in ``data``)."""
+        fset = self.fset
 
-    def to_callable(self, *args, **kwargs):
-        raise NotImplementedError("to_callable is not ported yet (ROADMAP Queue 1 #11)")
+        def f(data: torch.Tensor) -> torch.Tensor:
+            return evaluate_trees(candidate, data[..., None, :], fset)
+
+        return f
+
+    def fit(
+        self,
+        generator: torch.Generator,
+        data,
+        num_generations: Optional[int] = None,
+        shard: bool = False,
+        checkpoint_path: Optional[str] = None,
+        checkpoint_every: int = 10,
+        resume_from: Optional[str] = None,
+    ):
+        """Run the whole evolution: per generation evaluate, refine constants
+        when scheduled, record the best, evolve (and checkpoint).
+
+        Returns ``(best_fitness_per_gen (G,), best_solutions (G, trees, N),
+        final_populations, final_fitness)``; ``final_fitness`` is the last
+        evaluated generation's. With ``checkpoint_path`` (``"{gen}"`` in it
+        keeps every snapshot) the run state — the evolved populations, the
+        generator's state, the next generation and the histories — is saved
+        every ``checkpoint_every`` generations; ``resume_from`` restarts from
+        such a file, and the resumed run equals the uninterrupted one.
+        """
+        if shard:
+            raise NotImplementedError("fit(shard=True) (meshes and sharding) is ROADMAP Queue 1 #18")
+        g = num_generations or self.num_generations
+        start = 0
+        best_fit = best_sol = None
+        if resume_from is not None:
+            ck = load_checkpoint(resume_from, self.device)
+            populations, start = ck["populations"], ck["generation"]
+            if start > g:
+                raise ValueError(f"checkpoint at generation {start} but the run is {g} long")
+            generator.set_state(ck["key"])
+            best_fit, best_sol = ck.get("best_fitnesses"), ck.get("best_solutions")
+            if best_fit is not None and best_fit.shape[0] != g:
+                best_fit = None
+            if best_sol is not None and best_sol.ops.shape[0] != g:
+                best_sol = None
+        else:
+            populations = self.initialize_population(generator)
+        if best_fit is None:
+            best_fit = torch.full((g,), float("inf"), device=self.device)
+        if best_sol is None:
+            best_sol = populations.map(
+                lambda x: torch.zeros((g,) + x.shape[2:], dtype=x.dtype, device=x.device))
+        self.best_fitnesses, self.best_solutions = best_fit, best_sol
+
+        if start >= g:  # a completed run: return its state
+            self.current_generation = g
+            return best_fit, best_sol, populations, self._evaluate(populations, data)
+        for gen in range(start, g):
+            self.current_generation = gen
+            fitness, populations = self.evaluate_population(populations, data)
+            populations = self.evolve(populations, fitness, generator)
+            if checkpoint_path is not None and (gen + 1) % checkpoint_every == 0:
+                save_checkpoint(checkpoint_path.format(gen=gen + 1), populations,
+                                generator.get_state(), gen + 1, self.best_fitnesses,
+                                self.best_solutions)
+        return self.best_fitnesses, self.best_solutions, populations, fitness

@@ -10,7 +10,12 @@ Two routes:
   rtol 1e-6 (the host's ``logf``/``cosf`` and PyTorch's may round an ulp
   apart).
 * on the card (marker ``cuda``; skipped without a GPU): the kernels through
-  their wrappers, same criteria.
+  their wrappers, same criteria; the interpreter kernels (forward and VJP)
+  through ``evaluate_trees`` and autograd, bit for bit per lane against the
+  plain version on the card. This file imports no JAX, so it also runs where
+  the card is (``pytest --noconftest``).
+
+The interpreter's host-build checks are in ``test_torch_interpreter_kernel.py``.
 """
 import ctypes
 import shutil
@@ -24,7 +29,13 @@ from multitreegp_tpu_torch.core import tile_surgery as tts
 from multitreegp_tpu_torch.core.cuda_reproduction import (
     decay_table, reproduce_lanes, reproduce_lanes_plain, rows_per_lane,
 )
-from multitreegp_tpu_torch.core.cuda_rollout import METHODS, sr_fitness, sr_fitness_cuda, sr_fitness_plain
+from multitreegp_tpu_torch.core import cuda_interpreter as ci
+from multitreegp_tpu_torch.core.cuda_rollout import (
+    METHODS, SRFitness, sr_fitness, sr_fitness_cuda, sr_fitness_plain,
+)
+from multitreegp_tpu_torch.core.interpreter import (
+    evaluate_trees, evaluate_trees_plain, evaluate_trees_vjp_plain,
+)
 from multitreegp_tpu_torch.core.registry import build_function_set
 from multitreegp_tpu_torch.models.environments import VanDerPolOscillator
 from multitreegp_tpu_torch.models.evaluators import generate_sr_data
@@ -34,6 +45,7 @@ torch.set_num_threads(1)
 
 N = 32
 ARITH = [("+", 2, 0.5), ("-", 2, 0.1), ("*", 2, 0.5), ("/", 2, 0.1)]
+INTERP_OPS = [("+", 2, 0.5), ("-", 2, 0.1), ("*", 2, 0.5), ("/", 2, 0.4)]
 
 
 def fitness_case(device="cpu", pop=24, b=4, t_end=1.6):
@@ -63,6 +75,30 @@ def reproduce_case(device="cpu", lanes=192):
     args = (ops, const, ops.roll(1, dims=1).contiguous(), const.roll(1, dims=1).contiguous(),
             cx, act1, act2, vmask, u)
     return cfg, args
+
+
+def lanes_case(device="cpu", k=48, b=3, n=32, depth=5, seed=0, near_zero=True):
+    """Trees ``(k, 2, n)`` and states ``(k, b, 2, 2)``, all made from
+    ``seed``; with ``near_zero``, every third candidate's constants are near
+    or at 0, so ``/`` makes huge, inf and NaN lanes."""
+    fset = build_function_set(INTERP_OPS, [["x0", "x1"]], [2])
+    g = torch.Generator(device=device).manual_seed(seed)
+    pop = make_population_sampler(fset, depth, n)(g, k)[0]
+    rng = np.random.default_rng(seed)
+    small = rng.normal(size=pop.const.shape).astype(np.float32) * 1e-3
+    small[rng.random(pop.const.shape) < 0.1] = 0.0
+    every_third = torch.arange(k, device=device) % 3 == 0
+    const = torch.where((pop.ops == 1) & every_third[:, None, None] & near_zero,
+                        torch.from_numpy(small).to(device), pop.const)
+    data = torch.from_numpy(rng.normal(size=(k, b, 2, 2)).astype(np.float32) * 2).to(device)
+    g_out = torch.from_numpy(rng.normal(size=(k, b, 2)).astype(np.float32)).to(device)
+    return fset, pop._replace(const=const), data, g_out
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal values, NaN where the other has NaN."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
 
 
 @pytest.fixture(scope="module")
@@ -147,3 +183,54 @@ def test_reproduce_kernel_matches_plain_on_card(cuda):
     assert torch.equal(out[0], ref[0]) and torch.equal(out[2], ref[2])
     torch.testing.assert_close(out[1], ref[1], rtol=1e-6, atol=0)
     torch.testing.assert_close(out[3], ref[3], rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_interpreter_kernels_match_plain_on_card(cuda):
+    fset, pop, data, g = lanes_case(cuda, k=256, b=16)
+    k, b = data.shape[:2]
+    full = pop.map(lambda a: a[:, None].expand(k, b, 2, 32))
+    fwd0, bwd0 = ci.evaluate_trees_cuda.launches, ci.evaluate_trees_vjp_cuda.launches
+    const = full.const.contiguous().requires_grad_(True)
+    x = data.clone().requires_grad_(True)
+    out = evaluate_trees(full._replace(const=const), x, fset)
+    dconst, ddata = torch.autograd.grad(out, (const, x), g)
+    torch.cuda.synchronize()
+    assert ci.evaluate_trees_cuda.launches == fwd0 + 1
+    assert ci.evaluate_trees_vjp_cuda.launches == bwd0 + 1
+    assert same_bits(out, evaluate_trees_plain(full, data, fset))
+    ref_c, ref_d = evaluate_trees_vjp_plain(full._replace(const=const.detach()), data, g, fset)
+    assert same_bits(dconst, ref_c) and same_bits(ddata, ref_d)
+    with pytest.raises(NotImplementedError):
+        evaluate_trees(full, data, build_function_set(INTERP_OPS + [("sin", 1, 0.1)], [["x0", "x1"]], [2]))
+
+
+@pytest.mark.cuda
+def test_fitness_gradient_through_kernels_on_card(cuda):
+    """``SRFitness`` on the card (kernel #1 forward; the recompute through
+    kernels #8 and #9 backward) against the same Function on CPU copies (the
+    plain versions): the MSE rtol 1e-6 (the wrapper's division by T rounds
+    by the reciprocal on the card), ``dconst`` rtol 1e-5 (the kernels'
+    per-lane cotangents are summed over B in another order)."""
+    fset, trees, x0s, ts, ys = fitness_case(cuda, pop=64, b=4, t_end=1.0)
+
+    def grad(device):
+        t = trees.map(lambda a: a.to(device))
+        const = t.const.clone().requires_grad_(True)
+        mse, alive = SRFitness.apply(t.ops, t.c1, t.c2, const, x0s.to(device), ts.to(device),
+                                     ys.to(device), fset, "rk4", 1)
+        (d,) = torch.autograd.grad(torch.where(alive, mse, 0.0).sum(), (const,))
+        return mse.detach().cpu(), alive.cpu(), d.cpu()
+
+    fwd0, bwd0 = ci.evaluate_trees_cuda.launches, ci.evaluate_trees_vjp_cuda.launches
+    mse, alive, got = grad(cuda)
+    torch.cuda.synchronize()
+    drift_calls = 4 * (ts.shape[0] - 1)
+    assert ci.evaluate_trees_cuda.launches == fwd0 + drift_calls
+    assert ci.evaluate_trees_vjp_cuda.launches == bwd0 + drift_calls
+    ref_mse, ref_alive, want = grad("cpu")
+    assert torch.equal(alive, ref_alive)
+    torch.testing.assert_close(mse, ref_mse, rtol=1e-6, atol=0, equal_nan=True)
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin) and bool((want[fin] != 0).any())
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-6 * float(want[fin].abs().max()))

@@ -94,16 +94,24 @@ def test_constructor_surface():
     assert gp.size_parsimony == 0.5
     gp = GeneticProgramming(**dict(base, population_size=512), elite_percentage=0.1)
     assert gp.elite_size == 50 and gp.migration_size == 51
-    for kwargs in ({"coefficient_optimisation": True}, {"mesh": object()}, {"fused_reproduction": False}):
+    for kwargs in ({"mesh": object()}, {"fused_reproduction": False}):
         with pytest.raises(NotImplementedError):
             GeneticProgramming(**base, **kwargs)
     with pytest.raises(TypeError):
         GeneticProgramming(**base, no_such_option=1)
     with pytest.raises(ValueError):
         GeneticProgramming(**dict(base, population_size=15))
-    for method in ("fit", "optimise", "to_callable"):
-        with pytest.raises(NotImplementedError):
-            getattr(gp, method)()
+    gp = GeneticProgramming(**base, coefficient_optimisation=True, coefficient_opt_top_k=100)
+    assert gp.coefficient_optimisation and gp.coefficient_opt_top_k == 32 and gp.gradient_steps == 10
+    assert [g for g in range(20) if gp._optimise_due(g)] == [14, 19]
+    with pytest.raises(NotImplementedError):  # meshes: ROADMAP Queue 1 #18
+        gp.fit(torch.Generator(), None, shard=True)
+    cand = gp.initialize_population(torch.Generator().manual_seed(0))[0, 0]
+    f = gp.to_callable(cand)
+    x = torch.tensor([[0.5, -0.5], [1.0, 2.0], [0.0, 3.0]])
+    out = f(x)
+    assert out.shape == (3, 2)
+    torch.testing.assert_close(out[1], gp.tree_evaluator(cand, x[1]), rtol=0, atol=0)
 
 
 def test_chip_smoke_phases_rehearse_on_cpu():
@@ -112,11 +120,24 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     import chip_smoke
 
     tiny = dict(islands=2, pop=16, max_nodes=16, depth=3, batch=4, horizon=1.0, dt=0.2,
-                generations=2, timing_runs=1, plain_runs=1)
+                generations=2, timing_runs=1, plain_runs=1,
+                fit_generations=20, top_k=4, gradient_steps=2, elite=0.25, interp_runs=1)
     out = chip_smoke.run(torch.device("cpu"), tiny)
     assert out["fitness"]["bit_equal"] and out["reproduce"]["ops_identical"] == 1.0
-    assert [k["name"] for k in out["kernels"]] == ["sr_fitness", "reproduce"]
+    assert [k["name"] for k in out["kernels"]] == ["sr_fitness", "reproduce", "interpret_fwd",
+                                                   "interpret_bwd"]
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms"}
+    assert all(keys <= set(k) and k["bound_ms"] > 0 for k in out["kernels"])
     assert len(out["main_path"]["generations"]) == 2
+    for shape, lanes in (("recompute", 4 * 4 * 2), ("population", 32 * 4 * 2)):
+        assert out["interpreter"][shape]["lanes"] == lanes
+        assert all(out["interpreter"][shape]["bit_equal"].values())
+    rounds = out["const_opt"]["rounds"]
+    assert [r["generation"] for r in rounds] == [14, 19]
+    assert all(r["refined_sum"] <= r["unrefined_sum"] for r in rounds)
+    assert len(out["const_opt"]["generation_ms"]) == 20 and out["const_opt"]["drift_calls"] == 16
+    assert set(rounds[0]["split_ms"]) == {"forward", "recompute", "backward"}
 
 
 def test_package_never_imports_jax():
@@ -124,6 +145,8 @@ def test_package_never_imports_jax():
         "import sys\n"
         "import multitreegp_tpu_torch, multitreegp_tpu_torch.convert, chip_smoke\n"
         "import multitreegp_tpu_torch.models.evaluators, multitreegp_tpu_torch.utils.metrics\n"
+        "import multitreegp_tpu_torch.ops.constant_opt, multitreegp_tpu_torch.ops.optim\n"
+        "import multitreegp_tpu_torch.utils.checkpoint, multitreegp_tpu_torch.core.cuda_interpreter\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'multitreegp_tpu.'))]\n"
         "assert not bad and 'multitreegp_tpu' not in sys.modules, bad\n"
     )

@@ -26,7 +26,20 @@ a few each:
    at generations 14 and 19; all four launch counters read around it, the
    refined top-k fitness against the unrefined, ms per generation and per
    round (split into the fused forward, the recompute and its backward);
-8. interpreter kernel and plain-version times at both shapes (CUDA events).
+8. interpreter kernel and plain-version times at both shapes (CUDA events);
+9. the adaptive kernels (#5 global budget, #4 per interval; Dormand-Prince
+   5(4)) and the trajectory kernel (#3) against their plain versions at the
+   full width of 4096 x 16 lanes: #5 with the budget 500 at T = 10 and
+   T = 50, #4 with 32 steps per interval at T = 10, #3 RK4 at T = 50;
+10. the adaptive path: 5 generations of the 8 x 512 host loop with
+   ``SREvaluator(method="adaptive", adaptive_method="dopri5")``, the
+   attempted-step telemetry of both budgets (``adaptive_solver_stats`` and
+   the global kernel's), one ``optimise`` call (top-k 50, 5 Adam steps: the
+   recompute takes ~4 s an epoch) through the adaptive gradient, and
+   ``evaluate_candidate`` of the best under the RK4 evaluator; all seven
+   launch counters read around it;
+11. adaptive and trajectory kernel and plain-version times (CUDA events),
+   and the global kernel's node-evals/s.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last lines are a JSON line of per-kernel numbers, the card's name and
@@ -44,8 +57,10 @@ import time
 
 FULL = dict(islands=8, pop=512, max_nodes=32, depth=4, batch=16, horizon=10.0, dt=0.2,
             generations=5, timing_runs=5, plain_runs=3,
-            fit_generations=20, top_k=50, gradient_steps=10, elite=0.1, interp_runs=20)
-KERNELS = ("sr_fitness", "reproduce", "interpreter")  # csrc/<name>.cu
+            fit_generations=20, top_k=50, gradient_steps=10, elite=0.1, interp_runs=20,
+            adaptive_budget=500, adaptive_interval_steps=32, adaptive_short_t=10,
+            adaptive_opt_steps=5)
+KERNELS = ("sr_fitness", "reproduce", "interpreter", "sr_adaptive", "sr_rollout")  # csrc/<name>.cu
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, float32 FLOP/s outside the tensor
 # cores (both at the full 700 W power limit)
 PEAK_BYTES_PER_S = 3.35e12
@@ -118,8 +133,9 @@ def ptxas_report(log: str):
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
-            k = re.search(r"\d([a-z_]+_kernel)(?:ILi(\d+)E)?", m.group(1))
-            name = f"{k.group(1)}<{k.group(2)}>" if k and k.group(2) else (k.group(1) if k else m.group(1))
+            k = re.search(r"\d([a-z_]+_kernel)(I(?:Li\d+E)+E)?", m.group(1))
+            args = ",".join(re.findall(r"Li(\d+)E", k.group(2))) if k and k.group(2) else ""
+            name = (f"{k.group(1)}<{args}>" if args else k.group(1)) if k else m.group(1)
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
         if m:
@@ -160,7 +176,7 @@ def operator_rows(trees, fset):
 
 
 def run(device, sizes=FULL) -> dict:
-    """Phases 2-8 on ``device``; returns the numbers the script prints."""
+    """Phases 2-11 on ``device``; returns the numbers the script prints."""
     import torch
 
     from multitreegp_tpu_torch import GeneticProgramming
@@ -308,6 +324,10 @@ def run(device, sizes=FULL) -> dict:
     out.update(const_opt_phase(device, s, data))
     if device.type == "cuda":
         out.update(interpreter_times(device, s, trees, fset, g))
+    out.update(adaptive_kernels_phase(device, s, trees, fset, x0s, ts_full, ys_full))
+    out.update(adaptive_path_phase(device, s, data))
+    if device.type == "cuda":
+        out.update(adaptive_times(device, s, trees, fset, x0s, ts_full, ys_full))
 
     # -- the kernels line --------------------------------------------------------
     times = out.get("times_ms", {})
@@ -320,15 +340,24 @@ def run(device, sizes=FULL) -> dict:
     fit_bytes = nbytes(trees.ops, trees.const, x0s, ts_full, ys_full) + total_pop * b * 5
     rep_bytes = nbytes(*args) + nbytes(*got)
     interp = out["interpreter"]
-    rows_k = interp["recompute"]["rows"]
+
+    def interp_bounds(shape):
+        """#8 and #9 bounds at one of phase 6's shapes: every tree on every
+        trajectory, one operation per operator row forward, the VJP's
+        expressions backward."""
+        rows_k, kb = interp[shape]["rows"], interp[shape]["bytes"]
+        fwd_ops = sum(rows_k.values()) * b
+        bwd_ops = sum((1 + VJP_OPS[k]) * v for k, v in rows_k.items()) * b
+        return bound(kb["fwd"], fwd_ops), bound(kb["bwd"], bwd_ops)
+
     k_lanes = interp["recompute"]["lanes"]
-    fwd_ops = sum(rows_k.values()) * b  # every tree on every trajectory
-    bwd_ops = sum((1 + VJP_OPS[k]) * v for k, v in rows_k.items()) * b
-    kb = interp["recompute"]["bytes"]
-    fwd_bound, bwd_bound = bound(kb["fwd"], fwd_ops), bound(kb["bwd"], bwd_ops)
+    fwd_bound, bwd_bound = interp_bounds("recompute")
+    fwd_bound_pop, bwd_bound_pop = interp_bounds("population")
     fit_bound, rep_bound = bound(fit_bytes, fit_ops), bound(rep_bytes, 0)
     it = out.get("interp_times_ms", {}).get("recompute", {})
+    it_pop = out.get("interp_times_ms", {}).get("population", {})
     launches7 = out["const_opt"]["launches"]
+    launches10 = out["adaptive_path"]["launches"]
 
     def row(name, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
         return dict(name=name, route="cuda", source=f"multitreegp_tpu_torch/csrc/{source}",
@@ -342,13 +371,37 @@ def run(device, sizes=FULL) -> dict:
             fit_bound, launches_const_opt=launches7["sr_fitness"]),
         row("reproduce", "reproduce.cu", "multitreegp_tpu/core/pallas_reproduction.py:53",
             launches["reproduce"], c_err, times.get("rep_kernel"), times.get("rep_plain"),
-            rep_bound, launches_const_opt=launches7["reproduce"]),
+            rep_bound, launches_const_opt=launches7["reproduce"],
+            launches_adaptive=launches10["reproduce"]),
         row("interpret_fwd", "interpreter.cu", "multitreegp_tpu/core/pallas_interpreter.py:142",
             launches7["interpret_fwd"], interp["max_abs_err_fwd"], it.get("fwd_kernel"),
-            it.get("fwd_plain"), fwd_bound, lanes=k_lanes, device_ms=it.get("fwd_device")),
+            it.get("fwd_plain"), fwd_bound, lanes=k_lanes, device_ms=it.get("fwd_device"),
+            launches_adaptive=launches10["interpret_fwd"],
+            population=dict(lanes=interp["population"]["lanes"], ms=it_pop.get("fwd_kernel"),
+                            device_ms=it_pop.get("fwd_device"), plain_ms=it_pop.get("fwd_plain"),
+                            bound_ms=fwd_bound_pop[0], bound_by=fwd_bound_pop[1])),
         row("interpret_bwd", "interpreter.cu", "multitreegp_tpu/core/pallas_interpreter.py:178",
             launches7["interpret_bwd"], interp["max_abs_err_bwd"], it.get("bwd_kernel"),
-            it.get("bwd_plain"), bwd_bound, lanes=k_lanes, device_ms=it.get("bwd_device")),
+            it.get("bwd_plain"), bwd_bound, lanes=k_lanes, device_ms=it.get("bwd_device"),
+            launches_adaptive=launches10["interpret_bwd"],
+            population=dict(lanes=interp["population"]["lanes"], ms=it_pop.get("bwd_kernel"),
+                            device_ms=it_pop.get("bwd_device"), plain_ms=it_pop.get("bwd_plain"),
+                            bound_ms=bwd_bound_pop[0], bound_by=bwd_bound_pop[1])),
+    ]
+    ak, at = out["adaptive_kernels"], out.get("adaptive_times_ms", {})
+    g_long, i_short = ak[f"global_t{ts_full.shape[0]}"], ak[f"interval_t{s['adaptive_short_t']}"]
+    ro = ak["rollout"]
+    out["kernels"] += [
+        row("sr_adaptive_global", "sr_adaptive.cu", "multitreegp_tpu/core/pallas_rollout.py:1828",
+            launches10["sr_adaptive_global"], g_long["max_abs_err"], at.get("global_long"),
+            g_long["plain_ms"], bound(g_long["bytes"], g_long["ops"]), t_steps=ts_full.shape[0],
+            node_evals_per_s=at.get("global_node_evals_per_s")),
+        row("sr_adaptive_interval", "sr_adaptive.cu", "multitreegp_tpu/core/pallas_rollout.py:1277",
+            launches10["sr_adaptive_interval"], i_short["max_abs_err"], at.get("interval_short"),
+            i_short["plain_ms"], bound(i_short["bytes"], i_short["ops"]), t_steps=s["adaptive_short_t"]),
+        row("sr_rollout", "sr_rollout.cu", "multitreegp_tpu/core/pallas_rollout.py:163",
+            launches10["sr_rollout"], ro["max_abs_err"], at.get("rollout"), ro["plain_ms"],
+            bound(ro["bytes"], ro["ops"]), t_steps=ts_full.shape[0]),
     ]
     return out
 
@@ -595,6 +648,296 @@ def interpreter_times(device, s, trees, fset, g) -> dict:
             f"VJP kernel {t['bwd_kernel']:.4f} (device {dev(t['bwd_device'])}) vs plain "
             f"{t['bwd_plain']:.3f}")
     return {"interp_times_ms": res}
+
+
+# float32 operations per attempted Dormand-Prince step and lane besides its six
+# tree evaluations, per state component (csrc/sr_adaptive.cu rk_step): the
+# stage inputs 2 * (1 + ... + 6) + 2 * 6, x_hi and x_lo 2 * (7 + 1) each, the
+# error norm's 9; and per lane the controller's ~20
+DOPRI5_OPS_PER_DIM, CONTROL_OPS = 2 * 21 + 12 + 32 + 9, 20
+
+
+def adaptive_ops(trees, fset, steps, d: int, t_steps: int) -> float:
+    """float32 operations of an adaptive dopri5 run from its attempted steps
+    per lane ``steps (P, B)``: six tree evaluations (one operation per
+    operator row) and the step's arithmetic per attempt, the up-front
+    evaluation, and the squared error at each save."""
+    rows = ((trees.ops >= 2) & (trees.ops < fset.var_start)).sum(dim=(1, 2))[:, None]  # (P, 1)
+    per_step = 6 * rows + DOPRI5_OPS_PER_DIM * d + CONTROL_OPS
+    return float((steps * per_step + rows + 3 * d * t_steps).sum())
+
+
+def compare_adaptive(got, ref):
+    """Per lane: error sum, alive and attempted steps identical; returns
+    ``(share identical, alive agreement, steps agreement, max rel and max
+    abs on lanes alive in both)``."""
+    import torch
+
+    (mse, alive, steps), (mse_r, alive_r, steps_r) = got, ref
+    same_mse = (mse == mse_r) | (torch.isnan(mse) & torch.isnan(mse_r))
+    same = same_mse & (alive == alive_r) & (steps == steps_r)
+    both = alive & alive_r
+    diff = (mse - mse_r).abs()[both]
+    rel = diff / mse_r.abs()[both].clamp(min=1e-30)
+    return (float(same.float().mean()), float((alive == alive_r).float().mean()),
+            float((steps == steps_r).float().mean()), float(rel.max()) if rel.numel() else 0.0,
+            float(diff.max()) if diff.numel() else 0.0, rel, same)
+
+
+def timed_plain(fn, device):
+    """``(result, ms)`` of one call, by CUDA events on the card (wall clock
+    on the CPU)."""
+    import torch
+
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        return fn(), (time.perf_counter() - t0) * 1e3
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def adaptive_kernels_phase(device, s, trees, fset, x0s, ts_full, ys_full) -> dict:
+    """Phase 9: kernels #5, #4 and #3 against their plain versions on the
+    population of phase 2, every candidate on every trajectory. Each plain
+    version runs once (it is timed by CUDA events here; phase 11 reports it
+    beside the kernels')."""
+    import torch
+
+    from multitreegp_tpu_torch.core import cuda_adaptive as ca
+    from multitreegp_tpu_torch.core import cuda_rollout as cf
+
+    t_short, t_long = s["adaptive_short_t"], ts_full.shape[0]
+    budget, per_interval = s["adaptive_budget"], s["adaptive_interval_steps"]
+    grid = lambda t: (ts_full[:t], ys_full[:, :t].contiguous())
+    cases = [
+        ("global", t_short, ca.sr_fitness_adaptive_global_cuda, ca.sr_fitness_adaptive_global_plain, budget),
+        ("global", t_long, ca.sr_fitness_adaptive_global_cuda, ca.sr_fitness_adaptive_global_plain, budget),
+        ("interval", t_short, ca.sr_fitness_adaptive_interval_cuda, ca.sr_fitness_adaptive_interval_plain,
+         per_interval),
+    ]
+    on_card = device.type == "cuda"
+    res = {}
+    for kind, t_steps, kernel, plain, steps_arg in cases:
+        ts_, ys_ = grid(t_steps)
+        args = (trees, x0s, ts_, ys_, fset, 1e-4, 1e-6, steps_arg, "dopri5", 0.9)
+        got = kernel(*args) if on_card else plain(*args)
+        ref, plain_ms = timed_plain(lambda: plain(*args), device)
+        same, alive_ok, steps_ok, max_rel, max_abs, rel, same_lane = compare_adaptive(got, ref)
+        both = got[1] & ref[1]
+        rest_rel = float(rel[~same_lane[both]].max()) if bool((~same_lane[both]).any()) else 0.0
+        check(same >= 0.999, f"{kind} T={t_steps}: only {same:.6f} of lanes identical")
+        check(rest_rel <= 1e-3, f"{kind} T={t_steps}: rel {rest_rel} on a lane alive in both")
+        st = got[2].float()
+        key = f"{kind}_t{t_steps}"
+        res[key] = dict(identical=same, alive_agreement=alive_ok, steps_agreement=steps_ok,
+                        max_rel=max_rel, max_abs_err=max_abs, plain_ms=plain_ms,
+                        alive=float(got[1].float().mean()), steps_total=int(got[2].sum()),
+                        steps_min=int(st.min()), steps_median=float(st.median()),
+                        steps_max=int(st.max()), lanes=got[1].numel())
+        r = res[key]
+        r["ops"] = adaptive_ops(trees, fset, got[2], x0s.shape[1], t_steps)
+        r["bytes"] = nbytes(trees.ops, trees.const, x0s, ts_, ys_) + got[1].numel() * 9
+        phase_line(f"phase 9 {'#5 global' if kind == 'global' else '#4 per-interval'} adaptive kernel "
+                   f"vs plain, dopri5, T={t_steps}, {r['lanes']} lanes: identical {same:.6f}, alive "
+                   f"agreement {alive_ok:.6f}, steps agreement {steps_ok:.6f}, max rel (alive in both) "
+                   f"{max_rel:.3e}, max abs {max_abs:.3e}; alive {r['alive']:.4f}; attempted steps "
+                   f"total {r['steps_total']}, per lane min {r['steps_min']} median "
+                   f"{r['steps_median']:.0f} max {r['steps_max']}; plain {plain_ms:.1f} ms")
+    # #3: the trajectory, RK4 with one substep over the whole grid
+    xs, alive = (cf.sr_rollout_cuda if on_card else cf.sr_rollout_plain)(trees, x0s, ts_full, fset, "rk4", 1)
+    (ref, ref_alive), plain_ms = timed_plain(
+        lambda: cf.sr_rollout_plain(trees, x0s, ts_full, fset, "rk4", 1), device)
+    same_x = (xs == ref) | (torch.isnan(xs) & torch.isnan(ref))
+    lane_same = same_x.all(dim=-1).all(dim=0) & (alive == ref_alive).all(dim=0)
+    fin = torch.isfinite(xs) & torch.isfinite(ref)
+    max_abs = float((xs - ref).abs()[fin].max()) if bool(fin.any()) else 0.0
+    share = float(lane_same.float().mean())
+    check(share == 1.0, f"trajectory kernel: {share:.6f} of lanes bit-equal")
+    # rk4 per step and lane: 4 tree evaluations, the stage inputs 6d, the
+    # stage sums 8d, the update 2d and the liveness test 2d; a lane that
+    # dies stops stepping, and is counted for one step
+    rows = ((trees.ops >= 2) & (trees.ops < fset.var_start)).sum(dim=(1, 2))[:, None]
+    steps = torch.where(alive[-1], t_long - 1, 1)
+    res["rollout"] = dict(identical=share, max_abs_err=max_abs, plain_ms=plain_ms,
+                          alive=float(alive[-1].float().mean()), lanes=lane_same.numel(),
+                          ops=float((steps * (4 * rows + 18 * x0s.shape[1])).sum()),
+                          bytes=nbytes(trees.ops, trees.const, x0s, ts_full, xs) + alive[-1].numel())
+    phase_line(f"phase 9 #3 trajectory kernel vs plain, rk4, T={t_long}, {lane_same.numel()} lanes: "
+               f"bit-equal {share:.6f}, max abs {max_abs:.3e}; alive {res['rollout']['alive']:.4f}; "
+               f"plain {plain_ms:.1f} ms")
+    return {"adaptive_kernels": res}
+
+
+def adaptive_path_phase(device, s, data) -> dict:
+    """Phase 10: the adaptive path through the user's entry points, with all
+    seven launch counters zeroed before it and read after."""
+    import torch
+
+    from multitreegp_tpu_torch import GeneticProgramming
+    from multitreegp_tpu_torch.core import cuda_adaptive as ca
+    from multitreegp_tpu_torch.core import cuda_interpreter as ci
+    from multitreegp_tpu_torch.core import cuda_reproduction as cr
+    from multitreegp_tpu_torch.core import cuda_rollout as cf
+    from multitreegp_tpu_torch.core.trees import validate_host
+    from multitreegp_tpu_torch.models.evaluators import SREvaluator
+
+    n, b, islands, pop = s["max_nodes"], s["batch"], s["islands"], s["pop"]
+    x0s, ts, ys, _ = data
+    ev = SREvaluator(method="adaptive", adaptive_method="dopri5", adaptive_budget=s["adaptive_budget"])
+    gp = GeneticProgramming(
+        num_generations=s["generations"], population_size=pop, fitness_function=ev,
+        operator_list=OPERATORS, variable_list=[["x0", "x1"]], layer_sizes=[2],
+        num_populations=islands, max_nodes=n, max_init_depth=s["depth"],
+        gradient_steps=s["adaptive_opt_steps"], coefficient_opt_top_k=s["top_k"], device=device,
+    )
+    counters = dict(sr_adaptive_global=ca.sr_fitness_adaptive_global_cuda,
+                    sr_adaptive_interval=ca.sr_fitness_adaptive_interval_cuda,
+                    reproduce=cr.reproduce_lanes_cuda, interpret_fwd=ci.evaluate_trees_cuda,
+                    interpret_bwd=ci.evaluate_trees_vjp_cuda, sr_rollout=cf.sr_rollout_cuda,
+                    sr_fitness=cf.sr_fitness_cuda)
+    for fn in counters.values():
+        fn.launches = 0
+    gen_g = torch.Generator(device=device).manual_seed(3)
+    pops = gp.initialize_population(gen_g)
+    best, gens = [], []
+    for gen in range(s["generations"]):
+        sync(device)
+        t0 = time.perf_counter()
+        fitness, pops_eval = gp.evaluate_population(pops, data)
+        sync(device)
+        t1 = time.perf_counter()
+        pops = gp.evolve(pops_eval, fitness, gen_g)
+        sync(device)
+        t2 = time.perf_counter()
+        check(bool(torch.isfinite(fitness).all()), "non-finite adaptive fitness")
+        check(bool(((fitness >= 0) & (fitness <= 1e5)).all()), "adaptive fitness outside [0, 1e5]")
+        best.append(float(fitness.min()))
+        gens.append(dict(eval_ms=(t1 - t0) * 1e3, evolve_ms=(t2 - t1) * 1e3, best=best[-1]))
+    check(all(b1 <= b0 for b0, b1 in zip(best, best[1:])), f"best adaptive fitness increased: {best}")
+    validate_host(pops.map(lambda a: a.reshape(-1, n)), gp.fset.slots(device))
+    loop_launches = {k: fn.launches for k, fn in counters.items()}
+
+    # attempted-step telemetry of the last evaluated population, both budgets
+    flat = pops_eval.map(lambda a: a.reshape((-1,) + a.shape[2:]))
+    _, alive_g, steps_g = ca.sr_fitness_adaptive_global(
+        flat, x0s, ts, ys, gp.fset, budget=s["adaptive_budget"], method="dopri5", return_steps=True)
+    _, alive_i, steps_i = ca.adaptive_solver_stats(
+        flat, x0s, ts, ys, gp.fset, max_steps=s["adaptive_interval_steps"], method="dopri5")
+    telemetry = {}
+    for key, st, al in (("global", steps_g, alive_g), ("interval", steps_i, alive_i)):
+        f = st.float()
+        telemetry[key] = dict(total=int(st.sum()), min=int(st.min()), median=float(f.median()),
+                              max=int(st.max()), mean=float(f.mean()), alive=float(al.float().mean()),
+                              at_budget=float((st >= (s["adaptive_budget"] if key == "global" else
+                                                     s["adaptive_interval_steps"] * (ts.shape[0] - 1))
+                                               ).float().mean()))
+
+    # one constant-optimisation call through the adaptive gradient
+    top = torch.argsort(fitness.reshape(-1), stable=True)[: gp.coefficient_opt_top_k]
+    cands = flat[top]
+    spans = dict(forward=0.0, recompute=0.0, backward=0.0)
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            sync(device)
+            t0 = time.perf_counter()
+            result = fn(*args, **kwargs)
+            sync(device)
+            spans[key] += time.perf_counter() - t0
+            return result
+        return wrapper
+
+    patched = [(ca, "sr_fitness_adaptive_global"), (ca, "adaptive_mse_unfused")]
+    saved = [getattr(m, a) for m, a in patched] + [ca.SRFitnessAdaptive.backward]
+    ca.sr_fitness_adaptive_global = timed(ca.sr_fitness_adaptive_global, "forward")
+    ca.adaptive_mse_unfused = timed(ca.adaptive_mse_unfused, "recompute")
+    ca.SRFitnessAdaptive.backward = staticmethod(timed(ca.SRFitnessAdaptive.backward, "backward"))
+    try:
+        before = ev.evaluate_population(cands, data)
+        for k in spans:
+            spans[k] = 0.0
+        sync(device)
+        t0 = time.perf_counter()
+        refined, _ = gp.optimise(cands, data)
+        sync(device)
+        opt_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for (m, a), fn in zip(patched, saved):
+            setattr(m, a, fn)
+        ca.SRFitnessAdaptive.backward = staticmethod(saved[-1])
+    split = {k: v * 1e3 for k, v in spans.items()}
+    split["backward"] -= split["recompute"]  # the backward's span holds the recompute
+    worse = refined > before * (1 + 1e-6)
+    check(not bool(worse.any()), f"refinement made {int(worse.sum())} candidates worse")
+
+    # the best candidate's trajectories through the RK4 evaluator (kernel #3)
+    best_cand = flat[int(torch.argmin(fitness.reshape(-1)))]
+    rk4 = SREvaluator(fset=gp.fset, substeps=1)
+    cand_fit, pred = rk4.evaluate_candidate(best_cand, data)
+    call_fit = float(rk4(best_cand, data))
+    check(pred.shape == (b, ts.shape[0], 2) and bool(torch.isfinite(cand_fit).all()),
+          "evaluate_candidate of the best candidate")
+    check(0.0 <= call_fit <= 1e5, f"evaluator call {call_fit}")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if device.type == "cuda":
+        check(loop_launches["sr_adaptive_global"] >= s["generations"], f"#5 launches {loop_launches}")
+        check(loop_launches["reproduce"] >= s["generations"], f"#2 launches {loop_launches}")
+        check(launches["sr_adaptive_interval"] >= 1, f"#4 launches {launches}")
+        check(launches["interpret_fwd"] >= 1 and launches["interpret_bwd"] >= 1,
+              f"#8/#9 launches {launches}")
+        check(launches["sr_rollout"] >= 1, f"#3 launches {launches}")
+    for i, rec in enumerate(gens):
+        phase_line(f"phase 10 adaptive path gen {i}: eval {rec['eval_ms']:.3f} ms, evolve "
+                   f"{rec['evolve_ms']:.3f} ms, best fitness {rec['best']:.6g}")
+    for key, tl in telemetry.items():
+        phase_line(f"phase 10 attempted steps per lane, {key} budget: total {tl['total']}, min "
+                   f"{tl['min']}, median {tl['median']:.0f}, max {tl['max']}, mean {tl['mean']:.2f}; "
+                   f"alive {tl['alive']:.4f}, at the budget {tl['at_budget']:.4f}")
+    phase_line(f"phase 10 optimise: top-k {cands.ops.shape[0]}, {gp.gradient_steps} Adam steps, "
+               f"{opt_ms:.1f} ms (forward {split['forward']:.1f}, recompute {split['recompute']:.1f}, "
+               f"backward {split['backward']:.1f}); fitness sum {float(before.sum()):.6g} -> "
+               f"{float(refined.sum()):.6g}, {int((refined < before).sum())} improved")
+    phase_line(f"phase 10 best under rk4: per-trajectory fitness {[round(float(v), 6) for v in cand_fit]}, "
+               f"call {call_fit:.6g}; launches in the loop {loop_launches}, in the whole phase {launches}")
+    return {"adaptive_path": dict(generations=gens, best=best, loop_launches=loop_launches,
+                                  launches=launches, telemetry=telemetry, optimise_ms=opt_ms,
+                                  optimise_split_ms=split, unrefined_sum=float(before.sum()),
+                                  refined_sum=float(refined.sum()),
+                                  improved=int((refined < before).sum()), candidate_fitness=call_fit)}
+
+
+def adaptive_times(device, s, trees, fset, x0s, ts_full, ys_full) -> dict:
+    """Phase 11: CUDA-event times of kernels #5, #4 and #3 at the phase 9
+    shapes (the plain versions' single runs were timed in phase 9)."""
+    from multitreegp_tpu_torch.core import cuda_adaptive as ca
+    from multitreegp_tpu_torch.core import cuda_rollout as cf
+    from multitreegp_tpu_torch.utils.metrics import adaptive_node_evals
+
+    import torch
+
+    t_short = s["adaptive_short_t"]
+    short = (ts_full[:t_short], ys_full[:, :t_short].contiguous())
+    fns = dict(
+        global_long=lambda: ca.sr_fitness_adaptive_global_cuda(trees, x0s, ts_full, ys_full, fset,
+                                                               budget=s["adaptive_budget"]),
+        global_short=lambda: ca.sr_fitness_adaptive_global_cuda(trees, x0s, *short, fset,
+                                                                budget=s["adaptive_budget"]),
+        interval_short=lambda: ca.sr_fitness_adaptive_interval_cuda(
+            trees, x0s, *short, fset, max_steps=s["adaptive_interval_steps"], method="dopri5"),
+        rollout=lambda: cf.sr_rollout_cuda(trees, x0s, ts_full, fset, "rk4", 1),
+    )
+    times = {k: cuda_time_ms(fn, s["timing_runs"], torch) for k, fn in fns.items()}
+    steps = fns["global_long"]()[2]
+    rate = adaptive_node_evals(steps, "dopri5", 2, s["max_nodes"]) / times["global_long"] * 1e3
+    phase_line(f"phase 11 times (median ms): #5 global T={ts_full.shape[0]} {times['global_long']:.3f}, "
+               f"T={t_short} {times['global_short']:.3f}; #4 per-interval T={t_short} "
+               f"{times['interval_short']:.3f}; #3 trajectory T={ts_full.shape[0]} {times['rollout']:.3f}; "
+               f"#5 rate {rate:.4e} node-evals/s")
+    return {"adaptive_times_ms": dict(times, global_node_evals_per_s=rate)}
 
 
 def sync(device) -> None:

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain C interface and loaded with ``ctypes``. The
 build runs at first use, into ``multitreegp_tpu_torch/_build/`` (listed in
-``.gitignore``); the library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and a current one is reused. A failed
+``.gitignore``); the library's file name carries a hash of its source, the
+headers it includes (``csrc/*.cuh``) and the flags, so an edited source or
+header is rebuilt and a current one is reused. A failed
 build raises; nothing falls back.
 
 Flags: ``-fmad=false`` keeps ``a*b+c`` from being contracted into an FMA, so
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -58,10 +60,30 @@ def find_nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every header it includes with quotes, directly
+    or through another header, in first-include order."""
+    files, todo = [], [CSRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        todo += [path.parent / inc.decode() for inc in _INCLUDE.findall(path.read_bytes())]
+    return files
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """Where the library of ``csrc/<name>.cu`` is built: the file name hashes
+    the source, the headers it includes and the flags, so editing any of them
+    rebuilds it."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(*names: str) -> List[Path]:

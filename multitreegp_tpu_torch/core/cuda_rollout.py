@@ -1,33 +1,38 @@
-"""Fused SR fitness: rollout + squared error per lane, kernel and plain version.
+"""SR rollouts per lane: the fused fitness and the trajectory, kernel and plain.
 
-Counterpart of ``multitreegp_tpu/core/pallas_rollout.py``'s fixed-step
-fitness path (``rollout_sr_fitness_pallas``). :func:`sr_fitness` returns,
-for every candidate and trajectory, ``mse = sum_t sum_d (x_t - y_t)^2 / T``
-(the ``x0`` row included) and whether the lane stayed alive, with the
-integrator's frozen-lane semantics. The trajectory is never materialised.
+Counterparts of ``multitreegp_tpu/core/pallas_rollout.py``'s fixed-step
+paths:
 
-* CUDA tensors launch the hand-written kernel ``csrc/sr_fitness.cu``, or
-  raise when the call is outside what it implements.
-* CPU tensors run :func:`sr_fitness_plain`, the same computation in plain
-  PyTorch (the interpreter + integrator steppers), in the same float32
-  expression order as the kernel.
+* :func:`sr_fitness` (``rollout_sr_fitness_pallas``) returns, for every
+  candidate and trajectory, ``mse = sum_t sum_d (x_t - y_t)^2 / T`` (the
+  ``x0`` row included) and whether the lane stayed alive, with the
+  integrator's frozen-lane semantics; the trajectory is never materialised.
+  Kernel ``csrc/sr_fitness.cu``; plain version :func:`sr_fitness_plain`.
+* :func:`sr_rollout` (``rollout_sr_pallas``) returns the trajectory ``xs (T,
+  P, B, d)`` and the final liveness broadcast over ``T``, with one step size
+  ``(ts[1] - ts[0]) / substeps`` for the whole grid. Kernel
+  ``csrc/sr_rollout.cu``; plain version :func:`sr_rollout_plain`.
 
-:class:`SRFitness` makes it differentiable in the constants and the initial
-states, as ``rollout_sr_fitness_pallas``'s ``custom_vjp`` does: the forward is
-:func:`sr_fitness`; the backward recomputes the unfused MSE
-(:func:`sr_mse_unfused`, the integrator with ``evaluate_trees`` as the
-drift: the interpreter kernels on CUDA, the plain interpreter on CPU) and
-differentiates that.
+CUDA tensors launch the hand-written kernel, or raise when the call is
+outside what it implements; CPU tensors run the plain version, the same
+computation in plain PyTorch in the kernel's float32 expression order.
+
+:class:`SRFitness` and :class:`SRRollout` make them differentiable in the
+constants and the initial states, as the JAX functions' ``custom_vjp``s do:
+the forward is the dispatcher; the backward recomputes through the
+integrator with ``evaluate_trees`` as the drift (the interpreter kernels on
+CUDA, the plain interpreter on CPU) and differentiates that.
 """
 from __future__ import annotations
 
 import ctypes
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from .. import _build
-from ..models.integrators import STEPPERS, finite, integrate, step_interval
+from ..models.integrators import STEPPERS, _f32, finite, integrate, step_interval
 from .interpreter import evaluate_trees, evaluate_trees_plain
 from .registry import FunctionSet
 from .trees import TreeTensors
@@ -77,15 +82,16 @@ def sr_fitness_plain(
 def _check_method(method: str) -> None:
     if method not in METHODS:
         raise NotImplementedError(
-            f"method {method!r}: the port has {sorted(METHODS)}; adaptive SR is "
-            "ROADMAP Queue 1 #14 (TPU kernels #4/#5 of the PERF.md table)"
+            f"method {method!r}: the fixed-step kernels have {sorted(METHODS)}; the "
+            "adaptive ones are in core/cuda_adaptive.py"
         )
 
 
-def _check_supported(trees: TreeTensors, x0s, ts, ys, fset: FunctionSet, method: str, substeps: int):
+def check_lanes(trees: TreeTensors, x0s, ts, fset: FunctionSet, ys=None) -> None:
+    """Raise unless the per-lane kernels take these operands: ``m == d``
+    trees, ``N <= 256``, ``d <= 4``, ``B <= 1024`` and the device operators."""
     p, m, n = trees.ops.shape
     b, d = x0s.shape
-    _check_method(method)
     if m != d:
         raise NotImplementedError(f"{m} trees per candidate for state dim {d}: the kernel needs m == d")
     if n > MAX_NODES:
@@ -94,11 +100,28 @@ def _check_supported(trees: TreeTensors, x0s, ts, ys, fset: FunctionSet, method:
         raise NotImplementedError(f"state dim {d} > {MAX_STATE_DIM}, the kernel's instances")
     if b > 1024:
         raise NotImplementedError(f"{b} trajectories > 1024 threads of one block")
-    if substeps < 1:
-        raise ValueError("substeps must be >= 1")
-    if ts.shape[0] < 1 or ys.shape != (b, ts.shape[0], d):
+    if ts.shape[0] < 1 or (ys is not None and ys.shape != (b, ts.shape[0], d)):
         raise ValueError(f"ys {tuple(ys.shape)} does not match (B, T, d) = {(b, ts.shape[0], d)}")
     fset.require_device_ops()
+
+
+def kernel_operands(trees: TreeTensors, fset: FunctionSet, *named):
+    """Contiguous operands for a per-lane kernel, checked to lie with the
+    trees on one device with the kernel's types, then the device op table and
+    the candidates per block: a block is ``cpb`` candidates x B lanes, at
+    most ``THREADS_PER_BLOCK`` threads, their trees in ``SHARED_BYTES``."""
+    dev = trees.ops.device
+    p, m, n = trees.ops.shape
+    for name, t, dtype in (("ops", trees.ops, torch.int32), ("const", trees.const, torch.float32),
+                           *((nm, t, torch.float32) for nm, t in named)):
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype} on {dev}, got {t.dtype} on {t.device}")
+    if trees.const.shape != trees.ops.shape:
+        raise ValueError("ops and const shapes differ")
+    b = named[0][1].shape[0]  # x0s (B, d) comes first
+    cpb = max(1, min(THREADS_PER_BLOCK // b, SHARED_BYTES // (m * n * 8)))
+    tensors = [t.contiguous() for t in (trees.ops, trees.const)] + [t.contiguous() for _, t in named]
+    return tensors, fset.device_ops(dev), cpb
 
 
 def sr_fitness_cuda(
@@ -106,23 +129,18 @@ def sr_fitness_cuda(
     fset: FunctionSet, method: str = "rk4", substeps: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/sr_fitness.cu``; ``(mse (P, B), alive (P, B))``."""
-    _check_supported(trees, x0s, ts, ys, fset, method, substeps)
-    dev = trees.ops.device
-    p, m, n = trees.ops.shape
+    _check_method(method)
+    if substeps < 1:
+        raise ValueError("substeps must be >= 1")
+    check_lanes(trees, x0s, ts, fset, ys)
+    (ops, cst, x0c, tsc, ysc), devop, cpb = kernel_operands(
+        trees, fset, ("x0s", x0s), ("ts", ts), ("ys", ys))
+    dev = ops.device
+    p, m, n = ops.shape
     b, d = x0s.shape
     t_steps = ts.shape[0]
-    for name, t, dtype in (("ops", trees.ops, torch.int32), ("const", trees.const, torch.float32),
-                           ("x0s", x0s, torch.float32), ("ts", ts, torch.float32),
-                           ("ys", ys, torch.float32)):
-        if t.device != dev or t.dtype != dtype:
-            raise ValueError(f"{name}: expected {dtype} on {dev}, got {t.dtype} on {t.device}")
-    if trees.const.shape != trees.ops.shape:
-        raise ValueError("ops and const shapes differ")
-    ops, cst, x0c, tsc, ysc = (t.contiguous() for t in (trees.ops, trees.const, x0s, ts, ys))
-    devop = fset.device_ops(dev)
     err = torch.empty((p, b), dtype=torch.float32, device=dev)
     alive = torch.empty((p, b), dtype=torch.bool, device=dev)
-    cpb = max(1, min(THREADS_PER_BLOCK // b, SHARED_BYTES // (m * n * 8)))
 
     lib = _build.load("sr_fitness")
     fn = lib.sr_fitness_launch
@@ -201,3 +219,138 @@ class SRFitness(torch.autograd.Function):
             grads = torch.autograd.grad(mse, (c, x0) if want_x0 else (c,), g_mse)
         dx0 = grads[1] if want_x0 else None
         return None, None, None, grads[0], dx0, None, None, None, None, None
+
+
+# --------------------------------------------------- trajectory (kernel #3)
+
+# method -> ([(stage coefficient, accumulation weight)...], final scale): the
+# TPU rollout kernel's table (pallas_rollout._RK_TABLES)
+RK_TABLES = {
+    "euler": ([(0.0, 1.0)], 1.0),
+    "heun": ([(0.0, 1.0), (1.0, 1.0)], 0.5),
+    "rk4": ([(0.0, 1.0), (0.5, 2.0), (0.5, 2.0), (1.0, 1.0)], 1 / 6),
+}
+
+
+def rollout_step(ts: torch.Tensor, method: str, substeps: int):
+    """``(h, h*final_scale)`` of the trajectory rollout: ``h = (ts[1] -
+    ts[0]) / substeps`` in double from the float32 grid (one step size for
+    the whole grid), each stage scalar ``h*c`` and the final one formed in
+    double and rounded once to float32 where used."""
+    _check_method(method)
+    if substeps < 1:
+        raise ValueError("substeps must be >= 1")
+    times = ts.tolist()
+    dt = float(np.float32(times[1]) - np.float32(times[0])) if len(times) > 1 else 0.0
+    h = dt / substeps
+    return h, _f32(h * RK_TABLES[method][1])
+
+
+def sr_rollout_plain(
+    trees: TreeTensors, x0s: torch.Tensor, ts: torch.Tensor, fset: FunctionSet,
+    method: str = "rk4", substeps: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the trajectory kernel: ``(xs (T, P, B, d),
+    alive (T, P, B))``, ``alive`` the final liveness broadcast over T."""
+    stages, _ = RK_TABLES[method]
+    h, h_final = rollout_step(ts, method, substeps)
+    p = trees.ops.shape[0]
+    b, d = x0s.shape
+    batched = trees.map(lambda a: a[:, None])
+
+    def drift(x):
+        return evaluate_trees_plain(batched, x[:, :, None, :], fset)
+
+    x = x0s[None].expand(p, b, d)
+    alive = finite(x)
+    xs = [x]
+    for _ in range(ts.shape[0] - 1):
+        for _ in range(substeps):
+            acc, k = torch.zeros_like(x), None
+            for c, w in stages:
+                k = drift(x if k is None else x + _f32(h * c) * k)
+                acc = acc + w * k
+            x_new = x + h_final * acc
+            alive = alive & finite(x_new)
+            x = torch.where(alive[..., None], x_new, x)
+        xs.append(x)
+    return torch.stack(xs), alive[None].expand(ts.shape[0], p, b)
+
+
+def sr_rollout_cuda(
+    trees: TreeTensors, x0s: torch.Tensor, ts: torch.Tensor, fset: FunctionSet,
+    method: str = "rk4", substeps: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/sr_rollout.cu``; ``(xs (T, P, B, d), alive (T, P, B))``."""
+    h, h_final = rollout_step(ts, method, substeps)
+    check_lanes(trees, x0s, ts, fset)
+    (ops, cst, x0c), devop, cpb = kernel_operands(trees, fset, ("x0s", x0s))
+    dev = ops.device
+    p, m, n = ops.shape
+    b, d = x0s.shape
+    t_steps = ts.shape[0]
+    xs = torch.empty((t_steps, p, b, d), dtype=torch.float32, device=dev)
+    alive = torch.empty((p, b), dtype=torch.bool, device=dev)
+
+    lib = _build.load("sr_rollout")
+    fn = lib.sr_rollout_launch
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3
+                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    status = fn(
+        ops.data_ptr(), cst.data_ptr(), devop.data_ptr(), x0c.data_ptr(), xs.data_ptr(),
+        alive.data_ptr(), p, d, n, b, t_steps, fset.var_start, METHODS[method], substeps,
+        _f32(h * 0.5), _f32(h), h_final, cpb, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(lib, status, "sr_rollout kernel launch")
+    sr_rollout_cuda.launches += 1
+    return xs, alive[None].expand(t_steps, p, b)
+
+
+sr_rollout_cuda.launches = 0
+
+
+def sr_rollout(
+    trees: TreeTensors, x0s: torch.Tensor, ts: torch.Tensor, fset: FunctionSet,
+    method: str = "rk4", substeps: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Trajectories ``(xs (T, P, B, d), alive (T, P, B))``: the kernel for
+    CUDA tensors, the plain version for CPU tensors."""
+    dev = trees.ops.device
+    if dev.type == "cuda":
+        return sr_rollout_cuda(trees, x0s, ts, fset, method, substeps)
+    if dev.type == "cpu":
+        return sr_rollout_plain(trees, x0s, ts, fset, method, substeps)
+    raise NotImplementedError(f"no rollout implementation for device {dev}")
+
+
+class SRRollout(torch.autograd.Function):
+    """:func:`sr_rollout` differentiable in ``const`` and ``x0s`` through the
+    unfused recompute (``integrate`` with ``evaluate_trees`` as the drift,
+    JAX ``rollout_sr_pallas``'s ``custom_vjp``); the cotangent of ``alive``
+    is ignored. Apply as ``SRRollout.apply(ops, c1, c2, const, x0s, ts,
+    fset, method, substeps)``."""
+
+    @staticmethod
+    def forward(ctx, ops, c1, c2, const, x0s, ts, fset, method, substeps):
+        ctx.save_for_backward(ops, c1, c2, const, x0s, ts)
+        ctx.config = (fset, method, substeps)
+        xs, alive = sr_rollout(TreeTensors(ops, c1, c2, const), x0s, ts, fset, method, substeps)
+        ctx.mark_non_differentiable(alive)
+        return xs, alive
+
+    @staticmethod
+    def backward(ctx, g_xs, _g_alive):
+        ops, c1, c2, const, x0s, ts = ctx.saved_tensors
+        fset, method, substeps = ctx.config
+        want_x0 = ctx.needs_input_grad[4]
+        with torch.enable_grad():
+            c = const.detach().requires_grad_(True)
+            x0 = x0s.detach().requires_grad_(want_x0)
+            trees = TreeTensors(ops, c1, c2, c).map(lambda a: a[:, None])
+            p, (b, d) = ops.shape[0], x0.shape
+            xs, _ = integrate(lambda t, x: evaluate_trees(trees, x[:, :, None, :], fset),
+                              x0[None].expand(p, b, d), ts, method, substeps)
+            grads = torch.autograd.grad(xs, (c, x0) if want_x0 else (c,), g_xs)
+        dx0 = grads[1] if want_x0 else None
+        return None, None, None, grads[0], dx0, None, None, None, None

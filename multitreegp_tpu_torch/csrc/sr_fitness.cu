@@ -31,117 +31,15 @@
 // dt = (ts[t+1] - ts[t]) / substeps per interval from the float32 grid. Built
 // with -fmad=false and IEEE division, so x/0 -> inf kills the lane as in JAX.
 //
-// The per-lane code is plain C++ under MTGP_HD, so the same file also
+// The per-lane code (here and in sr_lane.cuh, shared with the adaptive and
+// trajectory kernels) is plain C++ under MTGP_HD, so the same file also
 // compiles for the host (without __CUDACC__) into a lane loop that tests can
 // run against the plain version on machines without a card.
-#include <math.h>
-#include <stddef.h>
-#include <stdint.h>
-
-#ifdef __CUDACC__
-#include <cuda_runtime.h>
-#define MTGP_HD __host__ __device__
-#else
-#define MTGP_HD
-#endif
+#include "sr_lane.cuh"
 
 namespace {
 
-constexpr int kEmpty = 0;
-constexpr int kConst = 1;
-constexpr int kOpStart = 2;
-constexpr int kMaxNodes = 256;
-constexpr float kBound = 1e8f;
-
-// device op ids: multitreegp_tpu_torch/core/registry.py DEVICE_OPS
-constexpr int kAdd = 0;
-constexpr int kSub = 1;
-constexpr int kMul = 2;
-constexpr int kDiv = 3;
-
 enum Method { kEuler = 0, kHeun = 1, kRk4 = 2 };
-
-// read-only cached load on the card, a plain load on the host
-MTGP_HD inline int load_ro(const int* p) {
-#ifdef __CUDA_ARCH__
-  return __ldg(p);
-#else
-  return *p;
-#endif
-}
-
-MTGP_HD inline float apply_binary(int id, float a, float b) {
-  switch (id) {
-    case kAdd: return a + b;
-    case kSub: return a - b;
-    case kMul: return a * b;
-    default: return a / b;  // kDiv
-  }
-}
-
-template <int D>
-MTGP_HD inline float leaf_value(int var, const float (&x)[D]) {
-  float v = 0.0f;  // a variable past the state width reads 0, as in JAX
-#pragma unroll
-  for (int q = 0; q < D; ++q)
-    if (q == var) v = x[q];
-  return v;
-}
-
-// Root value of one tree (rows `ops[0..n)`, padding first) at state x.
-template <int D>
-MTGP_HD float eval_tree(const int* ops, const float* cst, int n,
-                           const int* __restrict__ devop, int var_start,
-                           const float (&x)[D], float* stack) {
-  int sp = 0;
-  int i = 0;
-  while (i < n && ops[i] == kEmpty) ++i;
-  for (; i < n; ++i) {
-    const int op = ops[i];
-    float v;
-    if (op == kConst) {
-      v = cst[i];
-    } else if (op >= var_start) {
-      v = leaf_value<D>(op - var_start, x);
-    } else {
-      // first operand: the row directly below; second: the subtree below it
-      // (the guards only keep a malformed tree inside the stack)
-      const float a = sp > 0 ? stack[--sp] : 0.0f;
-      const float b = sp > 0 ? stack[--sp] : 0.0f;
-      v = apply_binary(load_ro(devop + (op - kOpStart)), a, b);
-    }
-    if (sp < kMaxNodes) stack[sp++] = v;
-  }
-  return sp ? stack[sp - 1] : 0.0f;
-}
-
-template <int D>
-MTGP_HD inline void drift(const int* ops, const float* cst, int n,
-                                      const int* __restrict__ devop, int var_start,
-                                      const float (&x)[D], float (&k)[D], float* stack) {
-#pragma unroll
-  for (int mi = 0; mi < D; ++mi)
-    k[mi] = eval_tree<D>(ops + mi * n, cst + mi * n, n, devop, var_start, x, stack);
-}
-
-template <int D>
-MTGP_HD inline bool finite_state(const float (&x)[D]) {
-  bool ok = true;
-#pragma unroll
-  for (int q = 0; q < D; ++q) ok = ok && isfinite(x[q]) && fabsf(x[q]) < kBound;
-  return ok;
-}
-
-template <int D>
-MTGP_HD inline float sq_err(const float (&x)[D], const float* y) {
-  float e = (x[0] - y[0]) * (x[0] - y[0]);
-#pragma unroll
-  for (int q = 1; q < D; ++q) {
-    const float dl = x[q] - y[q];
-    e = e + dl * dl;
-  }
-  return e;
-}
 
 // One lane: trajectory b of a candidate whose d trees are t_ops/t_cst.
 template <int D>
@@ -162,7 +60,7 @@ MTGP_HD void fitness_lane(const int* t_ops, const float* t_cst, const int* __res
       const float h = (ts[t + 1] - ts[t]) / static_cast<float>(substeps);
       for (int s = 0; s < substeps && alive; ++s) {
         float k1[D], xn[D];
-        drift<D>(t_ops, t_cst, n, devop, var_start, x, k1, stack);
+        drift<D, kMaxNodes>(t_ops, t_cst, n, devop, var_start, x, k1, stack);
         if (method == kEuler) {
 #pragma unroll
           for (int q = 0; q < D; ++q) xn[q] = x[q] + h * k1[q];
@@ -170,7 +68,7 @@ MTGP_HD void fitness_lane(const int* t_ops, const float* t_cst, const int* __res
           float xs[D], k2[D];
 #pragma unroll
           for (int q = 0; q < D; ++q) xs[q] = x[q] + h * k1[q];
-          drift<D>(t_ops, t_cst, n, devop, var_start, xs, k2, stack);
+          drift<D, kMaxNodes>(t_ops, t_cst, n, devop, var_start, xs, k2, stack);
           const float hh = 0.5f * h;
 #pragma unroll
           for (int q = 0; q < D; ++q) xn[q] = x[q] + hh * (k1[q] + k2[q]);
@@ -179,13 +77,13 @@ MTGP_HD void fitness_lane(const int* t_ops, const float* t_cst, const int* __res
           const float hh = 0.5f * h;
 #pragma unroll
           for (int q = 0; q < D; ++q) xs[q] = x[q] + hh * k1[q];
-          drift<D>(t_ops, t_cst, n, devop, var_start, xs, k2, stack);
+          drift<D, kMaxNodes>(t_ops, t_cst, n, devop, var_start, xs, k2, stack);
 #pragma unroll
           for (int q = 0; q < D; ++q) xs[q] = x[q] + hh * k2[q];
-          drift<D>(t_ops, t_cst, n, devop, var_start, xs, k3, stack);
+          drift<D, kMaxNodes>(t_ops, t_cst, n, devop, var_start, xs, k3, stack);
 #pragma unroll
           for (int q = 0; q < D; ++q) xs[q] = x[q] + h * k3[q];
-          drift<D>(t_ops, t_cst, n, devop, var_start, xs, k4, stack);
+          drift<D, kMaxNodes>(t_ops, t_cst, n, devop, var_start, xs, k4, stack);
           const float h6 = h / 6.0f;
 #pragma unroll
           for (int q = 0; q < D; ++q)
@@ -212,26 +110,13 @@ __global__ void sr_fitness_kernel(const int* __restrict__ ops, const float* __re
                                   float* __restrict__ err, uint8_t* __restrict__ alive_out,
                                   int P, int n, int B, int T, int var_start, int method,
                                   int substeps, int cpb) {
-  extern __shared__ unsigned char smem[];
-  const int tree_words = D * n;  // m == D trees per candidate
-  int* s_ops = reinterpret_cast<int*>(smem);
-  float* s_cst = reinterpret_cast<float*>(s_ops + cpb * tree_words);
-
-  const int c0 = blockIdx.x * cpb;
-  const int ncand = min(cpb, P - c0);
-  const size_t base = static_cast<size_t>(c0) * tree_words;
-  for (int i = threadIdx.x; i < ncand * tree_words; i += blockDim.x) {
-    s_ops[i] = ops[base + i];
-    s_cst[i] = cst[base + i];
-  }
-  __syncthreads();
-
-  const int lc = threadIdx.x / B;
-  const int b = threadIdx.x - lc * B;
-  if (lc >= ncand) return;
-  const size_t lane = static_cast<size_t>(c0 + lc) * B + b;
-  fitness_lane<D>(s_ops + lc * tree_words, s_cst + lc * tree_words, devop, x0s, ts, ys, n, b,
-                  T, var_start, method, substeps, err + lane, alive_out + lane);
+  const int* t_ops;
+  const float* t_cst;
+  size_t lane;
+  int b;
+  if (!stage_block(ops, cst, P, B, D * n, cpb, &t_ops, &t_cst, &lane, &b)) return;
+  fitness_lane<D>(t_ops, t_cst, devop, x0s, ts, ys, n, b, T, var_start, method, substeps,
+                  err + lane, alive_out + lane);
 }
 
 template <int D>
@@ -240,8 +125,7 @@ cudaError_t launch(const int* ops, const float* cst, const int* devop, const flo
                    int B, int T, int var_start, int method, int substeps, int cpb,
                    cudaStream_t stream) {
   const int grid = (P + cpb - 1) / cpb;
-  const size_t smem = static_cast<size_t>(cpb) * D * n * (sizeof(int) + sizeof(float));
-  sr_fitness_kernel<D><<<grid, cpb * B, smem, stream>>>(
+  sr_fitness_kernel<D><<<grid, cpb * B, block_smem(cpb, D, n), stream>>>(
       ops, cst, devop, x0s, ts, ys, err, alive, P, n, B, T, var_start, method, substeps, cpb);
   return cudaGetLastError();
 }

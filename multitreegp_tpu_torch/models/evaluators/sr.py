@@ -1,18 +1,30 @@
 """Symbolic-regression evaluator: the candidate's trees ARE the drift.
 
-Port of the fixed-step path of ``multitreegp_tpu/models/evaluators/sr.py``:
-a candidate's trees define ``dx = trees(x)``; every candidate is integrated
+Port of ``multitreegp_tpu/models/evaluators/sr.py`` (ODE paths): a
+candidate's trees define ``dx = trees(x)``; every candidate is integrated
 from every initial state over the save grid; its fitness is the trajectory
 MSE against the ground truth, with dead lanes and non-finite errors counted
 as ``max_fitness`` and the trajectory mean clipped to ``[0, max_fitness]``.
 
-Population evaluation goes through :class:`core.cuda_rollout.SRFitness`:
-the fused kernel on CUDA tensors, its plain version on CPU tensors, and
-differentiable in the constants (constant optimisation) by the unfused
-recompute. Single-candidate rollouts (``evaluate_candidate``) integrate with
-the dispatching interpreter: its kernel on CUDA tensors. The data tuple is
-the JAX package's ``(x0s (B, d), ts (T,), ys (B, T, d), keys)``; ``keys`` is
-accepted and unused.
+Population evaluation is fused, one kernel per evaluation on CUDA tensors
+and its plain version on CPU tensors, and differentiable in the constants
+(constant optimisation) through an unfused recompute:
+
+* fixed step (``method`` euler / heun / rk4): :class:`core.cuda_rollout.SRFitness`;
+* ``method="adaptive"``: :class:`core.cuda_adaptive.SRFitnessAdaptive` with
+  the whole-solve step budget (diffrax ``max_steps`` semantics, kernel #5)
+  of ``adaptive_budget``, 500 by default, on every grid. The JAX evaluator
+  takes the same kernel on a TPU while its VMEM gate passes, and else the
+  per-interval kernel with ``adaptive_step_budget(substeps)`` steps per save
+  interval, ignoring ``adaptive_budget``; the port has no such gate.
+
+Single-candidate rollouts (``evaluate_candidate``, ``__call__``) write the
+trajectory: the fixed-step trajectory kernel (:class:`SRRollout`) where
+``N <= 64`` and there is one tree per state dimension, else the integrator
+(``integrate_adaptive`` for ``method="adaptive"``, with the JAX package's
+per-interval budget) with the dispatching interpreter as the drift. The data
+tuple is the JAX package's ``(x0s (B, d), ts (T,), ys (B, T, d), keys)``;
+``keys`` is accepted and unused.
 """
 from __future__ import annotations
 
@@ -20,11 +32,15 @@ from typing import Optional, Tuple
 
 import torch
 
-from ...core.cuda_rollout import SRFitness
+from ...core.cuda_adaptive import AdaptiveConfig, SRFitnessAdaptive
+from ...core.cuda_rollout import SRFitness, SRRollout
 from ...core.interpreter import evaluate_trees
 from ...core.registry import FunctionSet
 from ...core.trees import TreeTensors
-from ..integrators import integrate
+from ..integrators import adaptive_step_budget, integrate, integrate_adaptive
+
+ROLLOUT_MAX_NODES = 64  # the JAX trajectory kernel's gate (UNROLL_MAX_NODES)
+DEFAULT_ADAPTIVE_BUDGET = 500  # the reference's diffrax max_steps
 
 
 class SREvaluator:
@@ -37,28 +53,45 @@ class SREvaluator:
         method: str = "rk4",
         substeps: int = 4,
         process_noise: float = 0.0,
+        rtol: float = 1e-4,
+        atol: float = 1e-6,
+        adaptive_method: str = "bosh3",
+        adaptive_budget: Optional[int] = None,
     ) -> None:
         self.fset = fset
         self.max_fitness = max_fitness
         self.method = method
         self.substeps = substeps
         self.process_noise = process_noise
+        self.rtol = rtol
+        self.atol = atol
+        self.adaptive_method = adaptive_method
+        # whole-solve attempted-step budget of the adaptive path (diffrax
+        # ``max_steps``); None means the reference's 500
+        self.adaptive_budget = adaptive_budget
 
     def _check(self) -> None:
-        if self.method == "adaptive":
-            raise NotImplementedError(
-                "method='adaptive' is not ported yet: ROADMAP Queue 1 #14 (adaptive SR)"
-            )
         if self.process_noise > 0.0:
             raise NotImplementedError(
                 "process_noise > 0 (SDE SR) is not ported yet: ROADMAP Queue 1 #15"
             )
 
+    def _adaptive_config(self) -> AdaptiveConfig:
+        """The fused adaptive fitness ``evaluate_population`` computes: the
+        global budget, always (see the module docstring)."""
+        budget = self.adaptive_budget if self.adaptive_budget is not None else DEFAULT_ADAPTIVE_BUDGET
+        return AdaptiveConfig(True, budget, self.adaptive_method, self.rtol, self.atol)
+
     def evaluate_population(self, population: TreeTensors, data: Tuple) -> torch.Tensor:
         """population: batch shape ``(P, m)``; returns fitness ``(P,)``."""
         self._check()
         x0s, ts, ys, _keys = data
-        mse, alive = SRFitness.apply(*population, x0s, ts, ys, self.fset, self.method, self.substeps)
+        if self.method == "adaptive":
+            mse, alive = SRFitnessAdaptive.apply(*population, x0s, ts, ys, self.fset,
+                                                 self._adaptive_config())
+        else:
+            mse, alive = SRFitness.apply(*population, x0s, ts, ys, self.fset, self.method,
+                                         self.substeps)
         bad = ~alive | ~torch.isfinite(mse)
         per_traj = torch.where(bad, torch.full_like(mse, self.max_fitness), mse)
         fitness = per_traj.mean(dim=-1)
@@ -75,7 +108,19 @@ class SREvaluator:
         def drift(t, x):
             return evaluate_trees(trees, x[:, :, None, :], self.fset)
 
-        return integrate(drift, x0s[None].expand(p, b, d), ts, self.method, self.substeps)
+        x0 = x0s[None].expand(p, b, d)
+        if self.method == "adaptive":
+            per_interval = (
+                max(self.adaptive_budget // max(ts.shape[0] - 1, 1), 4)
+                if self.adaptive_budget is not None
+                else adaptive_step_budget(self.substeps)
+            )
+            return integrate_adaptive(drift, x0, ts, rtol=self.rtol, atol=self.atol,
+                                      max_steps_per_interval=per_interval,
+                                      method=self.adaptive_method)
+        if population.max_nodes <= ROLLOUT_MAX_NODES and population.batch_shape[-1] == d:
+            return SRRollout.apply(*population, x0s, ts, self.fset, self.method, self.substeps)
+        return integrate(drift, x0, ts, self.method, self.substeps)
 
     def evaluate_candidate(self, candidate: TreeTensors, data: Tuple):
         """Per-trajectory fitness ``(B,)`` and predictions ``(B, T, d)`` of one
@@ -87,6 +132,12 @@ class SREvaluator:
         bad = ~alive[-1, 0] | ~torch.isfinite(err)
         fitness = torch.where(bad, torch.full_like(err, self.max_fitness), err)
         return fitness, pred.transpose(0, 1)
+
+    def __call__(self, candidate: TreeTensors, data: Tuple) -> torch.Tensor:
+        """The reference's call: the candidate's mean fitness over the
+        trajectories, clipped to ``[0, max_fitness]``."""
+        fitness, _ = self.evaluate_candidate(candidate, data)
+        return fitness.mean().clamp(0.0, self.max_fitness)
 
 
 def sr_trajectories(env, x0s: torch.Tensor, ts: torch.Tensor, method: str = "rk4",

@@ -1,13 +1,18 @@
-"""Fixed-grid Runge-Kutta integration with per-lane divergence containment.
+"""Runge-Kutta integration with per-lane divergence containment.
 
-Port of the fixed-step half of ``multitreegp_tpu/models/integrators.py``:
-euler, heun and rk4 with ``substeps`` steps per save interval, and the
-per-lane alive freeze: a lane whose state is non-finite or reaches
-``|x| >= DIVERGENCE_BOUND`` stops updating (its state stays frozen) and is
-reported dead. Expression order follows the JAX steppers exactly, so float32
-results agree with them bit for bit where both avoid FMA contraction. The
-step size is taken per interval from the float32 grid, ``dt = (ts[t+1] -
-ts[t]) / substeps``, as the JAX scan does.
+Port of ``multitreegp_tpu/models/integrators.py`` without its SDE half:
+
+* :func:`integrate`: euler, heun and rk4 with ``substeps`` steps per save
+  interval, ``dt = (ts[t+1] - ts[t]) / substeps`` per interval from the
+  float32 grid, as the JAX scan does;
+* :func:`integrate_adaptive`: an embedded pair (Bogacki-Shampine 3(2) or
+  Dormand-Prince 5(4)) with per-lane ``(t, dt)`` and an I step controller.
+
+Both keep the per-lane alive freeze: a lane whose state is non-finite or
+reaches ``|x| >= DIVERGENCE_BOUND`` stops updating (its state stays frozen)
+and is reported dead. Expression order follows the JAX functions exactly,
+so float32 results agree with them bit for bit where both avoid FMA
+contraction.
 """
 from __future__ import annotations
 
@@ -100,8 +105,8 @@ def integrate(
     """
     if method not in STEPPERS:
         raise NotImplementedError(
-            f"integration method {method!r}: the port has {sorted(STEPPERS)}; "
-            "adaptive stepping is ROADMAP Queue 1 #14"
+            f"integration method {method!r}: the fixed-step methods are {sorted(STEPPERS)}; "
+            "adaptive stepping is integrate_adaptive"
         )
     stepper = STEPPERS[method]
     times = ts.tolist()
@@ -112,6 +117,138 @@ def integrate(
     x = x0
     for t in range(len(times) - 1):
         x, alive = step_interval(stepper, drift, times[t], times[t + 1], x, alive, substeps, cond_alive)
+        xs.append(x)
+        alives.append(alive)
+    return torch.stack(xs), torch.stack(alives)
+
+
+# Embedded pairs for adaptive stepping, as float32 values of the JAX
+# package's Python doubles (JAX's weak typing rounds e.g. 19372/6561 once, to
+# float32; so do PyTorch's scalar operands and the CUDA kernels' constants).
+# No FSAL here, as in the JAX function: lanes step independently.
+BS_A = tuple(tuple(_f32(a) for a in row) for row in ((0.5,), (0.0, 0.75), (2 / 9, 1 / 3, 4 / 9)))
+BS_B_LOW = tuple(_f32(b) for b in (7 / 24, 0.25, 1 / 3, 0.125))
+DP_C = tuple(_f32(c) for c in (0.2, 0.3, 0.8, 8 / 9, 1.0, 1.0))
+DP_A = tuple(tuple(_f32(a) for a in row) for row in (
+    (0.2,),
+    (3 / 40, 9 / 40),
+    (44 / 45, -56 / 15, 32 / 9),
+    (19372 / 6561, -25360 / 2187, 64448 / 6561, -212 / 729),
+    (9017 / 3168, -355 / 33, 46732 / 5247, 49 / 176, -5103 / 18656),
+    (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84),
+))
+DP_B5 = tuple(_f32(b) for b in (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84, 0.0))
+DP_B4 = tuple(_f32(b) for b in (5179 / 57600, 0.0, 7571 / 16695, 393 / 640, -92097 / 339200,
+                                187 / 2100, 1 / 40))
+# the I controller's exponent -1/order of the embedded estimate
+ERROR_EXPONENT = {"bosh3": _f32(-1.0 / 3.0), "dopri5": _f32(-0.2)}
+
+
+def adaptive_step_budget(substeps: int, floor: int = 32) -> int:
+    """An evaluator's ``substeps`` as the adaptive path's per-interval step
+    budget: ``substeps`` when raised above the fixed-step default of 4,
+    else ``floor``."""
+    return substeps if substeps > 4 else floor
+
+
+def tableau_sum(coefs, ks):
+    """``sum(a * k for a, k in zip(coefs, ks))`` as Python's ``sum``: from 0,
+    left to right, keeping ``0.0 * k`` terms (``0 * inf`` is NaN)."""
+    s = torch.zeros_like(ks[0])
+    for a, k in zip(coefs, ks):
+        s = s + a * k
+    return s
+
+
+def _f32_expr(fn) -> float:
+    """A scalar expression evaluated in float32 on the host."""
+    with np.errstate(all="ignore"):
+        return float(np.float32(fn(np.float32)))
+
+
+def integrate_adaptive(
+    drift: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    x0: torch.Tensor,
+    ts: torch.Tensor,
+    rtol: float = 1e-4,
+    atol: float = 1e-6,
+    max_steps_per_interval: int = 32,
+    cond_alive: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None,
+    safety: float = 0.9,
+    method: str = "bosh3",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Adaptive integration on a fixed save grid (JAX ``integrate_adaptive``).
+
+    Every lane carries its own ``(t, dt)``; ``dt`` carries across save
+    points, clamped at each interval's entry to ``[span*1e-3, span]``. Each
+    of at most ``max_steps_per_interval`` iterations per interval steps the
+    active lanes (alive and ``t < t1 - 1e-12``) with ``bosh3`` or ``dopri5``
+    (no FSAL), accepts where the state stays finite and ``err <= 1``, and
+    resizes by ``clip(safety * err**e, 0.2, 5)``. A lane dies on NaN at the
+    minimum step (``dt_c <= span*1.5e-3``) or when it has not reached the
+    save point after the budget. The drift's ``t`` is a per-lane tensor.
+    Differentiable: nothing in the controller is detached, as JAX
+    differentiates through it.
+
+    Returns ``(xs (T, ..., d), alive (T, ...))`` like :func:`integrate`.
+    """
+    if method not in ERROR_EXPONENT:
+        raise ValueError(f"unknown adaptive method {method!r}")
+    expo = ERROR_EXPONENT[method]
+    rtol, atol, safety = _f32(rtol), _f32(atol), _f32(safety)
+
+    def rk_step(t, x, dt):
+        dte = dt[..., None]
+        if method == "bosh3":
+            a, b = BS_A, BS_B_LOW
+            k1 = drift(t, x)
+            k2 = drift(t + 0.5 * dt, x + 0.5 * dte * k1)
+            k3 = drift(t + 0.75 * dt, x + 0.75 * dte * k2)
+            x_hi = x + dte * (a[2][0] * k1 + a[2][1] * k2 + a[2][2] * k3)
+            k4 = drift(t + dt, x_hi)
+            x_lo = x + dte * (b[0] * k1 + b[1] * k2 + b[2] * k3 + b[3] * k4)
+        else:
+            ks = [drift(t, x)]
+            for ci, ai in zip(DP_C, DP_A):
+                ks.append(drift(t + ci * dt, x + dte * tableau_sum(ai, ks)))
+            x_hi = x + dte * tableau_sum(DP_B5, ks)
+            x_lo = x + dte * tableau_sum(DP_B4, ks)
+        scale = atol + rtol * torch.maximum(x.abs(), x_hi.abs())
+        return x_hi, torch.sqrt(torch.square((x_hi - x_lo) / scale).mean(dim=-1))
+
+    times = ts.tolist()
+    alive = finite(x0)
+    if cond_alive is not None:
+        alive = alive & cond_alive(ts[0].expand(alive.shape), x0)
+    dt0 = _f32_expr(lambda f: (f(times[1]) - f(times[0])) / f(4.0)) if len(times) > 1 else 1.0
+    dt = torch.full(alive.shape, dt0, dtype=x0.dtype, device=x0.device)
+    xs, alives = [x0], [alive]
+    x = x0
+    for i in range(len(times) - 1):
+        t0, t1 = times[i], times[i + 1]
+        span = _f32_expr(lambda f: f(t1) - f(t0))
+        dt_lo = _f32_expr(lambda f: f(span) * f(1e-3))
+        dt_dead = _f32_expr(lambda f: f(span) * f(1.5e-3))
+        inside = _f32_expr(lambda f: f(t1) - f(1e-12))
+        reached = _f32_expr(lambda f: f(t1) - f(1e-9) * max(abs(f(t1)), f(1.0)))
+        t = torch.full(alive.shape, t0, dtype=x0.dtype, device=x0.device)
+        dt = torch.clamp(dt, dt_lo, span)
+        for _ in range(max_steps_per_interval):
+            active = alive & (t < inside)
+            dt_c = torch.minimum(dt, t1 - t)
+            x_new, err = rk_step(t, x, dt_c)
+            ok = finite(x_new) & torch.isfinite(err)
+            accept = active & ok & (err <= 1.0)
+            if cond_alive is not None:
+                accept = accept & cond_alive(t + dt_c, x_new)
+            x = torch.where(accept[..., None], x_new, x)
+            t = torch.where(accept, t + dt_c, t)
+            grow = torch.clamp(safety * torch.pow(err, expo), 0.2, 5.0)
+            fallback = torch.where(ok, 5.0, 0.2).to(err.dtype)
+            factor = torch.where(torch.isfinite(err) & (err > 0.0), grow, fallback)
+            dt = torch.where(active, torch.clamp(dt_c * factor, dt_lo, span), dt)
+            alive = alive & (ok | ~active | (dt_c > dt_dead))
+        alive = alive & (t >= reached)
         xs.append(x)
         alives.append(alive)
     return torch.stack(xs), torch.stack(alives)

@@ -1,8 +1,12 @@
-"""Throughput accounting: the node-evaluation count behind node-evals/s
-(port of ``multitreegp_tpu/utils/metrics.node_evals_per_evaluation``)."""
+"""Throughput accounting: the node-evaluation counts behind node-evals/s
+(port of ``multitreegp_tpu/utils/metrics.node_evals_per_evaluation`` and of
+the adaptive work count in ``bench.py``)."""
 from __future__ import annotations
 
 RK_STAGES = {"euler": 1, "heun": 2, "rk4": 4}
+# tree evaluations per attempted adaptive step: the stages after the first,
+# which the first-same-as-last carry supplies
+ADAPTIVE_DRIFTS_PER_STEP = {"dopri5": 6, "bosh3": 3}
 
 
 def node_evals_per_evaluation(
@@ -19,3 +23,15 @@ def node_evals_per_evaluation(
     drift_calls = (num_save_points - 1) * substeps * RK_STAGES[method]
     lanes = population_size * batch_size * num_trees
     return int(drift_calls * lanes * max_nodes)
+
+
+def adaptive_node_evals(lane_steps, method: str, num_trees: int, max_nodes: int) -> int:
+    """Interpreter row-steps of one adaptive evaluation from its attempted
+    steps per lane (``lane_steps``, any shape, e.g. ``(P, B)``): per lane
+    ``steps x drifts per step + 1`` drift calls (the ``+ 1`` is the up-front
+    evaluation the first-same-as-last carry starts from), each ``num_trees x
+    max_nodes`` rows. The JAX bench counts steps per lane tile, as a TPU tile
+    steps while any of its lanes is active; a GPU thread stops when its own
+    lane is done, so the count is taken per lane."""
+    drifts = int(lane_steps.sum()) * ADAPTIVE_DRIFTS_PER_STEP[method] + lane_steps.numel()
+    return drifts * num_trees * max_nodes

@@ -12,10 +12,15 @@ Two routes:
 * on the card (marker ``cuda``; skipped without a GPU): the kernels through
   their wrappers, same criteria; the interpreter kernels (forward and VJP)
   through ``evaluate_trees`` and autograd, bit for bit per lane against the
-  plain version on the card. This file imports no JAX, so it also runs where
-  the card is (``pytest --noconftest``).
+  plain version on the card; the adaptive kernels (#5 global budget, #4 per
+  interval) and the trajectory kernel (#3) against their plain versions,
+  bit for bit per lane (the card's ``powf`` and ``sqrtf`` are PyTorch's), and
+  their dispatchers' launch counters and refusals. This file imports no JAX,
+  so it also runs where the card is (``pytest --noconftest``).
 
-The interpreter's host-build checks are in ``test_torch_interpreter_kernel.py``.
+The host-build checks of the interpreter, adaptive and trajectory kernels are
+in ``test_torch_interpreter_kernel.py``, ``test_torch_adaptive.py`` and
+``test_torch_rollout_kernel.py``.
 """
 import ctypes
 import shutil
@@ -29,7 +34,9 @@ from multitreegp_tpu_torch.core import tile_surgery as tts
 from multitreegp_tpu_torch.core.cuda_reproduction import (
     decay_table, reproduce_lanes, reproduce_lanes_plain, rows_per_lane,
 )
+from multitreegp_tpu_torch.core import cuda_adaptive as ca
 from multitreegp_tpu_torch.core import cuda_interpreter as ci
+from multitreegp_tpu_torch.core import cuda_rollout as cro
 from multitreegp_tpu_torch.core.cuda_rollout import (
     METHODS, SRFitness, sr_fitness, sr_fitness_cuda, sr_fitness_plain,
 )
@@ -234,3 +241,45 @@ def test_fitness_gradient_through_kernels_on_card(cuda):
     fin = torch.isfinite(want)
     assert torch.equal(torch.isfinite(got), fin) and bool((want[fin] != 0).any())
     torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-6 * float(want[fin].abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["bosh3", "dopri5"])
+def test_adaptive_kernels_match_plain_on_card(cuda, method):
+    """#5 through ``sr_fitness_adaptive_global`` and #4 through
+    ``adaptive_solver_stats``: one launch each, every lane's error sum, alive
+    and attempted steps equal to the plain version on the card."""
+    fset, trees, x0s, ts, ys = fitness_case(cuda, pop=256, b=16, t_end=2.0)
+    runs = (
+        (ca.sr_fitness_adaptive_global_cuda, ca.sr_fitness_adaptive_global_plain,
+         lambda: ca.sr_fitness_adaptive_global(trees, x0s, ts, ys, fset, budget=200, method=method,
+                                               return_steps=True), 200),
+        (ca.sr_fitness_adaptive_interval_cuda, ca.sr_fitness_adaptive_interval_plain,
+         lambda: ca.adaptive_solver_stats(trees, x0s, ts, ys, fset, max_steps=16, method=method), 16),
+    )
+    for kernel, plain, run, budget in runs:
+        before = kernel.launches
+        mse, alive, steps = run()
+        ref, ref_alive, ref_steps = plain(trees, x0s, ts, ys, fset, 1e-4, 1e-6, budget, method)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        assert torch.equal(alive, ref_alive) and torch.equal(steps, ref_steps)
+        assert same_bits(mse, ref) and alive.any() and (~alive).any()
+    with pytest.raises(NotImplementedError):  # an operator the kernels lack
+        sin_set = build_function_set(ARITH + [("sin", 1, 0.1)], [["x0", "x1"]], [2])
+        ca.sr_fitness_adaptive(trees, x0s, ts, ys, sin_set)
+    with pytest.raises(NotImplementedError):  # N > 256
+        wide = trees.map(lambda a: torch.cat([a, a[..., :1].expand(*a.shape[:-1], 240)], -1))
+        ca.sr_fitness_adaptive_global(wide, x0s, ts, ys, fset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,substeps", [("euler", 2), ("heun", 1), ("rk4", 1)])
+def test_rollout_kernel_matches_plain_on_card(cuda, method, substeps):
+    fset, trees, x0s, ts, ys = fitness_case(cuda, pop=512, b=16, t_end=2.0)
+    before = cro.sr_rollout_cuda.launches
+    xs, alive = cro.sr_rollout(trees, x0s, ts, fset, method, substeps)
+    ref, ref_alive = cro.sr_rollout_plain(trees, x0s, ts, fset, method, substeps)
+    torch.cuda.synchronize()
+    assert cro.sr_rollout_cuda.launches == before + 1
+    assert torch.equal(alive, ref_alive) and same_bits(xs, ref)

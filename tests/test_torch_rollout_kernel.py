@@ -1,0 +1,174 @@
+"""PyTorch port: the trajectory-writing rollout (TPU kernel #3) and the
+kernel build's source hashing (CPU).
+
+* host build of ``csrc/sr_rollout.cu`` (``g++ -ffp-contract=off``) against
+  ``sr_rollout_plain``: every state and the liveness bit for bit (the same
+  float32 operations in the same order; no pow or sqrt here).
+* ``sr_rollout_plain`` against JAX's ``integrate`` on the same arange grid:
+  rtol 1e-5 (+ atol 1e-6) on live lanes, liveness identical. The kernel
+  takes one step size ``(ts[1] - ts[0]) / substeps`` for the whole grid,
+  ``integrate`` one per interval; on an arange grid they differ by ulps, and
+  XLA:CPU contracts the updates into FMAs. Division is left out of the trees
+  (a near-singular ``/`` amplifies ulps past any tight bound), as in
+  ``test_torch_integrators.py``.
+* ``SREvaluator.evaluate_candidate`` and ``__call__`` (which now go through
+  the trajectory kernel's dispatcher) against the JAX evaluator's: rtol 1e-4.
+* ``_build.library_path`` hashes the headers a source includes.
+
+The card checks are in ``test_torch_kernels.py`` (marker ``cuda``).
+"""
+import ctypes
+import shutil
+
+import jax
+import jax.numpy as jnp
+import jax.random as jr
+import numpy as np
+import pytest
+import torch
+
+from multitreegp_tpu.core.interpreter import evaluate_trees as jax_evaluate
+from multitreegp_tpu.core.registry import build_function_set as jax_function_set
+from multitreegp_tpu.models.environments import VanDerPolOscillator as JaxVdP
+from multitreegp_tpu.models.evaluators import SREvaluator as JaxSREvaluator
+from multitreegp_tpu.models.evaluators import generate_sr_data as jax_generate
+from multitreegp_tpu.models.integrators import integrate as jax_integrate
+from multitreegp_tpu.ops.initialization import make_population_sampler as jax_sampler
+from multitreegp_tpu_torch import _build
+from multitreegp_tpu_torch.convert import function_set_from_jax, sr_data_from_numpy, trees_from_numpy
+from multitreegp_tpu_torch.core import cuda_rollout as cr
+from multitreegp_tpu_torch.core.interpreter import evaluate_trees
+from multitreegp_tpu_torch.core.registry import build_function_set
+from multitreegp_tpu_torch.models.environments import VanDerPolOscillator
+from multitreegp_tpu_torch.models.evaluators import SREvaluator, generate_sr_data
+from multitreegp_tpu_torch.models.integrators import integrate
+from multitreegp_tpu_torch.ops.initialization import make_population_sampler
+
+torch.set_num_threads(1)
+
+ARITH = [("+", 2, 0.5), ("-", 2, 0.1), ("*", 2, 0.5), ("/", 2, 0.1)]
+JAX_OPS = [("+", jnp.add, 2, 0.5), ("-", jnp.subtract, 2, 0.1), ("*", jnp.multiply, 2, 0.5)]
+CASES = [("euler", 1), ("euler", 2), ("heun", 1), ("heun", 2), ("rk4", 1), ("rk4", 2)]
+
+
+@pytest.fixture(scope="module")
+def rollout_host(tmp_path_factory):
+    if shutil.which("g++") is None and shutil.which("c++") is None:
+        pytest.skip("no host C++ compiler")
+    return _build.build_host("sr_rollout", tmp_path_factory.mktemp("rollout_host"))
+
+
+@pytest.mark.parametrize("method,substeps", CASES)
+def test_rollout_host_build_bit_exact(rollout_host, method, substeps):
+    fset = build_function_set(ARITH, [["x0", "x1"]], [2])
+    g = torch.Generator().manual_seed(0)
+    x0s, ts, _, _ = generate_sr_data(VanDerPolOscillator(), g, torch.arange(0.0, 1.6, 0.2), batch_size=4)
+    trees = make_population_sampler(fset, 4, 32)(g, 24)[0]
+    xs, alive = cr.sr_rollout_plain(trees, x0s, ts, fset, method, substeps)
+    t_steps, (p, b) = ts.shape[0], alive.shape[1:]
+    out = np.zeros((t_steps, p, b, 2), np.float32)
+    alive_h = np.zeros((p, b), np.uint8)
+    h, h_final = cr.rollout_step(ts, method, substeps)
+    fn = rollout_host.sr_rollout_host
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3
+    arrays = [np.ascontiguousarray(a.numpy()) for a in (trees.ops, trees.const, fset.device_ops(), x0s)]
+    status = fn(*(a.ctypes.data for a in arrays), out.ctypes.data, alive_h.ctypes.data, p, 2, 32, b,
+                t_steps, fset.var_start, cr.METHODS[method], substeps, np.float32(h * 0.5),
+                np.float32(h), h_final)
+    assert status == 0
+    np.testing.assert_array_equal(alive_h.astype(bool), alive[-1].numpy())
+    np.testing.assert_array_equal(out, xs.numpy())  # NaN == NaN for assert_array_equal
+    assert alive[-1].any() and (~alive[-1]).any()
+    assert torch.equal(alive, alive[-1:].expand_as(alive))
+
+
+@pytest.fixture(scope="module")
+def jax_case():
+    jf = jax_function_set(JAX_OPS, [["x0", "x1"]], [2])
+    pop = jax_sampler(jf, 3, 16)(jr.PRNGKey(5), 16)
+    x0 = np.random.default_rng(1).normal(size=(4, 2)).astype(np.float32)
+    ts = np.arange(0.0, 1.0, 0.2, dtype=np.float32)  # T = 5
+    return jf, pop, x0, ts
+
+
+@pytest.mark.parametrize("method,substeps", CASES)
+def test_rollout_plain_matches_jax_integrate(jax_case, method, substeps):
+    jf, pop, x0, ts = jax_case
+    jtrees = pop[:, None]
+
+    @jax.jit
+    def run(x, t):
+        drift = lambda tt, xx: jax_evaluate(jtrees, xx[:, :, None, :], jf, impl="gather")
+        return jax_integrate(drift, x, t, method=method, substeps=substeps)
+
+    jxs, jalive = run(jnp.broadcast_to(jnp.asarray(x0)[None], (16, 4, 2)), jnp.asarray(ts))
+    trees = trees_from_numpy(*[np.asarray(a) for a in pop])
+    xs, alive = cr.sr_rollout(trees, torch.from_numpy(x0), torch.from_numpy(ts),
+                              function_set_from_jax(jf), method, substeps)
+    ja = np.asarray(jalive[-1])
+    np.testing.assert_array_equal(alive[-1].numpy(), ja)
+    np.testing.assert_allclose(xs.numpy()[:, ja], np.asarray(jxs)[:, ja], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("method,substeps", [("rk4", 1), ("heun", 2)])
+def test_evaluate_candidate_and_call_match_jax(monkeypatch, method, substeps):
+    jf = jax_function_set(JAX_OPS + [("/", jnp.divide, 2, 0.1)], [["x0", "x1"]], [2])
+    data = jax_generate(JaxVdP(0.0, 0.0), jr.PRNGKey(0), jnp.arange(0.0, 2.0, 0.2), batch_size=4,
+                        substeps=8)
+    pop = jax_sampler(jf, 3, 16)(jr.PRNGKey(1), 4)
+    jev = JaxSREvaluator(jf, method=method, substeps=substeps, interpreter="gather")
+    ev = SREvaluator(function_set_from_jax(jf), method=method, substeps=substeps)
+    tdata = sr_data_from_numpy(*data[:3])
+    tpop = trees_from_numpy(*[np.asarray(a) for a in pop])
+    calls = []
+    plain = cr.sr_rollout_plain
+    monkeypatch.setattr(cr, "sr_rollout_plain", lambda *a: calls.append(1) or plain(*a))
+    for i in range(4):
+        jfit, jpred = jax.jit(jev.evaluate_candidate)(pop[i], data)
+        fit, pred = ev.evaluate_candidate(tpop[i], tdata)
+        assert pred.shape == (4, 10, 2) and fit.shape == (4,)
+        np.testing.assert_allclose(fit.numpy(), np.asarray(jfit), rtol=1e-4)
+        np.testing.assert_allclose(float(ev(tpop[i], tdata)), float(jax.jit(jev)(pop[i], data)), rtol=1e-4)
+    assert len(calls) == 8  # the trajectory kernel's plain version, on CPU tensors
+
+
+def test_rollout_gradient_through_recompute():
+    """``SRRollout``'s backward is autograd through ``integrate`` with the
+    interpreter as the drift (the per-interval step): on CPU tensors it
+    equals the gradient of that recompute."""
+    fset = build_function_set(ARITH, [["x0", "x1"]], [2])
+    g = torch.Generator().manual_seed(3)
+    x0s, ts, _, _ = generate_sr_data(VanDerPolOscillator(), g, torch.arange(0.0, 1.0, 0.2), batch_size=3)
+    trees = make_population_sampler(fset, 3, 16)(g, 6)[0]
+    g_xs = torch.randn((ts.shape[0], 6, 3, 2), generator=g)
+    const = trees.const.clone().requires_grad_(True)
+    xs, alive = cr.SRRollout.apply(trees.ops, trees.c1, trees.c2, const, x0s, ts, fset, "rk4", 1)
+    (got,) = torch.autograd.grad(xs, (const,), g_xs)
+    const2 = trees.const.clone().requires_grad_(True)
+    batched = trees._replace(const=const2).map(lambda a: a[:, None])
+    ref, _ = integrate(lambda t, x: evaluate_trees(batched, x[:, :, None, :], fset),
+                       x0s[None].expand(6, 3, 2), ts, "rk4", 1)
+    (want,) = torch.autograd.grad(ref, (const2,), g_xs)
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    fin = torch.isfinite(want)
+    assert bool((want[fin] != 0).any())
+    torch.testing.assert_close(got[fin], want[fin], rtol=0, atol=0)
+
+
+def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
+    """An edited header changes the library path of every source that
+    includes it (so it is rebuilt), and of no other."""
+    for name in ("sr_fitness", "sr_adaptive", "sr_rollout", "interpreter", "reproduce"):
+        shutil.copy(_build.CSRC_DIR / f"{name}.cu", tmp_path)
+    shutil.copy(_build.CSRC_DIR / "sr_lane.cuh", tmp_path)
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    names = ("sr_fitness", "sr_adaptive", "sr_rollout", "interpreter", "reproduce")
+    before = {n: _build.library_path(n) for n in names}
+    assert [p.name for p in _build.source_files("sr_adaptive")] == ["sr_adaptive.cu", "sr_lane.cuh"]
+    header = tmp_path / "sr_lane.cuh"
+    header.write_text(header.read_text() + "\n// touched\n")
+    after = {n: _build.library_path(n) for n in names}
+    for n in names:
+        includes = "sr_lane.cuh" in [p.name for p in _build.source_files(n)]
+        assert (after[n] != before[n]) == includes, n
+    assert {n for n in names if after[n] != before[n]} == {"sr_fitness", "sr_adaptive", "sr_rollout"}

@@ -90,9 +90,11 @@ def test_evaluate_candidate_and_unsupported(setup):
     jfit, jpred = JaxSREvaluator(jf, substeps=1, interpreter="ladder").evaluate_candidate(pop[0], data)
     assert pred.shape == (4, 10, 2)
     np.testing.assert_allclose(fit.numpy(), np.asarray(jfit), rtol=1e-4)
-    for kwargs in ({"method": "adaptive"}, {"process_noise": 0.1}):
-        with pytest.raises(NotImplementedError):
-            SREvaluator(tf, **kwargs).evaluate_population(cand.map(lambda a: a[None]), tdata)
+    # adaptive SR is ported (tests/test_torch_adaptive.py); SDE SR is not
+    fit = SREvaluator(tf, method="adaptive").evaluate_population(cand.map(lambda a: a[None]), tdata)
+    assert fit.shape == (1,) and bool(torch.isfinite(fit).all())
+    with pytest.raises(NotImplementedError):
+        SREvaluator(tf, process_noise=0.1).evaluate_population(cand.map(lambda a: a[None]), tdata)
 
 
 @pytest.mark.parametrize(

@@ -121,11 +121,21 @@ def test_chip_smoke_phases_rehearse_on_cpu():
 
     tiny = dict(islands=2, pop=16, max_nodes=16, depth=3, batch=4, horizon=1.0, dt=0.2,
                 generations=2, timing_runs=1, plain_runs=1,
-                fit_generations=20, top_k=4, gradient_steps=2, elite=0.25, interp_runs=1)
+                fit_generations=20, top_k=4, gradient_steps=2, elite=0.25, interp_runs=1,
+                adaptive_budget=40, adaptive_interval_steps=8, adaptive_short_t=3,
+                adaptive_opt_steps=2)
     out = chip_smoke.run(torch.device("cpu"), tiny)
     assert out["fitness"]["bit_equal"] and out["reproduce"]["ops_identical"] == 1.0
-    assert [k["name"] for k in out["kernels"]] == ["sr_fitness", "reproduce", "interpret_fwd",
-                                                   "interpret_bwd"]
+    assert [k["name"] for k in out["kernels"]] == [
+        "sr_fitness", "reproduce", "interpret_fwd", "interpret_bwd", "sr_adaptive_global",
+        "sr_adaptive_interval", "sr_rollout"]
+    assert set(out["adaptive_kernels"]) == {"global_t3", "global_t5", "interval_t3", "rollout"}
+    assert all(v["identical"] == 1.0 for v in out["adaptive_kernels"].values())
+    path = out["adaptive_path"]
+    assert len(path["generations"]) == 2 and path["refined_sum"] <= path["unrefined_sum"]
+    assert set(path["telemetry"]) == {"global", "interval"} and path["telemetry"]["global"]["max"] <= 40
+    assert set(path["optimise_split_ms"]) == {"forward", "recompute", "backward"}
+    assert out["kernels"][2]["population"]["bound_ms"] > 0
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"}
     assert all(keys <= set(k) and k["bound_ms"] > 0 for k in out["kernels"])
@@ -147,6 +157,7 @@ def test_package_never_imports_jax():
         "import multitreegp_tpu_torch.models.evaluators, multitreegp_tpu_torch.utils.metrics\n"
         "import multitreegp_tpu_torch.ops.constant_opt, multitreegp_tpu_torch.ops.optim\n"
         "import multitreegp_tpu_torch.utils.checkpoint, multitreegp_tpu_torch.core.cuda_interpreter\n"
+        "import multitreegp_tpu_torch.core.cuda_adaptive, multitreegp_tpu_torch.core.cuda_rollout\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'multitreegp_tpu.'))]\n"
         "assert not bad and 'multitreegp_tpu' not in sys.modules, bad\n"
     )

@@ -9,8 +9,8 @@ It builds the hand-written kernels from ``multitreegp_tpu_torch/csrc`` with
 ``nvcc`` (one process per source, in parallel) and drives the port's paths at
 the full width of the flagship workload (symbolic regression of Van der Pol;
 8 islands x 512 candidates, 2 trees of ``max_nodes=32``, operators + - * /,
-16 trajectories, 50 save points, RK4 with one substep). Phases, one line or
-a few each:
+16 trajectories, 50 save points, RK4 with one substep) and of the control
+workload (phases 12-14). Phases, one line or a few each:
 
 1. device: ``nvidia-smi`` name and power limit, torch/CUDA versions, build time;
 2. fitness kernel vs its plain PyTorch version (T = 5 and T = 50);
@@ -39,7 +39,24 @@ a few each:
    ``evaluate_candidate`` of the best under the RK4 evaluator; all seven
    launch counters read around it;
 11. adaptive and trajectory kernel and plain-version times (CUDA events),
-   and the global kernel's node-evals/s.
+   and the global kernel's node-evals/s;
+12. the closed-loop policy kernels (#6 fixed step, #7 adaptive) against
+   their plain versions per lane on the control path's full width (Acrobot,
+   8 x 512 policies x 16 trajectories, operators + - * sin cos; #6 RK4 with
+   4 substeps at T = 26, #7 Dormand-Prince with 8 steps per interval at
+   T = 11: the horizon is cut because the plain versions launch thousands
+   of kernels per interval), static and dynamic (``state_size=2``); every
+   other plant, series parameters and noise rows at 512 x 16, T = 11; and
+   the sin/cos repair: #1, #5, #8/#9 with + - * / sin cos and #2 with the
+   policy function sets;
+13. the control paths at full width (T = 250): 5 generations of the host
+   loop each with the static (#6), dynamic (#6) and adaptive static (#7)
+   evaluators, ``evaluate_candidate`` of the best static policy (replay
+   through #8) and one ``optimise`` of its loop's top 8 (2 Adam steps, the
+   horizon cut to T = 125: the recompute is host-bound, ~40 s at T = 250)
+   through ``PolicyRollout`` (#8/#9 in the backward);
+14. #6 and #7 times at T = 250 (CUDA events), with bounds counted from the
+   run.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last lines are a JSON line of per-kernel numbers, the card's name and
@@ -59,8 +76,12 @@ FULL = dict(islands=8, pop=512, max_nodes=32, depth=4, batch=16, horizon=10.0, d
             generations=5, timing_runs=5, plain_runs=3,
             fit_generations=20, top_k=50, gradient_steps=10, elite=0.1, interp_runs=20,
             adaptive_budget=500, adaptive_interval_steps=32, adaptive_short_t=10,
-            adaptive_opt_steps=5)
-KERNELS = ("sr_fitness", "reproduce", "interpreter", "sr_adaptive", "sr_rollout")  # csrc/<name>.cu
+            adaptive_opt_steps=5,
+            policy_horizon=50.0, policy_nodes=30, policy_substeps=4, policy_adaptive_substeps=8,
+            policy_fixed_t=26, policy_adaptive_t=11, legs_pop=512, legs_t=11, trig_adaptive_t=5,
+            policy_opt_top_k=8, policy_opt_steps=2, policy_opt_t=125)
+KERNELS = ("sr_fitness", "reproduce", "interpreter", "sr_adaptive", "sr_rollout",
+           "policy")  # csrc/<name>.cu
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, float32 FLOP/s outside the tensor
 # cores (both at the full 700 W power limit)
 PEAK_BYTES_PER_S = 3.35e12
@@ -176,7 +197,7 @@ def operator_rows(trees, fset):
 
 
 def run(device, sizes=FULL) -> dict:
-    """Phases 2-11 on ``device``; returns the numbers the script prints."""
+    """Phases 2-14 on ``device``; returns the numbers the script prints."""
     import torch
 
     from multitreegp_tpu_torch import GeneticProgramming
@@ -229,39 +250,15 @@ def run(device, sizes=FULL) -> dict:
                           max_abs_err=a_err, bit_equal=bit_equal)
 
     # -- phase 3: reproduction kernel vs plain ---------------------------------
-    cfg = ts.make_config(fset, n, s["depth"])
-    elite = (int(0.1 * pop) // 2) * 2
-    pairs = islands * ((pop - elite) // 2)
-    lanes = pairs * fset.num_trees
-    flat = trees.map(lambda a: a.reshape(-1, n))
-    pick = torch.randint(0, flat.ops.shape[0], (2, lanes), generator=g, device=device)
-    p1o, p1c = flat.ops[pick[0]].T.contiguous(), flat.const[pick[0]].T.contiguous()
-    p2o, p2c = flat.ops[pick[1]].T.contiguous(), flat.const[pick[1]].T.contiguous()
-    lane = torch.arange(lanes, device=device)
-    cx = lane % 4 == 0  # a quarter crossover, the rest every copy/mutate/fresh pair
-    act1 = torch.where(cx, 0, (lane // 4) % 3).to(torch.int32)
-    act2 = torch.where(cx, 0, (lane // 12) % 3).to(torch.int32)
-    vmask = fset.variable_mask.to(device)[lane % fset.num_trees].T.contiguous()
-    u = torch.rand((cr.rows_per_lane(cfg), lanes), generator=g, device=device)
-    args = (p1o, p1c, p2o, p2c, cx, act1, act2, vmask, u)
-    got = cr.reproduce_lanes(*args, cfg)
-    ref = cr.reproduce_lanes_plain(*args, cfg)
-    same = (got[0] == ref[0]).all(0) & (got[2] == ref[2]).all(0)  # lanes with identical children
-    ops_same = float(same.float().mean())
-    c_err = max(float((got[i] - ref[i]).abs()[:, same].max()) for i in (1, 3))
-    c_rel = max(float(((got[i] - ref[i]).abs() / ref[i].abs().clamp(min=1e-30))[:, same].max())
-                for i in (1, 3))
-    check(ops_same >= 0.999, f"child ops identical on {ops_same} of lanes")
-    check(c_rel <= 1e-6, f"child const relative difference {c_rel}")
-    slots = fset.slots(device)
-    for ops_t, const_t in (got[:2], got[2:]):
-        ops = ops_t.T.contiguous()
-        c1, c2 = rebuild_pointers(ops, slots)
-        validate_host(TreeTensors(ops, c1, c2, const_t.T), slots)
+    rep = reproduction_case(device, s, trees, fset, g)
+    args, got, lanes = rep.pop("args"), rep.pop("children"), rep["lanes"]
+    ops_same, c_err, c_rel = rep["ops_identical"], rep["max_abs_err"], rep["max_rel"]
     phase_line(f"phase 3 reproduction kernel vs plain: {lanes} lanes, ops identical on {ops_same:.6f}, "
         f"const max abs {c_err:.3e} max rel {c_rel:.3e}; all {2 * lanes} children valid; "
-        f"uniform rows per lane {u.shape[0]}")
-    out["reproduce"] = dict(lanes=lanes, ops_identical=ops_same, max_abs_err=c_err, max_rel=c_rel)
+        f"uniform rows per lane {args[-1].shape[0]}")
+    cfg = rep.pop("cfg")
+    out["reproduce"] = rep
+    slots = fset.slots(device)
 
     # -- phase 4: the main path -------------------------------------------------
     data = (x0s, ts_full, ys_full, None)
@@ -328,6 +325,10 @@ def run(device, sizes=FULL) -> dict:
     out.update(adaptive_path_phase(device, s, data))
     if device.type == "cuda":
         out.update(adaptive_times(device, s, trees, fset, x0s, ts_full, ys_full))
+    ps = policy_setup(device, s)
+    out.update(policy_kernels_phase(device, s, ps, trees, fset, x0s, ts_full, ys_full))
+    out.update(policy_path_phase(device, s, ps))
+    out.update(policy_times(device, s, ps))
 
     # -- the kernels line --------------------------------------------------------
     times = out.get("times_ms", {})
@@ -403,7 +404,68 @@ def run(device, sizes=FULL) -> dict:
             launches10["sr_rollout"], ro["max_abs_err"], at.get("rollout"), ro["plain_ms"],
             bound(ro["bytes"], ro["ops"]), t_steps=ts_full.shape[0]),
     ]
+    pk, pp, pt = out["policy_kernels"], out["policy_path"], out["policy_times_ms"]
+
+    def policy_row(name, kind, replaces, launches):
+        static, dynamic = pt[f"{kind}_static"], pt[f"{kind}_dynamic"]
+        return row(name, "policy.cu", replaces, launches, pk[f"{kind}_static"]["max_abs_err"],
+                   static["ms"], pk[f"{kind}_static"]["plain_ms"], (static["bound_ms"], static["bound_by"]),
+                   t_steps=ps["data"][1].shape[0], plain_t_steps=pk[f"{kind}_static"]["t_steps"],
+                   dynamic=dict(ms=dynamic["ms"], plain_ms=pk[f"{kind}_dynamic"]["plain_ms"],
+                                bound_ms=dynamic["bound_ms"], bound_by=dynamic["bound_by"]))
+
+    out["kernels"] += [
+        policy_row("policy", "fixed", "multitreegp_tpu/core/pallas_policy.py:120",
+                   pp["static"]["launches"]["policy"] + pp["dynamic"]["launches"]["policy"]),
+        policy_row("policy_adaptive", "adaptive", "multitreegp_tpu/core/pallas_policy.py:691",
+                   pp["adaptive"]["launches"]["policy_adaptive"]),
+    ]
     return out
+
+
+def reproduction_case(device, s, trees, fset, g) -> dict:
+    """Kernel #2 against its plain version on the lanes of one generation of
+    ``trees`` (``(P, m, N)``): a quarter crossover, the rest every copy /
+    mutate / fresh pair; every child must be a valid tree."""
+    import torch
+
+    from multitreegp_tpu_torch.core import cuda_reproduction as cr
+    from multitreegp_tpu_torch.core import tile_surgery as ts
+    from multitreegp_tpu_torch.core.trees import TreeTensors, rebuild_pointers, validate_host
+
+    n = trees.max_nodes
+    cfg = ts.make_config(fset, n, s["depth"])
+    elite = (int(0.1 * s["pop"]) // 2) * 2
+    pairs = s["islands"] * ((s["pop"] - elite) // 2)
+    lanes = pairs * fset.num_trees
+    flat = trees.map(lambda a: a.reshape(-1, n))
+    pick = torch.randint(0, flat.ops.shape[0], (2, lanes), generator=g, device=device)
+    p1o, p1c = flat.ops[pick[0]].T.contiguous(), flat.const[pick[0]].T.contiguous()
+    p2o, p2c = flat.ops[pick[1]].T.contiguous(), flat.const[pick[1]].T.contiguous()
+    lane = torch.arange(lanes, device=device)
+    cx = lane % 4 == 0  # a quarter crossover, the rest every copy/mutate/fresh pair
+    act1 = torch.where(cx, 0, (lane // 4) % 3).to(torch.int32)
+    act2 = torch.where(cx, 0, (lane // 12) % 3).to(torch.int32)
+    vmask = fset.variable_mask.to(device)[lane % fset.num_trees].T.contiguous()
+    u = torch.rand((cr.rows_per_lane(cfg), lanes), generator=g, device=device)
+    args = (p1o, p1c, p2o, p2c, cx, act1, act2, vmask, u)
+    got = cr.reproduce_lanes(*args, cfg)
+    ref = cr.reproduce_lanes_plain(*args, cfg)
+    same = (got[0] == ref[0]).all(0) & (got[2] == ref[2]).all(0)  # lanes with identical children
+    ops_same = float(same.float().mean())
+    c_err = max(float((got[i] - ref[i]).abs()[:, same].max()) for i in (1, 3))
+    c_rel = max(float(((got[i] - ref[i]).abs() / ref[i].abs().clamp(min=1e-30))[:, same].max())
+                for i in (1, 3))
+    bit_equal = all(torch.equal(a, b) for a, b in zip(got, ref))
+    check(ops_same >= 0.999, f"child ops identical on {ops_same} of lanes")
+    check(c_rel <= 1e-6, f"child const relative difference {c_rel}")
+    slots = fset.slots(device)
+    for ops_t, const_t in (got[:2], got[2:]):
+        ops = ops_t.T.contiguous()
+        c1, c2 = rebuild_pointers(ops, slots)
+        validate_host(TreeTensors(ops, c1, c2, const_t.T), slots)
+    return dict(lanes=lanes, ops_identical=ops_same, max_abs_err=c_err, max_rel=c_rel,
+                bit_equal=bit_equal, args=args, children=got, cfg=cfg)
 
 
 def interpreter_cases(device, s, trees, fset, g):
@@ -938,6 +1000,419 @@ def adaptive_times(device, s, trees, fset, x0s, ts_full, ys_full) -> dict:
                f"{times['interval_short']:.3f}; #3 trajectory T={ts_full.shape[0]} {times['rollout']:.3f}; "
                f"#5 rate {rate:.4e} node-evals/s")
     return {"adaptive_times_ms": dict(times, global_node_evals_per_s=rate)}
+
+
+# ----------------------------------------------------------- control path
+
+POLICY_OPERATORS = [("+", 2), ("-", 2), ("*", 2), ("sin", 1), ("cos", 1)]
+TRIG_OPERATORS = OPERATORS + [("sin", 1, 0.3), ("cos", 1, 0.3)]
+# float32 operations of one Acrobot drift, counted by hand from the drift's
+# expression (sin, cos and a remainder each counted as one) with its wrapped
+# observation: a lower bound of the plant's work
+ACROBOT_DRIFT_OPS = 80
+# per attempted Dormand-Prince step and lane besides the drifts, per state
+# component, and per fixed RK4 substep (stage inputs, sums, update, liveness)
+RK4_OPS_PER_DIM = 18
+
+
+def policy_setup(device, s) -> dict:
+    """The control path's configuration at full width: Acrobot, 16
+    trajectories on ``arange(0, 50, 0.2)``, 8 x 512 candidates of one tree
+    (static) or 2 + 1 trees (dynamic, ``state_size=2``), ``max_nodes=30``,
+    operators + - * sin cos (the JAX package's ``policy`` workload)."""
+    import torch
+
+    from multitreegp_tpu_torch.core.registry import build_function_set
+    from multitreegp_tpu_torch.models.environments import Acrobot
+    from multitreegp_tpu_torch.models.evaluators import generate_control_data
+    from multitreegp_tpu_torch.ops.initialization import make_population_sampler
+
+    env = Acrobot(0.0, 0.0)
+    ys = [f"y{i}" for i in range(env.n_obs)]
+    fsets = dict(static=build_function_set(POLICY_OPERATORS, [ys], [env.n_control]),
+                 dynamic=build_function_set(POLICY_OPERATORS, [ys + ["a0", "a1", "u0"], ["a0", "a1"]],
+                                            [2, env.n_control]))
+    g = torch.Generator(device=device).manual_seed(10)
+    ts = torch.arange(0.0, s["policy_horizon"], s["dt"], device=device)
+    data = generate_control_data(env, g, ts, batch_size=s["batch"])
+    total = s["islands"] * s["pop"]
+    trees = {k: make_population_sampler(f, s["depth"], s["policy_nodes"])(g, total)[0]
+             for k, f in fsets.items()}
+    return dict(env=env, fsets=fsets, data=data, trees=trees, g=g, state_size=dict(static=0, dynamic=2))
+
+
+def compare_policy(got, ref) -> dict:
+    """Per lane: states, controls, alive count (and attempted steps) of a
+    policy kernel against its plain version. Raises unless >= 99.9% of the
+    lanes are identical and the rest, alive in both, within rel 1e-3."""
+    import torch
+
+    same = lambda a, b: ((a == b) | (torch.isnan(a) & torch.isnan(b))).all(-1).all(0)
+    lane = same(got[0], ref[0]) & same(got[1], ref[1]) & (got[2].sum(0) == ref[2].sum(0))
+    if len(got) > 3:
+        lane &= got[3] == ref[3]
+    both = got[2][-1] & ref[2][-1]
+    diff = (got[0] - ref[0]).abs()
+    rel = (diff / ref[0].abs().clamp(min=1e-30)).nan_to_num(0.0).amax(dim=(0, 3))
+    fin = torch.isfinite(got[0]) & torch.isfinite(ref[0])
+    rest = both & ~lane
+    r = dict(identical=float(lane.float().mean()),
+             alive_agreement=float((got[2][-1] == ref[2][-1]).float().mean()),
+             max_rel=float(rel[both].max()) if bool(both.any()) else 0.0,
+             rest_rel=float(rel[rest].max()) if bool(rest.any()) else 0.0,
+             max_abs_err=float(diff[fin].max()) if bool(fin.any()) else 0.0,
+             alive=float(got[2][-1].float().mean()), lanes=lane.numel())
+    check(r["identical"] >= 0.999, f"only {r['identical']:.6f} of lanes identical")
+    check(r["rest_rel"] <= 1e-3, f"rel {r['rest_rel']} on a lane alive in both")
+    return r
+
+
+def policy_pair(device, kind, trees, data, env, fset, state_size, t_steps, substeps=4,
+                method="rk4", rows=None):
+    """Kernel #6 or #7 and its plain version on the first ``t_steps`` save
+    points; returns the comparison and the plain version's ms."""
+    from multitreegp_tpu_torch.core import cuda_policy as cp
+
+    x0, ts, tgt, _, _, par = data
+    ts = ts[:t_steps]
+    par = tuple(p[:, :t_steps] if p.dim() == 2 else p for p in par)
+    on_card = device.type == "cuda"
+    if kind == "fixed":
+        args = (trees, x0, ts, tgt, par, env, fset, substeps, method, state_size)
+        kernel, plain = (cp.policy_rollout_cuda if on_card else cp.policy_rollout_plain), cp.policy_rollout_plain
+        kw = rows or {}
+    else:
+        args = (trees, x0, ts, tgt, par, env, fset, 1e-4, 1e-4, 8, "dopri5", 0.9, state_size)
+        kernel = cp.policy_rollout_adaptive_cuda if on_card else cp.policy_rollout_adaptive_plain
+        plain, kw = cp.policy_rollout_adaptive_plain, {}
+    got = kernel(*args, **kw)
+    ref, plain_ms = timed_plain(lambda: plain(*args, **kw), device)
+    res = compare_policy(got, ref)
+    if kind == "adaptive":
+        st = got[3].float()
+        res.update(steps_min=int(st.min()), steps_median=float(st.median()), steps_max=int(st.max()))
+    res.update(plain_ms=plain_ms, t_steps=t_steps)
+    return res
+
+
+def policy_kernels_phase(device, s, ps, trees_sr, fset_sr, x0s, ts_sr, ys_sr) -> dict:
+    """Phase 12: kernels #6 and #7 against their plain versions on the card,
+    at the path's full width with the horizon cut (the plain versions launch
+    thousands of kernels per interval); the other plants, series parameters
+    and noise rows at 512 x 16; and the sin/cos repair of #1, #5, #8/#9 and
+    #2 with the policy function sets."""
+    import torch
+
+    from multitreegp_tpu_torch.core import cuda_adaptive as ca
+    from multitreegp_tpu_torch.core import cuda_rollout as cf
+    from multitreegp_tpu_torch.core.interpreter import (
+        evaluate_trees, evaluate_trees_plain, evaluate_trees_vjp_plain,
+    )
+    from multitreegp_tpu_torch.core.registry import build_function_set
+    from multitreegp_tpu_torch.models import environments as envs
+    from multitreegp_tpu_torch.models.evaluators import generate_control_data
+    from multitreegp_tpu_torch.ops.initialization import make_population_sampler
+
+    res = {}
+    env, data = ps["env"], ps["data"]
+    for name in ("static", "dynamic"):
+        for kind, t_steps in (("fixed", s["policy_fixed_t"]), ("adaptive", s["policy_adaptive_t"])):
+            r = policy_pair(device, kind, ps["trees"][name], data, env, ps["fsets"][name],
+                            ps["state_size"][name], t_steps, s["policy_substeps"])
+            res[f"{kind}_{name}"] = r
+            phase_line(f"phase 12 {'#6' if kind == 'fixed' else '#7'} {name} vs plain, Acrobot, "
+                       f"{r['lanes']} lanes, T={t_steps}: identical {r['identical']:.6f} (states, "
+                       f"controls, alive count{', steps' if kind == 'adaptive' else ''}), alive "
+                       f"agreement {r['alive_agreement']:.6f}, max rel (alive in both) "
+                       f"{r['max_rel']:.3e}, max abs {r['max_abs_err']:.3e}; alive {r['alive']:.4f}; "
+                       f"plain {r['plain_ms']:.1f} ms"
+                       + (f"; steps per lane min {r['steps_min']} median {r['steps_median']:.0f} "
+                          f"max {r['steps_max']}" if kind == "adaptive" else ""))
+
+    # the other plants and legs, 512 x 16 candidates x trajectories
+    g = torch.Generator(device=device).manual_seed(11)
+    legs = [("HarmonicOscillator", "Constant", None), ("HarmonicOscillator", "Switch", None),
+            ("HarmonicOscillator", "Decay", None), ("ChangingHarmonicOscillator", "Switch", None),
+            ("ChangingHarmonicOscillator", "Decay", None), ("HarmonicOscillator2", "Constant", None),
+            ("CartPole", "Constant", None), ("Acrobot2", "Different", None),
+            ("StirredTankReactor", "Different", None), ("HarmonicOscillator", "Constant", "obs"),
+            ("Acrobot", "Constant", "obs+kicks")]
+    t_steps, sub = s["legs_t"], 2
+    ts = torch.arange(t_steps, dtype=torch.float32, device=device) * s["dt"]
+    leg_res = []
+    for name, mode, noise in legs:
+        e = getattr(envs, name)()
+        ys = [f"y{i}" for i in range(e.n_obs)] + [f"tgt{i}" for i in range(e.n_targets)]
+        fset = build_function_set(POLICY_OPERATORS, [ys], [e.n_control])
+        d = generate_control_data(e, g, ts, batch_size=s["batch"], param_mode=mode)
+        tr = make_population_sampler(fset, s["depth"], s["policy_nodes"])(g, s["legs_pop"])[0]
+        method, rows = "rk4", None
+        if noise:
+            method = "euler" if "kicks" in noise else "rk4"
+            stages = 1 if method == "euler" else 4
+            rows = dict(obs_noise_rows=0.05 * torch.randn(
+                (t_steps, s["batch"], sub * stages * e.n_obs), generator=g, device=device))
+            if "kicks" in noise:
+                rows["process_noise_rows"] = 0.02 * torch.randn(
+                    (t_steps, s["batch"], sub * e.latent_size), generator=g, device=device)
+        kinds = ["fixed"] + (["adaptive"] if mode in ("Constant", "Different") and not noise else [])
+        for kind in kinds:
+            r = policy_pair(device, kind, tr, d, e, fset, 0, t_steps, sub, method, rows)
+            r.update(env=name, mode=mode, noise=noise, kind=kind)
+            leg_res.append(r)
+            phase_line(f"phase 12 {'#6' if kind == 'fixed' else '#7'} leg {name} {mode}"
+                       f"{' ' + noise if noise else ''} ({method if kind == 'fixed' else 'dopri5'}), "
+                       f"{r['lanes']} lanes, T={t_steps}: identical {r['identical']:.6f}, alive "
+                       f"agreement {r['alive_agreement']:.6f}, max rel {r['max_rel']:.3e}; alive "
+                       f"{r['alive']:.4f}")
+    res["legs"] = leg_res
+
+    # the sin/cos repair: #1, #5 and #8/#9 with + - * / sin cos, #2 with the
+    # policy function sets (1 and 3 trees per candidate)
+    trig = build_function_set(TRIG_OPERATORS, [["x0", "x1"]], [2])
+    tt = make_population_sampler(trig, s["depth"], s["max_nodes"])(g, trees_sr.ops.shape[0])[0]
+    unary = int(((tt.ops == trig.string_to_op["sin"]) | (tt.ops == trig.string_to_op["cos"])).sum())
+    on_card = device.type == "cuda"
+    fit_args = (tt, x0s, ts_sr, ys_sr, trig, "rk4", 1)
+    mse, alive = (cf.sr_fitness_cuda if on_card else cf.sr_fitness_plain)(*fit_args)
+    ref, ref_alive = cf.sr_fitness_plain(*fit_args)
+    both = alive & ref_alive
+    rel1 = float(((mse - ref).abs() / ref.abs().clamp(min=1e-30))[both].max())
+    agree1 = float((alive == ref_alive).float().mean())
+    eq1 = float(((mse == ref) & (alive == ref_alive)).float().mean())
+    check(agree1 >= 0.999 and eq1 >= 0.999, f"#1 sin/cos: alive agreement {agree1}, identical {eq1}")
+    t5 = s["trig_adaptive_t"]
+    a_args = (tt, x0s, ts_sr[:t5], ys_sr[:, :t5].contiguous(), trig, 1e-4, 1e-6,
+              s["adaptive_budget"], "dopri5", 0.9)
+    got5 = (ca.sr_fitness_adaptive_global_cuda if on_card else ca.sr_fitness_adaptive_global_plain)(*a_args)
+    same5, _, _, rel5, _, _, _ = compare_adaptive(got5, ca.sr_fitness_adaptive_global_plain(*a_args))
+    check(same5 >= 0.999, f"#5 sin/cos: {same5} of lanes identical")
+    k, b = min(s["top_k"], tt.ops.shape[0]), s["batch"]
+    full = tt[:k].map(lambda a: a[:, None].expand((k, b) + a.shape[1:]).contiguous())
+    states = torch.randn((k, b, 2, 2), generator=g, device=device) * 2
+    cot = torch.randn((k, b, 2), generator=g, device=device)
+    const = full.const.clone().requires_grad_(True)
+    xg = states.clone().requires_grad_(True)
+    out8 = evaluate_trees(full._replace(const=const), xg, trig)
+    dconst, ddata = torch.autograd.grad(out8, (const, xg), cot)
+    sb = lambda a, r: bool(torch.equal(torch.isnan(a), torch.isnan(r)) and torch.equal(a[~torch.isnan(r)], r[~torch.isnan(r)]))
+    ref_c, ref_d = evaluate_trees_vjp_plain(full, states, cot, trig)
+    eq8 = sb(out8.detach(), evaluate_trees_plain(full, states, trig))
+    eq9 = sb(dconst, ref_c) and sb(ddata, ref_d)
+    check(eq8 and eq9, f"#8/#9 sin/cos: forward bit-equal {eq8}, VJP bit-equal {eq9}")
+    reps = {}
+    for name in ("static", "dynamic"):
+        rep = reproduction_case(device, s, ps["trees"][name], ps["fsets"][name], g)
+        reps[name] = dict(lanes=rep["lanes"], ops_identical=rep["ops_identical"],
+                          max_rel=rep["max_rel"], bit_equal=rep["bit_equal"])
+    res["trig"] = dict(unary_rows=unary, fitness=dict(alive_agreement=agree1, identical=eq1, max_rel=rel1),
+                       adaptive_global=dict(identical=same5, max_rel=rel5),
+                       interpreter=dict(fwd_bit_equal=eq8, vjp_bit_equal=eq9, lanes=k * b * 2),
+                       reproduce=reps)
+    phase_line(f"phase 12 sin/cos repair ({unary} sin/cos rows in {tt.ops.shape[0]} candidates): "
+               f"#1 rk4 T={ts_sr.shape[0]} identical {eq1:.6f} (alive agreement {agree1:.6f}, max rel "
+               f"{rel1:.3e}); #5 dopri5 T={t5} identical {same5:.6f}; #8 forward bit-equal {eq8}, "
+               f"#9 VJP bit-equal {eq9} ({k * b * 2} lanes); #2 with the policy sets: "
+               + "; ".join(f"{k_} {v['lanes']} lanes ops identical {v['ops_identical']:.6f} "
+                           f"bit-equal {v['bit_equal']}" for k_, v in reps.items()))
+    return {"policy_kernels": res}
+
+
+def policy_fixed_ops(trees, fset, state_size, d_aug, count, t_steps, substeps, env_ops) -> float:
+    """float32 operations of a #6 run from its alive counts ``(P, B)``: per
+    substep four drifts (one operation per operator row of every tree, the
+    plant's ``env_ops``) and the RK4 arithmetic; a lane steps until the
+    interval it dies in; and the controls at every save point."""
+    rows = ((trees.ops >= 2) & (trees.ops < fset.var_start))
+    drift_rows = rows.sum(dim=(1, 2))[:, None]  # (P, 1)
+    readout_rows = rows[:, state_size:].sum(dim=(1, 2))[:, None]
+    steps = substeps * count.clamp(max=t_steps - 1)
+    per_step = 4 * (drift_rows + env_ops) + RK4_OPS_PER_DIM * d_aug
+    return float((steps * per_step + t_steps * readout_rows).sum())
+
+
+def policy_adaptive_ops(trees, fset, state_size, d_aug, steps, t_steps, env_ops) -> float:
+    """float32 operations of a #7 run from its attempted steps per lane: six
+    drifts and the step's arithmetic per attempt, the up-front drift, and
+    the controls at every save point."""
+    rows = ((trees.ops >= 2) & (trees.ops < fset.var_start))
+    drift_rows = rows.sum(dim=(1, 2))[:, None]
+    readout_rows = rows[:, state_size:].sum(dim=(1, 2))[:, None]
+    per_step = 6 * (drift_rows + env_ops) + DOPRI5_OPS_PER_DIM * d_aug + CONTROL_OPS
+    return float((steps * per_step + drift_rows + env_ops + t_steps * readout_rows).sum())
+
+
+def policy_path_phase(device, s, ps) -> dict:
+    """Phase 13: the control paths at full width through the user's entry
+    points: 5 generations of the host loop (``evaluate_population`` +
+    ``evolve``) with the static (#6), dynamic (#6) and adaptive static (#7)
+    evaluators, the launch counters zeroed before each loop and read after;
+    then ``evaluate_candidate`` of the best static policy (its replay through
+    #8) and one ``optimise`` of the static loop's top candidates through
+    ``PolicyRollout`` (#8/#9 in the backward)."""
+    import torch
+
+    from multitreegp_tpu_torch import GeneticProgramming
+    from multitreegp_tpu_torch.core import cuda_interpreter as ci
+    from multitreegp_tpu_torch.core import cuda_policy as cp
+    from multitreegp_tpu_torch.core import cuda_reproduction as cr
+    from multitreegp_tpu_torch.core.trees import validate_host
+    from multitreegp_tpu_torch.models.evaluators import DynamicPolicyEvaluator, StaticPolicyEvaluator
+    from multitreegp_tpu_torch.utils.metrics import node_evals_per_evaluation, policy_adaptive_node_evals
+
+    env, data = ps["env"], ps["data"]
+    ys = [f"y{i}" for i in range(env.n_obs)]
+    t_steps, n, b = data[1].shape[0], s["policy_nodes"], s["batch"]
+    total = s["islands"] * s["pop"]
+    configs = dict(
+        static=(StaticPolicyEvaluator(env, substeps=s["policy_substeps"]), [ys], [1], cp.policy_rollout_cuda),
+        dynamic=(DynamicPolicyEvaluator(env, state_size=2, substeps=s["policy_substeps"]),
+                 [ys + ["a0", "a1", "u0"], ["a0", "a1"]], [2, 1], cp.policy_rollout_cuda),
+        adaptive=(StaticPolicyEvaluator(env, method="adaptive", adaptive_method="dopri5", rtol=1e-4,
+                                        atol=1e-4, substeps=s["policy_adaptive_substeps"]),
+                  [ys], [1], cp.policy_rollout_adaptive_cuda),
+    )
+    counters = dict(policy=cp.policy_rollout_cuda, policy_adaptive=cp.policy_rollout_adaptive_cuda,
+                    reproduce=cr.reproduce_lanes_cuda, interpret_fwd=ci.evaluate_trees_cuda,
+                    interpret_bwd=ci.evaluate_trees_vjp_cuda)
+    res = {}
+    for name, (ev, layers, sizes, kernel) in configs.items():
+        gp = GeneticProgramming(
+            num_generations=s["generations"], population_size=s["pop"], fitness_function=ev,
+            operator_list=POLICY_OPERATORS, variable_list=layers, layer_sizes=sizes,
+            num_populations=s["islands"], max_nodes=n, max_init_depth=s["depth"],
+            gradient_steps=s["policy_opt_steps"], coefficient_opt_top_k=s["policy_opt_top_k"],
+            device=device)
+        for fn in counters.values():
+            fn.launches = 0
+        gen_g = torch.Generator(device=device).manual_seed(12)
+        pops = gp.initialize_population(gen_g)
+        best, gens = [], []
+        for _ in range(s["generations"]):
+            sync(device)
+            t0 = time.perf_counter()
+            fitness, pops_eval = gp.evaluate_population(pops, data)
+            sync(device)
+            t1 = time.perf_counter()
+            pops = gp.evolve(pops_eval, fitness, gen_g)
+            sync(device)
+            t2 = time.perf_counter()
+            check(bool(torch.isfinite(fitness).all()), f"{name}: non-finite policy fitness")
+            check(bool(((fitness >= 0) & (fitness <= 1e4)).all()), f"{name}: fitness outside [0, 1e4]")
+            best.append(float(fitness.min()))
+            gens.append(dict(eval_ms=(t1 - t0) * 1e3, evolve_ms=(t2 - t1) * 1e3, best=best[-1]))
+        check(all(b1 <= b0 for b0, b1 in zip(best, best[1:])), f"{name}: best fitness increased {best}")
+        validate_host(pops.map(lambda a: a.reshape(-1, n)), gp.fset.slots(device))
+        launches = {k: fn.launches for k, fn in counters.items()}
+        kernel_key = "policy_adaptive" if name == "adaptive" else "policy"
+        if device.type == "cuda":
+            check(launches[kernel_key] >= s["generations"], f"{name}: policy kernel launches {launches}")
+            check(launches["reproduce"] >= s["generations"], f"{name}: #2 launches {launches}")
+        flat = pops_eval.map(lambda a: a.reshape((-1,) + a.shape[2:]))
+        r = dict(generations=gens, best=best, launches=launches, best_string=gp.to_string(
+            flat[int(torch.argmin(fitness.reshape(-1)))]))
+        if name == "adaptive":
+            x0, ts, tgt, _, _, par = data
+            steps = cp.rollout_policy_adaptive(flat, x0, ts, tgt, par, env, gp.fset,
+                                               rtol=1e-4, atol=1e-4, max_steps=s["policy_adaptive_substeps"],
+                                               method="dopri5", return_steps=True)[3]
+            st = steps.float()
+            evals = policy_adaptive_node_evals(steps, "dopri5", gp.fset.num_trees, n, t_steps)
+            r.update(steps_min=int(st.min()), steps_median=float(st.median()), steps_max=int(st.max()),
+                     steps_mean=float(st.mean()))
+        else:
+            evals = node_evals_per_evaluation(total, gp.fset.num_trees, n, b, t_steps,
+                                              s["policy_substeps"], "rk4", replay_trees=gp.fset.num_trees)
+        r["node_evals"] = evals
+        for i, rec in enumerate(gens):
+            rec["node_evals_per_s"] = evals / (rec["eval_ms"] / 1e3)
+            phase_line(f"phase 13 {name} policy gen {i}: eval {rec['eval_ms']:.3f} ms, evolve "
+                       f"{rec['evolve_ms']:.3f} ms, {rec['node_evals_per_s']:.4e} node-evals/s, best "
+                       f"fitness {rec['best']:.6g}")
+        phase_line(f"phase 13 {name} policy: {s['islands']}x{s['pop']} candidates x {b} trajectories, "
+                   f"T={t_steps}; launches {launches}; best {r['best_string']}"
+                   + (f"; attempted steps per lane min {r['steps_min']} median {r['steps_median']:.0f} "
+                      f"max {r['steps_max']}" if name == "adaptive" else ""))
+        res[name] = r
+        if name == "static":
+            static_gp, static_flat, static_fit = gp, flat, fitness.reshape(-1)
+
+    # evaluate_candidate of the best static policy, and one optimise call
+    for fn in counters.values():
+        fn.launches = 0
+    ev = static_gp.evaluator
+    best_cand = static_flat[int(torch.argmin(static_fit))]
+    xs_c, ys_c, us_c, cost = ev.evaluate_candidate(best_cand, data)
+    check(xs_c.shape == (b, t_steps, 4) and us_c.shape == (b, t_steps, 1), "evaluate_candidate shapes")
+    check(bool(((cost >= 0) & (cost <= 1e4)).all()), f"evaluate_candidate cost {cost}")
+    top = torch.argsort(static_fit, stable=True)[: s["policy_opt_top_k"]]
+    cands = static_flat[top]
+    opt_data = (data[0], data[1][: s["policy_opt_t"]]) + data[2:]
+    before = ev.evaluate_population(cands, opt_data)
+    sync(device)
+    t0 = time.perf_counter()
+    refined, _ = static_gp.optimise(cands, opt_data)
+    sync(device)
+    opt_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: fn.launches for k, fn in counters.items()}
+    worse = refined > before * (1 + 1e-6)
+    check(not bool(worse.any()), f"refinement made {int(worse.sum())} policies worse")
+    if device.type == "cuda":
+        check(launches["interpret_fwd"] >= 1 and launches["interpret_bwd"] >= 1,
+              f"#8/#9 launches in the candidate replay and optimise {launches}")
+    res["optimise"] = dict(top_k=int(top.numel()), steps=s["policy_opt_steps"], t_steps=s["policy_opt_t"],
+                           ms=opt_ms, unrefined_sum=float(before.sum()), refined_sum=float(refined.sum()),
+                           improved=int((refined < before).sum()), launches=launches,
+                           candidate_cost=[float(c) for c in cost])
+    phase_line(f"phase 13 best static policy evaluate_candidate: per-trajectory cost "
+               f"{[round(float(c), 4) for c in cost]}; optimise top-{int(top.numel())} "
+               f"({s['policy_opt_steps']} Adam steps, T={s['policy_opt_t']}): {opt_ms:.1f} ms, fitness sum "
+               f"{float(before.sum()):.6g} -> {float(refined.sum()):.6g}, {res['optimise']['improved']} "
+               f"improved; launches {launches}")
+    return {"policy_path": res}
+
+
+def policy_times(device, s, ps) -> dict:
+    """Phase 14: CUDA-event times of #6 (static, dynamic) and #7 (static,
+    dynamic) at the path's full shapes (T = 250), with each run's bound
+    counted from its own outputs (on CPU tensors: the bounds of the plain
+    versions' runs, no times)."""
+    import torch
+
+    from multitreegp_tpu_torch.core import cuda_policy as cp
+
+    env, (x0, ts, tgt, _, _, par) = ps["env"], ps["data"]
+    t_steps = ts.shape[0]
+    res = {}
+    for name in ("static", "dynamic"):
+        trees, fset, ss = ps["trees"][name], ps["fsets"][name], ps["state_size"][name]
+        fns = dict(
+            fixed=lambda: cp.rollout_policy(trees, x0, ts, tgt, par, env, fset, s["policy_substeps"],
+                                            "rk4", ss),
+            adaptive=lambda: cp.rollout_policy_adaptive(
+                trees, x0, ts, tgt, par, env, fset, 1e-4, 1e-4, s["policy_adaptive_substeps"], "dopri5",
+                0.9, ss, return_steps=True))
+        for kind, fn in fns.items():
+            ms = cuda_time_ms(fn, s["timing_runs"], torch) if device.type == "cuda" else None
+            out = fn()
+            count = out[2].sum(0)
+            in_bytes = nbytes(trees.ops, trees.const, x0, tgt, ts, *par)
+            out_bytes = nbytes(out[0], out[1]) + count.numel() * 4 * (2 if kind == "adaptive" else 1)
+            d_aug = out[0].shape[-1]
+            if kind == "fixed":
+                ops = policy_fixed_ops(trees, fset, ss, d_aug, count, t_steps, s["policy_substeps"],
+                                       ACROBOT_DRIFT_OPS)
+            else:
+                ops = policy_adaptive_ops(trees, fset, ss, d_aug, out[3], t_steps, ACROBOT_DRIFT_OPS)
+            bnd = bound(in_bytes + out_bytes, ops)
+            res[f"{kind}_{name}"] = dict(ms=ms, bound_ms=bnd[0], bound_by=bnd[1], ops=ops,
+                                         bytes=in_bytes + out_bytes)
+            if ms is not None:
+                phase_line(f"phase 14 {'#6' if kind == 'fixed' else '#7'} {name} T={t_steps}, "
+                           f"{count.numel()} lanes: {ms:.3f} ms (median of {s['timing_runs']}), bound "
+                           f"{bnd[0]:.4f} ms by {bnd[1]} ({ops:.4e} operations, "
+                           f"{(in_bytes + out_bytes) / 1e6:.1f} MB)")
+    return {"policy_times_ms": res}
 
 
 def sync(device) -> None:

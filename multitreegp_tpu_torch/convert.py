@@ -1,4 +1,4 @@
-"""Carry trees, function sets and SR data over from the JAX package.
+"""Carry trees, function sets, SR and control data over from the JAX package.
 
 Everything crosses as numpy arrays (or objects read attribute by attribute),
 so this module never imports ``multitreegp_tpu`` or JAX: the caller hands in
@@ -56,3 +56,17 @@ def sr_data_from_numpy(x0s, ts, ys, device=None) -> Tuple:
     """SR data tuple ``(x0s (B, d), ts (T,), ys (B, T, d), None)``."""
     as_f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
     return as_f32(x0s), as_f32(ts), as_f32(ys), None
+
+
+def control_data_from_numpy(x0, ts, targets, process_noise_keys, obs_noise_keys, params,
+                            device=None) -> Tuple:
+    """Control data tuple ``(x0 (B, latent), ts (T,), targets (B, n_targets),
+    process_noise_keys (B, 2), obs_noise_keys (B, 2), params)`` from the JAX
+    package's ``generate_control_data``: float32 arrays, the raw keys as
+    int64, and the parameters (one array or a tuple) as a tuple of float32
+    tensors."""
+    as_f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    as_key = lambda a: torch.tensor(np.asarray(a).astype(np.int64), device=device)
+    leaves = params if isinstance(params, (tuple, list)) else (params,)
+    return (as_f32(x0), as_f32(ts), as_f32(targets), as_key(process_noise_keys),
+            as_key(obs_noise_keys), tuple(as_f32(p) for p in leaves))

@@ -245,13 +245,13 @@ def _adaptive_cuda(kind, trees, x0s, ts, ys, fset, rtol, atol, budget, method, s
 
     lib = _build.load("sr_adaptive")
     fn = lib.sr_adaptive_launch
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                    + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     status = fn(
         kind, ops.data_ptr(), cst.data_ptr(), devop.data_ptr(), x0c.data_ptr(), tsc.data_ptr(),
         ysc.data_ptr(), err.data_ptr(), alive.data_ptr(), steps.data_ptr(),
-        p, d, n, b, t_steps, fset.var_start, METHODS[method], budget,
+        p, d, n, b, t_steps, fset.var_start, fset.has_unary, METHODS[method], budget,
         _f32(rtol), _f32(atol), _f32(safety), cpb, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, status, "sr_adaptive kernel launch")

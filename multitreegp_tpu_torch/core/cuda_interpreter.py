@@ -37,8 +37,8 @@ MAX_OPS = 32  # kMaxOps
 MAX_DIMS = 8  # kMaxDims: rank of the joint batch
 
 _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# ops, c2, cst, data, layout, devop, nops, L, n, nvar, var_start
-_COMMON_ARGTYPES = [_PTR] * 6 + [_INT, _I64, _INT, _INT, _INT]
+# ops, c2, cst, data, layout, devop, nops, L, n, nvar, var_start, unary
+_COMMON_ARGTYPES = [_PTR] * 6 + [_INT, _I64, _INT, _INT, _INT, _INT]
 
 
 def _row_major(t: torch.Tensor) -> torch.Tensor:
@@ -93,7 +93,7 @@ def run_forward(fn, trees: TreeTensors, data: torch.Tensor, fset: FunctionSet,
     fn.restype = _INT
     status = fn(ops.data_ptr(), c2.data_ptr(), cst.data_ptr(), x.data_ptr(), layout, devop,
                 fset.num_operators, lanes, trees.max_nodes, x.shape[-1], fset.var_start,
-                out.data_ptr(), stream)
+                fset.has_unary, out.data_ptr(), stream)
     return status, out
 
 
@@ -113,8 +113,8 @@ def run_backward(fn, trees: TreeTensors, data: torch.Tensor, g: torch.Tensor, fs
         fn.argtypes = _COMMON_ARGTYPES + [_PTR] * 4
         fn.restype = _INT
         status = fn(ops.data_ptr(), c2.data_ptr(), cst.data_ptr(), x.data_ptr(), layout, devop,
-                    fset.num_operators, lanes, n, nvar, fset.var_start, g.data_ptr(),
-                    dconst.data_ptr(), ddata.data_ptr(), stream)
+                    fset.num_operators, lanes, n, nvar, fset.var_start, fset.has_unary,
+                    g.data_ptr(), dconst.data_ptr(), ddata.data_ptr(), stream)
     per_lane = lambda t: t.view((t.shape[0],) + tuple(batch)).movedim(0, -1)
     return status, per_lane(dconst), per_lane(ddata)
 

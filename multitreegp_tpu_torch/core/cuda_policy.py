@@ -1,0 +1,518 @@
+"""Closed-loop symbolic-policy rollouts per lane: kernels #6 and #7 and their
+plain versions.
+
+Counterpart of ``multitreegp_tpu/core/pallas_policy.py``. Every lane
+(candidate x trajectory) integrates a control environment's plant driven by
+the candidate's trees, and the rollout returns the augmented state ``[x, a]``
+and the controls at every save point and the per-save liveness:
+
+* :func:`rollout_policy` (``rollout_policy_pallas``): euler / heun / rk4 with
+  ``substeps`` steps of one size ``(ts[1] - ts[0]) / substeps``; constant,
+  per-trajectory ``(B,)`` or ``(B, T)`` series parameters; optional
+  observation-noise rows and Euler-Maruyama kicks given as tensors. Kernel
+  ``policy_kernel`` of ``csrc/policy.cu``; plain version
+  :func:`policy_rollout_plain`.
+* :func:`rollout_policy_adaptive` (``rollout_policy_adaptive_pallas``):
+  Dopri5 / Bosh3 with the per-lane I controller and a step budget per save
+  interval, ``cond_alive`` rejecting steps; per-trajectory parameters, no
+  noise. Kernel ``policy_adaptive_kernel``; plain version
+  :func:`policy_rollout_adaptive_plain`.
+
+A static policy (``state_size = 0``) computes ``u = trees([y, tgt])``; a
+dynamic one augments the state with ``a`` and has ``state_size`` state trees
+then ``n_control`` readout trees: ``u = readout([0s(n_obs), a, 0s(n_control),
+tgt])`` inside the loop, ``da = state_trees([y, a, u, tgt])``. The controls
+at the save points see real observations (``u`` zero-fed).
+
+CUDA tensors launch the kernel, or raise where it does not apply (an
+operator outside ``DEVICE_OPS``, ``N > 256``, ``state_size > 2``, more than
+two targets, an environment without a device drift, process noise with a
+method other than euler, series parameters in the adaptive kernel); CPU
+tensors run the plain version, which computes what the kernel computes in
+plain PyTorch, in its float32 expression order. Nothing falls back.
+
+:class:`PolicyRollout` is the counterpart of the policy evaluators'
+``custom_vjp``: the forward is a dispatcher, the backward differentiates the
+evaluator's general path (``integrate`` or ``integrate_adaptive`` with
+``evaluate_trees``: kernels #8 and #9 on CUDA) and its control replay.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..models.environments.control_envs import (
+    Acrobot, Acrobot2, CartPole, ChangingHarmonicOscillator, HarmonicOscillator,
+    HarmonicOscillator2, StirredTankReactor,
+)
+from ..models.integrators import ERROR_EXPONENT, _f32, _f32_expr, finite
+from .cuda_adaptive import CHECK_EVERY, CROSS, DT_DEAD, DT_MIN, _rk_step, _step_factor
+from .cuda_adaptive import METHODS as ADAPTIVE_METHODS
+from .cuda_rollout import METHODS, RK_TABLES, SHARED_BYTES, THREADS_PER_BLOCK, rollout_step
+from .interpreter import evaluate_trees_plain
+from .registry import FunctionSet
+from .trees import TreeTensors
+
+# csrc/control_envs.cuh EnvId: the exact class picks the device drift
+ENV_IDS = {HarmonicOscillator: 0, ChangingHarmonicOscillator: 1, HarmonicOscillator2: 2,
+           CartPole: 3, Acrobot: 4, Acrobot2: 5, StirredTankReactor: 6}
+FIXED, ADAPTIVE = 0, 1  # csrc/policy.cu Kind
+MAX_NODES = 256  # kMaxNodes
+MAX_STATE_SIZE = 2  # kMaxStateSize: template instances
+MAX_TARGETS = 2  # kMaxTargets: data slots
+
+
+def _leaves(params) -> Tuple[torch.Tensor, ...]:
+    return tuple(params) if isinstance(params, (tuple, list)) else (params,)
+
+
+def _series(params) -> bool:
+    return any(p.dim() >= 2 for p in _leaves(params))
+
+
+def param_table(params, b: int) -> torch.Tensor:
+    """``(B, n_params)``: each leaf broadcast to one value per trajectory."""
+    return torch.stack([p.to(torch.float32).reshape(-1).expand(b) for p in _leaves(params)], dim=-1)
+
+
+def param_rows(params, b: int, t_steps: int) -> torch.Tensor:
+    """``(T, B, n_params)`` rows of the streamed parameters: a series ``(B,
+    T)`` transposed, a constant broadcast over T."""
+    rows = [p.to(torch.float32).transpose(0, 1) if p.dim() == 2
+            else p.to(torch.float32).reshape(-1).expand(b).expand(t_steps, b)
+            for p in _leaves(params)]
+    return torch.stack(rows, dim=-1)
+
+
+def _streamed(params, t_steps: int, obs_noise_rows, process_noise_rows) -> bool:
+    """Whether the parameters are interpolated between save rows: series
+    parameters or any noise rows (then every parameter is, as in the TPU
+    kernel), on a grid of at least two points."""
+    rows = obs_noise_rows is not None or process_noise_rows is not None
+    return t_steps > 1 and (_series(params) or rows)
+
+
+def stage_frac(s: int, c: float, substeps: int) -> Tuple[float, float]:
+    """``(frac, 1 - frac)`` of stage offset ``c`` in substep ``s``, in
+    float32: ``(s + c) * (1 / substeps)``."""
+    f = np.float32
+    frac = f(f(s) + f(c)) * f(1.0 / substeps)
+    return float(frac), float(f(1.0) - frac)
+
+
+class _Loop:
+    """What both plain versions share: the trees split into state and
+    readout trees, the closed-loop drift, the save-point controls and the
+    liveness test, batched over ``(P, B)``."""
+
+    def __init__(self, trees, x0, targets, env, fset, state_size):
+        self.env, self.fset, self.ss = env, fset, state_size
+        self.latent = x0.shape[1]
+        batched = trees.map(lambda a: a[:, None])  # (P, 1, m, N)
+        self.state_eq = batched.map(lambda a: a[..., :state_size, :])
+        self.readout = batched.map(lambda a: a[..., state_size:, :])
+        self.nc = trees.ops.shape[1] - state_size
+        self.p, self.b = trees.ops.shape[0], x0.shape[0]
+        self.tgt = targets.to(torch.float32).expand(self.p, self.b, targets.shape[-1])
+        x0a = torch.cat([x0, x0.new_zeros((self.b, state_size))], dim=-1)
+        self.x0 = x0a[None].expand(self.p, self.b, self.latent + state_size)
+
+    def _eval(self, trees, *parts):
+        return evaluate_trees_plain(trees, torch.cat(parts, dim=-1)[..., None, :], self.fset)
+
+    def _observe(self, x, noise):
+        xl = x[..., : self.latent]
+        return self.env.obs(xl) if noise is None else self.env.obs_noisy(xl, noise)
+
+    def drift(self, x, params, noise=None):
+        y = self._observe(x, noise)
+        xl = x[..., : self.latent]
+        if not self.ss:
+            return self.env.drift(0.0, xl, self._eval(self.readout, y, self.tgt), params)
+        a = x[..., self.latent:]
+        zeros_u = x.new_zeros(x.shape[:-1] + (self.nc,))
+        u = self._eval(self.readout, torch.zeros_like(y), a, zeros_u, self.tgt)
+        dx = self.env.drift(0.0, xl, u, params)
+        return torch.cat([dx, self._eval(self.state_eq, y, a, u, self.tgt)], dim=-1)
+
+    def controls(self, x, noise=None):
+        y = self._observe(x, noise)
+        if not self.ss:
+            return self._eval(self.readout, y, self.tgt)
+        zeros_u = x.new_zeros(x.shape[:-1] + (self.nc,))
+        return self._eval(self.readout, y, x[..., self.latent:], zeros_u, self.tgt)
+
+    def ok(self, x):
+        return finite(x) & self.env.cond_alive(0.0, x[..., : self.latent])
+
+
+def policy_rollout_plain(
+    trees: TreeTensors, x0: torch.Tensor, ts: torch.Tensor, targets: torch.Tensor, params,
+    env, fset: FunctionSet, substeps: int = 1, method: str = "rk4", state_size: int = 0,
+    obs_noise_rows: Optional[torch.Tensor] = None,
+    process_noise_rows: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel #6: ``(xs (T, P, B, latent +
+    state_size), us (T, P, B, n_control), alive (T, P, B))``.
+
+    trees ``(P, state_size + n_control, N)``; x0 ``(B, latent)``; targets
+    ``(B, n_targets)``; params a tuple of ``(B,)`` or ``(B, T)`` tensors;
+    ``obs_noise_rows (T, B, substeps * stages * n_obs)`` (row t: every stage
+    draw of interval t, (substep, stage, obs)-major; the save-time draw of
+    save t in slot (0, 0)); ``process_noise_rows (T, B, substeps * latent)``
+    (euler only)."""
+    t_steps = ts.shape[0]
+    kicks = process_noise_rows is not None and t_steps > 1
+    if kicks and method != "euler":
+        raise ValueError("process noise requires Euler stepping (integrate_sde)")
+    stages, _ = RK_TABLES[method]
+    h, h_final = rollout_step(ts, method, substeps)
+    lp = _Loop(trees, x0, targets, env, fset, state_size)
+    latent, b = lp.latent, lp.b
+    streamed = _streamed(params, t_steps, obs_noise_rows, process_noise_rows)
+    rows = param_rows(params, b, t_steps) if streamed else None
+    const = None if streamed else tuple(param_table(params, b).unbind(-1))
+    n_obs = env.n_obs
+
+    def noise(t, s, st):
+        if obs_noise_rows is None or t_steps < 2:
+            return None
+        off = (s * len(stages) + st) * n_obs
+        return obs_noise_rows[t, :, off:off + n_obs]
+
+    x = lp.x0
+    alive = lp.ok(x)
+    xs, us, alives = [x], [lp.controls(x, noise(0, 0, 0))], [alive]
+    for t in range(t_steps - 1):
+        for s in range(substeps):
+            acc, k = torch.zeros_like(x), None
+            for st, (c, w) in enumerate(stages):
+                par = const
+                if streamed:
+                    frac, keep = stage_frac(s, c, substeps)
+                    par = tuple((rows[t] * keep + rows[t + 1] * frac).unbind(-1))
+                x_st = x if k is None else x + _f32(h * c) * k
+                k = lp.drift(x_st, par, noise(t, s, st))
+                acc = acc + w * k
+            x_new = x + h_final * acc
+            if kicks:
+                kick = process_noise_rows[t, :, s * latent:(s + 1) * latent]
+                x_new = torch.cat([x_new[..., :latent] + kick, x_new[..., latent:]], dim=-1)
+            alive = alive & lp.ok(x_new)
+            x = torch.where(alive[..., None], x_new, x)
+        xs.append(x)
+        us.append(lp.controls(x, noise(t + 1, 0, 0)))
+        alives.append(alive)
+    return torch.stack(xs), torch.stack(us), torch.stack(alives)
+
+
+def policy_rollout_adaptive_plain(
+    trees: TreeTensors, x0: torch.Tensor, ts: torch.Tensor, targets: torch.Tensor, params,
+    env, fset: FunctionSet, rtol: float = 1e-4, atol: float = 1e-4, max_steps: int = 16,
+    method: str = "dopri5", safety: float = 0.9, state_size: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel #7: ``(xs, us, alive, lane_steps
+    (P, B))``. Kernel #4's per-interval controller on the closed loop, with
+    ``cond_alive`` rejecting a step (not killing the lane), liveness starting
+    as finite & ``cond_alive``, and the error norm over the augmented state;
+    ``lane_steps`` counts every lane's attempted steps."""
+    if method not in ADAPTIVE_METHODS:
+        raise ValueError(f"unknown adaptive method {method!r}: {sorted(ADAPTIVE_METHODS)}")
+    if _series(params):
+        raise ValueError("the adaptive policy rollout takes constant parameters only")
+    lp = _Loop(trees, x0, targets, env, fset, state_size)
+    const = tuple(param_table(params, lp.b).unbind(-1))
+    drift = lambda x: lp.drift(x, const)
+    rtol, atol, safety, expo = _f32(rtol), _f32(atol), _f32(safety), ERROR_EXPONENT[method]
+    times = ts.tolist()
+    x = lp.x0
+    alive = lp.ok(x)
+    xs, us, alives = [x], [lp.controls(x)], [alive]
+    steps = torch.zeros(alive.shape, dtype=torch.int32, device=x.device)
+    if len(times) > 1:
+        k1 = drift(x)
+        dt0 = _f32_expr(lambda f: (f(times[1]) - f(times[0])) / f(4.0))
+        dt = torch.full(alive.shape, dt0, dtype=torch.float32, device=x.device)
+    for i in range(len(times) - 1):
+        t0, t1 = times[i], times[i + 1]
+        span = _f32_expr(lambda f: f(t1) - f(t0))
+        dt_lo = _f32_expr(lambda f: f(span) * f(DT_MIN))
+        dt_dead = _f32_expr(lambda f: f(span) * f(DT_DEAD))
+        inside = _f32_expr(lambda f: f(t1) - f(CROSS))
+        reached = _f32_expr(lambda f: f(t1) - f(1e-9) * max(abs(f(t1)), f(1.0)))
+        t = torch.full_like(dt, t0)
+        dt = torch.clamp(dt, dt_lo, span)
+        for s in range(max_steps):
+            active = alive & (t < inside)
+            if s % CHECK_EVERY == 0 and not bool(active.any()):
+                break
+            dt_c = torch.minimum(dt, t1 - t)
+            x_hi, err, k_last = _rk_step(drift, method, x, k1, dt_c, rtol, atol)
+            ok = finite(x_hi) & torch.isfinite(err)
+            accept = active & ok & (err <= 1.0) & env.cond_alive(0.0, x_hi[..., : lp.latent])
+            x = torch.where(accept[..., None], x_hi, x)
+            k1 = torch.where(accept[..., None], k_last, k1)
+            t = torch.where(accept, t + dt_c, t)
+            steps += active.int()
+            factor = _step_factor(err, ok, safety, expo)
+            dt = torch.where(active, torch.clamp(dt_c * factor, dt_lo, span), dt)
+            alive = alive & (ok | ~active | (dt_c > dt_dead))
+        alive = alive & (t >= reached)
+        xs.append(x)
+        us.append(lp.controls(x))
+        alives.append(alive)
+    return torch.stack(xs), torch.stack(us), torch.stack(alives), steps
+
+
+# ---------------------------------------------------------------- kernels
+
+_ARG_POINTERS = ("ops", "cst", "devop", "x0", "tgt", "par", "obs_rows", "kick_rows", "ts", "xs",
+                 "us", "alive", "steps")
+_ARG_INTS = ("env", "state_size", "P", "m", "n", "B", "T", "var_start", "n_obs", "n_targets",
+             "method", "substeps", "streamed", "k_obs", "max_steps")
+_ARG_FLOATS = ("h_half", "h_full", "h_final", "inv_sub", "rtol", "atol", "safety")
+
+
+class _Args(ctypes.Structure):
+    """csrc/policy.cu ``PolicyArgs``, field for field."""
+
+    _fields_ = ([(f, ctypes.c_void_p) for f in _ARG_POINTERS] + [(f, ctypes.c_int) for f in _ARG_INTS]
+                + [(f, ctypes.c_float) for f in _ARG_FLOATS])
+
+
+def data_slots(env, fset: FunctionSet, state_size: int) -> torch.Tensor:
+    """int32 slot of every variable in the kernels' data vector ``[y
+    (latent), a (state_size), u (n_control), targets (2)]``: the policy's
+    variables are ``[y (n_obs), tgt]`` (static) or ``[y, a, u, tgt]``
+    (dynamic); a variable past that width gets the slot past the vector,
+    which reads 0."""
+    latent, nc, n_obs, nt = env.latent_size, env.n_control, env.n_obs, env.n_targets
+    width = n_obs + (state_size + nc if state_size else 0) + nt
+    slots = []
+    for v in range(fset.num_variables):
+        if v < n_obs:
+            slots.append(v)
+        elif v < n_obs + state_size:
+            slots.append(latent + v - n_obs)
+        elif state_size and v < n_obs + state_size + nc:
+            slots.append(latent + v - n_obs)
+        elif v < width:
+            slots.append(latent + state_size + nc + v - (width - nt))
+        else:
+            slots.append(latent + state_size + nc + MAX_TARGETS)
+    return torch.tensor(slots, dtype=torch.int32)
+
+
+def check_policy(trees: TreeTensors, x0, targets, env, fset: FunctionSet, state_size: int) -> None:
+    """Raise unless the policy kernels take these operands."""
+    p, m, n = trees.ops.shape
+    if type(env) not in ENV_IDS:
+        raise NotImplementedError(f"{type(env).__name__} has no device drift (csrc/control_envs.cuh)")
+    if n > MAX_NODES:
+        raise NotImplementedError(f"max_nodes {n} > {MAX_NODES}, the policy kernels' limit")
+    if not 0 <= state_size <= MAX_STATE_SIZE:
+        raise NotImplementedError(f"state_size {state_size}: the kernels have 0 to {MAX_STATE_SIZE}")
+    if m != state_size + env.n_control:
+        raise ValueError(f"{m} trees for state_size {state_size} + {env.n_control} controls")
+    if targets.shape[-1] > MAX_TARGETS:
+        raise NotImplementedError(f"{targets.shape[-1]} targets > {MAX_TARGETS}")
+    if x0.shape[-1] != env.latent_size or x0.shape[0] > 1024:
+        raise ValueError(f"x0 {tuple(x0.shape)}: expected (B <= 1024, {env.latent_size})")
+    fset.require_device_ops()
+
+
+def run_policy(launch, kind: int, trees: TreeTensors, x0, ts, targets, params, env,
+               fset: FunctionSet, state_size: int = 0, method: str = "rk4", substeps: int = 1,
+               obs_noise_rows=None, process_noise_rows=None, max_steps: int = 0,
+               rtol: float = 0.0, atol: float = 0.0, safety: float = 0.0):
+    """Build the operands of ``csrc/policy.cu`` and call ``launch(args)``
+    (the CUDA launcher, or the host build on CPU tensors): returns
+    ``(status, xs, us, alive count (P, B), steps (P, B))``."""
+    check_policy(trees, x0, targets, env, fset, state_size)
+    dev = trees.ops.device
+    p, m, n = trees.ops.shape
+    b, t_steps = x0.shape[0], ts.shape[0]
+    kicks = process_noise_rows is not None and t_steps > 1
+    obs = obs_noise_rows is not None and t_steps > 1
+    if kind == FIXED and kicks and method != "euler":
+        raise ValueError("process noise requires Euler stepping (integrate_sde)")
+    if kind == ADAPTIVE and (_series(params) or obs_noise_rows is not None
+                             or process_noise_rows is not None):
+        raise ValueError("the adaptive policy kernel takes constant parameters and no noise rows")
+    streamed = kind == FIXED and _streamed(params, t_steps, obs_noise_rows, process_noise_rows)
+    slots = data_slots(env, fset, state_size).to(dev)
+    var = trees.ops - fset.var_start
+    ops = torch.where(var >= 0, fset.var_start + slots[var.clamp(0, slots.shape[0] - 1).long()],
+                      trees.ops).to(torch.int32).contiguous()
+    f32c = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()
+    t = dict(ops=ops, cst=f32c(trees.const), devop=fset.device_ops(dev), x0=f32c(x0),
+             tgt=f32c(targets) if targets.shape[-1] else torch.zeros(1, device=dev),
+             par=f32c(param_rows(params, b, t_steps) if streamed else param_table(params, b)),
+             ts=f32c(ts))
+    if obs:
+        t["obs_rows"] = f32c(obs_noise_rows)
+    if kicks:
+        t["kick_rows"] = f32c(process_noise_rows)
+    d_aug, nc = x0.shape[1] + state_size, m - state_size
+    t["xs"] = torch.empty((t_steps, p, b, d_aug), dtype=torch.float32, device=dev)
+    t["us"] = torch.empty((t_steps, p, b, nc), dtype=torch.float32, device=dev)
+    t["alive"] = torch.empty((p, b), dtype=torch.int32, device=dev)
+    t["steps"] = torch.zeros((p, b), dtype=torch.int32, device=dev)
+    args = _Args(**{k: v.data_ptr() for k, v in t.items()})
+    if kind == FIXED:
+        h, h_final = rollout_step(ts, method, substeps)
+        stages = len(RK_TABLES[method][0])
+        args.method, args.substeps = METHODS[method], substeps
+        args.h_half, args.h_full, args.h_final = _f32(h * 0.5), _f32(h), h_final
+        args.inv_sub = _f32(1.0 / substeps)
+        args.k_obs = obs_noise_rows.shape[-1] if obs else 0
+        if obs and args.k_obs != substeps * stages * env.n_obs:
+            raise ValueError(f"obs noise rows of width {args.k_obs}: expected substeps x stages x n_obs")
+    else:
+        args.method, args.max_steps = ADAPTIVE_METHODS[method], max_steps
+        args.rtol, args.atol, args.safety = _f32(rtol), _f32(atol), _f32(safety)
+    args.env, args.state_size, args.P, args.m, args.n, args.B, args.T = (
+        ENV_IDS[type(env)], state_size, p, m, n, b, t_steps)
+    args.var_start, args.n_obs, args.n_targets = fset.var_start, env.n_obs, targets.shape[-1]
+    args.streamed = int(streamed)
+    status = launch(ctypes.byref(args)) if p * b else 0
+    return status, t["xs"], t["us"], t["alive"], t["steps"]
+
+
+def _alive_rows(count: torch.Tensor, t_steps: int) -> torch.Tensor:
+    """Per-save liveness ``(T, P, B)`` from the count of alive save rows."""
+    return torch.arange(t_steps, device=count.device)[:, None, None] < count[None]
+
+
+def _cuda_launch(kind: int, trees: TreeTensors, b: int):
+    dev = trees.ops.device
+    if dev.type != "cuda":
+        raise ValueError(f"the policy kernels take CUDA tensors, got {dev}")
+    lib = _build.load("policy")
+    fn = lib.policy_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    m, n = trees.ops.shape[1:]
+    cpb = max(1, min(THREADS_PER_BLOCK // b, SHARED_BYTES // (m * n * 8)))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return lib, lambda args: fn(kind, args, cpb, stream)
+
+
+def policy_rollout_cuda(
+    trees: TreeTensors, x0: torch.Tensor, ts: torch.Tensor, targets: torch.Tensor, params,
+    env, fset: FunctionSet, substeps: int = 1, method: str = "rk4", state_size: int = 0,
+    obs_noise_rows: Optional[torch.Tensor] = None,
+    process_noise_rows: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch ``policy_kernel``; ``(xs, us, alive)`` as the plain version."""
+    if method not in METHODS:
+        raise NotImplementedError(f"method {method!r}: the fixed-step kernel has {sorted(METHODS)}")
+    if substeps < 1:
+        raise ValueError("substeps must be >= 1")
+    lib, launch = _cuda_launch(FIXED, trees, x0.shape[0])
+    status, xs, us, count, _ = run_policy(
+        launch, FIXED, trees, x0, ts, targets, params, env, fset, state_size, method, substeps,
+        obs_noise_rows, process_noise_rows)
+    _build.check(lib, status, "policy kernel launch")
+    policy_rollout_cuda.launches += 1
+    return xs, us, _alive_rows(count, ts.shape[0])
+
+
+policy_rollout_cuda.launches = 0
+
+
+def policy_rollout_adaptive_cuda(
+    trees: TreeTensors, x0: torch.Tensor, ts: torch.Tensor, targets: torch.Tensor, params,
+    env, fset: FunctionSet, rtol: float = 1e-4, atol: float = 1e-4, max_steps: int = 16,
+    method: str = "dopri5", safety: float = 0.9, state_size: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch ``policy_adaptive_kernel``; ``(xs, us, alive, lane_steps)``."""
+    if method not in ADAPTIVE_METHODS:
+        raise ValueError(f"unknown adaptive method {method!r}: {sorted(ADAPTIVE_METHODS)}")
+    if max_steps < 0:
+        raise ValueError(f"step budget {max_steps} < 0")
+    lib, launch = _cuda_launch(ADAPTIVE, trees, x0.shape[0])
+    status, xs, us, count, steps = run_policy(
+        launch, ADAPTIVE, trees, x0, ts, targets, params, env, fset, state_size, method,
+        max_steps=max_steps, rtol=rtol, atol=atol, safety=safety)
+    _build.check(lib, status, "adaptive policy kernel launch")
+    policy_rollout_adaptive_cuda.launches += 1
+    return xs, us, _alive_rows(count, ts.shape[0]), steps
+
+
+policy_rollout_adaptive_cuda.launches = 0
+
+
+def rollout_policy(
+    trees: TreeTensors, x0: torch.Tensor, ts: torch.Tensor, targets: torch.Tensor, params,
+    env, fset: FunctionSet, substeps: int = 1, method: str = "rk4", state_size: int = 0,
+    obs_noise_rows: Optional[torch.Tensor] = None,
+    process_noise_rows: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fixed-step closed loop, ``(xs (T, P, B, d_aug), us (T, P, B,
+    n_control), alive (T, P, B))``: kernel #6 for CUDA tensors, the plain
+    version for CPU tensors."""
+    dev = trees.ops.device
+    args = (trees, x0, ts, targets, params, env, fset, substeps, method, state_size,
+            obs_noise_rows, process_noise_rows)
+    if dev.type == "cuda":
+        return policy_rollout_cuda(*args)
+    if dev.type == "cpu":
+        if method not in METHODS:
+            raise NotImplementedError(f"method {method!r}: the fixed-step rollout has {sorted(METHODS)}")
+        return policy_rollout_plain(*args)
+    raise NotImplementedError(f"no policy rollout for device {dev}")
+
+
+def rollout_policy_adaptive(
+    trees: TreeTensors, x0: torch.Tensor, ts: torch.Tensor, targets: torch.Tensor, params,
+    env, fset: FunctionSet, rtol: float = 1e-4, atol: float = 1e-4, max_steps: int = 16,
+    method: str = "dopri5", safety: float = 0.9, state_size: int = 0,
+    return_steps: bool = False,
+):
+    """The adaptive closed loop, ``(xs, us, alive)`` (and ``lane_steps (P,
+    B)`` with ``return_steps``: per lane, where the JAX function reports per
+    tile): kernel #7 for CUDA tensors, the plain version for CPU tensors."""
+    dev = trees.ops.device
+    args = (trees, x0, ts, targets, params, env, fset, rtol, atol, max_steps, method, safety,
+            state_size)
+    if dev.type == "cuda":
+        out = policy_rollout_adaptive_cuda(*args)
+    elif dev.type == "cpu":
+        out = policy_rollout_adaptive_plain(*args)
+    else:
+        raise NotImplementedError(f"no adaptive policy rollout for device {dev}")
+    return out if return_steps else out[:3]
+
+
+class PolicyRollout(torch.autograd.Function):
+    """A fused policy rollout differentiable in ``const``: ``fused(trees) ->
+    (xs, us, alive)`` is the forward (a dispatcher: kernel #6 or #7 on
+    CUDA); the backward differentiates ``recompute(trees) -> (xs, us)``, the
+    evaluator's general path and control replay (``evaluate_trees`` as the
+    drift: kernels #8 and #9 on CUDA). No gradient goes to ``ops``, ``c1``,
+    ``c2`` or through ``alive``. Apply as ``PolicyRollout.apply(ops, c1, c2,
+    const, fused, recompute)``."""
+
+    @staticmethod
+    def forward(ctx, ops, c1, c2, const, fused, recompute):
+        ctx.save_for_backward(ops, c1, c2, const)
+        ctx.recompute = recompute
+        xs, us, alive = fused(TreeTensors(ops, c1, c2, const))
+        ctx.mark_non_differentiable(alive)
+        return xs, us, alive
+
+    @staticmethod
+    def backward(ctx, g_xs, g_us, _g_alive):
+        ops, c1, c2, const = ctx.saved_tensors
+        with torch.enable_grad():
+            c = const.detach().requires_grad_(True)
+            xs, us = ctx.recompute(TreeTensors(ops, c1, c2, c))
+            (dconst,) = torch.autograd.grad((xs, us), (c,), (g_xs, g_us), allow_unused=True)
+        if dconst is None:
+            dconst = torch.zeros_like(const)
+        return None, None, None, dconst, None, None

@@ -144,13 +144,13 @@ def sr_fitness_cuda(
 
     lib = _build.load("sr_fitness")
     fn = lib.sr_fitness_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = fn(
         ops.data_ptr(), cst.data_ptr(), devop.data_ptr(), x0c.data_ptr(), tsc.data_ptr(),
         ysc.data_ptr(), err.data_ptr(), alive.data_ptr(),
-        p, d, n, b, t_steps, fset.var_start, METHODS[method], substeps, cpb, stream,
+        p, d, n, b, t_steps, fset.var_start, fset.has_unary, METHODS[method], substeps, cpb, stream,
     )
     _build.check(lib, status, "sr_fitness kernel launch")
     sr_fitness_cuda.launches += 1
@@ -294,12 +294,13 @@ def sr_rollout_cuda(
 
     lib = _build.load("sr_rollout")
     fn = lib.sr_rollout_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float] * 3
                    + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     status = fn(
         ops.data_ptr(), cst.data_ptr(), devop.data_ptr(), x0c.data_ptr(), xs.data_ptr(),
-        alive.data_ptr(), p, d, n, b, t_steps, fset.var_start, METHODS[method], substeps,
+        alive.data_ptr(), p, d, n, b, t_steps, fset.var_start, fset.has_unary, METHODS[method],
+        substeps,
         _f32(h * 0.5), _f32(h), h_final, cpb, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, status, "sr_rollout kernel launch")

@@ -33,10 +33,10 @@ OPERATORS: Dict[str, Tuple[int, Callable]] = {
     "sin": (1, lambda x, y: torch.sin(x)),
     "cos": (1, lambda x, y: torch.cos(x)),
 }
-# Device op ids: the `switch` cases of csrc/sr_fitness.cu. The unary
-# operators get ids when the fitness kernel implements them; until then a
-# function set that uses them runs the fitness on the CPU only.
-DEVICE_OPS: Dict[str, int] = {"+": 0, "-": 1, "*": 2, "/": 3}
+# Device op ids: the operators of csrc/tree_eval.cuh (kAdd .. kCos), which
+# every tree-evaluating kernel shares; the ids from 4 on are unary. A function
+# set with an operator outside this table runs on the CPU only.
+DEVICE_OPS: Dict[str, int] = {"+": 0, "-": 1, "*": 2, "/": 3, "sin": 4, "cos": 5}
 UNKNOWN_DEVICE_OP = -1
 
 
@@ -86,6 +86,12 @@ class FunctionSet:
     @property
     def num_trees(self) -> int:
         return int(sum(self.layer_sizes))
+
+    @property
+    def has_unary(self) -> bool:
+        """Whether any operator is unary: the tree kernels pick their
+        instance without the unary rows' code otherwise."""
+        return any(a == 1 for a in self.arities)
 
     def slots(self, device=None) -> torch.Tensor:
         """int32 arity per opcode: 0 for EMPTY/CONST/variables."""

@@ -22,8 +22,8 @@
 // values live in a per-thread array `vals[N]` (local memory, cached in L1);
 // the template parameter N bounds it, so the N = 32 instance does not reserve
 // the stack of the N = 256 one. By the root-last layout invariant a row's
-// first operand is the row directly below it (vals[i-1]) and its second is
-// vals[c2]; a `switch` over the device op id picks the operator. The
+// first operand is the row directly below it (vals[i-1]) and a binary row's
+// second is vals[c2]; a `switch` over the device op id picks the operator. The
 // backward recomputes the values, then sweeps the rows top-down: a row's
 // cotangent g_i goes to dvals[i-1] (first operand) and then dvals[c2]
 // (second), to dconst[i] on CONST rows and to ddata[v] on variable rows. The
@@ -36,7 +36,7 @@
 //
 // Numerics: the forward runs the plain version's float32 operations; the
 // backward uses the expressions PyTorch autograd uses for them (d/dy of x/y
-// is -g * ((x / y) / y)), and accumulates each cotangent in the order the
+// is -g * ((x / y) / y), d/dx of sin x is g * cos(x)), and accumulates each cotangent in the order the
 // autograd engine does (the parent's dy before the next row's dx; variable
 // rows top-down). Built with -fmad=false and IEEE division, so the kernel
 // equals the plain version (core/interpreter.py) bit for bit per lane.
@@ -44,31 +44,13 @@
 // The per-lane code is plain C++ under MTGP_HD, so the same file also
 // compiles for the host (without __CUDACC__) into a lane loop with the same
 // entry points, which tests run against the plain version without a card.
-#include <math.h>
-#include <stddef.h>
-#include <stdint.h>
-
-#ifdef __CUDACC__
-#include <cuda_runtime.h>
-#define MTGP_HD __host__ __device__
-#else
-#define MTGP_HD
-#endif
+#include "tree_eval.cuh"  // op ids, apply_binary, apply_unary
 
 namespace {
 
-constexpr int kConst = 1;
-constexpr int kOpStart = 2;
-constexpr int kMaxNodes = 256;
 constexpr int kMaxVars = 32;
 constexpr int kMaxOps = 32;
 constexpr int kMaxDims = 8;
-
-// device op ids: multitreegp_tpu_torch/core/registry.py DEVICE_OPS
-constexpr int kAdd = 0;
-constexpr int kSub = 1;
-constexpr int kMul = 2;
-constexpr int kDiv = 3;
 
 // Everything a lane needs besides the pointers, passed by value (the kernel
 // parameter space holds it; no device copy, no table in device memory).
@@ -105,18 +87,17 @@ MTGP_HD inline Lane lane_operands(const Params& p, const int* ops, const int* c2
   return Lane{ops + t, c2 + t, cst + c, data + d};
 }
 
-MTGP_HD inline float apply_binary(int id, float x, float y) {
-  switch (id) {
-    case kAdd: return x + y;
-    case kSub: return x - y;
-    case kMul: return x * y;
-    default: return x / y;  // kDiv
-  }
-}
-
 // Cotangents of (x, y) given the result's cotangent g: PyTorch autograd's
-// formulas for add, sub, mul and true division.
-MTGP_HD inline void binary_vjp(int id, float x, float y, float g, float& dx, float& dy) {
+// formulas for add, sub, mul and true division, and for sin (g * cos(x)) and
+// cos (g * -sin(x)), which have no second operand. U = false compiles the
+// unary operators out (tree_eval.cuh eval_tree).
+template <bool U>
+MTGP_HD inline void op_vjp(int id, float x, float y, float g, float& dx, float& dy) {
+  dy = 0.0f;
+  if (U && is_unary(id)) {
+    dx = id == kSin ? g * cosf(x) : g * -sinf(x);
+    return;
+  }
   switch (id) {
     case kAdd: dx = g; dy = g; break;
     case kSub: dx = g; dy = -g; break;
@@ -125,10 +106,16 @@ MTGP_HD inline void binary_vjp(int id, float x, float y, float g, float& dx, flo
   }
 }
 
+template <bool U>
+MTGP_HD inline float apply_op(int id, float x, float y) {
+  return U && is_unary(id) ? apply_unary(id, x) : apply_binary(id, x, y);
+}
+
 // Second operand of row i: vals[c2] for an earlier row, else 0.
 MTGP_HD inline bool has_second(int c2, int i) { return c2 >= 0 && c2 < i; }
 
 // Fills vals[0..n) bottom-up; returns the root (row n-1).
+template <bool U>
 MTGP_HD inline float forward_rows(const Params& p, const Lane& ln, float* vals) {
   for (int i = 0; i < p.n; ++i) {
     const int op = ln.ops[i];
@@ -142,7 +129,7 @@ MTGP_HD inline float forward_rows(const Params& p, const Lane& ln, float* vals) 
       const int c2 = ln.c2[i];
       const float x = i > 0 ? vals[i - 1] : 0.0f;
       const float y = has_second(c2, i) ? vals[c2] : 0.0f;
-      v = apply_binary(p.devop[op - kOpStart], x, y);
+      v = apply_op<U>(p.devop[op - kOpStart], x, y);
     }
     vals[i] = v;  // EMPTY (and unknown) rows are 0
   }
@@ -150,11 +137,11 @@ MTGP_HD inline float forward_rows(const Params& p, const Lane& ln, float* vals) 
 }
 
 // dconst / ddata of one lane, written with stride L (rows / variables major).
-template <int N>
+template <int N, bool U>
 MTGP_HD void backward_lane(const Params& p, const Lane& ln, float g, float* dconst,
                            float* ddata) {
   float vals[N], dvals[N], dd[kMaxVars];
-  forward_rows(p, ln, vals);
+  forward_rows<U>(p, ln, vals);
   for (int i = 0; i < p.n; ++i) dvals[i] = 0.0f;
   for (int v = 0; v < p.nvar; ++v) dd[v] = 0.0f;
   dvals[p.n - 1] = g;
@@ -168,12 +155,13 @@ MTGP_HD void backward_lane(const Params& p, const Lane& ln, float g, float* dcon
       const int var = op - p.var_start;
       if (var < p.nvar) dd[var] += gi;
     } else if (op >= kOpStart) {
+      const int id = p.devop[op - kOpStart];
       const int c2 = ln.c2[i];
-      const bool second = has_second(c2, i);
+      const bool second = !(U && is_unary(id)) && has_second(c2, i);
       const float x = i > 0 ? vals[i - 1] : 0.0f;
       const float y = second ? vals[c2] : 0.0f;
       float dx, dy;
-      binary_vjp(p.devop[op - kOpStart], x, y, gi, dx, dy);
+      op_vjp<U>(id, x, y, gi, dx, dy);
       if (i > 0) dvals[i - 1] += dx;
       if (second) dvals[c2] += dy;
     }
@@ -182,30 +170,30 @@ MTGP_HD void backward_lane(const Params& p, const Lane& ln, float g, float* dcon
   for (int v = 0; v < p.nvar; ++v) ddata[v * p.L] = dd[v];
 }
 
-template <int N>
+template <int N, bool U>
 MTGP_HD inline void forward_lane(const Params& p, const Lane& ln, float* out) {
   float vals[N];
-  *out = forward_rows(p, ln, vals);
+  *out = forward_rows<U>(p, ln, vals);
 }
 
 #ifdef __CUDACC__
-template <int N>
+template <int N, bool U>
 __global__ void interpret_fwd_kernel(Params p, const int* __restrict__ ops,
                                      const int* __restrict__ c2, const float* __restrict__ cst,
                                      const float* __restrict__ data, float* __restrict__ out) {
   const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (lane >= p.L) return;
-  forward_lane<N>(p, lane_operands(p, ops, c2, cst, data, lane), out + lane);
+  forward_lane<N, U>(p, lane_operands(p, ops, c2, cst, data, lane), out + lane);
 }
 
-template <int N>
+template <int N, bool U>
 __global__ void interpret_bwd_kernel(Params p, const int* __restrict__ ops,
                                      const int* __restrict__ c2, const float* __restrict__ cst,
                                      const float* __restrict__ data, const float* __restrict__ g,
                                      float* __restrict__ dconst, float* __restrict__ ddata) {
   const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (lane >= p.L) return;
-  backward_lane<N>(p, lane_operands(p, ops, c2, cst, data, lane), g[lane], dconst + lane,
+  backward_lane<N, U>(p, lane_operands(p, ops, c2, cst, data, lane), g[lane], dconst + lane,
                    ddata + lane);
 }
 
@@ -240,7 +228,7 @@ int make_params(const int64_t* layout, const int* devop, int nops, int64_t L, in
   if (lanes != L) return 1;
   for (int k = 0; k < kMaxOps; ++k) {
     p->devop[k] = k < nops ? devop[k] : 0;
-    if (k < nops && (devop[k] < kAdd || devop[k] > kDiv)) return 1;
+    if (k < nops && (devop[k] < kAdd || devop[k] > kCos)) return 1;
   }
   p->L = L;
   p->n = n;
@@ -253,7 +241,7 @@ int make_params(const int64_t* layout, const int* devop, int nops, int64_t L, in
 
 #define MTGP_INTERP_ARGS                                                                      \
   const int *ops, const int *c2, const float *cst, const float *data, const int64_t *layout, \
-      const int *devop, int nops, long long L, int n, int nvar, int var_start
+      const int *devop, int nops, long long L, int n, int nvar, int var_start, int unary
 
 extern "C" {
 
@@ -272,11 +260,15 @@ int interpret_fwd(MTGP_INTERP_ARGS, float* out, void* stream) {
   if (make_params(layout, devop, nops, L, n, nvar, var_start, &p))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // two instances: the main path's N <= 32, and everything up to 256
-  if (n <= 32)
-    interpret_fwd_kernel<32><<<blocks(p), kThreads, 0, s>>>(p, ops, c2, cst, data, out);
-  else
-    interpret_fwd_kernel<kMaxNodes><<<blocks(p), kThreads, 0, s>>>(p, ops, c2, cst, data, out);
+  // instances: the main path's N <= 32 and everything up to 256, with unary
+  // operators or without
+#define MTGP_FWD(N, U) interpret_fwd_kernel<N, U><<<blocks(p), kThreads, 0, s>>>(p, ops, c2, cst, data, out)
+  if (n <= 32) {
+    if (unary) MTGP_FWD(32, true); else MTGP_FWD(32, false);
+  } else {
+    if (unary) MTGP_FWD(kMaxNodes, true); else MTGP_FWD(kMaxNodes, false);
+  }
+#undef MTGP_FWD
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -285,12 +277,14 @@ int interpret_bwd(MTGP_INTERP_ARGS, const float* g, float* dconst, float* ddata,
   if (make_params(layout, devop, nops, L, n, nvar, var_start, &p))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 32)
-    interpret_bwd_kernel<32><<<blocks(p), kThreads, 0, s>>>(p, ops, c2, cst, data, g, dconst,
-                                                            ddata);
-  else
-    interpret_bwd_kernel<kMaxNodes><<<blocks(p), kThreads, 0, s>>>(p, ops, c2, cst, data, g,
-                                                                   dconst, ddata);
+#define MTGP_BWD(N, U) \
+  interpret_bwd_kernel<N, U><<<blocks(p), kThreads, 0, s>>>(p, ops, c2, cst, data, g, dconst, ddata)
+  if (n <= 32) {
+    if (unary) MTGP_BWD(32, true); else MTGP_BWD(32, false);
+  } else {
+    if (unary) MTGP_BWD(kMaxNodes, true); else MTGP_BWD(kMaxNodes, false);
+  }
+#undef MTGP_BWD
   return static_cast<int>(cudaGetLastError());
 }
 #else
@@ -306,8 +300,9 @@ int interpret_fwd(MTGP_INTERP_ARGS, float* out, void* stream) {
   if (make_params(layout, devop, nops, L, n, nvar, var_start, &p)) return 1;
   for (int64_t lane = 0; lane < L; ++lane) {
     const Lane ln = lane_operands(p, ops, c2, cst, data, lane);
-    if (n <= 32) forward_lane<32>(p, ln, out + lane);
-    else forward_lane<kMaxNodes>(p, ln, out + lane);
+    if (n <= 32) unary ? forward_lane<32, true>(p, ln, out + lane) : forward_lane<32, false>(p, ln, out + lane);
+    else unary ? forward_lane<kMaxNodes, true>(p, ln, out + lane)
+               : forward_lane<kMaxNodes, false>(p, ln, out + lane);
   }
   return 0;
 }
@@ -318,8 +313,13 @@ int interpret_bwd(MTGP_INTERP_ARGS, const float* g, float* dconst, float* ddata,
   if (make_params(layout, devop, nops, L, n, nvar, var_start, &p)) return 1;
   for (int64_t lane = 0; lane < L; ++lane) {
     const Lane ln = lane_operands(p, ops, c2, cst, data, lane);
-    if (n <= 32) backward_lane<32>(p, ln, g[lane], dconst + lane, ddata + lane);
-    else backward_lane<kMaxNodes>(p, ln, g[lane], dconst + lane, ddata + lane);
+    if (n <= 32) {
+      if (unary) backward_lane<32, true>(p, ln, g[lane], dconst + lane, ddata + lane);
+      else backward_lane<32, false>(p, ln, g[lane], dconst + lane, ddata + lane);
+    } else {
+      if (unary) backward_lane<kMaxNodes, true>(p, ln, g[lane], dconst + lane, ddata + lane);
+      else backward_lane<kMaxNodes, false>(p, ln, g[lane], dconst + lane, ddata + lane);
+    }
   }
   return 0;
 }

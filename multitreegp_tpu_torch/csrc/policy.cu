@@ -1,0 +1,513 @@
+// Closed-loop symbolic-policy rollouts: fixed step and adaptive.
+//
+// Replaces two TPU kernels of multitreegp_tpu/core/pallas_policy.py:
+//   * `_make_policy_kernel` (reached through `rollout_policy_pallas` ->
+//     `pl.pallas_call`): the fixed-step closed loop, `policy_kernel`;
+//   * `_make_adaptive_policy_kernel` (`rollout_policy_adaptive_pallas` ->
+//     `pl.pallas_call`): the Dopri5/Bosh3 + I-controller closed loop with a
+//     step budget per save interval, `policy_adaptive_kernel`.
+// Per lane (candidate x trajectory) both integrate an environment's plant
+// (control_envs.cuh) driven by the candidate's trees:
+//   static  u = trees([y, tgt]);                      dx = env.drift(x, u)
+//   dynamic u = readout([0s(n_obs), a, 0s(n_ctrl), tgt]); dx = env.drift(x, u);
+//           da = state_trees([y, a, u, tgt])
+// with y the observation of the latent state, and write the augmented state
+// [x, a] and the controls at every save point (the controls with real
+// observations, zero-fed u), and the count of alive save rows (liveness is
+// monotone, so save t is alive iff t < count).
+//
+// Fixed step: euler/heun/rk4, `substeps` steps of one size h = (ts[1] -
+// ts[0]) / substeps over the whole grid; a lane dies when its state turns
+// non-finite, reaches |x| >= 1e8 or fails the plant's `cond_alive`, and is
+// frozen from then on. Parameters are per trajectory, or (B, T) rows
+// interpolated at the stage's fraction of the interval (`streamed`: then
+// every parameter is, as in the TPU kernel); optional observation-noise rows
+// are added to the observation at every stage and save, and optional
+// Euler-Maruyama kicks to the latent state after every substep.
+// Adaptive: adaptive_step.cuh's embedded step and controller, as the SR
+// per-interval kernel (sr_adaptive.cu), except that `cond_alive` rejects a
+// step instead of killing the lane, liveness starts as finite & cond_alive,
+// and the error norm runs over the augmented state; per-trajectory params, no
+// noise. It also returns the attempted steps per lane.
+//
+// What bounds it on this card: instruction issue, and (adaptive) warp
+// divergence. Per step a lane evaluates its trees at every stage (the
+// readout, the plant, the state trees) and reads nothing but its trees
+// (staged once per block in shared memory), its row of parameters or noise,
+// and the grid; it writes (T, d_aug + n_control) floats.
+//
+// Design: one thread per lane, candidate-major, a block's trees in shared
+// memory (sr_lane.cuh `stage_block`); state, stages, t, dt and the FSAL k1 in
+// registers, the tree stack in local memory; templates on the plant, the
+// policy's state size (0 = static, d_aug = latent + state size) and the
+// stack bound (32 or 256). The tree's data vector has fixed slots [y
+// (latent), a (state size), u (controls), targets (2)]; the wrapper rewrites
+// each variable opcode to its slot, so a leaf is a chain of selects over
+// registers whatever n_obs and n_targets are. The TPU kernels' (8, 128)
+// tiles, size sort, row-trip tables, double-buffered row staging, `go_scr`
+// early exit and VMEM gate are not carried over: a thread reads its own rows
+// and stops stepping once its lane is done.
+//
+// Numerics: the TPU kernels' float32 expressions in their order (the plain
+// versions in core/cuda_policy.py): stage inputs x + (h*c)*k and the update
+// x + (h*final_scale)*acc with acc = 0 + w1*k1 + ..., the scalars h*c and
+// h*final_scale rounded once from double by the wrapper; the interpolation
+// lo*(1-frac) + hi*frac with frac = (s + c) * (1/substeps). Built with
+// -fmad=false and IEEE division and square root.
+#include "adaptive_step.cuh"
+#include "control_envs.cuh"
+#include "sr_lane.cuh"
+
+namespace {
+
+constexpr int kMaxTargets = 2;
+constexpr int kMaxStateSize = 2;
+
+// A lane's vector passed by value: the closed-loop drift is one call, not
+// inlined at each of the adaptive step's stages (which kept the build of the
+// 72 kernel instances under a minute); its arguments stay in registers.
+template <int N>
+struct Vec {
+  float v[N];
+};
+
+#ifdef __CUDACC__
+#define MTGP_NOINLINE __noinline__
+#else
+#define MTGP_NOINLINE
+#endif
+
+enum Method { kEuler = 0, kHeun = 1, kRk4 = 2 };
+
+// Everything a launch reads and writes; filled by the wrapper
+// (core/cuda_policy.py _Args, field for field).
+struct PolicyArgs {
+  const int* ops;          // (P, m, n) with variable opcodes rewritten to slots
+  const float* cst;        // (P, m, n)
+  const int* devop;        // (num operators,) device op ids
+  const float* x0;         // (B, latent)
+  const float* tgt;        // (B, n_targets)
+  const float* par;        // (B, n_params), or (T, B, n_params) rows when streamed
+  const float* obs_rows;   // (T, B, k_obs) or null
+  const float* kick_rows;  // (T, B, substeps * latent) or null
+  const float* ts;         // (T,) (adaptive)
+  float* xs;               // (T, P, B, d_aug)
+  float* us;               // (T, P, B, n_control)
+  int* alive;              // (P, B) count of alive save rows
+  int* steps;              // (P, B) attempted steps (adaptive)
+  int env, state_size, P, m, n, B, T, var_start, n_obs, n_targets;
+  int method, substeps, streamed, k_obs, max_steps;
+  float h_half, h_full, h_final, inv_sub;  // fixed step: h*0.5, h, h*final_scale, 1/substeps
+  float rtol, atol, safety;                // adaptive
+};
+
+// The policy of one lane: its trees, its targets, its stack.
+template <class Env, int SS, int S>
+struct LanePolicy {
+  static constexpr int L = Env::kLatent, NC = Env::kControls, NP = Env::kParams, D = L + SS;
+  static constexpr int KD = L + SS + NC + kMaxTargets;  // data slots [y, a, u, tgt]
+  const int* ops;
+  const float* cst;
+  int n;
+  const int* devop;
+  int var_start, n_obs;
+  float tgt[kMaxTargets];
+  float* stack;
+
+  // out[k] = tree (first + k) on data, k < count
+  template <int COUNT>
+  MTGP_HD void eval(int first, const float (&data)[KD], float* out) const {
+#pragma unroll
+    for (int k = 0; k < COUNT; ++k)
+      out[k] = eval_tree<KD, S>(ops + (first + k) * n, cst + (first + k) * n, n, devop, var_start,
+                                data, stack);
+  }
+
+  // y = the observation of the latent state x (+ the noise row, if any)
+  MTGP_HD void observe(const float* x, const float* noise, float (&y)[L]) const {
+#pragma unroll
+    for (int q = 0; q < L; ++q) y[q] = (noise != nullptr && q < n_obs) ? x[q] + noise[q] : x[q];
+    Env::wrap_obs(y);
+  }
+
+  // data = [y or 0, a, u or 0, tgt]
+  MTGP_HD void fill(float (&data)[KD], const float* y, const float* x, const float* u) const {
+#pragma unroll
+    for (int q = 0; q < L; ++q) data[q] = y ? y[q] : 0.0f;
+#pragma unroll
+    for (int j = 0; j < SS; ++j) data[L + j] = x[L + j];
+#pragma unroll
+    for (int j = 0; j < NC; ++j) data[L + SS + j] = u ? u[j] : 0.0f;
+#pragma unroll
+    for (int j = 0; j < kMaxTargets; ++j) data[L + SS + NC + j] = tgt[j];
+  }
+
+  // dx = the closed loop's drift at the augmented state x
+  MTGP_HD void drift(const float (&x)[D], const float* p, const float* noise, float (&dx)[D]) const {
+    float y[L], data[KD], u[NC];
+    observe(x, noise, y);
+    if (SS > 0) {  // the readout sees the hidden state and the targets only
+      fill(data, nullptr, x, nullptr);
+      eval<NC>(SS, data, u);
+    } else {
+      fill(data, y, x, nullptr);
+      eval<NC>(0, data, u);
+    }
+    Env::drift(x, u, p, dx);
+    if (SS > 0) {
+      float da[SS > 0 ? SS : 1];
+      fill(data, y, x, u);
+      eval<SS>(0, data, da);
+#pragma unroll
+      for (int j = 0; j < SS; ++j) dx[L + j] = da[j];
+    }
+  }
+
+  // drift() as one out-of-line call, arguments and result by value
+  MTGP_NOINLINE MTGP_HD Vec<D> drift_v(const Vec<D> x, const Vec<NP> p,
+                                       const float* noise) const {
+    Vec<D> dx;
+    drift(x.v, p.v, noise, dx.v);
+    return dx;
+  }
+
+  MTGP_HD void drift_call(const float (&x)[D], const float (&p)[NP], const float* noise,
+                          float (&dx)[D]) const {
+    Vec<D> xv;
+    Vec<NP> pv;
+#pragma unroll
+    for (int q = 0; q < D; ++q) xv.v[q] = x[q];
+#pragma unroll
+    for (int j = 0; j < NP; ++j) pv.v[j] = p[j];
+    const Vec<D> kv = drift_v(xv, pv, noise);
+#pragma unroll
+    for (int q = 0; q < D; ++q) dx[q] = kv.v[q];
+  }
+
+  // the controls at a save point: real observations, u zero-fed
+  MTGP_HD void controls(const float (&x)[D], const float* noise, float (&u)[NC]) const {
+    float y[L], data[KD];
+    observe(x, noise, y);
+    fill(data, y, x, nullptr);
+    eval<NC>(SS, data, u);
+  }
+
+  // finite, below the divergence bound, and the plant's cond_alive
+  MTGP_HD static bool ok(const float (&x)[D]) {
+    bool good = true;
+#pragma unroll
+    for (int q = 0; q < D; ++q) good = good && isfinite(x[q]) && fabsf(x[q]) < kBound;
+    return good && Env::alive(x);
+  }
+};
+
+template <class Env, int SS, int S>
+MTGP_HD LanePolicy<Env, SS, S> lane_policy(const PolicyArgs& a, const int* t_ops,
+                                           const float* t_cst, int b, float* stack) {
+  LanePolicy<Env, SS, S> pol{t_ops, t_cst, a.n, a.devop, a.var_start, a.n_obs, {}, stack};
+#pragma unroll
+  for (int j = 0; j < kMaxTargets; ++j)
+    pol.tgt[j] = j < a.n_targets ? a.tgt[b * a.n_targets + j] : 0.0f;
+  return pol;
+}
+
+// Writes save row t of this lane: the augmented state and the controls.
+template <class Env, int SS, int S>
+MTGP_HD void save_row(const PolicyArgs& a, const LanePolicy<Env, SS, S>& pol, size_t lane, int t,
+                      const float (&x)[Env::kLatent + SS], const float* noise) {
+  constexpr int D = Env::kLatent + SS, NC = Env::kControls;
+  const size_t row = static_cast<size_t>(t) * a.P * a.B + lane;
+  float u[NC];
+  pol.controls(x, noise, u);
+#pragma unroll
+  for (int q = 0; q < D; ++q) a.xs[row * D + q] = x[q];
+#pragma unroll
+  for (int j = 0; j < NC; ++j) a.us[row * NC + j] = u[j];
+}
+
+template <class Env, int SS>
+MTGP_HD void init_state(const PolicyArgs& a, int b, float (&x)[Env::kLatent + SS]) {
+  constexpr int L = Env::kLatent;
+#pragma unroll
+  for (int q = 0; q < L; ++q) x[q] = a.x0[b * L + q];
+#pragma unroll
+  for (int j = 0; j < SS; ++j) x[L + j] = 0.0f;
+}
+
+// The fixed-step closed loop of one lane.
+template <class Env, int SS, int S>
+MTGP_HD void policy_lane(const PolicyArgs& a, const int* t_ops, const float* t_cst, int b,
+                         size_t lane) {
+  constexpr int L = Env::kLatent, NP = Env::kParams, D = L + SS;
+  using Pol = LanePolicy<Env, SS, S>;
+  float stack[S];
+  const Pol pol = lane_policy<Env, SS, S>(a, t_ops, t_cst, b, stack);
+  const bool rk4 = a.method == kRk4;
+  const int n_stages = rk4 ? 4 : (a.method == kHeun ? 2 : 1);
+  const int k_obs = a.k_obs;
+  const size_t traj = static_cast<size_t>(b);
+
+  float x[D];
+  init_state<Env, SS>(a, b, x);
+  bool alive = Pol::ok(x);
+  const float* save_noise = a.obs_rows ? a.obs_rows + traj * k_obs : nullptr;
+  save_row<Env, SS, S>(a, pol, lane, 0, x, save_noise);
+  int count = alive ? 1 : 0;
+  float p[NP];  // per trajectory, or interpolated at every stage when streamed
+#pragma unroll
+  for (int k = 0; k < NP; ++k) p[k] = a.streamed ? 0.0f : a.par[traj * NP + k];
+  for (int t = 0; t + 1 < a.T; ++t) {
+    // rows t and t+1 of the streamed parameters
+    const float* lo = a.streamed ? a.par + (static_cast<size_t>(t) * a.B + traj) * NP : a.par;
+    const float* hi = a.streamed ? lo + static_cast<size_t>(a.B) * NP : a.par;
+    const float* noise_t = a.obs_rows ? a.obs_rows + (static_cast<size_t>(t) * a.B + traj) * k_obs
+                                      : nullptr;
+    for (int s = 0; s < a.substeps && alive; ++s) {
+      float acc[D], k[D], xst[D], xn[D];
+#pragma unroll
+      for (int q = 0; q < D; ++q) acc[q] = 0.0f;
+      for (int st = 0; st < n_stages; ++st) {
+        // the stage's offset c, weight w and scalar h*c (pallas_rollout
+        // _RK_TABLES: rk4 (0, 1) (0.5, 2) (0.5, 2) (1, 1); heun (0, 1) (1, 1))
+        const float c = st == 0 ? 0.0f : (rk4 && st < 3 ? 0.5f : 1.0f);
+        const float w = rk4 && (st == 1 || st == 2) ? 2.0f : 1.0f;
+        const float hc = rk4 && st < 3 ? a.h_half : a.h_full;
+        if (a.streamed) {
+          const float frac = (static_cast<float>(s) + c) * a.inv_sub;
+          const float keep = 1.0f - frac;
+#pragma unroll
+          for (int j = 0; j < NP; ++j) p[j] = lo[j] * keep + hi[j] * frac;
+        }
+        if (st == 0) {
+#pragma unroll
+          for (int q = 0; q < D; ++q) xst[q] = x[q];
+        } else {
+#pragma unroll
+          for (int q = 0; q < D; ++q) xst[q] = x[q] + hc * k[q];
+        }
+        const float* noise = noise_t ? noise_t + (s * n_stages + st) * a.n_obs : nullptr;
+        pol.drift_call(xst, p, noise, k);
+#pragma unroll
+        for (int q = 0; q < D; ++q) acc[q] = acc[q] + w * k[q];
+      }
+#pragma unroll
+      for (int q = 0; q < D; ++q) xn[q] = x[q] + a.h_final * acc[q];
+      if (a.kick_rows) {  // Euler-Maruyama: the latent block only
+        const float* kick =
+            a.kick_rows + (static_cast<size_t>(t) * a.B + traj) * a.substeps * L + s * L;
+#pragma unroll
+        for (int q = 0; q < L; ++q) xn[q] = xn[q] + kick[q];
+      }
+      alive = Pol::ok(xn);
+      if (alive) {
+#pragma unroll
+        for (int q = 0; q < D; ++q) x[q] = xn[q];
+      }
+    }
+    const float* noise_save =
+        a.obs_rows ? a.obs_rows + (static_cast<size_t>(t + 1) * a.B + traj) * k_obs : nullptr;
+    save_row<Env, SS, S>(a, pol, lane, t + 1, x, noise_save);
+    count += alive ? 1 : 0;
+  }
+  a.alive[lane] = count;
+}
+
+// rk_step's drift: the closed loop at constant params, no noise
+template <class Env, int SS, int S>
+struct PolicyDrift {
+  const LanePolicy<Env, SS, S>& pol;
+  const float (&p)[Env::kParams];
+  MTGP_HD void operator()(const float (&x)[Env::kLatent + SS],
+                          float (&k)[Env::kLatent + SS]) const {
+    pol.drift_call(x, p, nullptr, k);
+  }
+};
+
+// The adaptive closed loop of one lane (per-interval budget).
+template <class Env, int SS, int S>
+MTGP_HD void policy_adaptive_lane(const PolicyArgs& a, const int* t_ops, const float* t_cst,
+                                  int b, size_t lane) {
+  constexpr int NP = Env::kParams, D = Env::kLatent + SS;
+  using Pol = LanePolicy<Env, SS, S>;
+  float stack[S];
+  const Pol pol = lane_policy<Env, SS, S>(a, t_ops, t_cst, b, stack);
+  float p[NP];
+#pragma unroll
+  for (int k = 0; k < NP; ++k) p[k] = a.par[static_cast<size_t>(b) * NP + k];
+  const PolicyDrift<Env, SS, S> f{pol, p};
+
+  float x[D], k1[D];
+  init_state<Env, SS>(a, b, x);
+  bool alive = Pol::ok(x);
+  save_row<Env, SS, S>(a, pol, lane, 0, x, nullptr);
+  int count = alive ? 1 : 0;
+  int steps = 0;
+  if (a.T > 1) {
+    const float expo = error_exponent(a.method);
+    f(x, k1);  // the one up-front evaluation FSAL amortises
+    float dt = (a.ts[1] - a.ts[0]) / 4.0f;
+    for (int ti = 0; ti + 1 < a.T; ++ti) {
+      const float t0 = a.ts[ti];
+      const float t1 = a.ts[ti + 1];
+      const float span = t1 - t0;
+      float t = t0;
+      dt = clip(dt, span * kDtMin, span);
+      for (int s = 0; s < a.max_steps && alive && t < t1 - kCross; ++s) {
+        const float dt_c = nan_min(dt, t1 - t);
+        float x_hi[D], k_last[D];
+        const float err = rk_step<D>(f, a.method, x, k1, dt_c, a.rtol, a.atol, x_hi, k_last);
+        bool finite_hi = true;
+#pragma unroll
+        for (int q = 0; q < D; ++q)
+          finite_hi = finite_hi && isfinite(x_hi[q]) && fabsf(x_hi[q]) < kBound;
+        const bool ok = finite_hi && isfinite(err);
+        // cond_alive rejects the step (integrate_adaptive's accept)
+        if (ok && err <= 1.0f && Env::alive(x_hi)) {
+#pragma unroll
+          for (int q = 0; q < D; ++q) {
+            x[q] = x_hi[q];
+            k1[q] = k_last[q];
+          }
+          t = t + dt_c;
+        }
+        dt = clip(dt_c * step_factor(err, ok, a.safety, expo), span * kDtMin, span);
+        alive = alive && (ok || dt_c > span * kDtDead);
+        ++steps;
+      }
+      alive = alive && t >= t1 - kReach * nan_max(fabsf(t1), 1.0f);
+      save_row<Env, SS, S>(a, pol, lane, ti + 1, x, nullptr);
+      count += alive ? 1 : 0;
+    }
+  }
+  a.alive[lane] = count;
+  a.steps[lane] = steps;
+}
+
+enum Kind { kFixed = 0, kAdaptive = 1 };
+
+#ifdef __CUDACC__
+template <class Env, int SS, int S>
+__global__ void policy_kernel(PolicyArgs a, int cpb) {
+  const int* t_ops;
+  const float* t_cst;
+  size_t lane;
+  int b;
+  if (!stage_block(a.ops, a.cst, a.P, a.B, a.m * a.n, cpb, &t_ops, &t_cst, &lane, &b)) return;
+  policy_lane<Env, SS, S>(a, t_ops, t_cst, b, lane);
+}
+
+template <class Env, int SS, int S>
+__global__ void policy_adaptive_kernel(PolicyArgs a, int cpb) {
+  const int* t_ops;
+  const float* t_cst;
+  size_t lane;
+  int b;
+  if (!stage_block(a.ops, a.cst, a.P, a.B, a.m * a.n, cpb, &t_ops, &t_cst, &lane, &b)) return;
+  policy_adaptive_lane<Env, SS, S>(a, t_ops, t_cst, b, lane);
+}
+
+template <class Env, int SS, int S>
+int launch(int kind, const PolicyArgs& a, int cpb, cudaStream_t stream) {
+  const int grid = (a.P + cpb - 1) / cpb;
+  const size_t smem = block_smem(cpb, a.m, a.n);
+  if (kind == kFixed)
+    policy_kernel<Env, SS, S><<<grid, cpb * a.B, smem, stream>>>(a, cpb);
+  else
+    policy_adaptive_kernel<Env, SS, S><<<grid, cpb * a.B, smem, stream>>>(a, cpb);
+  return static_cast<int>(cudaGetLastError());
+}
+#else
+template <class Env, int SS, int S>
+int launch(int kind, const PolicyArgs& a) {
+  for (int p = 0; p < a.P; ++p)
+    for (int b = 0; b < a.B; ++b) {
+      const size_t lane = static_cast<size_t>(p) * a.B + b;
+      const size_t tree = static_cast<size_t>(p) * a.m * a.n;
+      if (kind == kFixed)
+        policy_lane<Env, SS, S>(a, a.ops + tree, a.cst + tree, b, lane);
+      else
+        policy_adaptive_lane<Env, SS, S>(a, a.ops + tree, a.cst + tree, b, lane);
+    }
+  return 0;
+}
+#endif
+
+template <class Env>
+bool bad_args(int kind, const PolicyArgs& a) {
+  const bool fixed = kind == kFixed;
+  return a.P <= 0 || a.n <= 0 || a.n > kMaxNodes || a.B <= 0 || a.T <= 0 ||
+         a.state_size < 0 || a.state_size > kMaxStateSize ||
+         a.m != a.state_size + Env::kControls || a.n_targets < 0 || a.n_targets > kMaxTargets ||
+         a.n_obs < 0 || a.n_obs > Env::kLatent ||
+         (fixed && (a.method < kEuler || a.method > kRk4 || a.substeps <= 0 ||
+                    (a.kick_rows && a.method != kEuler))) ||
+         (!fixed && (a.method != kBosh3 && a.method != kDopri5)) ||
+         (!fixed && (a.max_steps < 0 || a.streamed || a.obs_rows || a.kick_rows));
+}
+
+}  // namespace
+
+#ifdef __CUDACC__
+#define MTGP_LAUNCH(ENV, SS, S) launch<ENV, SS, S>(kind, *a, cpb, s)
+#else
+#define MTGP_LAUNCH(ENV, SS, S) launch<ENV, SS, S>(kind, *a)
+#endif
+
+// One instance per plant, state size and stack bound (32 covers N <= 32).
+#define MTGP_STACKS(ENV, SS) (a->n <= 32 ? MTGP_LAUNCH(ENV, SS, 32) : MTGP_LAUNCH(ENV, SS, kMaxNodes))
+#define MTGP_ENV(ENV)                                               \
+  do {                                                              \
+    if (bad_args<ENV>(kind, *a)) return kInvalid;                   \
+    switch (a->state_size) {                                        \
+      case 0: return MTGP_STACKS(ENV, 0);                           \
+      case 1: return MTGP_STACKS(ENV, 1);                           \
+      default: return MTGP_STACKS(ENV, 2);                          \
+    }                                                               \
+  } while (0)
+#define MTGP_ENV_SWITCH                                                         \
+  switch (a->env) {                                                             \
+    case kHarmonicOscillator:                                                   \
+    case kChangingHarmonicOscillator: MTGP_ENV(HarmonicOscillatorEnv);          \
+    case kHarmonicOscillator2: MTGP_ENV(HarmonicOscillator2Env);                \
+    case kCartPole: MTGP_ENV(CartPoleEnv);                                      \
+    case kAcrobot: MTGP_ENV(AcrobotEnv<false>);                                 \
+    case kAcrobot2: MTGP_ENV(AcrobotEnv<true>);                                 \
+    case kStirredTankReactor: MTGP_ENV(StirredTankReactorEnv);                  \
+    default: return kInvalid;                                                   \
+  }
+
+extern "C" {
+
+// kind 0 = the fixed-step kernel, 1 = the adaptive one; `args` points to a
+// PolicyArgs.
+#ifdef __CUDACC__
+const char* mtgp_error_string(int status) {
+  return cudaGetErrorString(static_cast<cudaError_t>(status));
+}
+
+// Launches on `stream`; returns cudaGetLastError() of the launch.
+int policy_launch(int kind, const void* args, int cpb, void* stream) {
+  constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
+  const PolicyArgs* a = static_cast<const PolicyArgs*>(args);
+  if ((kind != kFixed && kind != kAdaptive) || cpb <= 0 || cpb * a->B > 1024) return kInvalid;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  MTGP_ENV_SWITCH
+  return kInvalid;
+}
+#else
+// host build of the same per-lane code (tests without a card); 1 reports
+// bad arguments
+const char* mtgp_error_string(int status) {
+  return status ? "invalid arguments" : "no error";
+}
+
+int policy_host(int kind, const void* args) {
+  constexpr int kInvalid = 1;
+  const PolicyArgs* a = static_cast<const PolicyArgs*>(args);
+  if (kind != kFixed && kind != kAdaptive) return kInvalid;
+  MTGP_ENV_SWITCH
+  return kInvalid;
+}
+#endif
+
+}  // extern "C"

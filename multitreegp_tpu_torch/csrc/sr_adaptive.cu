@@ -37,32 +37,13 @@
 // lane or skip; a thread reads `ts[idx]` and `ys[b, idx]` directly.
 //
 // Numerics: the kernels' float32 expressions in their order (the same as the
-// plain versions in core/cuda_adaptive.py): stage inputs x + (0.5*dt)*k,
-// Python-style tableau sums from 0.0 that keep their literal 0.0*k terms
-// (0*inf is NaN), tableau entries rounded once from double to float32, and
-// constants such as 1e-12 or 1.5e-3 as float32 values (a double literal would
-// promote the expression to double). min/max/clip propagate NaN as JAX's do.
+// plain versions in core/cuda_adaptive.py); the step and the controller are
+// adaptive_step.cuh's, shared with the adaptive policy kernel (policy.cu).
 // Built with -fmad=false and IEEE division and square root.
+#include "adaptive_step.cuh"
 #include "sr_lane.cuh"
 
 namespace {
-
-enum AdaptiveMethod { kBosh3 = 0, kDopri5 = 1 };
-
-MTGP_HD constexpr float f32(double v) { return static_cast<float>(v); }
-
-// jnp.minimum / jnp.maximum / jnp.clip: NaN in, NaN out
-MTGP_HD inline float nan_min(float a, float b) {
-  if (isnan(a)) return a;
-  if (isnan(b)) return b;
-  return a < b ? a : b;
-}
-MTGP_HD inline float nan_max(float a, float b) {
-  if (isnan(a)) return a;
-  if (isnan(b)) return b;
-  return a > b ? a : b;
-}
-MTGP_HD inline float clip(float v, float lo, float hi) { return nan_min(nan_max(v, lo), hi); }
 
 // A lane's trees: D trees of n rows, and the opcode table.
 struct Trees {
@@ -73,111 +54,15 @@ struct Trees {
   int var_start;
 };
 
-template <int D, int S>
-MTGP_HD inline void trees_drift(const Trees& tr, const float (&x)[D], float (&k)[D],
-                                float* stack) {
-  drift<D, S>(tr.ops, tr.cst, tr.n, tr.devop, tr.var_start, x, k, stack);
-}
-
-// sum(c[j] * ks[j] for j < nk), from 0.0, left to right (Python's sum); the
-// fixed trip count lets the loops unroll, so ks stays in registers
-template <int D>
-MTGP_HD inline float tableau_sum(const float* c, int nk, const float (*ks)[D], int q) {
-  float s = 0.0f;
-#pragma unroll
-  for (int j = 0; j < 7; ++j)
-    if (j < nk) s = s + c[j] * ks[j][q];
-  return s;
-}
-
-// One embedded step of size dt from x with k1 = trees(x) (the FSAL carry).
-// Writes the higher-order solution x_hi and the last stage k_last (=
-// trees(x_hi)); returns err_norm = sqrt(acc * (1/D)), acc summed component
-// by component.
-template <int D, int S>
-MTGP_HD float rk_step(const Trees& tr, int method, const float (&x)[D], const float (&k1)[D],
-                      float dt, float rtol, float atol, float (&x_hi)[D], float (&k_last)[D],
-                      float* stack) {
-  float x_lo[D], xs[D];
-  if (method == kBosh3) {
-    const float a2[3] = {f32(2.0 / 9.0), f32(1.0 / 3.0), f32(4.0 / 9.0)};
-    const float bl[4] = {f32(7.0 / 24.0), f32(0.25), f32(1.0 / 3.0), f32(0.125)};
-    float k2[D], k3[D];
-    const float h2 = 0.5f * dt;
-#pragma unroll
-    for (int q = 0; q < D; ++q) xs[q] = x[q] + h2 * k1[q];
-    trees_drift<D, S>(tr, xs, k2, stack);
-    const float h3 = 0.75f * dt;
-#pragma unroll
-    for (int q = 0; q < D; ++q) xs[q] = x[q] + h3 * k2[q];
-    trees_drift<D, S>(tr, xs, k3, stack);
-#pragma unroll
-    for (int q = 0; q < D; ++q)
-      x_hi[q] = x[q] + dt * ((a2[0] * k1[q] + a2[1] * k2[q]) + a2[2] * k3[q]);
-    trees_drift<D, S>(tr, x_hi, k_last, stack);
-#pragma unroll
-    for (int q = 0; q < D; ++q)
-      x_lo[q] = x[q] + dt * (((bl[0] * k1[q] + bl[1] * k2[q]) + bl[2] * k3[q]) +
-                             bl[3] * k_last[q]);
-  } else {
-    // multitreegp_tpu/models/integrators.py _DP_A, _DP_B5, _DP_B4
-    const float a[6][6] = {
-        {f32(0.2)},
-        {f32(3.0 / 40.0), f32(9.0 / 40.0)},
-        {f32(44.0 / 45.0), f32(-56.0 / 15.0), f32(32.0 / 9.0)},
-        {f32(19372.0 / 6561.0), f32(-25360.0 / 2187.0), f32(64448.0 / 6561.0),
-         f32(-212.0 / 729.0)},
-        {f32(9017.0 / 3168.0), f32(-355.0 / 33.0), f32(46732.0 / 5247.0), f32(49.0 / 176.0),
-         f32(-5103.0 / 18656.0)},
-        {f32(35.0 / 384.0), 0.0f, f32(500.0 / 1113.0), f32(125.0 / 192.0),
-         f32(-2187.0 / 6784.0), f32(11.0 / 84.0)},
-    };
-    const float b5[7] = {f32(35.0 / 384.0), 0.0f, f32(500.0 / 1113.0), f32(125.0 / 192.0),
-                         f32(-2187.0 / 6784.0), f32(11.0 / 84.0), 0.0f};
-    const float b4[7] = {f32(5179.0 / 57600.0), 0.0f, f32(7571.0 / 16695.0),
-                         f32(393.0 / 640.0), f32(-92097.0 / 339200.0), f32(187.0 / 2100.0),
-                         f32(1.0 / 40.0)};
-    float ks[7][D];
-#pragma unroll
-    for (int q = 0; q < D; ++q) ks[0][q] = k1[q];
-#pragma unroll
-    for (int r = 0; r < 6; ++r) {
-#pragma unroll
-      for (int q = 0; q < D; ++q) xs[q] = x[q] + dt * tableau_sum<D>(a[r], r + 1, ks, q);
-      trees_drift<D, S>(tr, xs, ks[r + 1], stack);
-    }
-#pragma unroll
-    for (int q = 0; q < D; ++q) {
-      x_hi[q] = x[q] + dt * tableau_sum<D>(b5, 7, ks, q);
-      x_lo[q] = x[q] + dt * tableau_sum<D>(b4, 7, ks, q);
-      k_last[q] = ks[6][q];
-    }
+// The drift functor of rk_step: k = trees(x), on this lane's stack.
+template <int D, int S, bool U>
+struct TreeDrift {
+  const Trees& tr;
+  float* stack;
+  MTGP_HD void operator()(const float (&x)[D], float (&k)[D]) const {
+    drift<D, S, U>(tr.ops, tr.cst, tr.n, tr.devop, tr.var_start, x, k, stack);
   }
-  float acc = 0.0f;
-#pragma unroll
-  for (int q = 0; q < D; ++q) {
-    const float scale = atol + rtol * nan_max(fabsf(x[q]), fabsf(x_hi[q]));
-    const float r = (x_hi[q] - x_lo[q]) / scale;
-    acc = acc + r * r;
-  }
-  return sqrtf(acc * f32(1.0 / D));
-}
-
-// The I controller's step factor.
-MTGP_HD inline float step_factor(float err, bool ok, float safety, float expo) {
-  if (isfinite(err) && err > 0.0f) return clip(safety * powf(err, expo), f32(0.2), f32(5.0));
-  return ok ? f32(5.0) : f32(0.2);
-}
-
-MTGP_HD inline float error_exponent(int method) {
-  return method == kBosh3 ? f32(-1.0 / 3.0) : f32(-0.2);
-}
-
-// Controller constants, float32 as JAX rounds the Python doubles.
-constexpr float kCross = f32(1e-12);    // t < t1 - 1e-12: still inside the interval
-constexpr float kDtMin = f32(1e-3);     // dt >= span * 1e-3
-constexpr float kDtDead = f32(1.5e-3);  // NaN at dt_c <= span * 1.5e-3 kills the lane
-constexpr float kReach = f32(1e-9);     // reached: t >= t1 - 1e-9 * max(|t1|, 1)
+};
 
 // Everything a lane reads besides its trees.
 struct LaneIO {
@@ -197,7 +82,7 @@ struct Control {
 // advances when t crosses ts[idx + 1], where t snaps to that save time, the
 // step is clamped to the new interval's span and the squared error at the
 // save is added. At the end a lane that has not reached the last save is dead.
-template <int D, int S>
+template <int D, int S, bool U>
 MTGP_HD void adaptive_global_lane(const Trees& tr, const LaneIO& io, const Control& c,
                                   float* err_out, uint8_t* alive_out, int* steps_out) {
   float stack[S];
@@ -211,7 +96,8 @@ MTGP_HD void adaptive_global_lane(const Trees& tr, const LaneIO& io, const Contr
   int steps = 0;
   if (io.T > 1) {
     const float expo = error_exponent(c.method);
-    trees_drift<D, S>(tr, x, k1, stack);  // the one up-front evaluation FSAL amortises
+    const TreeDrift<D, S, U> f{tr, stack};
+    f(x, k1);  // the one up-front evaluation FSAL amortises
     float t = io.ts[0];
     float dt = (io.ts[1] - io.ts[0]) / 4.0f;
     for (int s = 0; s < c.budget && alive && idx < last; ++s) {
@@ -220,8 +106,7 @@ MTGP_HD void adaptive_global_lane(const Trees& tr, const LaneIO& io, const Contr
       const float span = t1 - t0;
       const float dt_c = nan_min(dt, t1 - t);
       float x_hi[D], k_last[D];
-      const float err = rk_step<D, S>(tr, c.method, x, k1, dt_c, c.rtol, c.atol, x_hi, k_last,
-                                      stack);
+      const float err = rk_step<D>(f, c.method, x, k1, dt_c, c.rtol, c.atol, x_hi, k_last);
       const bool ok = finite_state<D>(x_hi) && isfinite(err);
       const bool accept = ok && err <= 1.0f;
       if (accept) {
@@ -256,7 +141,7 @@ MTGP_HD void adaptive_global_lane(const Trees& tr, const LaneIO& io, const Contr
 // t restarts at the interval's start, the carried dt is clamped to its span,
 // and a lane that has not reached the save point by then is dead. The squared
 // error is added at every save point, for dead (frozen) lanes too.
-template <int D, int S>
+template <int D, int S, bool U>
 MTGP_HD void adaptive_interval_lane(const Trees& tr, const LaneIO& io, const Control& c,
                                     float* err_out, uint8_t* alive_out, int* steps_out) {
   float stack[S];
@@ -268,7 +153,8 @@ MTGP_HD void adaptive_interval_lane(const Trees& tr, const LaneIO& io, const Con
   int steps = 0;
   if (io.T > 1) {
     const float expo = error_exponent(c.method);
-    trees_drift<D, S>(tr, x, k1, stack);
+    const TreeDrift<D, S, U> f{tr, stack};
+    f(x, k1);
     float dt = (io.ts[1] - io.ts[0]) / 4.0f;
     for (int ti = 0; ti + 1 < io.T; ++ti) {
       const float t0 = io.ts[ti];
@@ -279,8 +165,7 @@ MTGP_HD void adaptive_interval_lane(const Trees& tr, const LaneIO& io, const Con
       for (int s = 0; s < c.budget && alive && t < t1 - kCross; ++s) {
         const float dt_c = nan_min(dt, t1 - t);
         float x_hi[D], k_last[D];
-        const float err = rk_step<D, S>(tr, c.method, x, k1, dt_c, c.rtol, c.atol, x_hi,
-                                        k_last, stack);
+        const float err = rk_step<D>(f, c.method, x, k1, dt_c, c.rtol, c.atol, x_hi, k_last);
         const bool ok = finite_state<D>(x_hi) && isfinite(err);
         if (ok && err <= 1.0f) {
 #pragma unroll
@@ -328,25 +213,25 @@ __device__ bool block_lane(const int* __restrict__ ops, const float* __restrict_
       const float *__restrict__ ys, float *__restrict__ err, uint8_t *__restrict__ alive,  \
       int *__restrict__ steps, int P, int n, int B, int T, int var_start, Control c, int cpb
 
-template <int D, int S>
+template <int D, int S, bool U>
 __global__ void adaptive_global_kernel(MTGP_KERNEL_PARAMS) {
   Trees tr;
   LaneIO io;
   size_t lane;
   if (block_lane<D>(ops, cst, devop, x0s, ts, ys, P, n, B, T, var_start, cpb, &tr, &io, &lane))
-    adaptive_global_lane<D, S>(tr, io, c, err + lane, alive + lane, steps + lane);
+    adaptive_global_lane<D, S, U>(tr, io, c, err + lane, alive + lane, steps + lane);
 }
 
-template <int D, int S>
+template <int D, int S, bool U>
 __global__ void adaptive_interval_kernel(MTGP_KERNEL_PARAMS) {
   Trees tr;
   LaneIO io;
   size_t lane;
   if (block_lane<D>(ops, cst, devop, x0s, ts, ys, P, n, B, T, var_start, cpb, &tr, &io, &lane))
-    adaptive_interval_lane<D, S>(tr, io, c, err + lane, alive + lane, steps + lane);
+    adaptive_interval_lane<D, S, U>(tr, io, c, err + lane, alive + lane, steps + lane);
 }
 
-template <int D, int S>
+template <int D, int S, bool U>
 cudaError_t launch(int kind, const int* ops, const float* cst, const int* devop,
                    const float* x0s, const float* ts, const float* ys, float* err,
                    uint8_t* alive, int* steps, int P, int n, int B, int T, int var_start,
@@ -354,15 +239,15 @@ cudaError_t launch(int kind, const int* ops, const float* cst, const int* devop,
   const int grid = (P + cpb - 1) / cpb;
   const size_t smem = block_smem(cpb, D, n);
   if (kind == kGlobal)
-    adaptive_global_kernel<D, S><<<grid, cpb * B, smem, stream>>>(
+    adaptive_global_kernel<D, S, U><<<grid, cpb * B, smem, stream>>>(
         ops, cst, devop, x0s, ts, ys, err, alive, steps, P, n, B, T, var_start, c, cpb);
   else
-    adaptive_interval_kernel<D, S><<<grid, cpb * B, smem, stream>>>(
+    adaptive_interval_kernel<D, S, U><<<grid, cpb * B, smem, stream>>>(
         ops, cst, devop, x0s, ts, ys, err, alive, steps, P, n, B, T, var_start, c, cpb);
   return cudaGetLastError();
 }
 #else
-template <int D, int S>
+template <int D, int S, bool U>
 void launch(int kind, const int* ops, const float* cst, const int* devop, const float* x0s,
             const float* ts, const float* ys, float* err, uint8_t* alive, int* steps, int P,
             int n, int B, int T, int var_start, Control c) {
@@ -373,9 +258,9 @@ void launch(int kind, const int* ops, const float* cst, const int* devop, const 
       const Trees tr{ops + tree, cst + tree, n, devop, var_start};
       const LaneIO io{x0s + b * D, ts, ys + static_cast<size_t>(b) * T * D, T};
       if (kind == kGlobal)
-        adaptive_global_lane<D, S>(tr, io, c, err + lane, alive + lane, steps + lane);
+        adaptive_global_lane<D, S, U>(tr, io, c, err + lane, alive + lane, steps + lane);
       else
-        adaptive_interval_lane<D, S>(tr, io, c, err + lane, alive + lane, steps + lane);
+        adaptive_interval_lane<D, S, U>(tr, io, c, err + lane, alive + lane, steps + lane);
     }
 }
 #endif
@@ -390,19 +275,21 @@ bool bad_args(int kind, int P, int n, int B, int T, int method, int budget) {
 #define MTGP_ADAPTIVE_ARGS                                                                  \
   int kind, const int *ops, const float *cst, const int *devop, const float *x0s,          \
       const float *ts, const float *ys, float *err, uint8_t *alive, int *steps, int P,     \
-      int d, int n, int B, int T, int var_start, int method, int budget, float rtol,      \
-      float atol, float safety
+      int d, int n, int B, int T, int var_start, int unary, int method, int budget,      \
+      float rtol, float atol, float safety
 #define MTGP_ADAPTIVE_INPUTS \
   kind, ops, cst, devop, x0s, ts, ys, err, alive, steps, P, n, B, T, var_start, ctl
 
-// One instance per state dim D and stack bound S (32 covers N <= 32).
-#define MTGP_ADAPTIVE_SWITCH(CALL)                       \
-  switch (d) {                                           \
-    case 1: return n <= 32 ? CALL(1, 32) : CALL(1, kMaxNodes); \
-    case 2: return n <= 32 ? CALL(2, 32) : CALL(2, kMaxNodes); \
-    case 3: return n <= 32 ? CALL(3, 32) : CALL(3, kMaxNodes); \
-    case 4: return n <= 32 ? CALL(4, 32) : CALL(4, kMaxNodes); \
-    default: break;                                      \
+// One instance per state dim D, stack bound S (32 covers N <= 32) and
+// unary operators or none.
+#define MTGP_BY_UNARY(CALL, D, S) (unary ? CALL(D, S, true) : CALL(D, S, false))
+#define MTGP_ADAPTIVE_SWITCH(CALL)                                                       \
+  switch (d) {                                                                           \
+    case 1: return n <= 32 ? MTGP_BY_UNARY(CALL, 1, 32) : MTGP_BY_UNARY(CALL, 1, kMaxNodes); \
+    case 2: return n <= 32 ? MTGP_BY_UNARY(CALL, 2, 32) : MTGP_BY_UNARY(CALL, 2, kMaxNodes); \
+    case 3: return n <= 32 ? MTGP_BY_UNARY(CALL, 3, 32) : MTGP_BY_UNARY(CALL, 3, kMaxNodes); \
+    case 4: return n <= 32 ? MTGP_BY_UNARY(CALL, 4, 32) : MTGP_BY_UNARY(CALL, 4, kMaxNodes); \
+    default: break;                                                                      \
   }
 
 extern "C" {
@@ -411,7 +298,7 @@ extern "C" {
 // interval (`budget` steps per save interval); method 0 = bosh3, 1 = dopri5.
 // ops/cst (P, d, n) with d trees per candidate; x0s (B, d); ts (T,);
 // ys (B, T, d); err/alive/steps (P, B): squared-error sum, liveness,
-// attempted steps.
+// attempted steps; unary: the function set has unary operators.
 #ifdef __CUDACC__
 const char* mtgp_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
@@ -423,7 +310,7 @@ int sr_adaptive_launch(MTGP_ADAPTIVE_ARGS, int cpb, void* stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   const Control ctl{method, budget, rtol, atol, safety};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MTGP_CALL(D, S) static_cast<int>(launch<D, S>(MTGP_ADAPTIVE_INPUTS, cpb, s))
+#define MTGP_CALL(D, S, U) static_cast<int>(launch<D, S, U>(MTGP_ADAPTIVE_INPUTS, cpb, s))
   MTGP_ADAPTIVE_SWITCH(MTGP_CALL)
 #undef MTGP_CALL
   return static_cast<int>(cudaErrorInvalidValue);
@@ -433,7 +320,7 @@ int sr_adaptive_launch(MTGP_ADAPTIVE_ARGS, int cpb, void* stream) {
 int sr_adaptive_host(MTGP_ADAPTIVE_ARGS) {
   if (bad_args(kind, P, n, B, T, method, budget)) return 1;
   const Control ctl{method, budget, rtol, atol, safety};
-#define MTGP_CALL(D, S) (launch<D, S>(MTGP_ADAPTIVE_INPUTS), 0)
+#define MTGP_CALL(D, S, U) (launch<D, S, U>(MTGP_ADAPTIVE_INPUTS), 0)
   MTGP_ADAPTIVE_SWITCH(MTGP_CALL)
 #undef MTGP_CALL
   return 1;

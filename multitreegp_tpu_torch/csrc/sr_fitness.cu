@@ -42,7 +42,7 @@ namespace {
 enum Method { kEuler = 0, kHeun = 1, kRk4 = 2 };
 
 // One lane: trajectory b of a candidate whose d trees are t_ops/t_cst.
-template <int D>
+template <int D, bool U>
 MTGP_HD void fitness_lane(const int* t_ops, const float* t_cst, const int* __restrict__ devop,
                           const float* __restrict__ x0s, const float* __restrict__ ts,
                           const float* __restrict__ ys, int n, int b, int T, int var_start,
@@ -60,7 +60,7 @@ MTGP_HD void fitness_lane(const int* t_ops, const float* t_cst, const int* __res
       const float h = (ts[t + 1] - ts[t]) / static_cast<float>(substeps);
       for (int s = 0; s < substeps && alive; ++s) {
         float k1[D], xn[D];
-        drift<D, kMaxNodes>(t_ops, t_cst, n, devop, var_start, x, k1, stack);
+        drift<D, kMaxNodes, U>(t_ops, t_cst, n, devop, var_start, x, k1, stack);
         if (method == kEuler) {
 #pragma unroll
           for (int q = 0; q < D; ++q) xn[q] = x[q] + h * k1[q];
@@ -68,7 +68,7 @@ MTGP_HD void fitness_lane(const int* t_ops, const float* t_cst, const int* __res
           float xs[D], k2[D];
 #pragma unroll
           for (int q = 0; q < D; ++q) xs[q] = x[q] + h * k1[q];
-          drift<D, kMaxNodes>(t_ops, t_cst, n, devop, var_start, xs, k2, stack);
+          drift<D, kMaxNodes, U>(t_ops, t_cst, n, devop, var_start, xs, k2, stack);
           const float hh = 0.5f * h;
 #pragma unroll
           for (int q = 0; q < D; ++q) xn[q] = x[q] + hh * (k1[q] + k2[q]);
@@ -77,13 +77,13 @@ MTGP_HD void fitness_lane(const int* t_ops, const float* t_cst, const int* __res
           const float hh = 0.5f * h;
 #pragma unroll
           for (int q = 0; q < D; ++q) xs[q] = x[q] + hh * k1[q];
-          drift<D, kMaxNodes>(t_ops, t_cst, n, devop, var_start, xs, k2, stack);
+          drift<D, kMaxNodes, U>(t_ops, t_cst, n, devop, var_start, xs, k2, stack);
 #pragma unroll
           for (int q = 0; q < D; ++q) xs[q] = x[q] + hh * k2[q];
-          drift<D, kMaxNodes>(t_ops, t_cst, n, devop, var_start, xs, k3, stack);
+          drift<D, kMaxNodes, U>(t_ops, t_cst, n, devop, var_start, xs, k3, stack);
 #pragma unroll
           for (int q = 0; q < D; ++q) xs[q] = x[q] + h * k3[q];
-          drift<D, kMaxNodes>(t_ops, t_cst, n, devop, var_start, xs, k4, stack);
+          drift<D, kMaxNodes, U>(t_ops, t_cst, n, devop, var_start, xs, k4, stack);
           const float h6 = h / 6.0f;
 #pragma unroll
           for (int q = 0; q < D; ++q)
@@ -103,7 +103,7 @@ MTGP_HD void fitness_lane(const int* t_ops, const float* t_cst, const int* __res
 }
 
 #ifdef __CUDACC__
-template <int D>
+template <int D, bool U>
 __global__ void sr_fitness_kernel(const int* __restrict__ ops, const float* __restrict__ cst,
                                   const int* __restrict__ devop, const float* __restrict__ x0s,
                                   const float* __restrict__ ts, const float* __restrict__ ys,
@@ -115,22 +115,22 @@ __global__ void sr_fitness_kernel(const int* __restrict__ ops, const float* __re
   size_t lane;
   int b;
   if (!stage_block(ops, cst, P, B, D * n, cpb, &t_ops, &t_cst, &lane, &b)) return;
-  fitness_lane<D>(t_ops, t_cst, devop, x0s, ts, ys, n, b, T, var_start, method, substeps,
+  fitness_lane<D, U>(t_ops, t_cst, devop, x0s, ts, ys, n, b, T, var_start, method, substeps,
                   err + lane, alive_out + lane);
 }
 
-template <int D>
+template <int D, bool U>
 cudaError_t launch(const int* ops, const float* cst, const int* devop, const float* x0s,
                    const float* ts, const float* ys, float* err, uint8_t* alive, int P, int n,
                    int B, int T, int var_start, int method, int substeps, int cpb,
                    cudaStream_t stream) {
   const int grid = (P + cpb - 1) / cpb;
-  sr_fitness_kernel<D><<<grid, cpb * B, block_smem(cpb, D, n), stream>>>(
+  sr_fitness_kernel<D, U><<<grid, cpb * B, block_smem(cpb, D, n), stream>>>(
       ops, cst, devop, x0s, ts, ys, err, alive, P, n, B, T, var_start, method, substeps, cpb);
   return cudaGetLastError();
 }
 #else
-template <int D>
+template <int D, bool U>
 void launch(const int* ops, const float* cst, const int* devop, const float* x0s,
             const float* ts, const float* ys, float* err, uint8_t* alive, int P, int n, int B,
             int T, int var_start, int method, int substeps) {
@@ -138,7 +138,7 @@ void launch(const int* ops, const float* cst, const int* devop, const float* x0s
     for (int b = 0; b < B; ++b) {
       const size_t lane = static_cast<size_t>(p) * B + b;
       const size_t tree = static_cast<size_t>(p) * D * n;
-      fitness_lane<D>(ops + tree, cst + tree, devop, x0s, ts, ys, n, b, T, var_start, method,
+      fitness_lane<D, U>(ops + tree, cst + tree, devop, x0s, ts, ys, n, b, T, var_start, method,
                       substeps, err + lane, alive + lane);
     }
 }
@@ -154,14 +154,15 @@ bool bad_args(int P, int n, int B, int T, int method, int substeps) {
 #define MTGP_FITNESS_ARGS                                                                     \
   const int *ops, const float *cst, const int *devop, const float *x0s, const float *ts,     \
       const float *ys, float *err, uint8_t *alive, int P, int d, int n, int B, int T,         \
-      int var_start, int method, int substeps
+      int var_start, int unary, int method, int substeps
 #define MTGP_FITNESS_INPUTS \
   ops, cst, devop, x0s, ts, ys, err, alive, P, n, B, T, var_start, method, substeps
 
 extern "C" {
 
 // ops/cst (P, d, n) with d trees per candidate; x0s (B, d); ts (T,);
-// ys (B, T, d); err/alive (P, B).
+// ys (B, T, d); err/alive (P, B); unary: the function set has unary
+// operators.
 #ifdef __CUDACC__
 const char* mtgp_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
@@ -172,25 +173,31 @@ int sr_fitness_launch(MTGP_FITNESS_ARGS, int cpb, void* stream) {
   if (bad_args(P, n, B, T, method, substeps) || cpb <= 0 || cpb * B > 1024)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MTGP_CALL(D) (unary ? launch<D, true>(MTGP_FITNESS_INPUTS, cpb, s) \
+                         : launch<D, false>(MTGP_FITNESS_INPUTS, cpb, s))
   switch (d) {
-    case 1: return launch<1>(MTGP_FITNESS_INPUTS, cpb, s);
-    case 2: return launch<2>(MTGP_FITNESS_INPUTS, cpb, s);
-    case 3: return launch<3>(MTGP_FITNESS_INPUTS, cpb, s);
-    case 4: return launch<4>(MTGP_FITNESS_INPUTS, cpb, s);
+    case 1: return MTGP_CALL(1);
+    case 2: return MTGP_CALL(2);
+    case 3: return MTGP_CALL(3);
+    case 4: return MTGP_CALL(4);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef MTGP_CALL
 }
 #else
 // host build of the same per-lane code (tests without a card)
 int sr_fitness_host(MTGP_FITNESS_ARGS) {
   if (bad_args(P, n, B, T, method, substeps)) return 1;
+#define MTGP_CALL(D) \
+  (unary ? launch<D, true>(MTGP_FITNESS_INPUTS) : launch<D, false>(MTGP_FITNESS_INPUTS), 0)
   switch (d) {
-    case 1: launch<1>(MTGP_FITNESS_INPUTS); return 0;
-    case 2: launch<2>(MTGP_FITNESS_INPUTS); return 0;
-    case 3: launch<3>(MTGP_FITNESS_INPUTS); return 0;
-    case 4: launch<4>(MTGP_FITNESS_INPUTS); return 0;
+    case 1: return MTGP_CALL(1);
+    case 2: return MTGP_CALL(2);
+    case 3: return MTGP_CALL(3);
+    case 4: return MTGP_CALL(4);
     default: return 1;
   }
+#undef MTGP_CALL
 }
 #endif
 

@@ -1,113 +1,26 @@
 // Per-lane code shared by the SR rollout kernels (sr_fitness.cu,
-// sr_adaptive.cu, sr_rollout.cu): the postorder tree stack machine, the
-// candidate's drift, the liveness test and the squared error of one state;
-// and, on the card, the staging of a block's trees in shared memory.
+// sr_adaptive.cu, sr_rollout.cu): the candidate's drift, the liveness test
+// and the squared error of one state; and, on the card, the staging of a
+// block's trees in shared memory (also used by policy.cu).
 //
 // A lane is one candidate on one trajectory. Its D trees (one per state
-// component) are evaluated as a postorder stack machine: in the root-last
-// layout a binary row's first operand is the top of the stack and its second
-// the entry below, so no child pointers are read. The stack bound S is a
-// template parameter, so a kernel instance for N <= 32 reserves 32 floats of
-// local memory, not 256.
-//
-// Numerics: the float32 operations of the plain PyTorch versions, in their
-// order. The files that include this are built with -fmad=false (no FMA
-// contraction) and IEEE division, and for the host with -ffp-contract=off.
-//
-// Everything here is plain C++ under MTGP_HD, so each including file also
-// compiles for the host (without __CUDACC__) into a lane loop that tests run
-// against the plain versions on machines without a card.
+// component) are evaluated by the stack machine of tree_eval.cuh on the
+// state x.
 #pragma once
 
-#include <math.h>
-#include <stddef.h>
-#include <stdint.h>
-
-#ifdef __CUDACC__
-#include <cuda_runtime.h>
-#define MTGP_HD __host__ __device__
-#else
-#define MTGP_HD
-#endif
+#include "tree_eval.cuh"
 
 namespace {
 
-constexpr int kEmpty = 0;
-constexpr int kConst = 1;
-constexpr int kOpStart = 2;
-constexpr int kMaxNodes = 256;
-constexpr float kBound = 1e8f;  // models/integrators.py DIVERGENCE_BOUND
-
-// device op ids: multitreegp_tpu_torch/core/registry.py DEVICE_OPS
-constexpr int kAdd = 0;
-constexpr int kSub = 1;
-constexpr int kMul = 2;
-constexpr int kDiv = 3;
-
-// read-only cached load on the card, a plain load on the host
-MTGP_HD inline int load_ro(const int* p) {
-#ifdef __CUDA_ARCH__
-  return __ldg(p);
-#else
-  return *p;
-#endif
-}
-
-MTGP_HD inline float apply_binary(int id, float a, float b) {
-  switch (id) {
-    case kAdd: return a + b;
-    case kSub: return a - b;
-    case kMul: return a * b;
-    default: return a / b;  // kDiv
-  }
-}
-
-template <int D>
-MTGP_HD inline float leaf_value(int var, const float (&x)[D]) {
-  float v = 0.0f;  // a variable past the state width reads 0, as in JAX
-#pragma unroll
-  for (int q = 0; q < D; ++q)
-    if (q == var) v = x[q];
-  return v;
-}
-
-// Root value of one tree (rows `ops[0..n)`, padding first) at state x, with a
-// stack of S floats (S >= n, so the guard below never drops a value of a
-// well-formed tree).
-template <int D, int S>
-MTGP_HD float eval_tree(const int* ops, const float* cst, int n,
-                        const int* __restrict__ devop, int var_start,
-                        const float (&x)[D], float* stack) {
-  int sp = 0;
-  int i = 0;
-  while (i < n && ops[i] == kEmpty) ++i;
-  for (; i < n; ++i) {
-    const int op = ops[i];
-    float v;
-    if (op == kConst) {
-      v = cst[i];
-    } else if (op >= var_start) {
-      v = leaf_value<D>(op - var_start, x);
-    } else {
-      // first operand: the row directly below; second: the subtree below it
-      // (the guards only keep a malformed tree inside the stack)
-      const float a = sp > 0 ? stack[--sp] : 0.0f;
-      const float b = sp > 0 ? stack[--sp] : 0.0f;
-      v = apply_binary(load_ro(devop + (op - kOpStart)), a, b);
-    }
-    if (sp < S) stack[sp++] = v;
-  }
-  return sp ? stack[sp - 1] : 0.0f;
-}
-
-// k = trees(x): tree q of the candidate gives component q.
-template <int D, int S>
+// k = trees(x): tree q of the candidate gives component q. U: the function
+// set has unary operators (tree_eval.cuh).
+template <int D, int S, bool U>
 MTGP_HD inline void drift(const int* ops, const float* cst, int n,
                           const int* __restrict__ devop, int var_start,
                           const float (&x)[D], float (&k)[D], float* stack) {
 #pragma unroll
   for (int mi = 0; mi < D; ++mi)
-    k[mi] = eval_tree<D, S>(ops + mi * n, cst + mi * n, n, devop, var_start, x, stack);
+    k[mi] = eval_tree<D, S, U>(ops + mi * n, cst + mi * n, n, devop, var_start, x, stack);
 }
 
 template <int D>

@@ -35,7 +35,7 @@ struct StepScalars {
   float half, full, final_scale;
 };
 
-template <int D, int S>
+template <int D, int S, bool U>
 MTGP_HD void rollout_lane(const int* t_ops, const float* t_cst, const int* __restrict__ devop,
                           const float* __restrict__ x0, int n, int var_start, int T, int method,
                           int substeps, StepScalars h, float* xs, size_t row_stride,
@@ -50,13 +50,13 @@ MTGP_HD void rollout_lane(const int* t_ops, const float* t_cst, const int* __res
   for (int t = 1; t < T; ++t) {
     for (int s = 0; s < substeps && alive; ++s) {
       float k[D], xst[D], acc[D], xn[D];
-      drift<D, S>(t_ops, t_cst, n, devop, var_start, x, k, stack);
+      drift<D, S, U>(t_ops, t_cst, n, devop, var_start, x, k, stack);
 #pragma unroll
       for (int q = 0; q < D; ++q) acc[q] = 0.0f + 1.0f * k[q];
       if (method == kHeun) {
 #pragma unroll
         for (int q = 0; q < D; ++q) xst[q] = x[q] + h.full * k[q];
-        drift<D, S>(t_ops, t_cst, n, devop, var_start, xst, k, stack);
+        drift<D, S, U>(t_ops, t_cst, n, devop, var_start, xst, k, stack);
 #pragma unroll
         for (int q = 0; q < D; ++q) acc[q] = acc[q] + 1.0f * k[q];
       } else if (method == kRk4) {
@@ -66,7 +66,7 @@ MTGP_HD void rollout_lane(const int* t_ops, const float* t_cst, const int* __res
         for (int st = 0; st < 3; ++st) {
 #pragma unroll
           for (int q = 0; q < D; ++q) xst[q] = x[q] + c[st] * k[q];
-          drift<D, S>(t_ops, t_cst, n, devop, var_start, xst, k, stack);
+          drift<D, S, U>(t_ops, t_cst, n, devop, var_start, xst, k, stack);
 #pragma unroll
           for (int q = 0; q < D; ++q) acc[q] = acc[q] + w[st] * k[q];
         }
@@ -87,7 +87,7 @@ MTGP_HD void rollout_lane(const int* t_ops, const float* t_cst, const int* __res
 }
 
 #ifdef __CUDACC__
-template <int D, int S>
+template <int D, int S, bool U>
 __global__ void sr_rollout_kernel(const int* __restrict__ ops, const float* __restrict__ cst,
                                   const int* __restrict__ devop, const float* __restrict__ x0s,
                                   float* __restrict__ xs, uint8_t* __restrict__ alive, int P,
@@ -98,21 +98,21 @@ __global__ void sr_rollout_kernel(const int* __restrict__ ops, const float* __re
   size_t lane;
   int b;
   if (!stage_block(ops, cst, P, B, D * n, cpb, &t_ops, &t_cst, &lane, &b)) return;
-  rollout_lane<D, S>(t_ops, t_cst, devop, x0s + b * D, n, var_start, T, method, substeps, h,
+  rollout_lane<D, S, U>(t_ops, t_cst, devop, x0s + b * D, n, var_start, T, method, substeps, h,
                      xs + lane * D, static_cast<size_t>(P) * B * D, alive + lane);
 }
 
-template <int D, int S>
+template <int D, int S, bool U>
 cudaError_t launch(const int* ops, const float* cst, const int* devop, const float* x0s,
                    float* xs, uint8_t* alive, int P, int n, int B, int T, int var_start,
                    int method, int substeps, StepScalars h, int cpb, cudaStream_t stream) {
   const int grid = (P + cpb - 1) / cpb;
-  sr_rollout_kernel<D, S><<<grid, cpb * B, block_smem(cpb, D, n), stream>>>(
+  sr_rollout_kernel<D, S, U><<<grid, cpb * B, block_smem(cpb, D, n), stream>>>(
       ops, cst, devop, x0s, xs, alive, P, n, B, T, var_start, method, substeps, h, cpb);
   return cudaGetLastError();
 }
 #else
-template <int D, int S>
+template <int D, int S, bool U>
 void launch(const int* ops, const float* cst, const int* devop, const float* x0s, float* xs,
             uint8_t* alive, int P, int n, int B, int T, int var_start, int method, int substeps,
             StepScalars h) {
@@ -120,7 +120,7 @@ void launch(const int* ops, const float* cst, const int* devop, const float* x0s
     for (int b = 0; b < B; ++b) {
       const size_t lane = static_cast<size_t>(p) * B + b;
       const size_t tree = static_cast<size_t>(p) * D * n;
-      rollout_lane<D, S>(ops + tree, cst + tree, devop, x0s + b * D, n, var_start, T, method,
+      rollout_lane<D, S, U>(ops + tree, cst + tree, devop, x0s + b * D, n, var_start, T, method,
                          substeps, h, xs + lane * D, static_cast<size_t>(P) * B * D,
                          alive + lane);
     }
@@ -136,25 +136,28 @@ bool bad_args(int P, int n, int B, int T, int method, int substeps) {
 
 #define MTGP_ROLLOUT_ARGS                                                                   \
   const int *ops, const float *cst, const int *devop, const float *x0s, float *xs,        \
-      uint8_t *alive, int P, int d, int n, int B, int T, int var_start, int method,        \
-      int substeps, float h_half, float h_full, float h_final
+      uint8_t *alive, int P, int d, int n, int B, int T, int var_start, int unary,         \
+      int method, int substeps, float h_half, float h_full, float h_final
 #define MTGP_ROLLOUT_INPUTS \
   ops, cst, devop, x0s, xs, alive, P, n, B, T, var_start, method, substeps, h
 
-// One instance per state dim D and stack bound S (32 covers N <= 32).
-#define MTGP_ROLLOUT_SWITCH(CALL)                                  \
-  switch (d) {                                                     \
-    case 1: return n <= 32 ? CALL(1, 32) : CALL(1, kMaxNodes);     \
-    case 2: return n <= 32 ? CALL(2, 32) : CALL(2, kMaxNodes);     \
-    case 3: return n <= 32 ? CALL(3, 32) : CALL(3, kMaxNodes);     \
-    case 4: return n <= 32 ? CALL(4, 32) : CALL(4, kMaxNodes);     \
-    default: break;                                                \
+// One instance per state dim D, stack bound S (32 covers N <= 32) and
+// unary operators or none.
+#define MTGP_BY_UNARY(CALL, D, S) (unary ? CALL(D, S, true) : CALL(D, S, false))
+#define MTGP_ROLLOUT_SWITCH(CALL)                                                        \
+  switch (d) {                                                                           \
+    case 1: return n <= 32 ? MTGP_BY_UNARY(CALL, 1, 32) : MTGP_BY_UNARY(CALL, 1, kMaxNodes); \
+    case 2: return n <= 32 ? MTGP_BY_UNARY(CALL, 2, 32) : MTGP_BY_UNARY(CALL, 2, kMaxNodes); \
+    case 3: return n <= 32 ? MTGP_BY_UNARY(CALL, 3, 32) : MTGP_BY_UNARY(CALL, 3, kMaxNodes); \
+    case 4: return n <= 32 ? MTGP_BY_UNARY(CALL, 4, 32) : MTGP_BY_UNARY(CALL, 4, kMaxNodes); \
+    default: break;                                                                      \
   }
 
 extern "C" {
 
 // ops/cst (P, d, n) with d trees per candidate; x0s (B, d); xs (T, P, B, d);
-// alive (P, B), the final liveness.
+// alive (P, B), the final liveness; unary: the function set has unary
+// operators.
 #ifdef __CUDACC__
 const char* mtgp_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
@@ -166,7 +169,7 @@ int sr_rollout_launch(MTGP_ROLLOUT_ARGS, int cpb, void* stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   const StepScalars h{h_half, h_full, h_final};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MTGP_CALL(D, S) static_cast<int>(launch<D, S>(MTGP_ROLLOUT_INPUTS, cpb, s))
+#define MTGP_CALL(D, S, U) static_cast<int>(launch<D, S, U>(MTGP_ROLLOUT_INPUTS, cpb, s))
   MTGP_ROLLOUT_SWITCH(MTGP_CALL)
 #undef MTGP_CALL
   return static_cast<int>(cudaErrorInvalidValue);
@@ -176,7 +179,7 @@ int sr_rollout_launch(MTGP_ROLLOUT_ARGS, int cpb, void* stream) {
 int sr_rollout_host(MTGP_ROLLOUT_ARGS) {
   if (bad_args(P, n, B, T, method, substeps)) return 1;
   const StepScalars h{h_half, h_full, h_final};
-#define MTGP_CALL(D, S) (launch<D, S>(MTGP_ROLLOUT_INPUTS), 0)
+#define MTGP_CALL(D, S, U) (launch<D, S, U>(MTGP_ROLLOUT_INPUTS), 0)
   MTGP_ROLLOUT_SWITCH(MTGP_CALL)
 #undef MTGP_CALL
   return 1;

@@ -1,0 +1,215 @@
+"""Static (feedforward) symbolic-policy evaluator.
+
+Port of ``multitreegp_tpu/models/evaluators/static_policy.py``: the
+candidate's trees map observations (and targets) to the control ``u =
+trees([y, target])``, recomputed inside the drift at every stage; after the
+rollout the controls are re-derived on the save grid, and the fitness is the
+environment's cost of (states, controls), with dead saves filled with
+``inf`` so that the cost decides what divergence is worth, a non-finite cost
+counted as ``max_fitness``, and the trajectory mean clipped to ``[0,
+max_fitness]``.
+
+Population evaluation takes a fused kernel exactly where the JAX dispatch
+takes one, decided by configuration: a fixed-step method, a function set
+whose variables are the data vector ``[y, targets]``, ``N <= 256``, a plant
+with a device drift and at least two save points take kernel #6; the
+adaptive method with per-trajectory parameters takes kernel #7; everything
+else (and ``interpreter="ladder"`` / ``"gather"``) the general path, the
+integrator with ``evaluate_trees`` (kernel #8 on CUDA) as the policy. The
+fused rollout is differentiable in the constants through
+``core.cuda_policy.PolicyRollout`` (the general path's gradient). The JAX
+VMEM gate is not copied.
+
+Not ported yet (they raise ``NotImplementedError``, ROADMAP Queue 1 #15):
+observation noise (``env.obs_noise != 0``) and process noise
+(``stochastic=True`` with ``env.process_noise > 0``). ``remat`` is accepted
+and has no effect (PyTorch keeps the tape).
+
+Data: ``(x0, ts, targets, process_noise_keys, obs_noise_keys, params)``, as
+``generate_control_data`` returns it.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ...core.cuda_policy import (
+    ENV_IDS, MAX_NODES, MAX_STATE_SIZE, PolicyRollout, _series, rollout_policy,
+    rollout_policy_adaptive,
+)
+from ...core.cuda_rollout import METHODS
+from ...core.interpreter import evaluate_trees
+from ...core.registry import FunctionSet
+from ...core.trees import TreeTensors
+from ..integrators import adaptive_step_budget, integrate, integrate_adaptive
+
+
+class StaticPolicyEvaluator:
+    """Fitness = env cost of the closed loop driven by the candidate policy."""
+
+    state_size = 0
+
+    def __init__(
+        self,
+        env,
+        fset: FunctionSet | None = None,
+        max_fitness: float = 1e4,
+        method: str = "rk4",
+        substeps: int = 4,
+        remat: bool = False,
+        interpreter: str = "auto",
+        stochastic: bool = False,
+        rtol: float = 1e-4,
+        atol: float = 1e-4,
+        adaptive_method: str = "bosh3",
+    ) -> None:
+        self.env = env
+        self.fset = fset
+        self.max_fitness = max_fitness
+        self.method = method
+        self.substeps = substeps
+        self.remat = remat
+        self.interpreter = interpreter
+        self.stochastic = stochastic
+        self.rtol = rtol
+        self.atol = atol
+        self.adaptive_method = adaptive_method
+
+    # ------------------------------------------------------------ dispatch
+
+    def _check(self) -> None:
+        self.env._require_noise_free()
+        if self.stochastic and getattr(self.env, "process_noise", 0.0) > 0.0:
+            raise NotImplementedError(
+                "process noise (stochastic=True, process_noise > 0) is not ported yet: "
+                "ROADMAP Queue 1 #15")
+
+    def _data_width(self) -> int:
+        return self.env.n_obs + self.env.n_targets
+
+    def _fused_kind(self, population: TreeTensors, data: Tuple):
+        """``"fixed"`` (kernel #6), ``"adaptive"`` (#7) or None (the general
+        path), from the configuration alone."""
+        ts, params = data[1], data[5]
+        if (self.interpreter not in ("auto", "pallas")
+                or self.fset.num_variables != self._data_width()
+                or population.max_nodes > MAX_NODES or ts.shape[0] < 2
+                or type(self.env) not in ENV_IDS or self.state_size > MAX_STATE_SIZE):
+            return None
+        if self.method in METHODS:
+            return "fixed"
+        if self.method == "adaptive" and not _series(params):
+            return "adaptive"
+        return None
+
+    def _fused(self, data: Tuple, kind: str):
+        """The dispatcher of the fused rollout: ``trees -> (xs, us, alive)``."""
+        x0, ts, targets, _pk, _ok, params = data
+        if kind == "adaptive":
+            return lambda trees: rollout_policy_adaptive(
+                trees, x0, ts, targets, params, self.env, self.fset, rtol=self.rtol,
+                atol=self.atol, max_steps=adaptive_step_budget(self.substeps),
+                method=self.adaptive_method, state_size=self.state_size)
+        return lambda trees: rollout_policy(
+            trees, x0, ts, targets, params, self.env, self.fset, self.substeps, self.method,
+            self.state_size)
+
+    def _recompute(self, data: Tuple):
+        """``trees -> (xs, us)`` by the general path and the replay: the
+        fused rollout's backward."""
+        def run(trees):
+            xs, _ = self._rollout_general(trees, data)
+            return xs, self._replay_controls(trees, xs, data)
+        return run
+
+    def _rollout(self, population: TreeTensors, data: Tuple):
+        """``(xs, alive, us or None)``: the fused kernel streams the save-grid
+        controls beside the states; the general path returns None and the
+        caller replays."""
+        self._check()
+        kind = self._fused_kind(population, data)
+        if kind is not None:
+            xs, us, alive = PolicyRollout.apply(*population, self._fused(data, kind),
+                                                self._recompute(data))
+            return xs, alive, us
+        xs, alive = self._rollout_general(population, data)
+        return xs, alive, None
+
+    # ------------------------------------------------------- general path
+
+    def _controls(self, policy: TreeTensors, obs: torch.Tensor, targets: torch.Tensor):
+        """``u = trees([y, target])`` for obs ``(..., B, n_obs)``, targets
+        ``(B, n_targets)``."""
+        tgt = targets.expand(obs.shape[:-1] + targets.shape[-1:])
+        return evaluate_trees(policy, torch.cat([obs, tgt], dim=-1)[..., None, :], self.fset)
+
+    def _integrate(self, drift, x0b: torch.Tensor, ts: torch.Tensor, cond_alive):
+        if self.method == "adaptive":
+            return integrate_adaptive(
+                drift, x0b, ts, rtol=self.rtol, atol=self.atol,
+                max_steps_per_interval=adaptive_step_budget(self.substeps),
+                cond_alive=cond_alive, method=self.adaptive_method)
+        return integrate(drift, x0b, ts, method=self.method, substeps=self.substeps,
+                         cond_alive=cond_alive)
+
+    def _rollout_general(self, population: TreeTensors, data: Tuple):
+        """``(xs (T, P, B, latent), alive (T, P, B))`` by the integrator; the
+        adaptive path's times are per lane, and so are the parameters."""
+        x0, ts, targets, _pk, obs_keys, params = data
+        env = self.env
+        trees = population[:, None]  # (P, 1, m, N)
+
+        def drift(t, x):  # x (P, B, latent); t a float or (P, B)
+            p_t = env.params_at(params, ts, t)
+            u = self._controls(trees, env.f_obs(obs_keys, t, x, p_t), targets)
+            return env.drift(t, x, u, p_t)
+
+        x0b = x0[None].expand((population.batch_shape[0],) + x0.shape)
+        return self._integrate(drift, x0b, ts, env.cond_alive)
+
+    def _replay(self, population: TreeTensors, xs: torch.Tensor, data: Tuple):
+        """Observations and controls on the save grid: ``(ys, us)``."""
+        _x0, ts, targets, _pk, obs_keys, params = data
+        ys = self.env.f_obs(obs_keys, ts, xs, params)  # (T, P, B, n_obs)
+        return ys, self._controls(population[:, None], ys, targets)
+
+    def _replay_controls(self, population: TreeTensors, xs: torch.Tensor, data: Tuple):
+        return self._replay(population, xs, data)[1]
+
+    def _states(self, xs: torch.Tensor) -> torch.Tensor:
+        """The plant's latent states of a rollout's saved states."""
+        return xs
+
+    # ------------------------------------------------------------- fitness
+
+    def _cost(self, xs, us, alive, data) -> torch.Tensor:
+        """The env cost per ``(..., B)`` trajectory of saves ``(T, ..., B,
+        ·)``: dead saves are ``inf`` in the states and the controls (the
+        reference recomputes controls from inf-filled states), and a
+        non-finite cost counts as ``max_fitness``."""
+        _x0, ts, targets, _pk, _ok, params = data
+        live = alive.movedim(0, -1)[..., None]
+        xs_b = torch.where(live, xs.movedim(0, -2), float("inf"))
+        us_b = torch.where(live, us.movedim(0, -2), float("inf"))
+        cost = self.env.fitness(xs_b, us_b, targets, ts, params)
+        return torch.where(torch.isfinite(cost), cost, torch.full_like(cost, self.max_fitness))
+
+    def evaluate_population(self, population: TreeTensors, data: Tuple) -> torch.Tensor:
+        """population batch ``(P, m)``; returns fitness ``(P,)``."""
+        xs, alive, us = self._rollout(population, data)
+        if us is None:  # general path: the post-hoc replay
+            us = self._replay_controls(population, xs, data)
+        fitness = self._cost(self._states(xs), us, alive, data).mean(dim=-1)
+        return torch.nan_to_num(fitness, nan=self.max_fitness).clamp(0.0, self.max_fitness)
+
+    def evaluate_candidate(self, candidate: TreeTensors, data: Tuple):
+        """``(xs (B, T, latent), ys (B, T, n_obs), us (B, T, n_control),
+        per-trajectory fitness (B,))`` of one candidate: the reference's
+        inspection API."""
+        pop = candidate.map(lambda a: a[None])
+        xs, alive, _us = self._rollout(pop, data)
+        ys, us = self._replay(pop, xs, data)  # inspection wants ys too
+        cost = self._cost(xs[:, 0], us[:, 0], alive[:, 0], data)
+        per_b = lambda a: a[:, 0].transpose(0, 1)
+        return per_b(xs), per_b(ys), per_b(us), cost

@@ -6,7 +6,8 @@ Port of ``multitreegp_tpu/models/integrators.py`` without its SDE half:
   interval, ``dt = (ts[t+1] - ts[t]) / substeps`` per interval from the
   float32 grid, as the JAX scan does;
 * :func:`integrate_adaptive`: an embedded pair (Bogacki-Shampine 3(2) or
-  Dormand-Prince 5(4)) with per-lane ``(t, dt)`` and an I step controller.
+  Dormand-Prince 5(4)) with per-lane ``(t, dt)`` and an I step controller;
+* :func:`linear_interp`: the time-varying parameters' interpolation.
 
 Both keep the per-lane alive freeze: a lane whose state is non-finite or
 reaches ``|x| >= DIVERGENCE_BOUND`` stops updating (its state stays frozen)
@@ -41,22 +42,27 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
+def _f32_add(a: float, b: float) -> float:
+    """``a + b`` in float32: the solver times the drift sees, as JAX's."""
+    return _f32(np.float32(a) + np.float32(b))
+
+
 def euler_step(drift: Drift, t: float, x, dt: float):
     return x + dt * drift(t, x)
 
 
 def heun_step(drift: Drift, t: float, x, dt: float):
     k1 = drift(t, x)
-    k2 = drift(t + dt, x + dt * k1)
+    k2 = drift(_f32_add(t, dt), x + dt * k1)
     return x + _f32(np.float32(0.5) * np.float32(dt)) * (k1 + k2)
 
 
 def rk4_step(drift: Drift, t: float, x, dt: float):
     half = _f32(np.float32(0.5) * np.float32(dt))
     k1 = drift(t, x)
-    k2 = drift(t + half, x + half * k1)
-    k3 = drift(t + half, x + half * k2)
-    k4 = drift(t + dt, x + dt * k3)
+    k2 = drift(_f32_add(t, half), x + half * k1)
+    k3 = drift(_f32_add(t, half), x + half * k2)
+    k4 = drift(_f32_add(t, dt), x + dt * k3)
     return x + _f32(np.float32(dt) / np.float32(6.0)) * (k1 + 2 * k2 + 2 * k3 + k4)
 
 
@@ -72,11 +78,11 @@ def step_interval(
     values as Python floats): ``dt = (t1 - t0) / substeps`` in float32."""
     dt = _f32((np.float32(t1) - np.float32(t0)) / np.float32(substeps))
     for i in range(substeps):
-        t = t0 + i * dt
+        t = _f32_add(t0, np.float32(i) * np.float32(dt))
         x_new = stepper(drift, t, x, dt)
         ok = finite(x_new)
         if cond_alive is not None:
-            ok = ok & cond_alive(t + dt, x_new)
+            ok = ok & cond_alive(_f32_add(t, dt), x_new)
         alive = alive & ok
         x = torch.where(alive[..., None], x_new, x)
     return x, alive
@@ -252,3 +258,23 @@ def integrate_adaptive(
         xs.append(x)
         alives.append(alive)
     return torch.stack(xs), torch.stack(alives)
+
+
+def linear_interp(ts: torch.Tensor, values: torch.Tensor, t) -> torch.Tensor:
+    """Piecewise-linear interpolation of ``values (T, ...)`` sampled at
+    ``ts (T,)``, at ``t`` (a float, or a tensor of per-lane times that
+    broadcasts against ``values.shape[1:]``); JAX ``linear_interp``: ``t``
+    clipped to ``[ts[0], ts[-1]]``, the interval from ``searchsorted(side=
+    "right")``, ``w = (t - t0) / (t1 - t0)`` (0 on an empty interval) and
+    ``v0 + w * (v1 - v0)``."""
+    t = torch.as_tensor(t, dtype=ts.dtype, device=ts.device)
+    t = torch.minimum(torch.maximum(t, ts[0]), ts[-1])
+    idx = (torch.searchsorted(ts, t.reshape(-1), right=True).reshape(t.shape) - 1)
+    idx = idx.clamp(0, ts.shape[0] - 2)
+    t0, t1 = ts[idx], ts[idx + 1]
+    w = torch.where(t1 > t0, (t - t0) / (t1 - t0), torch.zeros_like(t))
+    shape = torch.broadcast_shapes(values.shape[1:], t.shape)
+    rows = values.movedim(0, -1).expand(*shape, values.shape[0])
+    i = idx.expand(shape)[..., None]
+    v0, v1 = rows.gather(-1, i)[..., 0], rows.gather(-1, i + 1)[..., 0]
+    return v0 + w.expand(shape) * (v1 - v0)

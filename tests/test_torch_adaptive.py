@@ -52,6 +52,7 @@ from multitreegp_tpu_torch.core import cuda_adaptive as ca
 from multitreegp_tpu_torch.core.interpreter import evaluate_trees
 from multitreegp_tpu_torch.models.evaluators import SREvaluator
 from multitreegp_tpu_torch.models.integrators import adaptive_step_budget, integrate_adaptive
+from test_torch_kernels import host_pow, patch_host_math
 
 torch.set_num_threads(1)
 
@@ -60,9 +61,9 @@ OPS = [("+", jnp.add, 2, 0.5), ("-", jnp.subtract, 2, 0.1), ("*", jnp.multiply, 
 METHODS = ["bosh3", "dopri5"]
 
 
-def vdp_case(t_end=1.0, batch=4, pop=24, nodes=16, seed=1):
+def vdp_case(t_end=1.0, batch=4, pop=24, nodes=16, seed=1, ops=OPS):
     """JAX function set, data and population, and the same as torch objects."""
-    jf = jax_function_set(OPS, [["x0", "x1"]], [2])
+    jf = jax_function_set(ops, [["x0", "x1"]], [2])
     ts = jnp.arange(0.0, t_end, 0.2)
     data = jax_generate(JaxVdP(0.0, 0.0), jr.PRNGKey(0), ts, batch_size=batch, substeps=8)
     jpop = jax_sampler(jf, 3, nodes)(jr.PRNGKey(seed), pop)
@@ -154,21 +155,17 @@ def host_run(lib, kind, trees, x0s, ts, ys, fset, budget, method, rtol=1e-4, ato
     arrays = [np.ascontiguousarray(a.numpy()) for a in (trees.ops, trees.const, fset.device_ops(),
                                                         x0s, ts, ys)]
     fn = lib.sr_adaptive_host
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float] * 3
     status = fn(kind, *(a.ctypes.data for a in arrays), err.ctypes.data, alive.ctypes.data,
-                steps.ctypes.data, p, d, n, b, ts.shape[0], fset.var_start, ca.METHODS[method],
-                budget, rtol, atol, 0.9)
+                steps.ctypes.data, p, d, n, b, ts.shape[0], fset.var_start, fset.has_unary,
+                ca.METHODS[method], budget, rtol, atol, 0.9)
     assert status == 0
     return err / np.float32(ts.shape[0]), alive.astype(bool), steps
 
 
 def glibc_pow(base, exponent):
     """``torch.pow(tensor, float)`` by the host C library's ``powf``."""
-    libm = ctypes.CDLL("libm.so.6")
-    libm.powf.restype = ctypes.c_float
-    libm.powf.argtypes = [ctypes.c_float, ctypes.c_float]
-    out = [libm.powf(v, exponent) for v in base.detach().reshape(-1).tolist()]
-    return torch.tensor(out, dtype=torch.float32).reshape(base.shape)
+    return host_pow(base, exponent)
 
 
 def ieee_sqrt(x):
@@ -205,6 +202,27 @@ def test_adaptive_host_build_matches_plain(adaptive_host, monkeypatch, kind, met
     assert (a == h_alive).mean() >= 0.995
     both = a & h_alive
     assert rel(h_mse[both], mse.numpy()[both]).max() <= 1e-3
+
+
+@pytest.mark.parametrize("kind", ["global", "interval"])
+def test_adaptive_host_build_trig_matches_plain(adaptive_host, monkeypatch, kind):
+    """Kernels #5 and #4 with ``sin``/``cos`` rows (dopri5): every output bit
+    for bit, with the host's ``powf``, ``sinf``, ``cosf`` and an IEEE square
+    root in the plain version."""
+    trig = OPS + [("sin", jnp.sin, 1, 0.3), ("cos", jnp.cos, 1, 0.3)]
+    jf, data, jpop, tf, (x0s, ts, ys, _), trees = vdp_case(t_end=1.4, pop=32, ops=trig)
+    assert bool((trees.ops == tf.string_to_op["sin"]).any())
+    k, budget, plain = ((ca.GLOBAL, 60, ca.sr_fitness_adaptive_global_plain) if kind == "global"
+                        else (ca.INTERVAL, 8, ca.sr_fitness_adaptive_interval_plain))
+    h_mse, h_alive, h_steps = host_run(adaptive_host, k, trees, x0s, ts, ys, tf, budget, "dopri5")
+    with monkeypatch.context() as m:
+        patch_host_math(m)
+        m.setattr(torch, "pow", glibc_pow)
+        m.setattr(torch, "sqrt", ieee_sqrt)
+        mse, alive, steps = plain(trees, x0s, ts, ys, tf, 1e-4, 1e-6, budget, "dopri5")
+    np.testing.assert_array_equal(alive.numpy(), h_alive)
+    np.testing.assert_array_equal(steps.numpy(), h_steps)
+    assert same_bits(mse.numpy(), h_mse) and h_alive.any()
 
 
 # ------------------------------------------ (c) global == per-interval plain

@@ -41,7 +41,9 @@ from multitreegp_tpu_torch.core.interpreter import (
     EvaluateTrees, evaluate_trees, evaluate_trees_plain, evaluate_trees_vjp_plain,
 )
 from multitreegp_tpu_torch.core.registry import build_function_set
-from test_torch_kernels import INTERP_OPS, lanes_case, reproduce_case, same_bits
+from test_torch_kernels import (
+    INTERP_OPS, NO_DEVICE_OP, TRIG, lanes_case, patch_host_math, reproduce_case, same_bits,
+)
 
 torch.set_num_threads(1)
 
@@ -81,6 +83,27 @@ def test_host_build_per_lane_bit_exact(host_lib, n, depth):
     assert (ref_c != 0).any() and (ref_d != 0).any() and (~torch.isfinite(ref_c)).any()
 
 
+def test_host_build_trig_bit_exact(host_lib, monkeypatch):
+    """Unary ``sin``/``cos`` rows: the forward and the VJP (``g * cos(x)``,
+    ``g * -sin(x)``, autograd's formulas) bit for bit per lane, with the
+    host's ``sinf``/``cosf`` in the plain version and its autograd."""
+    fset, pop, data, g = lanes_case(ops=INTERP_OPS + TRIG)
+    k, b = data.shape[:2]
+    full = pop.map(lambda a: a[:, None].expand(k, b, 2, 32))
+    unary = (pop.ops == fset.string_to_op["sin"]) | (pop.ops == fset.string_to_op["cos"])
+    assert bool(unary.any())
+    with monkeypatch.context() as m:
+        patch_host_math(m)
+        ref = evaluate_trees_plain(full, data, fset)
+        ref_c, ref_d = evaluate_trees_vjp_plain(full, data, g, fset)
+    status, out = ci.run_forward(host_lib.interpret_fwd, full, data, fset)
+    assert status == 0 and same_bits(out, ref)
+    status, dconst, ddata = ci.run_backward(host_lib.interpret_bwd, full, data, g, fset)
+    assert status == 0
+    assert same_bits(dconst, ref_c) and same_bits(ddata, ref_d)
+    assert (ref_c != 0).any() and torch.isfinite(ref).float().mean() > 0.5
+
+
 def test_host_build_broadcast_sums(host_lib):
     """The recompute's layout: trees ``(K, 1, m, N)`` meet states
     ``(K, B, 1, d)``; dconst sums over B, ddata over the m trees. Constants
@@ -113,7 +136,7 @@ def test_host_build_refuses_bad_arguments(host_lib):
     fset, pop, data, g = lanes_case(k=4)
     with pytest.raises(NotImplementedError):  # an operator without a device id
         ci.run_forward(host_lib.interpret_fwd, pop[:, None],
-                       data, build_function_set(INTERP_OPS + [("sin", 1, 0.1)], [["x0", "x1"]], [2]))
+                       data, build_function_set(INTERP_OPS + [NO_DEVICE_OP], [["x0", "x1"]], [2]))
     with pytest.raises(ValueError):  # wrong cotangent shape
         ci.run_backward(host_lib.interpret_bwd, pop[:, None], data, g[:, :1], fset)
     with pytest.raises(ValueError):  # the CUDA wrappers take CUDA tensors only

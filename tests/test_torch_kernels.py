@@ -10,7 +10,10 @@ Two routes:
   rtol 1e-6 (the host's ``logf``/``cosf`` and PyTorch's may round an ulp
   apart).
 * on the card (marker ``cuda``; skipped without a GPU): the kernels through
-  their wrappers, same criteria; the interpreter kernels (forward and VJP)
+  their wrappers, same criteria; the closed-loop policy kernels (#6 fixed
+  step, #7 adaptive) per lane bit for bit, states, controls, alive counts
+  and steps, and the policy evaluators' refusal to run a plain version on
+  CUDA tensors; the interpreter kernels (forward and VJP)
   through ``evaluate_trees`` and autograd, bit for bit per lane against the
   plain version on the card; the adaptive kernels (#5 global budget, #4 per
   interval) and the trajectory kernel (#3) against their plain versions,
@@ -24,6 +27,9 @@ in ``test_torch_interpreter_kernel.py``, ``test_torch_adaptive.py`` and
 """
 import ctypes
 import shutil
+import subprocess
+import tempfile
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -36,6 +42,7 @@ from multitreegp_tpu_torch.core.cuda_reproduction import (
 )
 from multitreegp_tpu_torch.core import cuda_adaptive as ca
 from multitreegp_tpu_torch.core import cuda_interpreter as ci
+from multitreegp_tpu_torch.core import cuda_policy as cp
 from multitreegp_tpu_torch.core import cuda_rollout as cro
 from multitreegp_tpu_torch.core.cuda_rollout import (
     METHODS, SRFitness, sr_fitness, sr_fitness_cuda, sr_fitness_plain,
@@ -44,19 +51,104 @@ from multitreegp_tpu_torch.core.interpreter import (
     evaluate_trees, evaluate_trees_plain, evaluate_trees_vjp_plain,
 )
 from multitreegp_tpu_torch.core.registry import build_function_set
-from multitreegp_tpu_torch.models.environments import VanDerPolOscillator
-from multitreegp_tpu_torch.models.evaluators import generate_sr_data
+from multitreegp_tpu_torch.models.environments import Acrobot, HarmonicOscillator, VanDerPolOscillator
+from multitreegp_tpu_torch.models.evaluators import (
+    DynamicPolicyEvaluator, StaticPolicyEvaluator, generate_control_data, generate_sr_data,
+)
 from multitreegp_tpu_torch.ops.initialization import make_population_sampler
 
 torch.set_num_threads(1)
 
 N = 32
 ARITH = [("+", 2, 0.5), ("-", 2, 0.1), ("*", 2, 0.5), ("/", 2, 0.1)]
+TRIG = [("sin", 1, 0.3), ("cos", 1, 0.3)]
 INTERP_OPS = [("+", 2, 0.5), ("-", 2, 0.1), ("*", 2, 0.5), ("/", 2, 0.4)]
+# an operator outside DEVICE_OPS: the kernels refuse a function set with it
+NO_DEVICE_OP = ("tanh", torch.tanh, 1, 0.1)
+
+_VMATH_SRC = r"""
+#include <math.h>
+void vsinf(const float* x, float* y, long n) { for (long i = 0; i < n; ++i) y[i] = sinf(x[i]); }
+void vcosf(const float* x, float* y, long n) { for (long i = 0; i < n; ++i) y[i] = cosf(x[i]); }
+void vexpf(const float* x, float* y, long n) { for (long i = 0; i < n; ++i) y[i] = expf(x[i]); }
+void vpowf(const float* x, float e, float* y, long n) {
+  for (long i = 0; i < n; ++i) y[i] = powf(x[i], e);
+}
+"""
+_VMATH = []
 
 
-def fitness_case(device="cpu", pop=24, b=4, t_end=1.6):
-    fset = build_function_set(ARITH, [["x0", "x1"]], [2])
+def host_vmath() -> ctypes.CDLL:
+    """The C library's ``sinf``/``cosf``/``expf``/``powf`` over arrays
+    (compiled once, scalar calls: no vector math library)."""
+    if not _VMATH:
+        out = Path(tempfile.mkdtemp(prefix="mtgp_vmath_"))
+        (out / "vmath.c").write_text(_VMATH_SRC)
+        cc = shutil.which("gcc") or shutil.which("cc") or shutil.which("g++")
+        subprocess.run([cc, "-x", "c", "-O1", "-fno-builtin", "-shared", "-fPIC", "-o",
+                        str(out / "vmath.so"), str(out / "vmath.c"), "-lm"], check=True)
+        lib = ctypes.CDLL(str(out / "vmath.so"))
+        for name in ("vsinf", "vcosf", "vexpf"):
+            getattr(lib, name).argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long]
+        lib.vpowf.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p, ctypes.c_long]
+        _VMATH.append(lib)
+    return _VMATH[0]
+
+
+def _host_map(name, x, *extra):
+    a = np.ascontiguousarray(x.detach().numpy(), dtype=np.float32)
+    out = np.empty_like(a)
+    getattr(host_vmath(), name)(a.ctypes.data, *extra, out.ctypes.data, a.size)
+    return torch.from_numpy(out)
+
+
+def host_pow(base, exponent):
+    """``torch.pow(tensor, float)`` by the C library's ``powf``."""
+    return _host_map("vpowf", base, ctypes.c_float(exponent))
+
+
+class _HostSin(torch.autograd.Function):
+    """``torch.sin`` by the C library's ``sinf``; backward autograd's own
+    formula, ``g * cos(x)``, with ``cosf``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _host_map("vsinf", x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * _host_map("vcosf", x)
+
+
+class _HostCos(torch.autograd.Function):
+    """``torch.cos`` by ``cosf``; backward ``g * -sin(x)``, as autograd."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _host_map("vcosf", x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * -_host_map("vsinf", x)
+
+
+def patch_host_math(m) -> None:
+    """Make ``torch.sin``, ``torch.cos`` and ``torch.exp`` compute as the
+    host build of a kernel does, with the C library's ``sinf``, ``cosf`` and
+    ``expf`` (``m`` a ``monkeypatch`` context). PyTorch's vectorised CPU
+    versions round an ulp away from them on some inputs; on the card
+    PyTorch's and the kernels' are the same CUDA functions."""
+    m.setattr(torch, "sin", _HostSin.apply)
+    m.setattr(torch, "cos", _HostCos.apply)
+    m.setattr(torch, "exp", lambda x: _host_map("vexpf", x))
+
+
+def fitness_case(device="cpu", pop=24, b=4, t_end=1.6, ops=ARITH):
+    fset = build_function_set(ops, [["x0", "x1"]], [2])
     g = torch.Generator(device=device).manual_seed(0)
     ts = torch.arange(0.0, t_end, 0.2, device=device)
     x0s, ts, ys, _ = generate_sr_data(VanDerPolOscillator(), g, ts, batch_size=b)
@@ -84,11 +176,11 @@ def reproduce_case(device="cpu", lanes=192):
     return cfg, args
 
 
-def lanes_case(device="cpu", k=48, b=3, n=32, depth=5, seed=0, near_zero=True):
+def lanes_case(device="cpu", k=48, b=3, n=32, depth=5, seed=0, near_zero=True, ops=INTERP_OPS):
     """Trees ``(k, 2, n)`` and states ``(k, b, 2, 2)``, all made from
     ``seed``; with ``near_zero``, every third candidate's constants are near
     or at 0, so ``/`` makes huge, inf and NaN lanes."""
-    fset = build_function_set(INTERP_OPS, [["x0", "x1"]], [2])
+    fset = build_function_set(ops, [["x0", "x1"]], [2])
     g = torch.Generator(device=device).manual_seed(seed)
     pop = make_population_sampler(fset, depth, n)(g, k)[0]
     rng = np.random.default_rng(seed)
@@ -116,22 +208,44 @@ def host_libs(tmp_path_factory):
     return {name: _build.build_host(name, out) for name in ("sr_fitness", "reproduce")}
 
 
+def fitness_host(lib, trees, x0s, ts, ys, fset, method, substeps):
+    p, b = trees.ops.shape[0], x0s.shape[0]
+    err = np.zeros((p, b), np.float32)
+    alive_h = np.zeros((p, b), np.uint8)
+    fn = lib.sr_fitness_host
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+    arrays = [np.ascontiguousarray(a.numpy()) for a in (trees.ops, trees.const, fset.device_ops(),
+                                                        x0s, ts, ys)]
+    status = fn(*(a.ctypes.data for a in arrays), err.ctypes.data, alive_h.ctypes.data,
+                p, 2, N, b, ts.shape[0], fset.var_start, fset.has_unary, METHODS[method], substeps)
+    assert status == 0
+    return err / np.float32(ts.shape[0]), alive_h.astype(bool)
+
+
 @pytest.mark.parametrize("method,substeps", [("euler", 2), ("heun", 1), ("rk4", 1), ("rk4", 3)])
 def test_fitness_host_build_bit_exact(host_libs, method, substeps):
     fset, trees, x0s, ts, ys = fitness_case()
     mse, alive = sr_fitness_plain(trees, x0s, ts, ys, fset, method, substeps)
-    p, b = mse.shape
-    err = np.zeros((p, b), np.float32)
-    alive_h = np.zeros((p, b), np.uint8)
-    fn = host_libs["sr_fitness"].sr_fitness_host
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-    arrays = [np.ascontiguousarray(a.numpy()) for a in (trees.ops, trees.const, fset.device_ops(),
-                                                        x0s, ts, ys)]
-    status = fn(*(a.ctypes.data for a in arrays), err.ctypes.data, alive_h.ctypes.data,
-                p, 2, N, b, ts.shape[0], fset.var_start, METHODS[method], substeps)
-    assert status == 0
-    np.testing.assert_array_equal(alive_h.astype(bool), alive.numpy())
-    np.testing.assert_array_equal(err / np.float32(ts.shape[0]), mse.numpy())
+    err, alive_h = fitness_host(host_libs["sr_fitness"], trees, x0s, ts, ys, fset, method, substeps)
+    np.testing.assert_array_equal(alive_h, alive.numpy())
+    np.testing.assert_array_equal(err, mse.numpy())
+    assert (~alive.numpy()).any() and alive.numpy().any()
+
+
+@pytest.mark.parametrize("method", ["heun", "rk4"])
+def test_fitness_host_build_trig_bit_exact(host_libs, monkeypatch, method):
+    """Kernel #1 with ``sin`` and ``cos`` in the trees (unary rows rewrite the
+    top of the stack): bit for bit with the host's ``sinf``/``cosf`` in the
+    plain version."""
+    fset, trees, x0s, ts, ys = fitness_case(ops=ARITH + TRIG)
+    unary = (trees.ops == fset.string_to_op["sin"]) | (trees.ops == fset.string_to_op["cos"])
+    assert bool(unary.any())
+    with monkeypatch.context() as m:
+        patch_host_math(m)
+        mse, alive = sr_fitness_plain(trees, x0s, ts, ys, fset, method, 1)
+    err, alive_h = fitness_host(host_libs["sr_fitness"], trees, x0s, ts, ys, fset, method, 1)
+    np.testing.assert_array_equal(alive_h, alive.numpy())
+    np.testing.assert_array_equal(err, mse.numpy())
     assert (~alive.numpy()).any() and alive.numpy().any()
 
 
@@ -209,7 +323,7 @@ def test_interpreter_kernels_match_plain_on_card(cuda):
     ref_c, ref_d = evaluate_trees_vjp_plain(full._replace(const=const.detach()), data, g, fset)
     assert same_bits(dconst, ref_c) and same_bits(ddata, ref_d)
     with pytest.raises(NotImplementedError):
-        evaluate_trees(full, data, build_function_set(INTERP_OPS + [("sin", 1, 0.1)], [["x0", "x1"]], [2]))
+        evaluate_trees(full, data, build_function_set(INTERP_OPS + [NO_DEVICE_OP], [["x0", "x1"]], [2]))
 
 
 @pytest.mark.cuda
@@ -266,8 +380,8 @@ def test_adaptive_kernels_match_plain_on_card(cuda, method):
         assert torch.equal(alive, ref_alive) and torch.equal(steps, ref_steps)
         assert same_bits(mse, ref) and alive.any() and (~alive).any()
     with pytest.raises(NotImplementedError):  # an operator the kernels lack
-        sin_set = build_function_set(ARITH + [("sin", 1, 0.1)], [["x0", "x1"]], [2])
-        ca.sr_fitness_adaptive(trees, x0s, ts, ys, sin_set)
+        tanh_set = build_function_set(ARITH + [NO_DEVICE_OP], [["x0", "x1"]], [2])
+        ca.sr_fitness_adaptive(trees, x0s, ts, ys, tanh_set)
     with pytest.raises(NotImplementedError):  # N > 256
         wide = trees.map(lambda a: torch.cat([a, a[..., :1].expand(*a.shape[:-1], 240)], -1))
         ca.sr_fitness_adaptive_global(wide, x0s, ts, ys, fset)
@@ -283,3 +397,113 @@ def test_rollout_kernel_matches_plain_on_card(cuda, method, substeps):
     torch.cuda.synchronize()
     assert cro.sr_rollout_cuda.launches == before + 1
     assert torch.equal(alive, ref_alive) and same_bits(xs, ref)
+
+
+POLICY_OPS = [("+", 2), ("-", 2), ("*", 2), ("sin", 1), ("cos", 1)]
+
+
+def policy_case(device="cpu", env=None, state_size=0, pop=24, b=4, t_end=2.2, mode="Constant",
+                n=30, ops=POLICY_OPS):
+    """A control environment's data and a population of policies: static
+    (variables ``[y, tgt]``) or dynamic (``[y, a, u, tgt]``, then the
+    readout's ``[a, tgt]``)."""
+    env = env or Acrobot()
+    ys = [f"y{i}" for i in range(env.n_obs)]
+    tg = [f"tgt{i}" for i in range(env.n_targets)]
+    if state_size:
+        a = [f"a{i}" for i in range(state_size)]
+        u = [f"u{i}" for i in range(env.n_control)]
+        fset = build_function_set(ops, [ys + a + u + tg, a + tg], [state_size, env.n_control])
+    else:
+        fset = build_function_set(ops, [ys + tg], [env.n_control])
+    g = torch.Generator(device=device).manual_seed(0)
+    ts = torch.arange(0.0, t_end, 0.2, device=device)
+    data = generate_control_data(env, g, ts, batch_size=b, param_mode=mode)
+    return env, fset, data, make_population_sampler(fset, 4, n)(g, pop)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state_size", [0, 2])
+def test_policy_kernels_match_plain_on_card(cuda, state_size):
+    """#6 (RK4, 2 substeps) and #7 (dopri5, 8 steps per interval) through
+    their dispatchers on Acrobot: one launch each, every lane's states,
+    controls, alive count and attempted steps equal to the plain version on
+    the card; and the dispatchers' refusals."""
+    env, fset, (x0, ts, tgt, _, _, par), trees = policy_case(cuda, state_size=state_size, pop=256,
+                                                             b=16)
+    before = cp.policy_rollout_cuda.launches
+    got = cp.rollout_policy(trees, x0, ts, tgt, par, env, fset, 2, "rk4", state_size)
+    ref = cp.policy_rollout_plain(trees, x0, ts, tgt, par, env, fset, 2, "rk4", state_size)
+    torch.cuda.synchronize()
+    assert cp.policy_rollout_cuda.launches == before + 1
+    assert all(same_bits(a, b) for a, b in zip(got[:2], ref[:2])) and torch.equal(got[2], ref[2])
+    before = cp.policy_rollout_adaptive_cuda.launches
+    got = cp.rollout_policy_adaptive(trees, x0, ts, tgt, par, env, fset, max_steps=8,
+                                     state_size=state_size, return_steps=True)
+    ref = cp.policy_rollout_adaptive_plain(trees, x0, ts, tgt, par, env, fset, max_steps=8,
+                                           state_size=state_size)
+    torch.cuda.synchronize()
+    assert cp.policy_rollout_adaptive_cuda.launches == before + 1
+    assert all(same_bits(a, b) for a, b in zip(got[:2], ref[:2]))
+    assert torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3]) and got[2][-1].any()
+    with pytest.raises(NotImplementedError):  # an operator the kernels lack
+        tanh_set = build_function_set(POLICY_OPS + [NO_DEVICE_OP], [fset.variable_names[:4]], [1])
+        cp.rollout_policy(trees[:, :1], x0, ts, tgt, par, env, tanh_set, 2, "rk4", 0)
+    with pytest.raises(NotImplementedError):  # N > 256
+        wide = trees.map(lambda a: torch.cat([a, a[..., :1].expand(*a.shape[:-1], 240)], -1))
+        cp.rollout_policy(wide, x0, ts, tgt, par, env, fset, 2, "rk4", state_size)
+    kicks = torch.zeros((ts.shape[0], 16, 2 * 4), device=cuda)
+    with pytest.raises(ValueError):  # process noise needs euler
+        cp.rollout_policy(trees, x0, ts, tgt, par, env, fset, 2, "rk4", state_size,
+                          process_noise_rows=kicks)
+
+
+@pytest.mark.cuda
+def test_policy_kernel_legs_match_plain_on_card(cuda):
+    """#6's other legs on the card: series parameters (Switch) on the
+    harmonic oscillator, obs-noise rows and Euler-Maruyama kicks given as
+    tensors; and #7 refusing series parameters."""
+    env, fset, (x0, ts, tgt, _, _, par), trees = policy_case(
+        cuda, HarmonicOscillator(), pop=128, b=16, mode="Switch")
+    args = (trees, x0, ts, tgt, par, env, fset)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    noise = dict(obs_noise_rows=0.1 * torch.randn((ts.shape[0], 16, 2 * env.n_obs), generator=g,
+                                                  device=cuda),
+                 process_noise_rows=0.05 * torch.randn((ts.shape[0], 16, 2 * 2), generator=g,
+                                                       device=cuda))
+    for method, sub, rows in (("rk4", 2, {}), ("euler", 2, noise)):  # euler: 1 stage per substep
+        got = cp.rollout_policy(*args, sub, method, 0, **rows)
+        ref = cp.policy_rollout_plain(*args, sub, method, 0, **rows)
+        torch.cuda.synchronize()
+        assert all(same_bits(a, b) for a, b in zip(got[:2], ref[:2])) and torch.equal(got[2], ref[2])
+    with pytest.raises(ValueError):
+        cp.rollout_policy_adaptive(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["static", "dynamic", "adaptive"])
+def test_policy_evaluators_never_run_plain_on_card(cuda, monkeypatch, kind):
+    """With CUDA tensors the policy evaluators launch their kernel (#6 or
+    #7) and never a plain version; ``evaluate_candidate`` replays through
+    kernel #8."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for name in ("policy_rollout_plain", "policy_rollout_adaptive_plain"):
+        monkeypatch.setattr(cp, name, refuse)
+    monkeypatch.setattr("multitreegp_tpu_torch.core.interpreter.evaluate_trees_plain", refuse)
+    state_size = 2 if kind == "dynamic" else 0
+    env, fset, data, trees = policy_case(cuda, state_size=state_size, pop=64, b=16)
+    if kind == "dynamic":
+        ev = DynamicPolicyEvaluator(env, fset, state_size=2, substeps=2)
+    else:
+        ev = StaticPolicyEvaluator(env, fset, substeps=8 if kind == "adaptive" else 2,
+                                   method="adaptive" if kind == "adaptive" else "rk4",
+                                   adaptive_method="dopri5")
+    kernel = cp.policy_rollout_adaptive_cuda if kind == "adaptive" else cp.policy_rollout_cuda
+    before, fwd = kernel.launches, ci.evaluate_trees_cuda.launches
+    fitness = ev.evaluate_population(trees, data)
+    out = ev.evaluate_candidate(trees[0], data)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2 and ci.evaluate_trees_cuda.launches > fwd
+    assert bool(((fitness >= 0) & (fitness <= 1e4)).all()) and out[0].shape[:2] == (16, 11)

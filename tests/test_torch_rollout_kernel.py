@@ -43,6 +43,7 @@ from multitreegp_tpu_torch.models.environments import VanDerPolOscillator
 from multitreegp_tpu_torch.models.evaluators import SREvaluator, generate_sr_data
 from multitreegp_tpu_torch.models.integrators import integrate
 from multitreegp_tpu_torch.ops.initialization import make_population_sampler
+from test_torch_kernels import TRIG, patch_host_math
 
 torch.set_num_threads(1)
 
@@ -58,28 +59,54 @@ def rollout_host(tmp_path_factory):
     return _build.build_host("sr_rollout", tmp_path_factory.mktemp("rollout_host"))
 
 
-@pytest.mark.parametrize("method,substeps", CASES)
-def test_rollout_host_build_bit_exact(rollout_host, method, substeps):
-    fset = build_function_set(ARITH, [["x0", "x1"]], [2])
+def rollout_case(ops=ARITH):
+    fset = build_function_set(ops, [["x0", "x1"]], [2])
     g = torch.Generator().manual_seed(0)
     x0s, ts, _, _ = generate_sr_data(VanDerPolOscillator(), g, torch.arange(0.0, 1.6, 0.2), batch_size=4)
-    trees = make_population_sampler(fset, 4, 32)(g, 24)[0]
+    return fset, x0s, ts, make_population_sampler(fset, 4, 32)(g, 24)[0]
+
+
+@pytest.mark.parametrize("method,substeps", CASES)
+def test_rollout_host_build_bit_exact(rollout_host, method, substeps):
+    fset, x0s, ts, trees = rollout_case()
     xs, alive = cr.sr_rollout_plain(trees, x0s, ts, fset, method, substeps)
     t_steps, (p, b) = ts.shape[0], alive.shape[1:]
     out = np.zeros((t_steps, p, b, 2), np.float32)
     alive_h = np.zeros((p, b), np.uint8)
     h, h_final = cr.rollout_step(ts, method, substeps)
     fn = rollout_host.sr_rollout_host
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float] * 3
     arrays = [np.ascontiguousarray(a.numpy()) for a in (trees.ops, trees.const, fset.device_ops(), x0s)]
     status = fn(*(a.ctypes.data for a in arrays), out.ctypes.data, alive_h.ctypes.data, p, 2, 32, b,
-                t_steps, fset.var_start, cr.METHODS[method], substeps, np.float32(h * 0.5),
-                np.float32(h), h_final)
+                t_steps, fset.var_start, fset.has_unary, cr.METHODS[method], substeps,
+                np.float32(h * 0.5), np.float32(h), h_final)
     assert status == 0
     np.testing.assert_array_equal(alive_h.astype(bool), alive[-1].numpy())
     np.testing.assert_array_equal(out, xs.numpy())  # NaN == NaN for assert_array_equal
     assert alive[-1].any() and (~alive[-1]).any()
     assert torch.equal(alive, alive[-1:].expand_as(alive))
+
+
+def test_rollout_host_build_trig_bit_exact(rollout_host, monkeypatch):
+    """Kernel #3 with ``sin``/``cos`` rows, RK4 with 2 substeps: bit for bit
+    with the host's ``sinf``/``cosf`` in the plain version."""
+    fset, x0s, ts, trees = rollout_case(ARITH + TRIG)
+    with monkeypatch.context() as m:
+        patch_host_math(m)
+        xs, alive = cr.sr_rollout_plain(trees, x0s, ts, fset, "rk4", 2)
+    t_steps, (p, b) = ts.shape[0], alive.shape[1:]
+    out = np.zeros((t_steps, p, b, 2), np.float32)
+    alive_h = np.zeros((p, b), np.uint8)
+    h, h_final = cr.rollout_step(ts, "rk4", 2)
+    fn = rollout_host.sr_rollout_host
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float] * 3
+    arrays = [np.ascontiguousarray(a.numpy()) for a in (trees.ops, trees.const, fset.device_ops(), x0s)]
+    assert fn(*(a.ctypes.data for a in arrays), out.ctypes.data, alive_h.ctypes.data, p, 2, 32, b,
+              t_steps, fset.var_start, fset.has_unary, cr.METHODS["rk4"], 2, np.float32(h * 0.5),
+              np.float32(h), h_final) == 0
+    np.testing.assert_array_equal(alive_h.astype(bool), alive[-1].numpy())
+    np.testing.assert_array_equal(out, xs.numpy())
+    assert alive[-1].any()
 
 
 @pytest.fixture(scope="module")
@@ -157,18 +184,24 @@ def test_rollout_gradient_through_recompute():
 
 def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
     """An edited header changes the library path of every source that
-    includes it (so it is rebuilt), and of no other."""
-    for name in ("sr_fitness", "sr_adaptive", "sr_rollout", "interpreter", "reproduce"):
+    includes it, directly or through another header (so it is rebuilt), and
+    of no other."""
+    names = ("sr_fitness", "sr_adaptive", "sr_rollout", "interpreter", "reproduce", "policy")
+    for name in names:
         shutil.copy(_build.CSRC_DIR / f"{name}.cu", tmp_path)
-    shutil.copy(_build.CSRC_DIR / "sr_lane.cuh", tmp_path)
+    for header in _build.CSRC_DIR.glob("*.cuh"):
+        shutil.copy(header, tmp_path)
     monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
-    names = ("sr_fitness", "sr_adaptive", "sr_rollout", "interpreter", "reproduce")
-    before = {n: _build.library_path(n) for n in names}
-    assert [p.name for p in _build.source_files("sr_adaptive")] == ["sr_adaptive.cu", "sr_lane.cuh"]
-    header = tmp_path / "sr_lane.cuh"
-    header.write_text(header.read_text() + "\n// touched\n")
-    after = {n: _build.library_path(n) for n in names}
-    for n in names:
-        includes = "sr_lane.cuh" in [p.name for p in _build.source_files(n)]
-        assert (after[n] != before[n]) == includes, n
-    assert {n for n in names if after[n] != before[n]} == {"sr_fitness", "sr_adaptive", "sr_rollout"}
+    assert [p.name for p in _build.source_files("sr_adaptive")] == [
+        "sr_adaptive.cu", "adaptive_step.cuh", "sr_lane.cuh", "tree_eval.cuh"]
+    for header, touched in (("sr_lane.cuh", {"sr_fitness", "sr_adaptive", "sr_rollout", "policy"}),
+                            ("control_envs.cuh", {"policy"}),
+                            ("tree_eval.cuh", set(names) - {"reproduce"})):
+        before = {n: _build.library_path(n) for n in names}
+        path = tmp_path / header
+        path.write_text(path.read_text() + "\n// touched\n")
+        after = {n: _build.library_path(n) for n in names}
+        for n in names:
+            includes = header in [p.name for p in _build.source_files(n)]
+            assert (after[n] != before[n]) == includes, (header, n)
+        assert {n for n in names if after[n] != before[n]} == touched, header

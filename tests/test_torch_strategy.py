@@ -123,12 +123,25 @@ def test_chip_smoke_phases_rehearse_on_cpu():
                 generations=2, timing_runs=1, plain_runs=1,
                 fit_generations=20, top_k=4, gradient_steps=2, elite=0.25, interp_runs=1,
                 adaptive_budget=40, adaptive_interval_steps=8, adaptive_short_t=3,
-                adaptive_opt_steps=2)
+                adaptive_opt_steps=2,
+                policy_horizon=1.0, policy_nodes=16, policy_substeps=2, policy_adaptive_substeps=8,
+                policy_fixed_t=4, policy_adaptive_t=3, legs_pop=8, legs_t=3, trig_adaptive_t=3,
+                policy_opt_top_k=4, policy_opt_steps=2, policy_opt_t=4)
     out = chip_smoke.run(torch.device("cpu"), tiny)
     assert out["fitness"]["bit_equal"] and out["reproduce"]["ops_identical"] == 1.0
     assert [k["name"] for k in out["kernels"]] == [
         "sr_fitness", "reproduce", "interpret_fwd", "interpret_bwd", "sr_adaptive_global",
-        "sr_adaptive_interval", "sr_rollout"]
+        "sr_adaptive_interval", "sr_rollout", "policy", "policy_adaptive"]
+    pk = out["policy_kernels"]
+    assert {"fixed_static", "fixed_dynamic", "adaptive_static", "adaptive_dynamic"} <= set(pk)
+    assert all(pk[k]["identical"] == 1.0 for k in ("fixed_static", "adaptive_dynamic"))
+    assert len(pk["legs"]) == 16 and all(r["identical"] == 1.0 for r in pk["legs"])
+    assert pk["trig"]["interpreter"]["vjp_bit_equal"] and pk["trig"]["unary_rows"] > 0
+    assert set(pk["trig"]["reproduce"]) == {"static", "dynamic"}
+    path = out["policy_path"]
+    assert all(len(path[k]["generations"]) == 2 for k in ("static", "dynamic", "adaptive"))
+    assert path["optimise"]["refined_sum"] <= path["optimise"]["unrefined_sum"]
+    assert path["adaptive"]["steps_max"] <= 8 * 4
     assert set(out["adaptive_kernels"]) == {"global_t3", "global_t5", "interval_t3", "rollout"}
     assert all(v["identical"] == 1.0 for v in out["adaptive_kernels"].values())
     path = out["adaptive_path"]
@@ -158,6 +171,7 @@ def test_package_never_imports_jax():
         "import multitreegp_tpu_torch.ops.constant_opt, multitreegp_tpu_torch.ops.optim\n"
         "import multitreegp_tpu_torch.utils.checkpoint, multitreegp_tpu_torch.core.cuda_interpreter\n"
         "import multitreegp_tpu_torch.core.cuda_adaptive, multitreegp_tpu_torch.core.cuda_rollout\n"
+        "import multitreegp_tpu_torch.core.cuda_policy, multitreegp_tpu_torch.models.environments\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'multitreegp_tpu.'))]\n"
         "assert not bad and 'multitreegp_tpu' not in sys.modules, bad\n"
     )

@@ -77,10 +77,14 @@ def test_function_set_matches_jax_numbering(population):
     assert tf.string_to_op == jf.string_to_op
     np.testing.assert_array_equal(tf.variable_mask.numpy(), np.asarray(jf.variable_mask))
     np.testing.assert_array_equal(np.float32(tf.operator_probs), np.asarray(jf.operator_probs))
-    # device op ids: the four arithmetic operators; sin has none yet
-    assert tf.device_op_ids == (0, 1, 2, 3, -1)
+    # device op ids: the four arithmetic operators and sin
+    assert tf.device_op_ids == (0, 1, 2, 3, 4)
+    tf.require_device_ops()
+    # an operator outside DEVICE_OPS has none, and the kernels refuse it
+    tanh_set = build_function_set([("+", 2), ("tanh", torch.tanh, 1)], [["x0"]], [1])
+    assert tanh_set.device_op_ids == (0, -1)
     with pytest.raises(NotImplementedError):
-        tf.require_device_ops()
+        tanh_set.require_device_ops()
 
 
 def test_unknown_operator_needs_a_function():

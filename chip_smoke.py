@@ -56,7 +56,23 @@ workload (phases 12-14). Phases, one line or a few each:
    horizon cut to T = 125: the recompute is host-bound, ~40 s at T = 250)
    through ``PolicyRollout`` (#8/#9 in the backward);
 14. #6 and #7 times at T = 250 (CUDA events), with bounds counted from the
-   run.
+   run;
+15. the noise streams and the SDE: the rows built on the card against the
+   same rows built on the CPU (the generator's bits equal, the normals' ulp
+   gap reported); #1 with Euler-Maruyama kick rows against its plain version
+   on the 65,536 lanes of phase 2 at T = 50 (4 substeps); the 5-generation
+   8 x 512 host loop of the SDE SR workload (VdP with process noise 0.05);
+   the static and dynamic Acrobot loops (T = 250, 5 generations) with
+   observation noise and ``stochastic=True`` (#6 given the rows); one noisy
+   adaptive evaluation through the general path (per-lane draws, no #7),
+   the horizon cut to T = 6 (the general path launches #8 per stage); #6
+   against its plain version on the port's rows (RK4 observation rows, Euler
+   observation + kick rows) on all 65,536 lanes at T = 26 (phase 12's cut),
+   every lane identical; #1's and #6's times with and without noise, and
+   the rows' build time;
+16. the branch probe (#10, ``python -m multitreegp_tpu_torch.tools.branch_probe``):
+   every mode against its plain version, then the tool's timing run, each
+   mode's time beside its bound.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last lines are a JSON line of per-kernel numbers, the card's name and
@@ -79,9 +95,10 @@ FULL = dict(islands=8, pop=512, max_nodes=32, depth=4, batch=16, horizon=10.0, d
             adaptive_opt_steps=5,
             policy_horizon=50.0, policy_nodes=30, policy_substeps=4, policy_adaptive_substeps=8,
             policy_fixed_t=26, policy_adaptive_t=11, legs_pop=512, legs_t=11, trig_adaptive_t=5,
-            policy_opt_top_k=8, policy_opt_steps=2, policy_opt_t=125)
+            policy_opt_top_k=8, policy_opt_steps=2, policy_opt_t=125,
+            noise=0.05, noisy_adaptive_t=6, ab_runs=20, probe_reps=256)
 KERNELS = ("sr_fitness", "reproduce", "interpreter", "sr_adaptive", "sr_rollout",
-           "policy")  # csrc/<name>.cu
+           "policy", "branch_probe")  # csrc/<name>.cu
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, float32 FLOP/s outside the tensor
 # cores (both at the full 700 W power limit)
 PEAK_BYTES_PER_S = 3.35e12
@@ -329,6 +346,8 @@ def run(device, sizes=FULL) -> dict:
     out.update(policy_kernels_phase(device, s, ps, trees, fset, x0s, ts_full, ys_full))
     out.update(policy_path_phase(device, s, ps))
     out.update(policy_times(device, s, ps))
+    out.update(sde_phase(device, s, ps, trees, fset, ts_full))
+    out.update(probe_phase(device, s))
 
     # -- the kernels line --------------------------------------------------------
     times = out.get("times_ms", {})
@@ -366,10 +385,11 @@ def run(device, sizes=FULL) -> dict:
                     plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
                     **extra)
 
+    sde = out["sde"]
     out["kernels"] = [
         row("sr_fitness", "sr_fitness.cu", "multitreegp_tpu/core/pallas_rollout.py:279",
             launches["sr_fitness"], a_err, times.get("fit_kernel"), times.get("fit_plain"),
-            fit_bound, launches_const_opt=launches7["sr_fitness"]),
+            fit_bound, launches_const_opt=launches7["sr_fitness"], kicks=sde["fitness_kicks"]),
         row("reproduce", "reproduce.cu", "multitreegp_tpu/core/pallas_reproduction.py:53",
             launches["reproduce"], c_err, times.get("rep_kernel"), times.get("rep_plain"),
             rep_bound, launches_const_opt=launches7["reproduce"],
@@ -420,6 +440,13 @@ def run(device, sizes=FULL) -> dict:
         policy_row("policy_adaptive", "adaptive", "multitreegp_tpu/core/pallas_policy.py:691",
                    pp["adaptive"]["launches"]["policy_adaptive"]),
     ]
+    out["kernels"][-2]["noisy"] = sde["policy_noise"]
+    pb = out["probe"]
+    always = pb["modes"]["always"]
+    out["kernels"].append(
+        row("branch_probe", "branch_probe.cu", "tools/mosaic_branch_probe.py:58", pb["launches"],
+            pb["max_abs_err"], always["ms"], always["plain_ms"],
+            (always["bound_ms"], always["bound_by"]), modes=pb["modes"]))
     return out
 
 
@@ -1413,6 +1440,274 @@ def policy_times(device, s, ps) -> dict:
                            f"{bnd[0]:.4f} ms by {bnd[1]} ({ops:.4e} operations, "
                            f"{(in_bytes + out_bytes) / 1e6:.1f} MB)")
     return {"policy_times_ms": res}
+
+
+# ------------------------------------------------------------ noise and SDE
+
+
+def ulp_gap(a, b) -> int:
+    """The largest distance in units in the last place between two float32
+    tensors of one shape (their bits mapped to ordered integers)."""
+    import torch
+
+    key = lambda v: (lambda i: torch.where(i < 0, -(i & 0x7FFFFFFF), i))(
+        v.contiguous().view(torch.int32).long())
+    return int((key(a) - key(b.to(a.device))).abs().max()) if a.numel() else 0
+
+
+def host_loop(gp, data, s, device, counters, name) -> dict:
+    """``s["generations"]`` generations of ``evaluate_population`` +
+    ``evolve`` with the launch counters zeroed before and read after; checks
+    the fitness and that the best never grows."""
+    import torch
+
+    for fn in counters.values():
+        fn.launches = 0
+    gen_g = torch.Generator(device=device).manual_seed(21)
+    pops = gp.initialize_population(gen_g)
+    best, gens = [], []
+    for _ in range(s["generations"]):
+        sync(device)
+        t0 = time.perf_counter()
+        fitness, pops_eval = gp.evaluate_population(pops, data)
+        sync(device)
+        t1 = time.perf_counter()
+        pops = gp.evolve(pops_eval, fitness, gen_g)
+        sync(device)
+        t2 = time.perf_counter()
+        top = gp.evaluator.max_fitness
+        check(bool(torch.isfinite(fitness).all()), f"{name}: non-finite fitness")
+        check(bool(((fitness >= 0) & (fitness <= top)).all()), f"{name}: fitness outside [0, {top}]")
+        best.append(float(fitness.min()))
+        gens.append(dict(eval_ms=(t1 - t0) * 1e3, evolve_ms=(t2 - t1) * 1e3, best=best[-1]))
+    check(all(b1 <= b0 for b0, b1 in zip(best, best[1:])), f"{name}: best fitness increased {best}")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for i, rec in enumerate(gens):
+        phase_line(f"phase 15 {name} gen {i}: eval {rec['eval_ms']:.3f} ms, evolve {rec['evolve_ms']:.3f} "
+                   f"ms, best fitness {rec['best']:.6g}")
+    phase_line(f"phase 15 {name}: {s['islands']}x{s['pop']} candidates; launches {launches}")
+    return dict(generations=gens, best=best, launches=launches)
+
+
+def sde_phase(device, s, ps, trees, fset, ts_sr) -> dict:
+    """Phase 15: the noise streams, kernel #1's Euler-Maruyama leg and the
+    noisy and stochastic paths (see the module docstring)."""
+    import torch
+
+    from multitreegp_tpu_torch import GeneticProgramming
+    from multitreegp_tpu_torch.core import cuda_interpreter as ci
+    from multitreegp_tpu_torch.core import cuda_policy as cp
+    from multitreegp_tpu_torch.core import cuda_reproduction as cr
+    from multitreegp_tpu_torch.core import cuda_rollout as cf
+    from multitreegp_tpu_torch.core import prng
+    from multitreegp_tpu_torch.core.cuda_policy import stage_times
+    from multitreegp_tpu_torch.models.environments import Acrobot, VanDerPolOscillator
+    from multitreegp_tpu_torch.models.evaluators import (
+        DynamicPolicyEvaluator, SREvaluator, StaticPolicyEvaluator, generate_sr_data,
+    )
+    from multitreegp_tpu_torch.models.evaluators.noise import (
+        make_obs_noise_rows, make_process_noise_rows, make_sr_kick_rows,
+    )
+
+    on_card = device.type == "cuda"
+    pn, sub, b = s["noise"], s["policy_substeps"], s["batch"]
+    res = {}
+    g = torch.Generator(device=device).manual_seed(20)
+    x0s, ts, ys, keys = generate_sr_data(VanDerPolOscillator(pn), g, ts_sr, batch_size=b, substeps=8)
+    noisy = Acrobot(obs_noise=pn, process_noise=pn)
+    pdata = ps["data"]
+    cpu = lambda t: t.cpu() if torch.is_tensor(t) else tuple(cpu(v) for v in t)
+
+    # the rows on the card against the same rows on the CPU
+    def build(d, k, t):
+        return dict(obs=make_obs_noise_rows(noisy, d[1], d[5], d[4], sub, "rk4"),
+                    kicks=make_process_noise_rows(noisy, d[1], d[5], d[3], sub, noisy.latent_size),
+                    sr_kicks=make_sr_kick_rows(pn, t, k, sub, 2))
+
+    rows, build_ms = timed_plain(lambda: build(pdata, keys, ts), device)
+    rows_cpu = build(cpu(pdata), keys.cpu(), ts.cpu())
+    taus = stage_times(pdata[1], sub, "rk4")
+    bits = lambda k, t: prng.random_bits(prng.fold_in(k, prng.bitcast_time(t[..., None])), 4)
+    bits_equal = bool(torch.equal(bits(pdata[4], taus).cpu(), bits(pdata[4].cpu(), taus.cpu())))
+    gaps = {k: ulp_gap(v, rows_cpu[k]) for k, v in rows.items()}
+    check(bits_equal, "the generator's bits differ between the card and the CPU")
+    check(max(gaps.values()) <= 8, f"rows on the card and the CPU {gaps} ulp apart")
+    res["rows"] = dict(bits_equal=bits_equal, ulp_gap=gaps, build_ms=build_ms,
+                       shapes={k: list(v.shape) for k, v in rows.items()})
+    phase_line(f"phase 15 noise rows, card vs CPU: generator bits equal {bits_equal}; largest ulp gap "
+               f"{gaps}; shapes {res['rows']['shapes']}; built on the card in {build_ms:.1f} ms (obs "
+               f"rows T={pdata[1].shape[0]} rk4 x {sub}, kick rows, SR kick rows T={ts.shape[0]})")
+
+    # #1 with kick rows against its plain version, every lane of phase 2
+    kicks = rows["sr_kicks"]
+    args = (trees, x0s, ts, ys, fset, "euler", sub, kicks)
+    mse, alive = (cf.sr_fitness_cuda if on_card else cf.sr_fitness_plain)(*args)
+    (ref, ref_alive), plain_ms = timed_plain(lambda: cf.sr_fitness_plain(*args), device)
+    same = ((mse == ref) | (torch.isnan(mse) & torch.isnan(ref))) & (alive == ref_alive)
+    identical = float(same.float().mean())
+    fin = torch.isfinite(mse) & torch.isfinite(ref)
+    k_err = float((mse - ref).abs()[fin].max())
+    check(identical == 1.0, f"#1 with kicks: {identical:.6f} of lanes identical")
+    no_kicks = lambda: cf.sr_fitness(trees, x0s, ts, ys, fset, "euler", sub)
+    with_kicks = lambda: cf.sr_fitness(trees, x0s, ts, ys, fset, "euler", sub, kicks)
+    times = {}
+    if on_card:  # in turns: without, with, with, without
+        for key, fn in (("euler_no_kicks", no_kicks), ("euler_kicks", with_kicks),
+                        ("euler_kicks_2", with_kicks), ("euler_no_kicks_2", no_kicks)):
+            times[key] = cuda_time_ms(fn, s["ab_runs"], torch)
+    rows_p = ((trees.ops >= 2) & (trees.ops < fset.var_start)).sum(dim=(1, 2))[:, None]
+    steps = torch.where(alive, ts.shape[0] - 1, 1) * sub
+    d = x0s.shape[1]
+    # per euler substep: the drift's operator rows, the update 2d, the kick
+    # d, the liveness 2d; the squared error 3d per save point
+    k_ops = float((steps * (rows_p + 5 * d)).sum()) + 3 * d * ts.shape[0] * alive.numel()
+    k_bytes = nbytes(trees.ops, trees.const, x0s, ts, ys, kicks) + alive.numel() * 5
+    kb = bound(k_bytes, k_ops)
+    res["fitness_kicks"] = dict(identical=identical, max_abs_err=k_err, plain_ms=plain_ms,
+                                lanes=alive.numel(), alive=float(alive.float().mean()), substeps=sub,
+                                t_steps=ts.shape[0], bound_ms=kb[0], bound_by=kb[1], **times)
+    phase_line(f"phase 15 #1 with kick rows vs plain, euler x {sub}, T={ts.shape[0]}, {alive.numel()} "
+               f"lanes: identical {identical:.6f}, max abs {k_err:.3e}; alive "
+               f"{res['fitness_kicks']['alive']:.4f}; plain {plain_ms:.1f} ms; kernel (median ms, in "
+               f"turns) " + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+               + f"; bound {kb[0]:.5f} ms by {kb[1]}")
+
+    # the SDE SR host loop at full width
+    sr_counters = dict(sr_fitness=cf.sr_fitness_cuda, reproduce=cr.reproduce_lanes_cuda,
+                       interpret_fwd=ci.evaluate_trees_cuda)
+    gp = GeneticProgramming(
+        num_generations=s["generations"], population_size=s["pop"],
+        fitness_function=SREvaluator(substeps=sub, process_noise=pn), operator_list=OPERATORS,
+        variable_list=[["x0", "x1"]], layer_sizes=[2], num_populations=s["islands"],
+        max_nodes=s["max_nodes"], max_init_depth=s["depth"], device=device)
+    res["sr_loop"] = host_loop(gp, (x0s, ts, ys, keys), s, device, sr_counters, "SDE SR loop")
+    if on_card:
+        lc = res["sr_loop"]["launches"]
+        check(lc["sr_fitness"] >= s["generations"] and lc["reproduce"] >= s["generations"],
+              f"SDE SR loop launches {lc}")
+        res["fitness_kicks"]["launches"] = lc["sr_fitness"]
+
+    # the noisy and stochastic control loops at full width, T = 250
+    ys_obs = [f"y{i}" for i in range(noisy.n_obs)]
+    pcounters = dict(policy=cp.policy_rollout_cuda, policy_adaptive=cp.policy_rollout_adaptive_cuda,
+                     reproduce=cr.reproduce_lanes_cuda)
+    loops = dict(
+        static=(StaticPolicyEvaluator(noisy, substeps=sub, stochastic=True), [ys_obs], [1]),
+        dynamic=(DynamicPolicyEvaluator(noisy, state_size=2, substeps=sub, stochastic=True),
+                 [ys_obs + ["a0", "a1", "u0"], ["a0", "a1"]], [2, 1]))
+    for name, (ev, layers, sizes) in loops.items():
+        gp = GeneticProgramming(
+            num_generations=s["generations"], population_size=s["pop"], fitness_function=ev,
+            operator_list=POLICY_OPERATORS, variable_list=layers, layer_sizes=sizes,
+            num_populations=s["islands"], max_nodes=s["policy_nodes"], max_init_depth=s["depth"],
+            device=device)
+        r = host_loop(gp, pdata, s, device, pcounters, f"noisy {name} policy loop")
+        if on_card:
+            check(r["launches"]["policy"] >= s["generations"] and r["launches"]["policy_adaptive"] == 0,
+                  f"noisy {name} loop launches {r['launches']}")
+        res[f"{name}_loop"] = r
+
+    # one noisy adaptive evaluation: the general path, at a cut horizon
+    t_cut = s["noisy_adaptive_t"]
+    cut = (pdata[0], pdata[1][:t_cut]) + pdata[2:]
+    ev = StaticPolicyEvaluator(Acrobot(obs_noise=pn), ps["fsets"]["static"], method="adaptive",
+                               adaptive_method="dopri5", substeps=s["policy_adaptive_substeps"])
+    for fn in (*pcounters.values(), ci.evaluate_trees_cuda):
+        fn.launches = 0
+    fit, ad_ms = timed_plain(lambda: ev.evaluate_population(ps["trees"]["static"], cut), device)
+    ad_launches = dict(policy_adaptive=cp.policy_rollout_adaptive_cuda.launches,
+                       interpret_fwd=ci.evaluate_trees_cuda.launches)
+    check(bool(torch.isfinite(fit).all()) and bool(((fit >= 0) & (fit <= 1e4)).all()),
+          "noisy adaptive fitness")
+    if on_card:
+        check(ad_launches["policy_adaptive"] == 0 and ad_launches["interpret_fwd"] > 0,
+              f"noisy adaptive launches {ad_launches}")
+    res["noisy_adaptive"] = dict(t_steps=t_cut, ms=ad_ms, launches=ad_launches, best=float(fit.min()),
+                                 lanes=fit.numel() * b)
+    phase_line(f"phase 15 noisy adaptive static evaluation (general path, dopri5, T={t_cut}): "
+               f"{ad_ms:.1f} ms, launches {ad_launches}, best fitness {float(fit.min()):.6g}")
+
+    # #6 with and without the rows at T = 250 (static), and the rows' build
+    x0, pts, tgt, pk, ok, par = pdata
+    trees_p, fset_p = ps["trees"]["static"], ps["fsets"]["static"]
+    obs_rows = rows["obs"]
+    kick_rows = make_process_noise_rows(noisy, pts, par, pk, sub, noisy.latent_size)
+    obs_euler = make_obs_noise_rows(noisy, pts, par, ok, sub, "euler")
+    # #6 against its plain version on these rows, every lane, at phase 12's
+    # cut horizon: the RK4 observation rows and the Euler observation + kick
+    # rows of the stochastic loops
+    t6, vs_plain = s["policy_fixed_t"], {}
+    for key, method, rws in (("rk4_obs_rows", "rk4", dict(obs_noise_rows=obs_rows)),
+                             ("euler_obs_kick_rows", "euler",
+                              dict(obs_noise_rows=obs_euler, process_noise_rows=kick_rows))):
+        r = policy_pair(device, "fixed", trees_p, pdata, noisy, fset_p, 0, t6, sub, method,
+                        {k: v[:t6] for k, v in rws.items()})
+        check(r["identical"] == 1.0 and r["alive_agreement"] == 1.0,
+              f"#6 with the port's {key}: {r['identical']:.6f} of lanes identical")
+        vs_plain[key] = r
+        phase_line(f"phase 15 #6 with the port's {key.replace('_', ' ')} vs plain, static Acrobot, "
+                   f"{r['lanes']} lanes, T={t6}: identical {r['identical']:.6f} (states, controls, "
+                   f"alive count), max abs {r['max_abs_err']:.3e}; alive {r['alive']:.4f}; plain "
+                   f"{r['plain_ms']:.1f} ms")
+    pol = lambda method, o=None, k=None: lambda: cp.rollout_policy(
+        trees_p, x0, pts, tgt, par, noisy, fset_p, sub, method, 0, o, k)
+    ptimes = {}
+    if on_card:
+        for key, fn in (("rk4", pol("rk4")), ("rk4_obs_rows", pol("rk4", obs_rows)),
+                        ("euler", pol("euler")), ("euler_obs_kick_rows", pol("euler", obs_euler, kick_rows))):
+            ptimes[key] = cuda_time_ms(fn, s["timing_runs"], torch)
+        _, ptimes["build_obs_rows_ms"] = timed_plain(
+            lambda: make_obs_noise_rows(noisy, pts, par, ok, sub, "rk4"), device)
+    out6 = pol("rk4", obs_rows)()
+    count = out6[2].sum(0)
+    ops6 = policy_fixed_ops(trees_p, fset_p, 0, 4, count, pts.shape[0], sub, ACROBOT_DRIFT_OPS)
+    b6 = bound(nbytes(trees_p.ops, trees_p.const, x0, tgt, pts, *par, obs_rows, out6[0], out6[1])
+               + count.numel() * 4, ops6)
+    res["policy_noise"] = dict(launches=res["static_loop"]["launches"]["policy"]
+                               + res["dynamic_loop"]["launches"]["policy"],
+                               bound_ms_obs_rows=b6[0], bound_by_obs_rows=b6[1], vs_plain=vs_plain,
+                               max_abs_err=max(r["max_abs_err"] for r in vs_plain.values()), **ptimes)
+    phase_line(f"phase 15 #6 static Acrobot T={pts.shape[0]}, {count.numel()} lanes (median ms): "
+               + ", ".join(f"{k} {v:.3f}" for k, v in ptimes.items())
+               + f"; bound with obs rows {b6[0]:.4f} ms by {b6[1]}")
+    return {"sde": res}
+
+
+def probe_phase(device, s) -> dict:
+    """Phase 16: the branch probe (#10) in every mode against its plain
+    version, then the tool's own timing run with the launch counter zeroed
+    before it and read after; each mode's bound from the iterations its
+    elements run."""
+    import torch
+
+    from multitreegp_tpu_torch.tools import branch_probe as bp
+
+    on_card = device.type == "cuda"
+    modes, err = {}, 0.0
+    for mode in bp.MODES:
+        x = bp.probe_input(mode, s["probe_reps"], device)
+        got = bp.probe_cuda(x, mode) if on_card else bp.probe_plain(x, mode)
+        ref, plain_ms = timed_plain(lambda: bp.probe_plain(x, mode), device)
+        check(bool(torch.equal(got, ref)), f"probe {mode}: kernel and plain version differ")
+        err = max(err, float((got - ref).abs().max()))
+        bnd = bound(2 * nbytes(x), bp.operations(x, mode))
+        modes[mode] = dict(plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], ops=bp.operations(x, mode),
+                           iterations_mean=float(bp.element_iterations(x, mode).float().mean()))
+    bp.probe_cuda.launches = 0
+    timed = bp.measure() if on_card else {}
+    launches = bp.probe_cuda.launches
+    if on_card:
+        check(launches >= len(bp.MODES), f"probe launches {launches}")
+    for mode, r in modes.items():
+        r.update(timed.get(mode, dict(ms=None)))
+        phase_line(f"phase 16 probe {mode}: identical to plain; "
+                   + (f"{r['ms']:.4f} ms ({r['ratio']:.3f}x of always, ideal {r['ideal_ratio']:.3f}x); "
+                      if r["ms"] is not None else "")
+                   + f"bound {r['bound_ms']:.5f} ms by {r['bound_by']} ({r['ops']:.4e} operations, "
+                   f"{r['iterations_mean']:.2f} iterations per element); plain {r['plain_ms']:.1f} ms")
+    phase_line(f"phase 16 probe: {s['probe_reps']} tiles of 8x128, TOTAL {bp.TOTAL}, FLIP {bp.FLIP}, CH {bp.CH}; "
+               f"launches in the timing run {launches}")
+    return {"probe": dict(modes=modes, launches=launches, max_abs_err=err)}
 
 
 def sync(device) -> None:

@@ -52,10 +52,13 @@ def function_set_from_jax(fset) -> FunctionSet:
     return out
 
 
-def sr_data_from_numpy(x0s, ts, ys, device=None) -> Tuple:
-    """SR data tuple ``(x0s (B, d), ts (T,), ys (B, T, d), None)``."""
+def sr_data_from_numpy(x0s, ts, ys, keys=None, device=None) -> Tuple:
+    """SR data tuple ``(x0s (B, d), ts (T,), ys (B, T, d), keys (B, 2) or
+    None)``: float32 arrays, and the JAX package's raw process-noise keys as
+    int64."""
     as_f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
-    return as_f32(x0s), as_f32(ts), as_f32(ys), None
+    as_key = None if keys is None else torch.tensor(np.asarray(keys).astype(np.int64), device=device)
+    return as_f32(x0s), as_f32(ts), as_f32(ys), as_key
 
 
 def control_data_from_numpy(x0, ts, targets, process_noise_keys, obs_noise_keys, params,

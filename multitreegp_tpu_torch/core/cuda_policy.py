@@ -49,7 +49,7 @@ from ..models.environments.control_envs import (
     Acrobot, Acrobot2, CartPole, ChangingHarmonicOscillator, HarmonicOscillator,
     HarmonicOscillator2, StirredTankReactor,
 )
-from ..models.integrators import ERROR_EXPONENT, _f32, _f32_expr, finite
+from ..models.integrators import ERROR_EXPONENT, _f32, _f32_expr, finite, substep_time
 from .cuda_adaptive import CHECK_EVERY, CROSS, DT_DEAD, DT_MIN, _rk_step, _step_factor
 from .cuda_adaptive import METHODS as ADAPTIVE_METHODS
 from .cuda_rollout import METHODS, RK_TABLES, SHARED_BYTES, THREADS_PER_BLOCK, rollout_step
@@ -102,6 +102,21 @@ def stage_frac(s: int, c: float, substeps: int) -> Tuple[float, float]:
     f = np.float32
     frac = f(f(s) + f(c)) * f(1.0 / substeps)
     return float(frac), float(f(1.0) - frac)
+
+
+def stage_times(ts: torch.Tensor, substeps: int, method: str) -> torch.Tensor:
+    """``(T-1, substeps, n_stages)`` solver times of every drift evaluation of
+    the fixed-step rollout (JAX ``pallas_policy.stage_times``): ``dt = (t1 -
+    t0) / substeps`` per interval, ``t0 + i*dt`` (``substep_time``), then ``t
+    + c*dt`` for the stage offsets ``c``, in float32 on the host, the
+    expressions the integrator's steps use, so draws at these times are the
+    draws the general path makes."""
+    f32 = np.float32
+    t = ts.detach().cpu().numpy().astype(f32)
+    t0, dtv = t[:-1], (t[1:] - t[:-1]) / f32(substeps)
+    tb = substep_time(t0[:, None], np.arange(substeps)[None, :], dtv[:, None])
+    offs = np.asarray([c for c, _w in RK_TABLES[method][0]], f32)
+    return torch.from_numpy(tb[:, :, None] + offs * dtv[:, None, None]).to(ts.device)
 
 
 class _Loop:

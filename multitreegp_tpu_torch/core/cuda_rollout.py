@@ -7,6 +7,9 @@ paths:
   candidate and trajectory, ``mse = sum_t sum_d (x_t - y_t)^2 / T`` (the
   ``x0`` row included) and whether the lane stayed alive, with the
   integrator's frozen-lane semantics; the trajectory is never materialised.
+  Given kick rows ``(T, B, substeps * d)`` (``make_sr_kick_rows``), substep
+  ``s`` of interval ``t`` adds ``kick_rows[t, b, s*d:(s+1)*d]`` to its update:
+  the SDE variant, ``integrate_sde``'s Euler-Maruyama rollout.
   Kernel ``csrc/sr_fitness.cu``; plain version :func:`sr_fitness_plain`.
 * :func:`sr_rollout` (``rollout_sr_pallas``) returns the trajectory ``xs (T,
   P, B, d)`` and the final liveness broadcast over ``T``, with one step size
@@ -26,13 +29,13 @@ CUDA, the plain interpreter on CPU) and differentiates that.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import _build
-from ..models.integrators import STEPPERS, _f32, finite, integrate, step_interval
+from ..models.integrators import STEPPERS, _f32, finite, integrate, integrate_sde, step_interval
 from .interpreter import evaluate_trees, evaluate_trees_plain
 from .registry import FunctionSet
 from .trees import TreeTensors
@@ -44,13 +47,24 @@ THREADS_PER_BLOCK = 128  # target block size: 128 // B candidates per block
 SHARED_BYTES = 48 * 1024  # static shared-memory budget of one block
 
 
+class SDENoise(NamedTuple):
+    """The SR evaluator's process noise: the kick rows kernel #1 adds, and
+    the keys and scale ``integrate_sde`` draws them from (the recompute)."""
+
+    kick_rows: torch.Tensor  # (T, B, substeps * d)
+    keys: torch.Tensor  # (B, 2)
+    process_noise: float
+
+
 def sr_fitness_plain(
     trees: TreeTensors, x0s: torch.Tensor, ts: torch.Tensor, ys: torch.Tensor,
     fset: FunctionSet, method: str = "rk4", substeps: int = 1,
+    kick_rows: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: ``(mse (P, B), alive (P, B))``.
 
-    trees ``(P, d, N)``; x0s ``(B, d)``; ts ``(T,)``; ys ``(B, T, d)``.
+    trees ``(P, d, N)``; x0s ``(B, d)``; ts ``(T,)``; ys ``(B, T, d)``;
+    kick_rows ``(T, B, substeps * d)`` or None.
     """
     p = trees.ops.shape[0]
     b, d = x0s.shape
@@ -74,7 +88,10 @@ def sr_fitness_plain(
     stepper = STEPPERS[method]
     times = ts.tolist()
     for t in range(t_steps - 1):
-        x, alive = step_interval(stepper, drift, times[t], times[t + 1], x, alive, substeps)
+        kick = None if kick_rows is None else (
+            lambda i, _t, _x, _dt, row=kick_rows[t]: row[:, i * d:(i + 1) * d])
+        x, alive = step_interval(stepper, drift, times[t], times[t + 1], x, alive, substeps,
+                                 kick=kick)
         err = err + sq_err(x, y[t + 1])
     return err / t_steps, alive
 
@@ -85,6 +102,13 @@ def _check_method(method: str) -> None:
             f"method {method!r}: the fixed-step kernels have {sorted(METHODS)}; the "
             "adaptive ones are in core/cuda_adaptive.py"
         )
+
+
+def check_kicks(kick_rows, ts, b: int, d: int, substeps: int) -> None:
+    """Raise unless ``kick_rows`` is None or ``(T, B, substeps * d)``."""
+    want = (ts.shape[0], b, substeps * d)
+    if kick_rows is not None and tuple(kick_rows.shape) != want:
+        raise ValueError(f"kick rows {tuple(kick_rows.shape)}: expected (T, B, substeps * d) = {want}")
 
 
 def check_lanes(trees: TreeTensors, x0s, ts, fset: FunctionSet, ys=None) -> None:
@@ -127,14 +151,18 @@ def kernel_operands(trees: TreeTensors, fset: FunctionSet, *named):
 def sr_fitness_cuda(
     trees: TreeTensors, x0s: torch.Tensor, ts: torch.Tensor, ys: torch.Tensor,
     fset: FunctionSet, method: str = "rk4", substeps: int = 1,
+    kick_rows: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/sr_fitness.cu``; ``(mse (P, B), alive (P, B))``."""
     _check_method(method)
     if substeps < 1:
         raise ValueError("substeps must be >= 1")
     check_lanes(trees, x0s, ts, fset, ys)
-    (ops, cst, x0c, tsc, ysc), devop, cpb = kernel_operands(
-        trees, fset, ("x0s", x0s), ("ts", ts), ("ys", ys))
+    check_kicks(kick_rows, ts, *x0s.shape, substeps)
+    named = [("x0s", x0s), ("ts", ts), ("ys", ys)]
+    if kick_rows is not None:
+        named.append(("kick_rows", kick_rows))
+    (ops, cst, x0c, tsc, ysc, *kicks), devop, cpb = kernel_operands(trees, fset, *named)
     dev = ops.device
     p, m, n = ops.shape
     b, d = x0s.shape
@@ -144,12 +172,12 @@ def sr_fitness_cuda(
 
     lib = _build.load("sr_fitness")
     fn = lib.sr_fitness_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = fn(
         ops.data_ptr(), cst.data_ptr(), devop.data_ptr(), x0c.data_ptr(), tsc.data_ptr(),
-        ysc.data_ptr(), err.data_ptr(), alive.data_ptr(),
+        ysc.data_ptr(), kicks[0].data_ptr() if kicks else None, err.data_ptr(), alive.data_ptr(),
         p, d, n, b, t_steps, fset.var_start, fset.has_unary, METHODS[method], substeps, cpb, stream,
     )
     _build.check(lib, status, "sr_fitness kernel launch")
@@ -163,25 +191,30 @@ sr_fitness_cuda.launches = 0
 def sr_fitness(
     trees: TreeTensors, x0s: torch.Tensor, ts: torch.Tensor, ys: torch.Tensor,
     fset: FunctionSet, method: str = "rk4", substeps: int = 1,
+    kick_rows: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-lane ``(mse (P, B), alive (P, B))``: the kernel for CUDA tensors,
     the plain version for CPU tensors."""
     dev = trees.ops.device
     if dev.type == "cuda":
-        return sr_fitness_cuda(trees, x0s, ts, ys, fset, method, substeps)
+        return sr_fitness_cuda(trees, x0s, ts, ys, fset, method, substeps, kick_rows)
     if dev.type == "cpu":
         _check_method(method)
-        return sr_fitness_plain(trees, x0s, ts, ys, fset, method, substeps)
+        check_kicks(kick_rows, ts, *x0s.shape, substeps)
+        return sr_fitness_plain(trees, x0s, ts, ys, fset, method, substeps, kick_rows)
     raise NotImplementedError(f"no fitness implementation for device {dev}")
 
 
 def sr_mse_unfused(
     trees: TreeTensors, x0s: torch.Tensor, ts: torch.Tensor, ys: torch.Tensor,
     fset: FunctionSet, method: str = "rk4", substeps: int = 1,
+    noise: Optional[SDENoise] = None,
 ) -> torch.Tensor:
     """``mse (P, B)`` by the integrator over the whole trajectory, with the
     dispatching interpreter as the drift (the VJP's recompute;
-    ``pallas_rollout.rollout_sr_fitness_pallas``'s ``default_unfused``)."""
+    ``pallas_rollout.rollout_sr_fitness_pallas``'s ``default_unfused``, or
+    with ``noise`` the SR evaluator's ``unfused_mse``: ``integrate_sde``
+    with the diagonal diffusion ``process_noise``)."""
     p = trees.ops.shape[0]
     b, d = x0s.shape
     batched = trees.map(lambda a: a[:, None])  # (P, 1, d, N)
@@ -189,36 +222,47 @@ def sr_mse_unfused(
     def drift(t, x):  # x (P, B, d)
         return evaluate_trees(batched, x[:, :, None, :], fset)
 
-    xs, _ = integrate(drift, x0s[None].expand(p, b, d), ts, method, substeps)
+    x0 = x0s[None].expand(p, b, d)
+    if noise is None:
+        xs, _ = integrate(drift, x0, ts, method, substeps)
+    else:
+        pn = _f32(noise.process_noise)
+        xs, _ = integrate_sde(drift, lambda t, x: torch.full_like(x, pn), x0, ts, noise.keys,
+                              method, substeps)
     err = xs - ys.transpose(0, 1)[:, None]
     return (err * err).sum(dim=-1).mean(dim=0)
 
 
 class SRFitness(torch.autograd.Function):
     """:func:`sr_fitness` differentiable in ``const`` and ``x0s``; the
-    cotangent of ``alive`` is ignored. Apply as
-    ``SRFitness.apply(ops, c1, c2, const, x0s, ts, ys, fset, method, substeps)``."""
+    cotangent of ``alive`` is ignored. Apply as ``SRFitness.apply(ops, c1,
+    c2, const, x0s, ts, ys, fset, method, substeps, noise)``, ``noise`` an
+    :class:`SDENoise` (the kicks forward, ``integrate_sde`` in the
+    recompute) or None."""
 
     @staticmethod
-    def forward(ctx, ops, c1, c2, const, x0s, ts, ys, fset, method, substeps):
+    def forward(ctx, ops, c1, c2, const, x0s, ts, ys, fset, method, substeps, noise=None):
         ctx.save_for_backward(ops, c1, c2, const, x0s, ts, ys)
-        ctx.config = (fset, method, substeps)
-        mse, alive = sr_fitness(TreeTensors(ops, c1, c2, const), x0s, ts, ys, fset, method, substeps)
+        ctx.config = (fset, method, substeps, noise)
+        kicks = None if noise is None else noise.kick_rows
+        mse, alive = sr_fitness(TreeTensors(ops, c1, c2, const), x0s, ts, ys, fset, method,
+                                substeps, kicks)
         ctx.mark_non_differentiable(alive)
         return mse, alive
 
     @staticmethod
     def backward(ctx, g_mse, _g_alive):
         ops, c1, c2, const, x0s, ts, ys = ctx.saved_tensors
-        fset, method, substeps = ctx.config
+        fset, method, substeps, noise = ctx.config
         want_x0 = ctx.needs_input_grad[4]
         with torch.enable_grad():
             c = const.detach().requires_grad_(True)
             x0 = x0s.detach().requires_grad_(want_x0)
-            mse = sr_mse_unfused(TreeTensors(ops, c1, c2, c), x0, ts, ys, fset, method, substeps)
+            mse = sr_mse_unfused(TreeTensors(ops, c1, c2, c), x0, ts, ys, fset, method, substeps,
+                                 noise)
             grads = torch.autograd.grad(mse, (c, x0) if want_x0 else (c,), g_mse)
         dx0 = grads[1] if want_x0 else None
-        return None, None, None, grads[0], dx0, None, None, None, None, None
+        return None, None, None, grads[0], dx0, None, None, None, None, None, None
 
 
 # --------------------------------------------------- trajectory (kernel #3)

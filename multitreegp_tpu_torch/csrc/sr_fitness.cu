@@ -9,6 +9,13 @@
 // its frozen state) and err = sum_t sum_d (x_t - y_t)^2, the x0 row included.
 // No trajectory is written; the outputs are err and alive per lane.
 //
+// The SDE variant (the SR evaluator with process noise) passes kick rows
+// (T, B, substeps * d), the Euler-Maruyama increments of integrate_sde drawn
+// up front (models/evaluators/noise.py): substep s of interval t adds
+// kicks[t, b, s*d + q] to the update of component q before the liveness
+// test, as the TPU kernel adds its streamed kick rows. Without kick rows
+// (a null pointer) the lane computes exactly what it did before.
+//
 // What bounds it on this card: instruction issue. Each lane evaluates m
 // trees of up to N rows at every RK stage of every step (4 x 49 x 2 tree
 // evaluations per lane on the main path) and reads only a few KB: the trees
@@ -45,8 +52,9 @@ enum Method { kEuler = 0, kHeun = 1, kRk4 = 2 };
 template <int D, bool U>
 MTGP_HD void fitness_lane(const int* t_ops, const float* t_cst, const int* __restrict__ devop,
                           const float* __restrict__ x0s, const float* __restrict__ ts,
-                          const float* __restrict__ ys, int n, int b, int T, int var_start,
-                          int method, int substeps, float* err, uint8_t* alive_out) {
+                          const float* __restrict__ ys, const float* __restrict__ kicks, int n,
+                          int b, int B, int T, int var_start, int method, int substeps,
+                          float* err, uint8_t* alive_out) {
   float stack[kMaxNodes];
   float x[D];
 #pragma unroll
@@ -89,6 +97,11 @@ MTGP_HD void fitness_lane(const int* t_ops, const float* t_cst, const int* __res
           for (int q = 0; q < D; ++q)
             xn[q] = x[q] + h6 * (((k1[q] + 2.0f * k2[q]) + 2.0f * k3[q]) + k4[q]);
         }
+        if (kicks != nullptr) {
+          const float* kick = kicks + ((static_cast<size_t>(t) * B + b) * substeps + s) * D;
+#pragma unroll
+          for (int q = 0; q < D; ++q) xn[q] = xn[q] + kick[q];
+        }
         alive = finite_state<D>(xn);
         if (alive) {
 #pragma unroll
@@ -107,6 +120,7 @@ template <int D, bool U>
 __global__ void sr_fitness_kernel(const int* __restrict__ ops, const float* __restrict__ cst,
                                   const int* __restrict__ devop, const float* __restrict__ x0s,
                                   const float* __restrict__ ts, const float* __restrict__ ys,
+                                  const float* __restrict__ kicks,
                                   float* __restrict__ err, uint8_t* __restrict__ alive_out,
                                   int P, int n, int B, int T, int var_start, int method,
                                   int substeps, int cpb) {
@@ -115,31 +129,32 @@ __global__ void sr_fitness_kernel(const int* __restrict__ ops, const float* __re
   size_t lane;
   int b;
   if (!stage_block(ops, cst, P, B, D * n, cpb, &t_ops, &t_cst, &lane, &b)) return;
-  fitness_lane<D, U>(t_ops, t_cst, devop, x0s, ts, ys, n, b, T, var_start, method, substeps,
-                  err + lane, alive_out + lane);
+  fitness_lane<D, U>(t_ops, t_cst, devop, x0s, ts, ys, kicks, n, b, B, T, var_start, method,
+                     substeps, err + lane, alive_out + lane);
 }
 
 template <int D, bool U>
 cudaError_t launch(const int* ops, const float* cst, const int* devop, const float* x0s,
-                   const float* ts, const float* ys, float* err, uint8_t* alive, int P, int n,
-                   int B, int T, int var_start, int method, int substeps, int cpb,
-                   cudaStream_t stream) {
+                   const float* ts, const float* ys, const float* kicks, float* err,
+                   uint8_t* alive, int P, int n, int B, int T, int var_start, int method,
+                   int substeps, int cpb, cudaStream_t stream) {
   const int grid = (P + cpb - 1) / cpb;
   sr_fitness_kernel<D, U><<<grid, cpb * B, block_smem(cpb, D, n), stream>>>(
-      ops, cst, devop, x0s, ts, ys, err, alive, P, n, B, T, var_start, method, substeps, cpb);
+      ops, cst, devop, x0s, ts, ys, kicks, err, alive, P, n, B, T, var_start, method, substeps,
+      cpb);
   return cudaGetLastError();
 }
 #else
 template <int D, bool U>
 void launch(const int* ops, const float* cst, const int* devop, const float* x0s,
-            const float* ts, const float* ys, float* err, uint8_t* alive, int P, int n, int B,
-            int T, int var_start, int method, int substeps) {
+            const float* ts, const float* ys, const float* kicks, float* err, uint8_t* alive,
+            int P, int n, int B, int T, int var_start, int method, int substeps) {
   for (int p = 0; p < P; ++p)
     for (int b = 0; b < B; ++b) {
       const size_t lane = static_cast<size_t>(p) * B + b;
       const size_t tree = static_cast<size_t>(p) * D * n;
-      fitness_lane<D, U>(ops + tree, cst + tree, devop, x0s, ts, ys, n, b, T, var_start, method,
-                      substeps, err + lane, alive + lane);
+      fitness_lane<D, U>(ops + tree, cst + tree, devop, x0s, ts, ys, kicks, n, b, B, T,
+                         var_start, method, substeps, err + lane, alive + lane);
     }
 }
 #endif
@@ -153,16 +168,16 @@ bool bad_args(int P, int n, int B, int T, int method, int substeps) {
 
 #define MTGP_FITNESS_ARGS                                                                     \
   const int *ops, const float *cst, const int *devop, const float *x0s, const float *ts,     \
-      const float *ys, float *err, uint8_t *alive, int P, int d, int n, int B, int T,         \
-      int var_start, int unary, int method, int substeps
+      const float *ys, const float *kicks, float *err, uint8_t *alive, int P, int d, int n,   \
+      int B, int T, int var_start, int unary, int method, int substeps
 #define MTGP_FITNESS_INPUTS \
-  ops, cst, devop, x0s, ts, ys, err, alive, P, n, B, T, var_start, method, substeps
+  ops, cst, devop, x0s, ts, ys, kicks, err, alive, P, n, B, T, var_start, method, substeps
 
 extern "C" {
 
 // ops/cst (P, d, n) with d trees per candidate; x0s (B, d); ts (T,);
-// ys (B, T, d); err/alive (P, B); unary: the function set has unary
-// operators.
+// ys (B, T, d); kicks (T, B, substeps * d) or null; err/alive (P, B); unary:
+// the function set has unary operators.
 #ifdef __CUDACC__
 const char* mtgp_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));

@@ -7,10 +7,11 @@ trajectory physics parameters are explicit tuples of tensors, ``(B,)`` per
 trajectory or ``(B, T)`` series over the save grid. Every function is
 batched over leading dimensions (the JAX ones are per lane under ``vmap``).
 
-Observation noise is not ported yet: its draws are ``normal(fold_in(key,
-bitcast(t)))``, and reproducing them needs JAX's generator in torch (ROADMAP
-Queue 1 #15). ``f_obs`` is the noise-free observation, and raises for an
-environment with ``obs_noise != 0``.
+Observation noise is a deterministic function of the trajectory's key and
+the time, ``normal(fold_in(key, bitcast_f32(t)), (n_obs,))``, drawn by the
+port's copy of JAX's generator (``core/prng.py``), so solvers that
+re-evaluate a time see the same noise and the port draws the JAX package's
+numbers from the same keys.
 """
 from __future__ import annotations
 
@@ -19,7 +20,23 @@ from typing import Tuple
 
 import torch
 
+from ...core import prng
 from ..integrators import linear_interp
+
+
+def obs_noise_at(keys: torch.Tensor, t, n_obs: int) -> torch.Tensor:
+    """Standard-normal observation noise ``(..., B, n_obs)``, deterministic in
+    (key, t): keys ``(B, 2)``; ``t`` a float or a tensor of times that
+    broadcasts against ``(..., B)`` (per-lane solver times ``(P, B)``, the
+    save grid as ``(T, 1, 1)``)."""
+    return prng.normal(prng.fold_in(keys, prng.bitcast_time(t, keys.device)), n_obs)
+
+
+def _noise_term(z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``z @ w`` for draws ``z (..., n)``, summed elementwise: with a
+    diagonal ``w`` every sum is one product plus exact zeros, so it rounds
+    alike on every device."""
+    return (z[..., :, None] * w.to(z.device)).sum(dim=-2)
 
 
 class SREnvironmentBase(abc.ABC):
@@ -39,6 +56,18 @@ class SREnvironmentBase(abc.ABC):
     @abc.abstractmethod
     def drift(self, t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         """Batched drift: ``x (..., n_var) -> dx (..., n_var)``."""
+
+    def diffusion(self, t, x: torch.Tensor) -> torch.Tensor:
+        """``process_noise * I``: one ``(n_var, n_var)`` matrix per lane of
+        ``x (..., n_var)``."""
+        eye = self.process_noise * torch.eye(self.n_var, device=x.device)
+        return eye.expand(x.shape[:-1] + eye.shape)
+
+    def f_obs(self, keys: torch.Tensor, t, x: torch.Tensor) -> torch.Tensor:
+        """``C x + noise W`` ``(..., n_obs)`` of ``x (..., n_var)``: ``C`` the
+        first ``n_obs`` rows of the identity, ``W = obs_noise * I``."""
+        w = self.obs_noise * torch.eye(self.n_obs)
+        return x[..., : self.n_obs] + _noise_term(obs_noise_at(keys, t, self.n_obs), w)
 
 
 def time_varying(param: torch.Tensor, ts: torch.Tensor, t) -> torch.Tensor:
@@ -104,17 +133,20 @@ class ControlEnvironmentBase(abc.ABC):
         w = self.obs_noise * torch.eye(self.n_obs)
         return c, w
 
-    def _require_noise_free(self) -> None:
-        if self.obs_noise != 0.0:
-            raise NotImplementedError(
-                "observation noise (obs_noise != 0) is not ported yet: its draws need JAX's "
-                "threefry generator in torch, ROADMAP Queue 1 #15")
+    def obs_noise_term(self, keys: torch.Tensor, t, params) -> torch.Tensor:
+        """The additive term ``noise @ W`` of the observation at time ``t``
+        (as :func:`obs_noise_at`): ``(..., B, n_obs)``, already scaled."""
+        _c, w = self._obs_matrices(params)
+        return _noise_term(obs_noise_at(keys, t, self.n_obs), w)
 
     def f_obs(self, keys, t, x: torch.Tensor, params) -> torch.Tensor:
-        """The observation ``C x`` of ``x (..., latent)``; ``keys``, ``t`` and
-        ``params`` only matter for the noise, which is not ported yet."""
-        self._require_noise_free()
-        return self.obs(x)
+        """The observation ``C x + noise W`` ``(..., B, n_obs)`` of ``x (...,
+        B, latent)`` at time ``t`` (a float, or times broadcasting against
+        ``(..., B)``); keys ``(B, 2)``. Without observation noise no draw is
+        made."""
+        if self.obs_noise == 0.0:
+            return self.obs(x)
+        return self.obs_noisy(x, self.obs_noise_term(keys, t, params))
 
     def obs(self, x: torch.Tensor) -> torch.Tensor:
         """Noise-free observation ``(..., n_obs)`` of ``x (..., latent)``.

@@ -12,8 +12,8 @@ def generate_control_data(env, generator: torch.Generator, ts: torch.Tensor, bat
     """A control task batch (the role of the notebooks' ``get_data``): the
     evaluators' data tuple ``(x0, ts, targets, process_noise_keys,
     obs_noise_keys, params)``. The keys are ``(B, 2)`` uint32-valued int64
-    tensors in JAX's raw key layout, drawn from ``generator``; nothing reads
-    them until the noise streams are ported (ROADMAP Queue 1 #15)."""
+    tensors in JAX's raw key layout, drawn from ``generator``: the noise of
+    trajectory ``b`` is drawn from its keys (``core/prng.py``)."""
     x0, targets = env.sample_init_states(batch_size, generator)
     dev = generator.device
     keys = lambda: torch.randint(0, 2**32, (batch_size, 2), generator=generator, device=dev)

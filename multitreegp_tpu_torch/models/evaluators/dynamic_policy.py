@@ -10,9 +10,11 @@ readout trees (layer 1). The ODE state is augmented to ``[x, a]`` with
 
 inside the loop, while the post-hoc control replay feeds real observations
 (the reference's deliberate bottleneck, kept). The trees' variables are
-declared in the order ``[y, a, u, target]``. Dispatch, fitness and the
-gradient are the static evaluator's; kernels #6 and #7 take ``state_size``
-up to 2 (a larger one takes the general path).
+declared in the order ``[y, a, u, target]``. Dispatch, noise, fitness and
+the gradient are the static evaluator's; kernels #6 and #7 take
+``state_size`` up to 2 (a larger one takes the general path). Process noise
+kicks only the plant's latent state, but its increments are drawn over the
+whole ``[x, a]``, as the JAX package draws them.
 """
 from __future__ import annotations
 
@@ -79,7 +81,7 @@ class DynamicPolicyEvaluator(StaticPolicyEvaluator):
 
         xa0 = torch.cat([x0, x0.new_zeros((x0.shape[0], self.state_size))], dim=-1)
         xa0 = xa0[None].expand((population.batch_shape[0],) + xa0.shape)
-        return self._integrate(drift, xa0, ts, lambda t, xa: env.cond_alive(t, xa[..., :latent]))
+        return self._integrate(drift, xa0, data, lambda t, xa: env.cond_alive(t, xa[..., :latent]))
 
     def _replay(self, population: TreeTensors, xas: torch.Tensor, data: Tuple):
         """``(xs, ys, us, activities)`` on the save grid: the controls with
@@ -88,7 +90,7 @@ class DynamicPolicyEvaluator(StaticPolicyEvaluator):
         latent = self.env.latent_size
         _state_eq, readout = self._split(population[:, None])
         xs, acts = xas[..., :latent], xas[..., latent:]
-        ys = self.env.f_obs(obs_keys, ts, xs, params)
+        ys = self.env.f_obs(obs_keys, ts[:, None, None], xs, params)
         zeros_u = ys.new_zeros(ys.shape[:-1] + (self.env.n_control,))
         us = evaluate_trees(readout, self._data_vec(ys, acts, zeros_u, targets)[..., None, :],
                             self.fset)

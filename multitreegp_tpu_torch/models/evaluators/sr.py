@@ -1,16 +1,23 @@
 """Symbolic-regression evaluator: the candidate's trees ARE the drift.
 
-Port of ``multitreegp_tpu/models/evaluators/sr.py`` (ODE paths): a
-candidate's trees define ``dx = trees(x)``; every candidate is integrated
-from every initial state over the save grid; its fitness is the trajectory
-MSE against the ground truth, with dead lanes and non-finite errors counted
-as ``max_fitness`` and the trajectory mean clipped to ``[0, max_fitness]``.
+Port of ``multitreegp_tpu/models/evaluators/sr.py``: a candidate's trees
+define ``dx = trees(x)``; every candidate is integrated from every initial
+state over the save grid; its fitness is the trajectory MSE against the
+ground truth, with dead lanes and non-finite errors counted as
+``max_fitness`` and the trajectory mean clipped to ``[0, max_fitness]``.
+With ``process_noise > 0`` and the data tuple's keys, the candidate is
+integrated as the SDE ``dx = trees(x) dt + process_noise dW`` by
+Euler-Maruyama with ``substeps`` steps per interval, whatever ``method``
+says, its increments drawn from ``fold_in(key, bitcast_f32(t))`` of each
+trajectory's key (``integrate_sde``).
 
 Population evaluation is fused, one kernel per evaluation on CUDA tensors
 and its plain version on CPU tensors, and differentiable in the constants
 (constant optimisation) through an unfused recompute:
 
 * fixed step (``method`` euler / heun / rk4): :class:`core.cuda_rollout.SRFitness`;
+* SDE: the same kernel with the kick rows of ``make_sr_kick_rows``, its
+  recompute through ``integrate_sde``;
 * ``method="adaptive"``: :class:`core.cuda_adaptive.SRFitnessAdaptive` with
   the whole-solve step budget (diffrax ``max_steps`` semantics, kernel #5)
   of ``adaptive_budget``, 500 by default, on every grid. The JAX evaluator
@@ -19,12 +26,13 @@ and its plain version on CPU tensors, and differentiable in the constants
   interval, ignoring ``adaptive_budget``; the port has no such gate.
 
 Single-candidate rollouts (``evaluate_candidate``, ``__call__``) write the
-trajectory: the fixed-step trajectory kernel (:class:`SRRollout`) where
-``N <= 64`` and there is one tree per state dimension, else the integrator
-(``integrate_adaptive`` for ``method="adaptive"``, with the JAX package's
-per-interval budget) with the dispatching interpreter as the drift. The data
-tuple is the JAX package's ``(x0s (B, d), ts (T,), ys (B, T, d), keys)``;
-``keys`` is accepted and unused.
+trajectory: ``integrate_sde`` for the SDE; the fixed-step trajectory kernel
+(:class:`SRRollout`) where ``N <= 64`` and there is one tree per state
+dimension; else the integrator (``integrate_adaptive`` for
+``method="adaptive"``, with the JAX package's per-interval budget); each with
+the dispatching interpreter as the drift. The data tuple is the JAX
+package's ``(x0s (B, d), ts (T,), ys (B, T, d), keys (B, 2))``; the keys
+only matter for the SDE, and may be None otherwise.
 """
 from __future__ import annotations
 
@@ -33,18 +41,20 @@ from typing import Optional, Tuple
 import torch
 
 from ...core.cuda_adaptive import AdaptiveConfig, SRFitnessAdaptive
-from ...core.cuda_rollout import SRFitness, SRRollout
+from ...core.cuda_rollout import SDENoise, SRFitness, SRRollout
 from ...core.interpreter import evaluate_trees
 from ...core.registry import FunctionSet
 from ...core.trees import TreeTensors
-from ..integrators import adaptive_step_budget, integrate, integrate_adaptive
+from ..integrators import _f32, adaptive_step_budget, integrate, integrate_adaptive, integrate_sde
+from .noise import make_sr_kick_rows
 
 ROLLOUT_MAX_NODES = 64  # the JAX trajectory kernel's gate (UNROLL_MAX_NODES)
 DEFAULT_ADAPTIVE_BUDGET = 500  # the reference's diffrax max_steps
 
 
 class SREvaluator:
-    """Fitness = trajectory MSE of the candidate integrated as an ODE."""
+    """Fitness = trajectory MSE of the candidate integrated as an ODE (an
+    SDE with ``process_noise > 0``)."""
 
     def __init__(
         self,
@@ -70,11 +80,8 @@ class SREvaluator:
         # ``max_steps``); None means the reference's 500
         self.adaptive_budget = adaptive_budget
 
-    def _check(self) -> None:
-        if self.process_noise > 0.0:
-            raise NotImplementedError(
-                "process_noise > 0 (SDE SR) is not ported yet: ROADMAP Queue 1 #15"
-            )
+    def _sde(self, keys) -> bool:
+        return self.process_noise > 0.0 and keys is not None
 
     def _adaptive_config(self) -> AdaptiveConfig:
         """The fused adaptive fitness ``evaluate_population`` computes: the
@@ -84,9 +91,13 @@ class SREvaluator:
 
     def evaluate_population(self, population: TreeTensors, data: Tuple) -> torch.Tensor:
         """population: batch shape ``(P, m)``; returns fitness ``(P,)``."""
-        self._check()
-        x0s, ts, ys, _keys = data
-        if self.method == "adaptive":
+        x0s, ts, ys, keys = data
+        if self._sde(keys):  # Euler-Maruyama, as the general path forces
+            noise = SDENoise(make_sr_kick_rows(self.process_noise, ts, keys, self.substeps,
+                                               x0s.shape[1]), keys, self.process_noise)
+            mse, alive = SRFitness.apply(*population, x0s, ts, ys, self.fset, "euler",
+                                         self.substeps, noise)
+        elif self.method == "adaptive":
             mse, alive = SRFitnessAdaptive.apply(*population, x0s, ts, ys, self.fset,
                                                  self._adaptive_config())
         else:
@@ -98,9 +109,8 @@ class SREvaluator:
         fitness = torch.nan_to_num(fitness, nan=self.max_fitness)
         return fitness.clamp(0.0, self.max_fitness)
 
-    def _rollout(self, population: TreeTensors, x0s: torch.Tensor, ts: torch.Tensor):
+    def _rollout(self, population: TreeTensors, x0s: torch.Tensor, ts: torch.Tensor, keys=None):
         """Trajectories ``(T, P, B, d)`` and liveness ``(T, P, B)``."""
-        self._check()
         p = population.batch_shape[0]
         b, d = x0s.shape
         trees = population.map(lambda a: a[:, None])
@@ -109,6 +119,10 @@ class SREvaluator:
             return evaluate_trees(trees, x[:, :, None, :], self.fset)
 
         x0 = x0s[None].expand(p, b, d)
+        if self._sde(keys):
+            pn = _f32(self.process_noise)
+            return integrate_sde(drift, lambda t, x: torch.full_like(x, pn), x0, ts, keys,
+                                 "euler", self.substeps)
         if self.method == "adaptive":
             per_interval = (
                 max(self.adaptive_budget // max(ts.shape[0] - 1, 1), 4)
@@ -125,8 +139,8 @@ class SREvaluator:
     def evaluate_candidate(self, candidate: TreeTensors, data: Tuple):
         """Per-trajectory fitness ``(B,)`` and predictions ``(B, T, d)`` of one
         candidate (inspection and plotting)."""
-        x0s, ts, ys, _keys = data
-        xs, alive = self._rollout(candidate.map(lambda a: a[None]), x0s, ts)
+        x0s, ts, ys, keys = data
+        xs, alive = self._rollout(candidate.map(lambda a: a[None]), x0s, ts, keys)
         pred = xs[:, 0]  # (T, B, d)
         err = ((pred - ys.transpose(0, 1)) ** 2).sum(dim=-1).mean(dim=0)
         bad = ~alive[-1, 0] | ~torch.isfinite(err)
@@ -141,19 +155,24 @@ class SREvaluator:
 
 
 def sr_trajectories(env, x0s: torch.Tensor, ts: torch.Tensor, method: str = "rk4",
-                    substeps: int = 40) -> torch.Tensor:
+                    substeps: int = 40, keys: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Ground truth ``(B, T, d)``: the environment's drift integrated from
-    ``x0s (B, d)`` over ``ts``."""
-    xs, _ = integrate(env.drift, x0s, ts, method=method, substeps=substeps)
+    ``x0s (B, d)`` over ``ts``; for an environment with ``process_noise >
+    0``, the SDE over ``env.diffusion`` by Euler-Maruyama with ``substeps``
+    steps per interval, its increments drawn from ``keys (B, 2)``."""
+    if getattr(env, "process_noise", 0.0) > 0.0:
+        xs, _ = integrate_sde(env.drift, env.diffusion, x0s, ts, keys, "euler", substeps)
+    else:
+        xs, _ = integrate(env.drift, x0s, ts, method=method, substeps=substeps)
     return xs.transpose(0, 1).contiguous()
 
 
 def generate_sr_data(env, generator: torch.Generator, ts: torch.Tensor, batch_size: int = 16,
                      method: str = "rk4", substeps: int = 40) -> Tuple:
-    """SR data tuple ``(x0s, ts, ys, None)``: initial states drawn from
-    ``generator`` and ground truth by fine-substep RK4 (the role of the
-    notebook's ``get_data``)."""
-    if getattr(env, "process_noise", 0.0) > 0.0:
-        raise NotImplementedError("SDE ground truth is not ported yet: ROADMAP Queue 1 #15")
+    """SR data tuple ``(x0s, ts, ys, keys)``: initial states, then ``(B, 2)``
+    process-noise keys in JAX's raw layout, drawn from ``generator``; the
+    ground truth by fine-substep RK4, or the SDE of :func:`sr_trajectories`
+    for a noisy environment (the role of the notebook's ``get_data``)."""
     x0s = env.sample_init_states(batch_size, generator)
-    return x0s, ts, sr_trajectories(env, x0s, ts, method, substeps), None
+    keys = torch.randint(0, 2**32, (batch_size, 2), generator=generator, device=generator.device)
+    return x0s, ts, sr_trajectories(env, x0s, ts, method, substeps, keys), keys

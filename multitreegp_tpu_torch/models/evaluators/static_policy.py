@@ -9,21 +9,25 @@ environment's cost of (states, controls), with dead saves filled with
 counted as ``max_fitness``, and the trajectory mean clipped to ``[0,
 max_fitness]``.
 
-Population evaluation takes a fused kernel exactly where the JAX dispatch
-takes one, decided by configuration: a fixed-step method, a function set
-whose variables are the data vector ``[y, targets]``, ``N <= 256``, a plant
-with a device drift and at least two save points take kernel #6; the
-adaptive method with per-trajectory parameters takes kernel #7; everything
-else (and ``interpreter="ladder"`` / ``"gather"``) the general path, the
-integrator with ``evaluate_trees`` (kernel #8 on CUDA) as the policy. The
-fused rollout is differentiable in the constants through
-``core.cuda_policy.PolicyRollout`` (the general path's gradient). The JAX
-VMEM gate is not copied.
+Observation noise (``env.obs_noise != 0``) is ``normal(fold_in(key,
+bitcast_f32(t)))`` of the trajectory's observation key at every solver
+time; with ``stochastic=True`` and ``env.process_noise > 0`` the plant is
+the SDE of its diffusion, integrated by Euler-Maruyama whatever ``method``
+says (``integrate_sde``), its increments drawn from the process-noise keys.
 
-Not ported yet (they raise ``NotImplementedError``, ROADMAP Queue 1 #15):
-observation noise (``env.obs_noise != 0``) and process noise
-(``stochastic=True`` with ``env.process_noise > 0``). ``remat`` is accepted
-and has no effect (PyTorch keeps the tape).
+Population evaluation takes a fused kernel exactly where the JAX dispatch
+takes one, decided by configuration: a fixed-step method (or process
+noise, which makes it euler), a function set whose variables are the data
+vector ``[y, targets]``, ``N <= 256``, a plant with a device drift and at
+least two save points take kernel #6, given the noise as rows built up
+front (``noise.py``); the adaptive method with per-trajectory parameters
+and no noise takes kernel #7; everything else (the adaptive method with
+observation noise, whose draws fall at data-dependent times, and
+``interpreter="ladder"`` / ``"gather"``) the general path, the integrator
+with ``evaluate_trees`` (kernel #8 on CUDA) as the policy. The fused rollout
+is differentiable in the constants through ``core.cuda_policy.PolicyRollout``
+(the general path's gradient). The JAX VMEM gate is not copied. ``remat``
+is accepted and has no effect (PyTorch keeps the tape).
 
 Data: ``(x0, ts, targets, process_noise_keys, obs_noise_keys, params)``, as
 ``generate_control_data`` returns it.
@@ -42,7 +46,8 @@ from ...core.cuda_rollout import METHODS
 from ...core.interpreter import evaluate_trees
 from ...core.registry import FunctionSet
 from ...core.trees import TreeTensors
-from ..integrators import adaptive_step_budget, integrate, integrate_adaptive
+from ..integrators import adaptive_step_budget, integrate, integrate_adaptive, integrate_sde
+from .noise import make_obs_noise_rows, make_process_noise_rows
 
 
 class StaticPolicyEvaluator:
@@ -78,12 +83,8 @@ class StaticPolicyEvaluator:
 
     # ------------------------------------------------------------ dispatch
 
-    def _check(self) -> None:
-        self.env._require_noise_free()
-        if self.stochastic and getattr(self.env, "process_noise", 0.0) > 0.0:
-            raise NotImplementedError(
-                "process noise (stochastic=True, process_noise > 0) is not ported yet: "
-                "ROADMAP Queue 1 #15")
+    def _sde(self) -> bool:
+        return self.stochastic and getattr(self.env, "process_noise", 0.0) > 0.0
 
     def _data_width(self) -> int:
         return self.env.n_obs + self.env.n_targets
@@ -99,21 +100,31 @@ class StaticPolicyEvaluator:
             return None
         if self.method in METHODS:
             return "fixed"
-        if self.method == "adaptive" and not _series(params):
+        if (self.method == "adaptive" and not _series(params) and self.env.obs_noise == 0.0
+                and not self._sde()):
             return "adaptive"
         return None
 
     def _fused(self, data: Tuple, kind: str):
-        """The dispatcher of the fused rollout: ``trees -> (xs, us, alive)``."""
-        x0, ts, targets, _pk, _ok, params = data
+        """The dispatcher of the fused rollout: ``trees -> (xs, us, alive)``;
+        the fixed-step kernel gets the noise rows, built here once."""
+        x0, ts, targets, pkeys, obs_keys, params = data
+        env = self.env
         if kind == "adaptive":
             return lambda trees: rollout_policy_adaptive(
-                trees, x0, ts, targets, params, self.env, self.fset, rtol=self.rtol,
+                trees, x0, ts, targets, params, env, self.fset, rtol=self.rtol,
                 atol=self.atol, max_steps=adaptive_step_budget(self.substeps),
                 method=self.adaptive_method, state_size=self.state_size)
+        # the stochastic general path is Euler whatever the method
+        method = "euler" if self._sde() else self.method
+        obs_rows = (make_obs_noise_rows(env, ts, params, obs_keys, self.substeps, method)
+                    if env.obs_noise != 0.0 else None)
+        kick_rows = (make_process_noise_rows(env, ts, params, pkeys, self.substeps,
+                                             env.latent_size + self.state_size)
+                     if self._sde() else None)
         return lambda trees: rollout_policy(
-            trees, x0, ts, targets, params, self.env, self.fset, self.substeps, self.method,
-            self.state_size)
+            trees, x0, ts, targets, params, env, self.fset, self.substeps, method,
+            self.state_size, obs_rows, kick_rows)
 
     def _recompute(self, data: Tuple):
         """``trees -> (xs, us)`` by the general path and the replay: the
@@ -127,7 +138,6 @@ class StaticPolicyEvaluator:
         """``(xs, alive, us or None)``: the fused kernel streams the save-grid
         controls beside the states; the general path returns None and the
         caller replays."""
-        self._check()
         kind = self._fused_kind(population, data)
         if kind is not None:
             xs, us, alive = PolicyRollout.apply(*population, self._fused(data, kind),
@@ -144,7 +154,26 @@ class StaticPolicyEvaluator:
         tgt = targets.expand(obs.shape[:-1] + targets.shape[-1:])
         return evaluate_trees(policy, torch.cat([obs, tgt], dim=-1)[..., None, :], self.fset)
 
-    def _integrate(self, drift, x0b: torch.Tensor, ts: torch.Tensor, cond_alive):
+    def _diffusion(self, data: Tuple):
+        """``(t, x) -> (..., d, d)``: the plant's diffusion on the latent
+        block of the integrated state ``x (..., d)``, zero on a policy's
+        hidden state."""
+        ts, params, env = data[1], data[5], self.env
+        latent = env.latent_size
+
+        def diffusion(t, x):
+            u0 = x.new_zeros(env.n_control)
+            g = env.diffusion(t, x[..., :latent], u0, env.params_at(params, ts, t))
+            full = x.new_zeros(x.shape + x.shape[-1:])
+            full[..., :latent, :latent] = g
+            return full
+        return diffusion
+
+    def _integrate(self, drift, x0b: torch.Tensor, data: Tuple, cond_alive):
+        ts = data[1]
+        if self._sde():
+            return integrate_sde(drift, self._diffusion(data), x0b, ts, data[3], "euler",
+                                 self.substeps, cond_alive)
         if self.method == "adaptive":
             return integrate_adaptive(
                 drift, x0b, ts, rtol=self.rtol, atol=self.atol,
@@ -166,12 +195,12 @@ class StaticPolicyEvaluator:
             return env.drift(t, x, u, p_t)
 
         x0b = x0[None].expand((population.batch_shape[0],) + x0.shape)
-        return self._integrate(drift, x0b, ts, env.cond_alive)
+        return self._integrate(drift, x0b, data, env.cond_alive)
 
     def _replay(self, population: TreeTensors, xs: torch.Tensor, data: Tuple):
         """Observations and controls on the save grid: ``(ys, us)``."""
         _x0, ts, targets, _pk, obs_keys, params = data
-        ys = self.env.f_obs(obs_keys, ts, xs, params)  # (T, P, B, n_obs)
+        ys = self.env.f_obs(obs_keys, ts[:, None, None], xs, params)  # (T, P, B, n_obs)
         return ys, self._controls(population[:, None], ys, targets)
 
     def _replay_controls(self, population: TreeTensors, xs: torch.Tensor, data: Tuple):

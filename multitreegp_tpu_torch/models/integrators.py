@@ -1,10 +1,13 @@
 """Runge-Kutta integration with per-lane divergence containment.
 
-Port of ``multitreegp_tpu/models/integrators.py`` without its SDE half:
+Port of ``multitreegp_tpu/models/integrators.py``:
 
 * :func:`integrate`: euler, heun and rk4 with ``substeps`` steps per save
   interval, ``dt = (ts[t+1] - ts[t]) / substeps`` per interval from the
   float32 grid, as the JAX scan does;
+* :func:`integrate_sde`: the same steps plus an Euler-Maruyama kick whose
+  Brownian increment is drawn, as JAX draws it, from ``fold_in(key,
+  bitcast_f32(t))`` of the trajectory's key (``core/prng.py``);
 * :func:`integrate_adaptive`: an embedded pair (Bogacki-Shampine 3(2) or
   Dormand-Prince 5(4)) with per-lane ``(t, dt)`` and an I step controller;
 * :func:`linear_interp`: the time-varying parameters' interpolation.
@@ -21,6 +24,8 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..core import prng
 
 DIVERGENCE_BOUND = 1e8
 
@@ -47,6 +52,17 @@ def _f32_add(a: float, b: float) -> float:
     return _f32(np.float32(a) + np.float32(b))
 
 
+def substep_time(t0, i, dt):
+    """``t0 + i * dt`` rounded once to float32 (a float, or numpy arrays):
+    XLA contracts the JAX integrators' substep time into a fused
+    multiply-add, and the noise drawn at that time depends on every bit. The
+    product of a small integer and a float32 is exact in double, so only the
+    sum rounds (twice, which differs from one rounding on about one input in
+    2**29)."""
+    f64 = lambda v: np.asarray(v, np.float64)
+    return (f64(t0) + f64(i) * f64(np.float32(dt))).astype(np.float32)
+
+
 def euler_step(drift: Drift, t: float, x, dt: float):
     return x + dt * drift(t, x)
 
@@ -69,17 +85,26 @@ def rk4_step(drift: Drift, t: float, x, dt: float):
 STEPPERS = {"euler": euler_step, "heun": heun_step, "rk4": rk4_step}
 
 
+# kick(i, t, x, dt) -> the increment added to substep i's update
+Kick = Callable[[int, float, torch.Tensor, float], torch.Tensor]
+
+
 def step_interval(
     stepper, drift: Drift, t0: float, t1: float, x: torch.Tensor, alive: torch.Tensor,
     substeps: int,
     cond_alive: Optional[Callable[[float, torch.Tensor], torch.Tensor]] = None,
+    kick: Optional[Kick] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Advance ``(x, alive)`` over one save interval ``[t0, t1]`` (float32
-    values as Python floats): ``dt = (t1 - t0) / substeps`` in float32."""
+    values as Python floats): ``dt = (t1 - t0) / substeps`` in float32,
+    substep ``i`` at :func:`substep_time`; a ``kick`` is added to each
+    substep's update before the liveness test."""
     dt = _f32((np.float32(t1) - np.float32(t0)) / np.float32(substeps))
     for i in range(substeps):
-        t = _f32_add(t0, np.float32(i) * np.float32(dt))
+        t = float(substep_time(t0, i, dt))
         x_new = stepper(drift, t, x, dt)
+        if kick is not None:
+            x_new = x_new + kick(i, t, x, dt)
         ok = finite(x_new)
         if cond_alive is not None:
             ok = ok & cond_alive(_f32_add(t, dt), x_new)
@@ -114,7 +139,11 @@ def integrate(
             f"integration method {method!r}: the fixed-step methods are {sorted(STEPPERS)}; "
             "adaptive stepping is integrate_adaptive"
         )
-    stepper = STEPPERS[method]
+    return _scan(STEPPERS[method], drift, x0, ts, substeps, cond_alive)
+
+
+def _scan(stepper, drift: Drift, x0: torch.Tensor, ts: torch.Tensor, substeps: int, cond_alive,
+          kick: Optional[Kick] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     times = ts.tolist()
     alive = finite(x0)
     if cond_alive is not None:
@@ -122,10 +151,58 @@ def integrate(
     xs, alives = [x0], [alive]
     x = x0
     for t in range(len(times) - 1):
-        x, alive = step_interval(stepper, drift, times[t], times[t + 1], x, alive, substeps, cond_alive)
+        x, alive = step_interval(stepper, drift, times[t], times[t + 1], x, alive, substeps, cond_alive,
+                                 kick)
         xs.append(x)
         alives.append(alive)
     return torch.stack(xs), torch.stack(alives)
+
+
+def integrate_sde(
+    drift: Drift,
+    diffusion: Callable[[float, torch.Tensor], torch.Tensor],
+    x0: torch.Tensor,
+    ts: torch.Tensor,
+    noise_keys: torch.Tensor,
+    method: str = "euler",
+    substeps: int = 1,
+    cond_alive: Optional[Callable[[float, torch.Tensor], torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Integrate ``dx = drift dt + diffusion dW`` (Euler-Maruyama, or the
+    drift by heun between the kicks): JAX ``integrate_sde``.
+
+    Each substep at time ``t = t0 + i*dt`` (float32) adds ``g @ dW`` to the
+    stepper's update, ``g = diffusion(t, x)`` at the substep's starting state
+    and ``dW = normal(fold_in(key, bitcast_f32(t)), (d,)) * sqrt(|dt|)`` per
+    trajectory key (``sqrt`` correctly rounded in float32); then the lane
+    freezes where the state is non-finite, reaches the divergence bound or
+    fails ``cond_alive(t + dt, x)``.
+
+    Args:
+        drift: batched drift ``(t, x (..., d)) -> (..., d)``.
+        diffusion: ``(t, x) -> (..., d)`` (diagonal, elementwise) or ``(...,
+            d, d)`` (a matrix applied to ``dW``).
+        x0: ``(..., B, d)``; its last batch axis indexes the trajectories,
+            one per key.
+        ts: save grid ``(T,)``.
+        noise_keys: ``(B, 2)`` JAX keys (the data tuple's process-noise keys).
+        method / substeps / cond_alive: as in :func:`integrate`.
+
+    Returns ``(xs (T, ..., d), alive (T, ...))``.
+    """
+    if method not in STEPPERS:
+        raise NotImplementedError(f"SDE drift method {method!r}: the steppers are {sorted(STEPPERS)}")
+    d = x0.shape[-1]
+
+    def kick(i, t, x, dt):
+        g = diffusion(t, x)
+        keys = prng.fold_in(noise_keys, prng.bitcast_time(t, noise_keys.device))
+        w = prng.normal(keys, d, _f32(np.sqrt(np.abs(np.float32(dt)))))
+        if g.dim() == x.dim() + 1:  # a matrix per lane, applied to dW
+            return (g * w[..., None, :]).sum(dim=-1)
+        return g * w
+
+    return _scan(STEPPERS[method], drift, x0, ts, substeps, cond_alive, kick)
 
 
 # Embedded pairs for adaptive stepping, as float32 values of the JAX

@@ -10,7 +10,8 @@ Two routes:
   rtol 1e-6 (the host's ``logf``/``cosf`` and PyTorch's may round an ulp
   apart).
 * on the card (marker ``cuda``; skipped without a GPU): the kernels through
-  their wrappers, same criteria; the closed-loop policy kernels (#6 fixed
+  their wrappers, same criteria (#1 also with Euler-Maruyama kick rows, bit
+  for bit; the branch probe #10 in every mode, bit for bit); the closed-loop policy kernels (#6 fixed
   step, #7 adaptive) per lane bit for bit, states, controls, alive counts
   and steps, and the policy evaluators' refusal to run a plain version on
   CUDA tensors; the interpreter kernels (forward and VJP)
@@ -55,7 +56,9 @@ from multitreegp_tpu_torch.models.environments import Acrobot, HarmonicOscillato
 from multitreegp_tpu_torch.models.evaluators import (
     DynamicPolicyEvaluator, StaticPolicyEvaluator, generate_control_data, generate_sr_data,
 )
+from multitreegp_tpu_torch.models.evaluators.noise import make_sr_kick_rows
 from multitreegp_tpu_torch.ops.initialization import make_population_sampler
+from multitreegp_tpu_torch.tools import branch_probe as bp
 
 torch.set_num_threads(1)
 
@@ -208,16 +211,20 @@ def host_libs(tmp_path_factory):
     return {name: _build.build_host(name, out) for name in ("sr_fitness", "reproduce")}
 
 
-def fitness_host(lib, trees, x0s, ts, ys, fset, method, substeps):
+def fitness_host(lib, trees, x0s, ts, ys, fset, method, substeps, kick_rows=None):
+    """The host build of kernel #1: ``(mse, alive)`` as numpy arrays; with
+    ``kick_rows (T, B, substeps * d)`` its Euler-Maruyama leg."""
     p, b = trees.ops.shape[0], x0s.shape[0]
     err = np.zeros((p, b), np.float32)
     alive_h = np.zeros((p, b), np.uint8)
     fn = lib.sr_fitness_host
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
     arrays = [np.ascontiguousarray(a.numpy()) for a in (trees.ops, trees.const, fset.device_ops(),
                                                         x0s, ts, ys)]
-    status = fn(*(a.ctypes.data for a in arrays), err.ctypes.data, alive_h.ctypes.data,
-                p, 2, N, b, ts.shape[0], fset.var_start, fset.has_unary, METHODS[method], substeps)
+    kicks = None if kick_rows is None else np.ascontiguousarray(kick_rows.numpy())
+    status = fn(*(a.ctypes.data for a in arrays), None if kicks is None else kicks.ctypes.data,
+                err.ctypes.data, alive_h.ctypes.data, p, x0s.shape[1], trees.ops.shape[-1], b,
+                ts.shape[0], fset.var_start, fset.has_unary, METHODS[method], substeps)
     assert status == 0
     return err / np.float32(ts.shape[0]), alive_h.astype(bool)
 
@@ -293,6 +300,36 @@ def test_fitness_kernel_matches_plain_on_card(cuda):
     both = alive & ref_alive
     rel = ((mse - ref).abs() / ref.abs().clamp(min=1e-30))[both]
     assert float(rel.max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_fitness_kernel_with_kicks_matches_plain_on_card(cuda):
+    """Kernel #1's Euler-Maruyama leg: the kick rows built on the card, the
+    kernel against its plain version, bit for bit per lane."""
+    fset, trees, x0s, ts, ys = fitness_case(cuda, pop=512, b=16, t_end=2.0)
+    keys = generate_sr_data(VanDerPolOscillator(0.1), torch.Generator(device=cuda).manual_seed(3),
+                            ts, batch_size=16)[3]
+    kicks = make_sr_kick_rows(0.2, ts, keys, 4, 2)
+    before = sr_fitness_cuda.launches
+    mse, alive = sr_fitness(trees, x0s, ts, ys, fset, "euler", 4, kicks)
+    ref, ref_alive = sr_fitness_plain(trees, x0s, ts, ys, fset, "euler", 4, kicks)
+    torch.cuda.synchronize()
+    assert sr_fitness_cuda.launches == before + 1
+    assert torch.equal(alive, ref_alive) and same_bits(mse, ref)
+    plain_ode, _ = sr_fitness_plain(trees, x0s, ts, ys, fset, "euler", 4)
+    assert not torch.equal(mse, plain_ode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", bp.MODES)
+def test_branch_probe_matches_plain_on_card(cuda, mode):
+    """Kernel #10 in every mode against its plain version, bit for bit."""
+    x = bp.probe_input(mode, 16, cuda)
+    before = bp.probe_cuda.launches
+    out = bp.probe(x, mode)
+    ref = bp.probe_plain(x, mode)
+    torch.cuda.synchronize()
+    assert bp.probe_cuda.launches == before + 1 and torch.equal(out, ref)
 
 
 @pytest.mark.cuda
@@ -481,11 +518,12 @@ def test_policy_kernel_legs_match_plain_on_card(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["static", "dynamic", "adaptive"])
+@pytest.mark.parametrize("kind", ["static", "dynamic", "adaptive", "noisy"])
 def test_policy_evaluators_never_run_plain_on_card(cuda, monkeypatch, kind):
     """With CUDA tensors the policy evaluators launch their kernel (#6 or
     #7) and never a plain version; ``evaluate_candidate`` replays through
-    kernel #8."""
+    kernel #8. ``noisy``: observation noise and ``stochastic=True``, #6 with
+    the rows built on the card."""
     def refuse(*args, **kwargs):
         raise AssertionError("a plain version ran on CUDA tensors")
 
@@ -493,8 +531,11 @@ def test_policy_evaluators_never_run_plain_on_card(cuda, monkeypatch, kind):
         monkeypatch.setattr(cp, name, refuse)
     monkeypatch.setattr("multitreegp_tpu_torch.core.interpreter.evaluate_trees_plain", refuse)
     state_size = 2 if kind == "dynamic" else 0
-    env, fset, data, trees = policy_case(cuda, state_size=state_size, pop=64, b=16)
-    if kind == "dynamic":
+    env = Acrobot(obs_noise=0.05, process_noise=0.05) if kind == "noisy" else None
+    env, fset, data, trees = policy_case(cuda, env, state_size=state_size, pop=64, b=16)
+    if kind == "noisy":
+        ev = StaticPolicyEvaluator(env, fset, substeps=2, stochastic=True)
+    elif kind == "dynamic":
         ev = DynamicPolicyEvaluator(env, fset, state_size=2, substeps=2)
     else:
         ev = StaticPolicyEvaluator(env, fset, substeps=8 if kind == "adaptive" else 2,

@@ -13,6 +13,7 @@ the port sums the squared error step by step as the kernel does where JAX
 sums after the rollout. Over T = 10 they reach ~2e-5 relative on the few
 chaotic candidates and stay ~1e-7 on the rest.
 """
+import jax
 import jax.numpy as jnp
 import jax.random as jr
 import numpy as np
@@ -90,11 +91,15 @@ def test_evaluate_candidate_and_unsupported(setup):
     jfit, jpred = JaxSREvaluator(jf, substeps=1, interpreter="ladder").evaluate_candidate(pop[0], data)
     assert pred.shape == (4, 10, 2)
     np.testing.assert_allclose(fit.numpy(), np.asarray(jfit), rtol=1e-4)
-    # adaptive SR is ported (tests/test_torch_adaptive.py); SDE SR is not
+    # adaptive SR is ported (tests/test_torch_adaptive.py), and SDE SR
+    # (tests/test_torch_sde.py): with the data's keys, the JAX package's SDE
     fit = SREvaluator(tf, method="adaptive").evaluate_population(cand.map(lambda a: a[None]), tdata)
     assert fit.shape == (1,) and bool(torch.isfinite(fit).all())
-    with pytest.raises(NotImplementedError):
-        SREvaluator(tf, process_noise=0.1).evaluate_population(cand.map(lambda a: a[None]), tdata)
+    sde = SREvaluator(tf, process_noise=0.1).evaluate_population(
+        cand.map(lambda a: a[None]), sr_data_from_numpy(*data))
+    want = JaxSREvaluator(jf, process_noise=0.1, interpreter="gather").evaluate_population(
+        jax.tree_util.tree_map(lambda a: a[:1], pop), data)
+    np.testing.assert_allclose(sde.numpy(), np.asarray(want), rtol=1e-4)
 
 
 @pytest.mark.parametrize(
@@ -109,4 +114,4 @@ def test_ground_truth_matches_jax(jax_env, torch_env):
     g = torch.Generator().manual_seed(0)
     x0, ts_t, ys_t, keys = generate_sr_data(torch_env(), g, torch.from_numpy(np.asarray(ts)), batch_size=5)
     assert x0.shape == (5, torch_env().n_var) and ys_t.shape == (5, 10, torch_env().n_var)
-    assert keys is None and torch.isfinite(ys_t).all()
+    assert keys.shape == (5, 2) and keys.dtype == torch.int64 and torch.isfinite(ys_t).all()

@@ -126,12 +126,13 @@ def test_chip_smoke_phases_rehearse_on_cpu():
                 adaptive_opt_steps=2,
                 policy_horizon=1.0, policy_nodes=16, policy_substeps=2, policy_adaptive_substeps=8,
                 policy_fixed_t=4, policy_adaptive_t=3, legs_pop=8, legs_t=3, trig_adaptive_t=3,
-                policy_opt_top_k=4, policy_opt_steps=2, policy_opt_t=4)
+                policy_opt_top_k=4, policy_opt_steps=2, policy_opt_t=4,
+                noise=0.05, noisy_adaptive_t=3, ab_runs=1, probe_reps=2)
     out = chip_smoke.run(torch.device("cpu"), tiny)
     assert out["fitness"]["bit_equal"] and out["reproduce"]["ops_identical"] == 1.0
     assert [k["name"] for k in out["kernels"]] == [
         "sr_fitness", "reproduce", "interpret_fwd", "interpret_bwd", "sr_adaptive_global",
-        "sr_adaptive_interval", "sr_rollout", "policy", "policy_adaptive"]
+        "sr_adaptive_interval", "sr_rollout", "policy", "policy_adaptive", "branch_probe"]
     pk = out["policy_kernels"]
     assert {"fixed_static", "fixed_dynamic", "adaptive_static", "adaptive_dynamic"} <= set(pk)
     assert all(pk[k]["identical"] == 1.0 for k in ("fixed_static", "adaptive_dynamic"))
@@ -156,6 +157,14 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     for shape, lanes in (("recompute", 4 * 4 * 2), ("population", 32 * 4 * 2)):
         assert out["interpreter"][shape]["lanes"] == lanes
         assert all(out["interpreter"][shape]["bit_equal"].values())
+    sde = out["sde"]
+    assert sde["rows"]["bits_equal"] and max(sde["rows"]["ulp_gap"].values()) == 0
+    assert sde["fitness_kicks"]["identical"] == 1.0 and out["kernels"][0]["kicks"]["lanes"] == 32 * 4
+    assert all(len(sde[k]["generations"]) == 2 for k in ("sr_loop", "static_loop", "dynamic_loop"))
+    assert sde["noisy_adaptive"]["t_steps"] == 3
+    probe = out["probe"]["modes"]
+    assert set(probe) == {"always", "when", "dynfori", "dynval", "lane"}
+    assert [probe[m]["iterations_mean"] for m in ("always", "when", "dynfori")] == [64, 9, 12]
     rounds = out["const_opt"]["rounds"]
     assert [r["generation"] for r in rounds] == [14, 19]
     assert all(r["refined_sum"] <= r["unrefined_sum"] for r in rounds)
@@ -172,6 +181,8 @@ def test_package_never_imports_jax():
         "import multitreegp_tpu_torch.utils.checkpoint, multitreegp_tpu_torch.core.cuda_interpreter\n"
         "import multitreegp_tpu_torch.core.cuda_adaptive, multitreegp_tpu_torch.core.cuda_rollout\n"
         "import multitreegp_tpu_torch.core.cuda_policy, multitreegp_tpu_torch.models.environments\n"
+        "import multitreegp_tpu_torch.core.prng, multitreegp_tpu_torch.models.evaluators.noise\n"
+        "import multitreegp_tpu_torch.tools.branch_probe\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'multitreegp_tpu.'))]\n"
         "assert not bad and 'multitreegp_tpu' not in sys.modules, bad\n"
     )

@@ -13,11 +13,14 @@ the full width of the flagship workload (symbolic regression of Van der Pol;
 workload (phases 12-14). Phases, one line or a few each:
 
 1. device: ``nvidia-smi`` name and power limit, torch/CUDA versions, build time;
-2. fitness kernel vs its plain PyTorch version (T = 5 and T = 50);
-3. reproduction kernel vs its plain version on the main path's 3696 lanes;
+2. fitness kernel vs its plain PyTorch version (T = 5 and T = 50; at T = 50
+   every lane identical);
+3. reproduction kernel vs its plain version on the main path's 3696 lanes
+   (every lane's opcodes identical);
 4. the main path: ``initialize_population`` then 5 x (``evaluate_population``
    + ``evolve``), with the kernels' launch counters read around it;
-5. kernel and plain-version times (CUDA events, median of several runs);
+5. kernel and plain-version times (CUDA events, median of several runs; the
+   kernels' own device time per launch by torch.profiler);
 6. interpreter forward and VJP kernels vs their plain versions, per lane, at
    the constant-optimisation recompute's 50 x 16 x 2 lanes and at the whole
    population's 4096 x 16 x 2 lanes;
@@ -34,7 +37,7 @@ workload (phases 12-14). Phases, one line or a few each:
 10. the adaptive path: 5 generations of the 8 x 512 host loop with
    ``SREvaluator(method="adaptive", adaptive_method="dopri5")``, the
    attempted-step telemetry of both budgets (``adaptive_solver_stats`` and
-   the global kernel's), one ``optimise`` call (top-k 50, 5 Adam steps: the
+   the global kernel's), one ``optimise`` call (top-k 50, 3 Adam steps: the
    recompute takes ~4 s an epoch) through the adaptive gradient, and
    ``evaluate_candidate`` of the best under the RK4 evaluator; all seven
    launch counters read around it;
@@ -72,7 +75,11 @@ workload (phases 12-14). Phases, one line or a few each:
    the rows' build time;
 16. the branch probe (#10, ``python -m multitreegp_tpu_torch.tools.branch_probe``):
    every mode against its plain version, then the tool's timing run, each
-   mode's time beside its bound.
+   mode's time beside its bound;
+17. the instances of #1 and #2 for trees of up to 256 rows against their
+   plain versions: #1 on 256 candidates of 256 rows (chains of 255, 127 and
+   63 rows among them) x 16 trajectories at T = 6, RK4 and Euler-Maruyama
+   with kick rows; #2 on one island's 462 lanes of those parents.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last lines are a JSON line of per-kernel numbers, the card's name and
@@ -92,11 +99,12 @@ FULL = dict(islands=8, pop=512, max_nodes=32, depth=4, batch=16, horizon=10.0, d
             generations=5, timing_runs=5, plain_runs=3,
             fit_generations=20, top_k=50, gradient_steps=10, elite=0.1, interp_runs=20,
             adaptive_budget=500, adaptive_interval_steps=32, adaptive_short_t=10,
-            adaptive_opt_steps=5,
+            adaptive_opt_steps=3,
             policy_horizon=50.0, policy_nodes=30, policy_substeps=4, policy_adaptive_substeps=8,
             policy_fixed_t=26, policy_adaptive_t=11, legs_pop=512, legs_t=11, trig_adaptive_t=5,
             policy_opt_top_k=8, policy_opt_steps=2, policy_opt_t=125,
-            noise=0.05, noisy_adaptive_t=6, ab_runs=20, probe_reps=256)
+            noise=0.05, noisy_adaptive_t=6, ab_runs=20, probe_reps=256,
+            deep_nodes=256, deep_depth=7, deep_pop=256, deep_t=6, deep_rep_pop=512)
 KERNELS = ("sr_fitness", "reproduce", "interpreter", "sr_adaptive", "sr_rollout",
            "policy", "branch_probe")  # csrc/<name>.cu
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, float32 FLOP/s outside the tensor
@@ -164,6 +172,21 @@ def profile_device(fn, torch) -> dict:
     return dict(wall_ms=wall, busy_ms=busy / 1e3, kernels=len(spans), per_kernel=per)
 
 
+def kernel_device_ms(cases, runs: int, torch) -> dict:
+    """``{key: mean device ms of one launch}`` of each ``(key, fn, kernel
+    name)`` over the launches traced in ``runs`` calls, by torch.profiler:
+    CUDA events around a wrapper call also hold its host work when the
+    kernel is short."""
+    out = {}
+    for key, fn, kernel in cases:
+        prof = profile_device(lambda: [fn() for _ in range(runs)], torch)
+        hits = [v for k, v in prof["per_kernel"].items() if f"::{kernel}<" in k]
+        count = sum(c for c, _ in hits)  # the tracer may drop an event of a long run
+        check(count > 0, f"no launch of {kernel} traced in {runs} calls")
+        out[key] = sum(ms for _, ms in hits) / count
+    return out
+
+
 def ptxas_report(log: str):
     """``[(kernel<instance>, registers, stack bytes, spill store bytes)]``
     from ``nvcc -Xptxas -v`` output."""
@@ -214,7 +237,7 @@ def operator_rows(trees, fset):
 
 
 def run(device, sizes=FULL) -> dict:
-    """Phases 2-14 on ``device``; returns the numbers the script prints."""
+    """Phases 2-17 on ``device``; returns the numbers the script prints."""
     import torch
 
     from multitreegp_tpu_torch import GeneticProgramming
@@ -254,15 +277,14 @@ def run(device, sizes=FULL) -> dict:
     agree = float((alive == ref_alive).float().mean())
     both = alive & ref_alive
     rel = ((mse - ref).abs() / ref.abs().clamp(min=1e-30))[both]
-    within = float((rel <= 1e-4).float().mean())
     fin = torch.isfinite(mse) & torch.isfinite(ref) & both
     a_err = float((mse - ref).abs()[fin].max())
-    bit_equal = bool(torch.equal(mse[both], ref[both]) and torch.equal(alive, ref_alive))
-    check(agree >= 0.999, f"T=50 alive agreement {agree}")
-    check(within >= 0.999, f"T=50 lanes within 1e-4: {within}")
+    identical = float(lanes_identical(mse, alive, ref, ref_alive).float().mean())
+    bit_equal = identical == 1.0
+    check(bit_equal, f"T=50: {identical:.6f} of lanes identical to the plain version")
     phase_line(f"phase 2 fitness kernel vs plain: T=5 max rel {rel5:.3e}; T={ts_full.shape[0]} alive "
         f"agreement {agree:.6f}, max rel {float(rel.max()):.3e}, max abs {a_err:.3e}, "
-        f"bit-equal {bit_equal}; lanes {total_pop * b}, alive {int(alive.sum())}")
+        f"identical on {identical:.6f} of lanes; lanes {total_pop * b}, alive {int(alive.sum())}")
     out["fitness"] = dict(rel_t5=rel5, alive_agreement=agree, max_rel=float(rel.max()),
                           max_abs_err=a_err, bit_equal=bit_equal)
 
@@ -273,7 +295,7 @@ def run(device, sizes=FULL) -> dict:
     phase_line(f"phase 3 reproduction kernel vs plain: {lanes} lanes, ops identical on {ops_same:.6f}, "
         f"const max abs {c_err:.3e} max rel {c_rel:.3e}; all {2 * lanes} children valid; "
         f"uniform rows per lane {args[-1].shape[0]}")
-    cfg = rep.pop("cfg")
+    cfg, u_rows = rep.pop("cfg"), rep.pop("u_rows")
     out["reproduce"] = rep
     slots = fset.slots(device)
 
@@ -328,11 +350,17 @@ def run(device, sizes=FULL) -> dict:
         # plain, kernel, kernel, plain
         times = {}
         for name, fn, runs in (("fit_plain", fit_p, s["plain_runs"]), ("fit_kernel", fit_k, s["timing_runs"]),
-                               ("rep_kernel", rep_k, s["timing_runs"]), ("rep_plain", rep_p, s["plain_runs"])):
+                               ("rep_kernel", rep_k, s["timing_runs"]), ("rep_plain", rep_p, s["plain_runs"]),
+                               ("rep_u_transpose", lambda: u_rows.T.contiguous(), s["timing_runs"])):
             times[name] = cuda_time_ms(fn, runs, torch)
-        phase_line(f"phase 5 times (median ms): fitness kernel {times['fit_kernel']:.3f} vs plain "
-            f"{times['fit_plain']:.3f}; reproduction kernel {times['rep_kernel']:.3f} vs plain "
-            f"{times['rep_plain']:.3f}; fitness kernel rate {node_evals / times['fit_kernel'] * 1e3:.4e} node-evals/s")
+        times.update(kernel_device_ms((("fit_device", fit_k, "sr_fitness_kernel"),
+                                       ("rep_device", rep_k, "reproduce_kernel")), s["timing_runs"], torch))
+        phase_line(f"phase 5 times (median ms): fitness kernel {times['fit_kernel']:.3f} (device "
+            f"{times['fit_device']:.4f}) vs plain "
+            f"{times['fit_plain']:.3f}; reproduction kernel {times['rep_kernel']:.3f} (device "
+            f"{times['rep_device']:.4f}) vs plain "
+            f"{times['rep_plain']:.3f} (its uniforms' lane-major copy in evolve "
+            f"{times['rep_u_transpose']:.4f}); fitness kernel rate {node_evals / times['fit_kernel'] * 1e3:.4e} node-evals/s")
         out["times_ms"] = times
     out.update(interpreter_phase(device, s, trees, fset, g))
     out.update(const_opt_phase(device, s, data))
@@ -348,6 +376,7 @@ def run(device, sizes=FULL) -> dict:
     out.update(policy_times(device, s, ps))
     out.update(sde_phase(device, s, ps, trees, fset, ts_full))
     out.update(probe_phase(device, s))
+    out.update(deep_phase(device, s))
 
     # -- the kernels line --------------------------------------------------------
     times = out.get("times_ms", {})
@@ -389,11 +418,12 @@ def run(device, sizes=FULL) -> dict:
     out["kernels"] = [
         row("sr_fitness", "sr_fitness.cu", "multitreegp_tpu/core/pallas_rollout.py:279",
             launches["sr_fitness"], a_err, times.get("fit_kernel"), times.get("fit_plain"),
-            fit_bound, launches_const_opt=launches7["sr_fitness"], kicks=sde["fitness_kicks"]),
+            fit_bound, device_ms=times.get("fit_device"), launches_const_opt=launches7["sr_fitness"], kicks=sde["fitness_kicks"],
+            deep=out["deep"]["fitness"]),
         row("reproduce", "reproduce.cu", "multitreegp_tpu/core/pallas_reproduction.py:53",
             launches["reproduce"], c_err, times.get("rep_kernel"), times.get("rep_plain"),
-            rep_bound, launches_const_opt=launches7["reproduce"],
-            launches_adaptive=launches10["reproduce"]),
+            rep_bound, device_ms=times.get("rep_device"), launches_const_opt=launches7["reproduce"],
+            launches_adaptive=launches10["reproduce"], deep=out["deep"]["reproduce"]),
         row("interpret_fwd", "interpreter.cu", "multitreegp_tpu/core/pallas_interpreter.py:142",
             launches7["interpret_fwd"], interp["max_abs_err_fwd"], it.get("fwd_kernel"),
             it.get("fwd_plain"), fwd_bound, lanes=k_lanes, device_ms=it.get("fwd_device"),
@@ -450,10 +480,19 @@ def run(device, sizes=FULL) -> dict:
     return out
 
 
+def lanes_identical(mse, alive, ref, ref_alive):
+    """Per lane: the same error sum (NaN where the other is NaN) and the same
+    liveness."""
+    import torch
+
+    return ((mse == ref) | (torch.isnan(mse) & torch.isnan(ref))) & (alive == ref_alive)
+
+
 def reproduction_case(device, s, trees, fset, g) -> dict:
     """Kernel #2 against its plain version on the lanes of one generation of
     ``trees`` (``(P, m, N)``): a quarter crossover, the rest every copy /
-    mutate / fresh pair; every child must be a valid tree."""
+    mutate / fresh pair; every lane's child opcodes identical, every child a
+    valid tree."""
     import torch
 
     from multitreegp_tpu_torch.core import cuda_reproduction as cr
@@ -467,15 +506,16 @@ def reproduction_case(device, s, trees, fset, g) -> dict:
     lanes = pairs * fset.num_trees
     flat = trees.map(lambda a: a.reshape(-1, n))
     pick = torch.randint(0, flat.ops.shape[0], (2, lanes), generator=g, device=device)
-    p1o, p1c = flat.ops[pick[0]].T.contiguous(), flat.const[pick[0]].T.contiguous()
-    p2o, p2c = flat.ops[pick[1]].T.contiguous(), flat.const[pick[1]].T.contiguous()
+    # (N, L) views of lane-major parents and uniforms, as reproduce_pairs gives them
+    p1o, p1c = flat.ops[pick[0]].T, flat.const[pick[0]].T
+    p2o, p2c = flat.ops[pick[1]].T, flat.const[pick[1]].T
     lane = torch.arange(lanes, device=device)
     cx = lane % 4 == 0  # a quarter crossover, the rest every copy/mutate/fresh pair
     act1 = torch.where(cx, 0, (lane // 4) % 3).to(torch.int32)
     act2 = torch.where(cx, 0, (lane // 12) % 3).to(torch.int32)
     vmask = fset.variable_mask.to(device)[lane % fset.num_trees].T.contiguous()
-    u = torch.rand((cr.rows_per_lane(cfg), lanes), generator=g, device=device)
-    args = (p1o, p1c, p2o, p2c, cx, act1, act2, vmask, u)
+    u_rows = torch.rand((cr.rows_per_lane(cfg), lanes), generator=g, device=device)
+    args = (p1o, p1c, p2o, p2c, cx, act1, act2, vmask, u_rows.T.contiguous().T)
     got = cr.reproduce_lanes(*args, cfg)
     ref = cr.reproduce_lanes_plain(*args, cfg)
     same = (got[0] == ref[0]).all(0) & (got[2] == ref[2]).all(0)  # lanes with identical children
@@ -484,7 +524,7 @@ def reproduction_case(device, s, trees, fset, g) -> dict:
     c_rel = max(float(((got[i] - ref[i]).abs() / ref[i].abs().clamp(min=1e-30))[:, same].max())
                 for i in (1, 3))
     bit_equal = all(torch.equal(a, b) for a, b in zip(got, ref))
-    check(ops_same >= 0.999, f"child ops identical on {ops_same} of lanes")
+    check(ops_same == 1.0, f"child ops identical on {ops_same} of lanes")
     check(c_rel <= 1e-6, f"child const relative difference {c_rel}")
     slots = fset.slots(device)
     for ops_t, const_t in (got[:2], got[2:]):
@@ -492,7 +532,7 @@ def reproduction_case(device, s, trees, fset, g) -> dict:
         c1, c2 = rebuild_pointers(ops, slots)
         validate_host(TreeTensors(ops, c1, c2, const_t.T), slots)
     return dict(lanes=lanes, ops_identical=ops_same, max_abs_err=c_err, max_rel=c_rel,
-                bit_equal=bit_equal, args=args, children=got, cfg=cfg)
+                bit_equal=bit_equal, args=args, children=got, cfg=cfg, u_rows=u_rows)
 
 
 def interpreter_cases(device, s, trees, fset, g):
@@ -1543,8 +1583,7 @@ def sde_phase(device, s, ps, trees, fset, ts_sr) -> dict:
     args = (trees, x0s, ts, ys, fset, "euler", sub, kicks)
     mse, alive = (cf.sr_fitness_cuda if on_card else cf.sr_fitness_plain)(*args)
     (ref, ref_alive), plain_ms = timed_plain(lambda: cf.sr_fitness_plain(*args), device)
-    same = ((mse == ref) | (torch.isnan(mse) & torch.isnan(ref))) & (alive == ref_alive)
-    identical = float(same.float().mean())
+    identical = float(lanes_identical(mse, alive, ref, ref_alive).float().mean())
     fin = torch.isfinite(mse) & torch.isfinite(ref)
     k_err = float((mse - ref).abs()[fin].max())
     check(identical == 1.0, f"#1 with kicks: {identical:.6f} of lanes identical")
@@ -1708,6 +1747,78 @@ def probe_phase(device, s) -> dict:
     phase_line(f"phase 16 probe: {s['probe_reps']} tiles of 8x128, TOTAL {bp.TOTAL}, FLIP {bp.FLIP}, CH {bp.CH}; "
                f"launches in the timing run {launches}")
     return {"probe": dict(modes=modes, launches=launches, max_abs_err=err)}
+
+
+def chain_trees(trees, fset, lengths):
+    """``trees (P, m, n)`` with candidate i's trees replaced by a chain of
+    ``lengths[i]`` rows: k + 1 leaves then k operators ``+``/``-``, whose
+    stack holds k + 1 values, the most a tree of that many rows can."""
+    import torch
+
+    from multitreegp_tpu_torch.core.trees import CONST, EMPTY, OP_START, TreeTensors, rebuild_pointers
+
+    n = trees.max_nodes
+    ops = trees.ops.clone()
+    for i, rows in enumerate(lengths):
+        k = (rows - 1) // 2
+        leaves = [fset.var_start + j % 2 if j % 3 else CONST for j in range(k + 1)]
+        ops[i] = torch.tensor([EMPTY] * (n - 2 * k - 1) + leaves + [OP_START + j % 2 for j in range(k)],
+                              dtype=torch.int32)
+    const = torch.where(ops == CONST, torch.where(trees.ops == CONST, trees.const, 0.5), 0.0)
+    c1, c2 = rebuild_pointers(ops, fset.slots(ops.device))
+    return TreeTensors(ops, c1, c2, const)
+
+
+def deep_phase(device, s) -> dict:
+    """Phase 17: the instances of #1 and #2 for trees of up to 256 rows
+    against their plain versions. #1: 256 candidates of 2 trees of 256 rows
+    grown to depth 7, the first three chains of 255, 127 and 63 rows (the
+    deepest stacks), x 16 VdP trajectories at T = 6, RK4 and Euler x 4 with
+    kick rows; #2: one island's 462 lanes of those parents, fresh trees at
+    depth 7. Every lane identical (#2: its opcodes)."""
+    import torch
+
+    from multitreegp_tpu_torch.core import cuda_rollout as cf
+    from multitreegp_tpu_torch.core.registry import build_function_set
+    from multitreegp_tpu_torch.models.environments import VanDerPolOscillator
+    from multitreegp_tpu_torch.models.evaluators import generate_sr_data
+    from multitreegp_tpu_torch.models.evaluators.noise import make_sr_kick_rows
+    from multitreegp_tpu_torch.ops.initialization import make_population_sampler
+
+    on_card = device.type == "cuda"
+    n, sub = s["deep_nodes"], s["policy_substeps"]
+    fset = build_function_set(OPERATORS, [["x0", "x1"]], [2])
+    g = torch.Generator(device=device).manual_seed(30)
+    ts = torch.arange(0, s["deep_t"], device=device) * s["dt"]
+    x0s, ts, ys, keys = generate_sr_data(VanDerPolOscillator(), g, ts, batch_size=s["batch"])
+    grown = make_population_sampler(fset, s["deep_depth"], n)(g, s["deep_pop"])[0]
+    trees = chain_trees(grown, fset, [n - 1, min(127, n - 1), min(63, n - 1)])
+    kicks = make_sr_kick_rows(s["noise"], ts, keys, sub, 2)
+    res = {}
+    for key, method, substeps, rows in (("rk4", "rk4", 1, None), ("euler_kicks", "euler", sub, kicks)):
+        args = (trees, x0s, ts, ys, fset, method, substeps, rows)
+        mse, alive = (cf.sr_fitness_cuda if on_card else cf.sr_fitness_plain)(*args)
+        (ref, ref_alive), plain_ms = timed_plain(lambda: cf.sr_fitness_plain(*args), device)
+        identical = float(lanes_identical(mse, alive, ref, ref_alive).float().mean())
+        check(identical == 1.0, f"deep #1 {key}: {identical:.6f} of lanes identical")
+        fin = torch.isfinite(mse) & torch.isfinite(ref)
+        res[key] = dict(identical=identical, lanes=alive.numel(), alive=float(alive.float().mean()),
+                        max_abs_err=float((mse - ref).abs()[fin].max()), plain_ms=plain_ms)
+    sizes = (trees.ops != 0).sum(-1)
+    phase_line(f"phase 17 #1 N={n} vs plain, {alive.numel()} lanes, T={ts.shape[0]}, tree rows mean "
+               f"{float(sizes.float().mean()):.1f} max {int(sizes.max())}: "
+               + "; ".join(f"{k} identical {v['identical']:.6f}, alive {v['alive']:.4f}, plain "
+                           f"{v['plain_ms']:.1f} ms" for k, v in res.items()))
+    rep = reproduction_case(device, dict(s, islands=1, pop=s["deep_rep_pop"], depth=s["deep_depth"]),
+                            trees, fset, g)
+    got = rep.pop("children")
+    for key in ("args", "cfg", "u_rows"):
+        rep.pop(key)
+    kept = (got[0] != 0).sum(0)
+    phase_line(f"phase 17 #2 N={n} vs plain: {rep['lanes']} lanes, ops identical on "
+               f"{rep['ops_identical']:.6f}, const max rel {rep['max_rel']:.3e}, bit-equal "
+               f"{rep['bit_equal']}; child rows mean {float(kept.float().mean()):.1f} max {int(kept.max())}")
+    return {"deep": dict(fitness=res, reproduce=rep)}
 
 
 def sync(device) -> None:

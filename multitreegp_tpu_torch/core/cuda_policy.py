@@ -64,6 +64,7 @@ FIXED, ADAPTIVE = 0, 1  # csrc/policy.cu Kind
 MAX_NODES = 256  # kMaxNodes
 MAX_STATE_SIZE = 2  # kMaxStateSize: template instances
 MAX_TARGETS = 2  # kMaxTargets: data slots
+MAX_TRAJECTORIES = 1024  # B lanes of one candidate share a block
 
 
 def _leaves(params) -> Tuple[torch.Tensor, ...]:
@@ -335,8 +336,8 @@ def check_policy(trees: TreeTensors, x0, targets, env, fset: FunctionSet, state_
         raise ValueError(f"{m} trees for state_size {state_size} + {env.n_control} controls")
     if targets.shape[-1] > MAX_TARGETS:
         raise NotImplementedError(f"{targets.shape[-1]} targets > {MAX_TARGETS}")
-    if x0.shape[-1] != env.latent_size or x0.shape[0] > 1024:
-        raise ValueError(f"x0 {tuple(x0.shape)}: expected (B <= 1024, {env.latent_size})")
+    if x0.shape[-1] != env.latent_size or x0.shape[0] > MAX_TRAJECTORIES:
+        raise ValueError(f"x0 {tuple(x0.shape)}: expected (B <= {MAX_TRAJECTORIES}, {env.latent_size})")
     fset.require_device_ops()
 
 

@@ -8,8 +8,15 @@ child), as ``tile_surgery.reproduce_tiles`` defines.
 Randomness is a uniform buffer ``u (R, L)`` that :func:`reproduce_pairs`
 draws from a ``torch.Generator``; ``R`` is the number of ``urand`` rows one
 lane of ``reproduce_tiles`` consumes (:func:`tile_surgery.rows_per_lane`).
+It is drawn as ``(R, L)`` and stored lane-major, ``(L, R)``, whose ``(R,
+L)`` view is handed on (one transposing copy per generation); the ``(N,
+L)`` tiles are views of the lane-major population.
 
-* CUDA tensors launch the hand-written kernel ``csrc/reproduce.cu``.
+* CUDA tensors launch the hand-written kernel ``csrc/reproduce.cu``, which
+  reads and writes lane-major ``(L, N)`` / ``(L, R)`` memory: a tile that is
+  the transposed view of such memory is passed as it is, any other is copied
+  into that layout; the children come back as ``(N, L)`` views of
+  lane-major tensors.
 * CPU tensors run :func:`reproduce_lanes_plain`, i.e. ``reproduce_tiles``
   reading the same buffer row by row.
 """
@@ -24,7 +31,7 @@ import torch
 
 from .. import _build
 from . import tile_surgery as ts
-from .registry import FunctionSet
+from .registry import FunctionSet, device_table
 from .trees import TreeTensors, rebuild_pointers
 
 MAX_NODES = 256  # csrc/reproduce.cu kMaxNodes
@@ -40,10 +47,10 @@ def rows_per_lane(cfg: ts.SurgeryConfig) -> int:
 
 def decay_table(cfg: ts.SurgeryConfig, device=None) -> torch.Tensor:
     """float32 ``0.7 ** depth`` per node depth, rounded as the plain version
-    rounds it."""
+    rounds it; cached per device."""
     depths = max(cfg.max_init_depth, 2)
-    return torch.tensor([np.float32(0.7**d) for d in range(depths)], dtype=torch.float32,
-                        device=device)
+    return device_table(tuple(float(np.float32(0.7**d)) for d in range(depths)), torch.float32,
+                        torch.device(device or "cpu"))
 
 
 def reproduce_lanes_plain(p1_ops, p1_const, p2_ops, p2_const, cxflag, act1, act2, vmask, u,
@@ -76,16 +83,17 @@ def _check_inputs(p1_ops, p1_const, p2_ops, p2_const, cxflag, act1, act2, vmask,
 
 def reproduce_lanes_cuda(p1_ops, p1_const, p2_ops, p2_const, cxflag, act1, act2, vmask, u,
                          cfg: ts.SurgeryConfig) -> Tiles:
-    """Launch ``csrc/reproduce.cu`` on ``(N, L)`` tiles."""
+    """Launch ``csrc/reproduce.cu`` on ``(N, L)`` tiles; the children are
+    ``(N, L)`` views of lane-major tensors."""
     _check_inputs(p1_ops, p1_const, p2_ops, p2_const, cxflag, act1, act2, vmask, u, cfg)
     dev = p1_ops.device
     n, lanes = p1_ops.shape
-    ins = [t.contiguous() for t in (p1_ops, p1_const, p2_ops, p2_const, cxflag, act1, act2, vmask, u)]
-    outs = [torch.empty((n, lanes), dtype=dt, device=dev)
+    lane_major = [t.T.contiguous() for t in (p1_ops, p1_const, p2_ops, p2_const)]
+    ins = lane_major + [t.contiguous() for t in (cxflag, act1, act2, vmask)] + [u.T.contiguous()]
+    outs = [torch.empty((lanes, n), dtype=dt, device=dev)
             for dt in (torch.int32, torch.float32, torch.int32, torch.float32)]
-    slots = torch.tensor(cfg.slots, dtype=torch.int32, device=dev)
-    probs = torch.tensor(cfg.operator_probs, dtype=torch.float32, device=dev)
-    decay = decay_table(cfg, dev)
+    tables = (device_table(cfg.slots, torch.int32, dev),
+              device_table(cfg.operator_probs, torch.float32, dev), decay_table(cfg, dev))
 
     lib = _build.load("reproduce")
     fn = lib.reproduce_launch
@@ -95,13 +103,13 @@ def reproduce_lanes_cuda(p1_ops, p1_const, p2_ops, p2_const, cxflag, act1, act2,
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = fn(
         *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
-        slots.data_ptr(), probs.data_ptr(), decay.data_ptr(),
+        *(t.data_ptr() for t in tables),
         lanes, n, cfg.num_vars, cfg.num_operators, cfg.var_start, cfg.max_init_depth,
         cfg.cx_retries, cfg.mut_retries, cfg.coefficient_sd, u.shape[0], stream,
     )
     _build.check(lib, status, "reproduce kernel launch")
     reproduce_lanes_cuda.launches += 1
-    return tuple(outs)
+    return tuple(t.T for t in outs)
 
 
 reproduce_lanes_cuda.launches = 0
@@ -134,11 +142,12 @@ def reproduce_pairs(
     lanes = q * t
     dev = left.device
 
-    def to_tile(x):
-        return x.reshape(lanes, n).T.contiguous()
+    def to_tile(x):  # (N, L) view of the lane-major trees
+        return x.reshape(lanes, n).T
 
-    vmask = fset.variable_mask.to(dev).T[:, None, :].expand(fset.num_variables, q, t)
-    u = torch.rand((rows_per_lane(cfg), lanes), generator=generator, device=dev)
+    vmask = fset.variable_mask_on(dev).T[:, None, :].expand(fset.num_variables, q, t)
+    # the (R, L) stream of uniforms, stored lane-major for the kernel
+    u = torch.rand((rows_per_lane(cfg), lanes), generator=generator, device=dev).T.contiguous().T
     c1o, c1c, c2o, c2c = reproduce_lanes(
         to_tile(left.ops), to_tile(left.const), to_tile(right.ops), to_tile(right.const),
         cxflag.reshape(lanes).to(torch.bool), act1.reshape(lanes).to(torch.int32),

@@ -43,6 +43,7 @@ from .trees import TreeTensors
 METHODS = {"euler": 0, "heun": 1, "rk4": 2}
 MAX_NODES = 256  # csrc/sr_fitness.cu kMaxNodes
 MAX_STATE_DIM = 4  # template instances of the kernel
+MAX_TRAJECTORIES = 1024  # B lanes of one candidate share a block
 THREADS_PER_BLOCK = 128  # target block size: 128 // B candidates per block
 SHARED_BYTES = 48 * 1024  # static shared-memory budget of one block
 
@@ -111,19 +112,33 @@ def check_kicks(kick_rows, ts, b: int, d: int, substeps: int) -> None:
         raise ValueError(f"kick rows {tuple(kick_rows.shape)}: expected (T, B, substeps * d) = {want}")
 
 
+def lanes_refusal(m: int, n: int, d: int, b: int) -> Optional[str]:
+    """Why the per-lane kernels (#1, #3, #4, #5) do not take candidates of
+    ``m`` trees of ``n`` rows on ``b`` trajectories of state dim ``d``, or
+    None when they do: the limits :func:`check_lanes` enforces, decided from
+    the configuration alone (the SR evaluator's gate; on the CPU too).
+    Operators outside ``DEVICE_OPS`` are not part of it: they raise on CUDA
+    on every path."""
+    if m != d:
+        return f"{m} trees per candidate for state dim {d}: the kernel needs m == d"
+    if n > MAX_NODES:
+        return f"max_nodes {n} > {MAX_NODES}, the fitness kernel's limit"
+    if d > MAX_STATE_DIM:
+        return f"state dim {d} > {MAX_STATE_DIM}, the kernel's instances"
+    if b > MAX_TRAJECTORIES:
+        return f"{b} trajectories > {MAX_TRAJECTORIES} threads of one block"
+    return None
+
+
 def check_lanes(trees: TreeTensors, x0s, ts, fset: FunctionSet, ys=None) -> None:
     """Raise unless the per-lane kernels take these operands: ``m == d``
-    trees, ``N <= 256``, ``d <= 4``, ``B <= 1024`` and the device operators."""
+    trees, ``N <= 256``, ``d <= 4``, ``B <= 1024`` (:func:`lanes_refusal`)
+    and the device operators."""
     p, m, n = trees.ops.shape
     b, d = x0s.shape
-    if m != d:
-        raise NotImplementedError(f"{m} trees per candidate for state dim {d}: the kernel needs m == d")
-    if n > MAX_NODES:
-        raise NotImplementedError(f"max_nodes {n} > {MAX_NODES}, the fitness kernel's limit")
-    if d > MAX_STATE_DIM:
-        raise NotImplementedError(f"state dim {d} > {MAX_STATE_DIM}, the kernel's instances")
-    if b > 1024:
-        raise NotImplementedError(f"{b} trajectories > 1024 threads of one block")
+    reason = lanes_refusal(m, n, d, b)
+    if reason is not None:
+        raise NotImplementedError(reason)
     if ts.shape[0] < 1 or (ys is not None and ys.shape != (b, ts.shape[0], d)):
         raise ValueError(f"ys {tuple(ys.shape)} does not match (B, T, d) = {(b, ts.shape[0], d)}")
     fset.require_device_ops()

@@ -17,6 +17,7 @@ given such a function set raises.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import lru_cache
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -38,6 +39,14 @@ OPERATORS: Dict[str, Tuple[int, Callable]] = {
 # set with an operator outside this table runs on the CPU only.
 DEVICE_OPS: Dict[str, int] = {"+": 0, "-": 1, "*": 2, "/": 3, "sin": 4, "cos": 5}
 UNKNOWN_DEVICE_OP = -1
+
+
+@lru_cache(maxsize=64)
+def device_table(values: Tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``torch.tensor(values, dtype)`` on ``device``, made once per (values,
+    dtype, device): the kernels' small constant tables, so that a launch
+    copies nothing from the host. Shared: never write to it."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 @dataclass(frozen=True)
@@ -94,17 +103,24 @@ class FunctionSet:
         return any(a == 1 for a in self.arities)
 
     def slots(self, device=None) -> torch.Tensor:
-        """int32 arity per opcode: 0 for EMPTY/CONST/variables."""
-        table = [0, 0] + list(self.arities) + [0] * self.num_variables
-        return torch.tensor(table, dtype=torch.int32, device=device)
+        """int32 arity per opcode: 0 for EMPTY/CONST/variables (cached per
+        device)."""
+        table = (0, 0) + tuple(self.arities) + (0,) * self.num_variables
+        return device_table(table, torch.int32, torch.device(device or "cpu"))
 
     def probs(self, device=None) -> torch.Tensor:
-        """float32 operator sampling weights."""
-        return torch.tensor(self.operator_probs, dtype=torch.float32, device=device)
+        """float32 operator sampling weights (cached per device)."""
+        return device_table(self.operator_probs, torch.float32, torch.device(device or "cpu"))
+
+    def variable_mask_on(self, device=None) -> torch.Tensor:
+        """:attr:`variable_mask` on ``device`` (cached per device)."""
+        rows = tuple(tuple(r) for r in self.variable_mask.tolist())
+        return device_table(rows, torch.float32, torch.device(device or "cpu"))
 
     def device_ops(self, device=None) -> torch.Tensor:
-        """int32 device op id per operator (``opcode - OP_START``)."""
-        return torch.tensor(self.device_op_ids, dtype=torch.int32, device=device)
+        """int32 device op id per operator (``opcode - OP_START``), cached per
+        device (:func:`device_table`)."""
+        return device_table(self.device_op_ids, torch.int32, torch.device(device or "cpu"))
 
     def require_device_ops(self) -> None:
         """Raise unless every operator has a device op id (the CUDA kernels'

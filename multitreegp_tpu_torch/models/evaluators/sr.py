@@ -11,9 +11,10 @@ Euler-Maruyama with ``substeps`` steps per interval, whatever ``method``
 says, its increments drawn from ``fold_in(key, bitcast_f32(t))`` of each
 trajectory's key (``integrate_sde``).
 
-Population evaluation is fused, one kernel per evaluation on CUDA tensors
-and its plain version on CPU tensors, and differentiable in the constants
-(constant optimisation) through an unfused recompute:
+Population evaluation is fused where the configuration allows, one kernel
+per evaluation on CUDA tensors and its plain version on CPU tensors, and
+differentiable in the constants (constant optimisation) through an unfused
+recompute:
 
 * fixed step (``method`` euler / heun / rk4): :class:`core.cuda_rollout.SRFitness`;
 * SDE: the same kernel with the kick rows of ``make_sr_kick_rows``, its
@@ -25,10 +26,21 @@ and its plain version on CPU tensors, and differentiable in the constants
   per-interval kernel with ``adaptive_step_budget(substeps)`` steps per save
   interval, ignoring ``adaptive_budget``; the port has no such gate.
 
+The fused kernels take ``interpreter="auto"`` or ``"pallas"`` and what
+``core.cuda_rollout.lanes_refusal`` admits (one tree per state dimension,
+``N <= 256``, ``d <= 4``, ``B <= 1024``), decided from the configuration
+alone, as the JAX evaluator's ``rollout_available(..., deep_ok=True)``.
+Everything else (``interpreter="ladder"`` / ``"gather"`` among it) takes the
+general path: the integrator (``integrate``, ``integrate_sde`` or
+``integrate_adaptive`` with the per-interval budget) with the dispatching
+interpreter as the drift, kernel #8 on CUDA, and the MSE of the trajectory.
+``remat`` is accepted and has no effect: PyTorch keeps the autograd tape,
+and the fused kernels' backward recomputes the rollout anyway.
+
 Single-candidate rollouts (``evaluate_candidate``, ``__call__``) write the
 trajectory: ``integrate_sde`` for the SDE; the fixed-step trajectory kernel
-(:class:`SRRollout`) where ``N <= 64`` and there is one tree per state
-dimension; else the integrator (``integrate_adaptive`` for
+(:class:`SRRollout`) where ``N <= 64`` and the fused kernels take the
+configuration; else the integrator (``integrate_adaptive`` for
 ``method="adaptive"``, with the JAX package's per-interval budget); each with
 the dispatching interpreter as the drift. The data tuple is the JAX
 package's ``(x0s (B, d), ts (T,), ys (B, T, d), keys (B, 2))``; the keys
@@ -41,7 +53,7 @@ from typing import Optional, Tuple
 import torch
 
 from ...core.cuda_adaptive import AdaptiveConfig, SRFitnessAdaptive
-from ...core.cuda_rollout import SDENoise, SRFitness, SRRollout
+from ...core.cuda_rollout import SDENoise, SRFitness, SRRollout, lanes_refusal
 from ...core.interpreter import evaluate_trees
 from ...core.registry import FunctionSet
 from ...core.trees import TreeTensors
@@ -62,6 +74,8 @@ class SREvaluator:
         max_fitness: float = 1e5,
         method: str = "rk4",
         substeps: int = 4,
+        remat: bool = False,
+        interpreter: str = "auto",
         process_noise: float = 0.0,
         rtol: float = 1e-4,
         atol: float = 1e-6,
@@ -72,6 +86,8 @@ class SREvaluator:
         self.max_fitness = max_fitness
         self.method = method
         self.substeps = substeps
+        self.remat = remat  # accepted for the JAX signature; no effect here
+        self.interpreter = interpreter
         self.process_noise = process_noise
         self.rtol = rtol
         self.atol = atol
@@ -89,10 +105,21 @@ class SREvaluator:
         budget = self.adaptive_budget if self.adaptive_budget is not None else DEFAULT_ADAPTIVE_BUDGET
         return AdaptiveConfig(True, budget, self.adaptive_method, self.rtol, self.atol)
 
+    def _fused(self, population: TreeTensors, x0s: torch.Tensor) -> bool:
+        """Whether :meth:`evaluate_population` takes a fused kernel (#1, or #5
+        for the adaptive method): from the configuration alone."""
+        b, d = x0s.shape
+        return (self.interpreter in ("auto", "pallas")
+                and lanes_refusal(population.batch_shape[-1], population.max_nodes, d, b) is None)
+
     def evaluate_population(self, population: TreeTensors, data: Tuple) -> torch.Tensor:
         """population: batch shape ``(P, m)``; returns fitness ``(P,)``."""
         x0s, ts, ys, keys = data
-        if self._sde(keys):  # Euler-Maruyama, as the general path forces
+        if not self._fused(population, x0s):  # the general path
+            xs, alive = self._rollout(population, x0s, ts, keys)
+            err = xs - ys.transpose(0, 1)[:, None]
+            mse, alive = (err * err).sum(dim=-1).mean(dim=0), alive[-1]
+        elif self._sde(keys):  # Euler-Maruyama, as the general path forces
             noise = SDENoise(make_sr_kick_rows(self.process_noise, ts, keys, self.substeps,
                                                x0s.shape[1]), keys, self.process_noise)
             mse, alive = SRFitness.apply(*population, x0s, ts, ys, self.fset, "euler",
@@ -132,7 +159,7 @@ class SREvaluator:
             return integrate_adaptive(drift, x0, ts, rtol=self.rtol, atol=self.atol,
                                       max_steps_per_interval=per_interval,
                                       method=self.adaptive_method)
-        if population.max_nodes <= ROLLOUT_MAX_NODES and population.batch_shape[-1] == d:
+        if population.max_nodes <= ROLLOUT_MAX_NODES and self._fused(population, x0s):
             return SRRollout.apply(*population, x0s, ts, self.fset, self.method, self.substeps)
         return integrate(drift, x0, ts, self.method, self.substeps)
 

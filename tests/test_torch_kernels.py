@@ -39,7 +39,7 @@ import torch
 from multitreegp_tpu_torch import _build
 from multitreegp_tpu_torch.core import tile_surgery as tts
 from multitreegp_tpu_torch.core.cuda_reproduction import (
-    decay_table, reproduce_lanes, reproduce_lanes_plain, rows_per_lane,
+    decay_table, reproduce_lanes, reproduce_lanes_cuda, reproduce_lanes_plain, rows_per_lane,
 )
 from multitreegp_tpu_torch.core import cuda_adaptive as ca
 from multitreegp_tpu_torch.core import cuda_interpreter as ci
@@ -52,9 +52,11 @@ from multitreegp_tpu_torch.core.interpreter import (
     evaluate_trees, evaluate_trees_plain, evaluate_trees_vjp_plain,
 )
 from multitreegp_tpu_torch.core.registry import build_function_set
+from multitreegp_tpu_torch.core.trees import CONST, EMPTY, OP_START, TreeTensors, rebuild_pointers
 from multitreegp_tpu_torch.models.environments import Acrobot, HarmonicOscillator, VanDerPolOscillator
 from multitreegp_tpu_torch.models.evaluators import (
-    DynamicPolicyEvaluator, StaticPolicyEvaluator, generate_control_data, generate_sr_data,
+    DynamicPolicyEvaluator, SREvaluator, StaticPolicyEvaluator, generate_control_data,
+    generate_sr_data,
 )
 from multitreegp_tpu_torch.models.evaluators.noise import make_sr_kick_rows
 from multitreegp_tpu_torch.ops.initialization import make_population_sampler
@@ -150,22 +152,52 @@ def patch_host_math(m) -> None:
     m.setattr(torch, "exp", lambda x: _host_map("vexpf", x))
 
 
-def fitness_case(device="cpu", pop=24, b=4, t_end=1.6, ops=ARITH):
+def chain_rows(n: int, rows: int, var_start: int):
+    """Opcodes of a tree of ``rows`` rows (odd) padded to ``n``: k + 1
+    leaves then k operators ``+``/``-``, ``op_k(leaf_k, op_k-1(...))``, whose
+    stack holds k + 1 values, the most a tree of that many rows can."""
+    k = (rows - 1) // 2
+    leaves = [var_start + i % 2 if i % 3 else CONST for i in range(k + 1)]
+    return [EMPTY] * (n - 2 * k - 1) + leaves + [OP_START + i % 2 for i in range(k)]
+
+
+def with_chains(trees, fset, lengths):
+    """``trees (P, m, n)`` with candidate i's trees replaced by the chain of
+    ``lengths[i]`` rows (constant leaves 0.5)."""
+    n = trees.max_nodes
+    ops = trees.ops.clone()
+    for i, rows in enumerate(lengths):
+        ops[i] = torch.tensor(chain_rows(n, rows, fset.var_start), dtype=torch.int32)
+    const = torch.where(ops == CONST, torch.where(trees.ops == CONST, trees.const, 0.5), 0.0)
+    c1, c2 = rebuild_pointers(ops, fset.slots(ops.device))
+    return TreeTensors(ops, c1, c2, const)
+
+
+def fitness_case(device="cpu", pop=24, b=4, t_end=1.6, ops=ARITH, n=N, depth=4):
+    """VdP data and a population grown to ``depth``; at ``n > 32`` the
+    first candidates are chains of ``n - 1``, 127 and 63 rows (the deepest
+    stacks; grown trees stay near 10-30 rows)."""
     fset = build_function_set(ops, [["x0", "x1"]], [2])
     g = torch.Generator(device=device).manual_seed(0)
     ts = torch.arange(0.0, t_end, 0.2, device=device)
     x0s, ts, ys, _ = generate_sr_data(VanDerPolOscillator(), g, ts, batch_size=b)
-    trees = make_population_sampler(fset, 4, N)(g, pop)[0]
+    trees = make_population_sampler(fset, depth, n)(g, pop)[0]
+    if n > N:
+        trees = with_chains(trees, fset, [n - 1, min(127, n - 1), 63])
     return fset, trees, x0s, ts, ys
 
 
-def reproduce_case(device="cpu", lanes=192):
+def reproduce_case(device="cpu", lanes=192, n=N, depths=(1, 2, 4, 5), max_init_depth=4):
+    """Parents of ``n`` rows grown to ``depths`` (2 trees per candidate) and
+    a quarter crossover lanes, the rest every copy / mutate / fresh pair."""
     fset = build_function_set(ARITH + [("sin", 1, 0.3)], [["x0", "x1"], ["x1"]], [1, 1])
-    cfg = tts.make_config(fset, N, 4)
+    cfg = tts.make_config(fset, n, max_init_depth)
     g = torch.Generator(device=device).manual_seed(1)
-    sample = lambda depth, k: make_population_sampler(fset, depth, N)(g, k)[0].map(
-        lambda a: a.reshape(-1, N))
-    parents = [sample(d, lanes // 8) for d in (1, 2, 4, 5)]  # 2 trees per candidate
+    sample = lambda depth, k: make_population_sampler(fset, depth, n)(g, k)[0].map(
+        lambda a: a.reshape(-1, n))
+    parents = [sample(d, lanes // 8) for d in depths]
+    if n > N:  # chains of n - 1 and n / 2 - 1 rows among the parents
+        parents[-1] = with_chains(parents[-1], fset, [n - 1, n // 2 - 1] * 4)
     ops = torch.cat([p.ops for p in parents]).T.contiguous()
     const = torch.cat([p.const for p in parents]).T.contiguous()
     lane = torch.arange(lanes, device=device)
@@ -239,6 +271,17 @@ def test_fitness_host_build_bit_exact(host_libs, method, substeps):
     assert (~alive.numpy()).any() and alive.numpy().any()
 
 
+@pytest.mark.parametrize("method,substeps", [("euler", 2), ("rk4", 1)])
+def test_fitness_host_build_deep_bit_exact(host_libs, method, substeps):
+    """The instance for N <= 256 (local-memory stack of 128 slots) on trees
+    of 128 rows grown to depth 7."""
+    fset, trees, x0s, ts, ys = fitness_case(n=128, depth=7)
+    mse, alive = sr_fitness_plain(trees, x0s, ts, ys, fset, method, substeps)
+    err, alive_h = fitness_host(host_libs["sr_fitness"], trees, x0s, ts, ys, fset, method, substeps)
+    np.testing.assert_array_equal(alive_h, alive.numpy())
+    np.testing.assert_array_equal(err, mse.numpy())
+
+
 @pytest.mark.parametrize("method", ["heun", "rk4"])
 def test_fitness_host_build_trig_bit_exact(host_libs, monkeypatch, method):
     """Kernel #1 with ``sin`` and ``cos`` in the trees (unary rows rewrite the
@@ -256,29 +299,50 @@ def test_fitness_host_build_trig_bit_exact(host_libs, monkeypatch, method):
     assert (~alive.numpy()).any() and alive.numpy().any()
 
 
-def test_reproduce_host_build_matches_plain(host_libs):
-    cfg, args = reproduce_case()
-    ref = reproduce_lanes_plain(*args, cfg)
+def reproduce_host(lib, args, cfg, rows=None):
+    """The host build of kernel #2 on ``reproduce_case``'s ``(N, L)`` tiles
+    (passed lane-major, as the CUDA wrapper passes them): ``(status, four
+    (N, L) child arrays)``."""
     n, lanes = args[0].shape
-    outs = [np.zeros((n, lanes), dt) for dt in (np.int32, np.float32, np.int32, np.float32)]
-    ins = [np.ascontiguousarray(a.numpy().astype(np.uint8) if a.dtype == torch.bool else a.numpy())
-           for a in args]
+    outs = [np.zeros((lanes, n), dt) for dt in (np.int32, np.float32, np.int32, np.float32)]
+    lane_major = (0, 1, 2, 3, 8)  # the (N, L) parents and u (R, L)
+    ins = [np.ascontiguousarray(a.T.numpy() if i in lane_major else
+                                a.numpy().astype(np.uint8) if a.dtype == torch.bool else a.numpy())
+           for i, a in enumerate(args)]
     tables = [np.asarray(cfg.slots, np.int32), np.asarray(cfg.operator_probs, np.float32),
               decay_table(cfg).numpy()]
-    fn = host_libs["reproduce"].reproduce_host
+    fn = lib.reproduce_host
     fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int]
     status = fn(*(a.ctypes.data for a in ins + outs + tables), lanes, n, cfg.num_vars,
                 cfg.num_operators, cfg.var_start, cfg.max_init_depth, cfg.cx_retries,
-                cfg.mut_retries, cfg.coefficient_sd, args[-1].shape[0])
+                cfg.mut_retries, cfg.coefficient_sd, args[-1].shape[0] if rows is None else rows)
+    return status, [o.T for o in outs]
+
+
+def test_reproduce_host_build_matches_plain(host_libs):
+    cfg, args = reproduce_case()
+    ref = reproduce_lanes_plain(*args, cfg)
+    status, outs = reproduce_host(host_libs["reproduce"], args, cfg)
     assert status == 0
     np.testing.assert_array_equal(outs[0], ref[0].numpy())
     np.testing.assert_array_equal(outs[2], ref[2].numpy())
     np.testing.assert_allclose(outs[1], ref[1].numpy(), rtol=1e-6, atol=0)
     np.testing.assert_allclose(outs[3], ref[3].numpy(), rtol=1e-6, atol=0)
     # a wrong row count is refused
-    assert fn(*(a.ctypes.data for a in ins + outs + tables), lanes, n, cfg.num_vars,
-              cfg.num_operators, cfg.var_start, cfg.max_init_depth, cfg.cx_retries,
-              cfg.mut_retries, cfg.coefficient_sd, args[-1].shape[0] - 1) != 0
+    assert reproduce_host(host_libs["reproduce"], args, cfg, args[-1].shape[0] - 1)[0] != 0
+
+
+def test_reproduce_host_build_deep_matches_plain(host_libs):
+    """The warp code's instance for N <= 256 (8 rows a thread) on parents of
+    128 rows grown up to depth 7, fresh trees at depth 7."""
+    cfg, args = reproduce_case(lanes=96, n=128, depths=(1, 3, 5, 7), max_init_depth=7)
+    ref = reproduce_lanes_plain(*args, cfg)
+    status, outs = reproduce_host(host_libs["reproduce"], args, cfg)
+    assert status == 0 and int((ref[0] != 0).sum(0).max()) > 32
+    np.testing.assert_array_equal(outs[0], ref[0].numpy())
+    np.testing.assert_array_equal(outs[2], ref[2].numpy())
+    np.testing.assert_allclose(outs[1], ref[1].numpy(), rtol=1e-6, atol=0)
+    np.testing.assert_allclose(outs[3], ref[3].numpy(), rtol=1e-6, atol=0)
 
 
 @pytest.fixture
@@ -341,6 +405,83 @@ def test_reproduce_kernel_matches_plain_on_card(cuda):
     assert torch.equal(out[0], ref[0]) and torch.equal(out[2], ref[2])
     torch.testing.assert_close(out[1], ref[1], rtol=1e-6, atol=0)
     torch.testing.assert_close(out[3], ref[3], rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kicks", [False, True])
+def test_fitness_kernel_deep_matches_plain_on_card(cuda, kicks):
+    """#1's instance for N <= 256 on trees of 256 rows grown to depth 7,
+    with and without kick rows: every lane bit for bit."""
+    fset, trees, x0s, ts, ys = fitness_case(cuda, pop=256, b=16, t_end=2.0, n=256, depth=7)
+    method, sub, rows = "rk4", 1, None
+    if kicks:
+        keys = generate_sr_data(VanDerPolOscillator(0.1), torch.Generator(device=cuda).manual_seed(3),
+                                ts, batch_size=16)[3]
+        method, sub, rows = "euler", 4, make_sr_kick_rows(0.2, ts, keys, 4, 2)
+    before = sr_fitness_cuda.launches
+    mse, alive = sr_fitness(trees, x0s, ts, ys, fset, method, sub, rows)
+    ref, ref_alive = sr_fitness_plain(trees, x0s, ts, ys, fset, method, sub, rows)
+    torch.cuda.synchronize()
+    assert sr_fitness_cuda.launches == before + 1
+    assert torch.equal(alive, ref_alive) and same_bits(mse, ref)
+
+
+@pytest.mark.cuda
+def test_reproduce_kernel_deep_matches_plain_on_card(cuda):
+    """#2's instance for N <= 256 (8 rows a thread) on parents of 256 rows
+    grown up to depth 7: identical opcodes on every lane."""
+    cfg, args = reproduce_case(cuda, lanes=512, n=256, depths=(1, 3, 5, 7), max_init_depth=7)
+    before = reproduce_lanes_cuda.launches
+    out = reproduce_lanes(*args, cfg)
+    ref = reproduce_lanes_plain(*args, cfg)
+    torch.cuda.synchronize()
+    assert reproduce_lanes_cuda.launches == before + 1
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[2], ref[2])
+    torch.testing.assert_close(out[1], ref[1], rtol=1e-6, atol=0)
+    torch.testing.assert_close(out[3], ref[3], rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["m_ne_d", "d5", "b1025"])
+def test_sr_evaluator_general_path_on_card(cuda, case):
+    """Configurations the fused kernels do not take evaluate through the
+    general path on the card, kernel #8 as the drift, not #1; the fitness
+    equals the same evaluation on CPU copies to the general path's
+    tolerance (rtol 1e-5: the card's and the CPU's division round alike,
+    their sums over B do not)."""
+    d = 5 if case == "d5" else 2
+    m = 1 if case == "m_ne_d" else d
+    b = 1025 if case == "b1025" else 16
+    names = [f"x{i}" for i in range(d)]
+    fset = build_function_set(ARITH, [names], [m])
+    g = torch.Generator(device=cuda).manual_seed(4)
+    trees = make_population_sampler(fset, 3, 16)(g, 32)[0]
+    ts = torch.arange(0.0, 1.0, 0.2, device=cuda)
+    x0s = torch.rand((b, d), generator=g, device=cuda)
+    ys = torch.rand((b, ts.shape[0], d), generator=g, device=cuda)
+    ev = SREvaluator(fset, substeps=1)
+    assert not ev._fused(trees, x0s)
+    fit0, fwd0 = sr_fitness_cuda.launches, ci.evaluate_trees_cuda.launches
+    fitness = ev.evaluate_population(trees, (x0s, ts, ys, None))
+    torch.cuda.synchronize()
+    assert sr_fitness_cuda.launches == fit0 and ci.evaluate_trees_cuda.launches > fwd0
+    cpu = ev.evaluate_population(trees.map(lambda a: a.cpu()), (x0s.cpu(), ts.cpu(), ys.cpu(), None))
+    torch.testing.assert_close(fitness.cpu(), cpu, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_policy_evaluator_general_path_on_card(cuda):
+    """1025 trajectories are past #6's block: the static evaluator takes
+    the general path (#8), not #6, and does not raise."""
+    env, fset, (x0, ts, tgt, pk, ok, par), trees = policy_case(cuda, pop=16, b=1025, t_end=1.0)
+    ev = StaticPolicyEvaluator(env, fset, substeps=2)
+    data = (x0, ts, tgt, pk, ok, par)
+    assert ev._fused_kind(trees, data) is None
+    before, fwd = cp.policy_rollout_cuda.launches, ci.evaluate_trees_cuda.launches
+    fitness = ev.evaluate_population(trees, data)
+    torch.cuda.synchronize()
+    assert cp.policy_rollout_cuda.launches == before and ci.evaluate_trees_cuda.launches > fwd
+    assert fitness.shape == (16,) and bool(((fitness >= 0) & (fitness <= 1e4)).all())
 
 
 @pytest.mark.cuda

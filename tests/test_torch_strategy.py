@@ -127,9 +127,13 @@ def test_chip_smoke_phases_rehearse_on_cpu():
                 policy_horizon=1.0, policy_nodes=16, policy_substeps=2, policy_adaptive_substeps=8,
                 policy_fixed_t=4, policy_adaptive_t=3, legs_pop=8, legs_t=3, trig_adaptive_t=3,
                 policy_opt_top_k=4, policy_opt_steps=2, policy_opt_t=4,
-                noise=0.05, noisy_adaptive_t=3, ab_runs=1, probe_reps=2)
+                noise=0.05, noisy_adaptive_t=3, ab_runs=1, probe_reps=2,
+                deep_nodes=64, deep_depth=5, deep_pop=8, deep_t=3, deep_rep_pop=16)
     out = chip_smoke.run(torch.device("cpu"), tiny)
     assert out["fitness"]["bit_equal"] and out["reproduce"]["ops_identical"] == 1.0
+    deep = out["deep"]
+    assert all(v["identical"] == 1.0 for v in deep["fitness"].values())
+    assert deep["reproduce"]["ops_identical"] == 1.0 and deep["reproduce"]["lanes"] == 16
     assert [k["name"] for k in out["kernels"]] == [
         "sr_fitness", "reproduce", "interpret_fwd", "interpret_bwd", "sr_adaptive_global",
         "sr_adaptive_interval", "sr_rollout", "policy", "policy_adaptive", "branch_probe"]

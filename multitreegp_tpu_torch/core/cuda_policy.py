@@ -413,7 +413,9 @@ def _cuda_launch(kind: int, trees: TreeTensors, b: int):
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     m, n = trees.ops.shape[1:]
-    cpb = max(1, min(THREADS_PER_BLOCK // b, SHARED_BYTES // (m * n * 8)))
+    # a candidate's shared memory: m decoded programs of n 8-byte rows and
+    # their first live rows (csrc/tree_prog.cuh program_smem)
+    cpb = max(1, min(THREADS_PER_BLOCK // b, SHARED_BYTES // (m * (n * 8 + 4))))
     stream = torch.cuda.current_stream(dev).cuda_stream
     return lib, lambda args: fn(kind, args, cpb, stream)
 

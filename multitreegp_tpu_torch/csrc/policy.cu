@@ -30,42 +30,66 @@
 // and the error norm runs over the augmented state; per-trajectory params, no
 // noise. It also returns the attempted steps per lane.
 //
-// What bounds it on this card: instruction issue, and (adaptive) warp
-// divergence. Per step a lane evaluates its trees at every stage (the
-// readout, the plant, the state trees) and reads nothing but its trees
-// (staged once per block in shared memory), its row of parameters or noise,
-// and the grid; it writes (T, d_aug + n_control) floats.
+// What bounds it on this card: the latency of each tree row's dependent
+// chain, then instruction issue, and (adaptive) warp divergence. Per step a
+// lane evaluates its trees at every stage (the readout, the plant, the
+// state trees) and reads nothing but its trees (staged once per block in
+// shared memory), its row of parameters or noise, and the grid; it writes
+// (T, d_aug + n_control) floats. Bytes are negligible.
 //
-// Design: one thread per lane, candidate-major, a block's trees in shared
-// memory (sr_lane.cuh `stage_block`); state, stages, t, dt and the FSAL k1 in
-// registers, the tree stack in local memory; templates on the plant, the
-// policy's state size (0 = static, d_aug = latent + state size) and the
-// stack bound (32 or 256). The tree's data vector has fixed slots [y
-// (latent), a (state size), u (controls), targets (2)]; the wrapper rewrites
-// each variable opcode to its slot, so a leaf is a chain of selects over
-// registers whatever n_obs and n_targets are. The TPU kernels' (8, 128)
-// tiles, size sort, row-trip tables, double-buffered row staging, `go_scr`
-// early exit and VMEM gate are not carried over: a thread reads its own rows
-// and stops stepping once its lane is done.
+// Design: one thread per lane, candidate-major. A block decodes its
+// candidates' trees once, when it stages them into shared memory, into the
+// programs of tree_prog.cuh (the tree machine of #1): 8-byte rows with the
+// device op id or data slot folded in, the first live row of each tree, a
+// static stack slot per row; the top of each tree's stack in a register, the
+// rest in local memory (N / 2 slots a tree, for the larger of the two tree
+// groups below), branch-free rows. A static policy's n_control trees run as
+// independent chains in one row loop; a dynamic one runs its readout, then
+// its state_size state trees as independent chains in one loop; the
+// save-point controls run the readout program. The closed-loop drift is
+// inlined into the fixed-step kernel, whose stage loop is a runtime loop
+// (one call site); the adaptive kernel calls it out of line at each of the
+// embedded step's stages (inlined at those nine call sites, its card build
+// computed wrong lanes while its host build did not; PERF.md section 6).
+// The adaptive kernel's lane runs one flat loop: each
+// iteration attempts one step or, once the lane's interval is finished
+// (budget spent, dead, or t >= t1 - 1e-12), closes the interval (the reach
+// test, the save row, the next interval's t0 and the clip of dt), so a warp
+// runs as many iterations as its slowest lane's steps and saves, not the
+// sum over intervals of each interval's slowest lane. State, stages, t, dt
+// and the FSAL k1 live in registers; templates on the plant, the policy's
+// state size (0 = static, d_aug = latent + state size) and the stack bound
+// (N <= 32 or 256). The tree's data vector has fixed slots [y (latent), a
+// (state size), u (controls), targets (2)], at most 10 wide; the wrapper
+// rewrites each variable opcode to its slot, so a leaf is a chain of
+// selects over registers whatever n_obs and n_targets are. The TPU kernels'
+// (8, 128) tiles, size sort, row-trip tables, double-buffered row staging,
+// `go_scr` early exit and VMEM gate are not carried over: a thread reads its
+// own rows and stops stepping once its lane is done.
 //
 // Numerics: the TPU kernels' float32 expressions in their order (the plain
 // versions in core/cuda_policy.py): stage inputs x + (h*c)*k and the update
 // x + (h*final_scale)*acc with acc = 0 + w1*k1 + ..., the scalars h*c and
 // h*final_scale rounded once from double by the wrapper; the interpolation
-// lo*(1-frac) + hi*frac with frac = (s + c) * (1/substeps). Built with
-// -fmad=false and IEEE division and square root.
+// lo*(1-frac) + hi*frac with frac = (s + c) * (1/substeps); each tree row
+// applies the operator of tree_eval.cuh to the operands eval_tree would pop.
+// Built with -fmad=false and IEEE division and square root.
+//
+// The per-lane code is plain C++ under MTGP_HD, so the same file also
+// compiles for the host (without __CUDACC__) into a lane loop that decodes
+// every candidate as a block does and that tests run against the plain
+// versions on machines without a card.
 #include "adaptive_step.cuh"
 #include "control_envs.cuh"
-#include "sr_lane.cuh"
+#include "tree_prog.cuh"
 
 namespace {
 
 constexpr int kMaxTargets = 2;
 constexpr int kMaxStateSize = 2;
 
-// A lane's vector passed by value: the closed-loop drift is one call, not
-// inlined at each of the adaptive step's stages (which kept the build of the
-// 72 kernel instances under a minute); its arguments stay in registers.
+// A lane's vector passed by value: the adaptive kernel's out-of-line drift
+// call takes and returns its vectors in registers.
 template <int N>
 struct Vec {
   float v[N];
@@ -101,26 +125,26 @@ struct PolicyArgs {
   float rtol, atol, safety;                // adaptive
 };
 
-// The policy of one lane: its trees, its targets, its stack.
-template <class Env, int SS, int S>
+// The policy of one lane: its decoded trees (the SS state trees, then the NC
+// readout trees), the first live row of each group, its targets, its stack
+// slots (those of the larger group; the groups run one after the other).
+template <class Env, int SS, int N>
 struct LanePolicy {
   static constexpr int L = Env::kLatent, NC = Env::kControls, NP = Env::kParams, D = L + SS;
-  static constexpr int KD = L + SS + NC + kMaxTargets;  // data slots [y, a, u, tgt]
-  const int* ops;
-  const float* cst;
+  static constexpr int M = SS + NC;                       // trees per candidate
+  static constexpr int G = NC > SS ? NC : SS;             // trees in the larger group
+  static constexpr int KD = L + SS + NC + kMaxTargets;    // data slots [y, a, u, tgt]
+  const Row* prog;  // tree k's rows at prog + k * n
   int n;
-  const int* devop;
-  int var_start, n_obs;
+  int first_state, first_readout;
+  int n_obs;
   float tgt[kMaxTargets];
-  float* stack;
+  float* stk;  // G trees' slots, tree k's at k * stack_slots<N>()
 
-  // out[k] = tree (first + k) on data, k < count
-  template <int COUNT>
-  MTGP_HD void eval(int first, const float (&data)[KD], float* out) const {
-#pragma unroll
-    for (int k = 0; k < COUNT; ++k)
-      out[k] = eval_tree<KD, S>(ops + (first + k) * n, cst + (first + k) * n, n, devop, var_start,
-                                data, stack);
+  // out[k] = tree (tree0 + k) on data, the K trees as K chains of one loop
+  template <int K>
+  MTGP_HD void run(int tree0, int first, const float (&data)[KD], float (&out)[K]) const {
+    run_trees<K, KD, true>(prog + tree0 * n, first, n, data, out, stk, stack_slots<N>());
   }
 
   // y = the observation of the latent state x (+ the noise row, if any)
@@ -146,40 +170,34 @@ struct LanePolicy {
   MTGP_HD void drift(const float (&x)[D], const float* p, const float* noise, float (&dx)[D]) const {
     float y[L], data[KD], u[NC];
     observe(x, noise, y);
-    if (SS > 0) {  // the readout sees the hidden state and the targets only
-      fill(data, nullptr, x, nullptr);
-      eval<NC>(SS, data, u);
-    } else {
-      fill(data, y, x, nullptr);
-      eval<NC>(0, data, u);
-    }
+    // the readout; a dynamic one sees the hidden state and the targets only
+    fill(data, SS > 0 ? nullptr : y, x, nullptr);
+    run<NC>(SS, first_readout, data, u);
     Env::drift(x, u, p, dx);
-    if (SS > 0) {
-      float da[SS > 0 ? SS : 1];
+    if constexpr (SS > 0) {
+      float da[SS];
       fill(data, y, x, u);
-      eval<SS>(0, data, da);
+      run<SS>(0, first_state, data, da);
 #pragma unroll
       for (int j = 0; j < SS; ++j) dx[L + j] = da[j];
     }
   }
 
   // drift() as one out-of-line call, arguments and result by value
-  MTGP_NOINLINE MTGP_HD Vec<D> drift_v(const Vec<D> x, const Vec<NP> p,
-                                       const float* noise) const {
+  MTGP_NOINLINE MTGP_HD Vec<D> drift_v(const Vec<D> x, const Vec<NP> p) const {
     Vec<D> dx;
-    drift(x.v, p.v, noise, dx.v);
+    drift(x.v, p.v, nullptr, dx.v);
     return dx;
   }
 
-  MTGP_HD void drift_call(const float (&x)[D], const float (&p)[NP], const float* noise,
-                          float (&dx)[D]) const {
+  MTGP_HD void drift_call(const float (&x)[D], const float (&p)[NP], float (&dx)[D]) const {
     Vec<D> xv;
     Vec<NP> pv;
 #pragma unroll
     for (int q = 0; q < D; ++q) xv.v[q] = x[q];
 #pragma unroll
     for (int j = 0; j < NP; ++j) pv.v[j] = p[j];
-    const Vec<D> kv = drift_v(xv, pv, noise);
+    const Vec<D> kv = drift_v(xv, pv);
 #pragma unroll
     for (int q = 0; q < D; ++q) dx[q] = kv.v[q];
   }
@@ -189,7 +207,7 @@ struct LanePolicy {
     float y[L], data[KD];
     observe(x, noise, y);
     fill(data, y, x, nullptr);
-    eval<NC>(SS, data, u);
+    run<NC>(SS, first_readout, data, u);
   }
 
   // finite, below the divergence bound, and the plant's cond_alive
@@ -201,10 +219,18 @@ struct LanePolicy {
   }
 };
 
-template <class Env, int SS, int S>
-MTGP_HD LanePolicy<Env, SS, S> lane_policy(const PolicyArgs& a, const int* t_ops,
-                                           const float* t_cst, int b, float* stack) {
-  LanePolicy<Env, SS, S> pol{t_ops, t_cst, a.n, a.devop, a.var_start, a.n_obs, {}, stack};
+// The policy of trajectory b of a candidate whose decoded trees are `prog`
+// and their first live rows `starts`.
+template <class Env, int SS, int N>
+MTGP_HD LanePolicy<Env, SS, N> lane_policy(const PolicyArgs& a, const Row* prog,
+                                           const int* starts, int b, float* stk) {
+  using Pol = LanePolicy<Env, SS, N>;
+  Pol pol{prog, a.n, a.n, a.n, a.n_obs, {}, stk};
+#pragma unroll
+  for (int k = 0; k < Pol::M; ++k) {
+    int& first = k < SS ? pol.first_state : pol.first_readout;
+    first = starts[k] < first ? starts[k] : first;
+  }
 #pragma unroll
   for (int j = 0; j < kMaxTargets; ++j)
     pol.tgt[j] = j < a.n_targets ? a.tgt[b * a.n_targets + j] : 0.0f;
@@ -212,8 +238,8 @@ MTGP_HD LanePolicy<Env, SS, S> lane_policy(const PolicyArgs& a, const int* t_ops
 }
 
 // Writes save row t of this lane: the augmented state and the controls.
-template <class Env, int SS, int S>
-MTGP_HD void save_row(const PolicyArgs& a, const LanePolicy<Env, SS, S>& pol, size_t lane, int t,
+template <class Env, int SS, int N>
+MTGP_HD void save_row(const PolicyArgs& a, const LanePolicy<Env, SS, N>& pol, size_t lane, int t,
                       const float (&x)[Env::kLatent + SS], const float* noise) {
   constexpr int D = Env::kLatent + SS, NC = Env::kControls;
   const size_t row = static_cast<size_t>(t) * a.P * a.B + lane;
@@ -235,13 +261,13 @@ MTGP_HD void init_state(const PolicyArgs& a, int b, float (&x)[Env::kLatent + SS
 }
 
 // The fixed-step closed loop of one lane.
-template <class Env, int SS, int S>
-MTGP_HD void policy_lane(const PolicyArgs& a, const int* t_ops, const float* t_cst, int b,
+template <class Env, int SS, int N>
+MTGP_HD void policy_lane(const PolicyArgs& a, const Row* prog, const int* starts, int b,
                          size_t lane) {
   constexpr int L = Env::kLatent, NP = Env::kParams, D = L + SS;
-  using Pol = LanePolicy<Env, SS, S>;
-  float stack[S];
-  const Pol pol = lane_policy<Env, SS, S>(a, t_ops, t_cst, b, stack);
+  using Pol = LanePolicy<Env, SS, N>;
+  float stk[Pol::G * stack_slots<N>()];
+  const Pol pol = lane_policy<Env, SS, N>(a, prog, starts, b, stk);
   const bool rk4 = a.method == kRk4;
   const int n_stages = rk4 ? 4 : (a.method == kHeun ? 2 : 1);
   const int k_obs = a.k_obs;
@@ -251,7 +277,7 @@ MTGP_HD void policy_lane(const PolicyArgs& a, const int* t_ops, const float* t_c
   init_state<Env, SS>(a, b, x);
   bool alive = Pol::ok(x);
   const float* save_noise = a.obs_rows ? a.obs_rows + traj * k_obs : nullptr;
-  save_row<Env, SS, S>(a, pol, lane, 0, x, save_noise);
+  save_row<Env, SS, N>(a, pol, lane, 0, x, save_noise);
   int count = alive ? 1 : 0;
   float p[NP];  // per trajectory, or interpolated at every stage when streamed
 #pragma unroll
@@ -266,6 +292,8 @@ MTGP_HD void policy_lane(const PolicyArgs& a, const int* t_ops, const float* t_c
       float acc[D], k[D], xst[D], xn[D];
 #pragma unroll
       for (int q = 0; q < D; ++q) acc[q] = 0.0f;
+      // a runtime loop: the drift below is its one inlined call site
+#pragma unroll 1
       for (int st = 0; st < n_stages; ++st) {
         // the stage's offset c, weight w and scalar h*c (pallas_rollout
         // _RK_TABLES: rk4 (0, 1) (0.5, 2) (0.5, 2) (1, 1); heun (0, 1) (1, 1))
@@ -286,7 +314,7 @@ MTGP_HD void policy_lane(const PolicyArgs& a, const int* t_ops, const float* t_c
           for (int q = 0; q < D; ++q) xst[q] = x[q] + hc * k[q];
         }
         const float* noise = noise_t ? noise_t + (s * n_stages + st) * a.n_obs : nullptr;
-        pol.drift_call(xst, p, noise, k);
+        pol.drift(xst, p, noise, k);
 #pragma unroll
         for (int q = 0; q < D; ++q) acc[q] = acc[q] + w * k[q];
       }
@@ -306,53 +334,58 @@ MTGP_HD void policy_lane(const PolicyArgs& a, const int* t_ops, const float* t_c
     }
     const float* noise_save =
         a.obs_rows ? a.obs_rows + (static_cast<size_t>(t + 1) * a.B + traj) * k_obs : nullptr;
-    save_row<Env, SS, S>(a, pol, lane, t + 1, x, noise_save);
+    save_row<Env, SS, N>(a, pol, lane, t + 1, x, noise_save);
     count += alive ? 1 : 0;
   }
   a.alive[lane] = count;
 }
 
 // rk_step's drift: the closed loop at constant params, no noise
-template <class Env, int SS, int S>
+template <class Env, int SS, int N>
 struct PolicyDrift {
-  const LanePolicy<Env, SS, S>& pol;
+  const LanePolicy<Env, SS, N>& pol;
   const float (&p)[Env::kParams];
   MTGP_HD void operator()(const float (&x)[Env::kLatent + SS],
                           float (&k)[Env::kLatent + SS]) const {
-    pol.drift_call(x, p, nullptr, k);
+    pol.drift_call(x, p, k);
   }
 };
 
-// The adaptive closed loop of one lane (per-interval budget).
-template <class Env, int SS, int S>
-MTGP_HD void policy_adaptive_lane(const PolicyArgs& a, const int* t_ops, const float* t_cst,
-                                  int b, size_t lane) {
+// The adaptive closed loop of one lane (per-interval budget), as one flat
+// loop: an iteration attempts a step of the open interval ti while the lane
+// has budget, lives and has not crossed t1; otherwise it closes the interval
+// and opens the next. The same steps, in the same order, as a loop over
+// intervals with a step loop inside each.
+template <class Env, int SS, int N>
+MTGP_HD void policy_adaptive_lane(const PolicyArgs& a, const Row* prog, const int* starts, int b,
+                                  size_t lane) {
   constexpr int NP = Env::kParams, D = Env::kLatent + SS;
-  using Pol = LanePolicy<Env, SS, S>;
-  float stack[S];
-  const Pol pol = lane_policy<Env, SS, S>(a, t_ops, t_cst, b, stack);
+  using Pol = LanePolicy<Env, SS, N>;
+  float stk[Pol::G * stack_slots<N>()];
+  const Pol pol = lane_policy<Env, SS, N>(a, prog, starts, b, stk);
   float p[NP];
 #pragma unroll
   for (int k = 0; k < NP; ++k) p[k] = a.par[static_cast<size_t>(b) * NP + k];
-  const PolicyDrift<Env, SS, S> f{pol, p};
+  const PolicyDrift<Env, SS, N> f{pol, p};
 
   float x[D], k1[D];
   init_state<Env, SS>(a, b, x);
   bool alive = Pol::ok(x);
-  save_row<Env, SS, S>(a, pol, lane, 0, x, nullptr);
+  save_row<Env, SS, N>(a, pol, lane, 0, x, nullptr);
   int count = alive ? 1 : 0;
   int steps = 0;
   if (a.T > 1) {
     const float expo = error_exponent(a.method);
     f(x, k1);  // the one up-front evaluation FSAL amortises
     float dt = (a.ts[1] - a.ts[0]) / 4.0f;
-    for (int ti = 0; ti + 1 < a.T; ++ti) {
-      const float t0 = a.ts[ti];
-      const float t1 = a.ts[ti + 1];
-      const float span = t1 - t0;
-      float t = t0;
-      dt = clip(dt, span * kDtMin, span);
-      for (int s = 0; s < a.max_steps && alive && t < t1 - kCross; ++s) {
+    // the open interval [t0, t1) = [ts[ti], ts[ti + 1]), t in it, s its steps so far
+    int ti = 0, s = 0;
+    float t1 = a.ts[1];
+    float span = t1 - a.ts[0];
+    float t = a.ts[0];
+    dt = clip(dt, span * kDtMin, span);
+    while (true) {
+      if (s < a.max_steps && alive && t < t1 - kCross) {
         const float dt_c = nan_min(dt, t1 - t);
         float x_hi[D], k_last[D];
         const float err = rk_step<D>(f, a.method, x, k1, dt_c, a.rtol, a.atol, x_hi, k_last);
@@ -372,11 +405,20 @@ MTGP_HD void policy_adaptive_lane(const PolicyArgs& a, const int* t_ops, const f
         }
         dt = clip(dt_c * step_factor(err, ok, a.safety, expo), span * kDtMin, span);
         alive = alive && (ok || dt_c > span * kDtDead);
+        ++s;
         ++steps;
+      } else {
+        alive = alive && t >= t1 - kReach * nan_max(fabsf(t1), 1.0f);
+        save_row<Env, SS, N>(a, pol, lane, ti + 1, x, nullptr);
+        count += alive ? 1 : 0;
+        if (++ti + 1 >= a.T) break;
+        const float t0 = a.ts[ti];
+        t1 = a.ts[ti + 1];
+        span = t1 - t0;
+        t = t0;
+        dt = clip(dt, span * kDtMin, span);
+        s = 0;
       }
-      alive = alive && t >= t1 - kReach * nan_max(fabsf(t1), 1.0f);
-      save_row<Env, SS, S>(a, pol, lane, ti + 1, x, nullptr);
-      count += alive ? 1 : 0;
     }
   }
   a.alive[lane] = count;
@@ -386,48 +428,76 @@ MTGP_HD void policy_adaptive_lane(const PolicyArgs& a, const int* t_ops, const f
 enum Kind { kFixed = 0, kAdaptive = 1 };
 
 #ifdef __CUDACC__
-template <class Env, int SS, int S>
+// The block's candidates' decoded trees in shared memory; this thread's
+// candidate's programs and first live rows, its trajectory and lane, or
+// false past the block's last candidate.
+template <class Env, int SS, int N>
+__device__ inline bool stage_lane(const PolicyArgs& a, int cpb, const Row** prog,
+                                  const int** starts, int* b, size_t* lane) {
+  constexpr int M = SS + Env::kControls;
+  extern __shared__ unsigned char smem[];
+  Row* s_prog = reinterpret_cast<Row*>(smem);  // cpb * M trees of n rows
+  int* s_start = reinterpret_cast<int*>(s_prog + static_cast<size_t>(cpb) * M * a.n);
+  const int ncand = stage_programs<N>(a.ops, a.cst, a.devop, a.var_start, a.P, M, a.n, cpb,
+                                      s_prog, s_start);
+  const int lc = threadIdx.x / a.B;
+  if (lc >= ncand) return false;
+  *b = threadIdx.x - lc * a.B;
+  *lane = static_cast<size_t>(blockIdx.x * cpb + lc) * a.B + *b;
+  *prog = s_prog + static_cast<size_t>(lc) * M * a.n;
+  *starts = s_start + lc * M;
+  return true;
+}
+
+template <class Env, int SS, int N>
 __global__ void policy_kernel(PolicyArgs a, int cpb) {
-  const int* t_ops;
-  const float* t_cst;
-  size_t lane;
+  const Row* prog;
+  const int* starts;
   int b;
-  if (!stage_block(a.ops, a.cst, a.P, a.B, a.m * a.n, cpb, &t_ops, &t_cst, &lane, &b)) return;
-  policy_lane<Env, SS, S>(a, t_ops, t_cst, b, lane);
+  size_t lane;
+  if (stage_lane<Env, SS, N>(a, cpb, &prog, &starts, &b, &lane))
+    policy_lane<Env, SS, N>(a, prog, starts, b, lane);
 }
 
-template <class Env, int SS, int S>
+template <class Env, int SS, int N>
 __global__ void policy_adaptive_kernel(PolicyArgs a, int cpb) {
-  const int* t_ops;
-  const float* t_cst;
-  size_t lane;
+  const Row* prog;
+  const int* starts;
   int b;
-  if (!stage_block(a.ops, a.cst, a.P, a.B, a.m * a.n, cpb, &t_ops, &t_cst, &lane, &b)) return;
-  policy_adaptive_lane<Env, SS, S>(a, t_ops, t_cst, b, lane);
+  size_t lane;
+  if (stage_lane<Env, SS, N>(a, cpb, &prog, &starts, &b, &lane))
+    policy_adaptive_lane<Env, SS, N>(a, prog, starts, b, lane);
 }
 
-template <class Env, int SS, int S>
+template <class Env, int SS, int N>
 int launch(int kind, const PolicyArgs& a, int cpb, cudaStream_t stream) {
   const int grid = (a.P + cpb - 1) / cpb;
-  const size_t smem = block_smem(cpb, a.m, a.n);
+  const size_t smem = program_smem(cpb, a.m, a.n);  // the wrapper's cpb keeps it within 48 KB
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   if (kind == kFixed)
-    policy_kernel<Env, SS, S><<<grid, cpb * a.B, smem, stream>>>(a, cpb);
+    policy_kernel<Env, SS, N><<<grid, cpb * a.B, smem, stream>>>(a, cpb);
   else
-    policy_adaptive_kernel<Env, SS, S><<<grid, cpb * a.B, smem, stream>>>(a, cpb);
+    policy_adaptive_kernel<Env, SS, N><<<grid, cpb * a.B, smem, stream>>>(a, cpb);
   return static_cast<int>(cudaGetLastError());
 }
 #else
-template <class Env, int SS, int S>
+template <class Env, int SS, int N>
 int launch(int kind, const PolicyArgs& a) {
-  for (int p = 0; p < a.P; ++p)
+  constexpr int M = SS + Env::kControls;
+  Row prog[M * N];
+  int starts[M];
+  for (int p = 0; p < a.P; ++p) {
+    const size_t tree = static_cast<size_t>(p) * M * a.n;
+    for (int i = 0; i < M * a.n; ++i) prog[i] = Row{a.ops[tree + i], a.cst[tree + i]};
+    for (int k = 0; k < M; ++k) starts[k] = decode_tree<N>(prog + k * a.n, a.n, a.devop, a.var_start);
     for (int b = 0; b < a.B; ++b) {
       const size_t lane = static_cast<size_t>(p) * a.B + b;
-      const size_t tree = static_cast<size_t>(p) * a.m * a.n;
       if (kind == kFixed)
-        policy_lane<Env, SS, S>(a, a.ops + tree, a.cst + tree, b, lane);
+        policy_lane<Env, SS, N>(a, prog, starts, b, lane);
       else
-        policy_adaptive_lane<Env, SS, S>(a, a.ops + tree, a.cst + tree, b, lane);
+        policy_adaptive_lane<Env, SS, N>(a, prog, starts, b, lane);
     }
+  }
   return 0;
 }
 #endif
@@ -448,12 +518,12 @@ bool bad_args(int kind, const PolicyArgs& a) {
 }  // namespace
 
 #ifdef __CUDACC__
-#define MTGP_LAUNCH(ENV, SS, S) launch<ENV, SS, S>(kind, *a, cpb, s)
+#define MTGP_LAUNCH(ENV, SS, N) launch<ENV, SS, N>(kind, *a, cpb, s)
 #else
-#define MTGP_LAUNCH(ENV, SS, S) launch<ENV, SS, S>(kind, *a)
+#define MTGP_LAUNCH(ENV, SS, N) launch<ENV, SS, N>(kind, *a)
 #endif
 
-// One instance per plant, state size and stack bound (32 covers N <= 32).
+// One instance per plant, state size and tree bound (N <= 32 or 256).
 #define MTGP_STACKS(ENV, SS) (a->n <= 32 ? MTGP_LAUNCH(ENV, SS, 32) : MTGP_LAUNCH(ENV, SS, kMaxNodes))
 #define MTGP_ENV(ENV)                                               \
   do {                                                              \

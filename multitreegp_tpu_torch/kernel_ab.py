@@ -1,4 +1,4 @@
-"""Time the SR kernels of two checkouts of this package in turns, on one card.
+"""Time the tree kernels of two checkouts of this package in turns, on one card.
 
     python -m multitreegp_tpu_torch.kernel_ab OTHER_ROOT
 
@@ -12,9 +12,14 @@ Van der Pol trajectories), of the fused SR fitness (kernel #1, RK4, T = 50),
 the fused reproduction (kernel #2, one generation's 3,696 lanes: the
 operands its own ``reproduce_pairs`` gives it, in that version's layout),
 the trajectory rollout (#3, RK4, T = 50) and the global-budget adaptive
-fitness (#5, dopri5, budget 500, T = 50), and of the fixed-step policy
-rollout (#6, static Acrobot, 4096 x 16 lanes, RK4 x 4, T = 250). Two
-versions compare only within one such run.
+fitness (#5, dopri5, budget 500, T = 50), and at the control path's shapes
+(Acrobot, 4096 policies of ``max_nodes=30``, ``+ - * sin cos``, x 16
+trajectories, T = 250) of the fixed-step policy rollout (#6, RK4 x 4) and
+the adaptive one (#7, dopri5, 8 steps per interval), static and dynamic
+(``state_size=2``). A process that built the kernels first prints each
+``nvcc``'s seconds and, per instance of the policy kernels for Acrobot at
+N <= 32, ptxas's registers, stack frame and spills. Two versions compare
+only within one such run.
 """
 from __future__ import annotations
 
@@ -44,6 +49,15 @@ def time_kernels(root: Path) -> str:
     if Path(pkg.__file__).resolve().parent.parent != root:
         raise RuntimeError(f"imported {pkg.__file__}, not the package under {root}")
     pkg._build.build("sr_fitness", "reproduce", "sr_rollout", "sr_adaptive", "policy")  # in parallel
+    built = {k: v for k, v in pkg._build.build_seconds.items() if v > 0}
+    if built:  # printed before the runs, so a run that fails leaves it
+        line = "nvcc " + ", ".join(f"{k} {v:.1f} s" for k, v in built.items())
+        if "policy" in pkg._build.build_logs:
+            line += "; ptxas " + ", ".join(
+                f"{k} {r} registers {st} B stack {sp} B spilled"
+                for k, r, st, sp in ptxas_report(pkg._build.build_logs["policy"])
+                if "AcrobotEnv<0" in k and k.endswith(",32>"))
+        print(line, flush=True)
     dev = torch.device("cuda")
     fset = build_function_set([("+", 2, 0.5), ("-", 2, 0.1), ("*", 2, 0.5), ("/", 2, 0.1)],
                               [["x0", "x1"]], [2])
@@ -90,10 +104,37 @@ def time_kernels(root: Path) -> str:
         "#3": (lambda: cf.sr_rollout_cuda(trees, x0s, ts, fset, "rk4", 1), "sr_rollout_kernel", 30),
         "#5": (lambda: ca.sr_fitness_adaptive_global_cuda(trees, x0s, ts, ys, fset, budget=500),
                "adaptive_global_kernel", 7),
-        "#6": (policy_launch(g), "policy_kernel", 7),
     }
+    for key, fn in policy_launches(g).items():
+        runs[key] = (fn, "policy_kernel" if key.startswith("#6") else "policy_adaptive_kernel", 7)
     return "; ".join(f"{k} {median_ms(fn, n):.4f} ms (device {device_ms(fn, name, n):.4f})"
                      for k, (fn, name, n) in runs.items())
+
+
+def ptxas_report(log: str):
+    """``[(kernel<instance>, registers, stack bytes, spill store bytes)]``
+    from ``nvcc -Xptxas -v`` output; the instance lists the kernel's
+    template arguments (a plant as its struct's name)."""
+    out, name, stack, spill = [], None, None, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            k = re.search(r"\d([a-z_]+_kernel)I(.*)E[Ev]", m.group(1))
+            if k:
+                args = re.findall(r"\d+([A-Za-z][A-Za-z0-9]*Env)(?:IL[b]([01])EE)?|L[ib](\d+)E", k.group(2))
+                parts = [f"{env}<{flag}>" if env and flag else env or num for env, flag, num in args]
+                name = f"{k.group(1)}<{','.join(parts)}>"
+            else:
+                name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
+        if m:
+            stack, spill = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), stack, spill))
+            name = None
+    return out
 
 
 def reproduction_launch(trees, fset, g):
@@ -125,8 +166,9 @@ def reproduction_launch(trees, fset, g):
     return lambda: cr.reproduce_lanes_cuda(*captured[0])
 
 
-def policy_launch(g):
-    """Kernel #6 on the static Acrobot policy workload at full width."""
+def policy_launches(g):
+    """Kernels #6 and #7 on the static and dynamic Acrobot policy workloads
+    at full width (chip_smoke.py's phases 13-14)."""
     from multitreegp_tpu_torch.core import cuda_policy as cp
     from multitreegp_tpu_torch.core.registry import build_function_set
     from multitreegp_tpu_torch.models.environments import Acrobot
@@ -136,11 +178,19 @@ def policy_launch(g):
 
     env = Acrobot(0.0, 0.0)
     ops = [("+", 2), ("-", 2), ("*", 2), ("sin", 1), ("cos", 1)]  # chip_smoke.py POLICY_OPERATORS
-    fset = build_function_set(ops, [[f"y{i}" for i in range(env.n_obs)]], [env.n_control])
+    ys = [f"y{i}" for i in range(env.n_obs)]
     ts = torch.arange(0.0, 50.0, 0.2, device=g.device)
     x0, ts, tgt, _, _, par = generate_control_data(env, g, ts, batch_size=16)
-    trees = make_population_sampler(fset, 4, 30)(g, 4096)[0]
-    return lambda: cp.rollout_policy(trees, x0, ts, tgt, par, env, fset, 4, "rk4", 0)
+    out = {}
+    for name, layers, sizes, ss in (("static", [ys], [1], 0),
+                                    ("dynamic", [ys + ["a0", "a1", "u0"], ["a0", "a1"]], [2, 1], 2)):
+        fset = build_function_set(ops, layers, sizes)
+        trees = make_population_sampler(fset, 4, 30)(g, 4096)[0]
+        args = (trees, x0, ts, tgt, par, env, fset)
+        out[f"#6 {name}"] = lambda a=args, ss=ss: cp.rollout_policy(*a, 4, "rk4", ss)
+        out[f"#7 {name}"] = lambda a=args, ss=ss: cp.rollout_policy_adaptive(
+            *a, 1e-4, 1e-4, 8, "dopri5", 0.9, ss)
+    return out
 
 
 def main(argv=None) -> int:
@@ -156,10 +206,11 @@ def main(argv=None) -> int:
         # this file, run as a script, times the package under `root`
         proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), str(root), "--time"],
                               cwd=root, capture_output=True, text=True)
+        for line in proc.stdout.strip().splitlines():
+            print(f"kernel_ab {label} ({root}): {line}", flush=True)
         if proc.returncode != 0:
             print(proc.stderr, file=sys.stderr)
             return proc.returncode
-        print(f"kernel_ab {label} ({root}): {proc.stdout.strip()}", flush=True)
     return 0
 
 

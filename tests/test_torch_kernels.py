@@ -13,7 +13,8 @@ Two routes:
   their wrappers, same criteria (#1 also with Euler-Maruyama kick rows, bit
   for bit; the branch probe #10 in every mode, bit for bit); the closed-loop policy kernels (#6 fixed
   step, #7 adaptive) per lane bit for bit, states, controls, alive counts
-  and steps, and the policy evaluators' refusal to run a plain version on
+  and steps (also their instances for N <= 256, on chains of 255, 127 and
+  63 rows), and the policy evaluators' refusal to run a plain version on
   CUDA tensors; the interpreter kernels (forward and VJP)
   through ``evaluate_trees`` and autograd, bit for bit per lane against the
   plain version on the card; the adaptive kernels (#5 global budget, #4 per
@@ -581,7 +582,7 @@ POLICY_OPS = [("+", 2), ("-", 2), ("*", 2), ("sin", 1), ("cos", 1)]
 
 
 def policy_case(device="cpu", env=None, state_size=0, pop=24, b=4, t_end=2.2, mode="Constant",
-                n=30, ops=POLICY_OPS):
+                n=30, ops=POLICY_OPS, depth=4):
     """A control environment's data and a population of policies: static
     (variables ``[y, tgt]``) or dynamic (``[y, a, u, tgt]``, then the
     readout's ``[a, tgt]``)."""
@@ -597,7 +598,7 @@ def policy_case(device="cpu", env=None, state_size=0, pop=24, b=4, t_end=2.2, mo
     g = torch.Generator(device=device).manual_seed(0)
     ts = torch.arange(0.0, t_end, 0.2, device=device)
     data = generate_control_data(env, g, ts, batch_size=b, param_mode=mode)
-    return env, fset, data, make_population_sampler(fset, 4, n)(g, pop)[0]
+    return env, fset, data, make_population_sampler(fset, depth, n)(g, pop)[0]
 
 
 @pytest.mark.cuda
@@ -634,6 +635,36 @@ def test_policy_kernels_match_plain_on_card(cuda, state_size):
     with pytest.raises(ValueError):  # process noise needs euler
         cp.rollout_policy(trees, x0, ts, tgt, par, env, fset, 2, "rk4", state_size,
                           process_noise_rows=kicks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state_size", [0, 2])
+def test_policy_kernels_deep_match_plain_on_card(cuda, state_size):
+    """#6 and #7's instances for N <= 256 on Acrobot policies of 256 rows
+    grown to depth 7, the first three candidates chains of 255, 127 and 63
+    rows (the deepest stacks), x 16 trajectories at T = 6: one launch each,
+    every lane's states, controls, alive count and attempted steps equal to
+    the plain version on the card; #7 with dopri5 and 8 steps per interval
+    and with bosh3 and 2 (budgets that run out inside an interval)."""
+    env, fset, (x0, ts, tgt, _, _, par), trees = policy_case(
+        cuda, state_size=state_size, pop=256, b=16, t_end=1.2, n=256, depth=7)
+    trees = with_chains(trees, fset, [255, 127, 63])
+    args = (trees, x0, ts, tgt, par, env, fset)
+    before = cp.policy_rollout_cuda.launches
+    got = cp.rollout_policy(*args, 2, "rk4", state_size)
+    ref = cp.policy_rollout_plain(*args, 2, "rk4", state_size)
+    torch.cuda.synchronize()
+    assert cp.policy_rollout_cuda.launches == before + 1
+    assert all(same_bits(a, b) for a, b in zip(got[:2], ref[:2])) and torch.equal(got[2], ref[2])
+    for method, max_steps in (("dopri5", 8), ("bosh3", 2)):
+        before = cp.policy_rollout_adaptive_cuda.launches
+        kw = dict(max_steps=max_steps, method=method, state_size=state_size)
+        got = cp.rollout_policy_adaptive(*args, return_steps=True, **kw)
+        ref = cp.policy_rollout_adaptive_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert cp.policy_rollout_adaptive_cuda.launches == before + 1
+        assert all(same_bits(a, b) for a, b in zip(got[:2], ref[:2]))
+        assert torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3])
 
 
 @pytest.mark.cuda

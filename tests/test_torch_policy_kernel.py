@@ -11,7 +11,9 @@ Tolerances, and why:
   interval, and #6 interpolates series parameters between rows at the
   stage's fraction where the general path calls ``linear_interp``.
 * the host build of ``csrc/policy.cu`` against both plain versions, per
-  lane: states, controls, alive count and attempted steps bit for bit, with
+  lane (N = 30, and N = 128 and 256 with chains of 255, 127 and 63 rows;
+  #7 also with budgets of 1 and 2 steps per interval): states, controls,
+  alive count and attempted steps bit for bit, with
   ``torch.sin``/``cos``/``exp`` (and, for #7, ``pow`` and ``sqrt``)
   computed as the host build computes them; with PyTorch's own CPU
   functions, identical alive on >= 99.5% of lanes and rel <= 1e-3.
@@ -44,7 +46,7 @@ from multitreegp_tpu_torch.models import environments as tenvs
 from multitreegp_tpu_torch.models.evaluators import generate_control_data
 from multitreegp_tpu_torch.ops.initialization import make_population_sampler
 from test_torch_adaptive import glibc_pow, ieee_sqrt
-from test_torch_kernels import patch_host_math, same_bits
+from test_torch_kernels import patch_host_math, same_bits, with_chains
 from test_torch_policy import GENERAL_CASES, assert_lanes_agree, case, evaluators
 
 torch.set_num_threads(1)
@@ -94,8 +96,11 @@ def policy_host(tmp_path_factory):
     return lib
 
 
-def host_case(name, mode, state_size, seed=0):
-    """A torch-only case (the port's own generator), N = 30 with ``/``."""
+def host_case(name, mode, state_size, seed=0, n=30, t_end=2.2):
+    """A torch-only case (the port's own generator), N = 30 with ``/``; at
+    ``n > 32`` trees grown to depth 7 (``bench.py``'s deep setting), the
+    first three candidates' trees chains of ``n - 1``, 127 and 63 rows (the
+    deepest stacks)."""
     env = getattr(tenvs, name)()
     ops = [("+", 2), ("-", 2), ("*", 2), ("/", 2, 0.2), ("sin", 1), ("cos", 1)]
     ys = [f"y{i}" for i in range(env.n_obs)]
@@ -106,8 +111,11 @@ def host_case(name, mode, state_size, seed=0):
     else:
         fset = build_function_set(ops, [ys + tg], [env.n_control])
     g = torch.Generator().manual_seed(seed)
-    data = generate_control_data(env, g, torch.arange(0.0, 2.2, 0.2), batch_size=4, param_mode=mode)
-    return env, fset, data, make_population_sampler(fset, 4, 30)(g, 16)[0]
+    data = generate_control_data(env, g, torch.arange(0.0, t_end, 0.2), batch_size=4, param_mode=mode)
+    trees = make_population_sampler(fset, 4 if n <= 32 else 7, n)(g, 16)[0]
+    if n > 32:
+        trees = with_chains(trees, fset, [n - 1, min(127, n - 1), 63])
+    return env, fset, data, trees
 
 
 def noise_rows(env, ts, substeps, stages, seed=3):
@@ -125,12 +133,22 @@ HOST_FIXED = [("Acrobot", "Constant", 0, "rk4", ""), ("Acrobot", "Constant", 2, 
               ("HarmonicOscillator2", "Constant", 2, "rk4", ""),
               ("CartPole", "Constant", 0, "euler", "obs+kicks"),
               ("Acrobot", "Constant", 1, "rk4", "obs")]
+# the instances for N <= 256 (T = 6): static and dynamic, one and two
+# control trees, chains of n - 1, 127 and 63 rows among the candidates
+HOST_FIXED_DEEP = [("Acrobot", "Constant", 0, "rk4", "", 128), ("Acrobot", "Constant", 2, "rk4", "", 256),
+                   ("Acrobot2", "Constant", 0, "rk4", "obs", 256),
+                   ("CartPole", "Constant", 1, "euler", "obs+kicks", 128)]
+case_id = lambda *values: "-".join(str(v) for v in values)
 
 
-@pytest.mark.parametrize("name,mode,state_size,method,noise", HOST_FIXED)
+@pytest.mark.parametrize(
+    "name,mode,state_size,method,noise,n",
+    [pytest.param(*c, 30, id=case_id(*c)) for c in HOST_FIXED]
+    + [pytest.param(*c, id=case_id(*c[:5], f"N{c[5]}")) for c in HOST_FIXED_DEEP])
 def test_policy_host_build_bit_exact(policy_host, monkeypatch, name, mode, state_size, method,
-                                     noise):
-    env, fset, (x0, ts, tgt, _, _, par), trees = host_case(name, mode, state_size)
+                                     noise, n):
+    env, fset, (x0, ts, tgt, _, _, par), trees = host_case(name, mode, state_size, n=n,
+                                                           t_end=2.2 if n <= 32 else 1.2)
     obs, kick = noise_rows(env, ts, 2, len(cp.RK_TABLES[method][0]))
     rows = dict(obs_noise_rows=obs if "obs" in noise else None,
                 process_noise_rows=kick if "kicks" in noise else None)
@@ -146,23 +164,41 @@ def test_policy_host_build_bit_exact(policy_host, monkeypatch, name, mode, state
     assert torch.equal(cp._alive_rows(count, ts.shape[0]), alive)
 
 
-@pytest.mark.parametrize("method", ["dopri5", "bosh3"])
-@pytest.mark.parametrize("name,state_size", [("Acrobot", 0), ("Acrobot", 2), ("CartPole", 0),
-                                             ("HarmonicOscillator2", 1)])
-def test_policy_adaptive_host_build_bit_exact(policy_host, monkeypatch, name, state_size, method):
-    env, fset, (x0, ts, tgt, _, _, par), trees = host_case(name, "Constant", state_size)
+HOST_ADAPTIVE = [(name, state_size, method, 8, 30)
+                 for name, state_size in [("Acrobot", 0), ("Acrobot", 2), ("CartPole", 0),
+                                          ("HarmonicOscillator2", 1)]
+                 for method in ("dopri5", "bosh3")]
+# budgets that run out inside an interval (the flat loop closes it early)
+HOST_ADAPTIVE_BUDGET = [("Acrobot", 0, "dopri5", 1, 30), ("Acrobot", 2, "bosh3", 2, 30),
+                        ("HarmonicOscillator2", 1, "dopri5", 2, 30), ("CartPole", 0, "bosh3", 1, 30)]
+# the instances for N <= 256 (T = 4), chains among the candidates
+HOST_ADAPTIVE_DEEP = [("Acrobot", 0, "bosh3", 8, 128), ("Acrobot", 0, "dopri5", 8, 256),
+                      ("Acrobot", 2, "dopri5", 8, 128), ("Acrobot", 2, "bosh3", 8, 256)]
+
+
+@pytest.mark.parametrize(
+    "name,state_size,method,max_steps,n",
+    [pytest.param(*c, id=case_id(*c[:3])) for c in HOST_ADAPTIVE]
+    + [pytest.param(*c, id=case_id(*c[:3], f"max_steps{c[3]}")) for c in HOST_ADAPTIVE_BUDGET]
+    + [pytest.param(*c, id=case_id(*c[:3], f"N{c[4]}")) for c in HOST_ADAPTIVE_DEEP])
+def test_policy_adaptive_host_build_bit_exact(policy_host, monkeypatch, name, state_size, method,
+                                              max_steps, n):
+    env, fset, (x0, ts, tgt, _, _, par), trees = host_case(name, "Constant", state_size, n=n,
+                                                           t_end=2.2 if n <= 32 else 0.8)
     with monkeypatch.context() as m:
         patch_host_math(m)
         m.setattr(torch, "pow", glibc_pow)
         m.setattr(torch, "sqrt", ieee_sqrt)
         xs, us, alive, steps = cp.policy_rollout_adaptive_plain(
-            trees, x0, ts, tgt, par, env, fset, 1e-4, 1e-4, 8, method, 0.9, state_size)
+            trees, x0, ts, tgt, par, env, fset, 1e-4, 1e-4, max_steps, method, 0.9, state_size)
     status, hxs, hus, count, hsteps = cp.run_policy(
         lambda a: policy_host.policy_host(cp.ADAPTIVE, a), cp.ADAPTIVE, trees, x0, ts, tgt, par,
-        env, fset, state_size, method, max_steps=8, rtol=1e-4, atol=1e-4, safety=0.9)
+        env, fset, state_size, method, max_steps=max_steps, rtol=1e-4, atol=1e-4, safety=0.9)
     assert status == 0
     assert same_bits(hxs, xs) and same_bits(hus, us) and torch.equal(hsteps, steps)
     assert torch.equal(cp._alive_rows(count, ts.shape[0]), alive) and bool((steps > 0).all())
+    if max_steps < 8:  # some lanes ran out of budget before the end of an interval
+        assert bool((~alive[-1]).any())
 
 
 @pytest.mark.parametrize("kind", [cp.FIXED, cp.ADAPTIVE])

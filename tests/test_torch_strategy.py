@@ -128,12 +128,15 @@ def test_chip_smoke_phases_rehearse_on_cpu():
                 policy_fixed_t=4, policy_adaptive_t=3, legs_pop=8, legs_t=3, trig_adaptive_t=3,
                 policy_opt_top_k=4, policy_opt_steps=2, policy_opt_t=4,
                 noise=0.05, noisy_adaptive_t=3, ab_runs=1, probe_reps=2,
-                deep_nodes=64, deep_depth=5, deep_pop=8, deep_t=3, deep_rep_pop=16)
+                deep_nodes=64, deep_depth=5, deep_pop=8, deep_t=3, deep_rep_pop=16, deep_policy_t=3)
     out = chip_smoke.run(torch.device("cpu"), tiny)
     assert out["fitness"]["bit_equal"] and out["reproduce"]["ops_identical"] == 1.0
     deep = out["deep"]
     assert all(v["identical"] == 1.0 for v in deep["fitness"].values())
     assert deep["reproduce"]["ops_identical"] == 1.0 and deep["reproduce"]["lanes"] == 16
+    for kind, policies in (("policy_fixed", "dynamic"), ("policy_adaptive", "static")):
+        r = deep[kind]
+        assert r["identical"] == 1.0 and r["lanes"] == 8 * 4 and r["policies"] == policies
     assert [k["name"] for k in out["kernels"]] == [
         "sr_fitness", "reproduce", "interpret_fwd", "interpret_bwd", "sr_adaptive_global",
         "sr_adaptive_interval", "sr_rollout", "policy", "policy_adaptive", "branch_probe"]

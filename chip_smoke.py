@@ -32,8 +32,10 @@ workload (phases 12-14). Phases, one line or a few each:
 8. interpreter kernel and plain-version times at both shapes (CUDA events);
 9. the adaptive kernels (#5 global budget, #4 per interval; Dormand-Prince
    5(4)) and the trajectory kernel (#3) against their plain versions at the
-   full width of 4096 x 16 lanes: #5 with the budget 500 at T = 10 and
-   T = 50, #4 with 32 steps per interval at T = 10, #3 RK4 at T = 50;
+   full width of 4096 x 16 lanes, every lane identical: #5 with the budget
+   500 at T = 10 and T = 50, #4 with 32 steps per interval at T = 10, #3
+   RK4 at T = 50; the attempted steps per lane and per warp (the maximum of
+   32 consecutive lanes) and how many warps reach the budget;
 10. the adaptive path: 5 generations of the 8 x 512 host loop with
    ``SREvaluator(method="adaptive", adaptive_method="dopri5")``, the
    attempted-step telemetry of both budgets (``adaptive_solver_stats`` and
@@ -41,8 +43,11 @@ workload (phases 12-14). Phases, one line or a few each:
    recompute takes ~4 s an epoch) through the adaptive gradient, and
    ``evaluate_candidate`` of the best under the RK4 evaluator; all seven
    launch counters read around it;
-11. adaptive and trajectory kernel and plain-version times (CUDA events),
-   and the global kernel's node-evals/s;
+11. adaptive and trajectory kernel and plain-version times (CUDA events;
+   #5's and #4's device time per launch by torch.profiler), the global
+   kernel's node-evals/s, and what sets #5's time: #5 on 1/8 of the
+   candidates (fewer warps per SM) and on the candidates sorted by their
+   slowest lane's steps (fewer warp-steps);
 12. the closed-loop policy kernels (#6 fixed step, #7 adaptive) against
    their plain versions per lane on the control path's full width (Acrobot,
    8 x 512 policies x 16 trajectories, operators + - * sin cos; #6 RK4 with
@@ -78,10 +83,11 @@ workload (phases 12-14). Phases, one line or a few each:
 16. the branch probe (#10, ``python -m multitreegp_tpu_torch.tools.branch_probe``):
    every mode against its plain version, then the tool's timing run, each
    mode's time beside its bound;
-17. the instances of #1, #2, #6 and #7 for trees of up to 256 rows
+17. the instances of #1, #2, #4-#7 for trees of up to 256 rows
    against their plain versions: #1 on 256 candidates of 256 rows (chains
    of 255, 127 and 63 rows among them) x 16 trajectories at T = 6, RK4 and
-   Euler-Maruyama with kick rows; #2 on one island's 462 lanes of those
+   Euler-Maruyama with kick rows; #5 (budget 40) and #4 (8 per interval),
+   dopri5, on the same lanes at T = 4; #2 on one island's 462 lanes of those
    parents; #6 (dynamic, RK4 x 2: the readout and the two state trees) and
    #7 (static, dopri5, 8 steps per interval) on 256 Acrobot policies of 256
    rows, chained the same way, x 16 trajectories at T = 3 (the plain
@@ -110,7 +116,8 @@ FULL = dict(islands=8, pop=512, max_nodes=32, depth=4, batch=16, horizon=10.0, d
             policy_fixed_t=26, policy_adaptive_t=11, legs_pop=512, legs_t=11, trig_adaptive_t=5,
             policy_opt_top_k=8, policy_opt_steps=2, policy_opt_t=125,
             noise=0.05, noisy_adaptive_t=6, ab_runs=20, probe_reps=256,
-            deep_nodes=256, deep_depth=7, deep_pop=256, deep_t=6, deep_rep_pop=512, deep_policy_t=3)
+            deep_nodes=256, deep_depth=7, deep_pop=256, deep_t=6, deep_rep_pop=512, deep_policy_t=3,
+            deep_adaptive_t=4, deep_adaptive_budget=40, deep_interval_steps=8)
 KERNELS = ("sr_fitness", "reproduce", "interpreter", "sr_adaptive", "sr_rollout",
            "policy", "branch_probe")  # csrc/<name>.cu
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, float32 FLOP/s outside the tensor
@@ -434,10 +441,12 @@ def run(device, sizes=FULL) -> dict:
         row("sr_adaptive_global", "sr_adaptive.cu", "multitreegp_tpu/core/pallas_rollout.py:1828",
             launches10["sr_adaptive_global"], g_long["max_abs_err"], at.get("global_long"),
             g_long["plain_ms"], bound(g_long["bytes"], g_long["ops"]), t_steps=ts_full.shape[0],
-            node_evals_per_s=at.get("global_node_evals_per_s")),
+            device_ms=at.get("global_long_device"), node_evals_per_s=at.get("global_node_evals_per_s"),
+            what_sets_time=at.get("what_sets_5"), deep=out["deep"]["adaptive"]["global"]),
         row("sr_adaptive_interval", "sr_adaptive.cu", "multitreegp_tpu/core/pallas_rollout.py:1277",
             launches10["sr_adaptive_interval"], i_short["max_abs_err"], at.get("interval_short"),
-            i_short["plain_ms"], bound(i_short["bytes"], i_short["ops"]), t_steps=s["adaptive_short_t"]),
+            i_short["plain_ms"], bound(i_short["bytes"], i_short["ops"]), t_steps=s["adaptive_short_t"],
+            device_ms=at.get("interval_short_device"), deep=out["deep"]["adaptive"]["interval"]),
         row("sr_rollout", "sr_rollout.cu", "multitreegp_tpu/core/pallas_rollout.py:163",
             launches10["sr_rollout"], ro["max_abs_err"], at.get("rollout"), ro["plain_ms"],
             bound(ro["bytes"], ro["ops"]), t_steps=ts_full.shape[0]),
@@ -801,7 +810,23 @@ def compare_adaptive(got, ref):
     rel = diff / mse_r.abs()[both].clamp(min=1e-30)
     return (float(same.float().mean()), float((alive == alive_r).float().mean()),
             float((steps == steps_r).float().mean()), float(rel.max()) if rel.numel() else 0.0,
-            float(diff.max()) if diff.numel() else 0.0, rel, same)
+            float(diff.max()) if diff.numel() else 0.0)
+
+
+def warp_maxima(steps):
+    """The attempted steps of each warp's slowest lane: ``steps (P, B)`` in
+    launch order (candidate-major) cut into warps of 32 consecutive lanes."""
+    flat = steps.reshape(-1)
+    return flat[: flat.numel() // 32 * 32].reshape(-1, 32).amax(dim=1)
+
+
+def warp_steps(steps, budget: int) -> dict:
+    """Per-warp maxima of ``steps (P, B)``: min, median, max, their sum,
+    and how many warps reach ``budget``."""
+    w = warp_maxima(steps)
+    return dict(warps=w.numel(), warp_steps_min=int(w.min()), warp_steps_median=float(w.float().median()),
+                warp_steps_max=int(w.max()), warp_steps_total=int(w.sum()),
+                warps_at_budget=int((w >= budget).sum()))
 
 
 def timed_plain(fn, device):
@@ -846,11 +871,8 @@ def adaptive_kernels_phase(device, s, trees, fset, x0s, ts_full, ys_full) -> dic
         args = (trees, x0s, ts_, ys_, fset, 1e-4, 1e-6, steps_arg, "dopri5", 0.9)
         got = kernel(*args) if on_card else plain(*args)
         ref, plain_ms = timed_plain(lambda: plain(*args), device)
-        same, alive_ok, steps_ok, max_rel, max_abs, rel, same_lane = compare_adaptive(got, ref)
-        both = got[1] & ref[1]
-        rest_rel = float(rel[~same_lane[both]].max()) if bool((~same_lane[both]).any()) else 0.0
-        check(same >= 0.999, f"{kind} T={t_steps}: only {same:.6f} of lanes identical")
-        check(rest_rel <= 1e-3, f"{kind} T={t_steps}: rel {rest_rel} on a lane alive in both")
+        same, alive_ok, steps_ok, max_rel, max_abs = compare_adaptive(got, ref)
+        check(same == 1.0, f"{kind} T={t_steps}: only {same:.6f} of lanes identical")
         st = got[2].float()
         key = f"{kind}_t{t_steps}"
         res[key] = dict(identical=same, alive_agreement=alive_ok, steps_agreement=steps_ok,
@@ -859,6 +881,10 @@ def adaptive_kernels_phase(device, s, trees, fset, x0s, ts_full, ys_full) -> dic
                         steps_min=int(st.min()), steps_median=float(st.median()),
                         steps_max=int(st.max()), lanes=got[1].numel())
         r = res[key]
+        # a warp is 32 consecutive lanes in launch order (B trajectories x
+        # its candidates) and runs its slowest lane's steps
+        budget_steps = steps_arg if kind == "global" else steps_arg * (t_steps - 1)
+        r.update(warp_steps(got[2], budget_steps))
         r["ops"] = adaptive_ops(trees, fset, got[2], x0s.shape[1], t_steps)
         r["bytes"] = nbytes(trees.ops, trees.const, x0s, ts_, ys_) + got[1].numel() * 9
         phase_line(f"phase 9 {'#5 global' if kind == 'global' else '#4 per-interval'} adaptive kernel "
@@ -866,7 +892,10 @@ def adaptive_kernels_phase(device, s, trees, fset, x0s, ts_full, ys_full) -> dic
                    f"agreement {alive_ok:.6f}, steps agreement {steps_ok:.6f}, max rel (alive in both) "
                    f"{max_rel:.3e}, max abs {max_abs:.3e}; alive {r['alive']:.4f}; attempted steps "
                    f"total {r['steps_total']}, per lane min {r['steps_min']} median "
-                   f"{r['steps_median']:.0f} max {r['steps_max']}; plain {plain_ms:.1f} ms")
+                   f"{r['steps_median']:.0f} max {r['steps_max']}; per-warp max over {r['warps']} warps: "
+                   f"min {r['warp_steps_min']} median {r['warp_steps_median']:.0f} max "
+                   f"{r['warp_steps_max']}, sum {r['warp_steps_total']}, {r['warps_at_budget']} warps "
+                   f"reach the budget of {budget_steps}; plain {plain_ms:.1f} ms")
     # #3: the trajectory, RK4 with one substep over the whole grid
     xs, alive = (cf.sr_rollout_cuda if on_card else cf.sr_rollout_plain)(trees, x0s, ts_full, fset, "rk4", 1)
     (ref, ref_alive), plain_ms = timed_plain(
@@ -1032,7 +1061,14 @@ def adaptive_path_phase(device, s, data) -> dict:
 
 def adaptive_times(device, s, trees, fset, x0s, ts_full, ys_full) -> dict:
     """Phase 11: CUDA-event times of kernels #5, #4 and #3 at the phase 9
-    shapes (the plain versions' single runs were timed in phase 9)."""
+    shapes (the plain versions' single runs were timed in phase 9), the
+    device time per launch of #5 and #4, and what sets #5's time (T = 50):
+    #5 on the first 1/8 of the candidates (a few warps per SM instead of
+    ~15), and on the candidates sorted by their slowest lane's steps (the
+    same lanes, fewer warp-steps: an upper bound of what binning lanes by
+    effort can save). If the slowest warp's latency sets the time, the full
+    run takes about the 1/8 run's time and sorting saves little; if the
+    card's issue rate does, both scale with the warp-steps per SM."""
     from multitreegp_tpu_torch.core import cuda_adaptive as ca
     from multitreegp_tpu_torch.core import cuda_rollout as cf
     from multitreegp_tpu_torch.utils.metrics import adaptive_node_evals
@@ -1041,9 +1077,10 @@ def adaptive_times(device, s, trees, fset, x0s, ts_full, ys_full) -> dict:
 
     t_short = s["adaptive_short_t"]
     short = (ts_full[:t_short], ys_full[:, :t_short].contiguous())
+    glob = lambda tr: (lambda: ca.sr_fitness_adaptive_global_cuda(tr, x0s, ts_full, ys_full, fset,
+                                                                  budget=s["adaptive_budget"]))
     fns = dict(
-        global_long=lambda: ca.sr_fitness_adaptive_global_cuda(trees, x0s, ts_full, ys_full, fset,
-                                                               budget=s["adaptive_budget"]),
+        global_long=glob(trees),
         global_short=lambda: ca.sr_fitness_adaptive_global_cuda(trees, x0s, *short, fset,
                                                                 budget=s["adaptive_budget"]),
         interval_short=lambda: ca.sr_fitness_adaptive_interval_cuda(
@@ -1053,11 +1090,34 @@ def adaptive_times(device, s, trees, fset, x0s, ts_full, ys_full) -> dict:
     times = {k: cuda_time_ms(fn, s["timing_runs"], torch) for k, fn in fns.items()}
     steps = fns["global_long"]()[2]
     rate = adaptive_node_evals(steps, "dopri5", 2, s["max_nodes"]) / times["global_long"] * 1e3
-    phase_line(f"phase 11 times (median ms): #5 global T={ts_full.shape[0]} {times['global_long']:.3f}, "
-               f"T={t_short} {times['global_short']:.3f}; #4 per-interval T={t_short} "
-               f"{times['interval_short']:.3f}; #3 trajectory T={ts_full.shape[0]} {times['rollout']:.3f}; "
-               f"#5 rate {rate:.4e} node-evals/s")
-    return {"adaptive_times_ms": dict(times, global_node_evals_per_s=rate)}
+    p = trees.ops.shape[0]
+    part = trees[: p // 8]
+    order = torch.argsort(steps.amax(dim=1), stable=True)
+    by_effort = trees[order]
+    check(torch.equal(glob(by_effort)()[2], steps[order]), "#5 on sorted candidates: other steps")
+    times.update(kernel_device_ms((("global_long_device", fns["global_long"], "adaptive_global_kernel"),
+                                   ("interval_short_device", fns["interval_short"], "adaptive_interval_kernel"),
+                                   ("global_part_device", glob(part), "adaptive_global_kernel"),
+                                   ("global_sorted_device", glob(by_effort), "adaptive_global_kernel")),
+                                  s["timing_runs"], torch))
+    full, part_w, sorted_w = warp_maxima(steps), warp_maxima(steps[: p // 8]), warp_maxima(steps[order])
+    what = dict(warps=full.numel(), warp_steps=int(full.sum()), warp_steps_max=int(full.max()),
+                part_warps=part_w.numel(), part_warp_steps=int(part_w.sum()),
+                part_warp_steps_max=int(part_w.max()), part_ms=times["global_part_device"],
+                sorted_warp_steps=int(sorted_w.sum()), sorted_warps_at_budget=int((sorted_w >= s["adaptive_budget"]).sum()),
+                sorted_ms=times["global_sorted_device"], full_ms=times["global_long_device"])
+    phase_line(f"phase 11 times (median ms): #5 global T={ts_full.shape[0]} {times['global_long']:.3f} "
+               f"(device {times['global_long_device']:.4f}), T={t_short} {times['global_short']:.3f}; #4 "
+               f"per-interval T={t_short} {times['interval_short']:.3f} (device "
+               f"{times['interval_short_device']:.4f}); #3 trajectory T={ts_full.shape[0]} "
+               f"{times['rollout']:.3f}; #5 rate {rate:.4e} node-evals/s")
+    phase_line(f"phase 11 what sets #5's time (device ms): all {p} candidates {what['full_ms']:.4f} "
+               f"({what['warps']} warps, {what['warp_steps']} warp-steps, slowest {what['warp_steps_max']}); "
+               f"the first {p // 8} {what['part_ms']:.4f} ({what['part_warps']} warps, "
+               f"{what['part_warp_steps']} warp-steps, slowest {what['part_warp_steps_max']}); sorted by "
+               f"their slowest lane {what['sorted_ms']:.4f} ({what['sorted_warp_steps']} warp-steps, "
+               f"{what['sorted_warps_at_budget']} warps at the budget)")
+    return {"adaptive_times_ms": dict(times, global_node_evals_per_s=rate, what_sets_5=what)}
 
 
 # ----------------------------------------------------------- control path
@@ -1233,8 +1293,8 @@ def policy_kernels_phase(device, s, ps, trees_sr, fset_sr, x0s, ts_sr, ys_sr) ->
     a_args = (tt, x0s, ts_sr[:t5], ys_sr[:, :t5].contiguous(), trig, 1e-4, 1e-6,
               s["adaptive_budget"], "dopri5", 0.9)
     got5 = (ca.sr_fitness_adaptive_global_cuda if on_card else ca.sr_fitness_adaptive_global_plain)(*a_args)
-    same5, _, _, rel5, _, _, _ = compare_adaptive(got5, ca.sr_fitness_adaptive_global_plain(*a_args))
-    check(same5 >= 0.999, f"#5 sin/cos: {same5} of lanes identical")
+    same5, _, _, rel5, _ = compare_adaptive(got5, ca.sr_fitness_adaptive_global_plain(*a_args))
+    check(same5 == 1.0, f"#5 sin/cos: {same5} of lanes identical")
     k, b = min(s["top_k"], tt.ops.shape[0]), s["batch"]
     full = tt[:k].map(lambda a: a[:, None].expand((k, b) + a.shape[1:]).contiguous())
     states = torch.randn((k, b, 2, 2), generator=g, device=device) * 2
@@ -1761,17 +1821,19 @@ def chain_trees(trees, fset, lengths):
 
 
 def deep_phase(device, s, ps) -> dict:
-    """Phase 17: the instances of #1, #2, #6 and #7 for trees of up to 256
+    """Phase 17: the instances of #1, #2, #4-#7 for trees of up to 256
     rows against their plain versions. #1: 256 candidates of 2 trees of 256
     rows grown to depth 7, the first three chains of 255, 127 and 63 rows
     (the deepest stacks), x 16 VdP trajectories at T = 6, RK4 and Euler x 4
-    with kick rows; #2: one island's 462 lanes of those parents, fresh trees
+    with kick rows; #5 (budget 40) and #4 (8 steps per interval), dopri5, on
+    the same lanes at T = 4; #2: one island's 462 lanes of those parents, fresh trees
     at depth 7; #6 on 256 dynamic Acrobot policies (RK4 x 2) and #7 on 256
     static ones (dopri5, 8 steps per interval), of 256 rows grown and
     chained the same way, x 16 trajectories at T = 3. Every lane identical
     (#2: its opcodes)."""
     import torch
 
+    from multitreegp_tpu_torch.core import cuda_adaptive as ca
     from multitreegp_tpu_torch.core import cuda_rollout as cf
     from multitreegp_tpu_torch.core.registry import build_function_set
     from multitreegp_tpu_torch.models.environments import VanDerPolOscillator
@@ -1799,6 +1861,29 @@ def deep_phase(device, s, ps) -> dict:
         res[key] = dict(identical=identical, lanes=alive.numel(), alive=float(alive.float().mean()),
                         max_abs_err=float((mse - ref).abs()[fin].max()), plain_ms=plain_ms)
     sizes = (trees.ops != 0).sum(-1)
+    # #5 and #4 on the same candidates, the horizon cut (the plain versions
+    # sweep all 256 rows at every stage)
+    t_a = s["deep_adaptive_t"]
+    adaptive = {}
+    for key, kernel, plain, budget in (
+            ("global", ca.sr_fitness_adaptive_global_cuda, ca.sr_fitness_adaptive_global_plain,
+             s["deep_adaptive_budget"]),
+            ("interval", ca.sr_fitness_adaptive_interval_cuda, ca.sr_fitness_adaptive_interval_plain,
+             s["deep_interval_steps"])):
+        args = (trees, x0s, ts[:t_a], ys[:, :t_a].contiguous(), fset, 1e-4, 1e-6, budget, "dopri5", 0.9)
+        got = (kernel if on_card else plain)(*args)
+        ref, plain_ms = timed_plain(lambda: plain(*args), device)
+        same, _, _, _, max_abs = compare_adaptive(got, ref)
+        check(same == 1.0, f"deep #{5 if key == 'global' else 4}: {same:.6f} of lanes identical")
+        st = got[2].float()
+        adaptive[key] = dict(identical=same, lanes=st.numel(), alive=float(got[1].float().mean()),
+                             max_abs_err=max_abs, plain_ms=plain_ms, budget=budget, steps_min=int(st.min()),
+                             steps_median=float(st.median()), steps_max=int(st.max()))
+    phase_line(f"phase 17 #5/#4 N={n} vs plain, dopri5, {st.numel()} lanes, T={t_a}: "
+               + "; ".join(f"{'#5' if k == 'global' else '#4'} budget {v['budget']} identical "
+                           f"{v['identical']:.6f}, alive {v['alive']:.4f}, steps per lane min {v['steps_min']} "
+                           f"median {v['steps_median']:.0f} max {v['steps_max']}, plain {v['plain_ms']:.1f} ms"
+                           for k, v in adaptive.items()))
     phase_line(f"phase 17 #1 N={n} vs plain, {alive.numel()} lanes, T={ts.shape[0]}, tree rows mean "
                f"{float(sizes.float().mean()):.1f} max {int(sizes.max())}: "
                + "; ".join(f"{k} identical {v['identical']:.6f}, alive {v['alive']:.4f}, plain "
@@ -1827,7 +1912,7 @@ def deep_phase(device, s, ps) -> dict:
                    f"{r['alive']:.4f}; plain {r['plain_ms']:.1f} ms"
                    + (f"; steps per lane min {r['steps_min']} median {r['steps_median']:.0f} max "
                       f"{r['steps_max']}" if kind == "adaptive" else ""))
-    return {"deep": dict(fitness=res, reproduce=rep, **deep_policy)}
+    return {"deep": dict(fitness=res, adaptive=adaptive, reproduce=rep, **deep_policy)}
 
 
 def sync(device) -> None:

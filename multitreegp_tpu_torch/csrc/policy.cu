@@ -56,8 +56,11 @@
 // (budget spent, dead, or t >= t1 - 1e-12), closes the interval (the reach
 // test, the save row, the next interval's t0 and the clip of dt), so a warp
 // runs as many iterations as its slowest lane's steps and saves, not the
-// sum over intervals of each interval's slowest lane. State, stages, t, dt
-// and the FSAL k1 live in registers; templates on the plant, the policy's
+// sum over intervals of each interval's slowest lane. A block holds at most
+// 128 trajectories of a candidate (a candidate with more spans several
+// blocks), so a block never exceeds 128 threads whatever the instance's
+// registers. State, stages, t, dt and the FSAL k1 live in registers;
+// templates on the plant, the policy's
 // state size (0 = static, d_aug = latent + state size) and the stack bound
 // (N <= 32 or 256). The tree's data vector has fixed slots [y (latent), a
 // (state size), u (controls), targets (2)], at most 10 wide; the wrapper
@@ -428,11 +431,18 @@ MTGP_HD void policy_adaptive_lane(const PolicyArgs& a, const Row* prog, const in
 enum Kind { kFixed = 0, kAdaptive = 1 };
 
 #ifdef __CUDACC__
-// The block's candidates' decoded trees in shared memory; this thread's
-// candidate's programs and first live rows, its trajectory and lane, or
-// false past the block's last candidate.
+// The most trajectories of one candidate a block holds (the wrapper's
+// THREADS_PER_BLOCK, core/cuda_rollout.py): a candidate with more spans
+// several blocks (gridDim.y), so a block never exceeds 128 threads whatever
+// the instance's registers.
+constexpr int kBlockLanes = 128;
+
+// A block holds `cpb` candidates x `bpb` of their trajectories (blockIdx.y
+// picks which). The block's candidates' decoded trees in shared memory;
+// this thread's candidate's programs and first live rows, its trajectory
+// and lane, or false past the block's last candidate or trajectory.
 template <class Env, int SS, int N>
-__device__ inline bool stage_lane(const PolicyArgs& a, int cpb, const Row** prog,
+__device__ inline bool stage_lane(const PolicyArgs& a, int cpb, int bpb, const Row** prog,
                                   const int** starts, int* b, size_t* lane) {
   constexpr int M = SS + Env::kControls;
   extern __shared__ unsigned char smem[];
@@ -440,9 +450,9 @@ __device__ inline bool stage_lane(const PolicyArgs& a, int cpb, const Row** prog
   int* s_start = reinterpret_cast<int*>(s_prog + static_cast<size_t>(cpb) * M * a.n);
   const int ncand = stage_programs<N>(a.ops, a.cst, a.devop, a.var_start, a.P, M, a.n, cpb,
                                       s_prog, s_start);
-  const int lc = threadIdx.x / a.B;
-  if (lc >= ncand) return false;
-  *b = threadIdx.x - lc * a.B;
+  const int lc = threadIdx.x / bpb;
+  *b = blockIdx.y * bpb + threadIdx.x - lc * bpb;
+  if (lc >= ncand || *b >= a.B) return false;
   *lane = static_cast<size_t>(blockIdx.x * cpb + lc) * a.B + *b;
   *prog = s_prog + static_cast<size_t>(lc) * M * a.n;
   *starts = s_start + lc * M;
@@ -450,34 +460,36 @@ __device__ inline bool stage_lane(const PolicyArgs& a, int cpb, const Row** prog
 }
 
 template <class Env, int SS, int N>
-__global__ void policy_kernel(PolicyArgs a, int cpb) {
+__global__ void policy_kernel(PolicyArgs a, int cpb, int bpb) {
   const Row* prog;
   const int* starts;
   int b;
   size_t lane;
-  if (stage_lane<Env, SS, N>(a, cpb, &prog, &starts, &b, &lane))
+  if (stage_lane<Env, SS, N>(a, cpb, bpb, &prog, &starts, &b, &lane))
     policy_lane<Env, SS, N>(a, prog, starts, b, lane);
 }
 
 template <class Env, int SS, int N>
-__global__ void policy_adaptive_kernel(PolicyArgs a, int cpb) {
+__global__ void policy_adaptive_kernel(PolicyArgs a, int cpb, int bpb) {
   const Row* prog;
   const int* starts;
   int b;
   size_t lane;
-  if (stage_lane<Env, SS, N>(a, cpb, &prog, &starts, &b, &lane))
+  if (stage_lane<Env, SS, N>(a, cpb, bpb, &prog, &starts, &b, &lane))
     policy_adaptive_lane<Env, SS, N>(a, prog, starts, b, lane);
 }
 
 template <class Env, int SS, int N>
 int launch(int kind, const PolicyArgs& a, int cpb, cudaStream_t stream) {
-  const int grid = (a.P + cpb - 1) / cpb;
+  const int bpb = a.B < kBlockLanes ? a.B : kBlockLanes;
+  if (cpb * bpb > 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((a.P + cpb - 1) / cpb, (a.B + bpb - 1) / bpb);
   const size_t smem = program_smem(cpb, a.m, a.n);  // the wrapper's cpb keeps it within 48 KB
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   if (kind == kFixed)
-    policy_kernel<Env, SS, N><<<grid, cpb * a.B, smem, stream>>>(a, cpb);
+    policy_kernel<Env, SS, N><<<grid, cpb * bpb, smem, stream>>>(a, cpb, bpb);
   else
-    policy_adaptive_kernel<Env, SS, N><<<grid, cpb * a.B, smem, stream>>>(a, cpb);
+    policy_adaptive_kernel<Env, SS, N><<<grid, cpb * bpb, smem, stream>>>(a, cpb, bpb);
   return static_cast<int>(cudaGetLastError());
 }
 #else
@@ -559,7 +571,7 @@ const char* mtgp_error_string(int status) {
 int policy_launch(int kind, const void* args, int cpb, void* stream) {
   constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
   const PolicyArgs* a = static_cast<const PolicyArgs*>(args);
-  if ((kind != kFixed && kind != kAdaptive) || cpb <= 0 || cpb * a->B > 1024) return kInvalid;
+  if ((kind != kFixed && kind != kAdaptive) || cpb <= 0) return kInvalid;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   MTGP_ENV_SWITCH
   return kInvalid;

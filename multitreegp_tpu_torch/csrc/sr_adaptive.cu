@@ -18,49 +18,72 @@
 // return the squared-error sum over the save points, liveness and the number
 // of attempted steps.
 //
-// What bounds it on this card: instruction issue, and warp divergence. A lane
-// reads its trees (staged once per block in shared memory), its ground-truth
-// rows and the save grid, a few KB; it does 3 (bosh3) or 6 (dopri5) tree
-// evaluations of its D trees per attempted step, and the number of attempts
-// is data-dependent (tens to the whole budget). A warp holds the B
-// trajectories of 32 / B candidates and runs until its slowest lane is done.
+// What bounds it on this card: the latency of each tree row's dependent
+// chain (the row's shared-memory load, its stack slot, the operator, the
+// select), then warp divergence. A lane reads its trees (staged once per
+// block in shared memory), its ground-truth rows and the save grid, a few KB;
+// it does 3 (bosh3) or 6 (dopri5) evaluations of its D trees per attempted
+// step, and the number of attempts is data-dependent (tens to the whole
+// budget). A warp holds the B trajectories of 32 / B candidates and runs
+// until its slowest lane is done.
 //
 // Design: one thread per lane, candidate-major (the B lanes of a candidate are
-// neighbouring threads running the same tree program). State, stages, t, dt,
-// the save index and the FSAL k1 live in registers; the tree stack (S floats)
-// in local memory. Unlike the TPU kernels, which spin for the whole budget
-// with every update predicated (Mosaic never skips), a thread stops once its
-// lane is done: a finished or dead lane's remaining iterations are no-ops
-// there, so per lane the result is the same. The TPU kernels' (8, 128) tiles,
-// `ts_ladder` select ladder, resident ys block and ysel ladder, size sort and
-// lane layout, and `go_scr` early exit existed because Mosaic cannot index per
-// lane or skip; a thread reads `ts[idx]` and `ys[b, idx]` directly.
+// neighbouring threads running the same tree program). A block decodes its
+// candidates' trees once, when it stages them into shared memory, into the
+// programs of tree_prog.cuh (the tree machine of #1, #6 and #7): 8-byte rows
+// with the device op id or data slot folded in, the first live row of each
+// tree, a static stack slot per row; the top of each tree's stack in a
+// register, the rest in local memory (N / 2 slots a tree: 16 floats at
+// N <= 32, 128 at N <= 256); the candidate's D trees run row by row in one
+// loop, D independent chains, every row branch-free. The drift is inlined at
+// rk_step's stage call sites: one out-of-line call per stage, as policy.cu's
+// adaptive kernel makes, ran #5 and #4 1.4x slower (H100 80GB HBM3, 700 W).
+// State, stages, t, dt, the save index and the FSAL k1 live in registers.
+// The per-interval lane is one flat loop: an iteration attempts a step of
+// the open interval or, once the interval is finished (budget spent, dead,
+// or t >= t1 - 1e-12), closes it (the reach test, the squared error at the
+// save point, the next interval's clamp of dt), so a warp runs as many
+// iterations as its slowest lane's steps and saves, not the sum over
+// intervals of each interval's slowest lane. A block holds at most 128 trajectories of a candidate (a
+// candidate with more spans several blocks, gridDim.y), so a block never
+// exceeds 128 threads whatever the instance's registers. Unlike the TPU
+// kernels, which spin for the whole budget with every update predicated
+// (Mosaic never skips), a thread stops once its lane is done: a finished or
+// dead lane's remaining iterations are no-ops there, so per lane the result
+// is the same. The TPU kernels' (8, 128) tiles, `ts_ladder` select ladder,
+// resident ys block and ysel ladder, size sort and lane layout, and `go_scr`
+// early exit existed because Mosaic cannot index per lane or skip; a thread
+// reads `ts[idx]` and `ys[b, idx]` directly. The variants measured with
+// kernel_ab are in PERF.md (section 6).
 //
 // Numerics: the kernels' float32 expressions in their order (the same as the
 // plain versions in core/cuda_adaptive.py); the step and the controller are
-// adaptive_step.cuh's, shared with the adaptive policy kernel (policy.cu).
-// Built with -fmad=false and IEEE division and square root.
+// adaptive_step.cuh's, shared with the adaptive policy kernel (policy.cu);
+// each tree row applies the operator of tree_eval.cuh to the operands
+// eval_tree would pop. Built with -fmad=false and IEEE division and square
+// root.
+//
+// The per-lane code is plain C++ under MTGP_HD, so the same file also
+// compiles for the host (without __CUDACC__) into a lane loop that decodes
+// every candidate as a block does and that tests run against the plain
+// versions on machines without a card.
 #include "adaptive_step.cuh"
 #include "sr_lane.cuh"
+#include "tree_prog.cuh"
 
 namespace {
 
-// A lane's trees: D trees of n rows, and the opcode table.
-struct Trees {
-  const int* ops;
-  const float* cst;
-  int n;
-  const int* devop;
-  int var_start;
-};
-
-// The drift functor of rk_step: k = trees(x), on this lane's stack.
-template <int D, int S, bool U>
+// The drift functor of rk_step: k = the candidate's D decoded trees at x, as
+// D independent chains of one row loop.
+template <int D, bool U>
 struct TreeDrift {
-  const Trees& tr;
-  float* stack;
+  const Row* prog;  // tree q's rows at prog + q * n
+  int first;        // the first live row of any of the D trees
+  int n;
+  float* stk;  // tree q's stack slots at stk + q * stride
+  int stride;
   MTGP_HD void operator()(const float (&x)[D], float (&k)[D]) const {
-    drift<D, S, U>(tr.ops, tr.cst, tr.n, tr.devop, tr.var_start, x, k, stack);
+    run_trees<D, D, U>(prog, first, n, x, k, stk, stride);
   }
 };
 
@@ -82,10 +105,9 @@ struct Control {
 // advances when t crosses ts[idx + 1], where t snaps to that save time, the
 // step is clamped to the new interval's span and the squared error at the
 // save is added. At the end a lane that has not reached the last save is dead.
-template <int D, int S, bool U>
-MTGP_HD void adaptive_global_lane(const Trees& tr, const LaneIO& io, const Control& c,
+template <int D, bool U>
+MTGP_HD void adaptive_global_lane(const TreeDrift<D, U>& f, const LaneIO& io, const Control& c,
                                   float* err_out, uint8_t* alive_out, int* steps_out) {
-  float stack[S];
   float x[D], k1[D];
 #pragma unroll
   for (int q = 0; q < D; ++q) x[q] = io.x0[q];
@@ -96,7 +118,6 @@ MTGP_HD void adaptive_global_lane(const Trees& tr, const LaneIO& io, const Contr
   int steps = 0;
   if (io.T > 1) {
     const float expo = error_exponent(c.method);
-    const TreeDrift<D, S, U> f{tr, stack};
     f(x, k1);  // the one up-front evaluation FSAL amortises
     float t = io.ts[0];
     float dt = (io.ts[1] - io.ts[0]) / 4.0f;
@@ -140,11 +161,14 @@ MTGP_HD void adaptive_global_lane(const Trees& tr, const LaneIO& io, const Contr
 // Per-interval budget: at most `budget` attempts inside each save interval;
 // t restarts at the interval's start, the carried dt is clamped to its span,
 // and a lane that has not reached the save point by then is dead. The squared
-// error is added at every save point, for dead (frozen) lanes too.
-template <int D, int S, bool U>
-MTGP_HD void adaptive_interval_lane(const Trees& tr, const LaneIO& io, const Control& c,
+// error is added at every save point, for dead (frozen) lanes too. One flat
+// loop: an iteration attempts a step of the open interval ti while the lane
+// has budget, lives and has not crossed t1; otherwise it closes the interval
+// and opens the next. The same steps, in the same order, as a loop over
+// intervals with a step loop inside each.
+template <int D, bool U>
+MTGP_HD void adaptive_interval_lane(const TreeDrift<D, U>& f, const LaneIO& io, const Control& c,
                                     float* err_out, uint8_t* alive_out, int* steps_out) {
-  float stack[S];
   float x[D], k1[D];
 #pragma unroll
   for (int q = 0; q < D; ++q) x[q] = io.x0[q];
@@ -153,16 +177,16 @@ MTGP_HD void adaptive_interval_lane(const Trees& tr, const LaneIO& io, const Con
   int steps = 0;
   if (io.T > 1) {
     const float expo = error_exponent(c.method);
-    const TreeDrift<D, S, U> f{tr, stack};
     f(x, k1);
     float dt = (io.ts[1] - io.ts[0]) / 4.0f;
-    for (int ti = 0; ti + 1 < io.T; ++ti) {
-      const float t0 = io.ts[ti];
-      const float t1 = io.ts[ti + 1];
-      const float span = t1 - t0;
-      float t = t0;
-      dt = clip(dt, span * kDtMin, span);
-      for (int s = 0; s < c.budget && alive && t < t1 - kCross; ++s) {
+    // the open interval [t0, t1) = [ts[ti], ts[ti + 1]), t in it, s its steps so far
+    int ti = 0, s = 0;
+    float t1 = io.ts[1];
+    float span = t1 - io.ts[0];
+    float t = io.ts[0];
+    dt = clip(dt, span * kDtMin, span);
+    while (true) {
+      if (s < c.budget && alive && t < t1 - kCross) {
         const float dt_c = nan_min(dt, t1 - t);
         float x_hi[D], k_last[D];
         const float err = rk_step<D>(f, c.method, x, k1, dt_c, c.rtol, c.atol, x_hi, k_last);
@@ -177,10 +201,19 @@ MTGP_HD void adaptive_interval_lane(const Trees& tr, const LaneIO& io, const Con
         }
         dt = clip(dt_c * step_factor(err, ok, c.safety, expo), span * kDtMin, span);
         alive = alive && (ok || dt_c > span * kDtDead);
+        ++s;
         ++steps;
+      } else {
+        alive = alive && t >= t1 - kReach * nan_max(fabsf(t1), 1.0f);
+        e_sum = e_sum + sq_err<D>(x, io.y + (ti + 1) * D);
+        if (++ti + 1 >= io.T) break;
+        const float t0 = io.ts[ti];
+        t1 = io.ts[ti + 1];
+        span = t1 - t0;
+        t = t0;
+        dt = clip(dt, span * kDtMin, span);
+        s = 0;
       }
-      alive = alive && t >= t1 - kReach * nan_max(fabsf(t1), 1.0f);
-      e_sum = e_sum + sq_err<D>(x, io.y + (ti + 1) * D);
     }
   }
   *err_out = e_sum;
@@ -190,84 +223,107 @@ MTGP_HD void adaptive_interval_lane(const Trees& tr, const LaneIO& io, const Con
 
 enum Budget { kGlobal = 0, kInterval = 1 };
 
-#ifdef __CUDACC__
-// This thread's trees and inputs, after staging the block's trees.
-template <int D>
-__device__ bool block_lane(const int* __restrict__ ops, const float* __restrict__ cst,
-                           const int* __restrict__ devop, const float* __restrict__ x0s,
-                           const float* __restrict__ ts, const float* __restrict__ ys, int P,
-                           int n, int B, int T, int var_start, int cpb, Trees* tr, LaneIO* io,
-                           size_t* lane) {
-  const int* t_ops;
-  const float* t_cst;
-  int b;
-  if (!stage_block(ops, cst, P, B, D * n, cpb, &t_ops, &t_cst, lane, &b)) return false;
-  *tr = Trees{t_ops, t_cst, n, devop, var_start};
-  *io = LaneIO{x0s + b * D, ts, ys + static_cast<size_t>(b) * T * D, T};
-  return true;
-}
+// Everything a launch reads and writes.
+struct Operands {
+  const int* ops;      // (P, D, n)
+  const float* cst;    // (P, D, n)
+  const int* devop;    // (num operators,) device op ids
+  const float* x0s;    // (B, D)
+  const float* ts;     // (T,)
+  const float* ys;     // (B, T, D)
+  float* err;          // (P, B)
+  uint8_t* alive;      // (P, B)
+  int* steps;          // (P, B)
+  int P, n, B, T, var_start;
+  Control c;
+};
 
-#define MTGP_KERNEL_PARAMS                                                                 \
-  const int *__restrict__ ops, const float *__restrict__ cst, const int *__restrict__ devop, \
-      const float *__restrict__ x0s, const float *__restrict__ ts,                        \
-      const float *__restrict__ ys, float *__restrict__ err, uint8_t *__restrict__ alive,  \
-      int *__restrict__ steps, int P, int n, int B, int T, int var_start, Control c, int cpb
-
-template <int D, int S, bool U>
-__global__ void adaptive_global_kernel(MTGP_KERNEL_PARAMS) {
-  Trees tr;
-  LaneIO io;
-  size_t lane;
-  if (block_lane<D>(ops, cst, devop, x0s, ts, ys, P, n, B, T, var_start, cpb, &tr, &io, &lane))
-    adaptive_global_lane<D, S, U>(tr, io, c, err + lane, alive + lane, steps + lane);
-}
-
-template <int D, int S, bool U>
-__global__ void adaptive_interval_kernel(MTGP_KERNEL_PARAMS) {
-  Trees tr;
-  LaneIO io;
-  size_t lane;
-  if (block_lane<D>(ops, cst, devop, x0s, ts, ys, P, n, B, T, var_start, cpb, &tr, &io, &lane))
-    adaptive_interval_lane<D, S, U>(tr, io, c, err + lane, alive + lane, steps + lane);
-}
-
-template <int D, int S, bool U>
-cudaError_t launch(int kind, const int* ops, const float* cst, const int* devop,
-                   const float* x0s, const float* ts, const float* ys, float* err,
-                   uint8_t* alive, int* steps, int P, int n, int B, int T, int var_start,
-                   Control c, int cpb, cudaStream_t stream) {
-  const int grid = (P + cpb - 1) / cpb;
-  const size_t smem = block_smem(cpb, D, n);
+// Trajectory b of the candidate whose drift is f, at output index `lane`.
+template <int D, bool U>
+MTGP_HD void run_lane(int kind, const TreeDrift<D, U>& f, const Operands& a, int b, size_t lane) {
+  const LaneIO io{a.x0s + b * D, a.ts, a.ys + static_cast<size_t>(b) * a.T * D, a.T};
   if (kind == kGlobal)
-    adaptive_global_kernel<D, S, U><<<grid, cpb * B, smem, stream>>>(
-        ops, cst, devop, x0s, ts, ys, err, alive, steps, P, n, B, T, var_start, c, cpb);
+    adaptive_global_lane<D, U>(f, io, a.c, a.err + lane, a.alive + lane, a.steps + lane);
   else
-    adaptive_interval_kernel<D, S, U><<<grid, cpb * B, smem, stream>>>(
-        ops, cst, devop, x0s, ts, ys, err, alive, steps, P, n, B, T, var_start, c, cpb);
+    adaptive_interval_lane<D, U>(f, io, a.c, a.err + lane, a.alive + lane, a.steps + lane);
+}
+
+#ifdef __CUDACC__
+// The most trajectories of one candidate a block holds (the wrapper's
+// THREADS_PER_BLOCK, core/cuda_rollout.py).
+constexpr int kBlockLanes = 128;
+
+// A block: `cpb` candidates x `bpb` of their trajectories (blockIdx.y picks
+// which), one thread per lane, candidate-major; the block's candidates'
+// trees decoded in shared memory.
+template <int D, bool U, int N>
+__device__ void block_lanes(int kind, const Operands& a, int cpb, int bpb) {
+  extern __shared__ unsigned char smem[];
+  Row* s_prog = reinterpret_cast<Row*>(smem);  // cpb * D trees of n rows
+  int* s_start = reinterpret_cast<int*>(s_prog + static_cast<size_t>(cpb) * D * a.n);
+  const int ncand =
+      stage_programs<N>(a.ops, a.cst, a.devop, a.var_start, a.P, D, a.n, cpb, s_prog, s_start);
+  const int lc = threadIdx.x / bpb;
+  const int b = blockIdx.y * bpb + threadIdx.x - lc * bpb;
+  if (lc >= ncand || b >= a.B) return;
+  float stk[D * stack_slots<N>()];  // tree q's slots at q * stack_slots<N>()
+  int first = a.n;
+#pragma unroll
+  for (int q = 0; q < D; ++q) first = min(first, s_start[lc * D + q]);
+  const TreeDrift<D, U> f{s_prog + static_cast<size_t>(lc) * D * a.n, first, a.n, stk,
+                          stack_slots<N>()};
+  run_lane<D, U>(kind, f, a, b, static_cast<size_t>(blockIdx.x * cpb + lc) * a.B + b);
+}
+
+template <int D, bool U, int N>
+__global__ void adaptive_global_kernel(Operands a, int cpb, int bpb) {
+  block_lanes<D, U, N>(kGlobal, a, cpb, bpb);
+}
+
+template <int D, bool U, int N>
+__global__ void adaptive_interval_kernel(Operands a, int cpb, int bpb) {
+  block_lanes<D, U, N>(kInterval, a, cpb, bpb);
+}
+
+template <int D, bool U, int N>
+cudaError_t launch(int kind, const Operands& a, int cpb, cudaStream_t stream) {
+  const int bpb = a.B < kBlockLanes ? a.B : kBlockLanes;
+  if (cpb * bpb > 1024) return cudaErrorInvalidValue;
+  const dim3 grid((a.P + cpb - 1) / cpb, (a.B + bpb - 1) / bpb);
+  const size_t smem = program_smem(cpb, D, a.n);
+  void (*kernel)(Operands, int, int) =
+      kind == kGlobal ? &adaptive_global_kernel<D, U, N> : &adaptive_interval_kernel<D, U, N>;
+  if (smem > 48 * 1024) {  // the wrapper sizes cpb by the rows alone
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<grid, cpb * bpb, smem, stream>>>(a, cpb, bpb);
   return cudaGetLastError();
 }
 #else
-template <int D, int S, bool U>
-void launch(int kind, const int* ops, const float* cst, const int* devop, const float* x0s,
-            const float* ts, const float* ys, float* err, uint8_t* alive, int* steps, int P,
-            int n, int B, int T, int var_start, Control c) {
-  for (int p = 0; p < P; ++p)
-    for (int b = 0; b < B; ++b) {
-      const size_t lane = static_cast<size_t>(p) * B + b;
-      const size_t tree = static_cast<size_t>(p) * D * n;
-      const Trees tr{ops + tree, cst + tree, n, devop, var_start};
-      const LaneIO io{x0s + b * D, ts, ys + static_cast<size_t>(b) * T * D, T};
-      if (kind == kGlobal)
-        adaptive_global_lane<D, S, U>(tr, io, c, err + lane, alive + lane, steps + lane);
-      else
-        adaptive_interval_lane<D, S, U>(tr, io, c, err + lane, alive + lane, steps + lane);
+template <int D, bool U, int N>
+void launch(int kind, const Operands& a) {
+  Row prog[D * N];
+  float stk[D * stack_slots<N>()];
+  for (int p = 0; p < a.P; ++p) {
+    const size_t tree = static_cast<size_t>(p) * D * a.n;
+    for (int i = 0; i < D * a.n; ++i) prog[i] = Row{a.ops[tree + i], a.cst[tree + i]};
+    int first = a.n;
+    for (int q = 0; q < D; ++q) {
+      const int start = decode_tree<N>(prog + q * a.n, a.n, a.devop, a.var_start);
+      first = start < first ? start : first;
     }
+    const TreeDrift<D, U> f{prog, first, a.n, stk, stack_slots<N>()};
+    for (int b = 0; b < a.B; ++b) run_lane<D, U>(kind, f, a, b, static_cast<size_t>(p) * a.B + b);
+  }
 }
 #endif
 
-bool bad_args(int kind, int P, int n, int B, int T, int method, int budget) {
-  return (kind != kGlobal && kind != kInterval) || P <= 0 || n <= 0 || n > kMaxNodes ||
-         B <= 0 || T <= 0 || budget < 0 || (method != kBosh3 && method != kDopri5);
+bool bad_args(int kind, const Operands& a) {
+  return (kind != kGlobal && kind != kInterval) || a.P <= 0 || a.n <= 0 || a.n > kMaxNodes ||
+         a.B <= 0 || a.T <= 0 || a.c.budget < 0 ||
+         (a.c.method != kBosh3 && a.c.method != kDopri5);
 }
 
 }  // namespace
@@ -277,19 +333,22 @@ bool bad_args(int kind, int P, int n, int B, int T, int method, int budget) {
       const float *ts, const float *ys, float *err, uint8_t *alive, int *steps, int P,     \
       int d, int n, int B, int T, int var_start, int unary, int method, int budget,      \
       float rtol, float atol, float safety
-#define MTGP_ADAPTIVE_INPUTS \
-  kind, ops, cst, devop, x0s, ts, ys, err, alive, steps, P, n, B, T, var_start, ctl
+#define MTGP_OPERANDS                                                                   \
+  const Operands a{ops, cst, devop, x0s, ts, ys, err, alive, steps, P, n, B, T, var_start, \
+                   Control{method, budget, rtol, atol, safety}}
 
-// One instance per state dim D, stack bound S (32 covers N <= 32) and
-// unary operators or none.
-#define MTGP_BY_UNARY(CALL, D, S) (unary ? CALL(D, S, true) : CALL(D, S, false))
-#define MTGP_ADAPTIVE_SWITCH(CALL)                                                       \
-  switch (d) {                                                                           \
-    case 1: return n <= 32 ? MTGP_BY_UNARY(CALL, 1, 32) : MTGP_BY_UNARY(CALL, 1, kMaxNodes); \
-    case 2: return n <= 32 ? MTGP_BY_UNARY(CALL, 2, 32) : MTGP_BY_UNARY(CALL, 2, kMaxNodes); \
-    case 3: return n <= 32 ? MTGP_BY_UNARY(CALL, 3, 32) : MTGP_BY_UNARY(CALL, 3, kMaxNodes); \
-    case 4: return n <= 32 ? MTGP_BY_UNARY(CALL, 4, 32) : MTGP_BY_UNARY(CALL, 4, kMaxNodes); \
-    default: break;                                                                      \
+// One instance per state dim D, unary operators or none, and tree bound N
+// (32, or kMaxNodes = 256).
+#define MTGP_BY_NODES(CALL, D)                                                   \
+  (n <= 32 ? (unary ? CALL(D, true, 32) : CALL(D, false, 32))                    \
+           : (unary ? CALL(D, true, kMaxNodes) : CALL(D, false, kMaxNodes)))
+#define MTGP_ADAPTIVE_SWITCH(CALL)               \
+  switch (d) {                                   \
+    case 1: return MTGP_BY_NODES(CALL, 1);       \
+    case 2: return MTGP_BY_NODES(CALL, 2);       \
+    case 3: return MTGP_BY_NODES(CALL, 3);       \
+    case 4: return MTGP_BY_NODES(CALL, 4);       \
+    default: break;                              \
   }
 
 extern "C" {
@@ -304,13 +363,13 @@ const char* mtgp_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
-// Launches on `stream`; returns cudaGetLastError() of the launch.
+// Launches on `stream` with `cpb` candidates per block; returns
+// cudaGetLastError() of the launch.
 int sr_adaptive_launch(MTGP_ADAPTIVE_ARGS, int cpb, void* stream) {
-  if (bad_args(kind, P, n, B, T, method, budget) || cpb <= 0 || cpb * B > 1024)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Control ctl{method, budget, rtol, atol, safety};
+  MTGP_OPERANDS;
+  if (bad_args(kind, a) || cpb <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MTGP_CALL(D, S, U) static_cast<int>(launch<D, S, U>(MTGP_ADAPTIVE_INPUTS, cpb, s))
+#define MTGP_CALL(D, U, N) static_cast<int>(launch<D, U, N>(kind, a, cpb, s))
   MTGP_ADAPTIVE_SWITCH(MTGP_CALL)
 #undef MTGP_CALL
   return static_cast<int>(cudaErrorInvalidValue);
@@ -318,9 +377,9 @@ int sr_adaptive_launch(MTGP_ADAPTIVE_ARGS, int cpb, void* stream) {
 #else
 // host build of the same per-lane code (tests without a card)
 int sr_adaptive_host(MTGP_ADAPTIVE_ARGS) {
-  if (bad_args(kind, P, n, B, T, method, budget)) return 1;
-  const Control ctl{method, budget, rtol, atol, safety};
-#define MTGP_CALL(D, S, U) (launch<D, S, U>(MTGP_ADAPTIVE_INPUTS), 0)
+  MTGP_OPERANDS;
+  if (bad_args(kind, a)) return 1;
+#define MTGP_CALL(D, U, N) (launch<D, U, N>(kind, a), 0)
   MTGP_ADAPTIVE_SWITCH(MTGP_CALL)
 #undef MTGP_CALL
   return 1;

@@ -1,8 +1,8 @@
 // Per-lane code shared by the SR rollout kernels: the liveness test and the
 // squared error of one state (sr_fitness.cu, sr_adaptive.cu, sr_rollout.cu);
 // the candidate's drift by the stack machine of tree_eval.cuh and, on the
-// card, the staging of a block's trees in shared memory (sr_adaptive.cu,
-// sr_rollout.cu; sr_fitness.cu decodes its trees with tree_prog.cuh).
+// card, the staging of a block's trees in shared memory (sr_rollout.cu;
+// sr_fitness.cu and sr_adaptive.cu decode their trees with tree_prog.cuh).
 //
 // A lane is one candidate on one trajectory. Its D trees (one per state
 // component) are evaluated by the stack machine of tree_eval.cuh on the

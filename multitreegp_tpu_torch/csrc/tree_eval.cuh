@@ -1,8 +1,8 @@
-// The tree stack machine of the per-lane SR kernels #3, #4 and #5 (through
-// sr_lane.cuh), and the operators, leaf lookup and constants of every tree
-// kernel: the decoded programs of #1 and the policy kernels #6/#7
-// (tree_prog.cuh, whose rows compute what eval_tree computes), the
-// interpreter kernels (interpreter.cu) and the plants (control_envs.cuh).
+// The tree stack machine of the trajectory kernel #3 (through sr_lane.cuh),
+// and the operators, leaf lookup and constants of every tree kernel: the
+// decoded programs of #1, the adaptive SR kernels #4/#5 and the policy
+// kernels #6/#7 (tree_prog.cuh, whose rows compute what eval_tree computes),
+// the interpreter kernels (interpreter.cu) and the plants (control_envs.cuh).
 //
 // A tree is `n` rows in the root-last, padding-first layout of
 // core/trees.py. Evaluated as a postorder stack machine: a binary row's first

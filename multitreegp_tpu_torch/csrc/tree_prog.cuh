@@ -1,7 +1,7 @@
 // Decoded tree programs: the tree machine of the kernels that evaluate a
 // candidate's trees at every stage of a rollout, the fused SR fitness
-// (sr_fitness.cu, #1) and the closed-loop policy kernels (policy.cu, #6 and
-// #7).
+// (sr_fitness.cu, #1), the adaptive SR fitness (sr_adaptive.cu, #4 and #5)
+// and the closed-loop policy kernels (policy.cu, #6 and #7).
 //
 // A block decodes its candidates' trees once, when it stages them into
 // shared memory (stage_programs), into programs of 8-byte rows

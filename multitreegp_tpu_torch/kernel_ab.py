@@ -11,15 +11,16 @@ main path's shapes (8 x 512 candidates of 2 trees, ``max_nodes=32``, ``+ - * /``
 Van der Pol trajectories), of the fused SR fitness (kernel #1, RK4, T = 50),
 the fused reproduction (kernel #2, one generation's 3,696 lanes: the
 operands its own ``reproduce_pairs`` gives it, in that version's layout),
-the trajectory rollout (#3, RK4, T = 50) and the global-budget adaptive
-fitness (#5, dopri5, budget 500, T = 50), and at the control path's shapes
-(Acrobot, 4096 policies of ``max_nodes=30``, ``+ - * sin cos``, x 16
-trajectories, T = 250) of the fixed-step policy rollout (#6, RK4 x 4) and
-the adaptive one (#7, dopri5, 8 steps per interval), static and dynamic
+the trajectory rollout (#3, RK4, T = 50), the per-interval adaptive fitness
+(#4, dopri5, 32 steps per interval, T = 10) and the global-budget one (#5,
+dopri5, budget 500, T = 50), and at the control path's shapes (Acrobot,
+4096 policies of ``max_nodes=30``, ``+ - * sin cos``, x 16 trajectories,
+T = 250) of the fixed-step policy rollout (#6, RK4 x 4) and the adaptive
+one (#7, dopri5, 8 steps per interval), static and dynamic
 (``state_size=2``). A process that built the kernels first prints each
-``nvcc``'s seconds and, per instance of the policy kernels for Acrobot at
-N <= 32, ptxas's registers, stack frame and spills. Two versions compare
-only within one such run.
+``nvcc``'s seconds and ptxas's registers, stack frame and spills per
+instance of the policy kernels for Acrobot at N <= 32 and of the adaptive
+SR kernels at state dim 2. Two versions compare only within one such run.
 """
 from __future__ import annotations
 
@@ -52,11 +53,13 @@ def time_kernels(root: Path) -> str:
     built = {k: v for k, v in pkg._build.build_seconds.items() if v > 0}
     if built:  # printed before the runs, so a run that fails leaves it
         line = "nvcc " + ", ".join(f"{k} {v:.1f} s" for k, v in built.items())
-        if "policy" in pkg._build.build_logs:
-            line += "; ptxas " + ", ".join(
-                f"{k} {r} registers {st} B stack {sp} B spilled"
-                for k, r, st, sp in ptxas_report(pkg._build.build_logs["policy"])
-                if "AcrobotEnv<0" in k and k.endswith(",32>"))
+        shown = (("policy", lambda k: "AcrobotEnv<0" in k and k.endswith(",32>")),
+                 ("sr_adaptive", lambda k: re.search(r"_kernel<2,", k)))
+        for name, keep in shown:
+            if name in pkg._build.build_logs:
+                line += f"; ptxas {name} " + ", ".join(
+                    f"{k} {r} registers {st} B stack {sp} B spilled"
+                    for k, r, st, sp in ptxas_report(pkg._build.build_logs[name]) if keep(k))
         print(line, flush=True)
     dev = torch.device("cuda")
     fset = build_function_set([("+", 2, 0.5), ("-", 2, 0.1), ("*", 2, 0.5), ("/", 2, 0.1)],
@@ -102,6 +105,9 @@ def time_kernels(root: Path) -> str:
         "#1": (lambda: cf.sr_fitness_cuda(trees, x0s, ts, ys, fset, "rk4", 1), "sr_fitness_kernel", 30),
         "#2": (reproduction_launch(trees, fset, g), "reproduce_kernel", 30),
         "#3": (lambda: cf.sr_rollout_cuda(trees, x0s, ts, fset, "rk4", 1), "sr_rollout_kernel", 30),
+        "#4": (lambda: ca.sr_fitness_adaptive_interval_cuda(trees, x0s, ts[:10], ys[:, :10].contiguous(),
+                                                           fset, max_steps=32, method="dopri5"),
+               "adaptive_interval_kernel", 7),
         "#5": (lambda: ca.sr_fitness_adaptive_global_cuda(trees, x0s, ts, ys, fset, budget=500),
                "adaptive_global_kernel", 7),
     }

@@ -52,7 +52,7 @@ from multitreegp_tpu_torch.core import cuda_adaptive as ca
 from multitreegp_tpu_torch.core.interpreter import evaluate_trees
 from multitreegp_tpu_torch.models.evaluators import SREvaluator
 from multitreegp_tpu_torch.models.integrators import adaptive_step_budget, integrate_adaptive
-from test_torch_kernels import host_pow, patch_host_math
+from test_torch_kernels import ARITH, TRIG, fitness_case, host_pow, patch_host_math, state4_case
 
 torch.set_num_threads(1)
 
@@ -177,25 +177,74 @@ def same_bits(a, b):
     return bool(((a == b) | (np.isnan(a) & np.isnan(b))).all())
 
 
-@pytest.mark.parametrize("method", METHODS)
-@pytest.mark.parametrize("kind", ["global", "interval"])
-def test_adaptive_host_build_matches_plain(adaptive_host, monkeypatch, kind, method):
-    jf, data, jpop, tf, (x0s, ts, ys, _), trees = vdp_case(t_end=1.4, pop=32)
-    k, budget, plain = ((ca.GLOBAL, 60, ca.sr_fitness_adaptive_global_plain) if kind == "global"
-                        else (ca.INTERVAL, 8, ca.sr_fitness_adaptive_interval_plain))
-    h_mse, h_alive, h_steps = host_run(adaptive_host, k, trees, x0s, ts, ys, tf, budget, method)
-    assert h_alive.any() and (~h_alive).any() and (h_steps >= budget).any()
+# kind: (the budget's kind, its steps). The sampled VdP population (N = 16) at budgets that
+# bind, and at 1 and 2 steps per interval, where intervals close on their
+# budget (the flat loop's order); N = 128 and 256 (chains of 255 / 127 / 63
+# rows, the deepest stacks, then trees grown to depth 7), and d = 4 at N = 256
+# (the shape whose block of decoded trees passes 48 KB of shared memory).
+HOST_CASES = {
+    "global": (ca.GLOBAL, 60), "interval": (ca.INTERVAL, 8),
+    "interval1": (ca.INTERVAL, 1), "interval2": (ca.INTERVAL, 2),
+    "global_n128": (ca.GLOBAL, 40), "interval_n128": (ca.INTERVAL, 8),
+    "global_n256": (ca.GLOBAL, 40), "interval_n256": (ca.INTERVAL, 8),
+    "global_d4_n256": (ca.GLOBAL, 40), "interval_d4_n256": (ca.INTERVAL, 8),
+}
 
-    # the plain version with the host's powf and an IEEE square root: every
-    # lane bit for bit
+
+def host_case(kind, trig=False):
+    """``(fset, x0s, ts, ys, trees)`` of a ``HOST_CASES`` kind: VdP data and
+    a sampled population of 32 (N = 16); at N = 128 / 256, 6 candidates of
+    2 trees x 2 VdP trajectories at T = 4 (``test_torch_kernels.fitness_case``);
+    with ``d4``, 6 candidates of 4 trees x 2 trajectories of numpy data made
+    from a seed (``test_torch_kernels.state4_case``). ``trig`` adds ``sin``
+    and ``cos``."""
+    if "_n" not in kind:
+        ops = OPS + [("sin", jnp.sin, 1, 0.3), ("cos", jnp.cos, 1, 0.3)] if trig else OPS
+        jf, data, jpop, tf, (x0s, ts, ys, _), trees = vdp_case(t_end=1.4, pop=32, ops=ops)
+        return tf, x0s, ts, ys, trees
+    n = int(kind[-3:])
+    ops = ARITH + TRIG if trig else ARITH
+    fset, trees, x0s, ts, ys = (fitness_case(pop=6, b=2, t_end=0.8, ops=ops, n=n, depth=7)
+                                if "_d4_" not in kind else state4_case(n=n, ops=ops))
+    return fset, x0s, ts, ys, trees
+
+
+def host_matches_plain(lib, kind, method, monkeypatch, trig=False):
+    """Kernel #5 or #4's host build against its plain version with the
+    host's ``powf`` (and ``sinf``/``cosf`` with ``trig``) and an IEEE square
+    root: every lane's error sum, alive and attempted steps bit for bit.
+    Returns the host build's outputs and the case."""
+    k, budget = HOST_CASES[kind]
+    plain = ca.sr_fitness_adaptive_global_plain if k == ca.GLOBAL else ca.sr_fitness_adaptive_interval_plain
+    tf, x0s, ts, ys, trees = case = host_case(kind, trig)
+    h_mse, h_alive, h_steps = host_run(lib, k, trees, x0s, ts, ys, tf, budget, method)
     with monkeypatch.context() as m:
+        if trig:
+            patch_host_math(m)
         m.setattr(torch, "pow", glibc_pow)
         m.setattr(torch, "sqrt", ieee_sqrt)
         mse, alive, steps = plain(trees, x0s, ts, ys, tf, 1e-4, 1e-6, budget, method)
     np.testing.assert_array_equal(alive.numpy(), h_alive)
     np.testing.assert_array_equal(steps.numpy(), h_steps)
     assert same_bits(mse.numpy(), h_mse)
+    return (h_mse, h_alive, h_steps), case, plain
 
+
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("kind", list(HOST_CASES))
+def test_adaptive_host_build_matches_plain(adaptive_host, monkeypatch, kind, method):
+    (h_mse, h_alive, h_steps), (tf, x0s, ts, ys, trees), plain = host_matches_plain(
+        adaptive_host, kind, method, monkeypatch)
+    budget = HOST_CASES[kind][1]
+    if "_n" in kind:  # trees of more than 32 rows, every lane stepping
+        assert int((trees.ops != 0).sum(-1).max()) > 32 and h_steps.min() > 0
+        return
+    if budget == 1:  # one step never reaches a save point: every lane dies in its first interval
+        assert not h_alive.any() and (h_steps == 1).all()
+        return
+    assert h_alive.any() and (~h_alive).any() and (h_steps >= budget).any()
+    if kind not in ("global", "interval"):
+        return
     # with PyTorch's own CPU pow
     mse, alive, steps = plain(trees, x0s, ts, ys, tf, 1e-4, 1e-6, budget, method)
     a = alive.numpy()
@@ -204,25 +253,16 @@ def test_adaptive_host_build_matches_plain(adaptive_host, monkeypatch, kind, met
     assert rel(h_mse[both], mse.numpy()[both]).max() <= 1e-3
 
 
-@pytest.mark.parametrize("kind", ["global", "interval"])
+@pytest.mark.parametrize("kind", ["global", "interval", "interval1", "interval2", "global_n256",
+                                  "interval_n256"])
 def test_adaptive_host_build_trig_matches_plain(adaptive_host, monkeypatch, kind):
     """Kernels #5 and #4 with ``sin``/``cos`` rows (dopri5): every output bit
     for bit, with the host's ``powf``, ``sinf``, ``cosf`` and an IEEE square
     root in the plain version."""
-    trig = OPS + [("sin", jnp.sin, 1, 0.3), ("cos", jnp.cos, 1, 0.3)]
-    jf, data, jpop, tf, (x0s, ts, ys, _), trees = vdp_case(t_end=1.4, pop=32, ops=trig)
-    assert bool((trees.ops == tf.string_to_op["sin"]).any())
-    k, budget, plain = ((ca.GLOBAL, 60, ca.sr_fitness_adaptive_global_plain) if kind == "global"
-                        else (ca.INTERVAL, 8, ca.sr_fitness_adaptive_interval_plain))
-    h_mse, h_alive, h_steps = host_run(adaptive_host, k, trees, x0s, ts, ys, tf, budget, "dopri5")
-    with monkeypatch.context() as m:
-        patch_host_math(m)
-        m.setattr(torch, "pow", glibc_pow)
-        m.setattr(torch, "sqrt", ieee_sqrt)
-        mse, alive, steps = plain(trees, x0s, ts, ys, tf, 1e-4, 1e-6, budget, "dopri5")
-    np.testing.assert_array_equal(alive.numpy(), h_alive)
-    np.testing.assert_array_equal(steps.numpy(), h_steps)
-    assert same_bits(mse.numpy(), h_mse) and h_alive.any()
+    (h_mse, h_alive, h_steps), (tf, _, _, _, trees), _ = host_matches_plain(
+        adaptive_host, kind, "dopri5", monkeypatch, trig=True)
+    unary = (trees.ops == tf.string_to_op["sin"]) | (trees.ops == tf.string_to_op["cos"])
+    assert bool(unary.any()) and (h_alive.any() or HOST_CASES[kind][1] == 1)
 
 
 # ------------------------------------------ (c) global == per-interval plain

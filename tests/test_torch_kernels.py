@@ -14,11 +14,12 @@ Two routes:
   for bit; the branch probe #10 in every mode, bit for bit); the closed-loop policy kernels (#6 fixed
   step, #7 adaptive) per lane bit for bit, states, controls, alive counts
   and steps (also their instances for N <= 256, on chains of 255, 127 and
-  63 rows), and the policy evaluators' refusal to run a plain version on
+  63 rows, and at 1024 trajectories), and the policy evaluators' refusal to run a plain version on
   CUDA tensors; the interpreter kernels (forward and VJP)
   through ``evaluate_trees`` and autograd, bit for bit per lane against the
   plain version on the card; the adaptive kernels (#5 global budget, #4 per
-  interval) and the trajectory kernel (#3) against their plain versions,
+  interval; also their instances for N <= 256, state dim 4 and 1024
+  trajectories) and the trajectory kernel (#3) against their plain versions,
   bit for bit per lane (the card's ``powf`` and ``sqrtf`` are PyTorch's), and
   their dispatchers' launch counters and refusals. This file imports no JAX,
   so it also runs where the card is (``pytest --noconftest``).
@@ -185,6 +186,22 @@ def fitness_case(device="cpu", pop=24, b=4, t_end=1.6, ops=ARITH, n=N, depth=4):
     trees = make_population_sampler(fset, depth, n)(g, pop)[0]
     if n > N:
         trees = with_chains(trees, fset, [n - 1, min(127, n - 1), 63])
+    return fset, trees, x0s, ts, ys
+
+
+def state4_case(device="cpu", pop=6, b=2, n=256, t_steps=4, ops=ARITH, seed=4):
+    """State dim 4: ``pop`` candidates of 4 trees of ``n`` rows grown to
+    depth 7, the first three chains of ``n - 1``, 127 and 63 rows, on ``b``
+    trajectories of numpy data made from ``seed`` (x0 and ground truth
+    standard normal) at ``ts = 0, 0.2, ...``: ``(fset, trees, x0s, ts, ys)``."""
+    fset = build_function_set(ops, [["x0", "x1", "x2", "x3"]], [4])
+    g = torch.Generator(device=device).manual_seed(seed)
+    trees = make_population_sampler(fset, 7, n)(g, pop)[0]
+    trees = with_chains(trees, fset, [n - 1, min(127, n - 1), min(63, n - 1)])
+    rng = np.random.default_rng(seed)
+    x0s = torch.from_numpy(rng.normal(size=(b, 4)).astype(np.float32)).to(device)
+    ys = torch.from_numpy(rng.normal(size=(b, t_steps, 4)).astype(np.float32)).to(device)
+    ts = torch.arange(t_steps, dtype=torch.float32, device=device) * 0.2
     return fset, trees, x0s, ts, ys
 
 
@@ -567,6 +584,33 @@ def test_adaptive_kernels_match_plain_on_card(cuda, method):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("method,trig", [("dopri5", False), ("bosh3", True)])
+def test_adaptive_kernels_deep_match_plain_on_card(cuda, method, trig):
+    """#5 and #4's instances for N <= 256, one launch each, every lane's
+    error sum, alive and attempted steps equal to the plain version on the
+    card (budgets 40 for the whole solve, 8 per interval; bosh3 with sin and
+    cos): 256 VdP candidates of 256 rows (chains of 255, 127 and 63 rows,
+    then trees grown to depth 7) x 16 trajectories at T = 4; state dim 4 at
+    N = 256 with 24 candidates x 16 trajectories (a block's decoded trees
+    pass 48 KB of shared memory) and 4 candidates x 1024 trajectories (a
+    candidate spans 8 blocks)."""
+    ops = ARITH + TRIG if trig else ARITH
+    cases = (fitness_case(cuda, pop=256, b=16, t_end=0.8, ops=ops, n=256, depth=7),
+             state4_case(cuda, pop=24, b=16, ops=ops), state4_case(cuda, pop=4, b=1024, ops=ops))
+    for fset, trees, x0s, ts, ys in cases:
+        for kernel, plain, budget in (
+                (ca.sr_fitness_adaptive_global_cuda, ca.sr_fitness_adaptive_global_plain, 40),
+                (ca.sr_fitness_adaptive_interval_cuda, ca.sr_fitness_adaptive_interval_plain, 8)):
+            before = kernel.launches
+            mse, alive, steps = kernel(trees, x0s, ts, ys, fset, 1e-4, 1e-6, budget, method)
+            ref, ref_alive, ref_steps = plain(trees, x0s, ts, ys, fset, 1e-4, 1e-6, budget, method)
+            torch.cuda.synchronize()
+            assert kernel.launches == before + 1
+            assert torch.equal(alive, ref_alive) and torch.equal(steps, ref_steps)
+            assert same_bits(mse, ref) and bool((steps > 0).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("method,substeps", [("euler", 2), ("heun", 1), ("rk4", 1)])
 def test_rollout_kernel_matches_plain_on_card(cuda, method, substeps):
     fset, trees, x0s, ts, ys = fitness_case(cuda, pop=512, b=16, t_end=2.0)
@@ -665,6 +709,30 @@ def test_policy_kernels_deep_match_plain_on_card(cuda, state_size):
         assert cp.policy_rollout_adaptive_cuda.launches == before + 1
         assert all(same_bits(a, b) for a, b in zip(got[:2], ref[:2]))
         assert torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3])
+
+
+@pytest.mark.cuda
+def test_policy_kernels_wide_match_plain_on_card(cuda):
+    """#6 (RK4 x 2) and #7 (dopri5, 8 steps per interval) on 4 dynamic
+    Acrobot policies x 1024 trajectories, the most a candidate takes (a
+    candidate spans 8 blocks): one launch each, every lane's states,
+    controls, alive count and attempted steps equal to the plain version."""
+    env, fset, (x0, ts, tgt, _, _, par), trees = policy_case(cuda, state_size=2, pop=4, b=1024,
+                                                             t_end=1.2)
+    args = (trees, x0, ts, tgt, par, env, fset)
+    before = cp.policy_rollout_cuda.launches
+    got = cp.rollout_policy(*args, 2, "rk4", 2)
+    ref = cp.policy_rollout_plain(*args, 2, "rk4", 2)
+    torch.cuda.synchronize()
+    assert cp.policy_rollout_cuda.launches == before + 1
+    assert all(same_bits(a, b) for a, b in zip(got[:2], ref[:2])) and torch.equal(got[2], ref[2])
+    before = cp.policy_rollout_adaptive_cuda.launches
+    got = cp.rollout_policy_adaptive(*args, max_steps=8, state_size=2, return_steps=True)
+    ref = cp.policy_rollout_adaptive_plain(*args, max_steps=8, state_size=2)
+    torch.cuda.synchronize()
+    assert cp.policy_rollout_adaptive_cuda.launches == before + 1
+    assert all(same_bits(a, b) for a, b in zip(got[:2], ref[:2]))
+    assert torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3])
 
 
 @pytest.mark.cuda

@@ -193,9 +193,9 @@ def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
         shutil.copy(header, tmp_path)
     monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
     assert [p.name for p in _build.source_files("sr_adaptive")] == [
-        "sr_adaptive.cu", "adaptive_step.cuh", "sr_lane.cuh", "tree_eval.cuh"]
+        "sr_adaptive.cu", "adaptive_step.cuh", "sr_lane.cuh", "tree_prog.cuh", "tree_eval.cuh"]
     for header, touched in (("sr_lane.cuh", {"sr_fitness", "sr_adaptive", "sr_rollout"}),
-                            ("tree_prog.cuh", {"sr_fitness", "policy"}),
+                            ("tree_prog.cuh", {"sr_fitness", "sr_adaptive", "policy"}),
                             ("control_envs.cuh", {"policy"}),
                             ("tree_eval.cuh", set(names) - {"reproduce"})):
         before = {n: _build.library_path(n) for n in names}

@@ -128,11 +128,13 @@ def test_chip_smoke_phases_rehearse_on_cpu():
                 policy_fixed_t=4, policy_adaptive_t=3, legs_pop=8, legs_t=3, trig_adaptive_t=3,
                 policy_opt_top_k=4, policy_opt_steps=2, policy_opt_t=4,
                 noise=0.05, noisy_adaptive_t=3, ab_runs=1, probe_reps=2,
-                deep_nodes=64, deep_depth=5, deep_pop=8, deep_t=3, deep_rep_pop=16, deep_policy_t=3)
+                deep_nodes=64, deep_depth=5, deep_pop=8, deep_t=3, deep_rep_pop=16, deep_policy_t=3,
+                deep_adaptive_t=3, deep_adaptive_budget=40, deep_interval_steps=8)
     out = chip_smoke.run(torch.device("cpu"), tiny)
     assert out["fitness"]["bit_equal"] and out["reproduce"]["ops_identical"] == 1.0
     deep = out["deep"]
     assert all(v["identical"] == 1.0 for v in deep["fitness"].values())
+    assert all(v["identical"] == 1.0 and v["lanes"] == 8 * 4 for v in deep["adaptive"].values())
     assert deep["reproduce"]["ops_identical"] == 1.0 and deep["reproduce"]["lanes"] == 16
     for kind, policies in (("policy_fixed", "dynamic"), ("policy_adaptive", "static")):
         r = deep[kind]
@@ -152,6 +154,9 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     assert path["adaptive"]["steps_max"] <= 8 * 4
     assert set(out["adaptive_kernels"]) == {"global_t3", "global_t5", "interval_t3", "rollout"}
     assert all(v["identical"] == 1.0 for v in out["adaptive_kernels"].values())
+    g5 = out["adaptive_kernels"]["global_t5"]  # 32 candidates x 4 trajectories: 4 warps
+    assert g5["warps"] == 4 and g5["warp_steps_max"] == g5["steps_max"] <= 40
+    assert g5["warp_steps_min"] >= g5["steps_min"] and 0 <= g5["warps_at_budget"] <= 4
     path = out["adaptive_path"]
     assert len(path["generations"]) == 2 and path["refined_sum"] <= path["unrefined_sum"]
     assert set(path["telemetry"]) == {"global", "interval"} and path["telemetry"]["global"]["max"] <= 40

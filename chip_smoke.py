@@ -23,13 +23,21 @@ workload (phases 12-14). Phases, one line or a few each:
    kernels' own device time per launch by torch.profiler);
 6. interpreter forward and VJP kernels vs their plain versions, per lane, at
    the constant-optimisation recompute's 50 x 16 x 2 lanes and at the whole
-   population's 4096 x 16 x 2 lanes;
+   population's 4096 x 16 x 2 lanes, through ``evaluate_trees`` and autograd
+   on one tree per lane, and in the recompute's layout (trees ``(K, 1, 2,
+   N)`` against states ``(K, 16, 1, 2)``: lanes grouped by the tree they
+   share) on the VJP's per-lane outputs; every lane identical;
 7. the constant-optimisation path: ``fit()`` for 20 generations with
    ``coefficient_optimisation=True`` (top-k 50, 10 Adam steps), so rounds run
    at generations 14 and 19; all four launch counters read around it, the
    refined top-k fitness against the unrefined, ms per generation and per
    round (split into the fused forward, the recompute and its backward);
-8. interpreter kernel and plain-version times at both shapes (CUDA events);
+8. interpreter kernel and plain-version times at both shapes (CUDA events;
+   the kernels' device time per launch by torch.profiler), the dispatcher
+   ``evaluate_trees`` forward and forward + backward through autograd (what
+   a drift call of the recompute pays), and the wrappers' host time per
+   call split into ``_operands`` (the layout cache), the ``ctypes`` call and
+   the rest;
 9. the adaptive kernels (#5 global budget, #4 per interval; Dormand-Prince
    5(4)) and the trajectory kernel (#3) against their plain versions at the
    full width of 4096 x 16 lanes, every lane identical: #5 with the budget
@@ -83,10 +91,11 @@ workload (phases 12-14). Phases, one line or a few each:
 16. the branch probe (#10, ``python -m multitreegp_tpu_torch.tools.branch_probe``):
    every mode against its plain version, then the tool's timing run, each
    mode's time beside its bound;
-17. the instances of #1, #2, #4-#7 for trees of up to 256 rows
+17. the instances of #1, #2, #4-#9 for trees of up to 256 rows
    against their plain versions: #1 on 256 candidates of 256 rows (chains
    of 255, 127 and 63 rows among them) x 16 trajectories at T = 6, RK4 and
-   Euler-Maruyama with kick rows; #5 (budget 40) and #4 (8 per interval),
+   Euler-Maruyama with kick rows; #8/#9 on the same trees against 16 states
+   each in the recompute's layout; #5 (budget 40) and #4 (8 per interval),
    dopri5, on the same lanes at T = 4; #2 on one island's 462 lanes of those
    parents; #6 (dynamic, RK4 x 2: the readout and the two state trees) and
    #7 (static, dopri5, 8 steps per interval) on 256 Acrobot policies of 256
@@ -422,17 +431,21 @@ def run(device, sizes=FULL) -> dict:
         row("interpret_fwd", "interpreter.cu", "multitreegp_tpu/core/pallas_interpreter.py:142",
             launches7["interpret_fwd"], interp["max_abs_err_fwd"], it.get("fwd_kernel"),
             it.get("fwd_plain"), fwd_bound, lanes=k_lanes, device_ms=it.get("fwd_device"),
+            dispatch_ms=it.get("dispatch_fwd"), host_us=it.get("host_us"),
             launches_adaptive=launches10["interpret_fwd"],
             population=dict(lanes=interp["population"]["lanes"], ms=it_pop.get("fwd_kernel"),
                             device_ms=it_pop.get("fwd_device"), plain_ms=it_pop.get("fwd_plain"),
-                            bound_ms=fwd_bound_pop[0], bound_by=fwd_bound_pop[1])),
+                            bound_ms=fwd_bound_pop[0], bound_by=fwd_bound_pop[1]),
+            deep=out["deep"]["interpreter"]),
         row("interpret_bwd", "interpreter.cu", "multitreegp_tpu/core/pallas_interpreter.py:178",
             launches7["interpret_bwd"], interp["max_abs_err_bwd"], it.get("bwd_kernel"),
             it.get("bwd_plain"), bwd_bound, lanes=k_lanes, device_ms=it.get("bwd_device"),
+            dispatch_fwd_bwd_ms=it.get("dispatch_fwd_bwd"),
             launches_adaptive=launches10["interpret_bwd"],
             population=dict(lanes=interp["population"]["lanes"], ms=it_pop.get("bwd_kernel"),
                             device_ms=it_pop.get("bwd_device"), plain_ms=it_pop.get("bwd_plain"),
-                            bound_ms=bwd_bound_pop[0], bound_by=bwd_bound_pop[1])),
+                            bound_ms=bwd_bound_pop[0], bound_by=bwd_bound_pop[1]),
+            deep=out["deep"]["interpreter"]),
     ]
     ak, at = out["adaptive_kernels"], out.get("adaptive_times_ms", {})
     g_long, i_short = ak[f"global_t{ts_full.shape[0]}"], ak[f"interval_t{s['adaptive_short_t']}"]
@@ -478,6 +491,14 @@ def run(device, sizes=FULL) -> dict:
             pb["max_abs_err"], always["ms"], always["plain_ms"],
             (always["bound_ms"], always["bound_by"]), modes=pb["modes"]))
     return out
+
+
+def same_bits(a, b) -> bool:
+    """Equal values, NaN where the other has NaN."""
+    import torch
+
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
 
 
 def lanes_identical(mse, alive, ref, ref_alive):
@@ -584,23 +605,56 @@ def interpreter_phase(device, s, trees, fset, g) -> dict:
         dconst, ddata = torch.autograd.grad(out, (const, xg), cot)
         ref = evaluate_trees_plain(full, x, fset)
         ref_c, ref_d = evaluate_trees_vjp_plain(full, x, cot, fset)
+        # the recompute's own layout, lanes grouped by the tree they share:
+        # the per-lane outputs of the VJP, before the wrapper sums them
+        out_g, dconst_g, ddata_g = grouped_per_lane(cands.map(lambda a: a[:, None]), states, cot, fset)
         sync(device)
         f = compare(out.detach(), ref, f"{name} forward")
         c = compare(dconst, ref_c, f"{name} dconst")
         d = compare(ddata, ref_d, f"{name} ddata")
-        err_f, err_b = max(err_f, f[0]), max(err_b, c[0], d[0])
+        fg = compare(out_g, ref, f"{name} forward, grouped")
+        cg = compare(dconst_g, ref_c, f"{name} dconst, grouped")
+        dg = compare(ddata_g, ref_d, f"{name} ddata, grouped")
+        err_f, err_b = max(err_f, f[0], fg[0]), max(err_b, c[0], d[0], cg[0], dg[0])
+        check(all(v[2] for v in (f, c, d, fg, cg, dg)), f"{name}: a lane differs from the plain version")
         rows = operator_rows(cands, fset)
         res[name] = dict(
             lanes=k * b * m, rows=rows, bit_equal=dict(fwd=f[2], dconst=c[2], ddata=d[2]),
+            bit_equal_grouped=dict(fwd=fg[2], dconst=cg[2], ddata=dg[2]),
             max_rel=dict(fwd=f[1], dconst=c[1], ddata=d[1]), finite=dict(fwd=f[3], dconst=c[3]),
             bytes=dict(fwd=nbytes(cands.ops, cands.c2, cands.const, states) + k * b * m * 4,
                        bwd=nbytes(cands.ops, cands.c2, cands.const, states, cot)
                        + nbytes(cands.const, states)))
         phase_line(f"phase 6 interpreter kernels vs plain, {name}: {k}x{b}x{m} = {k * b * m} lanes, "
             f"N {n}; forward max rel {f[1]:.3e} bit-equal {f[2]} (finite {f[3]:.4f}); dconst "
-            f"max rel {c[1]:.3e} bit-equal {c[2]}; ddata max rel {d[1]:.3e} bit-equal {d[2]}")
+            f"max rel {c[1]:.3e} bit-equal {c[2]}; ddata max rel {d[1]:.3e} bit-equal {d[2]}; "
+            f"grouped layout (trees (K, 1, m, N)) bit-equal forward {fg[2]}, dconst {cg[2]}, "
+            f"ddata {dg[2]}")
     res.update(max_abs_err_fwd=err_f, max_abs_err_bwd=err_b)
     return {"interpreter": res}
+
+
+def grouped_per_lane(trees, states, cot, fset):
+    """#8's roots and #9's per-lane ``dconst``/``ddata`` (before the
+    wrapper's sums) for trees broadcast against states, as the recompute
+    lays them out (consecutive lanes share a tree); on CPU tensors the plain
+    versions on one tree and one state per lane."""
+    import torch
+
+    from multitreegp_tpu_torch.core import cuda_interpreter as ci
+    from multitreegp_tpu_torch.core.interpreter import evaluate_trees_plain, evaluate_trees_vjp_plain
+
+    if states.device.type != "cuda":
+        batch = torch.broadcast_shapes(trees.ops.shape[:-1], states.shape[:-1])
+        full = trees.map(lambda a: a.expand(batch + a.shape[-1:]))
+        x = states.expand(batch + states.shape[-1:])
+        return (evaluate_trees_plain(full, x, fset),) + evaluate_trees_vjp_plain(full, x, cot, fset)
+    out = ci.evaluate_trees_cuda(trees, states, fset)
+    lib = ci._build.load("interpreter")
+    status, dconst, ddata = ci.run_backward(lib.interpret_bwd, trees, states, cot, fset,
+                                            torch.cuda.current_stream().cuda_stream)
+    check(status == 0, f"interpreter backward kernel launch: status {status}")
+    return out, dconst, ddata
 
 
 def const_opt_phase(device, s, data) -> dict:
@@ -752,7 +806,9 @@ def interpreter_times(device, s, trees, fset, g) -> dict:
     import torch
 
     from multitreegp_tpu_torch.core import cuda_interpreter as ci
-    from multitreegp_tpu_torch.core.interpreter import evaluate_trees_plain, evaluate_trees_vjp_plain
+    from multitreegp_tpu_torch.core.interpreter import (
+        evaluate_trees, evaluate_trees_plain, evaluate_trees_vjp_plain,
+    )
 
     res = {}
     for name, (cands, states, cot) in interpreter_cases(device, s, trees, fset, g).items():
@@ -763,6 +819,15 @@ def interpreter_times(device, s, trees, fset, g) -> dict:
             bwd_kernel=(lambda: ci.evaluate_trees_vjp_cuda(trees_b, states, cot, fset), s["interp_runs"]),
             bwd_plain=(lambda: evaluate_trees_vjp_plain(trees_b, states, cot, fset), s["plain_runs"]),
         )
+        const = cands.const[:, None].clone().requires_grad_(True)
+        xg = states.clone().requires_grad_(True)
+        trees_g = trees_b._replace(const=const)
+        # what a drift call of the recompute pays: the dispatcher forward,
+        # and forward and backward through autograd
+        fns["dispatch_fwd"] = (lambda: evaluate_trees(trees_b, states, fset), s["interp_runs"])
+        fns["dispatch_fwd_bwd"] = (
+            lambda: torch.autograd.grad(evaluate_trees(trees_g, xg, fset), (const, xg), cot),
+            s["interp_runs"])
         res[name] = {k: cuda_time_ms(fn, runs, torch) for k, (fn, runs) in fns.items()}
         t = res[name]
         # the kernels' own device time, without the wrapper's host work
@@ -771,12 +836,73 @@ def interpreter_times(device, s, trees, fset, g) -> dict:
             prof = profile_device(lambda: [fn() for _ in range(runs)], torch)
             hits = [v for k_, v in prof["per_kernel"].items() if kernel in k_]
             t[f"{key}_device"] = sum(ms for _, ms in hits) / max(1, sum(c for c, _ in hits)) if hits else None
+        t["host_us"] = host_split(trees_b, states, cot, fset, torch)
         dev = lambda v: "not measured" if v is None else f"{v:.4f}"
+        h = t["host_us"]
         phase_line(f"phase 8 interpreter times (median ms), {name} {cot.numel()} lanes: forward kernel "
             f"{t['fwd_kernel']:.4f} (device {dev(t['fwd_device'])}) vs plain {t['fwd_plain']:.3f}; "
             f"VJP kernel {t['bwd_kernel']:.4f} (device {dev(t['bwd_device'])}) vs plain "
-            f"{t['bwd_plain']:.3f}")
+            f"{t['bwd_plain']:.3f}; dispatcher evaluate_trees {t['dispatch_fwd']:.4f}, forward + "
+            f"backward through autograd {t['dispatch_fwd_bwd']:.4f}; host us per call: forward "
+            f"wrapper {h['fwd_wrapper']:.2f} (_operands {h['operands']:.2f}, ctypes call "
+            f"{h['fwd_ctypes']:.2f}, rest {h['fwd_rest']:.2f}), VJP wrapper {h['bwd_wrapper']:.2f} "
+            f"(ctypes call {h['bwd_ctypes']:.2f}, rest {h['bwd_rest']:.2f}); within the rest: "
+            f"stream lookup {h['stream']:.2f}, torch.empty {h['empty']:.2f}, the VJP's two sums "
+            f"{h['sums']:.2f}; EvaluateTrees.apply (forward) {h['dispatch_fwd']:.2f}")
     return {"interp_times_ms": res}
+
+
+def host_split(trees, states, cot, fset, torch, calls=200) -> dict:
+    """Host microseconds per call of the interpreter wrappers (the card's
+    host clock; each loop ends in a synchronise, so the queue never backs
+    up): the whole forward and VJP wrappers, ``_operands`` on a cache hit,
+    and the bare ``ctypes`` calls with their pointers made beforehand; "rest"
+    is the wrapper less the two (output allocation, stream lookup, checks,
+    the VJP's cotangent copy and sums), and three of its parts alone; and the
+    dispatcher's autograd ``Function`` around the forward wrapper."""
+    from multitreegp_tpu_torch.core import cuda_interpreter as ci
+    from multitreegp_tpu_torch.core.interpreter import EvaluateTrees
+
+    lib = ci._build.load("interpreter")
+    fwd, bwd = ci._bind(lib.interpret_fwd, "interpret_fwd"), ci._bind(lib.interpret_bwd, "interpret_bwd")
+    stream = torch.cuda.current_stream().cuda_stream
+    ops, c2, cst, x, layout = ci._operands(trees, states, fset)
+    out = torch.empty(layout.batch, device=states.device)
+    dconst = torch.empty((trees.max_nodes, layout.lanes), device=states.device)
+    ddata = torch.empty((x.shape[-1], layout.lanes), device=states.device)
+    ptrs = (ops.data_ptr(), c2.data_ptr(), cst.data_ptr(), x.data_ptr(), layout.address)
+    g = cot.contiguous()
+
+    def per_call_us(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / calls * 1e6
+
+    batch, shape_c, shape_d = layout.batch, trees.const.shape, states.shape
+
+    def sums():  # the VJP's per-lane views summed back to the primal shapes
+        for t, shape in ((dconst, shape_c), (ddata, shape_d)):
+            t.view((t.shape[0],) + tuple(batch)).movedim(0, -1).sum_to_size(shape)
+
+    h = dict(
+        fwd_wrapper=per_call_us(lambda: ci.evaluate_trees_cuda(trees, states, fset)),
+        bwd_wrapper=per_call_us(lambda: ci.evaluate_trees_vjp_cuda(trees, states, cot, fset)),
+        dispatch_fwd=per_call_us(lambda: EvaluateTrees.apply(*trees, states, fset)),
+        operands=per_call_us(lambda: ci._operands(trees, states, fset)),
+        fwd_ctypes=per_call_us(lambda: fwd(*ptrs, out.data_ptr(), stream)),
+        bwd_ctypes=per_call_us(lambda: bwd(*ptrs, g.data_ptr(), dconst.data_ptr(),
+                                           ddata.data_ptr(), stream)),
+        stream=per_call_us(lambda: torch.cuda.current_stream(states.device).cuda_stream),
+        empty=per_call_us(lambda: torch.empty(batch, dtype=torch.float32, device=states.device)),
+        sums=per_call_us(sums))
+    h["fwd_rest"] = h["fwd_wrapper"] - h["operands"] - h["fwd_ctypes"]
+    h["bwd_rest"] = h["bwd_wrapper"] - h["operands"] - h["bwd_ctypes"]
+    return h
 
 
 # float32 operations per attempted Dormand-Prince step and lane besides its six
@@ -1835,6 +1961,7 @@ def deep_phase(device, s, ps) -> dict:
 
     from multitreegp_tpu_torch.core import cuda_adaptive as ca
     from multitreegp_tpu_torch.core import cuda_rollout as cf
+    from multitreegp_tpu_torch.core.interpreter import evaluate_trees_plain, evaluate_trees_vjp_plain
     from multitreegp_tpu_torch.core.registry import build_function_set
     from multitreegp_tpu_torch.models.environments import VanDerPolOscillator
     from multitreegp_tpu_torch.models.evaluators import generate_sr_data
@@ -1888,6 +2015,28 @@ def deep_phase(device, s, ps) -> dict:
                f"{float(sizes.float().mean()):.1f} max {int(sizes.max())}: "
                + "; ".join(f"{k} identical {v['identical']:.6f}, alive {v['alive']:.4f}, plain "
                            f"{v['plain_ms']:.1f} ms" for k, v in res.items()))
+    # #8 and #9 on the same candidates against 16 states each, in the
+    # recompute's layout, every lane (the VJP's per-lane outputs)
+    k, b, m = trees.ops.shape[0], s["batch"], trees.ops.shape[1]
+    states = torch.randn((k, b, 1, 2), generator=g, device=device) * 2
+    cot = torch.randn((k, b, m), generator=g, device=device)
+    trees_b = trees.map(lambda a: a[:, None])
+    got = grouped_per_lane(trees_b, states, cot, fset)
+    full = trees.map(lambda a: a[:, None].expand(k, b, m, n).contiguous())
+    x = states.expand(k, b, m, 2).contiguous()
+    ref, plain_ms = timed_plain(
+        lambda: (evaluate_trees_plain(full, x, fset),) + evaluate_trees_vjp_plain(full, x, cot, fset),
+        device)
+    same = [bool(same_bits(a, r)) for a, r in zip(got, ref)]
+    check(all(same), f"deep #8/#9: bit-equal forward, dconst, ddata {same}")
+    fin = torch.isfinite(ref[0])
+    interp = dict(lanes=k * b * m, bit_equal=dict(zip(("fwd", "dconst", "ddata"), same)),
+                  finite=float(fin.float().mean()), plain_ms=plain_ms,
+                  max_abs_err=max(float(torch.where(torch.isfinite(r), (a - r).abs(), 0.0).max())
+                                  for a, r in zip(got, ref)))
+    phase_line(f"phase 17 #8/#9 N={n} vs plain, {k}x{b}x{m} = {k * b * m} lanes (trees (K, 1, m, N)): "
+               f"bit-equal forward, dconst, ddata {same}, finite {interp['finite']:.4f}, plain "
+               f"{plain_ms:.1f} ms")
     rep = reproduction_case(device, dict(s, islands=1, pop=s["deep_rep_pop"], depth=s["deep_depth"]),
                             trees, fset, g)
     got = rep.pop("children")
@@ -1912,7 +2061,8 @@ def deep_phase(device, s, ps) -> dict:
                    f"{r['alive']:.4f}; plain {r['plain_ms']:.1f} ms"
                    + (f"; steps per lane min {r['steps_min']} median {r['steps_median']:.0f} max "
                       f"{r['steps_max']}" if kind == "adaptive" else ""))
-    return {"deep": dict(fitness=res, adaptive=adaptive, reproduce=rep, **deep_policy)}
+    return {"deep": dict(fitness=res, adaptive=adaptive, reproduce=rep, interpreter=interp,
+                         **deep_policy)}
 
 
 def sync(device) -> None:

@@ -13,8 +13,18 @@ kernel ``_run_bwd``). Both launch ``csrc/interpreter.cu`` on CUDA tensors:
 Lanes are the flattened joint batch. The kernels read each operand through
 its strides over that batch (0 where broadcast), so a population
 ``(K, 1, m, N)`` meeting states ``(K, B, 1, d)`` is never copied ``B`` or
-``m`` times. The per-lane cotangents come back lane-minor, ``(N, L)`` and
-``(V, L)``, and are summed over the broadcast dimensions here.
+``m`` times. The layout words order the batch's dimensions so that those
+along which the trees are broadcast come last: consecutive lanes then share
+a tree, which a block stages once. The per-lane cotangents come back
+lane-minor, ``(N, L)`` and ``(V, L)``, in the joint batch's own order, and
+are summed over the broadcast dimensions here.
+
+Launch path: everything that depends only on the operands' signature (their
+shapes, strides, dtypes and devices, and the function set's operators) is
+worked out once and kept in a small cache keyed by that signature: the
+checks, the joint batch, the dimension order and the layout words. A hit
+vouches for those checks; the cotangent and the device type are checked on
+every call. The entry points' ``ctypes`` types are set once per library.
 
 The plain versions (``core/interpreter.py``) and the autograd ``Function``
 that picks between them live beside the dispatcher in ``interpreter.py``.
@@ -23,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -35,20 +45,70 @@ MAX_NODES = 256  # csrc/interpreter.cu kMaxNodes
 MAX_VARS = 32  # kMaxVars
 MAX_OPS = 32  # kMaxOps
 MAX_DIMS = 8  # kMaxDims: rank of the joint batch
+MAX_LANES = 2**31 - 1  # lanes and shapes are indexed in 32 bits
+LAYOUT_WORDS = 7 + 5 * MAX_DIMS + MAX_OPS  # the header, 5 per dimension, the op table
+MAX_LAYOUTS = 64  # operand signatures kept; the oldest goes first
 
-_PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# ops, c2, cst, data, layout, devop, nops, L, n, nvar, var_start, unary
-_COMMON_ARGTYPES = [_PTR] * 6 + [_INT, _I64, _INT, _INT, _INT, _INT]
-
-
-def _row_major(t: torch.Tensor) -> torch.Tensor:
-    """``t`` with a unit stride along its last dimension (rows, variables);
-    broadcast views keep theirs, so they are not copied."""
-    return t if t.shape[-1] <= 1 or t.stride(-1) == 1 else t.contiguous()
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# ops, c2, cst, data, layout; then out (forward) or g, dconst, ddata
+# (backward); then the stream
+_ARGTYPES = {"interpret_fwd": [_PTR] * 7, "interpret_bwd": [_PTR] * 9}
 
 
-def _operands(trees: TreeTensors, data: torch.Tensor, fset: FunctionSet):
-    """Checked operands, the joint batch and the kernel's layout array."""
+class Layout(NamedTuple):
+    """What one operand signature needs: which operands to copy (their last
+    dimension strided), the joint batch, and the kernel's layout words."""
+
+    copy: Tuple[bool, bool, bool, bool]  # ops, c2, const, data
+    batch: torch.Size
+    lanes: int
+    words: ctypes.Array  # kept alive for `address`
+    address: int
+
+
+_layouts: Dict[tuple, Layout] = {}
+
+
+def _bind(fn, name: str):
+    if fn.argtypes is None:  # once per library function
+        fn.argtypes, fn.restype = _ARGTYPES[name], _INT
+    return fn
+
+
+def _row_major(t: torch.Tensor) -> bool:
+    """Whether ``t`` has a unit stride along its last dimension (rows,
+    variables); broadcast views keep theirs, so they are not copied."""
+    return t.shape[-1] <= 1 or t.stride(-1) == 1
+
+
+def _broadcast(shapes: Sequence[Tuple[int, ...]]) -> Tuple[int, ...]:
+    """``torch.broadcast_shapes`` of the batch shapes, on tuples."""
+    rank = max(len(s) for s in shapes)
+    out = []
+    for k in range(rank):
+        sizes = {s[k - rank + len(s)] for s in shapes if k - rank + len(s) >= 0} - {1}
+        if len(sizes) > 1:
+            raise ValueError(f"batch shapes {shapes} do not broadcast")
+        out.append(sizes.pop() if sizes else 1)
+    return tuple(out)
+
+
+def _batch_strides(t: torch.Tensor, batch: Tuple[int, ...]) -> list:
+    """Element strides of ``t``'s batch dimensions over ``batch`` (0 where
+    ``t`` is broadcast; size-1 dimensions of ``batch`` are not read)."""
+    strides = t.broadcast_to(batch + t.shape[-1:]).stride()
+    return [s if size > 1 else 0 for s, size in zip(strides, batch)]
+
+
+def _signature(trees: TreeTensors, data: torch.Tensor, fset: FunctionSet) -> tuple:
+    ops, c2, cst = trees.ops, trees.c2, trees.const
+    return (ops.shape, ops.stride(), ops.dtype, ops.device, c2.shape, c2.stride(), c2.dtype,
+            c2.device, cst.shape, cst.stride(), cst.dtype, cst.device, data.shape, data.stride(),
+            data.dtype, data.device, fset.device_op_ids, fset.arities)
+
+
+def _make_layout(trees: TreeTensors, data: torch.Tensor, fset: FunctionSet) -> Layout:
+    """Check the operands and work out their layout (a cache miss)."""
     n = trees.max_nodes
     dev = trees.ops.device
     for name, t, dtype in (("ops", trees.ops, torch.int32), ("c2", trees.c2, torch.int32),
@@ -65,35 +125,63 @@ def _operands(trees: TreeTensors, data: torch.Tensor, fset: FunctionSet):
     fset.require_device_ops()
     if fset.num_operators > MAX_OPS:
         raise NotImplementedError(f"{fset.num_operators} operators > {MAX_OPS}")
-    batch = torch.broadcast_shapes(trees.batch_shape, trees.const.shape[:-1], data.shape[:-1])
+    batch = _broadcast([trees.ops.shape[:-1], trees.const.shape[:-1], data.shape[:-1]])
     if len(batch) > MAX_DIMS:
         raise NotImplementedError(f"batch rank {len(batch)} > {MAX_DIMS}")
-    ops, c2, cst, x = (_row_major(t) for t in (trees.ops, trees.c2, trees.const, data))
+    lanes = math.prod(batch)
+    if lanes > MAX_LANES:
+        raise NotImplementedError(f"{lanes} lanes > {MAX_LANES}")
+    operands = [trees.ops, trees.c2, trees.const, data]
+    copy = [not _row_major(t) for t in operands]
+    ops, c2, cst, x = (t.contiguous() if c else t for t, c in zip(operands, copy))
+    tree = _batch_strides(ops, batch)
+    if _batch_strides(c2, batch) != tree:  # the kernel reads both at one offset
+        copy[0] = copy[1] = True
+        ops, c2 = ops.contiguous(), c2.contiguous()
+        tree = _batch_strides(ops, batch)
+    cs, xs = _batch_strides(cst, batch), _batch_strides(x, batch)
+    out = [math.prod(batch[k + 1:]) for k in range(len(batch))]
+    dims = [k for k in range(len(batch)) if batch[k] > 1]
+    group = [k for k in dims if tree[k] or cs[k]]
+    order = group + [k for k in dims if not (tree[k] or cs[k])]
 
-    def strides(t):
-        return list(torch.broadcast_to(t, batch + t.shape[-1:]).stride()[:-1])
+    def per_dim(v):
+        return [v[k] for k in order] + [0] * (MAX_DIMS - len(order))
 
-    pad = lambda v: v + [0] * (MAX_DIMS - len(v))
-    layout = (ctypes.c_int64 * (1 + 4 * MAX_DIMS))(
-        len(batch), *pad(list(batch)), *pad(strides(ops)), *pad(strides(cst)), *pad(strides(x)))
-    devop = (ctypes.c_int * max(1, fset.num_operators))(*fset.device_op_ids)
-    return ops, c2, cst, x, batch, layout, devop
+    ids = list(fset.device_op_ids)
+    words = (ctypes.c_int64 * LAYOUT_WORDS)(
+        len(order), len(group), n, nvar, fset.var_start, fset.num_operators, fset.has_unary,
+        *per_dim(batch), *per_dim(tree), *per_dim(cs), *per_dim(xs),
+        *per_dim(out), *ids, *[0] * (MAX_OPS - len(ids)))
+    return Layout(tuple(copy), torch.Size(batch), lanes, words, ctypes.addressof(words))
+
+
+def _operands(trees: TreeTensors, data: torch.Tensor, fset: FunctionSet):
+    """The operands as the kernel reads them and their :class:`Layout`,
+    from the cache where this signature was seen before."""
+    key = _signature(trees, data, fset)
+    layout = _layouts.get(key)
+    if layout is None:
+        layout = _make_layout(trees, data, fset)
+        if len(_layouts) >= MAX_LAYOUTS:
+            del _layouts[next(iter(_layouts))]
+        _layouts[key] = layout
+    operands = trees.ops, trees.c2, trees.const, data
+    if any(layout.copy):
+        operands = tuple(t.contiguous() if c else t for t, c in zip(operands, layout.copy))
+    return operands + (layout,)
 
 
 def run_forward(fn, trees: TreeTensors, data: torch.Tensor, fset: FunctionSet,
                 stream=None) -> torch.Tensor:
     """Call ``interpret_fwd`` (of the CUDA library, or of the host build on
     CPU tensors); returns ``(status, roots shaped like the joint batch)``."""
-    ops, c2, cst, x, batch, layout, devop = _operands(trees, data, fset)
-    out = torch.empty(batch, dtype=torch.float32, device=ops.device)
-    lanes = math.prod(batch)
-    if lanes == 0:
+    ops, c2, cst, x, layout = _operands(trees, data, fset)
+    out = torch.empty(layout.batch, dtype=torch.float32, device=ops.device)
+    if not layout.lanes:
         return 0, out
-    fn.argtypes = _COMMON_ARGTYPES + [_PTR, _PTR]
-    fn.restype = _INT
-    status = fn(ops.data_ptr(), c2.data_ptr(), cst.data_ptr(), x.data_ptr(), layout, devop,
-                fset.num_operators, lanes, trees.max_nodes, x.shape[-1], fset.var_start,
-                fset.has_unary, out.data_ptr(), stream)
+    status = _bind(fn, "interpret_fwd")(ops.data_ptr(), c2.data_ptr(), cst.data_ptr(),
+                                        x.data_ptr(), layout.address, out.data_ptr(), stream)
     return status, out
 
 
@@ -101,20 +189,21 @@ def run_backward(fn, trees: TreeTensors, data: torch.Tensor, g: torch.Tensor, fs
                  stream=None):
     """Call ``interpret_bwd``; returns ``(status, dconst (*batch, N), ddata
     (*batch, V))`` per lane (views of the lane-minor outputs)."""
-    ops, c2, cst, x, batch, layout, devop = _operands(trees, data, fset)
-    n, nvar, lanes = trees.max_nodes, x.shape[-1], math.prod(batch)
+    ops, c2, cst, x, layout = _operands(trees, data, fset)
+    batch, lanes = layout.batch, layout.lanes
     if g.shape != batch or g.dtype != torch.float32 or g.device != ops.device:
         raise ValueError(f"cotangent {tuple(g.shape)} {g.dtype}: expected {tuple(batch)} float32")
     g = g.contiguous()
-    dconst = torch.empty((n, lanes), dtype=torch.float32, device=ops.device)
-    ddata = torch.empty((nvar, lanes), dtype=torch.float32, device=ops.device)
+    n = trees.max_nodes
+    # one allocation for both outputs (each torch.empty is ~9 us of host time
+    # on the card's host, PERF.md §6)
+    both = torch.empty((n + x.shape[-1], lanes), dtype=torch.float32, device=ops.device)
+    dconst, ddata = both[:n], both[n:]
     status = 0
     if lanes:
-        fn.argtypes = _COMMON_ARGTYPES + [_PTR] * 4
-        fn.restype = _INT
-        status = fn(ops.data_ptr(), c2.data_ptr(), cst.data_ptr(), x.data_ptr(), layout, devop,
-                    fset.num_operators, lanes, n, nvar, fset.var_start, fset.has_unary,
-                    g.data_ptr(), dconst.data_ptr(), ddata.data_ptr(), stream)
+        status = _bind(fn, "interpret_bwd")(
+            ops.data_ptr(), c2.data_ptr(), cst.data_ptr(), x.data_ptr(), layout.address,
+            g.data_ptr(), dconst.data_ptr(), ddata.data_ptr(), stream)
     per_lane = lambda t: t.view((t.shape[0],) + tuple(batch)).movedim(0, -1)
     return status, per_lane(dconst), per_lane(ddata)
 

@@ -12,316 +12,512 @@
 // variable (ddata), per lane. The wrapper (core/cuda_interpreter.py) sums
 // them back to the primal shapes.
 //
-// What bounds it on this card: instruction issue and local-memory latency.
-// A lane reads its tree once (rows of lanes that share a tree hit in L1) and
-// its data vector once, and writes 4 bytes (forward) or 4 * (N + V) bytes
-// (backward); per row it runs an opcode dispatch and a dynamically indexed
-// read of an earlier row.
+// Semantics (core/interpreter.py, JAX `evaluate_trees_ladder`): rows run
+// bottom to top; a row's first operand is the row directly below it (c1 ==
+// i-1 in the root-last layout) and its second the value of row c2, 0 unless
+// 0 <= c2 < i, whatever the tree: no postorder stack is simulated
+// (tree_prog.cuh's stack slots agree with this only on well-formed trees).
 //
-// Design: one thread per lane, nothing shared between threads. The lane's row
-// values live in a per-thread array `vals[N]` (local memory, cached in L1);
-// the template parameter N bounds it, so the N = 32 instance does not reserve
-// the stack of the N = 256 one. By the root-last layout invariant a row's
-// first operand is the row directly below it (vals[i-1]) and a binary row's
-// second is vals[c2]; a `switch` over the device op id picks the operator. The
-// backward recomputes the values, then sweeps the rows top-down: a row's
-// cotangent g_i goes to dvals[i-1] (first operand) and then dvals[c2]
-// (second), to dconst[i] on CONST rows and to ddata[v] on variable rows. The
-// TPU kernels' (S, 128) tiles, unrolled variant, window-9 select ladder and
-// far-row tables were Mosaic's way to gather without dynamic indexing; a
-// thread indexes its own array directly, so none of them is carried over.
-// Lanes are the joint batch of the trees' and the data's broadcast shapes,
-// flattened; each operand comes with its element strides over that batch
-// (0 where it is broadcast), so no broadcast copy is ever made.
+// What bounds it on this card: the latency of each lane's row chain, and at
+// the recompute's 1,600 lanes the launch itself. A lane reads a tree that its
+// group shares and its data vector, and writes 4 bytes (forward) or 4 * (N +
+// V) bytes (backward).
+//
+// Design. The wrapper orders the joint batch's dimensions so that those along
+// which the trees are broadcast (stride 0 in ops, c2 and const) come last: a
+// lane is (group, member), the members of a group read one tree, and
+// consecutive lanes are one group's members (in the recompute a tree's 16
+// trajectories, two trees to a warp). Each lane still writes its outputs at
+// its index in the joint batch. A block runs one warp of consecutive lanes
+// (kThreads: the recompute's 1,600 lanes take 50 SMs; 128-thread blocks ran
+// in the same device time). In two phases
+// between barriers it stages what the row loop reads: first each lane copies
+// its data vector into its column of shared memory (column V holds 0: EMPTY
+// rows and variables past the data's width read it) while the threads of the
+// block's groups work out where their trees lie; then its threads load the
+// trees' rows, one row per thread, coalesced, a row's three words at once,
+// and decode each into shared memory (Row: the kind, the device op id or data
+// slot, and c2 + 1 where row c2 is a second operand, folded into one word
+// beside the constant); a shared minimum finds each tree's first live row.
+// The row loop then makes no global load: the row comes from shared memory
+// (one address per group of the warp), the first operand from a register, the
+// second from the lane's row array in local memory, and every row runs the
+// same instructions whatever its kind (division and sin/cos keep a branch), so
+// the groups of a warp do not take their rows' branches one after the other.
+// The VJP runs the same forward into the lane's tape (each row's value beside
+// the cotangent that rows above have sent it as their second operand), then
+// sweeps top-down carrying the cotangent of the current row in a register:
+// row i's cotangent is the tape's sum for row i plus row i+1's dx, so each
+// row makes one tape load (value and partial sum of row i-1, one 8-byte
+// word) and at most one read-modify-write (its c2 row).
 //
 // Numerics: the forward runs the plain version's float32 operations; the
 // backward uses the expressions PyTorch autograd uses for them (d/dy of x/y
-// is -g * ((x / y) / y), d/dx of sin x is g * cos(x)), and accumulates each cotangent in the order the
-// autograd engine does (the parent's dy before the next row's dx; variable
-// rows top-down). Built with -fmad=false and IEEE division, so the kernel
-// equals the plain version (core/interpreter.py) bit for bit per lane.
+// is -g * ((x / y) / y), d/dx of sin x is g * cos(x)), and accumulates each
+// cotangent in the order the autograd engine does: a row's sum from the rows
+// above that read it as their second operand, top-down, then its parent's dx
+// (then that parent's dy where c2 == i-1); variable rows top-down. Built with
+// -fmad=false and IEEE division, so the kernel equals the plain version
+// (core/interpreter.py) bit for bit per lane.
 //
-// The per-lane code is plain C++ under MTGP_HD, so the same file also
-// compiles for the host (without __CUDACC__) into a lane loop with the same
-// entry points, which tests run against the plain version without a card.
+// The per-thread code is plain C++ under MTGP_HD, so the same file also
+// compiles for the host (without __CUDACC__): a loop over the blocks runs
+// each phase's threads one after the other, with the same entry points,
+// which tests run against the plain version without a card.
 #include "tree_eval.cuh"  // op ids, apply_binary, apply_unary
+
+#ifndef __CUDACC__
+#include <vector>
+#endif
 
 namespace {
 
 constexpr int kMaxVars = 32;
 constexpr int kMaxOps = 32;
 constexpr int kMaxDims = 8;
+constexpr int kThreads = 32;  // lanes per block
+// layout words: [ndim, ngroup, n, nvar, var_start, nops, unary], then shape,
+// tree, const, data and out strides (kMaxDims each), then the device op
+// table (kMaxOps)
+constexpr int kHeader = 7;
+
+// decoded row kinds (bits 0-1 of Row::meta); EMPTY and unknown rows decode
+// to a variable leaf of the zero column
+constexpr int kLeafConst = 0;
+constexpr int kLeafVar = 1;
+constexpr int kBinary = 2;
+constexpr int kUnary = 3;
+
+// One decoded row: `meta` holds the kind (bits 0-1), the device op id or data
+// slot (bits 2-7) and c2 + 1 where row c2 is the row's second operand, else 0
+// (bits 16-24); `c` is the constant of a CONST row.
+struct alignas(8) Row {
+  int meta;
+  float c;
+};
+
+// One row of a lane's tape: its value and the cotangent sent to it so far.
+struct alignas(8) Tape {
+  float v;
+  float g;
+};
 
 // Everything a lane needs besides the pointers, passed by value (the kernel
-// parameter space holds it; no device copy, no table in device memory).
+// parameter space holds it). The joint batch's dimensions are in the
+// wrapper's order, size-1 dimensions dropped: the first `ngroup` index the
+// trees' groups, the rest a group's members.
 struct Params {
-  int ndim;                   // joint batch rank
-  int64_t shape[kMaxDims];    // joint batch shape
-  int64_t tree[kMaxDims];     // element strides of ops and c2 over the batch
-  int64_t cst[kMaxDims];      // ... of const
-  int64_t data[kMaxDims];     // ... of data
-  int devop[kMaxOps];         // opcode - kOpStart -> device op id
-  int64_t L;                  // lanes = prod(shape)
+  int ndim, ngroup;
   int n;                      // rows per tree
   int nvar;                   // data variables per lane
   int var_start;              // first variable opcode
+  int lanes, members, max_groups;
+  unsigned shape[kMaxDims];
+  int64_t tree[kMaxDims];     // element strides of ops and c2 over the batch
+  int64_t cst[kMaxDims];      // ... of const
+  int64_t data[kMaxDims];     // ... of data
+  int64_t out[kMaxDims];      // ... of a lane's outputs (the batch, row-major)
+  int devop[kMaxOps];         // opcode - kOpStart -> device op id
 };
 
-struct Lane {
-  const int* ops;
-  const int* c2;
-  const float* cst;
-  const float* x;
+// The block's shared memory.
+struct Shared {
+  Row* rows;        // max_groups trees of n rows, n + 1 apart
+  int64_t* toff;    // each group's element offset in ops and c2
+  int64_t* coff;    // ... in const
+  int* start;       // each group's first live row
+  float* x;         // (nvar + 1) x kThreads: the lanes' data, column nvar 0
+  float* dd;        // (nvar + 1) x kThreads: the lanes' ddata (backward)
 };
 
-MTGP_HD inline Lane lane_operands(const Params& p, const int* ops, const int* c2,
-                                  const float* cst, const float* data, int64_t lane) {
-  int64_t t = 0, c = 0, d = 0;
-  for (int k = p.ndim - 1; k >= 0; --k) {
-    const int64_t i = lane % p.shape[k];
-    lane /= p.shape[k];
+MTGP_HD inline size_t shared_bytes(const Params& p, bool bwd) {
+  const size_t g = p.max_groups;
+  return g * (p.n + 1) * sizeof(Row) + g * (2 * sizeof(int64_t) + sizeof(int)) +
+         (bwd ? 2 : 1) * static_cast<size_t>(p.nvar + 1) * kThreads * sizeof(float);
+}
+
+MTGP_HD inline Shared carve(const Params& p, void* base, bool bwd) {
+  Shared s;
+  s.rows = static_cast<Row*>(base);
+  s.toff = reinterpret_cast<int64_t*>(s.rows + p.max_groups * (p.n + 1));
+  s.coff = s.toff + p.max_groups;
+  s.start = reinterpret_cast<int*>(s.coff + p.max_groups);
+  s.x = reinterpret_cast<float*>(s.start + p.max_groups);
+  s.dd = bwd ? s.x + (p.nvar + 1) * kThreads : nullptr;
+  return s;
+}
+
+// The lanes [first, first + kThreads) of block b and the groups they span.
+struct Block {
+  int first, g0, ngroups;
+};
+
+MTGP_HD inline Block block_of(const Params& p, int b) {
+  const int first = b * kThreads;
+  const int last = (first + kThreads < p.lanes ? first + kThreads : p.lanes) - 1;
+  return Block{first, first / p.members, last / p.members - first / p.members + 1};
+}
+
+MTGP_HD inline int blocks(const Params& p) { return (p.lanes + kThreads - 1) / kThreads; }
+
+MTGP_HD inline void shared_min(int* at, int v) {
+#ifdef __CUDA_ARCH__
+  atomicMin(at, v);
+#else
+  if (v < *at) *at = v;
+#endif
+}
+
+// Thread q: group g0 + q's offsets in ops / c2 and const.
+MTGP_HD inline void stage_group(const Params& p, const Block& b, int q, const Shared& s) {
+  if (q >= b.ngroups) return;
+  unsigned g = b.g0 + q;
+  int64_t t = 0, c = 0;
+  for (int k = p.ngroup - 1; k >= 0; --k) {
+    const unsigned i = g % p.shape[k];
+    g /= p.shape[k];
     t += i * p.tree[k];
     c += i * p.cst[k];
-    d += i * p.data[k];
   }
-  return Lane{ops + t, c2 + t, cst + c, data + d};
+  s.toff[q] = t;
+  s.coff[q] = c;
+  s.start[q] = p.n;
 }
 
-// Cotangents of (x, y) given the result's cotangent g: PyTorch autograd's
-// formulas for add, sub, mul and true division, and for sin (g * cos(x)) and
-// cos (g * -sin(x)), which have no second operand. U = false compiles the
-// unary operators out (tree_eval.cuh eval_tree).
-template <bool U>
-MTGP_HD inline void op_vjp(int id, float x, float y, float g, float& dx, float& dy) {
-  dy = 0.0f;
-  if (U && is_unary(id)) {
-    dx = id == kSin ? g * cosf(x) : g * -sinf(x);
-    return;
+// Thread t: row t % n of group t / n, loaded (its three words at once) and
+// decoded.
+MTGP_HD inline void stage_row(const Params& p, int t, const int* ops, const int* c2,
+                              const float* cst, const Shared& s) {
+  const int q = t / p.n, i = t - q * p.n;
+  const int op = ops[s.toff[q] + i], second = c2[s.toff[q] + i];
+  const float c = cst[s.coff[q] + i];
+  int meta = kLeafVar | p.nvar << 2;  // EMPTY and unknown rows read the zero column
+  if (op == kConst) {
+    meta = kLeafConst;
+  } else if (op >= p.var_start) {
+    const int var = op - p.var_start;  // a variable past the data's width reads 0
+    meta = kLeafVar | (var < p.nvar ? var : p.nvar) << 2;
+  } else if (op >= kOpStart) {
+    const int id = p.devop[op - kOpStart];
+    meta = is_unary(id) ? kUnary | id << 2
+                        : kBinary | id << 2 | (second >= 0 && second < i ? second + 1 : 0) << 16;
   }
-  switch (id) {
-    case kAdd: dx = g; dy = g; break;
-    case kSub: dx = g; dy = -g; break;
-    case kMul: dx = g * y; dy = g * x; break;
-    default: dx = g / y; dy = -g * ((x / y) / y); break;  // kDiv
-  }
+  s.rows[q * (p.n + 1) + i] = Row{meta, op == kConst ? c : 0.0f};
+  if (op != kEmpty) shared_min(s.start + q, i);
 }
 
-template <bool U>
-MTGP_HD inline float apply_op(int id, float x, float y) {
-  return U && is_unary(id) ? apply_unary(id, x) : apply_binary(id, x, y);
+// Where lane `lane` (in the wrapper's order) reads its data and writes its
+// outputs, and its group.
+struct LaneAt {
+  int group;
+  int64_t data, out;
+};
+
+MTGP_HD inline LaneAt lane_at(const Params& p, int lane) {
+  unsigned m = lane % p.members, g = lane / p.members;
+  LaneAt at{static_cast<int>(g), 0, 0};
+  for (int k = p.ndim - 1; k >= p.ngroup; --k) {
+    const unsigned i = m % p.shape[k];
+    m /= p.shape[k];
+    at.data += i * p.data[k];
+    at.out += i * p.out[k];
+  }
+  for (int k = p.ngroup - 1; k >= 0; --k) {
+    const unsigned i = g % p.shape[k];
+    g /= p.shape[k];
+    at.data += i * p.data[k];
+    at.out += i * p.out[k];
+  }
+  return at;
 }
 
-// Second operand of row i: vals[c2] for an earlier row, else 0.
-MTGP_HD inline bool has_second(int c2, int i) { return c2 >= 0 && c2 < i; }
+// The first phase of thread tid: a group's offsets (tid < ngroups), and its
+// lane's place in the batch and data column (and zeroed ddata column, for
+// the VJP), so the data's loads overlap the block's first barrier; group -1
+// past the last lane.
+MTGP_HD inline LaneAt stage_lane(const Params& p, const Block& b, int tid, const float* data,
+                                 const Shared& s) {
+  stage_group(p, b, tid, s);
+  const int lane = b.first + tid;
+  if (lane >= p.lanes) return LaneAt{-1, 0, 0};
+  const LaneAt at = lane_at(p, lane);
+  for (int v = 0; v < p.nvar; ++v) s.x[v * kThreads + tid] = data[at.data + v];
+  s.x[p.nvar * kThreads + tid] = 0.0f;
+  if (s.dd)
+    for (int v = 0; v <= p.nvar; ++v) s.dd[v * kThreads + tid] = 0.0f;
+  return at;
+}
 
-// Fills vals[0..n) bottom-up; returns the root (row n-1).
+MTGP_HD inline void put(float& e, float v) { e = v; }
+MTGP_HD inline void put(Tape& e, float v) { e = Tape{v, 0.0f}; }
+MTGP_HD inline float value(float e) { return e; }
+MTGP_HD inline float value(const Tape& e) { return e.v; }
+
+// Rows start..n-1 of one tree on the lane's data column xs (stride `stride`),
+// each row's value into tape[i]; returns the root (0 for an empty tree). U =
+// false compiles the unary rows out (tree_eval.cuh eval_tree).
+template <bool U, typename E>
+MTGP_HD inline float forward_rows(int n, const Row* rows, int start, const float* xs, int stride,
+                                  E* tape) {
+  float v = 0.0f;  // row i-1, the first operand
+  for (int i = start; i < n; ++i) {
+    const Row w = rows[i];
+    const int kind = w.meta & 3, arg = (w.meta >> 2) & 63, sec = w.meta >> 16;
+    const float x = v;
+    const float y = sec > start ? value(tape[sec - 1]) : 0.0f;
+    float r = arg == kAdd ? x + y : arg == kSub ? x - y : x * y;
+    if (kind == kBinary && arg == kDiv) r = x / y;
+    if (U && kind == kUnary) r = apply_unary(arg, x);
+    const float leaf = kind == kLeafVar ? xs[arg * stride] : w.c;
+    v = kind >= kBinary ? r : leaf;
+    put(tape[i], v);
+  }
+  return v;
+}
+
+// The top-down sweep of one lane from the root's cotangent g over the tape
+// that forward_rows filled: dconst rows (stride L) and the ddata column dd.
+// Cotangents of (x, y): PyTorch autograd's formulas for add, sub, mul and true
+// division, and for sin (g * cos(x)) and cos (g * -sin(x)).
 template <bool U>
-MTGP_HD inline float forward_rows(const Params& p, const Lane& ln, float* vals) {
-  for (int i = 0; i < p.n; ++i) {
-    const int op = ln.ops[i];
-    float v = 0.0f;
-    if (op == kConst) {
-      v = ln.cst[i];
-    } else if (op >= p.var_start) {
-      const int var = op - p.var_start;  // a variable past the data's width reads 0
-      v = var < p.nvar ? ln.x[var] : 0.0f;
-    } else if (op >= kOpStart) {
-      const int c2 = ln.c2[i];
-      const float x = i > 0 ? vals[i - 1] : 0.0f;
-      const float y = has_second(c2, i) ? vals[c2] : 0.0f;
-      v = apply_op<U>(p.devop[op - kOpStart], x, y);
+MTGP_HD inline void backward_rows(int n, const Row* rows, int start, float g, Tape* tape,
+                                  float* dd, int stride, float* dconst, int64_t L) {
+  for (int i = n - 1; i >= start; --i) {
+    const Row w = rows[i];
+    const int kind = w.meta & 3, arg = (w.meta >> 2) & 63, sec = w.meta >> 16;
+    const Tape below = i > start ? tape[i - 1] : Tape{0.0f, 0.0f};
+    const float x = below.v;
+    const float y = sec > start ? tape[sec - 1].v : 0.0f;
+    float dx = arg == kMul ? g * y : g;
+    float dy = arg == kAdd ? g : arg == kSub ? -g : g * x;
+    if (kind == kBinary && arg == kDiv) {
+      dx = g / y;
+      dy = -g * ((x / y) / y);
     }
-    vals[i] = v;  // EMPTY (and unknown) rows are 0
-  }
-  return vals[p.n - 1];
-}
-
-// dconst / ddata of one lane, written with stride L (rows / variables major).
-template <int N, bool U>
-MTGP_HD void backward_lane(const Params& p, const Lane& ln, float g, float* dconst,
-                           float* ddata) {
-  float vals[N], dvals[N], dd[kMaxVars];
-  forward_rows<U>(p, ln, vals);
-  for (int i = 0; i < p.n; ++i) dvals[i] = 0.0f;
-  for (int v = 0; v < p.nvar; ++v) dd[v] = 0.0f;
-  dvals[p.n - 1] = g;
-  for (int i = p.n - 1; i >= 0; --i) {
-    const int op = ln.ops[i];
-    const float gi = dvals[i];
-    float dc = 0.0f;
-    if (op == kConst) {
-      dc = gi;
-    } else if (op >= p.var_start) {
-      const int var = op - p.var_start;
-      if (var < p.nvar) dd[var] += gi;
-    } else if (op >= kOpStart) {
-      const int id = p.devop[op - kOpStart];
-      const int c2 = ln.c2[i];
-      const bool second = !(U && is_unary(id)) && has_second(c2, i);
-      const float x = i > 0 ? vals[i - 1] : 0.0f;
-      const float y = second ? vals[c2] : 0.0f;
-      float dx, dy;
-      op_vjp<U>(id, x, y, gi, dx, dy);
-      if (i > 0) dvals[i - 1] += dx;
-      if (second) dvals[c2] += dy;
+    if (U && kind == kUnary) dx = arg == kSin ? g * cosf(x) : g * -sinf(x);
+    float next = below.g;  // row i-1's cotangent from the rows above row i
+    if (kind >= kBinary) {
+      next = next + dx;
+      if (sec > start) {
+        if (sec == i) next = next + dy;  // c2 == i-1
+        else tape[sec - 1].g += dy;
+      }
     }
-    dconst[i * p.L] = dc;
+    if (kind == kLeafVar) dd[arg * stride] += g;
+    dconst[i * L] = kind == kLeafConst ? g : 0.0f;
+    g = next;
   }
-  for (int v = 0; v < p.nvar; ++v) ddata[v * p.L] = dd[v];
+  for (int i = 0; i < start; ++i) dconst[i * L] = 0.0f;
 }
 
+// Thread tid's lane (at, from stage_lane) of block b: its root value into out.
 template <int N, bool U>
-MTGP_HD inline void forward_lane(const Params& p, const Lane& ln, float* out) {
+MTGP_HD inline void forward_lane(const Params& p, const Block& b, int tid, const LaneAt& at,
+                                 float* out, const Shared& s) {
+  if (at.group < 0) return;
+  const int q = at.group - b.g0;
   float vals[N];
-  *out = forward_rows<U>(p, ln, vals);
+  out[at.out] =
+      forward_rows<U>(p.n, s.rows + q * (p.n + 1), s.start[q], s.x + tid, kThreads, vals);
+}
+
+// Thread tid's lane of block b: dconst (n, L) and ddata (nvar, L), lane-minor.
+template <int N, bool U>
+MTGP_HD inline void backward_lane(const Params& p, const Block& b, int tid, const LaneAt& at,
+                                  const float* g, float* dconst, float* ddata, const Shared& s) {
+  if (at.group < 0) return;
+  const float* xs = s.x + tid;
+  float* dd = s.dd + tid;
+  const int q = at.group - b.g0;
+  const Row* rows = s.rows + q * (p.n + 1);
+  Tape tape[N];
+  forward_rows<U>(p.n, rows, s.start[q], xs, kThreads, tape);
+  backward_rows<U>(p.n, rows, s.start[q], g[at.out], tape, dd, kThreads, dconst + at.out, p.lanes);
+  for (int v = 0; v < p.nvar; ++v) ddata[v * static_cast<int64_t>(p.lanes) + at.out] = dd[v * kThreads];
 }
 
 #ifdef __CUDACC__
 template <int N, bool U>
-__global__ void interpret_fwd_kernel(Params p, const int* __restrict__ ops,
-                                     const int* __restrict__ c2, const float* __restrict__ cst,
-                                     const float* __restrict__ data, float* __restrict__ out) {
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (lane >= p.L) return;
-  forward_lane<N, U>(p, lane_operands(p, ops, c2, cst, data, lane), out + lane);
+__global__ void __launch_bounds__(kThreads)
+    interpret_fwd_kernel(Params p, const int* __restrict__ ops, const int* __restrict__ c2,
+                         const float* __restrict__ cst, const float* __restrict__ data,
+                         float* __restrict__ out) {
+  extern __shared__ int64_t smem[];
+  const Shared s = carve(p, smem, false);
+  const Block b = block_of(p, blockIdx.x);
+  const LaneAt at = stage_lane(p, b, threadIdx.x, data, s);
+  __syncthreads();
+  for (int t = threadIdx.x; t < b.ngroups * p.n; t += kThreads) stage_row(p, t, ops, c2, cst, s);
+  __syncthreads();
+  forward_lane<N, U>(p, b, threadIdx.x, at, out, s);
 }
 
 template <int N, bool U>
-__global__ void interpret_bwd_kernel(Params p, const int* __restrict__ ops,
-                                     const int* __restrict__ c2, const float* __restrict__ cst,
-                                     const float* __restrict__ data, const float* __restrict__ g,
-                                     float* __restrict__ dconst, float* __restrict__ ddata) {
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (lane >= p.L) return;
-  backward_lane<N, U>(p, lane_operands(p, ops, c2, cst, data, lane), g[lane], dconst + lane,
-                   ddata + lane);
+__global__ void __launch_bounds__(kThreads)
+    interpret_bwd_kernel(Params p, const int* __restrict__ ops, const int* __restrict__ c2,
+                         const float* __restrict__ cst, const float* __restrict__ data,
+                         const float* __restrict__ g, float* __restrict__ dconst,
+                         float* __restrict__ ddata) {
+  extern __shared__ int64_t smem[];
+  const Shared s = carve(p, smem, true);
+  const Block b = block_of(p, blockIdx.x);
+  const LaneAt at = stage_lane(p, b, threadIdx.x, data, s);
+  __syncthreads();
+  for (int t = threadIdx.x; t < b.ngroups * p.n; t += kThreads) stage_row(p, t, ops, c2, cst, s);
+  __syncthreads();
+  backward_lane<N, U>(p, b, threadIdx.x, at, g, dconst, ddata, s);
 }
 
-constexpr int kThreads = 128;
-
-inline unsigned blocks(const Params& p) {
-  return static_cast<unsigned>((p.L + kThreads - 1) / kThreads);
+// Launch `kernel` on `stream` with the block's shared memory, opting in
+// above 48 KB (at N = 256 a block whose lanes share no tree stages 64 KB at
+// 32 lanes); returns cudaGetLastError() of the launch.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, const Params& p, bool bwd, void* stream, Args... args) {
+  const size_t smem = shared_bytes(p, bwd);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<blocks(p), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p, args...);
+  return static_cast<int>(cudaGetLastError());
 }
 #endif
 
-// Reads the layout array [ndim, shape[8], tree[8], cst[8], data[8]] and the
-// op table; returns 1 on arguments the kernels do not take.
-int make_params(const int64_t* layout, const int* devop, int nops, int64_t L, int n, int nvar,
-                int var_start, Params* p) {
-  if (L <= 0 || n <= 0 || n > kMaxNodes || nvar < 0 || nvar > kMaxVars || nops < 0 ||
-      nops > kMaxOps || var_start != kOpStart + nops)
+// Reads the layout words; returns 1 on arguments the kernels do not take.
+int make_params(const int64_t* w, Params* p, int* unary) {
+  const int64_t ndim = w[0], ngroup = w[1], n = w[2], nvar = w[3], var_start = w[4],
+                nops = w[5];
+  if (ndim < 0 || ndim > kMaxDims || ngroup < 0 || ngroup > ndim || n <= 0 || n > kMaxNodes ||
+      nvar < 0 || nvar > kMaxVars || nops < 0 || nops > kMaxOps ||
+      var_start != kOpStart + nops)
     return 1;
-  const int ndim = static_cast<int>(layout[0]);
-  if (ndim < 0 || ndim > kMaxDims) return 1;
-  p->ndim = ndim;
-  int64_t lanes = 1;
+  p->ndim = static_cast<int>(ndim);
+  p->ngroup = static_cast<int>(ngroup);
+  p->n = static_cast<int>(n);
+  p->nvar = static_cast<int>(nvar);
+  p->var_start = static_cast<int>(var_start);
+  *unary = w[6] != 0;
+  int64_t lanes = 1, members = 1;
   for (int k = 0; k < kMaxDims; ++k) {
-    p->shape[k] = layout[1 + k];
-    p->tree[k] = layout[1 + kMaxDims + k];
-    p->cst[k] = layout[1 + 2 * kMaxDims + k];
-    p->data[k] = layout[1 + 3 * kMaxDims + k];
+    const int64_t size = w[kHeader + k];
+    p->shape[k] = static_cast<unsigned>(size);
+    p->tree[k] = w[kHeader + kMaxDims + k];
+    p->cst[k] = w[kHeader + 2 * kMaxDims + k];
+    p->data[k] = w[kHeader + 3 * kMaxDims + k];
+    p->out[k] = w[kHeader + 4 * kMaxDims + k];
     if (k < ndim) {
-      if (p->shape[k] <= 0) return 1;
-      lanes *= p->shape[k];
+      if (size <= 0 || size > 0x7fffffff) return 1;
+      lanes *= size;
+      if (k >= ngroup) members *= size;
+      if (lanes > 0x7fffffff) return 1;
     }
   }
-  if (lanes != L) return 1;
   for (int k = 0; k < kMaxOps; ++k) {
-    p->devop[k] = k < nops ? devop[k] : 0;
-    if (k < nops && (devop[k] < kAdd || devop[k] > kCos)) return 1;
+    p->devop[k] = k < nops ? static_cast<int>(w[kHeader + 5 * kMaxDims + k]) : 0;
+    if (k < nops && (p->devop[k] < kAdd || p->devop[k] > kCos)) return 1;
   }
-  p->L = L;
-  p->n = n;
-  p->nvar = nvar;
-  p->var_start = var_start;
+  p->lanes = static_cast<int>(lanes);
+  p->members = static_cast<int>(members);
+  const int64_t groups = lanes / members, span = (kThreads - 1) / members + 2;
+  int64_t mg = kThreads < groups ? kThreads : groups;
+  p->max_groups = static_cast<int>(span < mg ? span : mg);
   return 0;
 }
 
-}  // namespace
+#ifndef __CUDACC__
+// The host build's launch: each block's phases run their threads one after
+// the other; returns 1 on bad arguments.
+template <typename LaneFn>
+int host_blocks(const int* ops, const int* c2, const float* cst, const float* data,
+                const int64_t* layout, bool bwd, LaneFn lane_fn) {
+  Params p;
+  int unary;
+  if (make_params(layout, &p, &unary)) return 1;
+  std::vector<int64_t> smem((shared_bytes(p, bwd) + 7) / 8);
+  const Shared s = carve(p, smem.data(), bwd);
+  std::vector<LaneAt> at(kThreads);
+  for (int blk = 0; blk < blocks(p); ++blk) {
+    const Block b = block_of(p, blk);
+    for (int tid = 0; tid < kThreads; ++tid) at[tid] = stage_lane(p, b, tid, data, s);
+    for (int t = 0; t < b.ngroups * p.n; ++t) stage_row(p, t, ops, c2, cst, s);
+    for (int tid = 0; tid < kThreads; ++tid) lane_fn(p, b, tid, at[tid], s, unary != 0);
+  }
+  return 0;
+}
+#endif
 
-#define MTGP_INTERP_ARGS                                                                      \
-  const int *ops, const int *c2, const float *cst, const float *data, const int64_t *layout, \
-      const int *devop, int nops, long long L, int n, int nvar, int var_start, int unary
+}  // namespace
 
 extern "C" {
 
 // ops/c2 int32 and cst float32 trees, data float32 vectors, each addressed
-// per lane through `layout` (rows and variables contiguous); devop (nops,)
-// host array. Forward: out (L,). Backward: g (L,) -> dconst (n, L) and
-// ddata (nvar, L), lane-minor.
+// per lane through the layout words (rows and variables contiguous).
+// Forward: out (L,). Backward: g (L,) -> dconst (n, L) and ddata (nvar, L),
+// lane-minor, L the joint batch in row-major order.
 #ifdef __CUDACC__
 const char* mtgp_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
-// Launch on `stream`; return cudaGetLastError() of the launch.
-int interpret_fwd(MTGP_INTERP_ARGS, float* out, void* stream) {
+// Launch on `stream`; return cudaGetLastError() of the launch. Instances: the
+// main path's N <= 32 and everything up to 256, with unary operators or
+// without.
+int interpret_fwd(const int* ops, const int* c2, const float* cst, const float* data,
+                  const int64_t* layout, float* out, void* stream) {
   Params p;
-  if (make_params(layout, devop, nops, L, n, nvar, var_start, &p))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // instances: the main path's N <= 32 and everything up to 256, with unary
-  // operators or without
-#define MTGP_FWD(N, U) interpret_fwd_kernel<N, U><<<blocks(p), kThreads, 0, s>>>(p, ops, c2, cst, data, out)
-  if (n <= 32) {
-    if (unary) MTGP_FWD(32, true); else MTGP_FWD(32, false);
-  } else {
-    if (unary) MTGP_FWD(kMaxNodes, true); else MTGP_FWD(kMaxNodes, false);
-  }
+  int unary;
+  if (make_params(layout, &p, &unary)) return static_cast<int>(cudaErrorInvalidValue);
+#define MTGP_FWD(N, U) launch(interpret_fwd_kernel<N, U>, p, false, stream, ops, c2, cst, data, out)
+  if (p.n <= 32) return unary ? MTGP_FWD(32, true) : MTGP_FWD(32, false);
+  return unary ? MTGP_FWD(kMaxNodes, true) : MTGP_FWD(kMaxNodes, false);
 #undef MTGP_FWD
-  return static_cast<int>(cudaGetLastError());
 }
 
-int interpret_bwd(MTGP_INTERP_ARGS, const float* g, float* dconst, float* ddata, void* stream) {
+int interpret_bwd(const int* ops, const int* c2, const float* cst, const float* data,
+                  const int64_t* layout, const float* g, float* dconst, float* ddata,
+                  void* stream) {
   Params p;
-  if (make_params(layout, devop, nops, L, n, nvar, var_start, &p))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int unary;
+  if (make_params(layout, &p, &unary)) return static_cast<int>(cudaErrorInvalidValue);
 #define MTGP_BWD(N, U) \
-  interpret_bwd_kernel<N, U><<<blocks(p), kThreads, 0, s>>>(p, ops, c2, cst, data, g, dconst, ddata)
-  if (n <= 32) {
-    if (unary) MTGP_BWD(32, true); else MTGP_BWD(32, false);
-  } else {
-    if (unary) MTGP_BWD(kMaxNodes, true); else MTGP_BWD(kMaxNodes, false);
-  }
+  launch(interpret_bwd_kernel<N, U>, p, true, stream, ops, c2, cst, data, g, dconst, ddata)
+  if (p.n <= 32) return unary ? MTGP_BWD(32, true) : MTGP_BWD(32, false);
+  return unary ? MTGP_BWD(kMaxNodes, true) : MTGP_BWD(kMaxNodes, false);
 #undef MTGP_BWD
-  return static_cast<int>(cudaGetLastError());
 }
 #else
-// host build of the same per-lane code (tests without a card); `stream` is
-// ignored and 1 reports bad arguments
+// host build of the same per-thread code (tests without a card); `stream`
+// is ignored and 1 reports bad arguments
 const char* mtgp_error_string(int status) {
   return status ? "invalid arguments" : "no error";
 }
 
-int interpret_fwd(MTGP_INTERP_ARGS, float* out, void* stream) {
+int interpret_fwd(const int* ops, const int* c2, const float* cst, const float* data,
+                  const int64_t* layout, float* out, void* stream) {
   (void)stream;
-  Params p;
-  if (make_params(layout, devop, nops, L, n, nvar, var_start, &p)) return 1;
-  for (int64_t lane = 0; lane < L; ++lane) {
-    const Lane ln = lane_operands(p, ops, c2, cst, data, lane);
-    if (n <= 32) unary ? forward_lane<32, true>(p, ln, out + lane) : forward_lane<32, false>(p, ln, out + lane);
-    else unary ? forward_lane<kMaxNodes, true>(p, ln, out + lane)
-               : forward_lane<kMaxNodes, false>(p, ln, out + lane);
-  }
-  return 0;
+  return host_blocks(ops, c2, cst, data, layout, false,
+                     [&](const Params& p, const Block& b, int tid, const LaneAt& at,
+                         const Shared& s, bool unary) {
+    if (p.n <= 32) unary ? forward_lane<32, true>(p, b, tid, at, out, s)
+                         : forward_lane<32, false>(p, b, tid, at, out, s);
+    else unary ? forward_lane<kMaxNodes, true>(p, b, tid, at, out, s)
+               : forward_lane<kMaxNodes, false>(p, b, tid, at, out, s);
+  });
 }
 
-int interpret_bwd(MTGP_INTERP_ARGS, const float* g, float* dconst, float* ddata, void* stream) {
+int interpret_bwd(const int* ops, const int* c2, const float* cst, const float* data,
+                  const int64_t* layout, const float* g, float* dconst, float* ddata,
+                  void* stream) {
   (void)stream;
-  Params p;
-  if (make_params(layout, devop, nops, L, n, nvar, var_start, &p)) return 1;
-  for (int64_t lane = 0; lane < L; ++lane) {
-    const Lane ln = lane_operands(p, ops, c2, cst, data, lane);
-    if (n <= 32) {
-      if (unary) backward_lane<32, true>(p, ln, g[lane], dconst + lane, ddata + lane);
-      else backward_lane<32, false>(p, ln, g[lane], dconst + lane, ddata + lane);
-    } else {
-      if (unary) backward_lane<kMaxNodes, true>(p, ln, g[lane], dconst + lane, ddata + lane);
-      else backward_lane<kMaxNodes, false>(p, ln, g[lane], dconst + lane, ddata + lane);
-    }
-  }
-  return 0;
+  return host_blocks(ops, c2, cst, data, layout, true,
+                     [&](const Params& p, const Block& b, int tid, const LaneAt& at,
+                         const Shared& s, bool unary) {
+    if (p.n <= 32) unary ? backward_lane<32, true>(p, b, tid, at, g, dconst, ddata, s)
+                         : backward_lane<32, false>(p, b, tid, at, g, dconst, ddata, s);
+    else unary ? backward_lane<kMaxNodes, true>(p, b, tid, at, g, dconst, ddata, s)
+               : backward_lane<kMaxNodes, false>(p, b, tid, at, g, dconst, ddata, s);
+  });
 }
 #endif
 

@@ -17,10 +17,14 @@ dopri5, budget 500, T = 50), and at the control path's shapes (Acrobot,
 4096 policies of ``max_nodes=30``, ``+ - * sin cos``, x 16 trajectories,
 T = 250) of the fixed-step policy rollout (#6, RK4 x 4) and the adaptive
 one (#7, dopri5, 8 steps per interval), static and dynamic
-(``state_size=2``). A process that built the kernels first prints each
-``nvcc``'s seconds and ptxas's registers, stack frame and spills per
-instance of the policy kernels for Acrobot at N <= 32 and of the adaptive
-SR kernels at state dim 2. Two versions compare only within one such run.
+(``state_size=2``), and of the interpreter's forward (#8) and VJP (#9)
+through their public wrappers in the constant-optimisation recompute's
+layout (trees ``(K, 1, 2, 32)`` against states ``(K, 16, 1, 2)``) at K = 50
+(1,600 lanes) and K = 4096 (131,072 lanes). A process that built the kernels first prints each ``nvcc``'s
+seconds and ptxas's registers, stack frame and spills per instance of the
+policy kernels for Acrobot at N <= 32, of the adaptive SR kernels at state
+dim 2 and of the interpreter kernels. Two versions compare only within one
+such run.
 """
 from __future__ import annotations
 
@@ -49,12 +53,14 @@ def time_kernels(root: Path) -> str:
 
     if Path(pkg.__file__).resolve().parent.parent != root:
         raise RuntimeError(f"imported {pkg.__file__}, not the package under {root}")
-    pkg._build.build("sr_fitness", "reproduce", "sr_rollout", "sr_adaptive", "policy")  # in parallel
+    pkg._build.build("sr_fitness", "reproduce", "sr_rollout", "sr_adaptive", "policy",
+                     "interpreter")  # in parallel
     built = {k: v for k, v in pkg._build.build_seconds.items() if v > 0}
     if built:  # printed before the runs, so a run that fails leaves it
         line = "nvcc " + ", ".join(f"{k} {v:.1f} s" for k, v in built.items())
         shown = (("policy", lambda k: "AcrobotEnv<0" in k and k.endswith(",32>")),
-                 ("sr_adaptive", lambda k: re.search(r"_kernel<2,", k)))
+                 ("sr_adaptive", lambda k: re.search(r"_kernel<2,", k)),
+                 ("interpreter", lambda k: True))
         for name, keep in shown:
             if name in pkg._build.build_logs:
                 line += f"; ptxas {name} " + ", ".join(
@@ -113,8 +119,35 @@ def time_kernels(root: Path) -> str:
     }
     for key, fn in policy_launches(g).items():
         runs[key] = (fn, "policy_kernel" if key.startswith("#6") else "policy_adaptive_kernel", 7)
-    return "; ".join(f"{k} {median_ms(fn, n):.4f} ms (device {device_ms(fn, name, n):.4f})"
-                     for k, (fn, name, n) in runs.items())
+    times = [f"{k} {median_ms(fn, n):.4f} ms (device {device_ms(fn, name, n):.4f})"
+             for k, (fn, name, n) in runs.items()]
+    for key, (fn, name) in interpreter_launches(trees, g).items():
+        times.append(f"{key} {median_ms(fn, 50):.4f} ms (device {device_ms(fn, name, 50):.4f})")
+    return "; ".join(times)
+
+
+def interpreter_launches(trees, g):
+    """Kernels #8 and #9 through their public wrappers in the recompute's
+    layout: the first K candidates' trees ``(K, 1, 2, N)`` against states
+    ``(K, 16, 1, 2)``, the roots' cotangent ``(K, 16, 2)``."""
+    import torch
+
+    from multitreegp_tpu_torch.core import cuda_interpreter as ci
+    from multitreegp_tpu_torch.core.registry import build_function_set
+
+    fset = build_function_set([("+", 2, 0.5), ("-", 2, 0.1), ("*", 2, 0.5), ("/", 2, 0.1)],
+                              [["x0", "x1"]], [2])
+    out = {}
+    for k in (50, trees.ops.shape[0]):
+        cands = trees.map(lambda a: a[:k, None])
+        states = torch.randn((k, 16, 1, 2), generator=g, device=g.device) * 2
+        cot = torch.randn((k, 16, 2), generator=g, device=g.device)
+        lanes = k * 16 * 2
+        out[f"#8 {lanes}"] = (lambda c=cands, s=states: ci.evaluate_trees_cuda(c, s, fset),
+                              "interpret_fwd_kernel")
+        out[f"#9 {lanes}"] = (lambda c=cands, s=states, y=cot: ci.evaluate_trees_vjp_cuda(c, s, y, fset),
+                              "interpret_bwd_kernel")
+    return out
 
 
 def ptxas_report(log: str):

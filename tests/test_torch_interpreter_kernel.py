@@ -2,15 +2,23 @@
 
 * host build (runs here): ``csrc/interpreter.cu`` compiled for the host with
   ``g++`` (``-ffp-contract=off``), driven through the same Python wrapper code
-  as on the card (``run_forward`` / ``run_backward``). Per lane it must equal
-  the plain version bit for bit: forward roots against
-  ``evaluate_trees_plain``, and backward ``dconst`` / ``ddata`` against
-  ``torch.autograd.grad`` of it (same float32 expressions, same accumulation
-  order; NaN where the plain version has NaN). Summed back over broadcast
-  dimensions the order of the sums differs, so there each entry must lie
-  within 1e-6 of the sum of the magnitudes of its per-lane terms.
+  as on the card (``run_forward`` / ``run_backward``, the layout cache
+  included). Per lane it must equal the plain version bit for bit: forward
+  roots against ``evaluate_trees_plain``, and backward ``dconst`` /
+  ``ddata`` against ``torch.autograd.grad`` of it (same float32 expressions,
+  same accumulation order; NaN where the plain version has NaN), in every
+  caller's layout (lanes grouped by the tree they share; groups that do not
+  divide a warp or span blocks; one tree per lane) at N = 32 to 256, with and
+  without ``sin``/``cos``, with blocks of one to four warps, and on
+  hand-made trees whose second operand ``c2`` is a row a postorder stack
+  would not read. Summed back over broadcast dimensions the order of the
+  sums differs, so there each entry must lie within 1e-6 of the sum of the
+  magnitudes of its per-lane terms.
+* the layout cache: a hit gives a cold call's bits, a changed stride or
+  shape gets its own entry, a bad cotangent is refused on a hit, and the
+  cache stays bounded.
 * ``EvaluateTrees`` on CPU tensors and its VJP against the JAX package's
-  ``evaluate_trees_pallas`` run in interpret mode: forward rtol 1e-6
+  ``evaluate_trees_pallas`` run in interpret mode (N = 16 and 128): forward rtol 1e-6
   (atol 1e-6), gradients rtol 1e-5, atol 1e-5 (both interpret the same
   float32 rows; XLA may round the VJP's expressions an ulp apart).
 * the dispatcher: CPU tensors go to the plain version; a function set with an
@@ -41,8 +49,10 @@ from multitreegp_tpu_torch.core.interpreter import (
     EvaluateTrees, evaluate_trees, evaluate_trees_plain, evaluate_trees_vjp_plain,
 )
 from multitreegp_tpu_torch.core.registry import build_function_set
+from multitreegp_tpu_torch.core.trees import CONST, EMPTY
 from test_torch_kernels import (
-    INTERP_OPS, NO_DEVICE_OP, TRIG, lanes_case, patch_host_math, reproduce_case, same_bits,
+    INTERP_LAYOUTS, INTERP_OPS, INTERP_SIZES, NO_DEVICE_OP, TRIG, c2_case, interp_layout_case,
+    lanes_case, patch_host_math, per_lane_operands, reproduce_case, same_bits,
 )
 
 torch.set_num_threads(1)
@@ -104,6 +114,133 @@ def test_host_build_trig_bit_exact(host_lib, monkeypatch):
     assert (ref_c != 0).any() and torch.isfinite(ref).float().mean() > 0.5
 
 
+def host_per_lane(lib, trees, data, g, fset):
+    """The host build's roots and per-lane cotangents in the operands' own
+    layout (lanes grouped by the tree they share)."""
+    status, out = ci.run_forward(lib.interpret_fwd, trees, data, fset)
+    assert status == 0
+    status, dconst, ddata = ci.run_backward(lib.interpret_bwd, trees, data, g, fset)
+    assert status == 0
+    return out, dconst, ddata
+
+
+def plain_per_lane(trees, data, g, fset):
+    """The plain version's roots and per-lane cotangents (autograd through it
+    on one tree and one data vector per lane)."""
+    full, x = per_lane_operands(trees, data)
+    return (evaluate_trees_plain(full, x, fset),) + evaluate_trees_vjp_plain(full, x, g, fset)
+
+
+@pytest.mark.parametrize("trig", [False, True], ids=["arith", "trig"])
+@pytest.mark.parametrize("n,depth", INTERP_SIZES)
+@pytest.mark.parametrize("layout", INTERP_LAYOUTS)
+def test_host_build_layouts_bit_exact(host_lib, monkeypatch, layout, n, depth, trig):
+    """Each caller's layout (lanes grouped by the tree they share, groups
+    that do not divide a warp or span blocks, one tree per lane) at N = 32
+    to 256, with and without ``sin``/``cos``: roots, ``dconst`` and
+    ``ddata`` bit for bit per lane."""
+    fset, trees, data, g = interp_layout_case(layout, n=n, depth=depth, trig=trig)
+    with monkeypatch.context() as m:
+        patch_host_math(m)
+        ref, ref_c, ref_d = plain_per_lane(trees, data, g, fset)
+    out, dconst, ddata = host_per_lane(host_lib, trees, data, g, fset)
+    assert dconst.shape == ref_c.shape and ddata.shape == ref_d.shape
+    assert same_bits(out, ref) and same_bits(dconst, ref_c) and same_bits(ddata, ref_d)
+    assert (ref_c != 0).any() and (ref_d != 0).any() and torch.isfinite(ref).float().mean() > 0.5
+
+
+@pytest.mark.parametrize("members", [1, 16, 31, 33])
+def test_host_build_block_edges_bit_exact(host_lib, members):
+    """The recompute's layout with groups of 1, 16 (two to a block), 31 and 33
+    lanes (groups that straddle blocks of 32 lanes, a last block part full):
+    the same bits per lane as the plain version."""
+    fset, trees, data, g = interp_layout_case("recompute")
+    rng = np.random.default_rng(members)
+    k, v = data.shape[0], data.shape[-1]
+    data = torch.from_numpy(rng.normal(size=(k, members, 1, v)).astype(np.float32) * 2)
+    g = torch.from_numpy(rng.normal(size=(k, members, trees.ops.shape[-2])).astype(np.float32))
+    ref, ref_c, ref_d = plain_per_lane(trees, data, g, fset)
+    out, dconst, ddata = host_per_lane(host_lib, trees, data, g, fset)
+    assert same_bits(out, ref) and same_bits(dconst, ref_c) and same_bits(ddata, ref_d)
+    assert (ref_c != 0).any() and (ref_d != 0).any()
+
+
+def postorder_roots(trees, data, fset):
+    """Root values of ``trees`` by a postorder stack machine (a binary row
+    pops its first operand, then its second), in float64 per lane."""
+    full, x = per_lane_operands(trees, data)
+    ops, const = full.ops.reshape(-1, full.max_nodes), full.const.reshape(-1, full.max_nodes)
+    x = x.reshape(-1, x.shape[-1]).double()
+    out = []
+    for lane in range(ops.shape[0]):
+        stack = []
+        for op, c in zip(ops[lane].tolist(), const[lane].tolist()):
+            if op == EMPTY:
+                continue
+            if op == CONST or op >= fset.var_start:
+                stack.append(c if op == CONST else float(x[lane, op - fset.var_start]))
+                continue
+            fn, arity = fset.operator_fns[op - 2], fset.arities[op - 2]
+            a = torch.tensor(stack.pop() if stack else 0.0, dtype=torch.float64)
+            b = torch.tensor(stack.pop() if stack and arity == 2 else 0.0, dtype=torch.float64)
+            stack.append(float(fn(a, b)))
+        out.append(stack[-1] if stack else 0.0)
+    return torch.tensor(out).reshape(full.ops.shape[:-1])
+
+
+def test_host_build_c2_semantics(host_lib, monkeypatch):
+    """Hand-made trees whose second operands are rows a postorder stack
+    would not pop: the kernel reads row ``c2`` as the plain version does
+    (bit for bit per lane, forward and VJP), not the stack's entry."""
+    fset, trees, data, g = c2_case()
+    with monkeypatch.context() as m:
+        patch_host_math(m)
+        ref, ref_c, ref_d = plain_per_lane(trees, data, g, fset)
+    out, dconst, ddata = host_per_lane(host_lib, trees, data, g, fset)
+    assert same_bits(out, ref) and same_bits(dconst, ref_c) and same_bits(ddata, ref_d)
+    assert (~torch.isfinite(ref)).any() and torch.isfinite(ref).any()
+    stack = postorder_roots(trees, data, fset).float()  # (candidate, lane, tree)
+    differs = ~torch.isclose(stack, ref, rtol=1e-3, atol=1e-3, equal_nan=True)
+    assert bool(differs.any(dim=1).all()), "every tree must tell c2 from a stack"
+
+
+def test_layout_cache(host_lib):
+    """A cached layout gives the bits of a cold call; a view with other
+    strides, a strided last dimension, a c2 laid out unlike ops, or another
+    shape gets its own layout; a bad cotangent is refused on a hit; the
+    cache stays bounded."""
+    fset, trees, data, g = interp_layout_case("recompute")
+    ci._layouts.clear()
+    cold = host_per_lane(host_lib, trees, data, g, fset)
+    assert len(ci._layouts) == 1
+    hit = host_per_lane(host_lib, trees, data, g, fset)
+    assert len(ci._layouts) == 1
+    assert all(same_bits(a, b) for a, b in zip(cold, hit))
+    other = data.transpose(0, 1).contiguous().transpose(0, 1)  # same shape, other strides
+    assert other.shape == data.shape and other.stride() != data.stride()
+    strided = torch.stack([data, -data], -1)[..., 0]  # last dimension strided: copied
+    for d in (other, strided):
+        assert all(same_bits(a, b) for a, b in zip(cold, host_per_lane(host_lib, trees, d, g, fset)))
+    assert len(ci._layouts) == 3
+    unshared = interp_layout_case("unshared")[1]
+    c2_view = unshared.c2.transpose(0, 1).contiguous().transpose(0, 1)
+    full, x = per_lane_operands(trees, data)
+    got = host_per_lane(host_lib, full._replace(c2=c2_view), x, g, fset)
+    assert all(same_bits(a, b) for a, b in zip(got, host_per_lane(host_lib, full, x, g, fset)))
+    part = trees.map(lambda a: a[:7])
+    got = host_per_lane(host_lib, part, data[:7, :3], g[:7, :3], fset)
+    ref = plain_per_lane(part, data[:7, :3], g[:7, :3], fset)
+    assert all(same_bits(a, b) for a, b in zip(got, ref))
+    with pytest.raises(ValueError):  # a cotangent of another shape, on a hit
+        ci.run_backward(host_lib.interpret_bwd, trees, data, g[:, :1], fset)
+    with pytest.raises(ValueError):  # ... of another dtype
+        ci.run_backward(host_lib.interpret_bwd, trees, data, g.double(), fset)
+    for k in range(1, 25):
+        for b in range(1, 4):
+            ci.run_forward(host_lib.interpret_fwd, trees.map(lambda a: a[:k]), data[:k, :b], fset)
+    assert len(ci._layouts) == ci.MAX_LAYOUTS
+
+
 def test_host_build_broadcast_sums(host_lib):
     """The recompute's layout: trees ``(K, 1, m, N)`` meet states
     ``(K, B, 1, d)``; dconst sums over B, ddata over the m trees. Constants
@@ -143,13 +280,12 @@ def test_host_build_refuses_bad_arguments(host_lib):
         ci.evaluate_trees_cuda(pop[:, None], data, fset)
 
 
-@pytest.mark.parametrize("broadcast", [False, True])
-def test_evaluate_trees_function_matches_jax_kernels(broadcast):
+def check_function_against_jax(n, depth, broadcast):
     """``EvaluateTrees`` (CPU: plain forward, plain VJP) against
     ``evaluate_trees_pallas`` in interpret mode, as the JAX package's own
-    interpret tests run it; N = 16, 6 candidates."""
+    interpret tests run it; 6 candidates of ``max_nodes=n``."""
     jf = jax_function_set(JAX_ARITH, [["x0", "x1"]], [2])
-    pop = jax_sampler(jf, 3, 16)(jr.PRNGKey(5), 6)
+    pop = jax_sampler(jf, depth, n)(jr.PRNGKey(5), 6)
     rng = np.random.default_rng(6)
     data = rng.normal(size=(6, 3, 1, 2) if broadcast else (6, 2, 2)).astype(np.float32)
     jpop = jax.tree_util.tree_map(lambda a: a[:, None], pop) if broadcast else pop
@@ -175,6 +311,17 @@ def test_evaluate_trees_function_matches_jax_kernels(broadcast):
     np.testing.assert_allclose(got_c.numpy(), np.asarray(want_c), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), rtol=1e-5, atol=1e-5)
     assert np.abs(np.asarray(want_c)).max() > 0
+
+
+@pytest.mark.parametrize("broadcast", [False, True])
+def test_evaluate_trees_function_matches_jax_kernels(broadcast):
+    """N = 16, as the JAX package's interpret tests."""
+    check_function_against_jax(16, 3, broadcast)
+
+
+def test_evaluate_trees_function_matches_jax_kernels_n128():
+    """N = 128 (grow depth 6), in the recompute's broadcast layout."""
+    check_function_against_jax(128, 6, True)
 
 
 def test_dispatcher_cpu_and_plain_versions_bypass_it(monkeypatch):

@@ -16,8 +16,9 @@ Two routes:
   and steps (also their instances for N <= 256, on chains of 255, 127 and
   63 rows, and at 1024 trajectories), and the policy evaluators' refusal to run a plain version on
   CUDA tensors; the interpreter kernels (forward and VJP)
-  through ``evaluate_trees`` and autograd, bit for bit per lane against the
-  plain version on the card; the adaptive kernels (#5 global budget, #4 per
+  through ``evaluate_trees`` and autograd, and in every caller's layout at
+  N = 32 to 256 with and without ``sin``/``cos`` (per-lane outputs), bit for
+  bit per lane against the plain version on the card; the adaptive kernels (#5 global budget, #4 per
   interval; also their instances for N <= 256, state dim 4 and 1024
   trajectories) and the trajectory kernel (#3) against their plain versions,
   bit for bit per lane (the card's ``powf`` and ``sqrtf`` are PyTorch's), and
@@ -245,6 +246,99 @@ def lanes_case(device="cpu", k=48, b=3, n=32, depth=5, seed=0, near_zero=True, o
     data = torch.from_numpy(rng.normal(size=(k, b, 2, 2)).astype(np.float32) * 2).to(device)
     g_out = torch.from_numpy(rng.normal(size=(k, b, 2)).astype(np.float32)).to(device)
     return fset, pop._replace(const=const), data, g_out
+
+
+# the interpreter's layouts: trees broadcast against data as its callers
+# give them (core/cuda_interpreter.py groups the lanes that share a tree)
+INTERP_LAYOUTS = ("recompute", "policy", "two_dims", "unshared", "callable")
+# tree sizes of the interpreter cases: N and the grow depth (bench.py's
+# max_init_depth=7 at N = 256)
+INTERP_SIZES = ((32, 5), (64, 6), (128, 6), (256, 7))
+
+
+def interp_layout_case(layout, device="cpu", n=32, depth=5, trig=False, seed=0):
+    """``(fset, trees, data, g)`` in one of the interpreter's layouts, made
+    from ``seed``; ``g`` is the roots' cotangent over the joint batch. Every
+    third candidate's constants are near or at 0, so ``/`` makes huge, inf
+    and NaN lanes.
+
+    * ``recompute``: trees ``(K, 1, m, N)`` against states ``(K, B, 1, d)``
+      (``SRFitness``'s recompute, ``V == d``); a group is one tree's B = 5
+      trajectories, which do not divide a warp;
+    * ``policy``: one tree ``(K, 1, 1, N)`` against ``(K, B, 1, V)`` with
+      ``V = 4`` (observations and a target; ``static_policy.py``);
+    * ``two_dims``: trees ``(K, 1, 1, m, N)`` against ``(K, 3, B, 1, d)``,
+      broadcast over two dimensions;
+    * ``unshared``: one tree per lane, ``(K, B, m, N)`` contiguous;
+    * ``callable``: one candidate ``(m, N)`` against ``(37, 1, d)``
+      (``to_callable``): a group of 37 lanes spans two blocks.
+
+    At ``n > 32`` the first three candidates are chains of ``n - 1``, 127
+    and 63 rows (the longest tapes; grown trees stay near 10-30 rows)."""
+    names = ["y0", "y1", "y2", "t0"] if layout == "policy" else ["x0", "x1"]
+    m = 1 if layout == "policy" else 2
+    fset = build_function_set(INTERP_OPS + (TRIG if trig else []), [names], [m])
+    gen = torch.Generator(device=device).manual_seed(seed)
+    k, b, v = 24, 5, len(names)
+    pop = make_population_sampler(fset, depth, n)(gen, k)[0]
+    if n > 32:
+        pop = with_chains(pop, fset, [n - 1, min(127, n - 1), min(63, n - 1)])
+    rng = np.random.default_rng(seed)
+    small = rng.normal(size=pop.const.shape).astype(np.float32) * 1e-3
+    small[rng.random(pop.const.shape) < 0.1] = 0.0
+    every_third = (torch.arange(k, device=device) % 3 == 0)[:, None, None]
+    pop = pop._replace(const=torch.where((pop.ops == CONST) & every_third,
+                                         torch.from_numpy(small).to(device), pop.const))
+    trees, shape = {
+        "recompute": (pop.map(lambda a: a[:, None]), (k, b, 1, v)),
+        "policy": (pop.map(lambda a: a[:, None]), (k, b, 1, v)),
+        "two_dims": (pop.map(lambda a: a[:, None, None]), (k, 3, b, 1, v)),
+        "unshared": (pop.map(lambda a: a[:, None].expand(k, b, m, n).contiguous()), (k, b, m, v)),
+        "callable": (pop[0], (37, 1, v)),
+    }[layout]
+    data = torch.from_numpy(rng.normal(size=shape).astype(np.float32) * 2).to(device)
+    batch = torch.broadcast_shapes(trees.ops.shape[:-1], data.shape[:-1])
+    g_out = torch.from_numpy(rng.normal(size=batch).astype(np.float32)).to(device)
+    return fset, trees, data, g_out
+
+
+def per_lane_operands(trees, data):
+    """Trees and data expanded to one per lane of their joint batch and
+    copied, so the plain VJP's cotangents are per lane, summed over nothing."""
+    batch = torch.broadcast_shapes(trees.ops.shape[:-1], data.shape[:-1])
+    full = trees.map(lambda a: a.expand(batch + a.shape[-1:]).contiguous())
+    return full, data.expand(batch + data.shape[-1:]).contiguous()
+
+
+def c2_case(device="cpu"):
+    """``(fset, trees (2, 1, 2, 8), data (2, 5, 1, 2), g)``: hand-made trees
+    whose second operands are rows that a postorder stack would not pop
+    (row 1 read twice; a row read as both operands, c2 == i-1; c2 at an
+    EMPTY row below the tree's first live row, at the row itself, above it,
+    and -1; a live row 0 that no row reads, so a lane that ran this tree
+    before leaves a value where the next tree's EMPTY row 0 lies), so the
+    interpreter's c2 semantics decide their values. Two of the trees have
+    sin rows."""
+    fset = build_function_set(INTERP_OPS + TRIG[:1], [["x0", "x1"]], [2])
+    x0, x1 = fset.var_start, fset.var_start + 1
+    add, sub, mul, div, sin = (fset.string_to_op[o] for o in ("+", "-", "*", "/", "sin"))
+    rows = [
+        # (ops, c2) of rows 0-7, padding first, root last
+        ([CONST, CONST, x0, add, CONST, mul, div, mul], [-1, -1, -1, 1, -1, 1, 3, 6]),
+        ([EMPTY, EMPTY, x1, sin, CONST, add, mul, div], [-1, -1, -1, 0, -1, 0, 2, 9]),
+        ([EMPTY, CONST, x1, sub, x0, add, sin, mul], [-1, -1, -1, 1, -1, 3, 5, 2]),
+        ([EMPTY, x0, x1, mul, CONST, div, add, sub], [-1, -1, -1, 0, -1, 1, 6, 4]),
+    ]
+    ops = torch.tensor([r[0] for r in rows], dtype=torch.int32).reshape(2, 1, 2, 8)
+    c2 = torch.tensor([r[1] for r in rows], dtype=torch.int32).reshape(2, 1, 2, 8)
+    const = torch.where(ops == CONST, torch.tensor([1.5, 0.25, -0.75, 2.0] * 8).reshape(2, 1, 2, 8),
+                        torch.tensor(0.0))
+    trees = TreeTensors(ops, (torch.arange(8, dtype=torch.int32) - 1).expand(2, 1, 2, 8).contiguous(),
+                        c2, const).map(lambda a: a.to(device))
+    rng = np.random.default_rng(3)
+    data = torch.from_numpy(rng.normal(size=(2, 5, 1, 2)).astype(np.float32)).to(device)
+    g_out = torch.from_numpy(rng.normal(size=(2, 5, 2)).astype(np.float32)).to(device)
+    return fset, trees, data, g_out
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -520,6 +614,40 @@ def test_interpreter_kernels_match_plain_on_card(cuda):
     assert same_bits(dconst, ref_c) and same_bits(ddata, ref_d)
     with pytest.raises(NotImplementedError):
         evaluate_trees(full, data, build_function_set(INTERP_OPS + [NO_DEVICE_OP], [["x0", "x1"]], [2]))
+
+
+def check_interpreter_on_card(fset, trees, data, g):
+    """#8 through its wrapper and #9 through ``run_backward`` (per-lane
+    outputs) against the plain version and autograd through it, per lane."""
+    fwd0 = ci.evaluate_trees_cuda.launches
+    out = ci.evaluate_trees_cuda(trees, data, fset)
+    status, dconst, ddata = ci.run_backward(_build.load("interpreter").interpret_bwd, trees, data,
+                                            g, fset, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert status == 0 and ci.evaluate_trees_cuda.launches == fwd0 + 1
+    full, x = per_lane_operands(trees, data)
+    ref = evaluate_trees_plain(full, x, fset)
+    ref_c, ref_d = evaluate_trees_vjp_plain(full, x, g, fset)
+    assert same_bits(out, ref) and same_bits(dconst, ref_c) and same_bits(ddata, ref_d)
+    assert (ref_c != 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trig", [False, True], ids=["arith", "trig"])
+@pytest.mark.parametrize("n,depth", INTERP_SIZES)
+@pytest.mark.parametrize("layout", INTERP_LAYOUTS)
+def test_interpreter_layouts_match_plain_on_card(cuda, layout, n, depth, trig):
+    """#8 and #9 in each caller's layout (lanes grouped by the tree they
+    share) at N = 32 to 256, with and without ``sin``/``cos``: roots and
+    per-lane ``dconst``/``ddata`` bit for bit."""
+    check_interpreter_on_card(*interp_layout_case(layout, cuda, n, depth, trig))
+
+
+@pytest.mark.cuda
+def test_interpreter_c2_semantics_on_card(cuda):
+    """#8 and #9 read row ``c2`` as the plain version does on hand-made
+    trees a postorder stack would evaluate otherwise."""
+    check_interpreter_on_card(*c2_case(cuda))
 
 
 @pytest.mark.cuda

@@ -169,6 +169,8 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     for shape, lanes in (("recompute", 4 * 4 * 2), ("population", 32 * 4 * 2)):
         assert out["interpreter"][shape]["lanes"] == lanes
         assert all(out["interpreter"][shape]["bit_equal"].values())
+        assert all(out["interpreter"][shape]["bit_equal_grouped"].values())
+    assert deep["interpreter"]["lanes"] == 8 * 4 * 2 and all(deep["interpreter"]["bit_equal"].values())
     sde = out["sde"]
     assert sde["rows"]["bits_equal"] and max(sde["rows"]["ulp_gap"].values()) == 0
     assert sde["fitness_kicks"]["identical"] == 1.0 and out["kernels"][0]["kicks"]["lanes"] == 32 * 4

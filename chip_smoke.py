@@ -42,15 +42,17 @@ workload (phases 12-14). Phases, one line or a few each:
    5(4)) and the trajectory kernel (#3) against their plain versions at the
    full width of 4096 x 16 lanes, every lane identical: #5 with the budget
    500 at T = 10 and T = 50, #4 with 32 steps per interval at T = 10, #3
-   RK4 at T = 50; the attempted steps per lane and per warp (the maximum of
-   32 consecutive lanes) and how many warps reach the budget;
+   RK4 at T = 50 (with its device time per launch by torch.profiler); the
+   attempted steps per lane and per warp (the maximum of 32 consecutive
+   lanes) and how many warps reach the budget;
 10. the adaptive path: 5 generations of the 8 x 512 host loop with
    ``SREvaluator(method="adaptive", adaptive_method="dopri5")``, the
    attempted-step telemetry of both budgets (``adaptive_solver_stats`` and
    the global kernel's), one ``optimise`` call (top-k 50, 3 Adam steps: the
    recompute takes ~4 s an epoch) through the adaptive gradient, and
    ``evaluate_candidate`` of the best under the RK4 evaluator; all seven
-   launch counters read around it;
+   launch counters read around it; then #3 at that inspection shape (one
+   candidate x 16 trajectories) against its plain version, and its time;
 11. adaptive and trajectory kernel and plain-version times (CUDA events;
    #5's and #4's device time per launch by torch.profiler), the global
    kernel's node-evals/s, and what sets #5's time: #5 on 1/8 of the
@@ -90,16 +92,18 @@ workload (phases 12-14). Phases, one line or a few each:
    the rows' build time;
 16. the branch probe (#10, ``python -m multitreegp_tpu_torch.tools.branch_probe``):
    every mode against its plain version, then the tool's timing run, each
-   mode's time beside its bound;
-17. the instances of #1, #2, #4-#9 for trees of up to 256 rows
-   against their plain versions: #1 on 256 candidates of 256 rows (chains
-   of 255, 127 and 63 rows among them) x 16 trajectories at T = 6, RK4 and
-   Euler-Maruyama with kick rows; #8/#9 on the same trees against 16 states
-   each in the recompute's layout; #5 (budget 40) and #4 (8 per interval),
-   dopri5, on the same lanes at T = 4; #2 on one island's 462 lanes of those
-   parents; #6 (dynamic, RK4 x 2: the readout and the two state trees) and
-   #7 (static, dopri5, 8 steps per interval) on 256 Acrobot policies of 256
-   rows, chained the same way, x 16 trajectories at T = 3 (the plain
+   mode's time and device time beside its bound (at the non-FMA rate: the
+   body is a multiply and an add);
+17. the instances of #1-#9 for trees of up to 256 rows against their
+   plain versions: #1 on 256 candidates of 256 rows (chains of 255, 127
+   and 63 rows among them) x 16 trajectories at T = 6, RK4 and
+   Euler-Maruyama with kick rows; #3 on the same lanes (RK4); #8/#9 on the
+   same trees against 16 states each in the recompute's layout; #5 (budget
+   40) and #4 (8 per interval), dopri5, on the same lanes at T = 4; #2 on
+   one island's 462 lanes of those parents; #6 (dynamic, RK4 x 2: the
+   readout and the two state trees) and #7 (static, dopri5, 8 steps per
+   interval) on 256 Acrobot policies of 256 rows, chained the same way, x
+   16 trajectories at T = 3 (the plain
    versions sweep all 256 rows at every stage; the card tests hold the
    other two pairs).
 
@@ -130,9 +134,13 @@ FULL = dict(islands=8, pop=512, max_nodes=32, depth=4, batch=16, horizon=10.0, d
 KERNELS = ("sr_fitness", "reproduce", "interpreter", "sr_adaptive", "sr_rollout",
            "policy", "branch_probe")  # csrc/<name>.cu
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, float32 FLOP/s outside the tensor
-# cores (both at the full 700 W power limit)
+# cores (both at the full 700 W power limit). The FLOP/s count an FMA as two
+# operations; a multiply or an add alone (the kernels are built with
+# -fmad=false) is one operation per lane and cycle, half that rate. Every
+# bound but the branch probe's counts at the FMA rate, so it is up to 2x low.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+PEAK_F32_NOFMA_PER_S = PEAK_F32_PER_S / 2
 OPERATORS = [("+", 2, 0.5), ("-", 2, 0.1), ("*", 2, 0.5), ("/", 2, 0.1)]
 
 
@@ -212,11 +220,12 @@ def kernel_device_ms(cases, runs: int, torch) -> dict:
     return out
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, ops_per_s: float = PEAK_F32_PER_S):
     """``(ms, "bytes" | "operations")``: the least time the card could take
-    to move ``nbytes`` and do ``ops`` float32 operations, and which sets it."""
+    to move ``nbytes`` and do ``ops`` float32 operations at ``ops_per_s``,
+    and which sets it."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -462,7 +471,8 @@ def run(device, sizes=FULL) -> dict:
             device_ms=at.get("interval_short_device"), deep=out["deep"]["adaptive"]["interval"]),
         row("sr_rollout", "sr_rollout.cu", "multitreegp_tpu/core/pallas_rollout.py:163",
             launches10["sr_rollout"], ro["max_abs_err"], at.get("rollout"), ro["plain_ms"],
-            bound(ro["bytes"], ro["ops"]), t_steps=ts_full.shape[0]),
+            bound(ro["bytes"], ro["ops"]), t_steps=ts_full.shape[0], device_ms=ro["device_ms"],
+            inspection=out["adaptive_path"]["inspection"], deep=out["deep"]["rollout"]),
     ]
     pk, pp, pt = out["policy_kernels"], out["policy_path"], out["policy_times_ms"]
 
@@ -507,6 +517,32 @@ def lanes_identical(mse, alive, ref, ref_alive):
     import torch
 
     return ((mse == ref) | (torch.isnan(mse) & torch.isnan(ref))) & (alive == ref_alive)
+
+
+def rollout_identical(xs, alive, ref, ref_alive):
+    """``(share of lanes identical, max abs error on finite states)`` of #3's
+    trajectories ``xs (T, P, B, d)`` and liveness ``(T, P, B)`` against its
+    plain version's: a lane is identical when every state (NaN where the
+    other has NaN) and its liveness are."""
+    import torch
+
+    same_x = (xs == ref) | (torch.isnan(xs) & torch.isnan(ref))
+    lane_same = same_x.all(dim=-1).all(dim=0) & (alive == ref_alive).all(dim=0)
+    fin = torch.isfinite(xs) & torch.isfinite(ref)
+    max_abs = float((xs - ref).abs()[fin].max()) if bool(fin.any()) else 0.0
+    return float(lane_same.float().mean()), max_abs
+
+
+def rollout_ops(trees, fset, alive, t_steps: int, d: int) -> float:
+    """Float32 operations of #3's RK4 rollout with one substep: per step and
+    lane 4 tree evaluations (one operation per operator row), the stage
+    inputs 6d, the stage sums 8d, the update 2d and the liveness test 2d; a
+    lane that dies stops stepping, and is counted for one step."""
+    import torch
+
+    rows = ((trees.ops >= 2) & (trees.ops < fset.var_start)).sum(dim=(1, 2))[:, None]
+    steps = torch.where(alive, t_steps - 1, 1)
+    return float((steps * (4 * rows + 18 * d)).sum())
 
 
 def reproduction_case(device, s, trees, fset, g) -> dict:
@@ -1023,27 +1059,25 @@ def adaptive_kernels_phase(device, s, trees, fset, x0s, ts_full, ys_full) -> dic
                    f"{r['warp_steps_max']}, sum {r['warp_steps_total']}, {r['warps_at_budget']} warps "
                    f"reach the budget of {budget_steps}; plain {plain_ms:.1f} ms")
     # #3: the trajectory, RK4 with one substep over the whole grid
-    xs, alive = (cf.sr_rollout_cuda if on_card else cf.sr_rollout_plain)(trees, x0s, ts_full, fset, "rk4", 1)
+    rollout = lambda: (cf.sr_rollout_cuda if on_card else cf.sr_rollout_plain)(
+        trees, x0s, ts_full, fset, "rk4", 1)
+    xs, alive = rollout()
     (ref, ref_alive), plain_ms = timed_plain(
         lambda: cf.sr_rollout_plain(trees, x0s, ts_full, fset, "rk4", 1), device)
-    same_x = (xs == ref) | (torch.isnan(xs) & torch.isnan(ref))
-    lane_same = same_x.all(dim=-1).all(dim=0) & (alive == ref_alive).all(dim=0)
-    fin = torch.isfinite(xs) & torch.isfinite(ref)
-    max_abs = float((xs - ref).abs()[fin].max()) if bool(fin.any()) else 0.0
-    share = float(lane_same.float().mean())
+    share, max_abs = rollout_identical(xs, alive, ref, ref_alive)
     check(share == 1.0, f"trajectory kernel: {share:.6f} of lanes bit-equal")
-    # rk4 per step and lane: 4 tree evaluations, the stage inputs 6d, the
-    # stage sums 8d, the update 2d and the liveness test 2d; a lane that
-    # dies stops stepping, and is counted for one step
-    rows = ((trees.ops >= 2) & (trees.ops < fset.var_start)).sum(dim=(1, 2))[:, None]
-    steps = torch.where(alive[-1], t_long - 1, 1)
     res["rollout"] = dict(identical=share, max_abs_err=max_abs, plain_ms=plain_ms,
-                          alive=float(alive[-1].float().mean()), lanes=lane_same.numel(),
-                          ops=float((steps * (4 * rows + 18 * x0s.shape[1])).sum()),
-                          bytes=nbytes(trees.ops, trees.const, x0s, ts_full, xs) + alive[-1].numel())
-    phase_line(f"phase 9 #3 trajectory kernel vs plain, rk4, T={t_long}, {lane_same.numel()} lanes: "
+                          alive=float(alive[-1].float().mean()), lanes=alive[-1].numel(),
+                          ops=rollout_ops(trees, fset, alive[-1], t_long, x0s.shape[1]),
+                          bytes=nbytes(trees.ops, trees.const, x0s, ts_full, xs) + alive[-1].numel(),
+                          device_ms=None)
+    if on_card:
+        res["rollout"]["device_ms"] = kernel_device_ms(
+            (("rollout", rollout, "sr_rollout_kernel"),), s["timing_runs"], torch)["rollout"]
+    phase_line(f"phase 9 #3 trajectory kernel vs plain, rk4, T={t_long}, {alive[-1].numel()} lanes: "
                f"bit-equal {share:.6f}, max abs {max_abs:.3e}; alive {res['rollout']['alive']:.4f}; "
-               f"plain {plain_ms:.1f} ms")
+               + (f"device {res['rollout']['device_ms']:.4f} ms; " if on_card else "")
+               + f"plain {plain_ms:.1f} ms")
     return {"adaptive_kernels": res}
 
 
@@ -1165,6 +1199,25 @@ def adaptive_path_phase(device, s, data) -> dict:
         check(launches["interpret_fwd"] >= 1 and launches["interpret_bwd"] >= 1,
               f"#8/#9 launches {launches}")
         check(launches["sr_rollout"] >= 1, f"#3 launches {launches}")
+    # #3 at the inspection shape evaluate_candidate gives it (P = 1, B
+    # trajectories), timed after the counters were read
+    one = best_cand.map(lambda a: a[None])
+    inspect_fn = lambda: (cf.sr_rollout_cuda if device.type == "cuda" else cf.sr_rollout_plain)(
+        one, x0s, ts, gp.fset, "rk4", 1)
+    xs1, alive1 = inspect_fn()
+    (ref1, ref_alive1), plain1_ms = timed_plain(
+        lambda: cf.sr_rollout_plain(one, x0s, ts, gp.fset, "rk4", 1), device)
+    same1, _ = rollout_identical(xs1, alive1, ref1, ref_alive1)
+    check(same1 == 1.0, f"#3 at P = 1: {same1:.6f} of lanes bit-equal")
+    inspection = dict(lanes=alive1[-1].numel(), identical=same1, plain_ms=plain1_ms, ms=None,
+                      device_ms=None)
+    inspection["bound_ms"], inspection["bound_by"] = bound(
+        nbytes(one.ops, one.const, x0s, ts, xs1) + alive1[-1].numel(),
+        rollout_ops(one, gp.fset, alive1[-1], ts.shape[0], x0s.shape[1]))
+    if device.type == "cuda":
+        inspection["ms"] = cuda_time_ms(inspect_fn, s["timing_runs"], torch)
+        inspection["device_ms"] = kernel_device_ms(
+            (("inspect", inspect_fn, "sr_rollout_kernel"),), s["timing_runs"], torch)["inspect"]
     for i, rec in enumerate(gens):
         phase_line(f"phase 10 adaptive path gen {i}: eval {rec['eval_ms']:.3f} ms, evolve "
                    f"{rec['evolve_ms']:.3f} ms, best fitness {rec['best']:.6g}")
@@ -1178,11 +1231,17 @@ def adaptive_path_phase(device, s, data) -> dict:
                f"{float(refined.sum()):.6g}, {int((refined < before).sum())} improved")
     phase_line(f"phase 10 best under rk4: per-trajectory fitness {[round(float(v), 6) for v in cand_fit]}, "
                f"call {call_fit:.6g}; launches in the loop {loop_launches}, in the whole phase {launches}")
+    phase_line(f"phase 10 #3 at the inspection shape (1 candidate x {inspection['lanes']} trajectories, "
+               f"T={ts.shape[0]}): bit-equal {same1:.6f}; "
+               + (f"{inspection['ms']:.4f} ms (device {inspection['device_ms']:.4f}); "
+                  if inspection["ms"] is not None else "")
+               + f"bound {inspection['bound_ms']:.6f} ms by {inspection['bound_by']}; plain {plain1_ms:.1f} ms")
     return {"adaptive_path": dict(generations=gens, best=best, loop_launches=loop_launches,
                                   launches=launches, telemetry=telemetry, optimise_ms=opt_ms,
                                   optimise_split_ms=split, unrefined_sum=float(before.sum()),
                                   refined_sum=float(refined.sum()),
-                                  improved=int((refined < before).sum()), candidate_fitness=call_fit)}
+                                  improved=int((refined < before).sum()), candidate_fitness=call_fit,
+                                  inspection=inspection)}
 
 
 def adaptive_times(device, s, trees, fset, x0s, ts_full, ys_full) -> dict:
@@ -1906,7 +1965,8 @@ def probe_phase(device, s) -> dict:
         ref, plain_ms = timed_plain(lambda: bp.probe_plain(x, mode), device)
         check(bool(torch.equal(got, ref)), f"probe {mode}: kernel and plain version differ")
         err = max(err, float((got - ref).abs().max()))
-        bnd = bound(2 * nbytes(x), bp.operations(x, mode))
+        # the body's multiply and add under -fmad=false: the non-FMA rate
+        bnd = bound(2 * nbytes(x), bp.operations(x, mode), PEAK_F32_NOFMA_PER_S)
         modes[mode] = dict(plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], ops=bp.operations(x, mode),
                            iterations_mean=float(bp.element_iterations(x, mode).float().mean()))
     bp.probe_cuda.launches = 0
@@ -1914,16 +1974,35 @@ def probe_phase(device, s) -> dict:
     launches = bp.probe_cuda.launches
     if on_card:
         check(launches >= len(bp.MODES), f"probe launches {launches}")
+        inputs = {mode: bp.probe_input(mode, s["probe_reps"], device) for mode in bp.MODES}
+        device_ms = kernel_device_ms([(mode, lambda m=mode: bp.probe_cuda(inputs[m], m), "probe_kernel")
+                                      for mode in bp.MODES], s["timing_runs"], torch)
+        for mode, r in timed.items():
+            r.update(device_ms=device_ms[mode], device_ratio=device_ms[mode] / device_ms["always"])
+    # what a launch costs besides its iterations: every mode on tiles past the
+    # threshold from the start (one round's work, then the flag is down)
+    early = bp.early_input(s["probe_reps"], device)
+    early_ms = {}
+    for mode in bp.MODES:
+        got = bp.probe_cuda(early, mode) if on_card else bp.probe_plain(early, mode)
+        check(bool(torch.equal(got, bp.probe_plain(early, mode))), f"probe {mode} early: kernel and plain differ")
+    if on_card:
+        early_ms = kernel_device_ms([(mode, lambda m=mode: bp.probe_cuda(early, m), "probe_kernel")
+                                     for mode in ("when", "dynfori", "dynval")], s["timing_runs"], torch)
     for mode, r in modes.items():
         r.update(timed.get(mode, dict(ms=None)))
         phase_line(f"phase 16 probe {mode}: identical to plain; "
-                   + (f"{r['ms']:.4f} ms ({r['ratio']:.3f}x of always, ideal {r['ideal_ratio']:.3f}x); "
+                   + (f"{r['ms']:.4f} ms ({r['ratio']:.3f}x of always, ideal {r['ideal_ratio']:.3f}x), "
+                      f"device {r['device_ms']:.4f} ms ({r['device_ratio']:.3f}x); "
                       if r["ms"] is not None else "")
-                   + f"bound {r['bound_ms']:.5f} ms by {r['bound_by']} ({r['ops']:.4e} operations, "
+                   + f"bound {r['bound_ms']:.5f} ms by {r['bound_by']} ({r['ops']:.4e} operations at "
+                   f"{PEAK_F32_NOFMA_PER_S:.3e}/s, "
                    f"{r['iterations_mean']:.2f} iterations per element); plain {r['plain_ms']:.1f} ms")
     phase_line(f"phase 16 probe: {s['probe_reps']} tiles of 8x128, TOTAL {bp.TOTAL}, FLIP {bp.FLIP}, CH {bp.CH}; "
-               f"launches in the timing run {launches}")
-    return {"probe": dict(modes=modes, launches=launches, max_abs_err=err)}
+               f"launches in the timing run {launches}; on tiles past the threshold (identical to plain), "
+               f"device ms: " + (", ".join(f"{m} {v:.4f}" for m, v in early_ms.items()) or "not measured")
+               + " (when: one iteration; dynfori, dynval: one chunk, then the rounds' reductions)")
+    return {"probe": dict(modes=modes, launches=launches, max_abs_err=err, early_device_ms=early_ms)}
 
 
 def chain_trees(trees, fset, lengths):
@@ -1947,11 +2026,11 @@ def chain_trees(trees, fset, lengths):
 
 
 def deep_phase(device, s, ps) -> dict:
-    """Phase 17: the instances of #1, #2, #4-#7 for trees of up to 256
+    """Phase 17: the instances of #1-#9 for trees of up to 256
     rows against their plain versions. #1: 256 candidates of 2 trees of 256
     rows grown to depth 7, the first three chains of 255, 127 and 63 rows
     (the deepest stacks), x 16 VdP trajectories at T = 6, RK4 and Euler x 4
-    with kick rows; #5 (budget 40) and #4 (8 steps per interval), dopri5, on
+    with kick rows; #3 on the same lanes, RK4; #5 (budget 40) and #4 (8 steps per interval), dopri5, on
     the same lanes at T = 4; #2: one island's 462 lanes of those parents, fresh trees
     at depth 7; #6 on 256 dynamic Acrobot policies (RK4 x 2) and #7 on 256
     static ones (dopri5, 8 steps per interval), of 256 rows grown and
@@ -1988,6 +2067,14 @@ def deep_phase(device, s, ps) -> dict:
         res[key] = dict(identical=identical, lanes=alive.numel(), alive=float(alive.float().mean()),
                         max_abs_err=float((mse - ref).abs()[fin].max()), plain_ms=plain_ms)
     sizes = (trees.ops != 0).sum(-1)
+    # #3 on the same lanes, RK4 with one substep
+    xs, alive_r = (cf.sr_rollout_cuda if on_card else cf.sr_rollout_plain)(trees, x0s, ts, fset, "rk4", 1)
+    (ref, ref_alive), plain_ms = timed_plain(lambda: cf.sr_rollout_plain(trees, x0s, ts, fset, "rk4", 1),
+                                             device)
+    share, max_abs = rollout_identical(xs, alive_r, ref, ref_alive)
+    check(share == 1.0, f"deep #3: {share:.6f} of lanes identical")
+    rollout = dict(identical=share, lanes=alive_r[-1].numel(), alive=float(alive_r[-1].float().mean()),
+                   max_abs_err=max_abs, plain_ms=plain_ms)
     # #5 and #4 on the same candidates, the horizon cut (the plain versions
     # sweep all 256 rows at every stage)
     t_a = s["deep_adaptive_t"]
@@ -2015,6 +2102,8 @@ def deep_phase(device, s, ps) -> dict:
                f"{float(sizes.float().mean()):.1f} max {int(sizes.max())}: "
                + "; ".join(f"{k} identical {v['identical']:.6f}, alive {v['alive']:.4f}, plain "
                            f"{v['plain_ms']:.1f} ms" for k, v in res.items()))
+    phase_line(f"phase 17 #3 N={n} vs plain, rk4, {rollout['lanes']} lanes, T={ts.shape[0]}: identical "
+               f"{rollout['identical']:.6f}, alive {rollout['alive']:.4f}, plain {rollout['plain_ms']:.1f} ms")
     # #8 and #9 on the same candidates against 16 states each, in the
     # recompute's layout, every lane (the VJP's per-lane outputs)
     k, b, m = trees.ops.shape[0], s["batch"], trees.ops.shape[1]
@@ -2061,8 +2150,8 @@ def deep_phase(device, s, ps) -> dict:
                    f"{r['alive']:.4f}; plain {r['plain_ms']:.1f} ms"
                    + (f"; steps per lane min {r['steps_min']} median {r['steps_median']:.0f} max "
                       f"{r['steps_max']}" if kind == "adaptive" else ""))
-    return {"deep": dict(fitness=res, adaptive=adaptive, reproduce=rep, interpreter=interp,
-                         **deep_policy)}
+    return {"deep": dict(fitness=res, rollout=rollout, adaptive=adaptive, reproduce=rep,
+                         interpreter=interp, **deep_policy)}
 
 
 def sync(device) -> None:

@@ -353,9 +353,10 @@ def sr_rollout_cuda(
 
     lib = _build.load("sr_rollout")
     fn = lib.sr_rollout_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float] * 3
-                   + [ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    if fn.argtypes is None:  # once per loaded library
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float] * 3
+                       + [ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     status = fn(
         ops.data_ptr(), cst.data_ptr(), devop.data_ptr(), x0c.data_ptr(), xs.data_ptr(),
         alive.data_ptr(), p, d, n, b, t_steps, fset.var_start, fset.has_unary, METHODS[method],

@@ -12,12 +12,13 @@
 // One block is one tile, one thread per element (1024 threads). Each TPU
 // mode maps to its nearest CUDA mechanism:
 //   always  - no skip: TOTAL iterations, the roofline of "executes everything";
-//   when    - `pl.when` on an SMEM flag: a block-uniform flag in shared memory,
-//             written by thread 0 from a block reduction of the tile's sum;
+//   when    - `pl.when` on an SMEM flag: a block-uniform flag read at the top
+//             of each round; while it is up the body and the tile's reduction
+//             run, once it drops both are skipped (no barrier either);
 //   dynfori - a chunked loop whose inner trip count (CH or 0) is read from
 //             that flag;
-//   dynval  - the same, the trip count computed straight from the reduction
-//             by `__syncthreads_or` (no flag in shared memory).
+//   dynval  - the same, the trip count taken straight from the reduction by
+//             `__syncthreads_or` (the flag is the barrier's result).
 // And the GPU's own form of the question:
 //   lane    - each thread tests its own value against the per-element
 //             threshold; the input puts one slow element in every 32 (one per
@@ -25,14 +26,25 @@
 //             runs until its slowest lane is done: the divergence that sets
 //             the adaptive kernels' time.
 //
+// The tile's reduction costs one barrier a round: each warp sums its values
+// by shuffles and writes the partial to shared scratch, double-buffered by
+// the round's parity (so no trailing barrier guards its reuse); after one
+// __syncthreads every warp of `when` and `dynfori` reads the 32 partials and
+// reduces them in the same fixed order, so every thread holds the same tile
+// sum and the same flag. Their flag therefore lives in a register, not in
+// shared memory, and needs no second round trip. `dynval` keeps
+// __syncthreads_or as its mechanism: warp 0 alone sums the partials and the
+// OR is a second barrier. What sets the skip modes' time besides their
+// iterations (the launch, a reduction's drain after each round's body) is
+// measured in PERF.md, section 6.
+//
 // Every mode is `rounds` rounds; a round runs the body `trip_count` times on
 // an element whose flag is up, then `next_go` sets the flag from the tile's
 // sum (or, in `lane`, the element). Those three and the body are plain C++
 // under PROBE_HD, shared by the kernel and, without __CUDACC__, a host loop
 // over tiles (sums in element order) that tests check against the plain
 // PyTorch version where there is no card. The mechanisms that carry the flag
-// (shared memory, barriers, __syncthreads_or, the block reduction) run only
-// on the card.
+// (the block reduction, barriers, __syncthreads_or) run only on the card.
 #include <stddef.h>
 
 #ifdef __CUDACC__
@@ -77,18 +89,21 @@ PROBE_HD inline int next_go(int mode, int go, float value, float thresh) {
 }
 
 #ifdef __CUDACC__
-// Sum of the block's values; valid in every thread of warp 0. Ends with a
-// barrier, so `scratch` can be reused at once.
-__device__ inline float block_sum(float v, float* scratch) {
+// Each warp's partial sum of v (a shuffle butterfly, equal in all its lanes)
+// to scratch[parity][warp], then the one barrier. The other parity's half is
+// the next round's, so the scratch needs no barrier before it is written
+// again.
+__device__ inline void publish_partial(float v, float (*scratch)[32], int parity) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
+  if ((threadIdx.x & 31) == 0) scratch[parity][threadIdx.x >> 5] = v;
   __syncthreads();
-  float s = 0.0f;
-  if (threadIdx.x < 32) {
-    s = scratch[threadIdx.x];
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  }
-  __syncthreads();
+}
+
+// The tile's sum from the 32 published partials, in one fixed order: every
+// warp that calls it gets the same value in all its lanes.
+__device__ inline float sum_partials(float (*scratch)[32], int parity) {
+  float s = scratch[parity][threadIdx.x & 31];
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
   return s;
 }
 
@@ -96,38 +111,32 @@ template <int M>
 __global__ void __launch_bounds__(kTile) probe_kernel(const float* __restrict__ x,
                                                       float* __restrict__ out, float thresh,
                                                       float lane_thresh) {
-  __shared__ float scratch[32];
-  __shared__ int go_flag;  // when, dynfori: the block's flag
-  constexpr bool in_smem = M == kWhen || M == kDynFori;
+  static_assert(kTile == 32 * 32, "one partial per warp, reduced by one warp");
+  __shared__ float scratch[2][32];
   const int tid = threadIdx.x;
   const size_t i = static_cast<size_t>(blockIdx.x) * kTile + tid;
   float v = x[i];
-  int go = 1;
-  if (in_smem) {
-    if (tid == 0) go_flag = 1;
-    __syncthreads();
-  }
+  int go = 1;  // block-uniform in every mode but `lane`
   for (int r = 0; r < rounds(M); ++r) {
-    if (in_smem) go = go_flag;  // block-uniform
     const int n = trip_count(M, go);
     if (M == kWhen) {
       if (go) {  // `pl.when`: the body and the reduction skipped together
         for (int it = 0; it < n; ++it) v = body_work(v);
-        const float s = block_sum(v, scratch);
-        if (tid == 0) go_flag = next_go(M, go, s, thresh);
+        publish_partial(v, scratch, r & 1);
+        go = next_go(M, go, sum_partials(scratch, r & 1), thresh);
       }
-      __syncthreads();
       continue;
     }
     for (int it = 0; it < n; ++it) v = body_work(v);
     if (M == kLane) {
       go = next_go(M, go, v, lane_thresh);
     } else if (M == kDynFori) {
-      const float s = block_sum(v, scratch);
-      if (tid == 0) go_flag = next_go(M, go, s, thresh);
-      __syncthreads();
+      publish_partial(v, scratch, r & 1);
+      go = next_go(M, go, sum_partials(scratch, r & 1), thresh);
     } else if (M == kDynVal) {
-      const float s = block_sum(v, scratch);
+      // only thread 0's predicate enters the OR: warp 0 alone sums the tile
+      publish_partial(v, scratch, r & 1);
+      const float s = tid < 32 ? sum_partials(scratch, r & 1) : 0.0f;
       go = __syncthreads_or(tid == 0 && next_go(M, go, s, thresh));
     }
   }

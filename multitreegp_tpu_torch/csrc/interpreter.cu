@@ -255,7 +255,7 @@ MTGP_HD inline float value(const Tape& e) { return e.v; }
 
 // Rows start..n-1 of one tree on the lane's data column xs (stride `stride`),
 // each row's value into tape[i]; returns the root (0 for an empty tree). U =
-// false compiles the unary rows out (tree_eval.cuh eval_tree).
+// false compiles the unary rows out (tree_prog.cuh row_step).
 template <bool U, typename E>
 MTGP_HD inline float forward_rows(int n, const Row* rows, int start, const float* xs, int stride,
                                   E* tape) {

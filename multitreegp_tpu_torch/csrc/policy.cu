@@ -75,7 +75,7 @@
 // x + (h*final_scale)*acc with acc = 0 + w1*k1 + ..., the scalars h*c and
 // h*final_scale rounded once from double by the wrapper; the interpolation
 // lo*(1-frac) + hi*frac with frac = (s + c) * (1/substeps); each tree row
-// applies the operator of tree_eval.cuh to the operands eval_tree would pop.
+// applies the operator of tree_eval.cuh to the operands of its stack machine.
 // Built with -fmad=false and IEEE division and square root.
 //
 // The per-lane code is plain C++ under MTGP_HD, so the same file also

@@ -59,8 +59,8 @@
 // Numerics: the kernels' float32 expressions in their order (the same as the
 // plain versions in core/cuda_adaptive.py); the step and the controller are
 // adaptive_step.cuh's, shared with the adaptive policy kernel (policy.cu);
-// each tree row applies the operator of tree_eval.cuh to the operands
-// eval_tree would pop. Built with -fmad=false and IEEE division and square
+// each tree row applies the operator of tree_eval.cuh to the operands of
+// its stack machine. Built with -fmad=false and IEEE division and square
 // root.
 //
 // The per-lane code is plain C++ under MTGP_HD, so the same file also

@@ -9,22 +9,42 @@
 // whose state turns non-finite or reaches |x| >= 1e8, and writes the state at
 // every save point, xs (T, P, B, d), and the final liveness per lane.
 //
-// What bounds it on this card: instruction issue, as in sr_fitness.cu. Each
-// lane evaluates its D trees at every RK stage of every step and writes
-// T * D floats; at the trajectory shapes the path uses (one candidate,
-// or a population at N <= 64) the writes are a few MB.
+// What bounds it on this card: as in sr_fitness.cu, the latency of each tree
+// row's dependent chain, then instruction issue. Each lane evaluates its D
+// trees at every RK stage of every step; the only sizeable traffic is the
+// trajectory, T * D floats a lane (26 MB for a population of 4096 x 16 lanes
+// at T = 50, d = 2), written once.
 //
-// Design: one thread per lane, candidate-major; a block stages its
-// candidates' trees in shared memory; state and stage sums live in registers,
-// the tree stack (S floats) in local memory. Neighbouring lanes write
-// neighbouring states of a save row. The TPU kernel's (8, 128) tiles and
-// double-buffered DMA of the save rows are not carried over.
+// Design: the decoded-program machine of tree_prog.cuh, as in sr_fitness.cu
+// (#1). One thread per lane, candidate-major; a block holds `cpb` candidates
+// x at most 128 of their trajectories (a candidate with more spans several
+// blocks, gridDim.y), so no block exceeds 128 threads whatever the
+// instance's registers. The block decodes its candidates' trees once, when
+// it stages them into shared memory: 8-byte rows with the device op id or
+// data slot folded in, the first live row of each tree, a static stack slot
+// per row. The candidate's D trees run row by row in one loop (D independent
+// chains, each row branch-free), the top of each stack in a register and
+// N / 2 slots a tree in local memory (16 floats at N <= 32, 128 at
+// N <= 256). State, RK stages and the stage sums live in registers.
+// Neighbouring threads hold neighbouring lanes, so a warp writes one
+// contiguous run of each save row. The stores are plain: streaming stores
+// (`__stcs`) ran in the same time (PERF.md, section 6). The TPU kernel's
+// (8, 128) tiles and double-buffered DMA of the save rows are not carried
+// over.
 //
 // Numerics: the TPU kernel's stage table (`_RK_TABLES`): acc = 0 + w1*k1 +
 // w2*k2 + ..., stage inputs x + (h*c)*k, the update x + (h*final_scale)*acc,
 // with the scalars h*c and h*final_scale formed in double on the host and
-// rounded once to float32 (the wrapper passes them). Built with -fmad=false.
+// rounded once to float32 (the wrapper passes them); each tree row applies
+// the operator of tree_eval.cuh to the operands of the postorder stack
+// machine. Built with -fmad=false.
+//
+// The per-lane code is plain C++ under MTGP_HD, so the same file also
+// compiles for the host (without __CUDACC__) into a lane loop that decodes
+// every candidate as a block does and that tests run against the plain
+// version on machines without a card.
 #include "sr_lane.cuh"
+#include "tree_prog.cuh"
 
 namespace {
 
@@ -35,12 +55,13 @@ struct StepScalars {
   float half, full, final_scale;
 };
 
-template <int D, int S, bool U>
-MTGP_HD void rollout_lane(const int* t_ops, const float* t_cst, const int* __restrict__ devop,
-                          const float* __restrict__ x0, int n, int var_start, int T, int method,
-                          int substeps, StepScalars h, float* xs, size_t row_stride,
-                          uint8_t* alive_out) {
-  float stack[S];
+// One lane: a trajectory of the candidate whose D decoded trees are `prog`
+// (the first live row of any is `first`), tree q's stack slots at
+// stk + q * tree_stride; its states at xs + t * row_stride.
+template <int D, bool U>
+MTGP_HD void rollout_lane(const Row* prog, int first, float* stk, int tree_stride,
+                          const float* __restrict__ x0, int n, int T, int method, int substeps,
+                          StepScalars h, float* xs, size_t row_stride, uint8_t* alive_out) {
   float x[D];
 #pragma unroll
   for (int q = 0; q < D; ++q) x[q] = x0[q];
@@ -50,13 +71,13 @@ MTGP_HD void rollout_lane(const int* t_ops, const float* t_cst, const int* __res
   for (int t = 1; t < T; ++t) {
     for (int s = 0; s < substeps && alive; ++s) {
       float k[D], xst[D], acc[D], xn[D];
-      drift<D, S, U>(t_ops, t_cst, n, devop, var_start, x, k, stack);
+      run_trees<D, D, U>(prog, first, n, x, k, stk, tree_stride);
 #pragma unroll
       for (int q = 0; q < D; ++q) acc[q] = 0.0f + 1.0f * k[q];
       if (method == kHeun) {
 #pragma unroll
         for (int q = 0; q < D; ++q) xst[q] = x[q] + h.full * k[q];
-        drift<D, S, U>(t_ops, t_cst, n, devop, var_start, xst, k, stack);
+        run_trees<D, D, U>(prog, first, n, xst, k, stk, tree_stride);
 #pragma unroll
         for (int q = 0; q < D; ++q) acc[q] = acc[q] + 1.0f * k[q];
       } else if (method == kRk4) {
@@ -66,7 +87,7 @@ MTGP_HD void rollout_lane(const int* t_ops, const float* t_cst, const int* __res
         for (int st = 0; st < 3; ++st) {
 #pragma unroll
           for (int q = 0; q < D; ++q) xst[q] = x[q] + c[st] * k[q];
-          drift<D, S, U>(t_ops, t_cst, n, devop, var_start, xst, k, stack);
+          run_trees<D, D, U>(prog, first, n, xst, k, stk, tree_stride);
 #pragma unroll
           for (int q = 0; q < D; ++q) acc[q] = acc[q] + w[st] * k[q];
         }
@@ -86,50 +107,86 @@ MTGP_HD void rollout_lane(const int* t_ops, const float* t_cst, const int* __res
   *alive_out = alive ? 1 : 0;
 }
 
+struct Operands {
+  const int* ops;
+  const float* cst;
+  const int* devop;
+  const float* x0s;
+  float* xs;
+  uint8_t* alive;
+  int P, n, B, T, var_start, method, substeps;
+  StepScalars h;
+};
+
 #ifdef __CUDACC__
-template <int D, int S, bool U>
-__global__ void sr_rollout_kernel(const int* __restrict__ ops, const float* __restrict__ cst,
-                                  const int* __restrict__ devop, const float* __restrict__ x0s,
-                                  float* __restrict__ xs, uint8_t* __restrict__ alive, int P,
-                                  int n, int B, int T, int var_start, int method, int substeps,
-                                  StepScalars h, int cpb) {
-  const int* t_ops;
-  const float* t_cst;
-  size_t lane;
-  int b;
-  if (!stage_block(ops, cst, P, B, D * n, cpb, &t_ops, &t_cst, &lane, &b)) return;
-  rollout_lane<D, S, U>(t_ops, t_cst, devop, x0s + b * D, n, var_start, T, method, substeps, h,
-                     xs + lane * D, static_cast<size_t>(P) * B * D, alive + lane);
+// The most trajectories of one candidate a block holds (the wrapper's
+// THREADS_PER_BLOCK, core/cuda_rollout.py).
+constexpr int kBlockLanes = 128;
+
+// A block: `cpb` candidates x `bpb` of their trajectories (blockIdx.y picks
+// which), one thread per lane, candidate-major; the block's candidates'
+// trees decoded in shared memory.
+template <int D, bool U, int N>
+__global__ void sr_rollout_kernel(Operands a, int cpb, int bpb) {
+  extern __shared__ unsigned char smem[];
+  Row* s_prog = reinterpret_cast<Row*>(smem);  // cpb * D trees of n rows
+  int* s_start = reinterpret_cast<int*>(s_prog + static_cast<size_t>(cpb) * D * a.n);
+  const int ncand =
+      stage_programs<N>(a.ops, a.cst, a.devop, a.var_start, a.P, D, a.n, cpb, s_prog, s_start);
+  const int lc = threadIdx.x / bpb;
+  const int b = blockIdx.y * bpb + threadIdx.x - lc * bpb;
+  if (lc >= ncand || b >= a.B) return;
+  float stk[D * stack_slots<N>()];  // tree q's slots at q * stack_slots<N>()
+  int first = a.n;
+#pragma unroll
+  for (int q = 0; q < D; ++q) first = min(first, s_start[lc * D + q]);
+  const size_t lane = static_cast<size_t>(blockIdx.x * cpb + lc) * a.B + b;
+  rollout_lane<D, U>(s_prog + static_cast<size_t>(lc) * D * a.n, first, stk, stack_slots<N>(),
+                     a.x0s + b * D, a.n, a.T, a.method, a.substeps, a.h, a.xs + lane * D,
+                     static_cast<size_t>(a.P) * a.B * D, a.alive + lane);
 }
 
-template <int D, int S, bool U>
-cudaError_t launch(const int* ops, const float* cst, const int* devop, const float* x0s,
-                   float* xs, uint8_t* alive, int P, int n, int B, int T, int var_start,
-                   int method, int substeps, StepScalars h, int cpb, cudaStream_t stream) {
-  const int grid = (P + cpb - 1) / cpb;
-  sr_rollout_kernel<D, S, U><<<grid, cpb * B, block_smem(cpb, D, n), stream>>>(
-      ops, cst, devop, x0s, xs, alive, P, n, B, T, var_start, method, substeps, h, cpb);
+template <int D, bool U, int N>
+cudaError_t launch(const Operands& a, int cpb, cudaStream_t stream) {
+  const int bpb = a.B < kBlockLanes ? a.B : kBlockLanes;
+  if (cpb * bpb > 1024) return cudaErrorInvalidValue;
+  const dim3 grid((a.P + cpb - 1) / cpb, (a.B + bpb - 1) / bpb);
+  const size_t smem = program_smem(cpb, D, a.n);
+  if (smem > 48 * 1024) {  // the wrapper sizes cpb by the rows alone
+    const cudaError_t e = cudaFuncSetAttribute(
+        sr_rollout_kernel<D, U, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  sr_rollout_kernel<D, U, N><<<grid, cpb * bpb, smem, stream>>>(a, cpb, bpb);
   return cudaGetLastError();
 }
 #else
-template <int D, int S, bool U>
-void launch(const int* ops, const float* cst, const int* devop, const float* x0s, float* xs,
-            uint8_t* alive, int P, int n, int B, int T, int var_start, int method, int substeps,
-            StepScalars h) {
-  for (int p = 0; p < P; ++p)
-    for (int b = 0; b < B; ++b) {
-      const size_t lane = static_cast<size_t>(p) * B + b;
-      const size_t tree = static_cast<size_t>(p) * D * n;
-      rollout_lane<D, S, U>(ops + tree, cst + tree, devop, x0s + b * D, n, var_start, T, method,
-                         substeps, h, xs + lane * D, static_cast<size_t>(P) * B * D,
-                         alive + lane);
+template <int D, bool U, int N>
+void launch(const Operands& a) {
+  Row prog[D * N];
+  float stk[D * stack_slots<N>()];
+  for (int p = 0; p < a.P; ++p) {
+    const size_t tree = static_cast<size_t>(p) * D * a.n;
+    for (int i = 0; i < D * a.n; ++i) prog[i] = Row{a.ops[tree + i], a.cst[tree + i]};
+    int first = a.n;
+    for (int q = 0; q < D; ++q) {
+      const int start = decode_tree<N>(prog + q * a.n, a.n, a.devop, a.var_start);
+      first = start < first ? start : first;
     }
+    for (int b = 0; b < a.B; ++b) {
+      const size_t lane = static_cast<size_t>(p) * a.B + b;
+      rollout_lane<D, U>(prog, first, stk, stack_slots<N>(), a.x0s + b * D, a.n, a.T, a.method,
+                         a.substeps, a.h, a.xs + lane * D, static_cast<size_t>(a.P) * a.B * D,
+                         a.alive + lane);
+    }
+  }
 }
 #endif
 
-bool bad_args(int P, int n, int B, int T, int method, int substeps) {
-  return P <= 0 || n <= 0 || n > kMaxNodes || B <= 0 || T <= 0 || substeps <= 0 ||
-         method < kEuler || method > kRk4;
+bool bad_args(const Operands& a) {
+  return a.P <= 0 || a.n <= 0 || a.n > kMaxNodes || a.B <= 0 || a.T <= 0 || a.substeps <= 0 ||
+         a.method < kEuler || a.method > kRk4;
 }
 
 }  // namespace
@@ -138,19 +195,22 @@ bool bad_args(int P, int n, int B, int T, int method, int substeps) {
   const int *ops, const float *cst, const int *devop, const float *x0s, float *xs,        \
       uint8_t *alive, int P, int d, int n, int B, int T, int var_start, int unary,         \
       int method, int substeps, float h_half, float h_full, float h_final
-#define MTGP_ROLLOUT_INPUTS \
-  ops, cst, devop, x0s, xs, alive, P, n, B, T, var_start, method, substeps, h
+#define MTGP_OPERANDS                                                                     \
+  const Operands a{ops, cst, devop, x0s, xs, alive, P, n, B, T, var_start, method, substeps, \
+                   StepScalars{h_half, h_full, h_final}}
 
-// One instance per state dim D, stack bound S (32 covers N <= 32) and
-// unary operators or none.
-#define MTGP_BY_UNARY(CALL, D, S) (unary ? CALL(D, S, true) : CALL(D, S, false))
-#define MTGP_ROLLOUT_SWITCH(CALL)                                                        \
-  switch (d) {                                                                           \
-    case 1: return n <= 32 ? MTGP_BY_UNARY(CALL, 1, 32) : MTGP_BY_UNARY(CALL, 1, kMaxNodes); \
-    case 2: return n <= 32 ? MTGP_BY_UNARY(CALL, 2, 32) : MTGP_BY_UNARY(CALL, 2, kMaxNodes); \
-    case 3: return n <= 32 ? MTGP_BY_UNARY(CALL, 3, 32) : MTGP_BY_UNARY(CALL, 3, kMaxNodes); \
-    case 4: return n <= 32 ? MTGP_BY_UNARY(CALL, 4, 32) : MTGP_BY_UNARY(CALL, 4, kMaxNodes); \
-    default: break;                                                                      \
+// One instance per state dim D, unary operators or none, and tree bound N
+// (32, or kMaxNodes = 256).
+#define MTGP_BY_NODES(CALL, D)                                                   \
+  (n <= 32 ? (unary ? CALL(D, true, 32) : CALL(D, false, 32))                    \
+           : (unary ? CALL(D, true, kMaxNodes) : CALL(D, false, kMaxNodes)))
+#define MTGP_ROLLOUT_SWITCH(CALL)                \
+  switch (d) {                                   \
+    case 1: return MTGP_BY_NODES(CALL, 1);       \
+    case 2: return MTGP_BY_NODES(CALL, 2);       \
+    case 3: return MTGP_BY_NODES(CALL, 3);       \
+    case 4: return MTGP_BY_NODES(CALL, 4);       \
+    default: break;                              \
   }
 
 extern "C" {
@@ -163,13 +223,13 @@ const char* mtgp_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
-// Launches on `stream`; returns cudaGetLastError() of the launch.
+// Launches on `stream` with `cpb` candidates per block; returns
+// cudaGetLastError() of the launch.
 int sr_rollout_launch(MTGP_ROLLOUT_ARGS, int cpb, void* stream) {
-  if (bad_args(P, n, B, T, method, substeps) || cpb <= 0 || cpb * B > 1024)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const StepScalars h{h_half, h_full, h_final};
+  MTGP_OPERANDS;
+  if (bad_args(a) || cpb <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MTGP_CALL(D, S, U) static_cast<int>(launch<D, S, U>(MTGP_ROLLOUT_INPUTS, cpb, s))
+#define MTGP_CALL(D, U, N) static_cast<int>(launch<D, U, N>(a, cpb, s))
   MTGP_ROLLOUT_SWITCH(MTGP_CALL)
 #undef MTGP_CALL
   return static_cast<int>(cudaErrorInvalidValue);
@@ -177,9 +237,9 @@ int sr_rollout_launch(MTGP_ROLLOUT_ARGS, int cpb, void* stream) {
 #else
 // host build of the same per-lane code (tests without a card)
 int sr_rollout_host(MTGP_ROLLOUT_ARGS) {
-  if (bad_args(P, n, B, T, method, substeps)) return 1;
-  const StepScalars h{h_half, h_full, h_final};
-#define MTGP_CALL(D, S, U) (launch<D, S, U>(MTGP_ROLLOUT_INPUTS), 0)
+  MTGP_OPERANDS;
+  if (bad_args(a)) return 1;
+#define MTGP_CALL(D, U, N) (launch<D, U, N>(a), 0)
   MTGP_ROLLOUT_SWITCH(MTGP_CALL)
 #undef MTGP_CALL
   return 1;

@@ -1,16 +1,15 @@
-// The tree stack machine of the trajectory kernel #3 (through sr_lane.cuh),
-// and the operators, leaf lookup and constants of every tree kernel: the
-// decoded programs of #1, the adaptive SR kernels #4/#5 and the policy
-// kernels #6/#7 (tree_prog.cuh, whose rows compute what eval_tree computes),
-// the interpreter kernels (interpreter.cu) and the plants (control_envs.cuh).
+// The tree layout and the operators, leaf lookup and constants of every tree
+// kernel: the decoded programs of the SR kernels #1, #3, #4/#5 and the policy
+// kernels #6/#7 (tree_prog.cuh), the interpreter kernels (interpreter.cu)
+// and the plants (control_envs.cuh).
 //
 // A tree is `n` rows in the root-last, padding-first layout of
-// core/trees.py. Evaluated as a postorder stack machine: a binary row's first
-// operand is the top of the stack and its second the entry below; a unary row
-// rewrites the top; leaves push. No child pointers are read. The stack bound
-// S is a template parameter, so a kernel instance for N <= 32 reserves 32
-// floats of local memory, not 256; the data vector's width V is one too, so
-// a leaf's lookup is a chain of selects over registers.
+// core/trees.py, a postorder stack machine: a binary row's first operand is
+// the top of the stack and its second the entry below; a unary row rewrites
+// the top; leaves push; a missing operand, and an empty tree, read 0. No
+// child pointers are read. tree_prog.cuh decodes a tree into rows that
+// compute this machine's value; the data vector's width V is a template
+// parameter, so a leaf's lookup is a chain of selects over registers.
 //
 // Numerics: the plain PyTorch versions' float32 operations, in their order;
 // `sinf` and `cosf` are the C library's on the host and CUDA's on the card
@@ -77,15 +76,6 @@ MTGP_HD inline float clip(float v, float lo, float hi) { return nan_min(nan_max(
 
 MTGP_HD inline bool is_unary(int id) { return id >= kSin; }
 
-MTGP_HD inline float apply_binary(int id, float a, float b) {
-  switch (id) {
-    case kAdd: return a + b;
-    case kSub: return a - b;
-    case kMul: return a * b;
-    default: return a / b;  // kDiv
-  }
-}
-
 MTGP_HD inline float apply_unary(int id, float a) {
   return id == kSin ? sinf(a) : cosf(a);
 }
@@ -97,41 +87,6 @@ MTGP_HD inline float leaf_value(int var, const float (&data)[V]) {
   for (int q = 0; q < V; ++q)
     if (q == var) v = data[q];
   return v;
-}
-
-// Root value of one tree (rows `ops[0..n)`, padding first) on the data vector
-// `data`, with a stack of S floats (S >= n, so the guard below never drops a
-// value of a well-formed tree). U = false compiles the unary rows out, so a
-// function set without them runs the binary-only loop (with them compiled
-// in, never taken, the SR kernels ran 12-19% slower on the card).
-template <int V, int S, bool U = true>
-MTGP_HD float eval_tree(const int* ops, const float* cst, int n,
-                        const int* __restrict__ devop, int var_start,
-                        const float (&data)[V], float* stack) {
-  int sp = 0;
-  int i = 0;
-  while (i < n && ops[i] == kEmpty) ++i;
-  for (; i < n; ++i) {
-    const int op = ops[i];
-    float v;
-    if (op == kConst) {
-      v = cst[i];
-    } else if (op >= var_start) {
-      v = leaf_value<V>(op - var_start, data);
-    } else if (U && is_unary(load_ro(devop + (op - kOpStart)))) {
-      // a unary row rewrites the top of the stack
-      const float a = sp > 0 ? stack[--sp] : 0.0f;
-      v = apply_unary(load_ro(devop + (op - kOpStart)), a);
-    } else {
-      // first operand: the row directly below; second: the subtree below it
-      // (the guards only keep a malformed tree inside the stack)
-      const float a = sp > 0 ? stack[--sp] : 0.0f;
-      const float b = sp > 0 ? stack[--sp] : 0.0f;
-      v = apply_binary(load_ro(devop + (op - kOpStart)), a, b);
-    }
-    if (sp < S) stack[sp++] = v;
-  }
-  return sp ? stack[sp - 1] : 0.0f;
 }
 
 }  // namespace

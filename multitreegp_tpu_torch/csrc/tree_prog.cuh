@@ -1,7 +1,8 @@
 // Decoded tree programs: the tree machine of the kernels that evaluate a
 // candidate's trees at every stage of a rollout, the fused SR fitness
-// (sr_fitness.cu, #1), the adaptive SR fitness (sr_adaptive.cu, #4 and #5)
-// and the closed-loop policy kernels (policy.cu, #6 and #7).
+// (sr_fitness.cu, #1), the SR trajectory (sr_rollout.cu, #3), the adaptive
+// SR fitness (sr_adaptive.cu, #4 and #5) and the closed-loop policy kernels
+// (policy.cu, #6 and #7).
 //
 // A block decodes its candidates' trees once, when it stages them into
 // shared memory (stage_programs), into programs of 8-byte rows
@@ -23,8 +24,8 @@
 // a warp do not take their rows' branches one after the other.
 //
 // Numerics: each row applies the operator of tree_eval.cuh to the operands
-// eval_tree would pop, so a decoded program computes eval_tree's value bit
-// for bit on a well-formed tree.
+// that file's postorder stack machine would pop, so a decoded program
+// computes that machine's value bit for bit on a well-formed tree.
 //
 // Plain C++ under MTGP_HD, so the including files' host builds run it.
 #pragma once
@@ -57,8 +58,8 @@ MTGP_HD constexpr int stack_slots() { return N / 2; }
 // Decode one tree in place: rows[i].meta holds the opcode on entry and the
 // decoded word on exit (rows before the first live row become constant-0
 // leaves); returns the first live row. The simulated stack depth `sp`
-// follows eval_tree's pops and pushes, so a row reads and writes the values
-// eval_tree would. A malformed tree deeper than the instance's slots (never
+// follows the stack machine's pops and pushes, so a row reads and writes the
+// values that machine would. A malformed tree deeper than the instance's slots (never
 // made by the system) is clamped into them and evaluates to an unspecified
 // value.
 template <int N>
@@ -90,9 +91,10 @@ MTGP_HD int decode_tree(Row* rows, int n, const int* __restrict__ devop, int var
   return start;
 }
 
-// One decoded row of a tree whose value so far is `acc` (eval_tree's missing
-// operand and empty tree read 0), its stack slots at `stk`, on the data
-// vector x; U = false compiles the unary rows out (tree_eval.cuh). A row's
+// One decoded row of a tree whose value so far is `acc` (the stack machine's
+// missing operand and empty tree read 0), its stack slots at `stk`, on the
+// data vector x; U = false compiles the unary rows out (compiled in and
+// never taken, they slowed the SR kernels 12-19% on + - * / sets). A row's
 // work is the same instructions whatever its kind (the leaf value, the
 // second operand and +, -, * are all formed, one is kept): the candidates of
 // a warp run different trees, and their rows would otherwise take different

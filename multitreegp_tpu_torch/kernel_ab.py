@@ -5,26 +5,30 @@
 ``OTHER_ROOT`` is a directory holding another ``multitreegp_tpu_torch``
 (for example an unpacked ``git archive`` of a parent commit). The script runs
 four processes, OTHER, this, this, OTHER: each builds the kernels from its
-own sources and prints the CUDA-event median times of the wrapper calls,
-and each kernel's mean device time per launch from torch.profiler, at the
-main path's shapes (8 x 512 candidates of 2 trees, ``max_nodes=32``, ``+ - * /``, 16
-Van der Pol trajectories), of the fused SR fitness (kernel #1, RK4, T = 50),
-the fused reproduction (kernel #2, one generation's 3,696 lanes: the
+own sources and prints the CUDA-event median times of the wrapper calls, and
+each kernel's mean device time per launch from torch.profiler, at the main
+path's shapes (8 x 512 candidates of 2 trees, ``max_nodes=32``, ``+ - * /``,
+16 Van der Pol trajectories), of the fused SR fitness (kernel #1, RK4,
+T = 50), the fused reproduction (kernel #2, one generation's 3,696 lanes: the
 operands its own ``reproduce_pairs`` gives it, in that version's layout),
-the trajectory rollout (#3, RK4, T = 50), the per-interval adaptive fitness
-(#4, dopri5, 32 steps per interval, T = 10) and the global-budget one (#5,
-dopri5, budget 500, T = 50), and at the control path's shapes (Acrobot,
-4096 policies of ``max_nodes=30``, ``+ - * sin cos``, x 16 trajectories,
-T = 250) of the fixed-step policy rollout (#6, RK4 x 4) and the adaptive
-one (#7, dopri5, 8 steps per interval), static and dynamic
+the trajectory rollout (#3, RK4, T = 50; also at the inspection shape of
+``evaluate_candidate``, one candidate x 16 trajectories), the per-interval
+adaptive fitness (#4, dopri5, 32 steps per interval, T = 10) and the
+global-budget one (#5, dopri5, budget 500, T = 50), and at the control path's
+shapes (Acrobot, 4096 policies of ``max_nodes=30``, ``+ - * sin cos``, x 16
+trajectories, T = 250) of the fixed-step policy rollout (#6, RK4 x 4) and the
+adaptive one (#7, dopri5, 8 steps per interval), static and dynamic
 (``state_size=2``), and of the interpreter's forward (#8) and VJP (#9)
 through their public wrappers in the constant-optimisation recompute's
 layout (trees ``(K, 1, 2, 32)`` against states ``(K, 16, 1, 2)``) at K = 50
-(1,600 lanes) and K = 4096 (131,072 lanes). A process that built the kernels first prints each ``nvcc``'s
-seconds and ptxas's registers, stack frame and spills per instance of the
-policy kernels for Acrobot at N <= 32, of the adaptive SR kernels at state
-dim 2 and of the interpreter kernels. Two versions compare only within one
-such run.
+(1,600 lanes) and K = 4096 (131,072 lanes), and of the branch probe (#10,
+256 tiles) in each of its modes, and in the skip modes on tiles past the
+threshold from the start (``early_input``: one round's work). A process that
+built the kernels first prints each ``nvcc``'s seconds and ptxas's
+registers, stack frame and spills per instance of the policy kernels for
+Acrobot at N <= 32, of the adaptive SR kernels and the trajectory kernel at
+state dim 2, of the interpreter kernels and of the probe. Two versions
+compare only within one such run.
 """
 from __future__ import annotations
 
@@ -54,13 +58,14 @@ def time_kernels(root: Path) -> str:
     if Path(pkg.__file__).resolve().parent.parent != root:
         raise RuntimeError(f"imported {pkg.__file__}, not the package under {root}")
     pkg._build.build("sr_fitness", "reproduce", "sr_rollout", "sr_adaptive", "policy",
-                     "interpreter")  # in parallel
+                     "interpreter", "branch_probe")  # in parallel
     built = {k: v for k, v in pkg._build.build_seconds.items() if v > 0}
     if built:  # printed before the runs, so a run that fails leaves it
         line = "nvcc " + ", ".join(f"{k} {v:.1f} s" for k, v in built.items())
         shown = (("policy", lambda k: "AcrobotEnv<0" in k and k.endswith(",32>")),
                  ("sr_adaptive", lambda k: re.search(r"_kernel<2,", k)),
-                 ("interpreter", lambda k: True))
+                 ("sr_rollout", lambda k: re.search(r"_kernel<2,", k)),
+                 ("interpreter", lambda k: True), ("branch_probe", lambda k: True))
         for name, keep in shown:
             if name in pkg._build.build_logs:
                 line += f"; ptxas {name} " + ", ".join(
@@ -111,6 +116,8 @@ def time_kernels(root: Path) -> str:
         "#1": (lambda: cf.sr_fitness_cuda(trees, x0s, ts, ys, fset, "rk4", 1), "sr_fitness_kernel", 30),
         "#2": (reproduction_launch(trees, fset, g), "reproduce_kernel", 30),
         "#3": (lambda: cf.sr_rollout_cuda(trees, x0s, ts, fset, "rk4", 1), "sr_rollout_kernel", 30),
+        "#3 P=1": (lambda: cf.sr_rollout_cuda(trees[:1], x0s, ts, fset, "rk4", 1), "sr_rollout_kernel",
+                   50),
         "#4": (lambda: ca.sr_fitness_adaptive_interval_cuda(trees, x0s, ts[:10], ys[:, :10].contiguous(),
                                                            fset, max_steps=32, method="dopri5"),
                "adaptive_interval_kernel", 7),
@@ -123,6 +130,21 @@ def time_kernels(root: Path) -> str:
              for k, (fn, name, n) in runs.items()]
     for key, (fn, name) in interpreter_launches(trees, g).items():
         times.append(f"{key} {median_ms(fn, 50):.4f} ms (device {device_ms(fn, name, 50):.4f})")
+    from multitreegp_tpu_torch.tools import branch_probe as bp
+
+    always = None
+    for mode in bp.MODES:  # `always` first: the others' device time as a ratio of its
+        x = bp.probe_input(mode, bp.REPS, dev)
+        fn = lambda: bp.probe_cuda(x, mode)
+        dev_ms = device_ms(fn, "probe_kernel", 30)
+        always = always or dev_ms
+        times.append(f"#10 {mode} {median_ms(fn, 30):.4f} ms (device {dev_ms:.4f}, "
+                     f"{dev_ms / always:.3f}x of always)")
+    # branch_probe.early_input, made here so that an older checkout is timed too
+    early = torch.full((bp.REPS,) + bp.TILE, 3.0, device=dev)
+    for mode in ("when", "dynfori", "dynval"):  # one round's work, then the flag is down
+        fn = lambda: bp.probe_cuda(early, mode)
+        times.append(f"#10 {mode} early (device {device_ms(fn, 'probe_kernel', 30):.4f})")
     return "; ".join(times)
 
 

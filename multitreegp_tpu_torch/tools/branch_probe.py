@@ -8,7 +8,8 @@ tile) under each skip mechanism, with a flag that drops once the tile's sum
 passes ``THRESH``, after ``FLIP`` of ``TOTAL`` iterations:
 
   always   no skip: the roofline of "executes everything"
-  when     a block-uniform flag in shared memory, from a block reduction
+  when     a block-uniform flag from the tile's sum, which every warp forms
+           from the warps' partials after one barrier (the flag in a register)
   dynfori  chunks of CH, the inner trip count (CH or 0) read from that flag
   dynval   the same, the trip count straight from the reduction
            (``__syncthreads_or``)
@@ -75,6 +76,15 @@ def probe_input(mode: str, reps: int = REPS, device=None) -> torch.Tensor:
     if mode == "lane":
         x.view(-1)[::SLOW_EVERY] = SLOW_START
     return x
+
+
+def early_input(reps: int = REPS, device=None) -> torch.Tensor:
+    """``(reps, 8, 128)`` tiles already past the threshold, so every mode's
+    flag drops after its first round (one iteration in ``when`` and
+    ``lane``, one chunk of CH in the chunked modes): a launch on them times
+    the probe's cost besides the iterations (the launch, the tile's load and
+    store, the rounds' reductions and barriers) with one round's work."""
+    return torch.full((reps,) + TILE, 3.0, dtype=torch.float32, device=device)
 
 
 def _body(x: torch.Tensor) -> torch.Tensor:

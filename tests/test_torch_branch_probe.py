@@ -9,7 +9,8 @@ and its hand-written counterpart ``csrc/branch_probe.cu``.
   the same threshold.
 * The host build of ``branch_probe.cu`` against the plain version, every
   mode including ``lane``: bit-equal.
-* The iterations each mode runs: 64, 9, 12, 12, and 9 or 64 per element.
+* The iterations each mode runs: 64, 9, 12, 12, and 9 or 64 per element;
+  on tiles past the threshold from the start, 64, 1, 4, 4 and 1.
 """
 import ctypes
 import importlib.util
@@ -87,6 +88,21 @@ def probe_host(lib, x: torch.Tensor, mode: str) -> np.ndarray:
 def test_host_build_matches_plain(host_lib, mode):
     x = bp.probe_input(mode, 3)
     np.testing.assert_array_equal(probe_host(host_lib, x, mode), bp.probe(x, mode).numpy())
+
+
+@pytest.mark.parametrize("mode", bp.MODES)
+def test_host_build_matches_plain_early(host_lib, mode):
+    """Tiles past the threshold from the start: the flag drops after the
+    first round, so ``when`` and ``lane`` run one iteration and the chunked
+    modes one chunk; the host build equals the plain version."""
+    x = bp.early_input(3)
+    got = probe_host(host_lib, x, mode)
+    np.testing.assert_array_equal(got, bp.probe_plain(x, mode).numpy())
+    runs = {"always": bp.TOTAL, "when": 1, "lane": 1}.get(mode, bp.CH)
+    want = x
+    for _ in range(runs):
+        want = bp._body(want)
+    np.testing.assert_array_equal(got, want.numpy())
 
 
 def test_iterations_per_mode():

@@ -499,8 +499,9 @@ def test_fitness_kernel_with_kicks_matches_plain_on_card(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", bp.MODES)
 def test_branch_probe_matches_plain_on_card(cuda, mode):
-    """Kernel #10 in every mode against its plain version, bit for bit."""
-    x = bp.probe_input(mode, 16, cuda)
+    """Kernel #10 in every mode against its plain version, bit for bit, on
+    the probe's 256 tiles (two blocks an SM)."""
+    x = bp.probe_input(mode, bp.REPS, cuda)
     before = bp.probe_cuda.launches
     out = bp.probe(x, mode)
     ref = bp.probe_plain(x, mode)
@@ -748,6 +749,31 @@ def test_rollout_kernel_matches_plain_on_card(cuda, method, substeps):
     torch.cuda.synchronize()
     assert cro.sr_rollout_cuda.launches == before + 1
     assert torch.equal(alive, ref_alive) and same_bits(xs, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["n256", "n256_trig", "d4_b1024", "p1_b16"])
+def test_rollout_kernel_shapes_match_plain_on_card(cuda, case):
+    """#3 against its plain version, every state and liveness bit, one
+    launch: its N <= 256 instance on 256 candidates of 256 rows (chains of
+    255, 127 and 63 rows, then trees grown to depth 7) x 16 trajectories,
+    with and without sin/cos; state dim 4 at N = 256 with 4 candidates x 1024
+    trajectories (a candidate spans 8 blocks of 128 threads); and the
+    inspection shape of ``evaluate_candidate``, one candidate x 16
+    trajectories at T = 50."""
+    if case.startswith("n256"):
+        ops = ARITH + TRIG if case.endswith("trig") else ARITH
+        fset, trees, x0s, ts, _ = fitness_case(cuda, pop=256, b=16, t_end=2.0, ops=ops, n=256, depth=7)
+    elif case == "d4_b1024":
+        fset, trees, x0s, ts, _ = state4_case(cuda, pop=4, b=1024, t_steps=8)
+    else:
+        fset, trees, x0s, ts, _ = fitness_case(cuda, pop=1, b=16, t_end=10.0)
+    before = cro.sr_rollout_cuda.launches
+    xs, alive = cro.sr_rollout(trees, x0s, ts, fset, "rk4", 1)
+    ref, ref_alive = cro.sr_rollout_plain(trees, x0s, ts, fset, "rk4", 1)
+    torch.cuda.synchronize()
+    assert cro.sr_rollout_cuda.launches == before + 1
+    assert torch.equal(alive, ref_alive) and same_bits(xs, ref) and bool(alive.any())
 
 
 POLICY_OPS = [("+", 2), ("-", 2), ("*", 2), ("sin", 1), ("cos", 1)]

@@ -41,9 +41,10 @@ from multitreegp_tpu_torch.core.interpreter import evaluate_trees
 from multitreegp_tpu_torch.core.registry import build_function_set
 from multitreegp_tpu_torch.models.environments import VanDerPolOscillator
 from multitreegp_tpu_torch.models.evaluators import SREvaluator, generate_sr_data
+from multitreegp_tpu_torch.models.evaluators import sr as sr_module
 from multitreegp_tpu_torch.models.integrators import integrate
 from multitreegp_tpu_torch.ops.initialization import make_population_sampler
-from test_torch_kernels import TRIG, patch_host_math
+from test_torch_kernels import TRIG, fitness_case, patch_host_math, with_chains
 
 torch.set_num_threads(1)
 
@@ -66,22 +67,28 @@ def rollout_case(ops=ARITH):
     return fset, x0s, ts, make_population_sampler(fset, 4, 32)(g, 24)[0]
 
 
+def rollout_host_run(lib, trees, x0s, ts, fset, method, substeps):
+    """The host build's ``(xs (T, P, B, d), alive (P, B))``."""
+    p, d, n = trees.ops.shape
+    b, t_steps = x0s.shape[0], ts.shape[0]
+    out = np.zeros((t_steps, p, b, d), np.float32)
+    alive = np.zeros((p, b), np.uint8)
+    h, h_final = cr.rollout_step(ts, method, substeps)
+    fn = lib.sr_rollout_host
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float] * 3
+    arrays = [np.ascontiguousarray(a.numpy()) for a in (trees.ops, trees.const, fset.device_ops(), x0s)]
+    assert fn(*(a.ctypes.data for a in arrays), out.ctypes.data, alive.ctypes.data, p, d, n, b,
+              t_steps, fset.var_start, fset.has_unary, cr.METHODS[method], substeps,
+              np.float32(h * 0.5), np.float32(h), h_final) == 0
+    return out, alive.astype(bool)
+
+
 @pytest.mark.parametrize("method,substeps", CASES)
 def test_rollout_host_build_bit_exact(rollout_host, method, substeps):
     fset, x0s, ts, trees = rollout_case()
     xs, alive = cr.sr_rollout_plain(trees, x0s, ts, fset, method, substeps)
-    t_steps, (p, b) = ts.shape[0], alive.shape[1:]
-    out = np.zeros((t_steps, p, b, 2), np.float32)
-    alive_h = np.zeros((p, b), np.uint8)
-    h, h_final = cr.rollout_step(ts, method, substeps)
-    fn = rollout_host.sr_rollout_host
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float] * 3
-    arrays = [np.ascontiguousarray(a.numpy()) for a in (trees.ops, trees.const, fset.device_ops(), x0s)]
-    status = fn(*(a.ctypes.data for a in arrays), out.ctypes.data, alive_h.ctypes.data, p, 2, 32, b,
-                t_steps, fset.var_start, fset.has_unary, cr.METHODS[method], substeps,
-                np.float32(h * 0.5), np.float32(h), h_final)
-    assert status == 0
-    np.testing.assert_array_equal(alive_h.astype(bool), alive[-1].numpy())
+    out, alive_h = rollout_host_run(rollout_host, trees, x0s, ts, fset, method, substeps)
+    np.testing.assert_array_equal(alive_h, alive[-1].numpy())
     np.testing.assert_array_equal(out, xs.numpy())  # NaN == NaN for assert_array_equal
     assert alive[-1].any() and (~alive[-1]).any()
     assert torch.equal(alive, alive[-1:].expand_as(alive))
@@ -94,19 +101,33 @@ def test_rollout_host_build_trig_bit_exact(rollout_host, monkeypatch):
     with monkeypatch.context() as m:
         patch_host_math(m)
         xs, alive = cr.sr_rollout_plain(trees, x0s, ts, fset, "rk4", 2)
-    t_steps, (p, b) = ts.shape[0], alive.shape[1:]
-    out = np.zeros((t_steps, p, b, 2), np.float32)
-    alive_h = np.zeros((p, b), np.uint8)
-    h, h_final = cr.rollout_step(ts, "rk4", 2)
-    fn = rollout_host.sr_rollout_host
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float] * 3
-    arrays = [np.ascontiguousarray(a.numpy()) for a in (trees.ops, trees.const, fset.device_ops(), x0s)]
-    assert fn(*(a.ctypes.data for a in arrays), out.ctypes.data, alive_h.ctypes.data, p, 2, 32, b,
-              t_steps, fset.var_start, fset.has_unary, cr.METHODS["rk4"], 2, np.float32(h * 0.5),
-              np.float32(h), h_final) == 0
-    np.testing.assert_array_equal(alive_h.astype(bool), alive[-1].numpy())
+    out, alive_h = rollout_host_run(rollout_host, trees, x0s, ts, fset, "rk4", 2)
+    np.testing.assert_array_equal(alive_h, alive[-1].numpy())
     np.testing.assert_array_equal(out, xs.numpy())
     assert alive[-1].any()
+
+
+@pytest.mark.parametrize("method,substeps", [("rk4", 2), ("heun", 1)])
+@pytest.mark.parametrize("trig", [False, True], ids=["arith", "trig"])
+@pytest.mark.parametrize("n,depth", [(32, 4), (64, 5), (256, 7)])
+def test_rollout_host_build_decoded_instances_bit_exact(rollout_host, monkeypatch, n, depth, trig,
+                                                        method, substeps):
+    """Kernel #3's decoded instances (trees of N <= 32 rows, and of N <= 256,
+    which N = 64 takes too), with and without the unary rows' code: the
+    first three candidates are chains of n - 1, 127 and 63 rows (the
+    deepest stacks a tree of that many rows can hold), the rest grown to
+    ``depth``; every state and liveness bit equal to the plain version's."""
+    ops = ARITH + TRIG if trig else ARITH
+    fset, trees, x0s, ts, _ = fitness_case(pop=12, b=4, t_end=1.6, ops=ops, n=n, depth=depth)
+    trees = with_chains(trees, fset, [n - 1, min(127, n - 1), min(63, n - 1)])
+    with monkeypatch.context() as m:
+        patch_host_math(m)
+        xs, alive = cr.sr_rollout_plain(trees, x0s, ts, fset, method, substeps)
+    out, alive_h = rollout_host_run(rollout_host, trees, x0s, ts, fset, method, substeps)
+    np.testing.assert_array_equal(alive_h, alive[-1].numpy())
+    np.testing.assert_array_equal(out, xs.numpy())
+    assert alive[-1].any()
+    assert int((trees.ops[0] != 0).sum(-1).max()) == n - 1
 
 
 @pytest.fixture(scope="module")
@@ -159,6 +180,48 @@ def test_evaluate_candidate_and_call_match_jax(monkeypatch, method, substeps):
     assert len(calls) == 8  # the trajectory kernel's plain version, on CPU tensors
 
 
+def test_evaluate_candidate_matches_jax_at_gate_limit(monkeypatch):
+    """N = 64, the largest trees the trajectory kernel's gate takes
+    (``ROLLOUT_MAX_NODES``, JAX's ``UNROLL_MAX_NODES``): candidates grown to
+    depth 6 from a key drawn from a numpy seed, the first two replaced by
+    chains of 63 and 31 rows, initial
+    states and ground truth from the same seed. Every prediction within 1e-5
+    + 1e-4 of its trajectory's scale (the largest |x| of JAX's trajectory:
+    JAX's step per interval and XLA:CPU's FMAs, ROADMAP Queue 3), the
+    liveness identical, the fitness to rtol 1e-4."""
+    assert sr_module.ROLLOUT_MAX_NODES == 64
+    rng = np.random.default_rng(64)
+    jf = jax_function_set(JAX_OPS + [("/", jnp.divide, 2, 0.1)], [["x0", "x1"]], [2])
+    pop = jax_sampler(jf, 6, 64)(jr.PRNGKey(int(rng.integers(2**31))), 8)
+    # the first two candidates: chains of 63 and 31 rows (the deepest stacks)
+    chained = with_chains(trees_from_numpy(*[np.asarray(a) for a in pop]),
+                          function_set_from_jax(jf), [63, 31])
+    pop = type(pop)(*(jnp.asarray(a.numpy()) for a in chained))
+    x0 = rng.normal(size=(4, 2)).astype(np.float32)
+    ts = np.arange(0.0, 2.0, 0.2, dtype=np.float32)
+    ys = rng.normal(size=(4, ts.shape[0], 2)).astype(np.float32)
+    jev = JaxSREvaluator(jf, method="rk4", substeps=2, interpreter="gather")
+    ev = SREvaluator(function_set_from_jax(jf), method="rk4", substeps=2)
+    tpop = trees_from_numpy(*[np.asarray(a) for a in pop])
+    tdata = sr_data_from_numpy(x0, ts, ys)
+    calls = []
+    plain = cr.sr_rollout_plain
+    monkeypatch.setattr(cr, "sr_rollout_plain", lambda *a: calls.append(1) or plain(*a))
+    assert int((tpop.ops[0] != 0).sum()) == 2 * 63
+    jrun = jax.jit(jev.evaluate_candidate)
+    for i in range(pop.ops.shape[0]):
+        jfit, jpred = (np.asarray(a) for a in jrun(pop[i], (x0, ts, ys, None)))
+        fit, pred = ev.evaluate_candidate(tpop[i], tdata)
+        dead = jfit == jev.max_fitness
+        np.testing.assert_array_equal(fit.numpy() == ev.max_fitness, dead)
+        scale = np.abs(jpred).max(axis=(1, 2), keepdims=True)
+        live = ~dead
+        err = np.abs(pred.numpy() - jpred)[live]
+        assert (err <= 1e-5 + 1e-4 * scale[live]).all(), (i, float(err.max()))
+        np.testing.assert_allclose(fit.numpy()[live], jfit[live], rtol=1e-4)
+    assert len(calls) == pop.ops.shape[0]  # the trajectory kernel's plain version
+
+
 def test_rollout_gradient_through_recompute():
     """``SRRollout``'s backward is autograd through ``integrate`` with the
     interpreter as the drift (the per-interval step): on CPU tensors it
@@ -195,7 +258,7 @@ def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
     assert [p.name for p in _build.source_files("sr_adaptive")] == [
         "sr_adaptive.cu", "adaptive_step.cuh", "sr_lane.cuh", "tree_prog.cuh", "tree_eval.cuh"]
     for header, touched in (("sr_lane.cuh", {"sr_fitness", "sr_adaptive", "sr_rollout"}),
-                            ("tree_prog.cuh", {"sr_fitness", "sr_adaptive", "policy"}),
+                            ("tree_prog.cuh", {"sr_fitness", "sr_adaptive", "sr_rollout", "policy"}),
                             ("control_envs.cuh", {"policy"}),
                             ("tree_eval.cuh", set(names) - {"reproduce"})):
         before = {n: _build.library_path(n) for n in names}

@@ -134,6 +134,9 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     assert out["fitness"]["bit_equal"] and out["reproduce"]["ops_identical"] == 1.0
     deep = out["deep"]
     assert all(v["identical"] == 1.0 for v in deep["fitness"].values())
+    assert deep["rollout"]["identical"] == 1.0 and deep["rollout"]["lanes"] == 8 * 4
+    inspection = out["adaptive_path"]["inspection"]
+    assert inspection["identical"] == 1.0 and inspection["lanes"] == 4 and inspection["bound_ms"] > 0
     assert all(v["identical"] == 1.0 and v["lanes"] == 8 * 4 for v in deep["adaptive"].values())
     assert deep["reproduce"]["ops_identical"] == 1.0 and deep["reproduce"]["lanes"] == 16
     for kind, policies in (("policy_fixed", "dynamic"), ("policy_adaptive", "static")):

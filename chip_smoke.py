@@ -105,7 +105,24 @@ workload (phases 12-14). Phases, one line or a few each:
    interval) on 256 Acrobot policies of 256 rows, chained the same way, x
    16 trajectories at T = 3 (the plain
    versions sweep all 256 rows at every stage; the card tests hold the
-   other two pairs).
+   other two pairs);
+18. the reproduction path without the fused kernel (``fused_reproduction=
+   False``: crossover, the seven mutations and fresh samples as per-tree
+   PyTorch operators) on phase 4's workload, 5 generations, beside the fused
+   path on the same initial population: ms per generation and evolve ms,
+   every child valid (``validate_host``), the best never increasing, #2
+   never launched;
+19. past the fused kernels' 256 rows: phase 4's workload at
+   ``max_nodes=512``, ``max_init_depth=7``, default routing (the non-fused
+   evolve; the SR evaluator's general path with #8 as the drift), 5
+   generations and one constant-optimisation round (top-k 50, 10 Adam
+   steps, #9 in the backward), #8/#9 launches read around each step; #8/#9
+   at 512 and 1024 rows (the instance's limit) against their plain versions,
+   every lane identical, with 16 trajectories a tree and with one data
+   vector a tree; their events and device time per launch at 512 rows;
+20. ``gen_deep`` (``bench.py``: ``max_nodes=128``, ``max_init_depth=7``) on
+   the fused path: 5 generations, ms per generation, #1's and #2's device
+   time per launch.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last lines are a JSON line of per-kernel numbers, the card's name and
@@ -130,7 +147,9 @@ FULL = dict(islands=8, pop=512, max_nodes=32, depth=4, batch=16, horizon=10.0, d
             policy_opt_top_k=8, policy_opt_steps=2, policy_opt_t=125,
             noise=0.05, noisy_adaptive_t=6, ab_runs=20, probe_reps=256,
             deep_nodes=256, deep_depth=7, deep_pop=256, deep_t=6, deep_rep_pop=512, deep_policy_t=3,
-            deep_adaptive_t=4, deep_adaptive_budget=40, deep_interval_steps=8)
+            deep_adaptive_t=4, deep_adaptive_budget=40, deep_interval_steps=8,
+            wide_nodes=512, wide_depth=7, wide_check_nodes=(512, 1024), deep_gen_nodes=128,
+            deep_gen_depth=7)
 KERNELS = ("sr_fitness", "reproduce", "interpreter", "sr_adaptive", "sr_rollout",
            "policy", "branch_probe")  # csrc/<name>.cu
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, float32 FLOP/s outside the tensor
@@ -202,6 +221,11 @@ def profile_device(fn, torch) -> dict:
     return dict(wall_ms=wall, busy_ms=busy / 1e3, kernels=len(spans), per_kernel=per)
 
 
+# every traced run in which a kernel's launches were missing: which kernel,
+# which attempt, how many calls, and how many device events the trace held
+TRACE_DROPS: list = []
+
+
 def kernel_device_ms(cases, runs: int, torch) -> dict:
     """``{key: mean device ms of one launch}`` of each ``(key, fn, kernel
     name)`` over the launches traced in ``runs`` calls, by torch.profiler:
@@ -209,13 +233,21 @@ def kernel_device_ms(cases, runs: int, torch) -> dict:
     kernel is short."""
     out = {}
     for key, fn, kernel in cases:
-        for _ in range(3):  # the tracer may drop events, at times a whole short run's
-            prof = profile_device(lambda: [fn() for _ in range(runs)], torch)
+        # the tracer may drop events, at times a whole short run's (at times
+        # three in a row): retry, with twice the calls each time, and record
+        # each run that came back without the kernel
+        for attempt in range(5):
+            prof = profile_device(lambda: [fn() for _ in range(runs << attempt)], torch)
             hits = [v for k, v in prof["per_kernel"].items() if f"::{kernel}<" in k]
             count = sum(c for c, _ in hits)
             if count:
                 break
-        check(count > 0, f"no launch of {kernel} traced in 3 x {runs} calls")
+            drop = dict(key=key, kernel=kernel, attempt=attempt, calls=runs << attempt,
+                        device_events=prof["kernels"], names=sorted(prof["per_kernel"])[:4])
+            TRACE_DROPS.append(drop)
+            phase_line(f"trace without {kernel} ({key}): attempt {attempt}, {drop['calls']} calls, "
+                       f"{drop['device_events']} device events traced {drop['names']}")
+        check(count > 0, f"no launch of {kernel} traced in 5 tries of {runs}-{runs << 4} calls")
         out[key] = sum(ms for _, ms in hits) / count
     return out
 
@@ -249,8 +281,28 @@ def operator_rows(trees, fset):
     return {k: int(((dev == k) & is_op).sum()) for k in VJP_OPS}
 
 
+def interp_bounds(trees, states, cot, fset):
+    """``(forward, VJP)`` bounds of #8/#9 for ``trees`` broadcast against
+    ``states``, every tree on as many lanes, with per-lane cotangents
+    ``cot``: each input read once, of the trees only their live rows and the
+    padding row before them (ops, c2 and const, 4 B each), each output
+    written once as the wrappers return it (a root per lane; dconst like
+    const, ddata like states); one operation per operator row and lane
+    forward, the VJP's expressions backward."""
+    from multitreegp_tpu_torch.core.trees import tree_sizes
+
+    n = trees.max_nodes
+    per_tree = cot.numel() // trees.ops[..., 0].numel()
+    tree_bytes = int((tree_sizes(trees) + 1).clamp(max=n).sum()) * 12
+    rows = operator_rows(trees, fset)
+    fwd = bound(tree_bytes + nbytes(states) + cot.numel() * 4, sum(rows.values()) * per_tree)
+    bwd = bound(tree_bytes + nbytes(states, cot) + nbytes(trees.const, states),
+                sum((1 + VJP_OPS[k]) * v for k, v in rows.items()) * per_tree)
+    return fwd, bwd
+
+
 def run(device, sizes=FULL) -> dict:
-    """Phases 2-17 on ``device``; returns the numbers the script prints."""
+    """Phases 2-20 on ``device``; returns the numbers the script prints."""
     import torch
 
     from multitreegp_tpu_torch import GeneticProgramming
@@ -390,6 +442,9 @@ def run(device, sizes=FULL) -> dict:
     out.update(sde_phase(device, s, ps, trees, fset, ts_full))
     out.update(probe_phase(device, s))
     out.update(deep_phase(device, s, ps))
+    out.update(nonfused_phase(device, s, data))
+    out.update(wide_phase(device, s, data))
+    out.update(gen_deep_phase(device, s, data))
 
     # -- the kernels line --------------------------------------------------------
     times = out.get("times_ms", {})
@@ -402,19 +457,9 @@ def run(device, sizes=FULL) -> dict:
     fit_bytes = nbytes(trees.ops, trees.const, x0s, ts_full, ys_full) + total_pop * b * 5
     rep_bytes = nbytes(*args) + nbytes(*got)
     interp = out["interpreter"]
-
-    def interp_bounds(shape):
-        """#8 and #9 bounds at one of phase 6's shapes: every tree on every
-        trajectory, one operation per operator row forward, the VJP's
-        expressions backward."""
-        rows_k, kb = interp[shape]["rows"], interp[shape]["bytes"]
-        fwd_ops = sum(rows_k.values()) * b
-        bwd_ops = sum((1 + VJP_OPS[k]) * v for k, v in rows_k.items()) * b
-        return bound(kb["fwd"], fwd_ops), bound(kb["bwd"], bwd_ops)
-
     k_lanes = interp["recompute"]["lanes"]
-    fwd_bound, bwd_bound = interp_bounds("recompute")
-    fwd_bound_pop, bwd_bound_pop = interp_bounds("population")
+    fwd_bound, bwd_bound = interp["recompute"]["bounds"]
+    fwd_bound_pop, bwd_bound_pop = interp["population"]["bounds"]
     fit_bound, rep_bound = bound(fit_bytes, fit_ops), bound(rep_bytes, 0)
     it = out.get("interp_times_ms", {}).get("recompute", {})
     it_pop = out.get("interp_times_ms", {}).get("population", {})
@@ -428,15 +473,34 @@ def run(device, sizes=FULL) -> dict:
                     **extra)
 
     sde = out["sde"]
+    wide, gd = out["wide"], out["gen_deep"]
+    wide_times = wide.get("times", {})
+
+    def wide_row(key):
+        """The instance past 256 rows (phase 19): launches on its path, the
+        bit-equal checks, and on each case the events, device time, plain
+        version and bound."""
+        launches = sum(g["eval_launches"][key] for g in wide["generations"]) + wide["round"]["launches"][key]
+        kind = key.split("_")[1]
+        shapes = {name: dict(lanes=t["lanes"], rows_max=t["rows_max"], ms=t[f"{kind}_kernel"],
+                             device_ms=t[f"{kind}_device"], plain_ms=t.get(f"{kind}_plain"),
+                             plain_fwd_vjp_per_lane_ms=t["plain_fwd_vjp_per_lane"],
+                             bound_ms=t[f"{kind}_bound"][0], bound_by=t[f"{kind}_bound"][1])
+                  for name, t in wide_times.items()}
+        return dict(n=s["wide_nodes"], launches=launches, checks=wide["checks"], **shapes)
+
+    gen_deep = dict(n=s["deep_gen_nodes"], ms_per_generation=gd["ms_per_generation"])
     out["kernels"] = [
         row("sr_fitness", "sr_fitness.cu", "multitreegp_tpu/core/pallas_rollout.py:279",
             launches["sr_fitness"], a_err, times.get("fit_kernel"), times.get("fit_plain"),
             fit_bound, device_ms=times.get("fit_device"), launches_const_opt=launches7["sr_fitness"], kicks=sde["fitness_kicks"],
-            deep=out["deep"]["fitness"]),
+            deep=out["deep"]["fitness"],
+            gen_deep=dict(gen_deep, launches=gd["launches"]["sr_fitness"], device_ms=gd.get("fit_device_ms"))),
         row("reproduce", "reproduce.cu", "multitreegp_tpu/core/pallas_reproduction.py:53",
             launches["reproduce"], c_err, times.get("rep_kernel"), times.get("rep_plain"),
             rep_bound, device_ms=times.get("rep_device"), launches_const_opt=launches7["reproduce"],
-            launches_adaptive=launches10["reproduce"], deep=out["deep"]["reproduce"]),
+            launches_adaptive=launches10["reproduce"], deep=out["deep"]["reproduce"],
+            gen_deep=dict(gen_deep, launches=gd["launches"]["reproduce"], device_ms=gd.get("rep_device_ms"))),
         row("interpret_fwd", "interpreter.cu", "multitreegp_tpu/core/pallas_interpreter.py:142",
             launches7["interpret_fwd"], interp["max_abs_err_fwd"], it.get("fwd_kernel"),
             it.get("fwd_plain"), fwd_bound, lanes=k_lanes, device_ms=it.get("fwd_device"),
@@ -445,7 +509,7 @@ def run(device, sizes=FULL) -> dict:
             population=dict(lanes=interp["population"]["lanes"], ms=it_pop.get("fwd_kernel"),
                             device_ms=it_pop.get("fwd_device"), plain_ms=it_pop.get("fwd_plain"),
                             bound_ms=fwd_bound_pop[0], bound_by=fwd_bound_pop[1]),
-            deep=out["deep"]["interpreter"]),
+            deep=out["deep"]["interpreter"], wide=wide_row("interpret_fwd")),
         row("interpret_bwd", "interpreter.cu", "multitreegp_tpu/core/pallas_interpreter.py:178",
             launches7["interpret_bwd"], interp["max_abs_err_bwd"], it.get("bwd_kernel"),
             it.get("bwd_plain"), bwd_bound, lanes=k_lanes, device_ms=it.get("bwd_device"),
@@ -454,7 +518,7 @@ def run(device, sizes=FULL) -> dict:
             population=dict(lanes=interp["population"]["lanes"], ms=it_pop.get("bwd_kernel"),
                             device_ms=it_pop.get("bwd_device"), plain_ms=it_pop.get("bwd_plain"),
                             bound_ms=bwd_bound_pop[0], bound_by=bwd_bound_pop[1]),
-            deep=out["deep"]["interpreter"]),
+            deep=out["deep"]["interpreter"], wide=wide_row("interpret_bwd")),
     ]
     ak, at = out["adaptive_kernels"], out.get("adaptive_times_ms", {})
     g_long, i_short = ak[f"global_t{ts_full.shape[0]}"], ak[f"interval_t{s['adaptive_short_t']}"]
@@ -653,14 +717,11 @@ def interpreter_phase(device, s, trees, fset, g) -> dict:
         dg = compare(ddata_g, ref_d, f"{name} ddata, grouped")
         err_f, err_b = max(err_f, f[0], fg[0]), max(err_b, c[0], d[0], cg[0], dg[0])
         check(all(v[2] for v in (f, c, d, fg, cg, dg)), f"{name}: a lane differs from the plain version")
-        rows = operator_rows(cands, fset)
         res[name] = dict(
-            lanes=k * b * m, rows=rows, bit_equal=dict(fwd=f[2], dconst=c[2], ddata=d[2]),
+            lanes=k * b * m, rows=operator_rows(cands, fset), bit_equal=dict(fwd=f[2], dconst=c[2], ddata=d[2]),
             bit_equal_grouped=dict(fwd=fg[2], dconst=cg[2], ddata=dg[2]),
             max_rel=dict(fwd=f[1], dconst=c[1], ddata=d[1]), finite=dict(fwd=f[3], dconst=c[3]),
-            bytes=dict(fwd=nbytes(cands.ops, cands.c2, cands.const, states) + k * b * m * 4,
-                       bwd=nbytes(cands.ops, cands.c2, cands.const, states, cot)
-                       + nbytes(cands.const, states)))
+            bounds=interp_bounds(cands, states, cot, fset))
         phase_line(f"phase 6 interpreter kernels vs plain, {name}: {k}x{b}x{m} = {k * b * m} lanes, "
             f"N {n}; forward max rel {f[1]:.3e} bit-equal {f[2]} (finite {f[3]:.4f}); dconst "
             f"max rel {c[1]:.3e} bit-equal {c[2]}; ddata max rel {d[1]:.3e} bit-equal {d[2]}; "
@@ -1734,37 +1795,14 @@ def ulp_gap(a, b) -> int:
 
 
 def host_loop(gp, data, s, device, counters, name) -> dict:
-    """``s["generations"]`` generations of ``evaluate_population`` +
-    ``evolve`` with the launch counters zeroed before and read after; checks
-    the fitness and that the best never grows."""
-    import torch
-
-    for fn in counters.values():
-        fn.launches = 0
-    gen_g = torch.Generator(device=device).manual_seed(21)
-    pops = gp.initialize_population(gen_g)
-    best, gens = [], []
-    for _ in range(s["generations"]):
-        sync(device)
-        t0 = time.perf_counter()
-        fitness, pops_eval = gp.evaluate_population(pops, data)
-        sync(device)
-        t1 = time.perf_counter()
-        pops = gp.evolve(pops_eval, fitness, gen_g)
-        sync(device)
-        t2 = time.perf_counter()
-        top = gp.evaluator.max_fitness
-        check(bool(torch.isfinite(fitness).all()), f"{name}: non-finite fitness")
-        check(bool(((fitness >= 0) & (fitness <= top)).all()), f"{name}: fitness outside [0, {top}]")
-        best.append(float(fitness.min()))
-        gens.append(dict(eval_ms=(t1 - t0) * 1e3, evolve_ms=(t2 - t1) * 1e3, best=best[-1]))
-    check(all(b1 <= b0 for b0, b1 in zip(best, best[1:])), f"{name}: best fitness increased {best}")
-    launches = {k: fn.launches for k, fn in counters.items()}
-    for i, rec in enumerate(gens):
+    """Phase 15's ``s["generations"]`` generations of the host loop
+    (:func:`loop_generations`, the counters zeroed before and read after)."""
+    r = loop_generations(gp, data, device, s["generations"], 21, counters)
+    for i, rec in enumerate(r["generations"]):
         phase_line(f"phase 15 {name} gen {i}: eval {rec['eval_ms']:.3f} ms, evolve {rec['evolve_ms']:.3f} "
                    f"ms, best fitness {rec['best']:.6g}")
-    phase_line(f"phase 15 {name}: {s['islands']}x{s['pop']} candidates; launches {launches}")
-    return dict(generations=gens, best=best, launches=launches)
+    phase_line(f"phase 15 {name}: {s['islands']}x{s['pop']} candidates; launches {r['launches']}")
+    return dict(generations=r["generations"], best=r["best"], launches=r["launches"])
 
 
 def sde_phase(device, s, ps, trees, fset, ts_sr) -> dict:
@@ -2154,6 +2192,329 @@ def deep_phase(device, s, ps) -> dict:
                          interpreter=interp, **deep_policy)}
 
 
+def loop_generations(gp, data, device, gens, seed, counters, validate=None) -> dict:
+    """``gens`` generations of ``evaluate_population`` + ``evolve`` from a
+    fresh population, timed on the host clock around synchronisations, with
+    every counter of ``counters`` read around each step; ``validate(pops)``
+    checks each generation's children. Checks the fitness and that the best
+    never grows."""
+    import torch
+
+    for fn in counters.values():
+        fn.launches = 0
+    gen_g = torch.Generator(device=device).manual_seed(seed)
+    pops = gp.initialize_population(gen_g)
+    best, recs = [], []
+    for _ in range(gens):
+        before = {k: fn.launches for k, fn in counters.items()}
+        sync(device)
+        t0 = time.perf_counter()
+        fitness, pops = gp.evaluate_population(pops, data)
+        sync(device)
+        t1 = time.perf_counter()
+        mid = {k: fn.launches for k, fn in counters.items()}
+        pops = gp.evolve(pops, fitness, gen_g)
+        sync(device)
+        t2 = time.perf_counter()
+        top = gp.evaluator.max_fitness
+        check(bool(torch.isfinite(fitness).all()), "non-finite fitness")
+        check(bool(((fitness >= 0) & (fitness <= top)).all()), f"fitness outside [0, {top}]")
+        if validate is not None:
+            validate(pops)
+        best.append(float(fitness.min()))
+        recs.append(dict(eval_ms=(t1 - t0) * 1e3, evolve_ms=(t2 - t1) * 1e3, best=best[-1],
+                         eval_launches={k: mid[k] - before[k] for k in counters},
+                         evolve_launches={k: fn.launches - mid[k] for k, fn in counters.items()}))
+    check(all(b1 <= b0 for b0, b1 in zip(best, best[1:])), f"best fitness increased: {best}")
+    return dict(generations=recs, best=best, pops=pops, fitness=fitness,
+                launches={k: fn.launches for k, fn in counters.items()})
+
+
+def nonfused_phase(device, s, data) -> dict:
+    """Phase 18: the reproduction path without the fused kernel
+    (``fused_reproduction=False``: the per-tree operators of
+    ``ops/reproduction.make_evolve_island``) on phase 4's workload, beside
+    the fused path on the same initial population in the same run; every
+    generation's children pass ``validate_host``."""
+    import torch
+
+    from multitreegp_tpu_torch import GeneticProgramming
+    from multitreegp_tpu_torch.core import cuda_reproduction as cr
+    from multitreegp_tpu_torch.core import cuda_rollout as cf
+    from multitreegp_tpu_torch.core.trees import validate_host
+    from multitreegp_tpu_torch.models.evaluators import SREvaluator
+
+    n = s["max_nodes"]
+    counters = dict(sr_fitness=cf.sr_fitness_cuda, reproduce=cr.reproduce_lanes_cuda)
+    res = {}
+    for name, fused in (("non_fused", False), ("fused", True)):
+        gp = GeneticProgramming(
+            num_generations=s["generations"], population_size=s["pop"],
+            fitness_function=SREvaluator(substeps=1), operator_list=OPERATORS,
+            variable_list=[["x0", "x1"]], layer_sizes=[2], num_populations=s["islands"],
+            max_nodes=n, max_init_depth=s["depth"], fused_reproduction=fused,
+            elite_percentage=s["elite"], device=device)
+        check(gp.fused_reproduction == fused, f"{name}: routed to the other path")
+        slots = gp.fset.slots(device)
+        validate = (lambda p: validate_host(p.map(lambda a: a.reshape(-1, n)), slots)) if not fused else None
+        r = loop_generations(gp, data, device, s["generations"], 18, counters, validate)
+        gp_g = torch.Generator(device=device).manual_seed(180)
+        if device.type == "cuda":
+            check(r["launches"]["sr_fitness"] >= s["generations"], f"{name}: #1 launches {r['launches']}")
+            check((r["launches"]["reproduce"] == 0) != fused, f"{name}: #2 launches {r['launches']}")
+        gens = r["generations"]
+        profile = None
+        if device.type == "cuda":  # one more evolve of the last children, profiled: what the device does
+            fitness = gp._evaluate(r["pops"], data)  # the children's own fitness
+            prof = profile_device(lambda: gp.evolve(r["pops"], fitness, gp_g), torch)
+            profile = dict(wall_ms=prof["wall_ms"], busy_ms=prof["busy_ms"], kernels=prof["kernels"])
+        res[name] = dict(generations=[{k: v for k, v in g.items() if "launches" not in k} for g in gens],
+                         evolve_profile=profile,
+                         launches=r["launches"], best=r["best"],
+                         ms_per_generation=statistics.median(g["eval_ms"] + g["evolve_ms"] for g in gens[1:]),
+                         evolve_ms=statistics.median(g["evolve_ms"] for g in gens[1:]))
+    for name, r in res.items():
+        for i, g in enumerate(r["generations"]):
+            phase_line(f"phase 18 {name} gen {i}: eval {g['eval_ms']:.3f} ms, evolve {g['evolve_ms']:.3f} ms, "
+                       f"best fitness {g['best']:.6g}")
+    nf, fu = res["non_fused"], res["fused"]
+    for name, r in res.items():
+        if r["evolve_profile"]:
+            pr = r["evolve_profile"]
+            phase_line(f"phase 18 {name} evolve profiled: wall {pr['wall_ms']:.1f} ms, device busy "
+                       f"{pr['busy_ms']:.2f} ms ({pr['busy_ms'] / pr['wall_ms']:.2%}), {pr['kernels']} kernel "
+                       f"launches")
+    phase_line(f"phase 18 {s['islands']}x{s['pop']} candidates, N={n}: ms per generation (median of gens "
+               f"1-{s['generations'] - 1}) non-fused {nf['ms_per_generation']:.3f} (evolve {nf['evolve_ms']:.3f}) "
+               f"vs fused {fu['ms_per_generation']:.3f} (evolve {fu['evolve_ms']:.3f}); launches non-fused "
+               f"{nf['launches']}, fused {fu['launches']}; every non-fused child valid; best non-increasing")
+    return {"non_fused": res}
+
+
+def wide_interpreter_case(device, trees, fset, g, members):
+    """:func:`shape_case` of the first three candidates chained (N - 1, 127
+    and 63 rows: the longest tapes); ``members = 1`` is one data vector a
+    tree."""
+    n = trees.max_nodes
+    return shape_case(device, chain_trees(trees, fset, [n - 1, 127, 63]), members, g)
+
+
+def shape_case(device, cands, members, g):
+    """``(trees (K, 1, m, N), states (K, members, 1, 2), cotangent)`` of
+    ``cands`` against ``members`` random states each."""
+    import torch
+
+    k, m = cands.ops.shape[:2]
+    states = torch.randn((k, members, 1, 2), generator=g, device=device) * 2
+    cot = torch.randn((k, members, m), generator=g, device=device)
+    return cands.map(lambda a: a[:, None]), states, cot
+
+
+def lanes_check(trees_b, states, cot, fset, label) -> dict:
+    """#8's roots and #9's per-lane cotangents for ``trees_b`` broadcast
+    against ``states`` (consecutive lanes share a tree) against the plain
+    versions on one tree and one state per lane: every lane bit-equal."""
+    import torch
+
+    from multitreegp_tpu_torch.core.interpreter import evaluate_trees_plain, evaluate_trees_vjp_plain
+
+    got = grouped_per_lane(trees_b, states, cot, fset)
+    batch = cot.shape
+    full = trees_b.map(lambda a: a.expand(batch + a.shape[-1:]).contiguous())
+    x = states.expand(batch + (2,)).contiguous()
+    ref, plain_ms = timed_plain(
+        lambda: (evaluate_trees_plain(full, x, fset),) + evaluate_trees_vjp_plain(full, x, cot, fset),
+        states.device)
+    same = [bool(same_bits(a, r)) for a, r in zip(got, ref)]
+    check(all(same), f"{label}: bit-equal forward, dconst, ddata {same}")
+    return dict(lanes=cot.numel(), members=cot.shape[1], bit_equal=dict(zip(("fwd", "dconst", "ddata"), same)),
+                finite=float(torch.isfinite(ref[0]).float().mean()), plain_ms=plain_ms,
+                c2_max=int(trees_b.c2.max()), rows_max=int((trees_b.ops != 0).sum(-1).max()),
+                max_abs_err=max(float(torch.where(torch.isfinite(r), (a - r).abs(), 0.0).max())
+                                for a, r in zip(got, ref)))
+
+
+def wide_phase(device, s, data) -> dict:
+    """Phase 19: past the fused kernels' 256 rows. Phase 4's workload at
+    ``max_nodes=512``, ``max_init_depth=7`` with default routing, which takes
+    the non-fused evolve and the evaluators' general path (the integrator
+    with #8 as the drift): 5 generations, then one constant-optimisation
+    round of the top 50 (10 Adam steps; #9 in the backward); #8/#9 launches
+    read around each step. Then #8/#9 against their plain versions, every
+    lane bit-equal: at 512 rows (and 1024, the stated limit) on chains of N
+    - 1, 127 and 63 rows in the recompute's layout (16 trajectories a tree)
+    and with one data vector a tree, and at 512 rows on the general path's
+    evaluation shape (the population x 16) and the round's (its top 50 x
+    16); and on each of those cases their times and bounds."""
+    import torch
+
+    from multitreegp_tpu_torch import GeneticProgramming
+    from multitreegp_tpu_torch.core import cuda_interpreter as ci
+    from multitreegp_tpu_torch.core import cuda_reproduction as cr
+    from multitreegp_tpu_torch.core import cuda_rollout as cf
+    from multitreegp_tpu_torch.core.registry import build_function_set
+    from multitreegp_tpu_torch.ops.initialization import make_population_sampler
+    from multitreegp_tpu_torch.models.evaluators import SREvaluator
+
+    n, b = s["wide_nodes"], s["batch"]
+    t_steps = data[1].shape[0]
+    gp = GeneticProgramming(
+        num_generations=s["generations"], population_size=s["pop"],
+        fitness_function=SREvaluator(substeps=1), operator_list=OPERATORS,
+        variable_list=[["x0", "x1"]], layer_sizes=[2], num_populations=s["islands"], max_nodes=n,
+        max_init_depth=s["wide_depth"], gradient_steps=s["gradient_steps"],
+        coefficient_opt_top_k=s["top_k"], elite_percentage=s["elite"], device=device)
+    check(not gp.fused_reproduction, "N > 256 must take the non-fused path")
+    counters = dict(sr_fitness=cf.sr_fitness_cuda, reproduce=cr.reproduce_lanes_cuda,
+                    interpret_fwd=ci.evaluate_trees_cuda, interpret_bwd=ci.evaluate_trees_vjp_cuda)
+    r = loop_generations(gp, data, device, s["generations"], 19, counters)
+    drift_calls = (t_steps - 1) * 4  # rk4, one substep
+    # the round: the top-k of the last evaluated generation, refined
+    pops, fitness = r["pops"], gp._evaluate(r["pops"], data)
+    flat = pops.map(lambda a: a.reshape((-1,) + a.shape[2:]))
+    top = torch.argsort(fitness.reshape(-1), stable=True)[: gp.coefficient_opt_top_k]
+    before = {k: fn.launches for k, fn in counters.items()}
+    sync(device)
+    t0 = time.perf_counter()
+    refined, _ = gp.optimise(flat[top], data)
+    sync(device)
+    round_ms = (time.perf_counter() - t0) * 1e3
+    round_launches = {k: fn.launches - before[k] for k, fn in counters.items()}
+    unrefined = fitness.reshape(-1)[top]
+    check(not bool((refined > unrefined * (1 + 1e-6)).any()), "refinement made a candidate worse")
+    sizes = (pops.ops != 0).sum(-1)
+    if device.type == "cuda":
+        for i, gen in enumerate(r["generations"]):
+            ev = gen["eval_launches"]
+            check(ev["interpret_fwd"] >= drift_calls and ev["sr_fitness"] == 0 and ev["reproduce"] == 0,
+                  f"gen {i} evaluate launches {ev}")
+            check(not any(gen["evolve_launches"].values()), f"gen {i} evolve launches {gen['evolve_launches']}")
+        need = s["gradient_steps"] * drift_calls
+        check(round_launches["interpret_fwd"] >= need and round_launches["interpret_bwd"] >= need,
+              f"round launches {round_launches} < {need}")
+    for i, gen in enumerate(r["generations"]):
+        phase_line(f"phase 19 N={n} gen {i}: eval {gen['eval_ms']:.3f} ms, evolve {gen['evolve_ms']:.3f} ms, "
+                   f"best fitness {gen['best']:.6g}; launches in evaluate {gen['eval_launches']}, in evolve "
+                   f"{gen['evolve_launches']}")
+    phase_line(f"phase 19 N={n} round: top-k {top.numel()}, {gp.gradient_steps} Adam steps, {round_ms:.1f} ms, "
+               f"launches {round_launches}; top-k fitness sum {float(unrefined.sum()):.6g} -> "
+               f"{float(refined.sum()):.6g}; tree rows mean {float(sizes.float().mean()):.1f} max {int(sizes.max())}")
+
+    # #8/#9 against the plain versions past 256 rows, every lane: chains of
+    # N - 1, 127 and 63 rows in two layouts, and the evaluation's and the
+    # round's shapes
+    fset = gp.fset
+    g = torch.Generator(device=device).manual_seed(190)
+    cases, checks = {}, {}
+    for nodes in s["wide_check_nodes"]:
+        cands = (flat[top] if nodes == n else
+                 make_population_sampler(fset, s["wide_depth"], nodes)(g, top.numel())[0])
+        for members, layout in ((b, "recompute"), (1, "one_member")):
+            cases[f"n{nodes}_{layout}"] = wide_interpreter_case(device, cands, fset, g, members)
+    cases[f"n{n}_population"] = shape_case(device, flat, b, g)
+    cases[f"n{n}_round"] = shape_case(device, flat[top], b, g)
+    for key, case in cases.items():
+        checks[key] = c = lanes_check(*case, fset, f"#8/#9 {key}")
+        phase_line(f"phase 19 #8/#9 {key} vs plain ({c['lanes']} lanes, {c['members']} a tree, trees of up "
+                   f"to {c['rows_max']} rows, second operands up to row {c['c2_max']}): bit-equal "
+                   f"{c['bit_equal']}, finite {c['finite']:.4f}, plain {c['plain_ms']:.1f} ms")
+    res = dict(generations=r["generations"], launches=r["launches"], round=dict(ms=round_ms, launches=round_launches,
+                                                  unrefined_sum=float(unrefined.sum()),
+                                                  refined_sum=float(refined.sum())),
+               rows_mean=float(sizes.float().mean()), rows_max=int(sizes.max()), checks=checks)
+    if device.type == "cuda":
+        res["times"] = wide_interpreter_times(s, cases, checks, fset)
+    return {"wide": res}
+
+
+def wide_interpreter_times(s, cases, checks, fset) -> dict:
+    """#8/#9 past 256 rows on each of phase 19's cases: events and device
+    time per launch, and the bounds (:func:`interp_bounds`); the plain
+    versions' events at the evaluation's and the round's shapes, elsewhere
+    the per-lane plain run of the check (forward and VJP)."""
+    import torch
+
+    from multitreegp_tpu_torch.core import cuda_interpreter as ci
+    from multitreegp_tpu_torch.core.interpreter import evaluate_trees_plain, evaluate_trees_vjp_plain
+
+    out = {}
+    for name, (trees_b, states, cot) in cases.items():
+        fwd = lambda: ci.evaluate_trees_cuda(trees_b, states, fset)
+        bwd = lambda: ci.evaluate_trees_vjp_cuda(trees_b, states, cot, fset)
+        t = dict(lanes=cot.numel(), rows_max=checks[name]["rows_max"],
+                 fwd_kernel=cuda_time_ms(fwd, s["interp_runs"], torch),
+                 bwd_kernel=cuda_time_ms(bwd, s["interp_runs"], torch),
+                 plain_fwd_vjp_per_lane=checks[name]["plain_ms"])
+        if name.endswith(("_population", "_round")):
+            t["fwd_plain"] = cuda_time_ms(lambda: evaluate_trees_plain(trees_b, states, fset), 1, torch)
+            t["bwd_plain"] = cuda_time_ms(lambda: evaluate_trees_vjp_plain(trees_b, states, cot, fset), 1, torch)
+        t.update(kernel_device_ms((("fwd_device", fwd, "interpret_fwd_kernel"),
+                                   ("bwd_device", bwd, "interpret_bwd_kernel")), s["interp_runs"], torch))
+        t["fwd_bound"], t["bwd_bound"] = interp_bounds(trees_b, states, cot, fset)
+        out[name] = t
+        plain = (f"plain {t['fwd_plain']:.2f} / {t['bwd_plain']:.2f}" if "fwd_plain" in t else
+                 f"plain forward + VJP per lane {t['plain_fwd_vjp_per_lane']:.1f}")
+        phase_line(f"phase 19 #8/#9 {name} times, {t['lanes']} lanes, trees up to {t['rows_max']} rows (median "
+                   f"ms): forward kernel {t['fwd_kernel']:.4f} (device {t['fwd_device']:.4f}, bound "
+                   f"{t['fwd_bound'][0]:.7f} by {t['fwd_bound'][1]}); VJP kernel {t['bwd_kernel']:.4f} (device "
+                   f"{t['bwd_device']:.4f}, bound {t['bwd_bound'][0]:.7f} by {t['bwd_bound'][1]}); {plain}")
+    return out
+
+
+def gen_deep_phase(device, s, data) -> dict:
+    """Phase 20: the JAX package's ``gen_deep`` workload (``bench.py``'s
+    ``main_generations(max_nodes=128, max_init_depth=7)``) on the fused path:
+    5 generations of the host loop, ms per generation, and #1's and #2's
+    device time per launch over one more generation by torch.profiler."""
+    import torch
+
+    from multitreegp_tpu_torch import GeneticProgramming
+    from multitreegp_tpu_torch.core import cuda_reproduction as cr
+    from multitreegp_tpu_torch.core import cuda_rollout as cf
+    from multitreegp_tpu_torch.core.trees import validate_host
+    from multitreegp_tpu_torch.models.evaluators import SREvaluator
+
+    n = s["deep_gen_nodes"]
+    gp = GeneticProgramming(
+        num_generations=s["generations"] + 1, population_size=s["pop"],
+        fitness_function=SREvaluator(substeps=1), operator_list=OPERATORS,
+        variable_list=[["x0", "x1"]], layer_sizes=[2], num_populations=s["islands"], max_nodes=n,
+        max_init_depth=s["deep_gen_depth"], elite_percentage=s["elite"], device=device)
+    check(gp.fused_reproduction, "N <= 256 must take the fused path")
+    counters = dict(sr_fitness=cf.sr_fitness_cuda, reproduce=cr.reproduce_lanes_cuda)
+    r = loop_generations(gp, data, device, s["generations"], 20, counters)
+    validate_host(r["pops"].map(lambda a: a.reshape(-1, n)), gp.fset.slots(device))
+    if device.type == "cuda":
+        check(r["launches"]["sr_fitness"] >= s["generations"] and r["launches"]["reproduce"] >= s["generations"],
+              f"gen_deep launches {r['launches']}")
+    gens = r["generations"]
+    sizes = (r["pops"].ops != 0).sum(-1)
+    res = dict(generations=[{k: v for k, v in gen.items() if "launches" not in k} for gen in gens],
+               launches=r["launches"], best=r["best"], rows_mean=float(sizes.float().mean()),
+               rows_max=int(sizes.max()),
+               ms_per_generation=statistics.median(gen["eval_ms"] + gen["evolve_ms"] for gen in gens[1:]))
+    for i, gen in enumerate(gens):
+        phase_line(f"phase 20 gen_deep gen {i}: eval {gen['eval_ms']:.3f} ms, evolve {gen['evolve_ms']:.3f} ms, "
+                   f"best fitness {gen['best']:.6g}")
+    if device.type == "cuda":  # #1 and #2 on the last population, by torch.profiler
+        pops, gen_g = r["pops"], torch.Generator(device=device).manual_seed(200)
+        fitness = gp._evaluate(pops, data)  # the last children's own fitness
+        flat = pops.map(lambda a: a.reshape((-1,) + a.shape[2:]))
+        x0s, ts, ys, _ = data
+        ys_c = ys.contiguous()
+        res.update(kernel_device_ms(
+            (("fit_device_ms", lambda: cf.sr_fitness_cuda(flat, x0s, ts, ys_c, gp.fset, "rk4", 1),
+              "sr_fitness_kernel"),
+             ("rep_device_ms", lambda: gp._evolve_populations(pops, fitness, gen_g, 0), "reproduce_kernel")),
+            s["timing_runs"], torch))
+    dev = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+    phase_line(f"phase 20 gen_deep: {s['islands']}x{s['pop']} candidates, N={n}, depth {s['deep_gen_depth']}: ms "
+               f"per generation (median of gens 1-{s['generations'] - 1}) {res['ms_per_generation']:.3f}; #1 device "
+               f"{dev(res.get('fit_device_ms'))}, #2 device {dev(res.get('rep_device_ms'))} a launch; tree "
+               f"rows mean {res['rows_mean']:.1f} max {res['rows_max']}; launches {r['launches']}")
+    return {"gen_deep": res}
+
+
 def sync(device) -> None:
     import torch
 
@@ -2195,7 +2556,8 @@ def main(argv=None) -> int:
 
     out = run(device)
     out["device"] = dict(nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
-                         nvcc_s=dict(_build.build_seconds), ptxas=resources)
+                         nvcc_s=dict(_build.build_seconds), ptxas=resources, trace_drops=TRACE_DROPS)
+    phase_line(f"traced runs without their kernel: {len(TRACE_DROPS)}")
     if opts.out:
         with open(opts.out, "w") as f:
             json.dump(out, f, indent=1)

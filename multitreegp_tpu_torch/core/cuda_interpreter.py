@@ -41,7 +41,7 @@ from .. import _build
 from .registry import FunctionSet
 from .trees import TreeTensors
 
-MAX_NODES = 256  # csrc/interpreter.cu kMaxNodes
+MAX_NODES = 1024  # csrc/interpreter.cu kMaxRows
 MAX_VARS = 32  # kMaxVars
 MAX_OPS = 32  # kMaxOps
 MAX_DIMS = 8  # kMaxDims: rank of the joint batch

@@ -120,10 +120,23 @@ class EvaluateTrees(torch.autograd.Function):
         return None, None, None, dconst, ddata, None
 
 
-def evaluate_trees(trees: TreeTensors, data: torch.Tensor, fset: FunctionSet) -> torch.Tensor:
+# the JAX package's ``impl`` values (its Pallas kernel, its select ladder, its
+# gather loop); here each names the one interpreter the device has
+IMPLS = ("auto", "pallas", "ladder", "gather")
+
+
+def check_impl(impl: str) -> None:
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+
+
+def evaluate_trees(trees: TreeTensors, data: torch.Tensor, fset: FunctionSet,
+                   impl: str = "auto") -> torch.Tensor:
     """Root value of every tree on every data vector: the kernels on CUDA
     tensors (differentiable in ``const`` and ``data``), the plain version on
-    CPU tensors. Shapes as :func:`evaluate_trees_plain`."""
+    CPU tensors, whatever ``impl`` (JAX's keyword, one of :data:`IMPLS`).
+    Shapes as :func:`evaluate_trees_plain`."""
+    check_impl(impl)
     dev = trees.ops.device
     if dev.type == "cuda":
         fset.require_device_ops()

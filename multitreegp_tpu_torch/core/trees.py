@@ -53,6 +53,17 @@ class TreeTensors(NamedTuple):
         return TreeTensors(fn(self.ops), fn(self.c1), fn(self.c2), fn(self.const))
 
 
+def empty_trees(batch_shape, max_nodes: int, device=None) -> TreeTensors:
+    """All-padding trees: every row is ``(EMPTY, -1, -1, 0.0)``."""
+    shape = tuple(batch_shape) + (max_nodes,)
+    return TreeTensors(
+        torch.zeros(shape, dtype=torch.int32, device=device),
+        torch.full(shape, -1, dtype=torch.int32, device=device),
+        torch.full(shape, -1, dtype=torch.int32, device=device),
+        torch.zeros(shape, dtype=torch.float32, device=device),
+    )
+
+
 def tree_sizes(trees: TreeTensors) -> torch.Tensor:
     """Number of non-empty rows per tree: int32 ``(...,)``."""
     return (trees.ops != EMPTY).sum(dim=-1, dtype=torch.int32)
@@ -80,6 +91,27 @@ def subtree_spans(ops: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     k = torch.where(valid, idx[:, None], torch.full_like(s, -1)).amax(dim=-2)
     size = idx - k + 1
     return torch.where(ops != EMPTY, size, torch.zeros_like(size)).to(torch.int32)
+
+
+def subtree_span_at(ops: torch.Tensor, slots: torch.Tensor, node_idx: torch.Tensor) -> torch.Tensor:
+    """Subtree size of the one row ``node_idx`` of each tree: int32 of the
+    batch shape of ``ops (..., N)`` broadcast against ``node_idx``.
+
+    O(N) per row asked for, against the ``(..., N, N)`` of
+    :func:`subtree_spans`; ``ops[..., None, :]`` against ``node_idx (..., R)``
+    gives R rows of each tree.
+    """
+    n = ops.shape[-1]
+    w = 1 - arity_of(ops, slots).to(torch.int32)
+    csum = torch.cumsum(w, dim=-1, dtype=torch.int32)
+    batch = torch.broadcast_shapes(ops.shape[:-1], node_idx.shape)
+    node = node_idx.expand(batch).long()
+    c_at = torch.gather(csum.expand(batch + (n,)), -1, node[..., None])
+    s = c_at - (csum - w)  # csum[k] - w[k] is the sum up to row k - 1
+    idx = torch.arange(n, dtype=torch.int64, device=ops.device)
+    valid = (s == 1) & (idx <= node[..., None])
+    k = torch.where(valid, idx, -1).amax(dim=-1)
+    return (node - k + 1).to(torch.int32)
 
 
 def rebuild_pointers(ops: torch.Tensor, slots: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -60,6 +60,16 @@
 // -fmad=false and IEEE division, so the kernel equals the plain version
 // (core/interpreter.py) bit for bit per lane.
 //
+// Trees of more than 256 rows (up to kMaxRows = 1024) run the same code in a
+// third instance: the lane's row array and tape in local memory (4 and 8 KB
+// a thread at 1024 rows), and the decoded rows of a block's groups in shared
+// memory as below. A block whose lanes share no tree would stage 32 trees,
+// 262 KB at 1024 rows, past the 227 KB a block may have; there the block runs
+// fewer lanes (Params::block, the largest power of two up to kThreads whose
+// staging fits; 16 at 1024 rows and one lane a tree), its other threads only
+// staging. Layouts whose groups have several members (the recompute's 16 a
+// tree: at most 3 groups a block) keep 32 lanes at every N.
+//
 // The per-thread code is plain C++ under MTGP_HD, so the same file also
 // compiles for the host (without __CUDACC__): a loop over the blocks runs
 // each phase's threads one after the other, with the same entry points,
@@ -75,7 +85,9 @@ namespace {
 constexpr int kMaxVars = 32;
 constexpr int kMaxOps = 32;
 constexpr int kMaxDims = 8;
-constexpr int kThreads = 32;  // lanes per block
+constexpr int kThreads = 32;  // threads per block, and its most lanes
+constexpr int kMaxRows = 1024;  // rows per tree
+constexpr size_t kMaxShared = 227 * 1024;  // a block's shared memory, opted in
 // layout words: [ndim, ngroup, n, nvar, var_start, nops, unary], then shape,
 // tree, const, data and out strides (kMaxDims each), then the device op
 // table (kMaxOps)
@@ -90,7 +102,8 @@ constexpr int kUnary = 3;
 
 // One decoded row: `meta` holds the kind (bits 0-1), the device op id or data
 // slot (bits 2-7) and c2 + 1 where row c2 is the row's second operand, else 0
-// (bits 16-24); `c` is the constant of a CONST row.
+// (bits 16-31, read as meta >> 16: up to 32,767, so any c2 < kMaxRows); `c`
+// is the constant of a CONST row.
 struct alignas(8) Row {
   int meta;
   float c;
@@ -112,6 +125,7 @@ struct Params {
   int nvar;                   // data variables per lane
   int var_start;              // first variable opcode
   int lanes, members, max_groups;
+  int block;                  // lanes a block runs (<= kThreads)
   unsigned shape[kMaxDims];
   int64_t tree[kMaxDims];     // element strides of ops and c2 over the batch
   int64_t cst[kMaxDims];      // ... of const
@@ -147,18 +161,26 @@ MTGP_HD inline Shared carve(const Params& p, void* base, bool bwd) {
   return s;
 }
 
-// The lanes [first, first + kThreads) of block b and the groups they span.
+// The lanes [first, first + lanes) of block b and the groups they span;
+// `lanes` is what block_lanes gives.
 struct Block {
-  int first, g0, ngroups;
+  int first, g0, ngroups, lanes;
 };
 
-MTGP_HD inline Block block_of(const Params& p, int b) {
-  const int first = b * kThreads;
-  const int last = (first + kThreads < p.lanes ? first + kThreads : p.lanes) - 1;
-  return Block{first, first / p.members, last / p.members - first / p.members + 1};
+// Lanes a block of instance N runs: kThreads up to 256 rows (a constant of
+// the instance), p.block past it.
+template <int N>
+MTGP_HD inline int block_lanes(const Params& p) {
+  return N > kMaxNodes ? p.block : kThreads;
 }
 
-MTGP_HD inline int blocks(const Params& p) { return (p.lanes + kThreads - 1) / kThreads; }
+MTGP_HD inline Block block_of(const Params& p, int b, int lanes) {
+  const int first = b * lanes;
+  const int last = (first + lanes < p.lanes ? first + lanes : p.lanes) - 1;
+  return Block{first, first / p.members, last / p.members - first / p.members + 1, lanes};
+}
+
+MTGP_HD inline int blocks(const Params& p) { return (p.lanes + p.block - 1) / p.block; }
 
 MTGP_HD inline void shared_min(int* at, int v) {
 #ifdef __CUDA_ARCH__
@@ -239,7 +261,7 @@ MTGP_HD inline LaneAt stage_lane(const Params& p, const Block& b, int tid, const
                                  const Shared& s) {
   stage_group(p, b, tid, s);
   const int lane = b.first + tid;
-  if (lane >= p.lanes) return LaneAt{-1, 0, 0};
+  if (tid >= b.lanes || lane >= p.lanes) return LaneAt{-1, 0, 0};
   const LaneAt at = lane_at(p, lane);
   for (int v = 0; v < p.nvar; ++v) s.x[v * kThreads + tid] = data[at.data + v];
   s.x[p.nvar * kThreads + tid] = 0.0f;
@@ -344,7 +366,7 @@ __global__ void __launch_bounds__(kThreads)
                          float* __restrict__ out) {
   extern __shared__ int64_t smem[];
   const Shared s = carve(p, smem, false);
-  const Block b = block_of(p, blockIdx.x);
+  const Block b = block_of(p, blockIdx.x, block_lanes<N>(p));
   const LaneAt at = stage_lane(p, b, threadIdx.x, data, s);
   __syncthreads();
   for (int t = threadIdx.x; t < b.ngroups * p.n; t += kThreads) stage_row(p, t, ops, c2, cst, s);
@@ -360,7 +382,7 @@ __global__ void __launch_bounds__(kThreads)
                          float* __restrict__ ddata) {
   extern __shared__ int64_t smem[];
   const Shared s = carve(p, smem, true);
-  const Block b = block_of(p, blockIdx.x);
+  const Block b = block_of(p, blockIdx.x, block_lanes<N>(p));
   const LaneAt at = stage_lane(p, b, threadIdx.x, data, s);
   __syncthreads();
   for (int t = threadIdx.x; t < b.ngroups * p.n; t += kThreads) stage_row(p, t, ops, c2, cst, s);
@@ -370,7 +392,8 @@ __global__ void __launch_bounds__(kThreads)
 
 // Launch `kernel` on `stream` with the block's shared memory, opting in
 // above 48 KB (at N = 256 a block whose lanes share no tree stages 64 KB at
-// 32 lanes); returns cudaGetLastError() of the launch.
+// 32 lanes; at N = 1024, 131 KB at 16); returns cudaGetLastError() of the
+// launch.
 template <typename Kernel, typename... Args>
 int launch(Kernel kernel, const Params& p, bool bwd, void* stream, Args... args) {
   const size_t smem = shared_bytes(p, bwd);
@@ -388,7 +411,7 @@ int launch(Kernel kernel, const Params& p, bool bwd, void* stream, Args... args)
 int make_params(const int64_t* w, Params* p, int* unary) {
   const int64_t ndim = w[0], ngroup = w[1], n = w[2], nvar = w[3], var_start = w[4],
                 nops = w[5];
-  if (ndim < 0 || ndim > kMaxDims || ngroup < 0 || ngroup > ndim || n <= 0 || n > kMaxNodes ||
+  if (ndim < 0 || ndim > kMaxDims || ngroup < 0 || ngroup > ndim || n <= 0 || n > kMaxRows ||
       nvar < 0 || nvar > kMaxVars || nops < 0 || nops > kMaxOps ||
       var_start != kOpStart + nops)
     return 1;
@@ -419,10 +442,17 @@ int make_params(const int64_t* w, Params* p, int* unary) {
   }
   p->lanes = static_cast<int>(lanes);
   p->members = static_cast<int>(members);
-  const int64_t groups = lanes / members, span = (kThreads - 1) / members + 2;
-  int64_t mg = kThreads < groups ? kThreads : groups;
-  p->max_groups = static_cast<int>(span < mg ? span : mg);
-  return 0;
+  // the most lanes a block can run with its groups' rows staged (both
+  // kernels: the VJP's staging is the larger)
+  const int64_t groups = lanes / members;
+  for (int block = kThreads; block >= 1; block /= 2) {
+    const int64_t span = (block - 1) / members + 2, mg = block < groups ? block : groups;
+    p->block = block;
+    p->max_groups = static_cast<int>(span < mg ? span : mg);
+    // up to 256 rows every layout fits at kThreads (block_lanes relies on it)
+    if (shared_bytes(*p, true) <= kMaxShared) return n > kMaxNodes || block == kThreads ? 0 : 1;
+  }
+  return 1;
 }
 
 #ifndef __CUDACC__
@@ -438,7 +468,7 @@ int host_blocks(const int* ops, const int* c2, const float* cst, const float* da
   const Shared s = carve(p, smem.data(), bwd);
   std::vector<LaneAt> at(kThreads);
   for (int blk = 0; blk < blocks(p); ++blk) {
-    const Block b = block_of(p, blk);
+    const Block b = block_of(p, blk, p.block);
     for (int tid = 0; tid < kThreads; ++tid) at[tid] = stage_lane(p, b, tid, data, s);
     for (int t = 0; t < b.ngroups * p.n; ++t) stage_row(p, t, ops, c2, cst, s);
     for (int tid = 0; tid < kThreads; ++tid) lane_fn(p, b, tid, at[tid], s, unary != 0);
@@ -461,8 +491,8 @@ const char* mtgp_error_string(int status) {
 }
 
 // Launch on `stream`; return cudaGetLastError() of the launch. Instances: the
-// main path's N <= 32 and everything up to 256, with unary operators or
-// without.
+// main path's N <= 32, everything up to 256, and up to kMaxRows, with unary
+// operators or without.
 int interpret_fwd(const int* ops, const int* c2, const float* cst, const float* data,
                   const int64_t* layout, float* out, void* stream) {
   Params p;
@@ -470,7 +500,8 @@ int interpret_fwd(const int* ops, const int* c2, const float* cst, const float* 
   if (make_params(layout, &p, &unary)) return static_cast<int>(cudaErrorInvalidValue);
 #define MTGP_FWD(N, U) launch(interpret_fwd_kernel<N, U>, p, false, stream, ops, c2, cst, data, out)
   if (p.n <= 32) return unary ? MTGP_FWD(32, true) : MTGP_FWD(32, false);
-  return unary ? MTGP_FWD(kMaxNodes, true) : MTGP_FWD(kMaxNodes, false);
+  if (p.n <= kMaxNodes) return unary ? MTGP_FWD(kMaxNodes, true) : MTGP_FWD(kMaxNodes, false);
+  return unary ? MTGP_FWD(kMaxRows, true) : MTGP_FWD(kMaxRows, false);
 #undef MTGP_FWD
 }
 
@@ -483,7 +514,8 @@ int interpret_bwd(const int* ops, const int* c2, const float* cst, const float* 
 #define MTGP_BWD(N, U) \
   launch(interpret_bwd_kernel<N, U>, p, true, stream, ops, c2, cst, data, g, dconst, ddata)
   if (p.n <= 32) return unary ? MTGP_BWD(32, true) : MTGP_BWD(32, false);
-  return unary ? MTGP_BWD(kMaxNodes, true) : MTGP_BWD(kMaxNodes, false);
+  if (p.n <= kMaxNodes) return unary ? MTGP_BWD(kMaxNodes, true) : MTGP_BWD(kMaxNodes, false);
+  return unary ? MTGP_BWD(kMaxRows, true) : MTGP_BWD(kMaxRows, false);
 #undef MTGP_BWD
 }
 #else
@@ -501,8 +533,10 @@ int interpret_fwd(const int* ops, const int* c2, const float* cst, const float* 
                          const Shared& s, bool unary) {
     if (p.n <= 32) unary ? forward_lane<32, true>(p, b, tid, at, out, s)
                          : forward_lane<32, false>(p, b, tid, at, out, s);
-    else unary ? forward_lane<kMaxNodes, true>(p, b, tid, at, out, s)
-               : forward_lane<kMaxNodes, false>(p, b, tid, at, out, s);
+    else if (p.n <= kMaxNodes) unary ? forward_lane<kMaxNodes, true>(p, b, tid, at, out, s)
+                                     : forward_lane<kMaxNodes, false>(p, b, tid, at, out, s);
+    else unary ? forward_lane<kMaxRows, true>(p, b, tid, at, out, s)
+               : forward_lane<kMaxRows, false>(p, b, tid, at, out, s);
   });
 }
 
@@ -515,8 +549,11 @@ int interpret_bwd(const int* ops, const int* c2, const float* cst, const float* 
                          const Shared& s, bool unary) {
     if (p.n <= 32) unary ? backward_lane<32, true>(p, b, tid, at, g, dconst, ddata, s)
                          : backward_lane<32, false>(p, b, tid, at, g, dconst, ddata, s);
-    else unary ? backward_lane<kMaxNodes, true>(p, b, tid, at, g, dconst, ddata, s)
-               : backward_lane<kMaxNodes, false>(p, b, tid, at, g, dconst, ddata, s);
+    else if (p.n <= kMaxNodes)
+      unary ? backward_lane<kMaxNodes, true>(p, b, tid, at, g, dconst, ddata, s)
+            : backward_lane<kMaxNodes, false>(p, b, tid, at, g, dconst, ddata, s);
+    else unary ? backward_lane<kMaxRows, true>(p, b, tid, at, g, dconst, ddata, s)
+               : backward_lane<kMaxRows, false>(p, b, tid, at, g, dconst, ddata, s);
   });
 }
 #endif

@@ -19,7 +19,7 @@ from ..core.cuda_reproduction import reproduce_pairs
 from ..core.registry import FunctionSet
 from ..core.trees import TreeTensors
 from .crossover import forced_bernoulli_mask
-from .reproduction import migrate_ring, take_rows, tournament_select
+from .reproduction import make_evolve_populations, take_rows, tournament_select
 
 
 def make_reproduce_islands(
@@ -91,14 +91,6 @@ def make_evolve_populations_fused(
     reproduce = make_reproduce_islands(
         fset, population_size, elite_size, tournament_size, max_nodes, max_init_depth, coefficient_sd,
     )
-
-    def evolve_populations(populations: TreeTensors, fitness: torch.Tensor,
-                           generator: torch.Generator, generation: int) -> TreeTensors:
-        if fitness.shape[0] > 1 and (generation + 1) % migration_period == 0:
-            populations, fitness = migrate_ring(populations, fitness, migration_size)
-        return reproduce(
-            populations, fitness, generator, reproduction_type_probabilities,
-            reproduction_probabilities, tournament_probabilities,
-        )
-
-    return evolve_populations
+    return make_evolve_populations(reproduce, migration_period, migration_size,
+                                   reproduction_type_probabilities, reproduction_probabilities,
+                                   tournament_probabilities)

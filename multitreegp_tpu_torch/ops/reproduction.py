@@ -1,16 +1,25 @@
-"""Selection, ring migration and per-island hyperparameters.
+"""Selection, the generation step without the fused kernel, ring migration
+and per-island hyperparameters.
 
-Ports of ``tournament_select``, ``migrate_ring`` and ``island_hyperparams``
-of ``multitreegp_tpu/ops/reproduction.py`` (reference
+Ports of ``tournament_select``, ``make_evolve_island``, ``migrate_ring``,
+``make_evolve_populations`` and ``island_hyperparams`` of
+``multitreegp_tpu/ops/reproduction.py`` (reference
 ``genetic_operators/reproduction.py`` and ``genetic_programming.py:113-119``).
+The generation step runs over all islands at once (JAX maps it over the
+island axis): elitism, tournament selection, and per pair one of crossover,
+mutation or a fresh sample, drawn with the island's probabilities. As JAX's
+``lax.switch`` under ``vmap`` does, every branch is computed for every pair
+and each pair keeps its own; the fresh samples ignore their parents.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 
+from ..core.registry import FunctionSet
 from ..core.trees import TreeTensors
+from .crossover import crossover_candidates
 
 
 def tournament_select(
@@ -42,6 +51,51 @@ def take_rows(populations: TreeTensors, idx: torch.Tensor) -> TreeTensors:
     return populations.map(lambda x: x[isl, idx])
 
 
+def make_evolve_island(
+    fset: FunctionSet,
+    mutate_candidate: Callable,
+    sample_candidate: Callable,
+    population_size: int,
+    elite_size: int,
+    tournament_size: int,
+):
+    """Build ``evolve_island(populations (I, P, m, N), fitness (I, P),
+    generator, rtp (I, 3), rp (I,), tp (I, tournament_size)) ->
+    populations``, every island's generation step with its own
+    hyperparameter rows. ``mutate_candidate(trees, generator,
+    reproduction_probability, variable_mask)`` comes from
+    :func:`~.mutation.make_mutators`, ``sample_candidate(generator, shape)``
+    draws fresh candidates of batch ``shape``."""
+    num_pairs = (population_size - elite_size) // 2
+
+    def evolve_island(populations: TreeTensors, fitness: torch.Tensor, generator: torch.Generator,
+                      rtp: torch.Tensor, rp: torch.Tensor, tp: torch.Tensor) -> TreeTensors:
+        islands = fitness.shape[0]
+        elite = take_rows(populations, torch.argsort(fitness, dim=1, stable=True)[:, :elite_size])
+        left = take_rows(populations, tournament_select(fitness, tp, tournament_size, num_pairs, generator))
+        right = take_rows(populations, tournament_select(fitness, tp, tournament_size, num_pairs, generator))
+        repro_type = torch.multinomial(rtp, num_pairs, replacement=True, generator=generator)
+        p = rp[:, None].expand(islands, num_pairs)
+
+        cx = crossover_candidates(left, right, generator, p, fset)
+        # both parents of every pair mutate independently: one batch
+        both = TreeTensors(*(torch.cat([a, b], dim=1) for a, b in zip(left, right)))
+        mutated = mutate_candidate(both, generator, torch.cat([p, p], dim=1), fset.variable_mask)
+        fresh = sample_candidate(generator, (islands, 2 * num_pairs))
+        halves = lambda t: (t.map(lambda a: a[:, :num_pairs]), t.map(lambda a: a[:, num_pairs:]))
+
+        def pick(c, m, f):
+            t = repro_type.reshape(repro_type.shape + (1,) * (c.ops.ndim - 2))
+            return TreeTensors(*(torch.where(t == 0, a, torch.where(t == 1, b, d))
+                                 for a, b, d in zip(c, m, f)))
+
+        (m1, m2), (f1, f2) = halves(mutated), halves(fresh)
+        c_left, c_right = pick(cx[0], m1, f1), pick(cx[1], m2, f2)
+        return TreeTensors(*(torch.cat([e, a, b], dim=1) for e, a, b in zip(elite, c_left, c_right)))
+
+    return evolve_island
+
+
 def migrate_ring(
     populations: TreeTensors, fitness: torch.Tensor, migration_size: int
 ) -> Tuple[TreeTensors, torch.Tensor]:
@@ -63,6 +117,29 @@ def migrate_ring(
 
     out_pop = TreeTensors(*(mix(s, r) for s, r in zip(send_pop, recv_pop)))
     return out_pop, torch.where(keep[None, :], send_fit, recv_fit)
+
+
+def make_evolve_populations(
+    evolve_island: Callable,
+    migration_period: int,
+    migration_size: int,
+    reproduction_type_probabilities: torch.Tensor,  # (islands, 3)
+    reproduction_probabilities: torch.Tensor,  # (islands,)
+    tournament_probabilities: torch.Tensor,  # (islands, tournament_size)
+):
+    """``evolve(populations, fitness, generator, generation) -> populations``:
+    ring migration every ``migration_period`` generations (more than one
+    island), then :func:`make_evolve_island`'s step (reference
+    ``evolve_populations``, :133-176)."""
+
+    def evolve_populations(populations: TreeTensors, fitness: torch.Tensor,
+                           generator: torch.Generator, generation: int) -> TreeTensors:
+        if fitness.shape[0] > 1 and (generation + 1) % migration_period == 0:
+            populations, fitness = migrate_ring(populations, fitness, migration_size)
+        return evolve_island(populations, fitness, generator, reproduction_type_probabilities,
+                             reproduction_probabilities, tournament_probabilities)
+
+    return evolve_populations
 
 
 def island_hyperparams(

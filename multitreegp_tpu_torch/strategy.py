@@ -9,9 +9,13 @@ are no compiled-program caches and ``fit()`` is the host loop itself.
 Randomness comes from explicit ``torch.Generator``s, and every tensor lives
 on the ``device`` given to the constructor.
 
+Reproduction takes JAX's routing: the fused kernel path (#2,
+``ops/fused_evolve``) where ``max_nodes <= 256``, the per-tree operators
+(``ops/reproduction.make_evolve_island``) above it or with
+``fused_reproduction=False``.
+
 Not ported yet (they raise ``NotImplementedError``): meshes and sharding
-(``mesh=``, ``fit(shard=True)``; ROADMAP Queue 1 #18) and the non-fused
-reproduction path.
+(``mesh=``, ``fit(shard=True)``; ROADMAP Queue 1 #5).
 """
 from __future__ import annotations
 
@@ -19,13 +23,15 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from .core.interpreter import evaluate_trees, make_candidate_evaluator
+from .core.interpreter import check_impl, evaluate_trees, make_candidate_evaluator
 from .core.registry import FunctionSet, build_function_set
+from .core.cuda_reproduction import MAX_NODES as MAX_KERNEL_NODES
 from .core.trees import TreeTensors, tree_sizes
 from .ops.constant_opt import make_constant_optimiser
 from .ops.fused_evolve import make_evolve_populations_fused
-from .ops.initialization import make_population_sampler
-from .ops.reproduction import island_hyperparams
+from .ops.initialization import make_population_sampler, make_tree_sampler
+from .ops.mutation import make_mutators
+from .ops.reproduction import island_hyperparams, make_evolve_island, make_evolve_populations
 from .utils.checkpoint import load_checkpoint, save_checkpoint
 from .utils.render import candidate_to_string
 
@@ -70,9 +76,13 @@ class GeneticProgramming:
         if kwargs:
             raise TypeError(f"unknown arguments: {sorted(kwargs)}")
         if mesh is not None:
-            raise NotImplementedError("meshes and sharding are ROADMAP Queue 1 #18")
-        if fused_reproduction is False:
-            raise NotImplementedError("the port has the fused reproduction path only")
+            raise NotImplementedError("meshes and sharding are ROADMAP Queue 1 #5")
+        if fused_reproduction is None:  # JAX's routing
+            fused_reproduction = max_nodes <= MAX_KERNEL_NODES
+        if fused_reproduction and max_nodes > MAX_KERNEL_NODES:
+            raise NotImplementedError(
+                f"fused_reproduction=True at max_nodes {max_nodes}: the reproduction kernel takes "
+                f"at most {MAX_KERNEL_NODES} rows; leave it None or pass False")
         checks = (
             (num_populations > 0, "num_populations must be positive"),
             (population_size > 0 and population_size % 2 == 0,
@@ -109,8 +119,12 @@ class GeneticProgramming:
         if getattr(self.evaluator, "fset", None) is None:
             self.evaluator.fset = self.fset
 
+        self.sample_tree = make_tree_sampler(self.fset, max_init_depth, max_nodes, coefficient_sd)
         self.sample_population = make_population_sampler(
             self.fset, max_init_depth, max_nodes, coefficient_sd
+        )
+        self.mutate_candidate, self.mutate_tree, _ = make_mutators(
+            self.fset, self.sample_tree, max_nodes, max_init_depth, coefficient_sd
         )
         (
             self.tournament_probabilities,
@@ -121,12 +135,24 @@ class GeneticProgramming:
             reproduction_probability_factors, crossover_probability_factors,
             mutation_probability_factors, sample_probability_factors, device=self.device,
         )
-        self._evolve_populations = make_evolve_populations_fused(
-            self.fset, population_size, self.elite_size, tournament_size, migration_period,
-            self.migration_size, self.reproduction_type_probabilities,
-            self.reproduction_probabilities, self.tournament_probabilities, max_nodes,
-            max_init_depth, coefficient_sd,
-        )
+        self.fused_reproduction = bool(fused_reproduction)
+        if self.fused_reproduction:
+            self._evolve_populations = make_evolve_populations_fused(
+                self.fset, population_size, self.elite_size, tournament_size, migration_period,
+                self.migration_size, self.reproduction_type_probabilities,
+                self.reproduction_probabilities, self.tournament_probabilities, max_nodes,
+                max_init_depth, coefficient_sd,
+            )
+        else:
+            self._evolve_island = make_evolve_island(
+                self.fset, self.mutate_candidate, self._sample_candidate, population_size,
+                self.elite_size, tournament_size,
+            )
+            self._evolve_populations = make_evolve_populations(
+                self._evolve_island, migration_period, self.migration_size,
+                self.reproduction_type_probabilities, self.reproduction_probabilities,
+                self.tournament_probabilities,
+            )
         self._optimise = make_constant_optimiser(
             lambda pop, data: self.evaluator.evaluate_population(pop, data),
             optimiser, gradient_steps,
@@ -138,6 +164,13 @@ class GeneticProgramming:
         self.best_solutions: Optional[TreeTensors] = None
         # the reference-style per-candidate tree evaluator handed to users
         self.tree_evaluator = make_candidate_evaluator(self.fset)
+
+    def _sample_candidate(self, generator: torch.Generator, shape=()) -> TreeTensors:
+        """Fresh candidates of batch ``shape``: each tree grown to
+        ``max_init_depth`` with its layer's variables."""
+        vmask = self.fset.variable_mask.to(generator.device)
+        return self.sample_tree(generator, self.max_init_depth,
+                                vmask.expand(tuple(shape) + tuple(vmask.shape)))
 
     # ------------------------------------------------------------------ API
 
@@ -211,7 +244,8 @@ class GeneticProgramming:
     def evolve(self, populations: TreeTensors, fitness: torch.Tensor,
                generator: torch.Generator) -> TreeTensors:
         """One generation: migration (every ``migration_period``), elitism,
-        selection and the fused reproduction."""
+        selection and reproduction (the fused kernel, or the per-tree
+        operators)."""
         out = self._evolve_populations(populations, fitness, generator, self.current_generation)
         self.current_generation += 1
         return out
@@ -229,14 +263,16 @@ class GeneticProgramming:
         ``(best fitness (K,), refined candidates)`` (reference :454-473)."""
         return self._optimise(candidates, data)
 
-    def to_callable(self, candidate: TreeTensors):
+    def to_callable(self, candidate: TreeTensors, impl: str = "auto"):
         """``f(data (..., V)) -> (..., num_trees)`` root values of an evolved
         candidate, through the interpreter (its kernel on CUDA tensors;
-        differentiable in ``data``)."""
+        differentiable in ``data``). ``impl`` is JAX's keyword
+        (:func:`~.core.interpreter.evaluate_trees`)."""
         fset = self.fset
+        check_impl(impl)
 
         def f(data: torch.Tensor) -> torch.Tensor:
-            return evaluate_trees(candidate, data[..., None, :], fset)
+            return evaluate_trees(candidate, data[..., None, :], fset, impl=impl)
 
         return f
 
@@ -262,7 +298,7 @@ class GeneticProgramming:
         such a file, and the resumed run equals the uninterrupted one.
         """
         if shard:
-            raise NotImplementedError("fit(shard=True) (meshes and sharding) is ROADMAP Queue 1 #18")
+            raise NotImplementedError("fit(shard=True) (meshes and sharding) is ROADMAP Queue 1 #5")
         g = num_generations or self.num_generations
         start = 0
         best_fit = best_sol = None

@@ -7,6 +7,9 @@ checkpoint/resume (CPU, tiny sizes: 2 islands x 16, N = 16, T = 10, B = 4).
 * A run killed during generation 10 and resumed from the checkpoint it wrote
   after generation 9 equals the uninterrupted run bit for bit: histories,
   final populations and final fitness.
+* The same two checks on the non-fused reproduction path
+  (``fused_reproduction=False``: the per-tree operators of
+  ``ops/reproduction.make_evolve_island``).
 * ``shard=True`` (meshes) is not ported and raises.
 """
 import pytest
@@ -42,13 +45,13 @@ class KillingEvaluator(SREvaluator):
         return super().evaluate_population(population, data)
 
 
-def make_gp(evaluator=None):
+def make_gp(evaluator=None, **kwargs):
     return GeneticProgramming(
         num_generations=GENERATIONS, population_size=16, num_populations=2,
         fitness_function=evaluator or KillingEvaluator(substeps=1), operator_list=OPS,
         variable_list=[["x0", "x1"]], layer_sizes=[2], max_nodes=16, max_init_depth=3,
         elite_percentage=0.25, coefficient_optimisation=True, gradient_steps=2,
-        coefficient_opt_top_k=4, device="cpu",
+        coefficient_opt_top_k=4, device="cpu", **kwargs,
     )
 
 
@@ -62,8 +65,8 @@ def fit(gp, data, seed=1, **kwargs):
     return gp.fit(torch.Generator().manual_seed(seed), data, **kwargs)
 
 
-def test_fit_schedules_constant_optimisation(data):
-    gp = make_gp()
+def test_fit_schedules_constant_optimisation(data, **kwargs):
+    gp = make_gp(**kwargs)
     rounds, refined = [], []
     optimise = gp._optimise
 
@@ -85,25 +88,33 @@ def test_fit_schedules_constant_optimisation(data):
     assert gp.current_generation == GENERATIONS
 
 
-def test_fit_resumed_equals_uninterrupted(data, tmp_path):
+def test_fit_resumed_equals_uninterrupted(data, tmp_path, **kwargs):
     path = str(tmp_path / "ck_{gen}.npz")
-    done = make_gp()
+    done = make_gp(**kwargs)
     want = fit(done, data, checkpoint_path=path, checkpoint_every=GENERATIONS)
 
-    killed = make_gp(KillingEvaluator(kill_at=10, substeps=1))
+    killed = make_gp(KillingEvaluator(kill_at=10, substeps=1), **kwargs)
     with pytest.raises(Killed):
         fit(killed, data, checkpoint_path=path, checkpoint_every=5)
     ck = load_checkpoint(path.format(gen=10))
     assert ck["generation"] == 10 and not (tmp_path / "ck_15.npz").exists()
 
-    got = fit(make_gp(), data, seed=99, resume_from=path.format(gen=10))  # the seed is not used
+    got = fit(make_gp(**kwargs), data, seed=99, resume_from=path.format(gen=10))  # the seed is not used
     for w, g in zip(want, got):
         for a, b in zip(*((w, g) if isinstance(w, tuple) else ((w,), (g,)))):
             assert torch.equal(a, b)
 
     # a completed run's checkpoint returns its state
-    again = fit(make_gp(), data, resume_from=path.format(gen=GENERATIONS))
+    again = fit(make_gp(**kwargs), data, resume_from=path.format(gen=GENERATIONS))
     assert torch.equal(again[0], done.best_fitnesses) and torch.equal(again[2].ops, want[2].ops)
+
+
+def test_fit_non_fused_schedules_constant_optimisation(data):
+    test_fit_schedules_constant_optimisation(data, fused_reproduction=False)
+
+
+def test_fit_non_fused_resumed_equals_uninterrupted(data, tmp_path):
+    test_fit_resumed_equals_uninterrupted(data, tmp_path, fused_reproduction=False)
 
 
 def test_fit_shard_raises(data):

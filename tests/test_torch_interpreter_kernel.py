@@ -9,7 +9,9 @@
   same accumulation order; NaN where the plain version has NaN), in every
   caller's layout (lanes grouped by the tree they share; groups that do not
   divide a warp or span blocks; one tree per lane) at N = 32 to 256, with and
-  without ``sin``/``cos``, with blocks of one to four warps, and on
+  without ``sin``/``cos``, with blocks of one to four warps, past 256 rows
+  (N = 300, 512 and 1024, second operands at rows past 511; 16 lanes a
+  tree, and one, where at 1024 rows a block runs 16 lanes), and on
   hand-made trees whose second operand ``c2`` is a row a postorder stack
   would not read. Summed back over broadcast dimensions the order of the
   sums differs, so there each entry must lie within 1e-6 of the sum of the
@@ -51,8 +53,9 @@ from multitreegp_tpu_torch.core.interpreter import (
 from multitreegp_tpu_torch.core.registry import build_function_set
 from multitreegp_tpu_torch.core.trees import CONST, EMPTY
 from test_torch_kernels import (
-    INTERP_LAYOUTS, INTERP_OPS, INTERP_SIZES, NO_DEVICE_OP, TRIG, c2_case, interp_layout_case,
-    lanes_case, patch_host_math, per_lane_operands, reproduce_case, same_bits,
+    DEEP_INTERP_MEMBERS, DEEP_INTERP_SIZES, INTERP_LAYOUTS, INTERP_OPS, INTERP_SIZES, NO_DEVICE_OP,
+    TRIG, c2_case, deep_interp_case, interp_layout_case, lanes_case, patch_host_math,
+    per_lane_operands, reproduce_case, same_bits,
 )
 
 torch.set_num_threads(1)
@@ -163,6 +166,45 @@ def test_host_build_block_edges_bit_exact(host_lib, members):
     out, dconst, ddata = host_per_lane(host_lib, trees, data, g, fset)
     assert same_bits(out, ref) and same_bits(dconst, ref_c) and same_bits(ddata, ref_d)
     assert (ref_c != 0).any() and (ref_d != 0).any()
+
+
+@pytest.mark.parametrize("members", DEEP_INTERP_MEMBERS)
+@pytest.mark.parametrize("n", DEEP_INTERP_SIZES)
+def test_host_build_deep_bit_exact(host_lib, n, members):
+    """The instance past 256 rows: N = 300, 512 and 1024 (second operands at
+    rows past 255, and at 1024 past 511: the decoded row's whole ``c2``
+    field), 16 lanes a tree and one (at 1024 rows a block then runs 16
+    lanes): roots, ``dconst`` and ``ddata`` bit for bit per lane."""
+    fset, trees, data, g = deep_interp_case(n, members)
+    assert int(trees.c2.max()) > (511 if n > 512 else 255)
+    ref, ref_c, ref_d = plain_per_lane(trees, data, g, fset)
+    out, dconst, ddata = host_per_lane(host_lib, trees, data, g, fset)
+    assert same_bits(out, ref) and same_bits(dconst, ref_c) and same_bits(ddata, ref_d)
+    assert (ref_c != 0).any() and (ref_d != 0).any() and torch.isfinite(ref).float().mean() > 0.5
+
+
+def test_host_build_deep_trig_bit_exact(host_lib, monkeypatch):
+    fset, trees, data, g = deep_interp_case(512, 16, trig=True)
+    with monkeypatch.context() as m:
+        patch_host_math(m)
+        ref, ref_c, ref_d = plain_per_lane(trees, data, g, fset)
+    out, dconst, ddata = host_per_lane(host_lib, trees, data, g, fset)
+    assert same_bits(out, ref) and same_bits(dconst, ref_c) and same_bits(ddata, ref_d)
+
+
+def test_host_build_refuses_past_its_limit(host_lib):
+    """Past 1024 rows the wrapper raises ``NotImplementedError``; the
+    kernel's own check refuses the layout words too."""
+    fset, trees, data, g = deep_interp_case(ci.MAX_NODES + 1, 1, k=3)
+    with pytest.raises(NotImplementedError):
+        ci.run_forward(host_lib.interpret_fwd, trees, data, fset)
+    ok = deep_interp_case(ci.MAX_NODES, 1, k=3)
+    layout = ci._make_layout(ok[1], ok[2], ok[0])
+    layout.words[2] = ci.MAX_NODES + 1  # the row count, past kMaxRows
+    out = torch.empty(layout.batch)
+    ptrs = [t.data_ptr() for t in (ok[1].ops, ok[1].c2, ok[1].const, ok[2])]
+    assert ci._bind(host_lib.interpret_fwd, "interpret_fwd")(*ptrs, layout.address,
+                                                            out.data_ptr(), None) == 1
 
 
 def postorder_roots(trees, data, fset):

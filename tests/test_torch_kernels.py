@@ -17,8 +17,10 @@ Two routes:
   63 rows, and at 1024 trajectories), and the policy evaluators' refusal to run a plain version on
   CUDA tensors; the interpreter kernels (forward and VJP)
   through ``evaluate_trees`` and autograd, and in every caller's layout at
-  N = 32 to 256 with and without ``sin``/``cos`` (per-lane outputs), bit for
-  bit per lane against the plain version on the card; the adaptive kernels (#5 global budget, #4 per
+  N = 32 to 256 with and without ``sin``/``cos`` (per-lane outputs), and
+  their instance past 256 rows at N = 300, 512 and 1024 (16 trajectories a
+  tree, one data vector a tree), bit for bit per lane against the plain
+  version on the card, and their refusal past 1024 rows; the adaptive kernels (#5 global budget, #4 per
   interval; also their instances for N <= 256, state dim 4 and 1024
   trajectories) and the trajectory kernel (#3) against their plain versions,
   bit for bit per lane (the card's ``powf`` and ``sqrtf`` are PyTorch's), and
@@ -300,6 +302,33 @@ def interp_layout_case(layout, device="cpu", n=32, depth=5, trig=False, seed=0):
     batch = torch.broadcast_shapes(trees.ops.shape[:-1], data.shape[:-1])
     g_out = torch.from_numpy(rng.normal(size=batch).astype(np.float32)).to(device)
     return fset, trees, data, g_out
+
+
+# the instance past 256 rows: N and the layouts of its callers, the
+# recompute's (16 trajectories a tree) and one data vector per tree
+DEEP_INTERP_SIZES = (300, 512, 1024)
+DEEP_INTERP_MEMBERS = (16, 1)
+
+
+def deep_interp_case(n, members, device="cpu", k=12, trig=False, seed=0):
+    """``(fset, trees (k, 1, 2, n), data (k, members, 1, 2), g)``: grown
+    trees (depth 7), the first three candidates chains of ``n - 1``, 127 and
+    63 rows (at ``n = 1024`` second operands at rows past 511, which need
+    every bit of the decoded row's ``c2`` field), every third candidate's
+    constants near or at 0 (``/`` makes huge, inf and NaN lanes)."""
+    fset = build_function_set(INTERP_OPS + (TRIG if trig else []), [["x0", "x1"]], [2])
+    gen = torch.Generator(device=device).manual_seed(seed)
+    pop = make_population_sampler(fset, 7, n)(gen, k)[0]
+    pop = with_chains(pop, fset, [n - 1, 127, 63])
+    rng = np.random.default_rng(seed)
+    small = rng.normal(size=pop.const.shape).astype(np.float32) * 1e-3
+    small[rng.random(pop.const.shape) < 0.1] = 0.0
+    every_third = (torch.arange(k, device=device) % 3 == 0)[:, None, None]
+    pop = pop._replace(const=torch.where((pop.ops == CONST) & every_third,
+                                         torch.from_numpy(small).to(device), pop.const))
+    data = torch.from_numpy(rng.normal(size=(k, members, 1, 2)).astype(np.float32) * 2).to(device)
+    g_out = torch.from_numpy(rng.normal(size=(k, members, 2)).astype(np.float32)).to(device)
+    return fset, pop.map(lambda a: a[:, None]), data, g_out
 
 
 def per_lane_operands(trees, data):
@@ -642,6 +671,29 @@ def test_interpreter_layouts_match_plain_on_card(cuda, layout, n, depth, trig):
     share) at N = 32 to 256, with and without ``sin``/``cos``: roots and
     per-lane ``dconst``/``ddata`` bit for bit."""
     check_interpreter_on_card(*interp_layout_case(layout, cuda, n, depth, trig))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("members", DEEP_INTERP_MEMBERS)
+@pytest.mark.parametrize("n", DEEP_INTERP_SIZES)
+def test_interpreter_deep_match_plain_on_card(cuda, n, members):
+    """#8 and #9's instance past 256 rows (N = 300, 512, 1024) in the
+    recompute's layout (16 trajectories a tree) and with one data vector a
+    tree (at 1024 rows a block then runs 16 lanes): roots and per-lane
+    ``dconst``/``ddata`` bit for bit."""
+    check_interpreter_on_card(*deep_interp_case(n, members, cuda))
+
+
+@pytest.mark.cuda
+def test_interpreter_deep_trig_on_card(cuda):
+    check_interpreter_on_card(*deep_interp_case(512, 16, cuda, trig=True))
+
+
+@pytest.mark.cuda
+def test_interpreter_refuses_past_its_limit_on_card(cuda):
+    fset, trees, data, _ = deep_interp_case(ci.MAX_NODES + 1, 1, cuda, k=3)
+    with pytest.raises(NotImplementedError):
+        ci.evaluate_trees_cuda(trees, data, fset)
 
 
 @pytest.mark.cuda

@@ -94,9 +94,14 @@ def test_constructor_surface():
     assert gp.size_parsimony == 0.5
     gp = GeneticProgramming(**dict(base, population_size=512), elite_percentage=0.1)
     assert gp.elite_size == 50 and gp.migration_size == 51
-    for kwargs in ({"mesh": object()}, {"fused_reproduction": False}):
-        with pytest.raises(NotImplementedError):
-            GeneticProgramming(**base, **kwargs)
+    with pytest.raises(NotImplementedError):  # meshes: ROADMAP Queue 1 #5
+        GeneticProgramming(**base, mesh=object())
+    # JAX's routing: fused_reproduction=False builds the per-tree operators'
+    # path; True past the reproduction kernel's 256 rows raises
+    assert not GeneticProgramming(**base, fused_reproduction=False).fused_reproduction
+    assert GeneticProgramming(**base).fused_reproduction
+    with pytest.raises(NotImplementedError, match="256"):
+        GeneticProgramming(**dict(base, max_nodes=300), fused_reproduction=True)
     with pytest.raises(TypeError):
         GeneticProgramming(**base, no_such_option=1)
     with pytest.raises(ValueError):
@@ -104,7 +109,7 @@ def test_constructor_surface():
     gp = GeneticProgramming(**base, coefficient_optimisation=True, coefficient_opt_top_k=100)
     assert gp.coefficient_optimisation and gp.coefficient_opt_top_k == 32 and gp.gradient_steps == 10
     assert [g for g in range(20) if gp._optimise_due(g)] == [14, 19]
-    with pytest.raises(NotImplementedError):  # meshes: ROADMAP Queue 1 #18
+    with pytest.raises(NotImplementedError):  # meshes: ROADMAP Queue 1 #5
         gp.fit(torch.Generator(), None, shard=True)
     cand = gp.initialize_population(torch.Generator().manual_seed(0))[0, 0]
     f = gp.to_callable(cand)
@@ -112,6 +117,32 @@ def test_constructor_surface():
     out = f(x)
     assert out.shape == (3, 2)
     torch.testing.assert_close(out[1], gp.tree_evaluator(cand, x[1]), rtol=0, atol=0)
+
+
+def test_impl_keyword_matches_jax_surface():
+    """``evaluate_trees(..., impl=)`` and ``to_callable(candidate, impl=)``
+    take JAX's keyword with its default and its four values (each the same
+    interpreter on one device); any other value raises ``ValueError``."""
+    import inspect
+
+    from multitreegp_tpu.core.interpreter import evaluate_trees as jax_evaluate_trees
+    from multitreegp_tpu_torch.core.interpreter import IMPLS, evaluate_trees
+
+    for port_fn, jax_fn in ((evaluate_trees, jax_evaluate_trees),
+                            (GeneticProgramming.to_callable, JaxGP.to_callable)):
+        assert (inspect.signature(port_fn).parameters["impl"].default
+                == inspect.signature(jax_fn).parameters["impl"].default == "auto")
+    assert IMPLS == ("auto", "pallas", "ladder", "gather")
+    gp = GeneticProgramming(fitness_function=SREvaluator(), operator_list=OPS, device="cpu", **COMMON)
+    cand = gp.initialize_population(torch.Generator().manual_seed(0))[0, 0]
+    x = torch.tensor([[0.5, -0.5], [1.0, 2.0]])
+    outs = [gp.to_callable(cand, impl=impl)(x) for impl in IMPLS]
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    for bad in ("unrolled", "Pallas", None):
+        with pytest.raises(ValueError):
+            gp.to_callable(cand, impl=bad)
+        with pytest.raises(ValueError):
+            evaluate_trees(cand, x[:, None, :], gp.fset, impl=bad)
 
 
 def test_chip_smoke_phases_rehearse_on_cpu():
@@ -129,7 +160,9 @@ def test_chip_smoke_phases_rehearse_on_cpu():
                 policy_opt_top_k=4, policy_opt_steps=2, policy_opt_t=4,
                 noise=0.05, noisy_adaptive_t=3, ab_runs=1, probe_reps=2,
                 deep_nodes=64, deep_depth=5, deep_pop=8, deep_t=3, deep_rep_pop=16, deep_policy_t=3,
-                deep_adaptive_t=3, deep_adaptive_budget=40, deep_interval_steps=8)
+                deep_adaptive_t=3, deep_adaptive_budget=40, deep_interval_steps=8,
+                wide_nodes=300, wide_depth=5, wide_check_nodes=(300,), deep_gen_nodes=64,
+                deep_gen_depth=5)
     out = chip_smoke.run(torch.device("cpu"), tiny)
     assert out["fitness"]["bit_equal"] and out["reproduce"]["ops_identical"] == 1.0
     deep = out["deep"]
@@ -187,6 +220,16 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     assert all(r["refined_sum"] <= r["unrefined_sum"] for r in rounds)
     assert len(out["const_opt"]["generation_ms"]) == 20 and out["const_opt"]["drift_calls"] == 16
     assert set(rounds[0]["split_ms"]) == {"forward", "recompute", "backward"}
+    nf = out["non_fused"]
+    assert all(len(nf[k]["generations"]) == 2 for k in ("non_fused", "fused"))
+    wide = out["wide"]
+    assert len(wide["generations"]) == 2 and wide["round"]["refined_sum"] <= wide["round"]["unrefined_sum"]
+    assert set(wide["checks"]) == {"n300_recompute", "n300_one_member", "n300_population", "n300_round"}
+    assert all(all(c["bit_equal"].values()) for c in wide["checks"].values())
+    assert wide["checks"]["n300_one_member"]["lanes"] == 4 * 2
+    assert wide["checks"]["n300_population"]["lanes"] == 32 * 4 * 2
+    assert wide["checks"]["n300_recompute"]["rows_max"] == 299
+    assert out["kernels"][2]["wide"]["n"] == 300 and len(out["gen_deep"]["generations"]) == 2
 
 
 def test_package_never_imports_jax():
@@ -199,7 +242,8 @@ def test_package_never_imports_jax():
         "import multitreegp_tpu_torch.core.cuda_adaptive, multitreegp_tpu_torch.core.cuda_rollout\n"
         "import multitreegp_tpu_torch.core.cuda_policy, multitreegp_tpu_torch.models.environments\n"
         "import multitreegp_tpu_torch.core.prng, multitreegp_tpu_torch.models.evaluators.noise\n"
-        "import multitreegp_tpu_torch.tools.branch_probe\n"
+        "import multitreegp_tpu_torch.tools.branch_probe, multitreegp_tpu_torch.ops.mutation\n"
+        "import multitreegp_tpu_torch.ops.splice, multitreegp_tpu_torch.ops.reproduction\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'multitreegp_tpu.'))]\n"
         "assert not bad and 'multitreegp_tpu' not in sys.modules, bad\n"
     )

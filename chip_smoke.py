@@ -122,7 +122,20 @@ workload (phases 12-14). Phases, one line or a few each:
    vector a tree; their events and device time per launch at 512 rows;
 20. ``gen_deep`` (``bench.py``: ``max_nodes=128``, ``max_init_depth=7``) on
    the fused path: 5 generations, ms per generation, #1's and #2's device
-   time per launch.
+   time per launch;
+21. ``SREvaluator.prepare_chained`` on phase 4's last population and on
+   phase 15's SDE workload: ``step(const0)`` bit-equal to
+   ``evaluate_population`` per candidate; 10 chained steps against 10
+   ``evaluate_population`` calls (CUDA events, device busy time), the ms
+   the hoist saves per evaluation and the SDE kick rows' build alone;
+22. ``fit(shard=True)`` at full width (``gen_opt``: 8 x 512, top-k 50, 10
+   Adam steps, 15 generations) over one NCCL rank per card (the card count
+   capped to a divisor of the 8 islands; ``torch.multiprocessing.spawn``,
+   a ``FileStore``): at W = 1 bit-equal to ``fit()``; at every W the
+   histories, valid trees, fitness in [0, 1e5] and a round that makes
+   nothing worse; per rank the ms per generation split into evaluation,
+   migration ring, evolve and global best, the round's ms and #1/#2/#8/#9
+   launches.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last lines are a JSON line of per-kernel numbers, the card's name and
@@ -149,9 +162,10 @@ FULL = dict(islands=8, pop=512, max_nodes=32, depth=4, batch=16, horizon=10.0, d
             deep_nodes=256, deep_depth=7, deep_pop=256, deep_t=6, deep_rep_pop=512, deep_policy_t=3,
             deep_adaptive_t=4, deep_adaptive_budget=40, deep_interval_steps=8,
             wide_nodes=512, wide_depth=7, wide_check_nodes=(512, 1024), deep_gen_nodes=128,
-            deep_gen_depth=7)
+            deep_gen_depth=7, chain_k=10, shard_generations=15)
 KERNELS = ("sr_fitness", "reproduce", "interpreter", "sr_adaptive", "sr_rollout",
            "policy", "branch_probe")  # csrc/<name>.cu
+SHARDED_KERNELS = ("sr_fitness", "reproduce", "interpreter")  # phase 22's path
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, float32 FLOP/s outside the tensor
 # cores (both at the full 700 W power limit). The FLOP/s count an FMA as two
 # operations; a multiply or an add alone (the kernels are built with
@@ -301,8 +315,22 @@ def interp_bounds(trees, states, cot, fset):
     return fwd, bwd
 
 
+def main_data(device, s):
+    """``(generator, data)``: the main path's VdP data tuple ``(x0s, ts, ys,
+    None)`` from seed 0, and the generator that made it."""
+    import torch
+
+    from multitreegp_tpu_torch.models.environments import VanDerPolOscillator
+    from multitreegp_tpu_torch.models.evaluators import generate_sr_data
+
+    g = torch.Generator(device=device).manual_seed(0)
+    ts_full = torch.arange(0.0, s["horizon"], s["dt"], device=device)
+    x0s, _, ys_full, _ = generate_sr_data(VanDerPolOscillator(), g, ts_full, batch_size=s["batch"])
+    return g, (x0s, ts_full, ys_full, None)
+
+
 def run(device, sizes=FULL) -> dict:
-    """Phases 2-20 on ``device``; returns the numbers the script prints."""
+    """Phases 2-22 on ``device``; returns the numbers the script prints."""
     import torch
 
     from multitreegp_tpu_torch import GeneticProgramming
@@ -311,8 +339,7 @@ def run(device, sizes=FULL) -> dict:
     from multitreegp_tpu_torch.core import tile_surgery as ts
     from multitreegp_tpu_torch.core.registry import build_function_set
     from multitreegp_tpu_torch.core.trees import TreeTensors, rebuild_pointers, validate_host
-    from multitreegp_tpu_torch.models.environments import VanDerPolOscillator
-    from multitreegp_tpu_torch.models.evaluators import SREvaluator, generate_sr_data
+    from multitreegp_tpu_torch.models.evaluators import SREvaluator
     from multitreegp_tpu_torch.ops.initialization import make_population_sampler
     from multitreegp_tpu_torch.utils.metrics import node_evals_per_evaluation
 
@@ -320,9 +347,7 @@ def run(device, sizes=FULL) -> dict:
     n, islands, pop, b = s["max_nodes"], s["islands"], s["pop"], s["batch"]
     total_pop = islands * pop
     fset = build_function_set(OPERATORS, [["x0", "x1"]], [2])
-    g = torch.Generator(device=device).manual_seed(0)
-    ts_full = torch.arange(0.0, s["horizon"], s["dt"], device=device)
-    x0s, _, ys_full, _ = generate_sr_data(VanDerPolOscillator(), g, ts_full, batch_size=b)
+    g, (x0s, ts_full, ys_full, _) = main_data(device, s)
     trees = make_population_sampler(fset, s["depth"], n)(g, total_pop)[0]
     out: dict = {}
 
@@ -445,6 +470,8 @@ def run(device, sizes=FULL) -> dict:
     out.update(nonfused_phase(device, s, data))
     out.update(wide_phase(device, s, data))
     out.update(gen_deep_phase(device, s, data))
+    out.update(chained_phase(device, s, pops.map(lambda a: a.reshape((-1,) + a.shape[2:])), fset, data))
+    out.update(sharded_phase(device, s, data))
 
     # -- the kernels line --------------------------------------------------------
     times = out.get("times_ms", {})
@@ -490,17 +517,21 @@ def run(device, sizes=FULL) -> dict:
         return dict(n=s["wide_nodes"], launches=launches, checks=wide["checks"], **shapes)
 
     gen_deep = dict(n=s["deep_gen_nodes"], ms_per_generation=gd["ms_per_generation"])
+    shard = out["sharded"]["ranks"]
+    shard_launches = lambda key: [r["launches"][key] for r in shard]
     out["kernels"] = [
         row("sr_fitness", "sr_fitness.cu", "multitreegp_tpu/core/pallas_rollout.py:279",
             launches["sr_fitness"], a_err, times.get("fit_kernel"), times.get("fit_plain"),
             fit_bound, device_ms=times.get("fit_device"), launches_const_opt=launches7["sr_fitness"], kicks=sde["fitness_kicks"],
             deep=out["deep"]["fitness"],
-            gen_deep=dict(gen_deep, launches=gd["launches"]["sr_fitness"], device_ms=gd.get("fit_device_ms"))),
+            gen_deep=dict(gen_deep, launches=gd["launches"]["sr_fitness"], device_ms=gd.get("fit_device_ms")),
+            launches_sharded=shard_launches("sr_fitness"), launches_chained=out["chained"]["launches"]),
         row("reproduce", "reproduce.cu", "multitreegp_tpu/core/pallas_reproduction.py:53",
             launches["reproduce"], c_err, times.get("rep_kernel"), times.get("rep_plain"),
             rep_bound, device_ms=times.get("rep_device"), launches_const_opt=launches7["reproduce"],
             launches_adaptive=launches10["reproduce"], deep=out["deep"]["reproduce"],
-            gen_deep=dict(gen_deep, launches=gd["launches"]["reproduce"], device_ms=gd.get("rep_device_ms"))),
+            gen_deep=dict(gen_deep, launches=gd["launches"]["reproduce"], device_ms=gd.get("rep_device_ms")),
+            launches_sharded=shard_launches("reproduce")),
         row("interpret_fwd", "interpreter.cu", "multitreegp_tpu/core/pallas_interpreter.py:142",
             launches7["interpret_fwd"], interp["max_abs_err_fwd"], it.get("fwd_kernel"),
             it.get("fwd_plain"), fwd_bound, lanes=k_lanes, device_ms=it.get("fwd_device"),
@@ -509,7 +540,8 @@ def run(device, sizes=FULL) -> dict:
             population=dict(lanes=interp["population"]["lanes"], ms=it_pop.get("fwd_kernel"),
                             device_ms=it_pop.get("fwd_device"), plain_ms=it_pop.get("fwd_plain"),
                             bound_ms=fwd_bound_pop[0], bound_by=fwd_bound_pop[1]),
-            deep=out["deep"]["interpreter"], wide=wide_row("interpret_fwd")),
+            deep=out["deep"]["interpreter"], wide=wide_row("interpret_fwd"),
+            launches_sharded=shard_launches("interpret_fwd")),
         row("interpret_bwd", "interpreter.cu", "multitreegp_tpu/core/pallas_interpreter.py:178",
             launches7["interpret_bwd"], interp["max_abs_err_bwd"], it.get("bwd_kernel"),
             it.get("bwd_plain"), bwd_bound, lanes=k_lanes, device_ms=it.get("bwd_device"),
@@ -518,7 +550,8 @@ def run(device, sizes=FULL) -> dict:
             population=dict(lanes=interp["population"]["lanes"], ms=it_pop.get("bwd_kernel"),
                             device_ms=it_pop.get("bwd_device"), plain_ms=it_pop.get("bwd_plain"),
                             bound_ms=bwd_bound_pop[0], bound_by=bwd_bound_pop[1]),
-            deep=out["deep"]["interpreter"], wide=wide_row("interpret_bwd")),
+            deep=out["deep"]["interpreter"], wide=wide_row("interpret_bwd"),
+            launches_sharded=shard_launches("interpret_bwd")),
     ]
     ak, at = out["adaptive_kernels"], out.get("adaptive_times_ms", {})
     g_long, i_short = ak[f"global_t{ts_full.shape[0]}"], ak[f"interval_t{s['adaptive_short_t']}"]
@@ -2515,6 +2548,275 @@ def gen_deep_phase(device, s, data) -> dict:
     return {"gen_deep": res}
 
 
+def chained_phase(device, s, pops, fset, data) -> dict:
+    """Phase 21: ``SREvaluator.prepare_chained`` on phase 4's last population
+    (8 x 512 candidates, RK4 x 1, T = 50) and on the SDE workload of phase 15
+    (process noise 0.05, Euler x 4): ``step(const0)`` bit-equal to
+    ``evaluate_population`` per candidate; then ``chain_k`` chained steps
+    (each step's constants nudged by ``1e-30 * min(fitness)``, the chain of
+    ``bench.py``) against as many ``evaluate_population`` calls, by CUDA
+    events and the device's busy time, and the kick rows' build alone."""
+    import torch
+
+    from multitreegp_tpu_torch.core import cuda_rollout as cf
+    from multitreegp_tpu_torch.models.environments import VanDerPolOscillator
+    from multitreegp_tpu_torch.models.evaluators import SREvaluator, generate_sr_data
+    from multitreegp_tpu_torch.models.evaluators.noise import make_sr_kick_rows
+
+    on_card = device.type == "cuda"
+    x0s, ts, ys, _ = data
+    g = torch.Generator(device=device).manual_seed(20)  # phase 15's SDE data
+    sde_data = generate_sr_data(VanDerPolOscillator(s["noise"]), g, ts, batch_size=s["batch"], substeps=8)
+    cases = dict(ode=(SREvaluator(fset, substeps=1), data),
+                 sde=(SREvaluator(fset, substeps=s["policy_substeps"], process_noise=s["noise"]), sde_data))
+    res, k = dict(launches=0), s["chain_k"]
+    for name, (ev, d) in cases.items():
+        before = cf.sr_fitness_cuda.launches
+        prepared = ev.prepare_chained(pops, d)
+        check(prepared is not None, f"prepare_chained refused the {name} workload")
+        step, const0 = prepared
+        got, want = step(const0), ev.evaluate_population(pops, d)
+        same = float((got == want).float().mean())
+        check(torch.equal(got, want), f"{name}: step(const0) equals evaluate_population on {same:.6f}")
+        res["launches"] += cf.sr_fitness_cuda.launches - before
+        rec = dict(candidates=got.numel(), identical=same)
+
+        def chained():
+            c = const0
+            for _ in range(k):
+                c = c + 1e-30 * step(c).min()
+            return c
+
+        def unchained():
+            c = const0
+            for _ in range(k):
+                c = c + 1e-30 * ev.evaluate_population(pops._replace(const=c), d).min()
+            return c
+
+        if on_card:
+            # unchained, chained, chained, unchained
+            t = [cuda_time_ms(fn, s["timing_runs"], torch) for fn in (unchained, chained, chained, unchained)]
+            rec.update(unchained_ms=[t[0], t[3]], chained_ms=[t[1], t[2]],
+                       unchained_busy_ms=profile_device(unchained, torch)["busy_ms"],
+                       chained_busy_ms=profile_device(chained, torch)["busy_ms"])
+            rec["saved_per_eval_ms"] = (statistics.mean(rec["unchained_ms"])
+                                        - statistics.mean(rec["chained_ms"])) / k
+            if name == "sde":
+                rec["kick_rows_ms"] = cuda_time_ms(
+                    lambda: make_sr_kick_rows(s["noise"], ts, d[3], s["policy_substeps"], 2),
+                    s["timing_runs"], torch)
+            phase_line(f"phase 21 prepare_chained {name}: step(const0) identical to evaluate_population on "
+                       f"{same:.6f} of {got.numel()} candidates; {k} chained steps {rec['chained_ms'][0]:.3f}, "
+                       f"{rec['chained_ms'][1]:.3f} ms (device busy {rec['chained_busy_ms']:.3f}) vs {k} "
+                       f"evaluate_population {rec['unchained_ms'][0]:.3f}, {rec['unchained_ms'][1]:.3f} ms "
+                       f"(busy {rec['unchained_busy_ms']:.3f}); saved {rec['saved_per_eval_ms']:.4f} ms an "
+                       f"evaluation" + (f"; the kick rows alone {rec['kick_rows_ms']:.3f} ms"
+                                        if name == "sde" else ""))
+        else:
+            chained(), unchained()
+            phase_line(f"phase 21 prepare_chained {name}: identical on {same:.6f} of {got.numel()} candidates")
+        res[name] = rec
+    return {"chained": res}
+
+
+def sharded_rank(rank, world, store, out_dir, s, data_cpu, backend):
+    """One rank of phase 22: ``fit(shard=True)`` on ``gen_opt``'s
+    configuration for ``shard_generations`` generations over a mesh of
+    ``world`` ranks (NCCL, one card each; gloo on the CPU), twice on one
+    seed, with the per-generation spans and launch counts of each run; at
+    W = 1 also ``fit()`` on the same seed. Saves its record to
+    ``out_dir``."""
+    import os
+    from pathlib import Path
+
+    import torch
+    import torch.distributed as dist
+
+    from multitreegp_tpu_torch import GeneticProgramming
+    from multitreegp_tpu_torch.core import cuda_interpreter as ci
+    from multitreegp_tpu_torch.core import cuda_reproduction as cr
+    from multitreegp_tpu_torch.core import cuda_rollout as cf
+    from multitreegp_tpu_torch.core.trees import validate_host
+    from multitreegp_tpu_torch.models.evaluators import SREvaluator
+    from multitreegp_tpu_torch.parallel import collective
+    from multitreegp_tpu_torch.parallel.mesh import make_mesh
+
+    if backend == "nccl":
+        os.environ["LOCAL_RANK"] = str(rank)
+        torch.cuda.set_device(rank)
+    dist.init_process_group(backend, store=dist.FileStore(store, world), rank=rank, world_size=world)
+    try:
+        mesh = make_mesh()
+        device = mesh.device
+        data = tuple(None if t is None else t.to(device) for t in data_cpu)
+        gens = s["shard_generations"]
+
+        def make(**kwargs):
+            return GeneticProgramming(
+                num_generations=gens, population_size=s["pop"], fitness_function=SREvaluator(substeps=1),
+                operator_list=OPERATORS, variable_list=[["x0", "x1"]], layer_sizes=[2],
+                num_populations=s["islands"], max_nodes=s["max_nodes"], max_init_depth=s["depth"],
+                coefficient_optimisation=True, gradient_steps=s["gradient_steps"],
+                coefficient_opt_top_k=s["top_k"], elite_percentage=s["elite"], **kwargs)
+
+        counters = dict(sr_fitness=cf.sr_fitness_cuda, reproduce=cr.reproduce_lanes_cuda,
+                        interpret_fwd=ci.evaluate_trees_cuda, interpret_bwd=ci.evaluate_trees_vjp_cuda)
+
+        def run_once():
+            """One timed ``fit(shard=True)``: its outputs and record."""
+            spans = {k: [0.0] * gens for k in ("eval", "ring", "evolve", "best", "round")}
+            marks, rounds = [], []
+            gp = make(mesh=mesh)
+
+            def timed(fn, key, mark=False):
+                def wrapper(*args):
+                    sync(device)
+                    t0 = time.perf_counter()
+                    if mark:
+                        marks.append(t0)
+                    result = fn(*args)
+                    sync(device)
+                    spans[key][gp.current_generation] += (time.perf_counter() - t0) * 1e3
+                    return result
+                return wrapper
+
+            make_round = collective.make_constant_opt_collective
+
+            def make_round_checked(*args):
+                step = make_round(*args)
+
+                def checked(pops, fitness):
+                    out = step(pops, fitness)
+                    worse = out[1] > fitness * (1 + 1e-6)
+                    rounds.append(dict(generation=gp.current_generation, worse=int(worse.sum()),
+                                       improved=int((out[1] < fitness).sum())))
+                    return out
+                return timed(checked, "round")
+
+            patched = [(collective, "_ring_shift_islands", timed(collective._ring_shift_islands, "ring")),
+                       (collective, "global_best", timed(collective.global_best, "best")),
+                       (collective, "make_constant_opt_collective", make_round_checked)]
+            saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
+            gp._evaluate = timed(gp._evaluate, "eval", mark=True)
+            gp._evolve_island = timed(gp._evolve_island, "evolve")
+            try:
+                for mod, name, fn in patched:
+                    setattr(mod, name, fn)
+                for fn in counters.values():
+                    fn.launches = 0
+                sync(device)
+                t0 = time.perf_counter()
+                out = gp.fit(torch.Generator(device=device).manual_seed(2), data, shard=True)
+                sync(device)
+                wall = (time.perf_counter() - t0) * 1e3
+                launches = {k: fn.launches for k, fn in counters.items()}
+            finally:
+                for mod, name, fn in saved:
+                    setattr(mod, name, fn)
+            return gp, out, dict(wall_ms=wall, launches=launches, spans=spans, rounds=rounds,
+                                 gen_ms=[(b - a) * 1e3 for a, b in zip(marks, marks[1:])])
+
+        # the first run pays the process's first launches of every kernel;
+        # the second, on the same seed, is the steady state and must repeat it
+        _, cold_out, cold = run_once()
+        gp, (best, sols, pops, fitness), warm = run_once()
+        flat = lambda o: [o[0], *o[1], *o[2], o[3]]
+        rec = dict(rank=rank, world=world, device=str(device), **warm, best=best.cpu(),
+                   cold=dict(wall_ms=cold["wall_ms"], gen_ms=cold["gen_ms"], spans=cold["spans"]),
+                   repeated=all(torch.equal(a, b) for a, b in zip(flat(cold_out), flat((best, sols, pops, fitness)))),
+                   fitness_min=float(fitness.min()), fitness_max=float(fitness.max()),
+                   finite=bool(torch.isfinite(fitness).all()))
+        validate_host(pops.map(lambda a: a.reshape(-1, a.shape[-1])), gp.fset.slots(device))
+        rec["valid"] = True
+        if world == 1:  # the same seed through fit()
+            want = make(device=device).fit(torch.Generator(device=device).manual_seed(2), data)
+            rec["equal_fit"] = all(torch.equal(a, b) for a, b in zip(flat((best, sols, pops, fitness)), flat(want)))
+        torch.save(rec, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_phase(device, s, data) -> dict:
+    """Phase 22: ``fit(shard=True)`` at full width on ``gen_opt``'s
+    configuration (8 x 512, top-k 50, 10 Adam steps) for 15 generations (the
+    round at generation 14), over W ranks spawned with
+    ``torch.multiprocessing`` (NCCL, a ``FileStore``): W the machine's card
+    count capped to a divisor of the islands (gloo, W = 1 on the CPU). At
+    W = 1 the run equals ``fit()`` bit for bit; at every W the histories
+    never grow, every final tree is valid, the fitness is finite in [0, 1e5]
+    and the round makes no candidate worse. Each rank runs the fit twice on
+    one seed (the first pays the process's first launch of every kernel)
+    and the second must repeat it bit for bit. Per rank, of the second run:
+    ms per generation and its spans (evaluation, migration ring, evolve,
+    global best), the round, and #1/#2/#8/#9 launches; of the first, ms per
+    generation, the ring and the round."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    import torch.multiprocessing as mp
+
+    on_card = device.type == "cuda"
+    cards = torch.cuda.device_count() if on_card else 1
+    world = max(w for w in range(1, min(cards, s["islands"]) + 1) if s["islands"] % w == 0)
+    backend = "nccl" if on_card else "gloo"
+    data_cpu = tuple(None if t is None else t.cpu() for t in data)
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(sharded_rank, args=(world, str(Path(tmp) / "store"), tmp, s, data_cpu, backend),
+                 nprocs=world, join=True)
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt") for r in range(world)]
+    gens = s["shard_generations"]
+    for r in ranks:
+        best = r["best"].tolist()
+        check(all(b1 <= b0 for b0, b1 in zip(best, best[1:])), f"rank {r['rank']}: best fitness increased {best}")
+        check(r["finite"] and 0 <= r["fitness_min"] and r["fitness_max"] <= 1e5,
+              f"rank {r['rank']}: fitness outside [0, 1e5]")
+        check(r["valid"], "invalid trees")
+        check(len(r["rounds"]) == 1 and r["rounds"][0]["worse"] == 0,
+              f"rank {r['rank']}: the round {r['rounds']}")
+        check(torch.equal(r["best"], ranks[0]["best"]), "the ranks' histories differ")
+        check(r["repeated"], f"rank {r['rank']}: a second run on the same seed differs")
+        if on_card:
+            launches = r["launches"]
+            check(launches["sr_fitness"] >= gens and launches["reproduce"] >= gens
+                  and launches["interpret_fwd"] > 0 and launches["interpret_bwd"] > 0,
+                  f"rank {r['rank']}: launches {launches}")
+    if world == 1:
+        check(ranks[0]["equal_fit"], "fit(shard=True) at W = 1 differs from fit()")
+    res = dict(world=world, cards=cards, backend=backend, generations=gens, ranks=[])
+    for r in ranks:
+        # generation g runs from its evaluation's start to the next one's
+        plain = [g for g in range(1, len(r["gen_ms"])) if g != r["rounds"][0]["generation"]]
+        med = {k: statistics.median(v[g] for g in plain) for k, v in r["spans"].items()
+               if k not in ("round", "ring")}
+        ring = r["spans"]["ring"]
+        med["ring"] = max(ring)  # the ring runs in the migration generations only
+        rec = dict(rank=r["rank"], device=r["device"], launches=r["launches"], wall_ms=r["wall_ms"],
+                   gen_ms=statistics.median(r["gen_ms"][g] for g in plain), span_ms=med,
+                   ring_generations=[g for g, v in enumerate(ring) if v > 0],
+                   round_ms=r["spans"]["round"][r["rounds"][0]["generation"]],
+                   round=r["rounds"][0], best=r["best"].tolist(),
+                   cold=dict(gen_ms=statistics.median(r["cold"]["gen_ms"][g] for g in plain),
+                             ring_ms=max(r["cold"]["spans"]["ring"]),
+                             round_ms=max(r["cold"]["spans"]["round"])))
+        res["ranks"].append(rec)
+        phase_line(f"phase 22 sharded fit rank {r['rank']}/{world} ({backend}, {r['device']}): {s['islands']}x"
+                   f"{s['pop']} candidates, {gens} generations; ms per generation (median without the round) "
+                   f"{rec['gen_ms']:.3f}: eval {med['eval']:.3f}, evolve "
+                   f"{med['evolve']:.3f}, global best {med['best']:.4f}; migration ring {med['ring']:.4f} (gens "
+                   f"{rec['ring_generations']}); round at gen {rec['round']['generation']} "
+                   f"{rec['round_ms']:.1f} ms ({rec['round']['improved']} improved, 0 worse); launches "
+                   f"{r['launches']}; best {rec['best'][0]:.6g} -> {rec['best'][-1]:.6g}; the process's first "
+                   f"run: {rec['cold']['gen_ms']:.3f} ms a generation, ring {rec['cold']['ring_ms']:.4f}, round "
+                   f"{rec['cold']['round_ms']:.1f} ms; the second repeats it bit for bit")
+    if world == 1:
+        phase_line("phase 22: fit(shard=True) at W = 1 equals fit() bit for bit (histories, populations, "
+                   "fitness)" + (f"; {cards} card(s) on this machine" if on_card else "")
+                   + ("; the W > 1 NCCL ring was not exercised on this machine" if on_card and cards == 1
+                      else ""))
+    return {"sharded": res}
+
+
 def sync(device) -> None:
     import torch
 
@@ -2525,6 +2827,8 @@ def sync(device) -> None:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="also write every number as JSON to this file")
+    parser.add_argument("--sharded-only", action="store_true",
+                        help="build the kernels and run phase 22 alone, on every card of the machine")
     opts = parser.parse_args(argv)
 
     import torch
@@ -2540,8 +2844,9 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    _build.build(*KERNELS)  # one nvcc per source, in parallel
-    for name in KERNELS:
+    kernels = SHARDED_KERNELS if opts.sharded_only else KERNELS
+    _build.build(*kernels)  # one nvcc per source, in parallel
+    for name in kernels:
         _build.load(name)
     build_s = time.perf_counter() - t0
     phase_line(f"phase 1 device: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -2554,6 +2859,13 @@ def main(argv=None) -> int:
         phase_line(f"phase 1 ptxas {name}: " + "; ".join(
             f"{k} {r} registers, {st} B stack, {sp} B spilled" for k, r, st, sp in rows))
 
+    if opts.sharded_only:
+        out = sharded_phase(device, FULL, main_data(device, FULL)[1])
+        if opts.out:
+            with open(opts.out, "w") as f:
+                json.dump(out, f, indent=1)
+        say(smi)
+        return 0
     out = run(device)
     out["device"] = dict(nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
                          nvcc_s=dict(_build.build_seconds), ptxas=resources, trace_drops=TRACE_DROPS)

@@ -36,6 +36,9 @@ general path: the integrator (``integrate``, ``integrate_sde`` or
 interpreter as the drift, kernel #8 on CUDA, and the MSE of the trajectory.
 ``remat`` is accepted and has no effect: PyTorch keeps the autograd tape,
 and the fused kernels' backward recomputes the rollout anyway.
+:meth:`SREvaluator.prepare_chained` splits a fixed-step evaluation into a
+prepared part and ``step(const)``, for one population evaluated with
+changing constants.
 
 Single-candidate rollouts (``evaluate_candidate``, ``__call__``) write the
 trajectory: ``integrate_sde`` for the SDE; the fixed-step trajectory kernel
@@ -130,11 +133,56 @@ class SREvaluator:
         else:
             mse, alive = SRFitness.apply(*population, x0s, ts, ys, self.fset, self.method,
                                          self.substeps)
+        return self._fitness(mse, alive)
+
+    def _fitness(self, mse: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
+        """Per-candidate fitness ``(P,)`` from per-lane ``mse`` and ``alive``
+        ``(P, B)``: dead or non-finite lanes count as ``max_fitness``, the
+        mean over trajectories clipped to ``[0, max_fitness]``."""
         bad = ~alive | ~torch.isfinite(mse)
         per_traj = torch.where(bad, torch.full_like(mse, self.max_fitness), mse)
         fitness = per_traj.mean(dim=-1)
         fitness = torch.nan_to_num(fitness, nan=self.max_fitness)
         return fitness.clamp(0.0, self.max_fitness)
+
+    def prepare_chained(self, population: TreeTensors, data: Tuple):
+        """Split prepare/run API for repeated evaluation of ONE population
+        structure with varying constants (steady-state benchmarks, chained
+        constant updates).
+
+        Returns ``(step, const0)``, where ``step(const) -> fitness (P,)``
+        equals ``evaluate_population(population._replace(const=const),
+        data)`` bit for bit (and is differentiable in ``const`` as it is),
+        or None where :meth:`evaluate_population` does not take the fused
+        fixed-step kernel #1: the adaptive method without process noise,
+        another method, an ``interpreter`` other than ``"auto"`` /
+        ``"pallas"``, or a configuration ``lanes_refusal`` refuses.
+
+        What it hoists out of ``step``: the SDE kick rows (rebuilt by every
+        :meth:`evaluate_population`) and the contiguous copies of the tree
+        structure, the initial states, the grid and the ground truth. The
+        port has no size sort or lane layout to prepare, so ``const0`` is
+        ``population.const`` in population order (the JAX package's is in
+        its size-sorted order)."""
+        x0s, ts, ys, keys = data
+        sde = self._sde(keys)
+        if not self._fused(population, x0s) or (
+                not sde and self.method not in ("euler", "heun", "rk4")):
+            return None
+        method = "euler" if sde else self.method
+        noise = None
+        if sde:
+            noise = SDENoise(make_sr_kick_rows(self.process_noise, ts, keys, self.substeps,
+                                               x0s.shape[1]).contiguous(), keys, self.process_noise)
+        ops, c1, c2 = (t.contiguous() for t in (population.ops, population.c1, population.c2))
+        x0s, ts, ys = x0s.contiguous(), ts.contiguous(), ys.contiguous()
+
+        def step(const: torch.Tensor) -> torch.Tensor:
+            mse, alive = SRFitness.apply(ops, c1, c2, const, x0s, ts, ys, self.fset, method,
+                                         self.substeps, noise)
+            return self._fitness(mse, alive)
+
+        return step, population.const.contiguous()
 
     def _rollout(self, population: TreeTensors, x0s: torch.Tensor, ts: torch.Tensor, keys=None):
         """Trajectories ``(T, P, B, d)`` and liveness ``(T, P, B)``."""

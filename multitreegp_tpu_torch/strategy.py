@@ -14,8 +14,11 @@ Reproduction takes JAX's routing: the fused kernel path (#2,
 (``ops/reproduction.make_evolve_island``) above it or with
 ``fused_reproduction=False``.
 
-Not ported yet (they raise ``NotImplementedError``): meshes and sharding
-(``mesh=``, ``fit(shard=True)``; ROADMAP Queue 1 #5).
+``fit(shard=True)`` runs the evolution over the ranks of a mesh
+(``parallel.mesh``, ``mesh=`` or a one-rank mesh made on first use): each
+rank evaluates, evolves and refines its block of islands, ring migration
+and the global best cross the ranks (``parallel.collective``). As in JAX,
+only ``fit(shard=True)`` uses the mesh; the host-loop methods do not.
 """
 from __future__ import annotations
 
@@ -28,10 +31,12 @@ from .core.registry import FunctionSet, build_function_set
 from .core.cuda_reproduction import MAX_NODES as MAX_KERNEL_NODES
 from .core.trees import TreeTensors, tree_sizes
 from .ops.constant_opt import make_constant_optimiser
-from .ops.fused_evolve import make_evolve_populations_fused
+from .ops.fused_evolve import make_reproduce_islands
 from .ops.initialization import make_population_sampler, make_tree_sampler
 from .ops.mutation import make_mutators
 from .ops.reproduction import island_hyperparams, make_evolve_island, make_evolve_populations
+from .parallel import collective
+from .parallel.mesh import gather_population, island_sharding, make_mesh
 from .utils.checkpoint import load_checkpoint, save_checkpoint
 from .utils.render import candidate_to_string
 
@@ -68,15 +73,17 @@ class GeneticProgramming:
         sample_probability_factors: Tuple[float, float] = (0.0, 0.1),
         mesh=None,
         fused_reproduction: Optional[bool] = None,
-        device="cuda",
+        device=None,
         **kwargs,
     ) -> None:
         if "size_parsinomy" in kwargs:  # the reference's spelling
             size_parsimony = kwargs.pop("size_parsinomy")
         if kwargs:
             raise TypeError(f"unknown arguments: {sorted(kwargs)}")
-        if mesh is not None:
-            raise NotImplementedError("meshes and sharding are ROADMAP Queue 1 #5")
+        if mesh is not None and device is not None:
+            want = torch.device(device)
+            if want.type != mesh.device.type or want.index not in (None, mesh.device.index):
+                raise ValueError(f"device {want} conflicts with this rank's mesh device {mesh.device}")
         if fused_reproduction is None:  # JAX's routing
             fused_reproduction = max_nodes <= MAX_KERNEL_NODES
         if fused_reproduction and max_nodes > MAX_KERNEL_NODES:
@@ -95,7 +102,9 @@ class GeneticProgramming:
             if not ok:
                 raise ValueError(msg)
 
-        self.device = torch.device(device)
+        # with a mesh, every tensor lives on this rank's device
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else torch.device(device or "cuda")
         self.num_generations = num_generations
         self.population_size = population_size
         self.num_populations = num_populations
@@ -136,11 +145,11 @@ class GeneticProgramming:
             mutation_probability_factors, sample_probability_factors, device=self.device,
         )
         self.fused_reproduction = bool(fused_reproduction)
+        # every island's step with its hyperparameter rows: the fused kernel
+        # path (ops/fused_evolve) or the per-tree operators
         if self.fused_reproduction:
-            self._evolve_populations = make_evolve_populations_fused(
-                self.fset, population_size, self.elite_size, tournament_size, migration_period,
-                self.migration_size, self.reproduction_type_probabilities,
-                self.reproduction_probabilities, self.tournament_probabilities, max_nodes,
+            self._evolve_island = make_reproduce_islands(
+                self.fset, population_size, self.elite_size, tournament_size, max_nodes,
                 max_init_depth, coefficient_sd,
             )
         else:
@@ -148,11 +157,11 @@ class GeneticProgramming:
                 self.fset, self.mutate_candidate, self._sample_candidate, population_size,
                 self.elite_size, tournament_size,
             )
-            self._evolve_populations = make_evolve_populations(
-                self._evolve_island, migration_period, self.migration_size,
-                self.reproduction_type_probabilities, self.reproduction_probabilities,
-                self.tournament_probabilities,
-            )
+        self._evolve_populations = make_evolve_populations(
+            self._evolve_island, migration_period, self.migration_size,
+            self.reproduction_type_probabilities, self.reproduction_probabilities,
+            self.tournament_probabilities,
+        )
         self._optimise = make_constant_optimiser(
             lambda pop, data: self.evaluator.evaluate_population(pop, data),
             optimiser, gradient_steps,
@@ -223,23 +232,29 @@ class GeneticProgramming:
         ``size_parsimony`` x node count) and the populations, whose top-k
         constants are refined on the constant-optimisation schedule; records
         the generation's best candidate."""
-        fitness = self._evaluate(populations, data)
+        return self._refine_and_record(populations, self._evaluate(populations, data), data)
+
+    def _refine_and_record(self, populations: TreeTensors, fitness: torch.Tensor, data):
+        """The rest of a generation's evaluation: the constant-optimisation
+        round when scheduled, then the best candidate recorded."""
         if self._optimise_due(self.current_generation):
             populations, fitness = self._optimise_core(populations, fitness, data)
-
         flat_fit = fitness.reshape(-1)
         best = int(torch.argmin(flat_fit))
         best_solution = populations.map(lambda x: x.reshape((-1,) + x.shape[2:]))[best]
+        self._record_best(flat_fit[best], best_solution)
+        return fitness, populations
+
+    def _record_best(self, best_fitness: torch.Tensor, best_solution: TreeTensors) -> None:
         history = self.best_fitnesses.shape[0]
         if self.best_solutions is None:
             self.best_solutions = best_solution.map(
                 lambda x: torch.zeros((history,) + x.shape, dtype=x.dtype, device=x.device)
             )
         gen = min(self.current_generation, history - 1)
-        self.best_fitnesses[gen] = flat_fit[best]
+        self.best_fitnesses[gen] = best_fitness
         for hist, value in zip(self.best_solutions, best_solution):
             hist[gen] = value
-        return fitness, populations
 
     def evolve(self, populations: TreeTensors, fitness: torch.Tensor,
                generator: torch.Generator) -> TreeTensors:
@@ -296,10 +311,44 @@ class GeneticProgramming:
         generator's state, the next generation and the histories — is saved
         every ``checkpoint_every`` generations; ``resume_from`` restarts from
         such a file, and the resumed run equals the uninterrupted one.
+
+        ``shard=True`` runs over the ranks of the mesh (``mesh=``, or a
+        one-rank mesh on this device); every rank calls ``fit`` with the
+        same seeded ``generator`` and data on its own device, and gets the
+        same four outputs at the global shapes. Where the ranks ``W`` divide
+        the islands, each rank evaluates, refines (the distributed top-k)
+        and evolves its block of islands, with ring migration across the
+        ranks and the global best gathered every generation. Randomness: the
+        population is initialised from ``generator`` on every rank; at
+        ``W = 1`` the rank evolves with ``generator`` itself, so the run
+        equals ``fit()`` bit for bit; at ``W > 1`` every rank draws ``W``
+        seeds from ``generator`` each generation (which keeps the ranks'
+        generators in step) and evolves its islands with a generator seeded
+        by its own. Where ``W`` does not divide the islands, each rank
+        evaluates a contiguous slice of the flattened candidates, the
+        fitness is gathered, and the rest runs replicated from
+        ``generator``: the run equals ``fit()`` bit for bit. Rank 0 writes
+        the checkpoints, of the gathered populations; resuming one with the
+        same ``W`` reproduces the uninterrupted run.
         """
-        if shard:
-            raise NotImplementedError("fit(shard=True) (meshes and sharding) is ROADMAP Queue 1 #5")
         g = num_generations or self.num_generations
+        populations, start = self._start_run(generator, g, resume_from)
+        if start >= g:  # a completed run: return its state
+            self.current_generation = g
+            return self.best_fitnesses, self.best_solutions, populations, self._evaluate(populations, data)
+        if shard:
+            return self._fit_sharded(generator, data, populations, start, g, checkpoint_path,
+                                     checkpoint_every)
+        for gen in range(start, g):
+            self.current_generation = gen
+            fitness, populations = self.evaluate_population(populations, data)
+            populations = self.evolve(populations, fitness, generator)
+            self._checkpoint(checkpoint_path, checkpoint_every, gen, populations, generator)
+        return self.best_fitnesses, self.best_solutions, populations, fitness
+
+    def _start_run(self, generator: torch.Generator, g: int, resume_from: Optional[str]):
+        """``(populations, first generation)`` of a run of ``g`` generations,
+        fresh or from a checkpoint, with the histories set up."""
         start = 0
         best_fit = best_sol = None
         if resume_from is not None:
@@ -321,16 +370,74 @@ class GeneticProgramming:
             best_sol = populations.map(
                 lambda x: torch.zeros((g,) + x.shape[2:], dtype=x.dtype, device=x.device))
         self.best_fitnesses, self.best_solutions = best_fit, best_sol
+        return populations, start
 
-        if start >= g:  # a completed run: return its state
-            self.current_generation = g
-            return best_fit, best_sol, populations, self._evaluate(populations, data)
+    def _checkpoint(self, path: Optional[str], every: int, gen: int, populations: TreeTensors,
+                    generator: torch.Generator) -> None:
+        if path is not None and (gen + 1) % every == 0:
+            save_checkpoint(path.format(gen=gen + 1), populations, generator.get_state(), gen + 1,
+                            self.best_fitnesses, self.best_solutions)
+
+    def _fit_sharded(self, generator: torch.Generator, data, populations: TreeTensors, start: int,
+                     g: int, checkpoint_path: Optional[str], checkpoint_every: int):
+        """``fit(shard=True)`` from ``populations`` (the full run state, the
+        same on every rank) at generation ``start``."""
+        import torch.distributed as dist
+
+        if self.mesh is None:
+            self.mesh = make_mesh(device=self.device)
+        mesh = self.mesh
+        w = mesh.size
+
+        def checkpoint(gen, full_pops):
+            if checkpoint_path is not None and (gen + 1) % checkpoint_every == 0:
+                if mesh.rank == 0:
+                    self._checkpoint(checkpoint_path, checkpoint_every, gen, full_pops, generator)
+                dist.barrier(group=mesh.group)  # the file is whole before any rank reads it
+
+        if self.num_populations % w:  # replicated, the evaluation sharded over flat slices
+            flat_eval = lambda flat: self._evaluate_flat(flat, data)
+            for gen in range(start, g):
+                self.current_generation = gen
+                flat = populations.map(lambda x: x.reshape((-1,) + x.shape[2:]))
+                fitness = collective.evaluate_flat_sharded(flat_eval, flat, mesh).reshape(
+                    self.num_populations, -1)
+                fitness, populations = self._refine_and_record(populations, fitness, data)
+                populations = self.evolve(populations, fitness, generator)
+                checkpoint(gen, populations)
+            return self.best_fitnesses, self.best_solutions, populations, fitness
+
+        local = populations.map(lambda x: x[island_sharding(mesh, self.num_populations)])
+        hp = (self.migration_period, self.migration_size, self.reproduction_type_probabilities,
+              self.reproduction_probabilities, self.tournament_probabilities)
+        make_step = (collective.make_evolve_populations_collective_fused if self.fused_reproduction
+                     else collective.make_evolve_populations_collective)
+        evolve = make_step(self._evolve_island, mesh, *hp)
+        evaluate = collective.make_sharded_evaluator(lambda p: self._evaluate(p, data), mesh)
+        optimise = collective.make_constant_opt_collective(
+            lambda c: self._optimise_with_parsimony(c, data), mesh, self.coefficient_opt_top_k)
         for gen in range(start, g):
             self.current_generation = gen
-            fitness, populations = self.evaluate_population(populations, data)
-            populations = self.evolve(populations, fitness, generator)
+            fitness = evaluate(local)
+            if self._optimise_due(gen):
+                local, fitness = optimise(local, fitness)
+            self._record_best(*collective.global_best(fitness, local, mesh))
+            if w == 1:
+                rank_generator = generator
+            else:  # W seeds from the shared generator every generation
+                seeds = torch.randint(0, 2**62, (w,), generator=generator, device=generator.device)
+                rank_generator = torch.Generator(device=self.device).manual_seed(
+                    int(seeds[mesh.rank]))
+            local = evolve(local, fitness, rank_generator, gen)
             if checkpoint_path is not None and (gen + 1) % checkpoint_every == 0:
-                save_checkpoint(checkpoint_path.format(gen=gen + 1), populations,
-                                generator.get_state(), gen + 1, self.best_fitnesses,
-                                self.best_solutions)
+                checkpoint(gen, gather_population(local, None, mesh))
+        self.current_generation = g
+        populations, fitness = gather_population(local, fitness, mesh)
         return self.best_fitnesses, self.best_solutions, populations, fitness
+
+    def _evaluate_flat(self, flat: TreeTensors, data) -> torch.Tensor:
+        """Fitness ``(n,)`` of flattened candidates, with the parsimony term."""
+        fitness = self.evaluator.evaluate_population(flat, data)
+        if self.size_parsimony:
+            fitness = fitness + self.size_parsimony * tree_sizes(flat).sum(dim=-1)
+        return fitness

@@ -10,7 +10,8 @@ checkpoint/resume (CPU, tiny sizes: 2 islands x 16, N = 16, T = 10, B = 4).
 * The same two checks on the non-fused reproduction path
   (``fused_reproduction=False``: the per-tree operators of
   ``ops/reproduction.make_evolve_island``).
-* ``shard=True`` (meshes) is not ported and raises.
+
+``fit(shard=True)`` is held to ``fit()`` in ``test_torch_parallel.py``.
 """
 import pytest
 import torch
@@ -115,8 +116,3 @@ def test_fit_non_fused_schedules_constant_optimisation(data):
 
 def test_fit_non_fused_resumed_equals_uninterrupted(data, tmp_path):
     test_fit_resumed_equals_uninterrupted(data, tmp_path, fused_reproduction=False)
-
-
-def test_fit_shard_raises(data):
-    with pytest.raises(NotImplementedError):
-        fit(make_gp(), data, shard=True)

@@ -13,6 +13,7 @@
 """
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import jax.random as jr
@@ -94,8 +95,12 @@ def test_constructor_surface():
     assert gp.size_parsimony == 0.5
     gp = GeneticProgramming(**dict(base, population_size=512), elite_percentage=0.1)
     assert gp.elite_size == 50 and gp.migration_size == 51
-    with pytest.raises(NotImplementedError):  # meshes: ROADMAP Queue 1 #5
-        GeneticProgramming(**base, mesh=object())
+    # mesh=: a rank's device is the mesh's, and a conflicting device= raises
+    mesh = SimpleNamespace(device=torch.device("cpu"), size=1, rank=0)
+    assert GeneticProgramming(**dict(base, device=None), mesh=mesh).device == torch.device("cpu")
+    assert GeneticProgramming(**base, mesh=mesh).mesh is mesh
+    with pytest.raises(ValueError, match="mesh"):
+        GeneticProgramming(**dict(base, device="cuda"), mesh=mesh)
     # JAX's routing: fused_reproduction=False builds the per-tree operators'
     # path; True past the reproduction kernel's 256 rows raises
     assert not GeneticProgramming(**base, fused_reproduction=False).fused_reproduction
@@ -109,8 +114,7 @@ def test_constructor_surface():
     gp = GeneticProgramming(**base, coefficient_optimisation=True, coefficient_opt_top_k=100)
     assert gp.coefficient_optimisation and gp.coefficient_opt_top_k == 32 and gp.gradient_steps == 10
     assert [g for g in range(20) if gp._optimise_due(g)] == [14, 19]
-    with pytest.raises(NotImplementedError):  # meshes: ROADMAP Queue 1 #5
-        gp.fit(torch.Generator(), None, shard=True)
+    assert gp.mesh is None  # fit(shard=True) makes a one-rank mesh on first use
     cand = gp.initialize_population(torch.Generator().manual_seed(0))[0, 0]
     f = gp.to_callable(cand)
     x = torch.tensor([[0.5, -0.5], [1.0, 2.0], [0.0, 3.0]])
@@ -162,7 +166,7 @@ def test_chip_smoke_phases_rehearse_on_cpu():
                 deep_nodes=64, deep_depth=5, deep_pop=8, deep_t=3, deep_rep_pop=16, deep_policy_t=3,
                 deep_adaptive_t=3, deep_adaptive_budget=40, deep_interval_steps=8,
                 wide_nodes=300, wide_depth=5, wide_check_nodes=(300,), deep_gen_nodes=64,
-                deep_gen_depth=5)
+                deep_gen_depth=5, chain_k=2, shard_generations=15)
     out = chip_smoke.run(torch.device("cpu"), tiny)
     assert out["fitness"]["bit_equal"] and out["reproduce"]["ops_identical"] == 1.0
     deep = out["deep"]
@@ -230,6 +234,13 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     assert wide["checks"]["n300_population"]["lanes"] == 32 * 4 * 2
     assert wide["checks"]["n300_recompute"]["rows_max"] == 299
     assert out["kernels"][2]["wide"]["n"] == 300 and len(out["gen_deep"]["generations"]) == 2
+    chained = out["chained"]
+    assert all(chained[k]["identical"] == 1.0 and chained[k]["candidates"] == 32 for k in ("ode", "sde"))
+    sharded = out["sharded"]
+    assert sharded["world"] == 1 and sharded["backend"] == "gloo" and len(sharded["ranks"]) == 1
+    rank = sharded["ranks"][0]
+    assert rank["round"]["generation"] == 14 and rank["ring_generations"] == [9]
+    assert len(rank["best"]) == 15 and out["kernels"][0]["launches_sharded"] == [0]
 
 
 def test_package_never_imports_jax():
@@ -244,6 +255,8 @@ def test_package_never_imports_jax():
         "import multitreegp_tpu_torch.core.prng, multitreegp_tpu_torch.models.evaluators.noise\n"
         "import multitreegp_tpu_torch.tools.branch_probe, multitreegp_tpu_torch.ops.mutation\n"
         "import multitreegp_tpu_torch.ops.splice, multitreegp_tpu_torch.ops.reproduction\n"
+        "import multitreegp_tpu_torch.parallel.mesh, multitreegp_tpu_torch.parallel.collective\n"
+        "import multitreegp_tpu_torch.tools.inline_drift\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'multitreegp_tpu.'))]\n"
         "assert not bad and 'multitreegp_tpu' not in sys.modules, bad\n"
     )

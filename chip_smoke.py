@@ -135,16 +135,33 @@ workload (phases 12-14). Phases, one line or a few each:
    histories, valid trees, fitness in [0, 1e5] and a round that makes
    nothing worse; per rank the ms per generation split into evaluation,
    migration ring, evolve and global best, the round's ms and #1/#2/#8/#9
-   launches.
+   launches;
+23. the three notebook examples (``python -m multitreegp_tpu_torch.examples.
+   <name>``) through ``build`` and their loop at the notebooks' full sizes
+   and generation counts: symbolic regression (VdP, 10 x 100, 100
+   generations, RK4 x 4: #1, #2) for seeds 0-2, with ``--fused`` (``fit()``)
+   and ``--adaptive`` (dopri5, rtol = atol = 1e-6, budget 500: #5) for seed
+   0; the static Acrobot policy (5 x 100, 50 generations, T = 250: #6, #2)
+   for seeds 0-2 and ``--adaptive`` (dopri5, 8 steps per interval: #7) for
+   seed 0; the dynamic policy (``state_size=2``: #6) for seeds 0-2; per run
+   the best-fitness history (finite, within bounds, never increasing, ending
+   below generation 0's), valid last populations, readout trees reading only
+   ``a0``/``a1``, each kernel's launches (the evaluation's once a
+   generation, #2 once an evolve), ms per generation split into evaluate and
+   evolve by ``PhaseTimer``; then #1, #2 and #5-#7 against their plain
+   versions at ``max_nodes=30`` on the seed-0 populations (horizons cut, #5's
+   budget 40), every lane identical.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last lines are a JSON line of per-kernel numbers, the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.
+power limit, and ``{"ok": true, "device": {...}}``; ``--sharded-only`` prints
+the last two.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -162,7 +179,8 @@ FULL = dict(islands=8, pop=512, max_nodes=32, depth=4, batch=16, horizon=10.0, d
             deep_nodes=256, deep_depth=7, deep_pop=256, deep_t=6, deep_rep_pop=512, deep_policy_t=3,
             deep_adaptive_t=4, deep_adaptive_budget=40, deep_interval_steps=8,
             wide_nodes=512, wide_depth=7, wide_check_nodes=(512, 1024), deep_gen_nodes=128,
-            deep_gen_depth=7, chain_k=10, shard_generations=15)
+            deep_gen_depth=7, chain_k=10, shard_generations=15,
+            example_sizes=None, example_t=None, example_check_t=11, example_check_adaptive_t=4, example_check_budget=40)
 KERNELS = ("sr_fitness", "reproduce", "interpreter", "sr_adaptive", "sr_rollout",
            "policy", "branch_probe")  # csrc/<name>.cu
 SHARDED_KERNELS = ("sr_fitness", "reproduce", "interpreter")  # phase 22's path
@@ -330,7 +348,7 @@ def main_data(device, s):
 
 
 def run(device, sizes=FULL) -> dict:
-    """Phases 2-22 on ``device``; returns the numbers the script prints."""
+    """Phases 2-23 on ``device``; returns the numbers the script prints."""
     import torch
 
     from multitreegp_tpu_torch import GeneticProgramming
@@ -472,6 +490,7 @@ def run(device, sizes=FULL) -> dict:
     out.update(gen_deep_phase(device, s, data))
     out.update(chained_phase(device, s, pops.map(lambda a: a.reshape((-1,) + a.shape[2:])), fset, data))
     out.update(sharded_phase(device, s, data))
+    out.update(examples_phase(device, s))
 
     # -- the kernels line --------------------------------------------------------
     times = out.get("times_ms", {})
@@ -591,6 +610,13 @@ def run(device, sizes=FULL) -> dict:
                    pp["adaptive"]["launches"]["policy_adaptive"]),
     ]
     out["kernels"][-2]["noisy"] = sde["policy_noise"]
+    ex = out["examples"]
+    for k in out["kernels"]:  # phase 23's launches per example run, and the N = 30 checks
+        runs = {f"{r['label']}_{r['seed']}": r["launches"][k["name"]] for r in ex["runs"]
+                if r["launches"].get(k["name"])}
+        if runs:
+            k["examples"] = dict(launches=sum(runs.values()), runs=runs,
+                                 checks=ex["checks"].get(k["name"], {}))
     pb = out["probe"]
     always = pb["modes"]["always"]
     out["kernels"].append(
@@ -2817,6 +2843,182 @@ def sharded_phase(device, s, data) -> dict:
     return {"sharded": res}
 
 
+# phase 23: (label, example module, seed, build options, run options); the
+# examples' defaults are the notebooks' full sizes and generation counts
+EXAMPLE_RUNS = (
+    [("sr", "symbolic_regression", seed, {}, {}) for seed in (0, 1, 2)]
+    + [("sr_fused", "symbolic_regression", 0, {}, dict(fused=True)),
+       ("sr_adaptive", "symbolic_regression", 0, dict(adaptive=True), {})]
+    + [("static", "static_policy", seed, {}, {}) for seed in (0, 1, 2)]
+    + [("static_adaptive", "static_policy", 0, dict(adaptive=True), {})]
+    + [("dynamic", "dynamic_policy", seed, {}, {}) for seed in (0, 1, 2)])
+# the kernel each run's evaluation launches once a generation (#2 runs once an evolve)
+EXAMPLE_EVAL_KERNEL = dict(sr="sr_fitness", sr_fused="sr_fitness", sr_adaptive="sr_adaptive_global",
+                           static="policy", static_adaptive="policy_adaptive", dynamic="policy")
+
+
+def example_counters():
+    """The launch counters of the kernels the examples reach (#8 to show it
+    idle: no example's evaluation takes the general path)."""
+    from multitreegp_tpu_torch.core import cuda_adaptive as ca
+    from multitreegp_tpu_torch.core import cuda_interpreter as ci
+    from multitreegp_tpu_torch.core import cuda_policy as cp
+    from multitreegp_tpu_torch.core import cuda_reproduction as cr
+    from multitreegp_tpu_torch.core import cuda_rollout as cf
+
+    return dict(sr_fitness=cf.sr_fitness_cuda, reproduce=cr.reproduce_lanes_cuda,
+                sr_adaptive_global=ca.sr_fitness_adaptive_global_cuda,
+                policy=cp.policy_rollout_cuda, policy_adaptive=cp.policy_rollout_adaptive_cuda,
+                interpret_fwd=ci.evaluate_trees_cuda)
+
+
+def cut_grid(data, k: int) -> tuple:
+    """An example's data on the first ``k`` points of its save grid: ``ts``,
+    and the targets ``ys`` of SR data ``(x0s, ts, ys, keys)``."""
+    if len(data) == 4:
+        return data[0], data[1][:k], data[2][:, :k].contiguous(), data[3]
+    return (data[0], data[1][:k]) + tuple(data[2:])
+
+
+def examples_phase(device, s) -> dict:
+    """Phase 23: the three notebook examples (``multitreegp_tpu_torch/
+    examples``) through their own entry points, ``build`` and the loop
+    ``main`` runs (``examples.run``), at the notebooks' full sizes and
+    generation counts (a rehearsal off the card cuts them with
+    ``s["example_sizes"]``, and the save grid to its first ``s["example_t"]``
+    points): SR for seeds 0-2, ``--fused`` and ``--adaptive`` for seed
+    0; static for seeds 0-2 and ``--adaptive`` for seed 0; dynamic for seeds
+    0-2. Each run: a finite best-fitness history in ``[0, max_fitness +
+    size_parsimony * m * N]`` that never increases and ends below generation
+    0's; the last population valid (``validate_host``), the dynamic readout
+    trees reading only ``a0``/``a1``; its evaluation kernel (#1, #5, #6 or
+    #7) launched once a generation and #2 once an evolve, by the counters
+    zeroed before the run; ms per generation split into evaluate and evolve
+    by ``utils.profiling.PhaseTimer``. Then #1, #2 and #5-#7 against their
+    plain versions at ``max_nodes=30`` on the seed-0 runs' last
+    populations, every lane identical (the horizon cut, and #5's budget cut
+    to 40: the plain versions launch thousands of small kernels a save
+    interval, and #5's steps until its slowest lane ends, 51 s at the
+    example's budget of 500)."""
+    import importlib
+
+    import torch
+
+    from multitreegp_tpu_torch.core import cuda_adaptive as ca
+    from multitreegp_tpu_torch.core import cuda_rollout as cf
+    from multitreegp_tpu_torch.core.trees import validate_host
+    from multitreegp_tpu_torch.examples import run as run_example
+    from multitreegp_tpu_torch.utils.profiling import PhaseTimer
+
+    on_card = device.type == "cuda"
+    sizes = s["example_sizes"] or {}
+    counters = example_counters()
+    runs, last = [], {}
+    for label, module, seed, build_kw, run_kw in EXAMPLE_RUNS:
+        mod = importlib.import_module(f"multitreegp_tpu_torch.examples.{module}")
+        strategy, data, g = mod.build(seed, device, **build_kw, **sizes)
+        if s["example_t"]:
+            data = cut_grid(data, s["example_t"])
+        for fn in counters.values():
+            fn.launches = 0
+        timer = PhaseTimer()
+        sync(device)
+        t0 = time.perf_counter()
+        history, pops = run_example(strategy, data, g, timer=timer, **run_kw)
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        gens, hist = strategy.num_generations, history.tolist()
+        top = (strategy.evaluator.max_fitness
+               + strategy.size_parsimony * strategy.num_trees * strategy.max_nodes)
+        name = f"{label} seed {seed}"
+        check(all(map(math.isfinite, hist)) and all(0 <= h <= top for h in hist),
+              f"{name}: best fitness outside [0, {top}]: {hist}")
+        check(all(b1 <= b0 for b0, b1 in zip(hist, hist[1:])), f"{name}: best fitness increased: {hist}")
+        check(hist[-1] < hist[0] or bool(sizes), f"{name}: no improvement over {gens} generations: {hist}")
+        n = strategy.max_nodes
+        validate_host(pops.map(lambda a: a.reshape(-1, n)), strategy.fset.slots(device))
+        if module == "dynamic_policy":
+            fset = strategy.fset
+            readout = pops.ops[:, :, fset.layer_sizes[0]:]
+            allowed = torch.tensor([fset.string_to_op["a0"], fset.string_to_op["a1"]], device=device,
+                                   dtype=readout.dtype)
+            leaves = readout[readout >= fset.var_start]
+            check(bool(torch.isin(leaves, allowed).all()), f"{name}: a readout tree reads past a0/a1")
+        if on_card:
+            want = {k: 0 for k in counters}
+            want[EXAMPLE_EVAL_KERNEL[label]] = gens
+            want["reproduce"] = gens
+            check(launches == want, f"{name}: launches {launches}, expected {want}")
+        summ = timer.summary()
+        if "fit" in summ:
+            ms = dict(generation=summ["fit"]["total_s"] / gens * 1e3)
+        else:
+            ms = dict(evaluate=summ["evaluate"]["mean_s"] * 1e3, evolve=summ["evolve"]["mean_s"] * 1e3)
+            ms["generation"] = ms["evaluate"] + ms["evolve"]
+        rec = dict(label=label, seed=seed, generations=gens, candidates=pops.ops.shape[0] * pops.ops.shape[1],
+                   ms_per_generation=ms, wall_s=wall, best_first=hist[0], best_last=hist[-1],
+                   launches=launches, best=strategy.to_string(strategy.get_statistics(gens - 1)[1]))
+        runs.append(rec)
+        if seed == 0:
+            last[label] = (strategy, data, pops)
+        split = (f"evaluate {ms['evaluate']:.3f} + evolve {ms['evolve']:.3f}" if "evaluate" in ms
+                 else "fit()")
+        phase_line(f"phase 23 {name}: {rec['candidates']} candidates x {gens} generations, "
+                   f"{ms['generation']:.3f} ms a generation ({split}), {wall:.1f} s; best {hist[0]:.6g} -> "
+                   f"{hist[-1]:.6g}: {rec['best']}; launches {launches}")
+
+    # the kernels at N = 30 against their plain versions, on the seed-0
+    # populations (off the card the plain versions against themselves)
+    checks = {}
+    g = torch.Generator(device=device).manual_seed(23)
+    fit_kernel = cf.sr_fitness_cuda if on_card else cf.sr_fitness_plain
+    adaptive_kernel = ca.sr_fitness_adaptive_global_cuda if on_card else ca.sr_fitness_adaptive_global_plain
+    strategy, data, pops = last["sr"]
+    fset, flat = strategy.fset, pops.map(lambda a: a.reshape((-1,) + a.shape[2:]))
+    x0s, ts, ys, _ = data
+    t_cut = s["example_check_t"]
+    ts_c, ys_c = ts[:t_cut], ys[:, :t_cut].contiguous()
+    mse, alive = fit_kernel(flat, x0s, ts_c, ys_c, fset, "rk4", 4)
+    (ref, ref_alive), plain_ms = timed_plain(
+        lambda: cf.sr_fitness_plain(flat, x0s, ts_c, ys_c, fset, "rk4", 4), device)
+    same = float(lanes_identical(mse, alive, ref, ref_alive).float().mean())
+    check(same == 1.0, f"#1 at N = 30: {same} of lanes identical")
+    fin = torch.isfinite(mse) & torch.isfinite(ref)
+    checks["sr_fitness"] = dict(sr=dict(identical=same, max_abs_err=float((mse - ref).abs()[fin].max()),
+                                        plain_ms=plain_ms, t_steps=t_cut, lanes=mse.numel()))
+    rep = reproduction_case(device, dict(depth=strategy.max_init_depth, pop=strategy.population_size,
+                                         islands=strategy.num_populations), flat, fset, g)
+    checks["reproduce"] = dict(sr={k: rep[k] for k in ("lanes", "ops_identical", "max_abs_err", "bit_equal")})
+    strategy, data, pops = last["sr_adaptive"]
+    flat = pops.map(lambda a: a.reshape((-1,) + a.shape[2:]))
+    ev = strategy.evaluator
+    t_cut = s["example_check_adaptive_t"]
+    budget = s["example_check_budget"]  # the plain version steps until its slowest lane ends
+    args = (flat, data[0], data[1][:t_cut], data[2][:, :t_cut].contiguous(), strategy.fset, ev.rtol,
+            ev.atol, budget, ev.adaptive_method)
+    got = adaptive_kernel(*args)
+    ref, plain_ms = timed_plain(lambda: ca.sr_fitness_adaptive_global_plain(*args), device)
+    same, _, _, _, max_abs = compare_adaptive(got, ref)
+    check(same == 1.0, f"#5 at N = 30: {same} of lanes identical")
+    checks["sr_adaptive_global"] = dict(sr_adaptive=dict(identical=same, max_abs_err=max_abs, plain_ms=plain_ms,
+                                                         t_steps=t_cut, budget=budget, lanes=got[0].numel()))
+    for label, kind, t_cut in (("static", "fixed", s["example_check_t"]),
+                               ("dynamic", "fixed", s["example_check_t"]),
+                               ("static_adaptive", "adaptive", s["example_check_adaptive_t"])):
+        strategy, data, pops = last[label]
+        ev = strategy.evaluator
+        flat = pops.map(lambda a: a.reshape((-1,) + a.shape[2:]))
+        checks.setdefault(EXAMPLE_EVAL_KERNEL[label], {})[label] = policy_pair(
+            device, kind, flat, data, ev.env, strategy.fset, ev.state_size, t_cut, substeps=ev.substeps)
+    for kernel, by_run in checks.items():
+        for label, c in by_run.items():
+            phase_line(f"phase 23 {kernel} vs plain at N = 30 on the {label} seed-0 run's last population: "
+                       + ", ".join(f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
+                                   for k, v in c.items()))
+    return {"examples": dict(runs=runs, checks=checks)}
+
+
 def sync(device) -> None:
     import torch
 
@@ -2864,16 +3066,16 @@ def main(argv=None) -> int:
         if opts.out:
             with open(opts.out, "w") as f:
                 json.dump(out, f, indent=1)
-        say(smi)
-        return 0
-    out = run(device)
-    out["device"] = dict(nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
-                         nvcc_s=dict(_build.build_seconds), ptxas=resources, trace_drops=TRACE_DROPS)
-    phase_line(f"traced runs without their kernel: {len(TRACE_DROPS)}")
-    if opts.out:
-        with open(opts.out, "w") as f:
-            json.dump(out, f, indent=1)
-    say(json.dumps({"kernels": out["kernels"]}))
+    else:
+        out = run(device)
+        out["device"] = dict(nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
+                             build_s=build_s, nvcc_s=dict(_build.build_seconds), ptxas=resources,
+                             trace_drops=TRACE_DROPS)
+        phase_line(f"traced runs without their kernel: {len(TRACE_DROPS)}")
+        if opts.out:
+            with open(opts.out, "w") as f:
+                json.dump(out, f, indent=1)
+        say(json.dumps({"kernels": out["kernels"]}))
     say(smi)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -96,6 +96,22 @@ class FunctionSet:
     def num_trees(self) -> int:
         return int(sum(self.layer_sizes))
 
+    def operator_indices(self, device=None) -> torch.Tensor:
+        """int64 opcodes of the operators, ``OP_START .. var_start - 1``, on
+        ``device``."""
+        return torch.arange(OP_START, self.var_start, device=device)
+
+    def variable_indices(self, device=None) -> torch.Tensor:
+        """int64 opcodes of the variables, ``var_start .. num_opcodes - 1``,
+        on ``device``."""
+        return torch.arange(self.var_start, self.num_opcodes, device=device)
+
+    @property
+    def data_layout(self) -> Tuple[str, ...]:
+        """The order in which the interpreter's flat data vector is packed:
+        the variable names, data slot ``v`` for opcode ``var_start + v``."""
+        return self.variable_names
+
     @property
     def has_unary(self) -> bool:
         """Whether any operator is unary: the tree kernels pick their
@@ -223,3 +239,15 @@ def build_function_set(
         op_to_string=op_to_string,
     )
 
+
+def default_sr_operators():
+    """The SymbolicRegression notebook's arithmetic set (reference
+    ``examples/SymbolicRegression.ipynb`` cell 6): ``+ - * /`` sampled with
+    probabilities 0.5, 0.1, 0.5, 0.1, in the ``(name, fn, arity, prob)``
+    form of :func:`build_function_set`."""
+    return [
+        ("+", torch.add, 2, 0.5),
+        ("-", torch.subtract, 2, 0.1),
+        ("*", torch.multiply, 2, 0.5),
+        ("/", torch.divide, 2, 0.1),
+    ]

@@ -69,6 +69,21 @@ def tree_sizes(trees: TreeTensors) -> torch.Tensor:
     return (trees.ops != EMPTY).sum(dim=-1, dtype=torch.int32)
 
 
+def pack(trees: TreeTensors) -> torch.Tensor:
+    """The reference's ``(..., N, 4)`` float32 layout (``ops``, ``c1``,
+    ``c2``, ``const`` along the last axis), for interchange."""
+    return torch.stack([trees.ops.float(), trees.c1.float(), trees.c2.float(), trees.const.float()],
+                       dim=-1)
+
+
+def unpack(arr: torch.Tensor) -> TreeTensors:
+    """Inverse of :func:`pack`; also takes the reference's float64 tensors.
+    The opcodes and pointers are cast to int32 (truncating, as ``astype``),
+    the constants to float32."""
+    return TreeTensors(arr[..., 0].to(torch.int32), arr[..., 1].to(torch.int32),
+                       arr[..., 2].to(torch.int32), arr[..., 3].to(torch.float32))
+
+
 def arity_of(ops: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     """Per-row arity (0 for EMPTY/CONST/variables) from the registry table."""
     return slots[ops.clamp(0, slots.shape[0] - 1).long()]

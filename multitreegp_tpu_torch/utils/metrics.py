@@ -1,7 +1,61 @@
-"""Throughput accounting: the node-evaluation counts behind node-evals/s
-(port of ``multitreegp_tpu/utils/metrics.node_evals_per_evaluation`` and of
-the adaptive work counts in ``bench.py``)."""
+"""Observability: population statistics, and the node-evaluation counts
+behind node-evals/s (port of ``multitreegp_tpu/utils/metrics.py`` and of the
+adaptive work counts in ``bench.py``)."""
 from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from ..core.trees import TreeTensors, tree_sizes
+
+_HASH_MIX = 1000003
+_U32 = 0xFFFFFFFF
+
+
+def population_stats(populations: TreeTensors, fitness: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Fitness, size and diversity summary of ``populations`` (batch ``(...,
+    m)``, e.g. ``(islands, pop, m)``) and their ``fitness`` (``(...)``): 0-d
+    float32 tensors ``fitness_min``, ``fitness_median`` (the mean of the two
+    middle values at an even count, as ``jnp.median``), ``fitness_mean``,
+    ``size_mean`` and ``size_max`` (rows per candidate) and
+    ``unique_fraction``: distinct hashes of each candidate's ``m * N``
+    opcodes over the number of candidates. The hash is JAX's ``uint32``
+    recurrence ``h = h * 1000003 + op``, kept in int64 and masked to 32 bits
+    after each step (``h < 2**32`` times 1000003 stays below ``2**52``)."""
+    flat_fit = fitness.reshape(-1)
+    sizes = tree_sizes(populations).sum(dim=-1).reshape(-1).to(torch.float32)
+    ops = populations.ops.reshape(-1, populations.ops.shape[-2] * populations.ops.shape[-1])
+    ops = ops.to(torch.int64) & _U32
+    h = torch.zeros(ops.shape[0], dtype=torch.int64, device=ops.device)
+    for i in range(ops.shape[1]):
+        h = (h * _HASH_MIX + ops[:, i]) & _U32
+    k = flat_fit.numel()
+    ordered = torch.sort(flat_fit).values
+    mid = (ordered[(k - 1) // 2] + ordered[k // 2]) * 0.5
+    mid = torch.where(torch.isnan(flat_fit).any(), float("nan"), mid)  # as jnp.median
+    unique = torch.tensor(float(torch.unique(h).numel()), device=h.device)
+    return {
+        "fitness_min": flat_fit.min(),
+        "fitness_median": mid,
+        "fitness_mean": _mean(flat_fit),
+        "size_mean": _mean(sizes),
+        "size_max": sizes.max(),
+        "unique_fraction": unique * _reciprocal(h.numel(), unique.device),
+    }
+
+
+def _reciprocal(n: int, device) -> torch.Tensor:
+    """``1 / n`` rounded to float32: XLA's CPU backend divides by a constant
+    as a multiplication by its reciprocal, so ``jnp.mean`` does."""
+    return torch.tensor(1.0 / n, dtype=torch.float32, device=device)
+
+
+def _mean(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.mean`` of a float32 vector: the sum times ``1 / n`` (the sum's
+    order is PyTorch's, not XLA's: equal wherever the sum is exact)."""
+    return x.sum() * _reciprocal(x.numel(), x.device)
+
 
 RK_STAGES = {"euler": 1, "heun": 2, "rk4": 4}
 # tree evaluations per attempted adaptive step: the stages after the first,

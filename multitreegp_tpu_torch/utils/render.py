@@ -2,12 +2,15 @@
 tree tensors to infix strings, simplified with sympy when it is installed."""
 from __future__ import annotations
 
+from typing import Optional
+
 from ..core.registry import FunctionSet
 from ..core.trees import CONST, EMPTY, TreeTensors
 
 
-def tree_to_string(tree: TreeTensors, fset: FunctionSet) -> str:
-    """Render one tree (batch shape ``()``) as an infix expression."""
+def tree_to_string(tree: TreeTensors, fset: FunctionSet, root: Optional[int] = None) -> str:
+    """Render one tree (batch shape ``()``) as an infix expression, from row
+    ``root`` (the tree's root, row ``N - 1``, when None)."""
     ops, c1, c2, const = (t.detach().cpu().tolist() for t in tree)
 
     def rec(i: int) -> str:
@@ -23,7 +26,7 @@ def tree_to_string(tree: TreeTensors, fset: FunctionSet) -> str:
             return f"{name}({rec(c1[i])})"
         return f"({rec(c1[i])}){name}({rec(c2[i])})"
 
-    return rec(tree.max_nodes - 1)
+    return rec(tree.max_nodes - 1 if root is None else root)
 
 
 def _simplify(expr: str) -> str:

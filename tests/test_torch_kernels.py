@@ -918,6 +918,58 @@ def test_policy_kernels_deep_match_plain_on_card(cuda, state_size):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sde", "adaptive", "dynamic"])
+def test_deep_evaluators_match_plain_on_card(cuda, monkeypatch, kind):
+    """The deep evaluators' kernel paths at N = 128 (trees grown to depth 7,
+    the first three candidates chains of 127, 127 and 63 rows), through
+    ``evaluate_population`` on the card: the SDE SR evaluator (#1 with kick
+    rows, Euler-Maruyama x 4), the adaptive SR evaluator (#5, dopri5,
+    budget 40) and the dynamic policy evaluator (#6, ``state_size=2``, RK4 x
+    2); one launch each, and the fitness equal bit for bit to the same
+    evaluation through the plain version on the card (#6: the evaluator's
+    kernel call replaced by the plain version)."""
+    from multitreegp_tpu_torch.models.evaluators import static_policy as sp
+
+    if kind == "dynamic":
+        env, fset, data, trees = policy_case(cuda, state_size=2, pop=256, b=16, t_end=1.2, n=128,
+                                             depth=7)
+        trees = with_chains(trees, fset, [127, 127, 63])
+        ev = DynamicPolicyEvaluator(env, fset, state_size=2, substeps=2)
+        assert ev._fused_kind(trees, data) == "fixed"
+        kernel = cp.policy_rollout_cuda
+    else:
+        fset, trees, x0s, ts, ys = fitness_case(cuda, pop=256, b=16, t_end=2.0 if kind == "sde" else 0.8,
+                                                n=128, depth=7)
+        keys = generate_sr_data(VanDerPolOscillator(0.1), torch.Generator(device=cuda).manual_seed(3),
+                                ts, batch_size=16)[3]
+        data = (x0s, ts, ys, keys)
+        if kind == "sde":
+            ev = SREvaluator(fset, substeps=4, process_noise=0.2)
+            kernel = sr_fitness_cuda
+        else:
+            ev = SREvaluator(fset, method="adaptive", adaptive_method="dopri5", adaptive_budget=40)
+            kernel = ca.sr_fitness_adaptive_global_cuda
+        assert ev._fused(trees, x0s)
+    before = kernel.launches
+    fitness = ev.evaluate_population(trees, data)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    if kind == "sde":
+        kicks = make_sr_kick_rows(0.2, ts, keys, 4, 2)
+        ref = ev._fitness(*sr_fitness_plain(trees, x0s, ts, ys, fset, "euler", 4, kicks))
+    elif kind == "adaptive":
+        mse, alive, _ = ca.sr_fitness_adaptive_global_plain(trees, x0s, ts, ys, fset, ev.rtol, ev.atol,
+                                                            40, "dopri5")
+        ref = ev._fitness(mse, alive)
+    else:
+        monkeypatch.setattr(sp, "rollout_policy", cp.policy_rollout_plain)
+        ref = ev.evaluate_population(trees, data)
+        assert kernel.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(fitness, ref) and bool((fitness < ev.max_fitness).any())
+
+
+@pytest.mark.cuda
 def test_policy_kernels_wide_match_plain_on_card(cuda):
     """#6 (RK4 x 2) and #7 (dopri5, 8 steps per interval) on 4 dynamic
     Acrobot policies x 1024 trajectories, the most a candidate takes (a

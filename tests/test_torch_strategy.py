@@ -166,7 +166,9 @@ def test_chip_smoke_phases_rehearse_on_cpu():
                 deep_nodes=64, deep_depth=5, deep_pop=8, deep_t=3, deep_rep_pop=16, deep_policy_t=3,
                 deep_adaptive_t=3, deep_adaptive_budget=40, deep_interval_steps=8,
                 wide_nodes=300, wide_depth=5, wide_check_nodes=(300,), deep_gen_nodes=64,
-                deep_gen_depth=5, chain_k=2, shard_generations=15)
+                deep_gen_depth=5, chain_k=2, shard_generations=15,
+                example_sizes=dict(generations=2, population=20, islands=2), example_t=3,
+                example_check_t=3, example_check_adaptive_t=3, example_check_budget=40)
     out = chip_smoke.run(torch.device("cpu"), tiny)
     assert out["fitness"]["bit_equal"] and out["reproduce"]["ops_identical"] == 1.0
     deep = out["deep"]
@@ -241,6 +243,17 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     rank = sharded["ranks"][0]
     assert rank["round"]["generation"] == 14 and rank["ring_generations"] == [9]
     assert len(rank["best"]) == 15 and out["kernels"][0]["launches_sharded"] == [0]
+    examples = out["examples"]
+    assert [(r["label"], r["seed"]) for r in examples["runs"]] == [
+        ("sr", 0), ("sr", 1), ("sr", 2), ("sr_fused", 0), ("sr_adaptive", 0), ("static", 0),
+        ("static", 1), ("static", 2), ("static_adaptive", 0), ("dynamic", 0), ("dynamic", 1),
+        ("dynamic", 2)]
+    assert all(r["generations"] == 2 and r["candidates"] == 40 for r in examples["runs"])
+    checks = examples["checks"]
+    assert set(checks) == {"sr_fitness", "reproduce", "sr_adaptive_global", "policy", "policy_adaptive"}
+    assert set(checks["policy"]) == {"static", "dynamic"}
+    assert checks["reproduce"]["sr"]["ops_identical"] == 1.0
+    assert all(c.get("identical", 1.0) == 1.0 for by_run in checks.values() for c in by_run.values())
 
 
 def test_package_never_imports_jax():
@@ -256,7 +269,9 @@ def test_package_never_imports_jax():
         "import multitreegp_tpu_torch.tools.branch_probe, multitreegp_tpu_torch.ops.mutation\n"
         "import multitreegp_tpu_torch.ops.splice, multitreegp_tpu_torch.ops.reproduction\n"
         "import multitreegp_tpu_torch.parallel.mesh, multitreegp_tpu_torch.parallel.collective\n"
-        "import multitreegp_tpu_torch.tools.inline_drift\n"
+        "import multitreegp_tpu_torch.tools.inline_drift, multitreegp_tpu_torch.utils.profiling\n"
+        "import multitreegp_tpu_torch.examples.symbolic_regression\n"
+        "import multitreegp_tpu_torch.examples.static_policy, multitreegp_tpu_torch.examples.dynamic_policy\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'multitreegp_tpu.'))]\n"
         "assert not bad and 'multitreegp_tpu' not in sys.modules, bad\n"
     )

@@ -150,7 +150,26 @@ workload (phases 12-14). Phases, one line or a few each:
    generation, #2 once an evolve), ms per generation split into evaluate and
    evolve by ``PhaseTimer``; then #1, #2 and #5-#7 against their plain
    versions at ``max_nodes=30`` on the seed-0 populations (horizons cut, #5's
-   budget 40), every lane identical.
+   budget 40), every lane identical;
+24. the operators past ``+ - * / sin cos`` (the kernels' extended build,
+   compiled beside the default one): phase 4's ``gen`` workload with ``+ - *
+   / exp log sqrt tanh pow max min abs neg square``, 5 generations of the
+   host loop (#1, #2), one constant-optimisation round of the top 50 (10 Adam
+   steps; #8/#9) and ``evaluate_candidate`` of the best (#3); on its last
+   population #1 and #3 (T = 10) and #5 / #4 (phase 17's cut: T = 4, budget
+   40 / 8 per interval) against their plain versions, every lane identical;
+   the static Acrobot loop with ``+ - * tanh sin cos`` at 4096 x 16, T = 250,
+   RK4 x 4, 5 generations (#6, #2), then #6 static and dynamic (T = 26) and #7
+   static (T = 11) against their plain versions; #8/#9 in the round's layout
+   (its top 50 x 16 x 2 lanes) and on chains of 255, 127
+   and 63 rows at N = 256 (phase 17's 256 x 16 lanes) and of 1023, 127 and 63
+   rows at N = 1024 (16 a tree), every operator in the chains, every lane
+   bit-equal; #2 on one generation's lanes with the 14 operators; each
+   kernel's device time beside the six-operator one on the same shape, in
+   turns (#1, #3, #5, #4 on phase 2's population; #6, #7 on phase 12's); the
+   same six-operator trees through the default and the extended library (#1,
+   #5, #6 static, #9), what one build for both would cost them; and the
+   extended build's ``nvcc`` seconds.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last lines are a JSON line of per-kernel numbers, the card's name and
@@ -166,6 +185,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 FULL = dict(islands=8, pop=512, max_nodes=32, depth=4, batch=16, horizon=10.0, dt=0.2,
             generations=5, timing_runs=5, plain_runs=3,
@@ -183,6 +203,8 @@ FULL = dict(islands=8, pop=512, max_nodes=32, depth=4, batch=16, horizon=10.0, d
             example_sizes=None, example_t=None, example_check_t=11, example_check_adaptive_t=4, example_check_budget=40)
 KERNELS = ("sr_fitness", "reproduce", "interpreter", "sr_adaptive", "sr_rollout",
            "policy", "branch_probe")  # csrc/<name>.cu
+# the sources with an extended build (the tree kernels: #1, #3-#9), phase 24's
+EXTENDED_KERNELS = ("sr_fitness", "interpreter", "sr_adaptive", "sr_rollout", "policy")
 SHARDED_KERNELS = ("sr_fitness", "reproduce", "interpreter")  # phase 22's path
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, float32 FLOP/s outside the tensor
 # cores (both at the full 700 W power limit). The FLOP/s count an FMA as two
@@ -297,10 +319,12 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-# float32 operations of one operator row per device op id (+ - * /): the
-# forward's one, and the VJP's cotangent expressions plus the two adds that
-# accumulate them (csrc/interpreter.cu binary_vjp)
-VJP_OPS = {0: 2, 1: 3, 2: 4, 3: 6}
+# float32 operations of one operator row per device op id: the forward's one,
+# and the VJP's cotangent expressions plus the adds that accumulate them
+# (csrc/interpreter.cu backward_rows, unary_vjp, binary_vjp; a C library
+# function such as expf counts as one)
+VJP_OPS = {0: 2, 1: 3, 2: 4, 3: 6, 4: 3, 5: 4, 6: 2, 7: 2, 8: 3, 9: 4, 10: 4, 11: 4, 12: 2,
+           13: 3, 14: 9, 15: 5, 16: 5}
 
 
 def operator_rows(trees, fset):
@@ -310,7 +334,8 @@ def operator_rows(trees, fset):
     ids = torch.tensor([-1, -1] + list(fset.device_op_ids), device=trees.ops.device)
     is_op = (trees.ops >= 2) & (trees.ops < fset.var_start)
     dev = ids[trees.ops.clamp(0, len(ids) - 1).long()]
-    return {k: int(((dev == k) & is_op).sum()) for k in VJP_OPS}
+    counts = {k: int(((dev == k) & is_op).sum()) for k in VJP_OPS}
+    return {k: v for k, v in counts.items() if v}
 
 
 def interp_bounds(trees, states, cot, fset):
@@ -491,6 +516,7 @@ def run(device, sizes=FULL) -> dict:
     out.update(chained_phase(device, s, pops.map(lambda a: a.reshape((-1,) + a.shape[2:])), fset, data))
     out.update(sharded_phase(device, s, data))
     out.update(examples_phase(device, s))
+    out.update(extended_phase(device, s, data, trees, fset, ps))
 
     # -- the kernels line --------------------------------------------------------
     times = out.get("times_ms", {})
@@ -617,6 +643,33 @@ def run(device, sizes=FULL) -> dict:
         if runs:
             k["examples"] = dict(launches=sum(runs.values()), runs=runs,
                                  checks=ex["checks"].get(k["name"], {}))
+    ext = out["extended"]
+    chains = tuple(c for c in ext["checks"] if c.startswith("interpreter_"))
+    # per kernel row: its source, phase 24's timed cases and checks
+    ext_of = dict(sr_fitness=("sr_fitness", ("sr_fitness",), ("sr_fitness",)),
+                  sr_rollout=("sr_rollout", ("sr_rollout",), ("sr_rollout",)),
+                  sr_adaptive_global=("sr_adaptive", ("sr_adaptive_global",), ("sr_adaptive_global",)),
+                  sr_adaptive_interval=("sr_adaptive", ("sr_adaptive_interval",), ("sr_adaptive_interval",)),
+                  interpret_fwd=("interpreter", (), chains), interpret_bwd=("interpreter", (), chains),
+                  policy=("policy", ("policy_static", "policy_dynamic"), ("policy_static", "policy_dynamic")),
+                  policy_adaptive=("policy", ("policy_adaptive",), ("policy_adaptive_static",)),
+                  reproduce=("reproduce", (), ("reproduce",)))
+    fork_of = dict(sr_fitness="sr_fitness", sr_adaptive_global="sr_adaptive_global", policy="policy_static",
+                   interpret_bwd="interpret_bwd")
+    for k in out["kernels"]:  # phase 24: the extended build on its path
+        source, timed, checked = ext_of[k["name"]]
+        launches = sum(d.get(k["name"], 0) for d in (ext["loop_launches"], ext["policy"]["launches"],
+                                                      ext["launches"]))
+        k["extended"] = dict(
+            launches=launches,
+            nvcc_s=ext.get("nvcc_s", {}).get(f"{source}_ext"),
+            checks={c: ext["checks"][c] for c in checked},
+            device_ms={f"{t}_{tag}": ext.get("device_ms", {}).get(f"{t}_{tag}")
+                       for t in timed for tag in ("six", "ext")})
+        if k["name"] in fork_of:  # the same six-operator trees through both builds
+            k["extended"]["fork_device_ms"] = {
+                tag: ext.get("device_ms", {}).get(f"fork_{fork_of[k['name']]}_{tag}")
+                for tag in ("default", "ext_build")}
     pb = out["probe"]
     always = pb["modes"]["always"]
     out["kernels"].append(
@@ -806,7 +859,7 @@ def grouped_per_lane(trees, states, cot, fset):
         x = states.expand(batch + states.shape[-1:])
         return (evaluate_trees_plain(full, x, fset),) + evaluate_trees_vjp_plain(full, x, cot, fset)
     out = ci.evaluate_trees_cuda(trees, states, fset)
-    lib = ci._build.load("interpreter")
+    lib = ci._build.load("interpreter", fset.extended)
     status, dconst, ddata = ci.run_backward(lib.interpret_bwd, trees, states, cot, fset,
                                             torch.cuda.current_stream().cuda_stream)
     check(status == 0, f"interpreter backward kernel launch: status {status}")
@@ -3019,6 +3072,339 @@ def examples_phase(device, s) -> dict:
     return {"examples": dict(runs=runs, checks=checks)}
 
 
+# phase 24: the gen workload's and the control workload's operator sets with
+# the operators past + - * / sin cos (the kernels' extended build)
+EXT_UNARY = ("exp", "log", "sqrt", "tanh", "abs", "neg", "square")
+EXT_OPERATORS = (OPERATORS + [(name, 1, 0.1) for name in EXT_UNARY]
+                 + [(name, 2, 0.1) for name in ("pow", "max", "min")])
+EXT_POLICY_OPERATORS = [("+", 2), ("-", 2), ("*", 2), ("tanh", 1), ("sin", 1), ("cos", 1)]
+# a chain's group of unary rows, each finite on what the one before gives
+# (tanh's (-1, 1) keeps exp, then log, finite; abs before sqrt), ending in
+# [1, e) so that the pow after it has a positive base
+EXT_CHAIN_GROUP = ("tanh", "exp", "log", "neg", "abs", "sqrt", "square", "exp")
+EXT_CHAIN_BINARY = ("+", "max", "-", "min", "*")
+
+
+def ext_chain_trees(trees, fset, lengths):
+    """``trees (P, m, n)`` with candidate i's trees replaced by a chain of
+    ``lengths[i]`` rows (odd) that holds every operator of phase 24: k + 1
+    leaves, then k binary rows (``+ max - min *``, ``pow`` after each group)
+    whose stack holds k + 1 values, the most a tree of that many rows can
+    with its unary rows; after every (k / G)-th binary row a group of the
+    eight unary rows of :data:`EXT_CHAIN_GROUP`, G = (rows - 1) // 40
+    groups."""
+    import torch
+
+    from multitreegp_tpu_torch.core.trees import CONST, EMPTY, TreeTensors, rebuild_pointers
+
+    n = trees.max_nodes
+    op = fset.string_to_op
+    ops = trees.ops.clone()
+    for i, rows in enumerate(lengths):
+        groups = max(1, (rows - 1) // 40)
+        k = (rows - 1 - len(EXT_CHAIN_GROUP) * groups) // 2
+        leaves = [fset.var_start + j % 2 if j % 3 else CONST for j in range(k + 1)]
+        body, after_group, left = [], False, groups
+        for j in range(k):
+            body.append(op["pow"] if after_group else op[EXT_CHAIN_BINARY[j % len(EXT_CHAIN_BINARY)]])
+            after_group = left > 0 and j % (k // groups) == 0
+            if after_group:
+                body += [op[u] for u in EXT_CHAIN_GROUP]
+                left -= 1
+        chain = leaves + body
+        ops[i] = torch.tensor([EMPTY] * (n - len(chain)) + chain, dtype=torch.int32)
+    const = torch.where(ops == CONST, torch.where(trees.ops == CONST, trees.const, 0.5), 0.0)
+    c1, c2 = rebuild_pointers(ops, fset.slots(ops.device))
+    return TreeTensors(ops, c1, c2, const)
+
+
+def with_unused_max(trees, fset):
+    """``(trees, fset)`` with a binary ``max`` appended to ``fset``'s
+    operators, which no tree uses (variable opcodes shift by one): the same
+    computation, through the kernels' extended build."""
+    import torch
+
+    from multitreegp_tpu_torch.core.registry import build_function_set
+
+    mask, names, variable_list, row = fset.variable_mask, fset.variable_names, [], 0
+    for size in fset.layer_sizes:
+        variable_list.append([names[v] for v in torch.nonzero(mask[row] > 0).flatten().tolist()])
+        row += size
+    wide = build_function_set(
+        list(zip(fset.operator_names, fset.arities, fset.operator_probs)) + [("max", 2, 0.1)],
+        variable_list, fset.layer_sizes)
+    check(wide.variable_names == names and wide.extended and wide.has_unary == fset.has_unary
+          and torch.equal(wide.variable_mask, mask), "a set with an unused max appended")
+    return trees._replace(ops=torch.where(trees.ops >= fset.var_start, trees.ops + 1, trees.ops)), wide
+
+
+def in_turns(cases, runs, torch) -> dict:
+    """Device ms of one launch per ``(key, fn, kernel)``, each case timed
+    twice in the order a, b, b, a for consecutive pairs (six-operator and
+    extended on one shape): ``{key: [first, second]}``."""
+    out = {}
+    for pair in zip(cases[::2], cases[1::2]):
+        for key, fn, kernel in pair + pair[::-1]:
+            out.setdefault(key, []).append(kernel_device_ms(((key, fn, kernel),), runs, torch)[key])
+    return out
+
+
+def extended_phase(device, s, data, trees6, fset6, ps) -> dict:
+    """Phase 24: the operators past ``+ - * / sin cos`` through every tree
+    kernel (their extended build): the ``gen`` workload's host loop, round and
+    inspection, the kernels against their plain versions on its population,
+    the static Acrobot loop with ``tanh``, #6/#7 against their plain
+    versions, #8/#9 on chains at 256 and 1024 rows, and each kernel's device
+    time beside the six-operator one (``trees6``, ``fset6``: phase 2's
+    population; ``ps``: phase 12's)."""
+    import torch
+
+    from multitreegp_tpu_torch import GeneticProgramming, _build
+    from multitreegp_tpu_torch.core import cuda_adaptive as ca
+    from multitreegp_tpu_torch.core import cuda_interpreter as ci
+    from multitreegp_tpu_torch.core import cuda_policy as cp
+    from multitreegp_tpu_torch.core import cuda_reproduction as cr
+    from multitreegp_tpu_torch.core import cuda_rollout as cf
+    from multitreegp_tpu_torch.core.registry import build_function_set
+    from multitreegp_tpu_torch.core.trees import validate_host
+    from multitreegp_tpu_torch.models.evaluators import SREvaluator, StaticPolicyEvaluator
+    from multitreegp_tpu_torch.ops.initialization import make_population_sampler
+
+    t_start = time.perf_counter()
+    on_card = device.type == "cuda"
+    x0s, ts_full, ys_full, _ = data
+    n, b, t_steps = s["max_nodes"], s["batch"], ts_full.shape[0]
+    gp = GeneticProgramming(
+        num_generations=s["generations"], population_size=s["pop"],
+        fitness_function=SREvaluator(substeps=1), operator_list=EXT_OPERATORS,
+        variable_list=[["x0", "x1"]], layer_sizes=[2], num_populations=s["islands"], max_nodes=n,
+        max_init_depth=s["depth"], gradient_steps=s["gradient_steps"],
+        coefficient_opt_top_k=s["top_k"], elite_percentage=s["elite"], device=device)
+    fset = gp.fset
+    check(fset.extended, "phase 24's function set must take the extended build")
+    counters = dict(sr_fitness=cf.sr_fitness_cuda, reproduce=cr.reproduce_lanes_cuda,
+                    interpret_fwd=ci.evaluate_trees_cuda, interpret_bwd=ci.evaluate_trees_vjp_cuda,
+                    sr_rollout=cf.sr_rollout_cuda)
+    validate = lambda pops: validate_host(pops.map(lambda a: a.reshape(-1, n)), fset.slots(device))
+    r = loop_generations(gp, data, device, s["generations"], 24, counters, validate)
+    if on_card:
+        for i, gen in enumerate(r["generations"]):
+            check(gen["eval_launches"]["sr_fitness"] >= 1 and gen["evolve_launches"]["reproduce"] >= 1,
+                  f"gen {i} launches {gen['eval_launches']} {gen['evolve_launches']}")
+    gen_ms = [g_["eval_ms"] + g_["evolve_ms"] for g_ in r["generations"]]
+    # the round: the top 50 of the last generation, 10 Adam steps (#8/#9)
+    pops = r["pops"]
+    fitness = gp._evaluate(pops, data)
+    flat = pops.map(lambda a: a.reshape((-1,) + a.shape[2:]))
+    top = torch.argsort(fitness.reshape(-1), stable=True)[: gp.coefficient_opt_top_k]
+    before = {k: fn.launches for k, fn in counters.items()}
+    sync(device)
+    t0 = time.perf_counter()
+    refined, _ = gp.optimise(flat[top], data)
+    sync(device)
+    round_ms = (time.perf_counter() - t0) * 1e3
+    unrefined = fitness.reshape(-1)[top]
+    check(not bool((refined > unrefined * (1 + 1e-6)).any()), "refinement made a candidate worse")
+    # the best candidate's trajectories (#3)
+    best = flat[int(torch.argmin(fitness.reshape(-1)))]
+    cand_fit, pred = SREvaluator(fset=fset, substeps=1).evaluate_candidate(best, data)
+    check(pred.shape == (b, t_steps, 2) and bool(torch.isfinite(cand_fit).all()),
+          "evaluate_candidate of the best candidate")
+    launches = {k: fn.launches - before[k] for k, fn in counters.items()}
+    if on_card:
+        need = s["gradient_steps"] * (t_steps - 1) * 4  # rk4, one substep: drift calls
+        check(launches["interpret_fwd"] >= need and launches["interpret_bwd"] >= need,
+              f"round launches {launches} < {need}")
+        check(launches["sr_rollout"] >= 1, f"#3 launches {launches}")
+    phase_line(f"phase 24 gen with {len(EXT_OPERATORS)} operators ({' '.join(fset.operator_names)}): "
+               f"{s['islands']}x{s['pop']} candidates, ms per generation {[round(v, 3) for v in gen_ms]} "
+               f"(median {statistics.median(gen_ms):.3f}), best {[round(v, 6) for v in r['best']]}, loop "
+               f"launches {r['launches']}; round of top {top.numel()}: {round_ms:.1f} ms, fitness sum "
+               f"{float(unrefined.sum()):.6g} -> {float(refined.sum()):.6g}; then round + "
+               f"evaluate_candidate launches {launches}")
+    res = dict(generations=r["generations"], ms_per_generation=gen_ms, loop_launches=r["launches"],
+               round=dict(ms=round_ms, unrefined_sum=float(unrefined.sum()),
+                          refined_sum=float(refined.sum())), launches=launches, checks={})
+    checks = res["checks"]
+
+    # the kernels against their plain versions on the last population: #1 and
+    # #3 at phase 11's T = 10 (the plain versions dispatch all 14 operators
+    # at every row), #5 / #4 at phase 17's cut
+    t_fix = s["adaptive_short_t"]
+    ts_, ys_ = ts_full[:t_fix], ys_full[:, :t_fix].contiguous()
+    mse, alive = (cf.sr_fitness_cuda if on_card else cf.sr_fitness_plain)(
+        flat, x0s, ts_, ys_, fset, "rk4", 1)
+    (ref, ref_alive), plain_ms = timed_plain(
+        lambda: cf.sr_fitness_plain(flat, x0s, ts_, ys_, fset, "rk4", 1), device)
+    same = float(lanes_identical(mse, alive, ref, ref_alive).float().mean())
+    check(same == 1.0, f"#1 extended: {same:.6f} of lanes identical")
+    fin = torch.isfinite(mse) & torch.isfinite(ref)
+    checks["sr_fitness"] = dict(identical=same, alive=float(alive.float().mean()), plain_ms=plain_ms,
+                                lanes=alive.numel(), t_steps=t_fix,
+                                max_abs_err=float((mse - ref).abs()[fin].max()))
+    xs, xalive = (cf.sr_rollout_cuda if on_card else cf.sr_rollout_plain)(flat, x0s, ts_, fset, "rk4", 1)
+    (rxs, rxalive), plain_ms = timed_plain(lambda: cf.sr_rollout_plain(flat, x0s, ts_, fset, "rk4", 1),
+                                           device)
+    same, max_abs = rollout_identical(xs, xalive, rxs, rxalive)
+    check(same == 1.0, f"#3 extended: {same:.6f} of lanes identical")
+    checks["sr_rollout"] = dict(identical=same, max_abs_err=max_abs, plain_ms=plain_ms,
+                                lanes=xalive[-1].numel(), t_steps=t_fix)
+    t_cut = s["deep_adaptive_t"]
+    cut = (ts_full[:t_cut], ys_full[:, :t_cut].contiguous())
+    for key, kernel, plain, steps_arg in (
+            ("sr_adaptive_global", ca.sr_fitness_adaptive_global_cuda, ca.sr_fitness_adaptive_global_plain,
+             s["deep_adaptive_budget"]),
+            ("sr_adaptive_interval", ca.sr_fitness_adaptive_interval_cuda,
+             ca.sr_fitness_adaptive_interval_plain, s["deep_interval_steps"])):
+        args = (flat, x0s, *cut, fset, 1e-4, 1e-6, steps_arg, "dopri5", 0.9)
+        got = kernel(*args) if on_card else plain(*args)
+        want, plain_ms = timed_plain(lambda: plain(*args), device)
+        same, _, _, _, max_abs = compare_adaptive(got, want)
+        check(same == 1.0, f"{key} extended: {same:.6f} of lanes identical")
+        checks[key] = dict(identical=same, max_abs_err=max_abs, plain_ms=plain_ms, t_steps=t_cut,
+                           steps_arg=steps_arg, lanes=got[1].numel())
+    for key in ("sr_fitness", "sr_rollout", "sr_adaptive_global", "sr_adaptive_interval"):
+        c = checks[key]
+        phase_line(f"phase 24 #{dict(sr_fitness=1, sr_rollout=3, sr_adaptive_global=5, sr_adaptive_interval=4)[key]} "
+                   f"{key} extended vs plain on the last population ({c['lanes']} lanes, T={c['t_steps']}): "
+                   f"identical {c['identical']:.6f}, max abs {c['max_abs_err']:.3e}, plain {c['plain_ms']:.1f} ms")
+
+    # #8/#9 in the round's layout (its top 50 against the batch's states, the
+    # N <= 32 instance the round launches) and #2 on one generation's lanes of
+    # the 14-operator population
+    gc = torch.Generator(device=device).manual_seed(242)
+    c = checks["interpreter_round"] = lanes_check(*shape_case(device, flat[top], b, gc), fset,
+                                                  "#8/#9 extended, the round's layout")
+    phase_line(f"phase 24 #8/#9 extended N={n} vs plain in the round's layout ({c['lanes']} lanes): "
+               f"bit-equal {c['bit_equal']}, finite {c['finite']:.4f}, plain {c['plain_ms']:.1f} ms")
+    rep = reproduction_case(device, s, pops, fset, gc)
+    c = checks["reproduce"] = {k: rep[k] for k in ("lanes", "ops_identical", "max_abs_err", "max_rel",
+                                                    "bit_equal")}
+    phase_line(f"phase 24 #2 reproduce vs plain with {fset.num_operators} operators ({c['lanes']} lanes): "
+               f"ops identical {c['ops_identical']:.6f}, const max rel {c['max_rel']:.3e}, bit-equal "
+               f"{c['bit_equal']}; every child valid")
+
+    # the control workload with tanh: 5 generations of the static loop (#6, #2)
+    env, pdata = ps["env"], ps["data"]
+    ys = [f"y{i}" for i in range(env.n_obs)]
+    pgp = GeneticProgramming(
+        num_generations=s["generations"], population_size=s["pop"],
+        fitness_function=StaticPolicyEvaluator(env, substeps=s["policy_substeps"]),
+        operator_list=EXT_POLICY_OPERATORS, variable_list=[ys], layer_sizes=[1],
+        num_populations=s["islands"], max_nodes=s["policy_nodes"], max_init_depth=s["depth"],
+        device=device)
+    pfset = pgp.fset
+    check(pfset.extended, "the policy set with tanh must take the extended build")
+    pcounters = dict(policy=cp.policy_rollout_cuda, reproduce=cr.reproduce_lanes_cuda)
+    pr = loop_generations(pgp, pdata, device, s["generations"], 240, pcounters)
+    if on_card:
+        check(all(g_["eval_launches"]["policy"] >= 1 and g_["evolve_launches"]["reproduce"] >= 1
+                  for g_ in pr["generations"]), f"policy loop launches {pr['launches']}")
+    pgen_ms = [g_["eval_ms"] + g_["evolve_ms"] for g_ in pr["generations"]]
+    phase_line(f"phase 24 static Acrobot with {' '.join(pfset.operator_names)}: ms per generation "
+               f"{[round(v, 3) for v in pgen_ms]} (median {statistics.median(pgen_ms):.3f}), best "
+               f"{[round(v, 4) for v in pr['best']]}, launches {pr['launches']}")
+    res["policy"] = dict(generations=pr["generations"], ms_per_generation=pgen_ms, launches=pr["launches"])
+    pflat = pr["pops"].map(lambda a: a.reshape((-1,) + a.shape[2:]))
+    dyn_fset = build_function_set(EXT_POLICY_OPERATORS, [ys + ["a0", "a1", "u0"], ["a0", "a1"]],
+                                  [2, env.n_control])
+    g = torch.Generator(device=device).manual_seed(241)
+    dyn_trees = make_population_sampler(dyn_fset, s["depth"], s["policy_nodes"])(
+        g, s["islands"] * s["pop"])[0]
+    for key, kind, trees_, fset_, state_size, t_cut in (
+            ("policy_static", "fixed", pflat, pfset, 0, s["policy_fixed_t"]),
+            ("policy_dynamic", "fixed", dyn_trees, dyn_fset, 2, s["policy_fixed_t"]),
+            ("policy_adaptive_static", "adaptive", pflat, pfset, 0, s["policy_adaptive_t"])):
+        c = checks[key] = policy_pair(device, kind, trees_, pdata, env, fset_, state_size, t_cut,
+                                      substeps=s["policy_substeps"])
+        phase_line(f"phase 24 {key} extended vs plain, T={t_cut}, {c['lanes']} lanes: identical "
+                   f"{c['identical']:.6f}, max abs {c['max_abs_err']:.3e}, alive {c['alive']:.4f}, plain "
+                   f"{c['plain_ms']:.1f} ms")
+
+    # #8/#9 on chains holding every operator: 256 rows (phase 17's 256 x 16
+    # lanes) and 1024 rows (16 a tree)
+    for nodes, count in ((s["deep_nodes"], s["deep_pop"]), (max(s["wide_check_nodes"]), 12)):
+        cands = make_population_sampler(fset, s["deep_depth"], nodes)(g, count)[0]
+        cands = ext_chain_trees(cands, fset, [nodes - 1, min(127, nodes - 1), min(63, nodes - 1)])
+        key = f"interpreter_n{nodes}"
+        c = checks[key] = lanes_check(*shape_case(device, cands, b, g), fset, f"#8/#9 extended {key}")
+        phase_line(f"phase 24 #8/#9 extended N={nodes} vs plain ({c['lanes']} lanes, trees of up to "
+                   f"{c['rows_max']} rows): bit-equal {c['bit_equal']}, finite {c['finite']:.4f}, plain "
+                   f"{c['plain_ms']:.1f} ms")
+
+    if on_card:
+        check(all(_build.variant_name(k, True) in _build._loaded for k in EXTENDED_KERNELS),
+              f"extended builds loaded: {sorted(_build._loaded)}")
+        # device ms per launch beside the six-operator sets on one shape, in turns
+        ys_c = ys_full.contiguous()
+        short = (ts_full[: s["adaptive_short_t"]], ys_full[:, : s["adaptive_short_t"]].contiguous())
+        sr_cases = []
+        for tag, tr, fs in (("six", trees6, fset6), ("ext", flat, fset)):
+            sr_cases.append([
+                (f"sr_fitness_{tag}", (lambda tr=tr, fs=fs: cf.sr_fitness_cuda(tr, x0s, ts_full, ys_c, fs, "rk4", 1)),
+                 "sr_fitness_kernel"),
+                (f"sr_rollout_{tag}", (lambda tr=tr, fs=fs: cf.sr_rollout_cuda(tr, x0s, ts_full, fs, "rk4", 1)),
+                 "sr_rollout_kernel"),
+                (f"sr_adaptive_global_{tag}", (lambda tr=tr, fs=fs: ca.sr_fitness_adaptive_global_cuda(
+                    tr, x0s, ts_full, ys_c, fs, 1e-4, 1e-6, s["adaptive_budget"], "dopri5")),
+                 "adaptive_global_kernel"),
+                (f"sr_adaptive_interval_{tag}", (lambda tr=tr, fs=fs: ca.sr_fitness_adaptive_interval_cuda(
+                    tr, x0s, *short, fs, 1e-4, 1e-6, s["adaptive_interval_steps"], "dopri5")),
+                 "adaptive_interval_kernel")])
+        x0, pts, tgt, _, _, par = pdata
+        pol_cases = []
+        for tag, st, dy, fs_s, fs_d in (("six", ps["trees"]["static"], ps["trees"]["dynamic"],
+                                         ps["fsets"]["static"], ps["fsets"]["dynamic"]),
+                                        ("ext", pflat, dyn_trees, pfset, dyn_fset)):
+            pol_cases.append([
+                (f"policy_static_{tag}", (lambda st=st, fs=fs_s: cp.policy_rollout_cuda(
+                    st, x0, pts, tgt, par, env, fs, s["policy_substeps"], "rk4", 0)), "policy_kernel"),
+                (f"policy_dynamic_{tag}", (lambda dy=dy, fs=fs_d: cp.policy_rollout_cuda(
+                    dy, x0, pts, tgt, par, env, fs, s["policy_substeps"], "rk4", 2)), "policy_kernel"),
+                (f"policy_adaptive_{tag}", (lambda st=st, fs=fs_s: cp.policy_rollout_adaptive_cuda(
+                    st, x0, pts, tgt, par, env, fs, 1e-4, 1e-4, s["policy_adaptive_substeps"])),
+                 "policy_adaptive_kernel")])
+        cases = [c for six, ext in (sr_cases, pol_cases) for pair in zip(six, ext) for c in pair]
+        # what the extended build costs a six-operator set: the same trees
+        # through the default library and, with an unused max appended to
+        # the set, through the extended one (#1, #5, #6, #9)
+        tr_x, fs_x = with_unused_max(trees6, fset6)
+        st_x, fs_sx = with_unused_max(ps["trees"]["static"], ps["fsets"]["static"])
+        bwd = shape_case(device, trees6, b, gc)
+        bwd_x = (with_unused_max(bwd[0], fset6)[0],) + bwd[1:]
+        fork = []
+        for tag, tr, fs, st, fs_s, ops in (("default", trees6, fset6, ps["trees"]["static"],
+                                            ps["fsets"]["static"], bwd),
+                                           ("ext_build", tr_x, fs_x, st_x, fs_sx, bwd_x)):
+            fork.append([
+                (f"fork_sr_fitness_{tag}", (lambda tr=tr, fs=fs: cf.sr_fitness_cuda(
+                    tr, x0s, ts_full, ys_c, fs, "rk4", 1)), "sr_fitness_kernel"),
+                (f"fork_sr_adaptive_global_{tag}", (lambda tr=tr, fs=fs: ca.sr_fitness_adaptive_global_cuda(
+                    tr, x0s, ts_full, ys_c, fs, 1e-4, 1e-6, s["adaptive_budget"], "dopri5")),
+                 "adaptive_global_kernel"),
+                (f"fork_policy_static_{tag}", (lambda st=st, fs=fs_s: cp.policy_rollout_cuda(
+                    st, x0, pts, tgt, par, env, fs, s["policy_substeps"], "rk4", 0)), "policy_kernel"),
+                (f"fork_interpret_bwd_{tag}", (lambda ops=ops, fs=fs: ci.evaluate_trees_vjp_cuda(
+                    *ops, fs)), "interpret_bwd_kernel")])
+        cases = [c for pair in zip(*fork) for c in pair] + cases
+        times = in_turns(cases, 3, torch)
+        res["device_ms"] = times
+        for key in ("sr_fitness", "sr_adaptive_global", "policy_static", "interpret_bwd"):
+            d, x = times[f"fork_{key}_default"], times[f"fork_{key}_ext_build"]
+            phase_line(f"phase 24 {key} six-operator trees, device ms a launch (default build, extended "
+                       f"build, extended build, default build): {d[0]:.4f}, {x[0]:.4f}, {x[1]:.4f}, {d[1]:.4f}")
+        for key in ("sr_fitness", "sr_rollout", "sr_adaptive_global", "sr_adaptive_interval",
+                    "policy_static", "policy_dynamic", "policy_adaptive"):
+            six, ext = times[f"{key}_six"], times[f"{key}_ext"]
+            phase_line(f"phase 24 {key} device ms a launch (six-operator, extended, extended, six-operator "
+                       f"on one shape): {six[0]:.4f}, {ext[0]:.4f}, {ext[1]:.4f}, {six[1]:.4f}")
+        res["nvcc_s"] = {k: v for k, v in _build.build_seconds.items() if k.endswith("_ext")}
+        phase_line(f"phase 24 extended build nvcc seconds (beside the default build): {res['nvcc_s']}")
+    res["seconds"] = time.perf_counter() - t_start
+    phase_line(f"phase 24 took {res['seconds']:.1f} s")
+    return {"extended": res}
+
+
 def sync(device) -> None:
     import torch
 
@@ -3047,7 +3433,13 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
     kernels = SHARDED_KERNELS if opts.sharded_only else KERNELS
-    _build.build(*kernels)  # one nvcc per source, in parallel
+    extended = () if opts.sharded_only else EXTENDED_KERNELS
+    # one nvcc per library, all started together: the default builds, and
+    # phase 24's extended ones
+    with ThreadPoolExecutor(1) as pool:
+        ext_build = pool.submit(_build.build, *extended, extended=True)
+        _build.build(*kernels)
+        ext_build.result()
     for name in kernels:
         _build.load(name)
     build_s = time.perf_counter() - t0

@@ -13,6 +13,13 @@ the kernels round exactly as their plain PyTorch versions do; division and
 square root stay IEEE (no fast-math). ``-Xptxas -v`` makes ``ptxas`` report
 each kernel's registers, stack frame and spills; the report of a build in
 this process is kept in :data:`build_logs`.
+
+Each source has two builds: the default one, and the extended one (``-D
+MTGP_EXT_OPS``, the library ``<name>_ext``), whose tree kernels also compute
+the operators past ``+ - * / sin cos`` (``csrc/tree_eval.cuh``). A function
+set within those six never loads the extended build, so it runs the code it
+always ran; the extended build is made at the first use of a set that needs
+it.
 """
 from __future__ import annotations
 
@@ -37,9 +44,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
+EXTENDED_FLAGS = ("-DMTGP_EXT_OPS",)  # the extended build's extra flags (nvcc and g++)
+
 _loaded: Dict[str, ctypes.CDLL] = {}
-# seconds from the start of a build until its nvcc finished, per library built
-# in this process (0.0 when reused)
+# seconds from the start of a build until its nvcc finished, per library
+# (variant_name) built in this process (0.0 when reused)
 build_seconds: Dict[str, float] = {}
 # nvcc's output (the ptxas resource report) per library built in this process
 build_logs: Dict[str, str] = {}
@@ -76,24 +85,35 @@ def source_files(name: str) -> List[Path]:
     return files
 
 
-def library_path(name: str) -> Path:
+def variant_name(name: str, extended: bool = False) -> str:
+    """The library's name: ``name``, or ``name_ext`` for the extended build."""
+    return f"{name}_ext" if extended else name
+
+
+def _flags(extended: bool) -> tuple:
+    return NVCC_FLAGS + EXTENDED_FLAGS if extended else NVCC_FLAGS
+
+
+def library_path(name: str, extended: bool = False) -> Path:
     """Where the library of ``csrc/<name>.cu`` is built: the file name hashes
     the source, the headers it includes and the flags, so editing any of them
     rebuilds it."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(extended)).encode())
     for path in source_files(name):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{variant_name(name, extended)}-{h.hexdigest()[:16]}.so"
 
 
-def build(*names: str) -> List[Path]:
-    """Compile each ``csrc/<name>.cu`` unless a library of the same source
-    exists; the ``nvcc`` processes run in parallel, one per source."""
-    outs = [library_path(name) for name in names]
+def build(*names: str, extended: bool = False) -> List[Path]:
+    """Compile each ``csrc/<name>.cu`` (its extended build with ``extended``)
+    unless a library of the same source exists; the ``nvcc`` processes run in
+    parallel, one per source. :data:`build_seconds` and :data:`build_logs`
+    key each by :func:`variant_name`."""
+    outs = [library_path(name, extended) for name in names]
     todo = []
     for name, out in zip(names, outs):
         if out.exists():
-            build_seconds.setdefault(name, 0.0)
+            build_seconds.setdefault(variant_name(name, extended), 0.0)
         else:
             todo.append((name, out))
     if not todo:
@@ -105,7 +125,7 @@ def build(*names: str) -> List[Path]:
         jobs = []
         for name, out in todo:
             tmp_out = Path(tmp) / out.name
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp_out), str(CSRC_DIR / f"{name}.cu")]
+            cmd = [nvcc, *_flags(extended), "-o", str(tmp_out), str(CSRC_DIR / f"{name}.cu")]
             log = open(Path(tmp) / f"{name}.log", "w+")  # a file, so no pipe fills up
             jobs.append((name, out, tmp_out, cmd, log,
                          subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, text=True)))
@@ -113,13 +133,14 @@ def build(*names: str) -> List[Path]:
         while pending:
             time.sleep(0.05)
             for name, out, tmp_out, cmd, log, proc in [j for j in pending if j[-1].poll() is not None]:
-                build_seconds[name] = time.perf_counter() - t0
+                key = variant_name(name, extended)
+                build_seconds[key] = time.perf_counter() - t0
                 log.seek(0)
-                build_logs[name] = log.read()
+                build_logs[key] = log.read()
                 log.close()
                 if proc.returncode != 0:
                     failed.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
-                                  f"{' '.join(cmd)}\n{build_logs[name]}")
+                                  f"{' '.join(cmd)}\n{build_logs[key]}")
                 else:
                     os.replace(tmp_out, out)  # atomic: a concurrent loader sees all or nothing
             pending = [j for j in pending if j[-1].returncode is None]
@@ -128,30 +149,33 @@ def build(*names: str) -> List[Path]:
     return outs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process.
+def load(name: str, extended: bool = False) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``, its extended build with
+    ``extended``; cached per process.
 
     Every library exports ``const char* mtgp_error_string(int)``."""
-    if name not in _loaded:
-        lib = ctypes.CDLL(str(build(name)[0]))
+    key = variant_name(name, extended)
+    if key not in _loaded:
+        lib = ctypes.CDLL(str(build(name, extended=extended)[0]))
         lib.mtgp_error_string.argtypes = [ctypes.c_int]
         lib.mtgp_error_string.restype = ctypes.c_char_p
-        _loaded[name] = lib
-    return _loaded[name]
+        _loaded[key] = lib
+    return _loaded[key]
 
 
-def build_host(name: str, out_dir: Path) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` for the host with the C++ compiler and load
-    it. Without ``__CUDACC__`` the source builds its per-lane code into a
-    plain lane loop (``<name>_host``), so tests can check the kernel's logic
-    against its plain version where there is no card. Contraction is off
-    (``-ffp-contract=off``) as on the card."""
+def build_host(name: str, out_dir: Path, extended: bool = False) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` (its extended build with ``extended``) for
+    the host with the C++ compiler and load it. Without ``__CUDACC__`` the
+    source builds its per-lane code into a plain lane loop (``<name>_host``),
+    so tests can check the kernel's logic against its plain version where
+    there is no card. Contraction is off (``-ffp-contract=off``) as on the
+    card."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         raise RuntimeError("no host C++ compiler found")
-    out = Path(out_dir) / f"{name}_host.so"
+    out = Path(out_dir) / f"{variant_name(name, extended)}_host.so"
     cmd = [cxx, "-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
-           "-o", str(out), str(CSRC_DIR / f"{name}.cu")]
+           *(EXTENDED_FLAGS if extended else ()), "-o", str(out), str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"host build of {name}.cu failed:\n{proc.stderr}")

@@ -11,7 +11,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .core.registry import FunctionSet, build_function_set
+from .core.registry import OPERATORS, FunctionSet, build_function_set
 from .core.trees import TreeTensors
 
 
@@ -34,7 +34,10 @@ def function_set_from_jax(fset) -> FunctionSet:
     """The port's :class:`FunctionSet` equal to a JAX ``FunctionSet``: same
     operator names (hence opcodes), arities, probabilities, variable names,
     per-tree variable mask and layer sizes. ``fset`` is read by attribute; its
-    arrays are converted with ``np.asarray``."""
+    arrays are converted with ``np.asarray``. Each operator's callable is held
+    against the port's table (:func:`~.core.registry.table_agrees`): one
+    that computes something else under a table name (a protected ``log``)
+    raises ``ValueError``, as a name outside the table does."""
     arities = np.asarray(fset.arities).tolist()
     probs = np.asarray(fset.operator_probs, np.float32).tolist()
     mask = np.asarray(fset.variable_mask)
@@ -43,10 +46,13 @@ def function_set_from_jax(fset) -> FunctionSet:
     for size in fset.layer_sizes:
         variable_list.append([names[v] for v in np.flatnonzero(mask[row] > 0)])
         row += size
-    out = build_function_set(
-        [(name, int(a), float(p)) for name, a, p in zip(fset.operator_names, arities, probs)],
-        variable_list, fset.layer_sizes,
-    )
+    ops = []
+    for name, fn, a, p in zip(fset.operator_names, fset.operator_fns, arities, probs):
+        if name in OPERATORS:  # the JAX callables take (x, y), unary ones ignoring y
+            ops.append((name, (lambda x, f=fn: f(x, x)) if a == 1 else fn, int(a), float(p)))
+        else:
+            ops.append((name, int(a), float(p)))
+    out = build_function_set(ops, variable_list, fset.layer_sizes)
     if out.variable_names != tuple(names) or not np.array_equal(out.variable_mask.numpy(), mask):
         raise ValueError("variable order or mask does not round-trip")
     return out

@@ -26,6 +26,13 @@ checks, the joint batch, the dimension order and the layout words. A hit
 vouches for those checks; the cotangent and the device type are checked on
 every call. The entry points' ``ctypes`` types are set once per library.
 
+A function set with an operator past ``+ - * / sin cos`` launches the
+library's extended build (``_build.load("interpreter", fset.extended)``);
+the layout words carry the device op table, whose ids each build's
+``make_params`` checks against the operators it computes, and whether the
+set has unary operators (the instance without the unary rows' code
+otherwise).
+
 The plain versions (``core/interpreter.py``) and the autograd ``Function``
 that picks between them live beside the dispatcher in ``interpreter.py``.
 """
@@ -218,7 +225,7 @@ def _require_cuda(trees: TreeTensors) -> torch.device:
 def evaluate_trees_cuda(trees: TreeTensors, data: torch.Tensor, fset: FunctionSet) -> torch.Tensor:
     """Launch the forward kernel: float32 roots of the joint batch shape."""
     dev = _require_cuda(trees)
-    lib = _build.load("interpreter")
+    lib = _build.load("interpreter", fset.extended)
     status, out = run_forward(lib.interpret_fwd, trees, data, fset,
                               torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, status, "interpreter forward kernel launch")
@@ -235,7 +242,7 @@ def evaluate_trees_vjp_cuda(
     """Launch the reverse-sweep kernel: ``(dconst like trees.const, ddata
     like data)`` for the roots' cotangent ``g``."""
     dev = _require_cuda(trees)
-    lib = _build.load("interpreter")
+    lib = _build.load("interpreter", fset.extended)
     status, dconst, ddata = run_backward(lib.interpret_bwd, trees, data, g, fset,
                                          torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, status, "interpreter backward kernel launch")

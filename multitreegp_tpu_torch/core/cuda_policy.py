@@ -404,11 +404,11 @@ def _alive_rows(count: torch.Tensor, t_steps: int) -> torch.Tensor:
     return torch.arange(t_steps, device=count.device)[:, None, None] < count[None]
 
 
-def _cuda_launch(kind: int, trees: TreeTensors, b: int):
+def _cuda_launch(kind: int, trees: TreeTensors, b: int, fset: FunctionSet):
     dev = trees.ops.device
     if dev.type != "cuda":
         raise ValueError(f"the policy kernels take CUDA tensors, got {dev}")
-    lib = _build.load("policy")
+    lib = _build.load("policy", fset.extended)
     fn = lib.policy_launch
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -431,7 +431,7 @@ def policy_rollout_cuda(
         raise NotImplementedError(f"method {method!r}: the fixed-step kernel has {sorted(METHODS)}")
     if substeps < 1:
         raise ValueError("substeps must be >= 1")
-    lib, launch = _cuda_launch(FIXED, trees, x0.shape[0])
+    lib, launch = _cuda_launch(FIXED, trees, x0.shape[0], fset)
     status, xs, us, count, _ = run_policy(
         launch, FIXED, trees, x0, ts, targets, params, env, fset, state_size, method, substeps,
         obs_noise_rows, process_noise_rows)
@@ -453,7 +453,7 @@ def policy_rollout_adaptive_cuda(
         raise ValueError(f"unknown adaptive method {method!r}: {sorted(ADAPTIVE_METHODS)}")
     if max_steps < 0:
         raise ValueError(f"step budget {max_steps} < 0")
-    lib, launch = _cuda_launch(ADAPTIVE, trees, x0.shape[0])
+    lib, launch = _cuda_launch(ADAPTIVE, trees, x0.shape[0], fset)
     status, xs, us, count, steps = run_policy(
         launch, ADAPTIVE, trees, x0, ts, targets, params, env, fset, state_size, method,
         max_steps=max_steps, rtol=rtol, atol=atol, safety=safety)

@@ -47,6 +47,26 @@ def dispatch(
     return torch.where(op >= fset.var_start, leaf, val)
 
 
+class _TakeLast(torch.autograd.Function):
+    """``torch.gather(below, -1, idx)`` with one index per lane. Its backward
+    writes each cotangent at its index (``scatter_``) where ``gather``'s adds
+    it to zeros (``scatter_add_``): on CUDA that add is atomic, and the card's
+    atomic float add flushes a subnormal to zero, so the second operands'
+    subnormal cotangents (an ``exp`` or ``pow`` that underflows) would be
+    lost. The same values otherwise, at the same place in autograd's graph."""
+
+    @staticmethod
+    def forward(ctx, below, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape = below.shape
+        return torch.gather(below, -1, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return torch.zeros(ctx.shape, dtype=g.dtype, device=g.device).scatter_(-1, idx, g), None
+
+
 def evaluate_trees_plain(trees: TreeTensors, data: torch.Tensor, fset: FunctionSet) -> torch.Tensor:
     """Root value of every tree on every data vector (plain PyTorch).
 
@@ -74,7 +94,7 @@ def evaluate_trees_plain(trees: TreeTensors, data: torch.Tensor, fset: FunctionS
         y = zero
         if rows:
             below = torch.stack(rows, -1)
-            y = torch.gather(below, -1, (c2 - start).clamp(0, i - 1 - start).long()[..., None])[..., 0]
+            y = _TakeLast.apply(below, (c2 - start).clamp(0, i - 1 - start).long()[..., None])[..., 0]
             y = torch.where((c2 >= start) & (c2 < i), y, zero)
         leaf = zero
         for j in range(nvar):

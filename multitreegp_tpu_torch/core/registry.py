@@ -8,11 +8,20 @@ order across layers.
 Design change from the JAX registry: there, operators are Python callables
 that Pallas traces into the kernels. A CUDA kernel cannot take a callable, so
 here an operator is known by its NAME, and every name the kernels implement
-has a fixed device op id in :data:`DEVICE_OPS`. The fitness kernel receives
-an ``opcode - OP_START -> device op id`` table (:meth:`FunctionSet.device_ops`).
-An operator outside that table still runs on the CPU (through its torch
-function in :data:`OPERATORS` or a given callable); the CUDA fitness kernel
-given such a function set raises.
+has a fixed device op id in :data:`DEVICE_OPS`: ``+ - * / sin cos``, and
+``exp log sqrt tanh tan abs neg square pow max min`` with jnp's semantics
+(nothing is protected: ``log`` and ``sqrt`` of a negative number are NaN,
+``log(0)`` is ``-inf``, ``pow`` of a negative base to a non-integral power is
+NaN, ``max``/``min`` propagate NaN). Every tree kernel receives an
+``opcode - OP_START -> device op id`` table (:meth:`FunctionSet.device_ops`).
+The kernels come in two builds: the default one knows ``+ - * / sin cos``
+only, so those sets run exactly the code they always ran, and a function set
+with any later operator (:attr:`FunctionSet.extended`) loads the extended
+build (``csrc`` compiled with ``MTGP_EXT_OPS``). An operator outside the table
+(a user's callable under another name, or under a table name but computing
+something else, as a protected ``log``: :func:`table_agrees`) still runs on
+the CPU, through its torch function; every CUDA kernel given such a function
+set raises, and never falls back to the plain version.
 """
 from __future__ import annotations
 
@@ -33,11 +42,28 @@ OPERATORS: Dict[str, Tuple[int, Callable]] = {
     "/": (2, lambda x, y: x / y),
     "sin": (1, lambda x, y: torch.sin(x)),
     "cos": (1, lambda x, y: torch.cos(x)),
+    "exp": (1, lambda x, y: torch.exp(x)),
+    "log": (1, lambda x, y: torch.log(x)),
+    "sqrt": (1, lambda x, y: torch.sqrt(x)),
+    "tanh": (1, lambda x, y: torch.tanh(x)),
+    "tan": (1, lambda x, y: torch.tan(x)),
+    "abs": (1, lambda x, y: torch.abs(x)),
+    "neg": (1, lambda x, y: torch.neg(x)),
+    "square": (1, lambda x, y: torch.square(x)),
+    "pow": (2, lambda x, y: torch.pow(x, y)),
+    "max": (2, lambda x, y: torch.maximum(x, y)),
+    "min": (2, lambda x, y: torch.minimum(x, y)),
 }
-# Device op ids: the operators of csrc/tree_eval.cuh (kAdd .. kCos), which
-# every tree-evaluating kernel shares; the ids from 4 on are unary. A function
-# set with an operator outside this table runs on the CPU only.
-DEVICE_OPS: Dict[str, int] = {"+": 0, "-": 1, "*": 2, "/": 3, "sin": 4, "cos": 5}
+# Device op ids: the operators of csrc/tree_eval.cuh (kAdd .. kMin), which
+# every tree-evaluating kernel shares; ids 4-13 are unary. The ids from
+# EXTENDED_FROM on exist only in the kernels' extended build. A function set
+# with an operator outside this table runs on the CPU only.
+DEVICE_OPS: Dict[str, int] = {
+    "+": 0, "-": 1, "*": 2, "/": 3, "sin": 4, "cos": 5,
+    "exp": 6, "log": 7, "sqrt": 8, "tanh": 9, "tan": 10, "abs": 11, "neg": 12, "square": 13,
+    "pow": 14, "max": 15, "min": 16,
+}
+EXTENDED_FROM = DEVICE_OPS["exp"]  # the first device op id of the extended build
 UNKNOWN_DEVICE_OP = -1
 
 
@@ -47,6 +73,54 @@ def device_table(values: Tuple, dtype: torch.dtype, device: torch.device) -> tor
     dtype, device): the kernels' small constant tables, so that a launch
     copies nothing from the host. Shared: never write to it."""
     return torch.tensor(values, dtype=dtype, device=device)
+
+
+# The values at which a given callable is held against the table's function
+# (every pair of them for a binary operator): signs, zero, values past the
+# poles and branch points of the table's operators, and the non-finite ones.
+PROBE_VALUES = (-3.0, -2.0, -1.5, -1.0, -0.75, -0.5, -0.25, 0.0, 0.25, 0.5, 0.75, 1.0, 1.5, 2.0, 3.0,
+                float("inf"), float("-inf"), float("nan"))
+
+
+def table_agrees(name: str, fn: Callable) -> bool:
+    """Whether ``fn`` (``fn(x)`` for a unary operator, ``fn(x, y)`` for a
+    binary one) computes the table's operator ``name`` on
+    :data:`PROBE_VALUES`: equal within 1e-6 relative, with the same NaNs and
+    infinities. ``fn`` is called on float32 torch tensors, or on numpy
+    arrays when it refuses those (a jnp callable). Raises ``ValueError`` for
+    a callable that disagrees and returns no torch tensor: it could not run
+    in the port at all. Cached per ``(name, fn)`` where ``fn`` hashes."""
+    if getattr(fn, "__hash__", None) is None:
+        return _table_agrees(name, fn)
+    return _table_agrees_cached(name, fn)
+
+
+def _table_agrees(name: str, fn: Callable) -> bool:
+    arity, table_fn = OPERATORS[name]
+    v = torch.tensor(PROBE_VALUES, dtype=torch.float32)
+    x, y = (v.repeat_interleave(len(v)), v.repeat(len(v))) if arity == 2 else (v, v)
+    args = (x,) if arity == 1 else (x, y)
+    try:
+        got = fn(*args)
+    except Exception:  # noqa: BLE001 - a callable that takes arrays, not tensors
+        import numpy as np
+
+        try:
+            got = np.array(fn(*(a.numpy() for a in args)), dtype=np.float32)
+        except Exception as exc:  # noqa: BLE001
+            raise ValueError(f"operator {name!r}: the given function could not be evaluated "
+                             f"on float32 tensors or arrays: {exc}") from exc
+    is_torch = isinstance(got, torch.Tensor)
+    got = torch.as_tensor(got, dtype=torch.float32).broadcast_to(x.shape)
+    agrees = bool(torch.isclose(got, table_fn(x, y), rtol=1e-6, atol=0.0, equal_nan=True).all())
+    if not agrees and not is_torch:
+        raise ValueError(f"operator {name!r}: the given function differs from the table's "
+                         f"({name} as torch computes it) and is not a torch function, so it "
+                         f"cannot run in this package")
+    return agrees
+
+
+_table_agrees_cached = lru_cache(maxsize=256)(_table_agrees)
 
 
 @dataclass(frozen=True)
@@ -118,6 +192,13 @@ class FunctionSet:
         instance without the unary rows' code otherwise."""
         return any(a == 1 for a in self.arities)
 
+    @property
+    def extended(self) -> bool:
+        """Whether any operator lies past ``+ - * / sin cos``: the tree
+        kernels then run their extended build (``_build.load(name,
+        extended=True)``)."""
+        return any(i >= EXTENDED_FROM for i in self.device_op_ids)
+
     def slots(self, device=None) -> torch.Tensor:
         """int32 arity per opcode: 0 for EMPTY/CONST/variables (cached per
         device)."""
@@ -161,10 +242,15 @@ def build_function_set(
 
     ``operator_list`` entries are ``(name, fn, arity[, probability])`` as in the
     JAX package, or ``(name, arity[, probability])``. A name in
-    :data:`OPERATORS` uses the table's torch function (a given ``fn`` is
-    ignored: JAX callables cannot run on torch tensors); other names need a
-    torch callable ``fn``. Only names in :data:`DEVICE_OPS` run in the
-    fitness kernel.
+    :data:`OPERATORS` without ``fn`` takes the table's torch function and its
+    device op id. With ``fn`` (a torch or a jnp callable) the function is
+    first evaluated on :data:`PROBE_VALUES` (:func:`table_agrees`): where it
+    agrees with the table's, the table's function and device op id are used;
+    a torch callable that does not (a protected ``log``, say) is kept as
+    given and runs on the CPU only, like any name outside the table; any
+    other callable that does not agree raises ``ValueError``, since it
+    cannot run on torch tensors. Other names need a torch callable ``fn``,
+    and run on the CPU only.
     """
     layer_sizes = tuple(int(s) for s in layer_sizes)
     if len(layer_sizes) != len(variable_list):
@@ -189,15 +275,15 @@ def build_function_set(
             raise ValueError(f"operator {name!r}: arity must be 1 or 2, got {arity}")
         if name in string_to_op:
             continue
-        if name in OPERATORS:
-            known_arity, fn = OPERATORS[name]
-            if known_arity != arity:
-                raise ValueError(f"operator {name!r} has arity {known_arity}, got {arity}")
+        dev_id = UNKNOWN_DEVICE_OP
+        if name in OPERATORS and OPERATORS[name][0] != arity:
+            raise ValueError(f"operator {name!r} has arity {OPERATORS[name][0]}, got {arity}")
+        if name in OPERATORS and (fn is None or table_agrees(name, fn)):
+            fn, dev_id = OPERATORS[name][1], DEVICE_OPS[name]
         elif fn is None:
             raise ValueError(f"operator {name!r} is not in OPERATORS and has no function")
         elif arity == 1:
             fn = (lambda f: (lambda x, y: f(x)))(fn)
-        dev_id = DEVICE_OPS.get(name, UNKNOWN_DEVICE_OP)
         string_to_op[name] = OP_START + len(names)
         names.append(name)
         fns.append(fn)

@@ -42,7 +42,8 @@
 // The row loop then makes no global load: the row comes from shared memory
 // (one address per group of the warp), the first operand from a register, the
 // second from the lane's row array in local memory, and every row runs the
-// same instructions whatever its kind (division and sin/cos keep a branch), so
+// same instructions whatever its kind (division, the unary operators and the
+// extended build's pow, max and min keep a branch), so
 // the groups of a warp do not take their rows' branches one after the other.
 // The VJP runs the same forward into the lane's tape (each row's value beside
 // the cotangent that rows above have sent it as their second operand), then
@@ -53,7 +54,8 @@
 //
 // Numerics: the forward runs the plain version's float32 operations; the
 // backward uses the expressions PyTorch autograd uses for them (d/dy of x/y
-// is -g * ((x / y) / y), d/dx of sin x is g * cos(x)), and accumulates each
+// is -g * ((x / y) / y), d/dx of sin x is g * cos(x); the extended build's
+// in unary_vjp and binary_vjp), and accumulates each
 // cotangent in the order the autograd engine does: a row's sum from the rows
 // above that read it as their second operand, top-down, then its parent's dx
 // (then that parent's dy where c2 == i-1); variable rows top-down. Built with
@@ -289,6 +291,9 @@ MTGP_HD inline float forward_rows(int n, const Row* rows, int start, const float
     const float y = sec > start ? value(tape[sec - 1]) : 0.0f;
     float r = arg == kAdd ? x + y : arg == kSub ? x - y : x * y;
     if (kind == kBinary && arg == kDiv) r = x / y;
+#ifdef MTGP_EXT_OPS
+    if (kind == kBinary && arg >= kPow) r = apply_binary(arg, x, y);
+#endif
     if (U && kind == kUnary) r = apply_unary(arg, x);
     const float leaf = kind == kLeafVar ? xs[arg * stride] : w.c;
     v = kind >= kBinary ? r : leaf;
@@ -297,10 +302,54 @@ MTGP_HD inline float forward_rows(int n, const Row* rows, int start, const float
   return v;
 }
 
+#ifdef MTGP_EXT_OPS
+// tanh_backward(g, r) = g * (1 - r * r): PyTorch's CUDA kernel is built with
+// contraction, which makes its 1 - r * r one fused multiply-add; the same here,
+// explicitly (-fmad=false keeps a written fmaf)
+MTGP_HD inline float tanh_grad(float r) { return fmaf(-r, r, 1.0f); }
+
+// The extended build's cotangents, autograd's formulas
+// (tools/autograd/derivatives.yaml, and pow_backward for torch.square's
+// pow(x, 2)) on the row's operand x and its value r: the unary rows' dx
+// (for sin and cos, as below)...
+MTGP_HD inline float unary_vjp(int id, float g, float x, float r) {
+  switch (id) {
+    case kSin: return g * cosf(x);
+    case kCos: return g * -sinf(x);
+    case kExp: return g * r;
+    case kLog: return g / x;
+    case kSqrt: return g / (2.0f * r);
+    case kTanh: return g * tanh_grad(r);
+    case kTan: return g * (1.0f + r * r);
+    case kAbs: return g * static_cast<float>((0.0f < x) - (x < 0.0f));  // sgn, 0 at 0 and NaN
+    case kNeg: return -g;
+    default: return g * (2.0f * x);  // kSquare
+  }
+}
+
+// ... and the binary ones' (dx, dy): pow_backward_self / pow_backward_exponent
+// (0 where the exponent is 0, and where the base is 0 and the exponent
+// >= 0), maximum / minimum (half to each on a tie).
+MTGP_HD inline void binary_vjp(int id, float g, float x, float y, float r, float& dx, float& dy) {
+  if (id == kPow) {
+    dx = y == 0.0f ? 0.0f : g * (y * powf(x, y - 1.0f));
+    dy = g * (x == 0.0f && y >= 0.0f ? 0.0f : r * logf(x));
+    return;
+  }
+  const float share = x == y ? g / 2.0f : g;
+  const bool x_loses = id == kMax ? x < y : x > y;
+  const bool y_loses = id == kMax ? x > y : x < y;
+  dx = x_loses ? 0.0f : share;
+  dy = y_loses ? 0.0f : share;
+}
+#endif
+
 // The top-down sweep of one lane from the root's cotangent g over the tape
 // that forward_rows filled: dconst rows (stride L) and the ddata column dd.
 // Cotangents of (x, y): PyTorch autograd's formulas for add, sub, mul and true
-// division, and for sin (g * cos(x)) and cos (g * -sin(x)).
+// division, and for sin (g * cos(x)) and cos (g * -sin(x)); the extended
+// build's rows read their own value from the tape (exp, sqrt, tanh, tan, pow
+// use the result).
 template <bool U>
 MTGP_HD inline void backward_rows(int n, const Row* rows, int start, float g, Tape* tape,
                                   float* dd, int stride, float* dconst, int64_t L) {
@@ -316,7 +365,12 @@ MTGP_HD inline void backward_rows(int n, const Row* rows, int start, float g, Ta
       dx = g / y;
       dy = -g * ((x / y) / y);
     }
+#ifdef MTGP_EXT_OPS
+    if (kind == kBinary && arg >= kPow) binary_vjp(arg, g, x, y, tape[i].v, dx, dy);
+    if (U && kind == kUnary) dx = unary_vjp(arg, g, x, tape[i].v);
+#else
     if (U && kind == kUnary) dx = arg == kSin ? g * cosf(x) : g * -sinf(x);
+#endif
     float next = below.g;  // row i-1's cotangent from the rows above row i
     if (kind >= kBinary) {
       next = next + dx;
@@ -438,7 +492,7 @@ int make_params(const int64_t* w, Params* p, int* unary) {
   }
   for (int k = 0; k < kMaxOps; ++k) {
     p->devop[k] = k < nops ? static_cast<int>(w[kHeader + 5 * kMaxDims + k]) : 0;
-    if (k < nops && (p->devop[k] < kAdd || p->devop[k] > kCos)) return 1;
+    if (k < nops && (p->devop[k] < kAdd || p->devop[k] > kLastOp)) return 1;
   }
   p->lanes = static_cast<int>(lanes);
   p->members = static_cast<int>(members);

@@ -99,7 +99,9 @@ MTGP_HD int decode_tree(Row* rows, int n, const int* __restrict__ devop, int var
 // second operand and +, -, * are all formed, one is kept): the candidates of
 // a warp run different trees, and their rows would otherwise take different
 // branches one after the other. Division and the unary operators, whose
-// code is long, keep a branch.
+// code is long, keep a branch, as do the extended build's pow, max and min:
+// a row's value is selected, never masked by a multiply (an exp or log not
+// kept can be inf or NaN, and 0 * inf is NaN).
 template <int V, bool U>
 MTGP_HD inline void row_step(const Row w, const float (&x)[V], float& acc, float* stk) {
   const int arg = (w.meta >> 2) & 63;
@@ -109,6 +111,9 @@ MTGP_HD inline void row_step(const Row w, const float (&x)[V], float& acc, float
   const float b = flag ? *slot : 0.0f;
   float r = arg == kAdd ? acc + b : arg == kSub ? acc - b : acc * b;
   if (op_row && arg == kDiv) r = acc / b;
+#ifdef MTGP_EXT_OPS
+  if (op_row && arg >= kPow) r = apply_binary(arg, acc, b);  // unary ids lie below kPow
+#endif
   if (U && (w.meta & 3) == kUnary) r = apply_unary(arg, acc);
   const float v = (w.meta & 1) ? leaf_value<V>(arg, x) : w.c;
   if (!op_row && flag) *slot = acc;

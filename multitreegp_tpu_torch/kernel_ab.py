@@ -27,12 +27,16 @@ threshold from the start (``early_input``: one round's work). A process that
 built the kernels first prints each ``nvcc``'s seconds and ptxas's
 registers, stack frame and spills per instance of the policy kernels for
 Acrobot at N <= 32, of the adaptive SR kernels and the trajectory kernel at
-state dim 2, of the interpreter kernels and of the probe. Two versions
-compare only within one such run.
+state dim 2, of the interpreter kernels and of the probe. Every process
+prints a digest of each library's machine code (``cuobjdump -sass``, its
+kernels' instructions), so that two versions whose builds compiled to the
+same code show the same digests. Two versions compare only within one such
+run.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import re
 import statistics
 import subprocess
@@ -57,8 +61,7 @@ def time_kernels(root: Path) -> str:
 
     if Path(pkg.__file__).resolve().parent.parent != root:
         raise RuntimeError(f"imported {pkg.__file__}, not the package under {root}")
-    pkg._build.build("sr_fitness", "reproduce", "sr_rollout", "sr_adaptive", "policy",
-                     "interpreter", "branch_probe")  # in parallel
+    pkg._build.build(*LIBRARIES)  # in parallel
     built = {k: v for k, v in pkg._build.build_seconds.items() if v > 0}
     if built:  # printed before the runs, so a run that fails leaves it
         line = "nvcc " + ", ".join(f"{k} {v:.1f} s" for k, v in built.items())
@@ -72,6 +75,7 @@ def time_kernels(root: Path) -> str:
                     f"{k} {r} registers {st} B stack {sp} B spilled"
                     for k, r, st, sp in ptxas_report(pkg._build.build_logs[name]) if keep(k))
         print(line, flush=True)
+    print(sass_digests(pkg._build), flush=True)
     dev = torch.device("cuda")
     fset = build_function_set([("+", 2, 0.5), ("-", 2, 0.1), ("*", 2, 0.5), ("/", 2, 0.1)],
                               [["x0", "x1"]], [2])
@@ -146,6 +150,33 @@ def time_kernels(root: Path) -> str:
         fn = lambda: bp.probe_cuda(early, mode)
         times.append(f"#10 {mode} early (device {device_ms(fn, 'probe_kernel', 30):.4f})")
     return "; ".join(times)
+
+
+LIBRARIES = ("sr_fitness", "reproduce", "sr_rollout", "sr_adaptive", "policy", "interpreter",
+             "branch_probe")
+
+
+_INSTRUCTION = re.compile(r"/\*[0-9a-f]{4,}\*/\s+([^;]*;)")
+
+
+def sass_digests(build) -> str:
+    """One line: per library of ``build`` (a package's ``_build`` module),
+    its kernel count and a digest of their instructions as ``cuobjdump
+    -sass`` prints them: each kernel's instruction lines only (its name
+    carries a hash of the source's path, in its anonymous namespace), the
+    kernels' digests sorted."""
+    tool = Path(build.find_nvcc()).parent / "cuobjdump"
+    if not tool.is_file():
+        return f"sass: no {tool}"
+    parts = []
+    for name in LIBRARIES:
+        text = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
+                              capture_output=True, text=True).stdout
+        kernels = sorted(hashlib.sha256("\n".join(_INSTRUCTION.findall(k)).encode()).hexdigest()
+                         for k in re.split(r"\n\s*Function : ", text)[1:])
+        digest = hashlib.sha256("".join(kernels).encode()).hexdigest()[:16]
+        parts.append(f"{name} {len(kernels)} kernels {digest}")
+    return "sass " + ", ".join(parts)
 
 
 def interpreter_launches(trees, g):

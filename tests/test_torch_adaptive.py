@@ -52,7 +52,7 @@ from multitreegp_tpu_torch.core import cuda_adaptive as ca
 from multitreegp_tpu_torch.core.interpreter import evaluate_trees
 from multitreegp_tpu_torch.models.evaluators import SREvaluator
 from multitreegp_tpu_torch.models.integrators import adaptive_step_budget, integrate_adaptive
-from test_torch_kernels import ARITH, TRIG, fitness_case, host_pow, patch_host_math, state4_case
+from test_torch_kernels import ARITH, TRIG, fitness_case, patch_host_math, state4_case
 
 torch.set_num_threads(1)
 
@@ -163,16 +163,6 @@ def host_run(lib, kind, trees, x0s, ts, ys, fset, budget, method, rtol=1e-4, ato
     return err / np.float32(ts.shape[0]), alive.astype(bool), steps
 
 
-def glibc_pow(base, exponent):
-    """``torch.pow(tensor, float)`` by the host C library's ``powf``."""
-    return host_pow(base, exponent)
-
-
-def ieee_sqrt(x):
-    """``torch.sqrt`` correctly rounded (numpy's float32 square root)."""
-    return torch.from_numpy(np.sqrt(x.detach().numpy()))
-
-
 def same_bits(a, b):
     return bool(((a == b) | (np.isnan(a) & np.isnan(b))).all())
 
@@ -211,18 +201,15 @@ def host_case(kind, trig=False):
 
 def host_matches_plain(lib, kind, method, monkeypatch, trig=False):
     """Kernel #5 or #4's host build against its plain version with the
-    host's ``powf`` (and ``sinf``/``cosf`` with ``trig``) and an IEEE square
-    root: every lane's error sum, alive and attempted steps bit for bit.
-    Returns the host build's outputs and the case."""
+    host's ``powf`` (and ``sinf``/``cosf``) and an IEEE square root
+    (``patch_host_math``): every lane's error sum, alive and attempted steps
+    bit for bit. Returns the host build's outputs and the case."""
     k, budget = HOST_CASES[kind]
     plain = ca.sr_fitness_adaptive_global_plain if k == ca.GLOBAL else ca.sr_fitness_adaptive_interval_plain
     tf, x0s, ts, ys, trees = case = host_case(kind, trig)
     h_mse, h_alive, h_steps = host_run(lib, k, trees, x0s, ts, ys, tf, budget, method)
     with monkeypatch.context() as m:
-        if trig:
-            patch_host_math(m)
-        m.setattr(torch, "pow", glibc_pow)
-        m.setattr(torch, "sqrt", ieee_sqrt)
+        patch_host_math(m)
         mse, alive, steps = plain(trees, x0s, ts, ys, tf, 1e-4, 1e-6, budget, method)
     np.testing.assert_array_equal(alive.numpy(), h_alive)
     np.testing.assert_array_equal(steps.numpy(), h_steps)

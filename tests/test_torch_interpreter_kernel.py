@@ -313,9 +313,12 @@ def test_host_build_broadcast_sums(host_lib):
 
 def test_host_build_refuses_bad_arguments(host_lib):
     fset, pop, data, g = lanes_case(k=4)
+    user_set = build_function_set(INTERP_OPS + [NO_DEVICE_OP], [["x0", "x1"]], [2])
     with pytest.raises(NotImplementedError):  # an operator without a device id
-        ci.run_forward(host_lib.interpret_fwd, pop[:, None],
-                       data, build_function_set(INTERP_OPS + [NO_DEVICE_OP], [["x0", "x1"]], [2]))
+        ci.run_forward(host_lib.interpret_fwd, pop[:, None], data, user_set)
+    # the dispatcher takes the plain path on CPU tensors
+    assert same_bits(evaluate_trees(pop[:, None], data, user_set),
+                     evaluate_trees_plain(pop[:, None], data, user_set))
     with pytest.raises(ValueError):  # wrong cotangent shape
         ci.run_backward(host_lib.interpret_bwd, pop[:, None], data, g[:, :1], fset)
     with pytest.raises(ValueError):  # the CUDA wrappers take CUDA tensors only

@@ -73,24 +73,32 @@ N = 32
 ARITH = [("+", 2, 0.5), ("-", 2, 0.1), ("*", 2, 0.5), ("/", 2, 0.1)]
 TRIG = [("sin", 1, 0.3), ("cos", 1, 0.3)]
 INTERP_OPS = [("+", 2, 0.5), ("-", 2, 0.1), ("*", 2, 0.5), ("/", 2, 0.4)]
-# an operator outside DEVICE_OPS: the kernels refuse a function set with it
-NO_DEVICE_OP = ("tanh", torch.tanh, 1, 0.1)
+# an operator outside DEVICE_OPS (a user's callable under its own name): the
+# kernels refuse a function set with it
+NO_DEVICE_OP = ("softsign", lambda x: x / (1 + torch.abs(x)), 1, 0.1)
 
 _VMATH_SRC = r"""
 #include <math.h>
-void vsinf(const float* x, float* y, long n) { for (long i = 0; i < n; ++i) y[i] = sinf(x[i]); }
-void vcosf(const float* x, float* y, long n) { for (long i = 0; i < n; ++i) y[i] = cosf(x[i]); }
-void vexpf(const float* x, float* y, long n) { for (long i = 0; i < n; ++i) y[i] = expf(x[i]); }
+#define MAP(F) void v##F(const float* x, float* y, long n) { for (long i = 0; i < n; ++i) y[i] = F(x[i]); }
+MAP(sinf) MAP(cosf) MAP(expf) MAP(logf) MAP(tanhf) MAP(tanf)
 void vpowf(const float* x, float e, float* y, long n) {
   for (long i = 0; i < n; ++i) y[i] = powf(x[i], e);
 }
+void vpowff(const float* x, const float* e, float* y, long n) {
+  for (long i = 0; i < n; ++i) y[i] = powf(x[i], e[i]);
+}
+void vtanh_grad(const float* x, float* y, long n) {
+  for (long i = 0; i < n; ++i) y[i] = fmaf(-x[i], x[i], 1.0f);
+}
 """
 _VMATH = []
+_VMATH_UNARY = ("vsinf", "vcosf", "vexpf", "vlogf", "vtanhf", "vtanf", "vtanh_grad")
 
 
 def host_vmath() -> ctypes.CDLL:
-    """The C library's ``sinf``/``cosf``/``expf``/``powf`` over arrays
-    (compiled once, scalar calls: no vector math library)."""
+    """The C library's ``sinf``/``cosf``/``expf``/``logf``/``tanhf``/``tanf``
+    and ``powf`` over arrays (compiled once, scalar calls: no vector math
+    library)."""
     if not _VMATH:
         out = Path(tempfile.mkdtemp(prefix="mtgp_vmath_"))
         (out / "vmath.c").write_text(_VMATH_SRC)
@@ -98,15 +106,20 @@ def host_vmath() -> ctypes.CDLL:
         subprocess.run([cc, "-x", "c", "-O1", "-fno-builtin", "-shared", "-fPIC", "-o",
                         str(out / "vmath.so"), str(out / "vmath.c"), "-lm"], check=True)
         lib = ctypes.CDLL(str(out / "vmath.so"))
-        for name in ("vsinf", "vcosf", "vexpf"):
+        for name in _VMATH_UNARY:
             getattr(lib, name).argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long]
         lib.vpowf.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p, ctypes.c_long]
+        lib.vpowff.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_long]
         _VMATH.append(lib)
     return _VMATH[0]
 
 
+def _f32_array(x):
+    return np.ascontiguousarray(x.detach().numpy(), dtype=np.float32)
+
+
 def _host_map(name, x, *extra):
-    a = np.ascontiguousarray(x.detach().numpy(), dtype=np.float32)
+    a = _f32_array(x)
     out = np.empty_like(a)
     getattr(host_vmath(), name)(a.ctypes.data, *extra, out.ctypes.data, a.size)
     return torch.from_numpy(out)
@@ -115,6 +128,13 @@ def _host_map(name, x, *extra):
 def host_pow(base, exponent):
     """``torch.pow(tensor, float)`` by the C library's ``powf``."""
     return _host_map("vpowf", base, ctypes.c_float(exponent))
+
+
+def host_pow_tensors(base, exponent):
+    """``torch.pow(tensor, tensor)`` (broadcast) by ``powf``, elementwise."""
+    x, e = torch.broadcast_tensors(base, exponent)
+    e = _f32_array(e)
+    return _host_map("vpowff", x, e.ctypes.data)
 
 
 class _HostSin(torch.autograd.Function):
@@ -146,15 +166,132 @@ class _HostCos(torch.autograd.Function):
         return g * -_host_map("vsinf", x)
 
 
+class _HostExp(torch.autograd.Function):
+    """``torch.exp`` by ``expf``; backward ``g * result``, as autograd."""
+
+    @staticmethod
+    def forward(ctx, x):
+        r = _host_map("vexpf", x)
+        ctx.save_for_backward(r)
+        return r
+
+    @staticmethod
+    def backward(ctx, g):
+        (r,) = ctx.saved_tensors
+        return g * r
+
+
+class _HostLog(torch.autograd.Function):
+    """``torch.log`` by ``logf``; backward ``g / x``, as autograd."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _host_map("vlogf", x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g / x
+
+
+class _HostTanh(torch.autograd.Function):
+    """``torch.tanh`` by ``tanhf``; backward ``tanh_backward(g, r)``, ``g *
+    (1 - r * r)`` with ``1 - r * r`` one fused multiply-add, as PyTorch's
+    CUDA kernel and the kernels' ``tanh_grad`` compute it."""
+
+    @staticmethod
+    def forward(ctx, x):
+        r = _host_map("vtanhf", x)
+        ctx.save_for_backward(r)
+        return r
+
+    @staticmethod
+    def backward(ctx, g):
+        (r,) = ctx.saved_tensors
+        return g * _host_map("vtanh_grad", r)
+
+
+class _HostTan(torch.autograd.Function):
+    """``torch.tan`` by ``tanf``; backward ``g * (1 + r.pow(2))``, as
+    autograd."""
+
+    @staticmethod
+    def forward(ctx, x):
+        r = _host_map("vtanf", x)
+        ctx.save_for_backward(r)
+        return r
+
+    @staticmethod
+    def backward(ctx, g):
+        (r,) = ctx.saved_tensors
+        return g * (1 + r * r)
+
+
+class _HostSqrt(torch.autograd.Function):
+    """``torch.sqrt`` correctly rounded (numpy's float32 square root, as
+    ``sqrtf``; PyTorch's CPU one may round an ulp away); backward ``g / (2 *
+    r)``, as autograd."""
+
+    @staticmethod
+    def forward(ctx, x):
+        with np.errstate(invalid="ignore"):
+            r = torch.from_numpy(np.sqrt(_f32_array(x)))
+        ctx.save_for_backward(r)
+        return r
+
+    @staticmethod
+    def backward(ctx, g):
+        (r,) = ctx.saved_tensors
+        return g / (2 * r)
+
+
+class _HostPow(torch.autograd.Function):
+    """``torch.pow(tensor, tensor)`` by ``powf``; backward autograd's
+    ``pow_backward_self`` and ``pow_backward_exponent`` with ``powf`` and
+    ``logf``."""
+
+    @staticmethod
+    def forward(ctx, x, y):
+        r = host_pow_tensors(x, y)
+        ctx.save_for_backward(x, y, r)
+        return r
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, r = ctx.saved_tensors
+        zero = torch.zeros((), dtype=g.dtype)
+        dx = torch.where(y == 0, zero, g * (y * host_pow_tensors(x, y - 1)))
+        dy = g * torch.where((x == 0) & (y >= 0), zero, r * _host_map("vlogf", x))
+        return dx, dy
+
+
+def _host_pow_any(base, exponent):
+    """``torch.pow`` with the C library's ``powf``: a float exponent as
+    :func:`host_pow` (forward only), a tensor one through :class:`_HostPow`."""
+    if isinstance(exponent, torch.Tensor):
+        return _HostPow.apply(base, exponent)
+    return host_pow(base, exponent)
+
+
 def patch_host_math(m) -> None:
-    """Make ``torch.sin``, ``torch.cos`` and ``torch.exp`` compute as the
-    host build of a kernel does, with the C library's ``sinf``, ``cosf`` and
-    ``expf`` (``m`` a ``monkeypatch`` context). PyTorch's vectorised CPU
-    versions round an ulp away from them on some inputs; on the card
-    PyTorch's and the kernels' are the same CUDA functions."""
+    """Make ``torch.sin``, ``torch.cos``, ``torch.exp``, ``torch.log``,
+    ``torch.tanh``, ``torch.tan`` and ``torch.pow`` compute as the host build
+    of a kernel does, with the C library's ``sinf``, ``cosf``, ``expf``,
+    ``logf``, ``tanhf``, ``tanf`` and ``powf``, and ``torch.sqrt`` correctly
+    rounded, each differentiable by autograd's formulas (``m`` a
+    ``monkeypatch`` context). PyTorch's vectorised CPU versions round an ulp
+    or a few away from them on some inputs; on the card PyTorch's and the
+    kernels' are the same CUDA functions. ``abs``, ``neg``, ``square``,
+    ``maximum`` and ``minimum`` are exact on both, and stay."""
     m.setattr(torch, "sin", _HostSin.apply)
     m.setattr(torch, "cos", _HostCos.apply)
-    m.setattr(torch, "exp", lambda x: _host_map("vexpf", x))
+    m.setattr(torch, "exp", _HostExp.apply)
+    m.setattr(torch, "log", _HostLog.apply)
+    m.setattr(torch, "tanh", _HostTanh.apply)
+    m.setattr(torch, "tan", _HostTan.apply)
+    m.setattr(torch, "sqrt", _HostSqrt.apply)
+    m.setattr(torch, "pow", _host_pow_any)
 
 
 def chain_rows(n: int, rows: int, var_start: int):
@@ -208,10 +345,11 @@ def state4_case(device="cpu", pop=6, b=2, n=256, t_steps=4, ops=ARITH, seed=4):
     return fset, trees, x0s, ts, ys
 
 
-def reproduce_case(device="cpu", lanes=192, n=N, depths=(1, 2, 4, 5), max_init_depth=4):
+def reproduce_case(device="cpu", lanes=192, n=N, depths=(1, 2, 4, 5), max_init_depth=4,
+                   ops=ARITH + [("sin", 1, 0.3)]):
     """Parents of ``n`` rows grown to ``depths`` (2 trees per candidate) and
     a quarter crossover lanes, the rest every copy / mutate / fresh pair."""
-    fset = build_function_set(ARITH + [("sin", 1, 0.3)], [["x0", "x1"], ["x1"]], [1, 1])
+    fset = build_function_set(ops, [["x0", "x1"], ["x1"]], [1, 1])
     cfg = tts.make_config(fset, n, max_init_depth)
     g = torch.Generator(device=device).manual_seed(1)
     sample = lambda depth, k: make_population_sampler(fset, depth, n)(g, k)[0].map(
@@ -642,8 +780,12 @@ def test_interpreter_kernels_match_plain_on_card(cuda):
     assert same_bits(out, evaluate_trees_plain(full, data, fset))
     ref_c, ref_d = evaluate_trees_vjp_plain(full._replace(const=const.detach()), data, g, fset)
     assert same_bits(dconst, ref_c) and same_bits(ddata, ref_d)
-    with pytest.raises(NotImplementedError):
-        evaluate_trees(full, data, build_function_set(INTERP_OPS + [NO_DEVICE_OP], [["x0", "x1"]], [2]))
+    user_set = build_function_set(INTERP_OPS + [NO_DEVICE_OP], [["x0", "x1"]], [2])
+    with pytest.raises(NotImplementedError):  # never the plain version on CUDA tensors
+        evaluate_trees(full, data, user_set)
+    cpu = full.map(lambda a: a.cpu())  # the plain path on the CPU
+    assert same_bits(evaluate_trees(cpu, data.cpu(), user_set),
+                     evaluate_trees_plain(cpu, data.cpu(), user_set))
 
 
 def check_interpreter_on_card(fset, trees, data, g):
@@ -651,8 +793,9 @@ def check_interpreter_on_card(fset, trees, data, g):
     outputs) against the plain version and autograd through it, per lane."""
     fwd0 = ci.evaluate_trees_cuda.launches
     out = ci.evaluate_trees_cuda(trees, data, fset)
-    status, dconst, ddata = ci.run_backward(_build.load("interpreter").interpret_bwd, trees, data,
-                                            g, fset, torch.cuda.current_stream().cuda_stream)
+    status, dconst, ddata = ci.run_backward(_build.load("interpreter", fset.extended).interpret_bwd,
+                                            trees, data, g, fset,
+                                            torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert status == 0 and ci.evaluate_trees_cuda.launches == fwd0 + 1
     full, x = per_lane_operands(trees, data)
@@ -756,9 +899,13 @@ def test_adaptive_kernels_match_plain_on_card(cuda, method):
         assert kernel.launches == before + 1
         assert torch.equal(alive, ref_alive) and torch.equal(steps, ref_steps)
         assert same_bits(mse, ref) and alive.any() and (~alive).any()
+    user_set = build_function_set(ARITH + [NO_DEVICE_OP], [["x0", "x1"]], [2])
     with pytest.raises(NotImplementedError):  # an operator the kernels lack
-        tanh_set = build_function_set(ARITH + [NO_DEVICE_OP], [["x0", "x1"]], [2])
-        ca.sr_fitness_adaptive(trees, x0s, ts, ys, tanh_set)
+        ca.sr_fitness_adaptive(trees, x0s, ts, ys, user_set)
+    cpu = [t.cpu() for t in (x0s, ts, ys)]  # the plain path on the CPU
+    got = ca.sr_fitness_adaptive(trees[:2].map(lambda a: a.cpu()), *cpu, user_set)
+    ref = ca.sr_fitness_adaptive_interval_plain(trees[:2].map(lambda a: a.cpu()), *cpu, user_set)
+    assert same_bits(got[0], ref[0]) and torch.equal(got[1], ref[1])
     with pytest.raises(NotImplementedError):  # N > 256
         wide = trees.map(lambda a: torch.cat([a, a[..., :1].expand(*a.shape[:-1], 240)], -1))
         ca.sr_fitness_adaptive_global(wide, x0s, ts, ys, fset)
@@ -875,9 +1022,13 @@ def test_policy_kernels_match_plain_on_card(cuda, state_size):
     assert cp.policy_rollout_adaptive_cuda.launches == before + 1
     assert all(same_bits(a, b) for a, b in zip(got[:2], ref[:2]))
     assert torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3]) and got[2][-1].any()
+    user_set = build_function_set(POLICY_OPS + [NO_DEVICE_OP], [fset.variable_names[:4]], [1])
     with pytest.raises(NotImplementedError):  # an operator the kernels lack
-        tanh_set = build_function_set(POLICY_OPS + [NO_DEVICE_OP], [fset.variable_names[:4]], [1])
-        cp.rollout_policy(trees[:, :1], x0, ts, tgt, par, env, tanh_set, 2, "rk4", 0)
+        cp.rollout_policy(trees[:, :1], x0, ts, tgt, par, env, user_set, 2, "rk4", 0)
+    cpu = lambda t: t.cpu() if isinstance(t, torch.Tensor) else tuple(p.cpu() for p in t)
+    got = cp.rollout_policy(trees[:2, :1].map(cpu), *map(cpu, (x0, ts, tgt, par)), env, user_set,
+                            2, "rk4", 0)  # the plain path on the CPU
+    assert got[0].shape[:3] == (ts.shape[0], 2, x0.shape[0]) and got[2].any()
     with pytest.raises(NotImplementedError):  # N > 256
         wide = trees.map(lambda a: torch.cat([a, a[..., :1].expand(*a.shape[:-1], 240)], -1))
         cp.rollout_policy(wide, x0, ts, tgt, par, env, fset, 2, "rk4", state_size)

@@ -45,7 +45,6 @@ from multitreegp_tpu_torch.core.registry import build_function_set
 from multitreegp_tpu_torch.models import environments as tenvs
 from multitreegp_tpu_torch.models.evaluators import generate_control_data
 from multitreegp_tpu_torch.ops.initialization import make_population_sampler
-from test_torch_adaptive import glibc_pow, ieee_sqrt
 from test_torch_kernels import patch_host_math, same_bits, with_chains
 from test_torch_policy import GENERAL_CASES, assert_lanes_agree, case, evaluators
 
@@ -187,8 +186,6 @@ def test_policy_adaptive_host_build_bit_exact(policy_host, monkeypatch, name, st
                                                            t_end=2.2 if n <= 32 else 0.8)
     with monkeypatch.context() as m:
         patch_host_math(m)
-        m.setattr(torch, "pow", glibc_pow)
-        m.setattr(torch, "sqrt", ieee_sqrt)
         xs, us, alive, steps = cp.policy_rollout_adaptive_plain(
             trees, x0, ts, tgt, par, env, fset, 1e-4, 1e-4, max_steps, method, 0.9, state_size)
     status, hxs, hus, count, hsteps = cp.run_policy(

@@ -213,6 +213,20 @@ def test_chip_smoke_phases_rehearse_on_cpu():
         assert all(out["interpreter"][shape]["bit_equal"].values())
         assert all(out["interpreter"][shape]["bit_equal_grouped"].values())
     assert deep["interpreter"]["lanes"] == 8 * 4 * 2 and all(deep["interpreter"]["bit_equal"].values())
+    ext = out["extended"]  # phase 24: the extended operator sets
+    assert len(ext["generations"]) == 2 and len(ext["policy"]["generations"]) == 2
+    assert ext["round"]["refined_sum"] <= ext["round"]["unrefined_sum"]
+    assert set(ext["checks"]) == {"sr_fitness", "sr_rollout", "sr_adaptive_global", "sr_adaptive_interval",
+                                  "policy_static", "policy_dynamic", "policy_adaptive_static",
+                                  "interpreter_n64", "interpreter_n300", "interpreter_round", "reproduce"}
+    assert all(c.get("identical", 1.0) == 1.0 for c in ext["checks"].values())
+    assert all(all(ext["checks"][k]["bit_equal"].values())
+               for k in ("interpreter_n64", "interpreter_n300", "interpreter_round"))
+    assert ext["checks"]["interpreter_round"]["lanes"] == 4 * 4 * 2
+    assert ext["checks"]["reproduce"]["ops_identical"] == 1.0
+    ext_checks = {k["name"]: set(k["extended"]["checks"]) for k in out["kernels"][:-1]}
+    assert "interpreter_round" in ext_checks["interpret_fwd"] and ext_checks["reproduce"] == {"reproduce"}
+    assert all("extended" in k for k in out["kernels"][:-1])
     sde = out["sde"]
     assert sde["rows"]["bits_equal"] and max(sde["rows"]["ulp_gap"].values()) == 0
     assert sde["fitness_kicks"]["identical"] == 1.0 and out["kernels"][0]["kicks"]["lanes"] == 32 * 4

@@ -80,15 +80,20 @@ def test_function_set_matches_jax_numbering(population):
     # device op ids: the four arithmetic operators and sin
     assert tf.device_op_ids == (0, 1, 2, 3, 4)
     tf.require_device_ops()
-    # an operator outside DEVICE_OPS has none, and the kernels refuse it
-    tanh_set = build_function_set([("+", 2), ("tanh", torch.tanh, 1)], [["x0"]], [1])
-    assert tanh_set.device_op_ids == (0, -1)
+    # an operator outside DEVICE_OPS (a user's callable under its own name)
+    # has none, and the kernels refuse it
+    user_set = build_function_set([("+", 2), ("softsign", lambda x: x / (1 + x.abs()), 1)],
+                                  [["x0"]], [1])
+    assert user_set.device_op_ids == (0, -1) and not user_set.extended
     with pytest.raises(NotImplementedError):
-        tanh_set.require_device_ops()
+        user_set.require_device_ops()
 
 
 def test_unknown_operator_needs_a_function():
     with pytest.raises(ValueError):
-        build_function_set([("pow", 2)], [["x"]], [1])
-    fs = build_function_set([("pow", torch.pow, 2)], [["x"]], [1])
+        build_function_set([("hypot", 2)], [["x"]], [1])
+    fs = build_function_set([("hypot", torch.hypot, 2)], [["x"]], [1])
     assert fs.device_op_ids == (-1,)
+    # a name in OPERATORS needs none: its torch function and device op id
+    fs = build_function_set([("pow", 2)], [["x"]], [1])
+    assert fs.device_op_ids == (14,) and fs.extended

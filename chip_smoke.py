@@ -169,7 +169,23 @@ workload (phases 12-14). Phases, one line or a few each:
    turns (#1, #3, #5, #4 on phase 2's population; #6, #7 on phase 12's); the
    same six-operator trees through the default and the extended library (#1,
    #5, #6 static, #9), what one build for both would cost them; and the
-   extended build's ``nvcc`` seconds.
+   extended build's ``nvcc`` seconds;
+25. user operators (torch callables traced into generated device code,
+   ``core/user_ops.py``; the kernels' user build, compiled beside the others):
+   phase 4's ``gen`` workload with gplearn's protected set (``+ - *`` and
+   the protected ``/``, ``log``, ``sqrt``, ``inv`` and ``sig``,
+   ``registry.gplearn_operators``), 5 generations of the host loop (#1, #2),
+   one constant-optimisation round of the top 50 (10 Adam steps; #8/#9) and
+   ``evaluate_candidate`` of the best (#3); on its last population #1 and #3
+   (T = 10), #5 / #4 (phase 17's cut) and #8/#9 in the round's layout
+   against their plain versions, every lane identical, and #2 on one
+   generation's lanes; the static Acrobot loop with ``+ - * sin cos`` and the
+   protected ``/`` at 4096 x 16, T = 250, RK4 x 4, 5 generations (#6, #2),
+   then #6 static and dynamic (T = 26) and #7 static (T = 11) against their
+   plain versions; #1, #5 and #9 on phase 2's trees through the extended
+   library (the table's ``/``; also its instance with the unary rows' code)
+   and the user library (the protected ``/``) in turns, what the generated
+   code costs; the user builds' ``nvcc`` seconds.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last lines are a JSON line of per-kernel numbers, the card's name and
@@ -373,7 +389,7 @@ def main_data(device, s):
 
 
 def run(device, sizes=FULL) -> dict:
-    """Phases 2-23 on ``device``; returns the numbers the script prints."""
+    """Phases 2-25 on ``device``; returns the numbers the script prints."""
     import torch
 
     from multitreegp_tpu_torch import GeneticProgramming
@@ -517,6 +533,7 @@ def run(device, sizes=FULL) -> dict:
     out.update(sharded_phase(device, s, data))
     out.update(examples_phase(device, s))
     out.update(extended_phase(device, s, data, trees, fset, ps))
+    out.update(user_phase(device, s, data, trees, fset, ps))
 
     # -- the kernels line --------------------------------------------------------
     times = out.get("times_ms", {})
@@ -670,6 +687,29 @@ def run(device, sizes=FULL) -> dict:
             k["extended"]["fork_device_ms"] = {
                 tag: ext.get("device_ms", {}).get(f"fork_{fork_of[k['name']]}_{tag}")
                 for tag in ("default", "ext_build")}
+    user = out["user"]
+    # per kernel row: its source, phase 25's checks and timed cases
+    user_of = dict(sr_fitness=("sr_fitness", ("sr_fitness",), ("sr_fitness",)),
+                   sr_rollout=("sr_rollout", ("sr_rollout",), ()),
+                   sr_adaptive_global=("sr_adaptive", ("sr_adaptive_global",), ("sr_adaptive_global",)),
+                   sr_adaptive_interval=("sr_adaptive", ("sr_adaptive_interval",), ()),
+                   interpret_fwd=("interpreter", ("interpreter_round",), ()),
+                   interpret_bwd=("interpreter", ("interpreter_round",), ("interpret_bwd",)),
+                   policy=("policy", ("policy_static", "policy_dynamic"), ()),
+                   policy_adaptive=("policy", ("policy_adaptive_static",), ()),
+                   reproduce=("reproduce", ("reproduce",), ()))
+    for k in out["kernels"]:  # phase 25: the user build on its path
+        if k["name"] not in user_of:
+            continue
+        source, checked, timed = user_of[k["name"]]
+        launches = sum(d.get(k["name"], 0) for d in (user["loop_launches"], user["policy"]["launches"],
+                                                      user["launches"]))
+        k["user"] = dict(
+            launches=launches,
+            nvcc_s={lib: sec for lib, sec in user.get("nvcc_s", {}).items() if lib.startswith(f"{source}_u")},
+            checks={c: user["checks"][c] for c in checked},
+            device_ms={f"{t}_{tag}": user.get("device_ms", {}).get(f"{t}_{tag}")
+                       for t in timed for tag in ("ext", "ext_unary", "user")})
     pb = out["probe"]
     always = pb["modes"]["always"]
     out["kernels"].append(
@@ -859,7 +899,7 @@ def grouped_per_lane(trees, states, cot, fset):
         x = states.expand(batch + states.shape[-1:])
         return (evaluate_trees_plain(full, x, fset),) + evaluate_trees_vjp_plain(full, x, cot, fset)
     out = ci.evaluate_trees_cuda(trees, states, fset)
-    lib = ci._build.load("interpreter", fset.extended)
+    lib = ci._build.load("interpreter", fset.variant)
     status, dconst, ddata = ci.run_backward(lib.interpret_bwd, trees, states, cot, fset,
                                             torch.cuda.current_stream().cuda_stream)
     check(status == 0, f"interpreter backward kernel launch: status {status}")
@@ -3118,10 +3158,12 @@ def ext_chain_trees(trees, fset, lengths):
     return TreeTensors(ops, c1, c2, const)
 
 
-def with_unused_max(trees, fset):
-    """``(trees, fset)`` with a binary ``max`` appended to ``fset``'s
-    operators, which no tree uses (variable opcodes shift by one): the same
-    computation, through the kernels' extended build."""
+def with_unused_max(trees, fset, extra=(("max", 2, 0.1),)):
+    """``(trees, fset)`` with a binary ``max`` (or the operators ``extra``)
+    appended to ``fset``'s operators, which no tree uses (variable opcodes
+    shift past them): the same computation, through the kernels' extended
+    build (with an unused unary operator in ``extra``, its instance with the
+    unary rows' code)."""
     import torch
 
     from multitreegp_tpu_torch.core.registry import build_function_set
@@ -3131,11 +3173,13 @@ def with_unused_max(trees, fset):
         variable_list.append([names[v] for v in torch.nonzero(mask[row] > 0).flatten().tolist()])
         row += size
     wide = build_function_set(
-        list(zip(fset.operator_names, fset.arities, fset.operator_probs)) + [("max", 2, 0.1)],
+        list(zip(fset.operator_names, fset.arities, fset.operator_probs)) + list(extra),
         variable_list, fset.layer_sizes)
-    check(wide.variable_names == names and wide.extended and wide.has_unary == fset.has_unary
-          and torch.equal(wide.variable_mask, mask), "a set with an unused max appended")
-    return trees._replace(ops=torch.where(trees.ops >= fset.var_start, trees.ops + 1, trees.ops)), wide
+    unary = fset.has_unary or any(a == 1 for _, a, _ in extra)
+    check(wide.variable_names == names and wide.extended and wide.has_unary == unary
+          and torch.equal(wide.variable_mask, mask), f"a set with unused {extra} appended")
+    shift = len(extra)
+    return trees._replace(ops=torch.where(trees.ops >= fset.var_start, trees.ops + shift, trees.ops)), wide
 
 
 def in_turns(cases, runs, torch) -> dict:
@@ -3405,6 +3449,270 @@ def extended_phase(device, s, data, trees6, fset6, ps) -> dict:
     return {"extended": res}
 
 
+# phase 25: gplearn's protected operators as torch callables (user operators:
+# generated device code in the kernels' user build). The gen workload's set is
+# core.registry.gplearn_operators(); the control workload's is phase 13's
+# with the protected division (its header holds that operator alone)
+def user_policy_operators():
+    from multitreegp_tpu_torch.core.registry import protected_division
+
+    return POLICY_OPERATORS + [("/", protected_division, 2)]
+
+
+def user_sets():
+    """``(gen set, control set)`` of phase 25 (built before the kernels, so
+    that their user libraries are compiled in the parallel prelude)."""
+    from multitreegp_tpu_torch.core.registry import build_function_set, gplearn_operators
+
+    gen = build_function_set(gplearn_operators(), [["x0", "x1"]], [2])
+    control = build_function_set(user_policy_operators(), [["y0"]], [1])
+    return gen, control
+
+
+# the sources each phase-25 set runs: the gen loop, round and checks (#1, #3,
+# #4/#5, #8/#9), the control loop and checks (#6/#7)
+USER_GEN_KERNELS = ("sr_fitness", "interpreter", "sr_adaptive", "sr_rollout")
+USER_CONTROL_KERNELS = ("policy",)
+
+
+def with_protected_division(trees, fset):
+    """``(trees, fset)`` of phase 2's ``+ - * /`` trees in the gplearn set,
+    whose first four operators are ``+ - *`` and the protected ``/`` (variable
+    opcodes shift past its four other operators, which no tree uses): the same
+    trees, with ``/`` the user operator, through the user library."""
+    import torch
+
+    from multitreegp_tpu_torch.core.registry import build_function_set, gplearn_operators
+
+    user = build_function_set(gplearn_operators(), [list(fset.variable_names)], list(fset.layer_sizes))
+    check(user.operator_names[:4] == fset.operator_names and user.variable_names == fset.variable_names,
+          "the gplearn set's first operators are + - * /")
+    shift = user.var_start - fset.var_start
+    return trees._replace(ops=torch.where(trees.ops >= fset.var_start, trees.ops + shift, trees.ops)), user
+
+
+def user_phase(device, s, data, trees6, fset6, ps) -> dict:
+    """Phase 25: gplearn's protected operators (torch callables traced into
+    generated device code, the kernels' user build) through every tree
+    kernel: the ``gen`` workload's host loop, round and inspection, the
+    kernels against their plain versions on its population, the static
+    Acrobot loop with the protected ``/``, #6/#7 against their plain
+    versions, and #1, #5 and #9 on phase 2's trees through the extended
+    library (the table's ``/``) and the user library (the protected ``/``)
+    in turns (``trees6``, ``fset6``: phase 2's population; ``ps``: phase
+    12's)."""
+    import torch
+
+    from multitreegp_tpu_torch import GeneticProgramming, _build
+    from multitreegp_tpu_torch.core import cuda_adaptive as ca
+    from multitreegp_tpu_torch.core import cuda_interpreter as ci
+    from multitreegp_tpu_torch.core import cuda_policy as cp
+    from multitreegp_tpu_torch.core import cuda_reproduction as cr
+    from multitreegp_tpu_torch.core import cuda_rollout as cf
+    from multitreegp_tpu_torch.core.registry import USER_FROM, build_function_set, gplearn_operators
+    from multitreegp_tpu_torch.core.trees import validate_host
+    from multitreegp_tpu_torch.models.evaluators import SREvaluator, StaticPolicyEvaluator
+
+    t_start = time.perf_counter()
+    on_card = device.type == "cuda"
+    x0s, ts_full, ys_full, _ = data
+    n, b, t_steps = s["max_nodes"], s["batch"], ts_full.shape[0]
+    gp = GeneticProgramming(
+        num_generations=s["generations"], population_size=s["pop"],
+        fitness_function=SREvaluator(substeps=1), operator_list=gplearn_operators(),
+        variable_list=[["x0", "x1"]], layer_sizes=[2], num_populations=s["islands"], max_nodes=n,
+        max_init_depth=s["depth"], gradient_steps=s["gradient_steps"],
+        coefficient_opt_top_k=s["top_k"], elite_percentage=s["elite"], device=device)
+    fset = gp.fset
+    check(fset.device_op_ids[3:] == tuple(range(USER_FROM, USER_FROM + 5)) and fset.user_hash != "",
+          f"phase 25's protected operators must be user operators: {fset.device_op_ids}")
+    counters = dict(sr_fitness=cf.sr_fitness_cuda, reproduce=cr.reproduce_lanes_cuda,
+                    interpret_fwd=ci.evaluate_trees_cuda, interpret_bwd=ci.evaluate_trees_vjp_cuda,
+                    sr_rollout=cf.sr_rollout_cuda)
+    validate = lambda pops: validate_host(pops.map(lambda a: a.reshape(-1, n)), fset.slots(device))
+    r = loop_generations(gp, data, device, s["generations"], 25, counters, validate)
+    if on_card:
+        for i, gen in enumerate(r["generations"]):
+            check(gen["eval_launches"]["sr_fitness"] >= 1 and gen["evolve_launches"]["reproduce"] >= 1,
+                  f"gen {i} launches {gen['eval_launches']} {gen['evolve_launches']}")
+    gen_ms = [g_["eval_ms"] + g_["evolve_ms"] for g_ in r["generations"]]
+    # the round: the top 50 of the last generation, 10 Adam steps (#8/#9)
+    pops = r["pops"]
+    fitness = gp._evaluate(pops, data)
+    flat = pops.map(lambda a: a.reshape((-1,) + a.shape[2:]))
+    user_rows = int(((flat.ops >= 2 + 3) & (flat.ops < fset.var_start)).sum())
+    top = torch.argsort(fitness.reshape(-1), stable=True)[: gp.coefficient_opt_top_k]
+    before = {k: fn.launches for k, fn in counters.items()}
+    sync(device)
+    t0 = time.perf_counter()
+    refined, _ = gp.optimise(flat[top], data)
+    sync(device)
+    round_ms = (time.perf_counter() - t0) * 1e3
+    unrefined = fitness.reshape(-1)[top]
+    check(not bool((refined > unrefined * (1 + 1e-6)).any()), "refinement made a candidate worse")
+    # the best candidate's trajectories (#3)
+    best = flat[int(torch.argmin(fitness.reshape(-1)))]
+    cand_fit, pred = SREvaluator(fset=fset, substeps=1).evaluate_candidate(best, data)
+    check(pred.shape == (b, t_steps, 2) and bool(torch.isfinite(cand_fit).all()),
+          "evaluate_candidate of the best candidate")
+    launches = {k: fn.launches - before[k] for k, fn in counters.items()}
+    if on_card:
+        need = s["gradient_steps"] * (t_steps - 1) * 4  # rk4, one substep: drift calls
+        check(launches["interpret_fwd"] >= need and launches["interpret_bwd"] >= need,
+              f"round launches {launches} < {need}")
+        check(launches["sr_rollout"] >= 1, f"#3 launches {launches}")
+    phase_line(f"phase 25 gen with gplearn's protected set ({' '.join(fset.operator_names)}, device ids "
+               f"{list(fset.device_op_ids)}, library suffix {fset.variant.suffix}): {s['islands']}x"
+               f"{s['pop']} candidates, {user_rows} user rows in the last population, ms per generation "
+               f"{[round(v, 3) for v in gen_ms]} (median {statistics.median(gen_ms):.3f}), best "
+               f"{[round(v, 6) for v in r['best']]}, loop launches {r['launches']}; round of top "
+               f"{top.numel()}: {round_ms:.1f} ms, fitness sum {float(unrefined.sum()):.6g} -> "
+               f"{float(refined.sum()):.6g}; then round + evaluate_candidate launches {launches}")
+    res = dict(generations=r["generations"], ms_per_generation=gen_ms, loop_launches=r["launches"],
+               round=dict(ms=round_ms, unrefined_sum=float(unrefined.sum()),
+                          refined_sum=float(refined.sum())), launches=launches, user_rows=user_rows,
+               checks={})
+    checks = res["checks"]
+
+    # the kernels against their plain versions on the last population: #1 and
+    # #3 at T = 10, #5 / #4 at phase 17's cut
+    t_fix = s["adaptive_short_t"]
+    ts_, ys_ = ts_full[:t_fix], ys_full[:, :t_fix].contiguous()
+    mse, alive = (cf.sr_fitness_cuda if on_card else cf.sr_fitness_plain)(
+        flat, x0s, ts_, ys_, fset, "rk4", 1)
+    (ref, ref_alive), plain_ms = timed_plain(
+        lambda: cf.sr_fitness_plain(flat, x0s, ts_, ys_, fset, "rk4", 1), device)
+    same = float(lanes_identical(mse, alive, ref, ref_alive).float().mean())
+    check(same == 1.0, f"#1 user operators: {same:.6f} of lanes identical")
+    fin = torch.isfinite(mse) & torch.isfinite(ref)
+    checks["sr_fitness"] = dict(identical=same, alive=float(alive.float().mean()), plain_ms=plain_ms,
+                                lanes=alive.numel(), t_steps=t_fix,
+                                max_abs_err=float((mse - ref).abs()[fin].max()))
+    xs, xalive = (cf.sr_rollout_cuda if on_card else cf.sr_rollout_plain)(flat, x0s, ts_, fset, "rk4", 1)
+    (rxs, rxalive), plain_ms = timed_plain(lambda: cf.sr_rollout_plain(flat, x0s, ts_, fset, "rk4", 1),
+                                           device)
+    same, max_abs = rollout_identical(xs, xalive, rxs, rxalive)
+    check(same == 1.0, f"#3 user operators: {same:.6f} of lanes identical")
+    checks["sr_rollout"] = dict(identical=same, max_abs_err=max_abs, plain_ms=plain_ms,
+                                lanes=xalive[-1].numel(), t_steps=t_fix)
+    t_cut = s["deep_adaptive_t"]
+    cut = (ts_full[:t_cut], ys_full[:, :t_cut].contiguous())
+    for key, kernel, plain, steps_arg in (
+            ("sr_adaptive_global", ca.sr_fitness_adaptive_global_cuda, ca.sr_fitness_adaptive_global_plain,
+             s["deep_adaptive_budget"]),
+            ("sr_adaptive_interval", ca.sr_fitness_adaptive_interval_cuda,
+             ca.sr_fitness_adaptive_interval_plain, s["deep_interval_steps"])):
+        args = (flat, x0s, *cut, fset, 1e-4, 1e-6, steps_arg, "dopri5", 0.9)
+        got = kernel(*args) if on_card else plain(*args)
+        want, plain_ms = timed_plain(lambda: plain(*args), device)
+        same, _, _, _, max_abs = compare_adaptive(got, want)
+        check(same == 1.0, f"{key} user operators: {same:.6f} of lanes identical")
+        checks[key] = dict(identical=same, max_abs_err=max_abs, plain_ms=plain_ms, t_steps=t_cut,
+                           steps_arg=steps_arg, lanes=got[1].numel())
+    for key in ("sr_fitness", "sr_rollout", "sr_adaptive_global", "sr_adaptive_interval"):
+        c = checks[key]
+        phase_line(f"phase 25 #{dict(sr_fitness=1, sr_rollout=3, sr_adaptive_global=5, sr_adaptive_interval=4)[key]} "
+                   f"{key} user operators vs plain on the last population ({c['lanes']} lanes, "
+                   f"T={c['t_steps']}): identical {c['identical']:.6f}, max abs {c['max_abs_err']:.3e}, plain "
+                   f"{c['plain_ms']:.1f} ms")
+
+    # #8/#9 in the round's layout (its top 50 against the batch's states) and
+    # #2 on one generation's lanes of the user-operator population
+    gc = torch.Generator(device=device).manual_seed(252)
+    c = checks["interpreter_round"] = lanes_check(*shape_case(device, flat[top], b, gc), fset,
+                                                  "#8/#9 user operators, the round's layout")
+    phase_line(f"phase 25 #8/#9 user operators N={n} vs plain in the round's layout ({c['lanes']} lanes): "
+               f"bit-equal {c['bit_equal']}, finite {c['finite']:.4f}, plain {c['plain_ms']:.1f} ms")
+    rep = reproduction_case(device, s, pops, fset, gc)
+    c = checks["reproduce"] = {k: rep[k] for k in ("lanes", "ops_identical", "max_abs_err", "max_rel",
+                                                    "bit_equal")}
+    phase_line(f"phase 25 #2 reproduce vs plain with the user set ({c['lanes']} lanes): ops identical "
+               f"{c['ops_identical']:.6f}, const max rel {c['max_rel']:.3e}, bit-equal {c['bit_equal']}; "
+               f"every child valid")
+
+    # the control workload with the protected division: 5 generations of the
+    # static loop (#6, #2)
+    env, pdata = ps["env"], ps["data"]
+    ys = [f"y{i}" for i in range(env.n_obs)]
+    pgp = GeneticProgramming(
+        num_generations=s["generations"], population_size=s["pop"],
+        fitness_function=StaticPolicyEvaluator(env, substeps=s["policy_substeps"]),
+        operator_list=user_policy_operators(), variable_list=[ys], layer_sizes=[1],
+        num_populations=s["islands"], max_nodes=s["policy_nodes"], max_init_depth=s["depth"],
+        device=device)
+    pfset = pgp.fset
+    check(pfset.device_op_ids[-1] == USER_FROM, "the control set's / must be a user operator")
+    pcounters = dict(policy=cp.policy_rollout_cuda, reproduce=cr.reproduce_lanes_cuda)
+    pr = loop_generations(pgp, pdata, device, s["generations"], 250, pcounters)
+    if on_card:
+        check(all(g_["eval_launches"]["policy"] >= 1 and g_["evolve_launches"]["reproduce"] >= 1
+                  for g_ in pr["generations"]), f"policy loop launches {pr['launches']}")
+    pgen_ms = [g_["eval_ms"] + g_["evolve_ms"] for g_ in pr["generations"]]
+    phase_line(f"phase 25 static Acrobot with {' '.join(pfset.operator_names)} (/ protected): ms per "
+               f"generation {[round(v, 3) for v in pgen_ms]} (median {statistics.median(pgen_ms):.3f}), "
+               f"best {[round(v, 4) for v in pr['best']]}, launches {pr['launches']}")
+    res["policy"] = dict(generations=pr["generations"], ms_per_generation=pgen_ms, launches=pr["launches"])
+    pflat = pr["pops"].map(lambda a: a.reshape((-1,) + a.shape[2:]))
+    dyn_fset = build_function_set(user_policy_operators(), [ys + ["a0", "a1", "u0"], ["a0", "a1"]],
+                                  [2, env.n_control])
+    g = torch.Generator(device=device).manual_seed(251)
+    from multitreegp_tpu_torch.ops.initialization import make_population_sampler
+
+    dyn_trees = make_population_sampler(dyn_fset, s["depth"], s["policy_nodes"])(
+        g, s["islands"] * s["pop"])[0]
+    for key, kind, trees_, fset_, state_size, t_cut in (
+            ("policy_static", "fixed", pflat, pfset, 0, s["policy_fixed_t"]),
+            ("policy_dynamic", "fixed", dyn_trees, dyn_fset, 2, s["policy_fixed_t"]),
+            ("policy_adaptive_static", "adaptive", pflat, pfset, 0, s["policy_adaptive_t"])):
+        c = checks[key] = policy_pair(device, kind, trees_, pdata, env, fset_, state_size, t_cut,
+                                      substeps=s["policy_substeps"])
+        phase_line(f"phase 25 {key} user operators vs plain, T={t_cut}, {c['lanes']} lanes: identical "
+                   f"{c['identical']:.6f}, max abs {c['max_abs_err']:.3e}, alive {c['alive']:.4f}, plain "
+                   f"{c['plain_ms']:.1f} ms")
+
+    if on_card:
+        loaded = [_build.variant_name(k, fset.variant) for k in USER_GEN_KERNELS]
+        loaded += [_build.variant_name(k, pfset.variant) for k in USER_CONTROL_KERNELS]
+        check(all(k in _build._loaded for k in loaded), f"user builds loaded: {sorted(_build._loaded)}")
+        # what the generated code costs: phase 2's trees through the extended
+        # library (an unused max appended: / is the table's; with an unused
+        # exp too, the instance with the unary rows' code, which the gplearn
+        # set's unary operators select) and through the user library (/ the
+        # protected division), in turns (#1, #5, #9)
+        ys_c = ys_full.contiguous()
+        tr_x, fs_x = with_unused_max(trees6, fset6)
+        tr_xu, fs_xu = with_unused_max(trees6, fset6, (("max", 2, 0.1), ("exp", 1, 0.1)))
+        tr_u, fs_u = with_protected_division(trees6, fset6)
+        check(fs_u.has_unary and fs_xu.has_unary and not fs_x.has_unary, "the cost cases' instances")
+        bwd = shape_case(device, trees6, b, gc)
+        cost = []
+        for tag, tr, fs in (("ext", tr_x, fs_x), ("ext_unary", tr_xu, fs_xu), ("user", tr_u, fs_u)):
+            ops_b = (tr.map(lambda a: a[:, None]),) + bwd[1:]
+            cost.append([
+                (f"sr_fitness_{tag}", (lambda tr=tr, fs=fs: cf.sr_fitness_cuda(
+                    tr, x0s, ts_full, ys_c, fs, "rk4", 1)), "sr_fitness_kernel"),
+                (f"sr_adaptive_global_{tag}", (lambda tr=tr, fs=fs: ca.sr_fitness_adaptive_global_cuda(
+                    tr, x0s, ts_full, ys_c, fs, 1e-4, 1e-6, s["adaptive_budget"], "dopri5")),
+                 "adaptive_global_kernel"),
+                (f"interpret_bwd_{tag}", (lambda ops_b=ops_b, fs=fs: ci.evaluate_trees_vjp_cuda(
+                    *ops_b, fs)), "interpret_bwd_kernel")])
+        # pairs (ext, user) and (ext_unary, user): each timed a, b, b, a
+        times = in_turns([c for ext, xu, user in zip(*cost) for c in (ext, user, xu, user)], 3, torch)
+        res["device_ms"] = times
+        for key in ("sr_fitness", "sr_adaptive_global", "interpret_bwd"):
+            x, xu, u = times[f"{key}_ext"], times[f"{key}_ext_unary"], times[f"{key}_user"]
+            phase_line(f"phase 25 {key} phase 2's trees, device ms a launch (extended library with the "
+                       f"table's /, user library with the protected /, user, extended): {x[0]:.4f}, "
+                       f"{u[0]:.4f}, {u[1]:.4f}, {x[1]:.4f}; (extended library's unary instance, user, "
+                       f"user, extended unary): {xu[0]:.4f}, {u[2]:.4f}, {u[3]:.4f}, {xu[1]:.4f}")
+        res["nvcc_s"] = {k: v for k, v in _build.build_seconds.items() if "_u" in k}
+        phase_line(f"phase 25 user build nvcc seconds (beside the default and extended builds): "
+                   f"{res['nvcc_s']}")
+    res["seconds"] = time.perf_counter() - t_start
+    phase_line(f"phase 25 took {res['seconds']:.1f} s")
+    return {"user": res}
+
+
 def sync(device) -> None:
     import torch
 
@@ -3433,13 +3741,19 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
     kernels = SHARDED_KERNELS if opts.sharded_only else KERNELS
-    extended = () if opts.sharded_only else EXTENDED_KERNELS
-    # one nvcc per library, all started together: the default builds, and
-    # phase 24's extended ones
-    with ThreadPoolExecutor(1) as pool:
-        ext_build = pool.submit(_build.build, *extended, extended=True)
+    # one nvcc per library, all started together: the default builds, phase
+    # 24's extended ones and phase 25's user ones (its function sets are
+    # traced first)
+    extra = []
+    if not opts.sharded_only:
+        gen_set, control_set = user_sets()
+        extra = [(EXTENDED_KERNELS, True), (USER_GEN_KERNELS, gen_set.variant),
+                 (USER_CONTROL_KERNELS, control_set.variant)]
+    with ThreadPoolExecutor(max(1, len(extra))) as pool:
+        jobs = [pool.submit(_build.build, *names, variant=v) for names, v in extra]
         _build.build(*kernels)
-        ext_build.result()
+        for job in jobs:
+            job.result()
     for name in kernels:
         _build.load(name)
     build_s = time.perf_counter() - t0

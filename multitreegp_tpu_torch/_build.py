@@ -14,12 +14,16 @@ square root stay IEEE (no fast-math). ``-Xptxas -v`` makes ``ptxas`` report
 each kernel's registers, stack frame and spills; the report of a build in
 this process is kept in :data:`build_logs`.
 
-Each source has two builds: the default one, and the extended one (``-D
-MTGP_EXT_OPS``, the library ``<name>_ext``), whose tree kernels also compute
-the operators past ``+ - * / sin cos`` (``csrc/tree_eval.cuh``). A function
-set within those six never loads the extended build, so it runs the code it
-always ran; the extended build is made at the first use of a set that needs
-it.
+Each source has three kinds of build (:class:`Variant`): the default one;
+the extended one (``-DMTGP_EXT_OPS``, the library ``<name>_ext``), whose tree
+kernels also compute the operators past ``+ - * / sin cos``
+(``csrc/tree_eval.cuh``); and one user build per generated header of user
+operators (:func:`user_variant`: ``-DMTGP_EXT_OPS -DMTGP_USER_OPS -include
+_build/user_ops_<hash16>.h``, the library ``<name>_u<hash12>``, the hash the
+header's sha256; ``core/user_ops.py`` writes the header's text). A function
+set within ``+ - * / sin cos`` never loads another build, so it runs the code
+it always ran; the others are made at the first use of a set that needs
+them.
 """
 from __future__ import annotations
 
@@ -31,8 +35,9 @@ import shutil
 import subprocess
 import tempfile
 import time
+from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Tuple, Union
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -45,6 +50,58 @@ NVCC_FLAGS = (
 )
 
 EXTENDED_FLAGS = ("-DMTGP_EXT_OPS",)  # the extended build's extra flags (nvcc and g++)
+USER_FLAGS = EXTENDED_FLAGS + ("-DMTGP_USER_OPS",)  # a user build's, besides its -include
+
+
+@dataclass(frozen=True)
+class Variant:
+    """One build of a source: the library name's suffix, the extra flags
+    (nvcc and g++), and for a user build the generated header's text, which
+    the compiler includes before the source."""
+
+    suffix: str = ""
+    flags: Tuple[str, ...] = ()
+    header: str = field(default="", repr=False)
+
+
+DEFAULT = Variant()
+EXTENDED = Variant("_ext", EXTENDED_FLAGS)
+
+
+def user_variant(header: str) -> Variant:
+    """The user build of a generated header (``<name>_u<hash12>``)."""
+    return Variant("_u" + header_hash(header)[:12], USER_FLAGS, header)
+
+
+def header_hash(header: str) -> str:
+    """sha256 of a generated header's text, the key of its user build."""
+    return hashlib.sha256(header.encode()).hexdigest()
+
+
+def as_variant(variant: Union[bool, Variant]) -> Variant:
+    """``variant``, or for a bool the extended (True) or default build."""
+    if isinstance(variant, Variant):
+        return variant
+    return EXTENDED if variant else DEFAULT
+
+
+def header_path(variant: Variant) -> Path:
+    """Where a user build's header is written (``_build/``), the same path
+    for the same text."""
+    return BUILD_DIR / f"user_ops_{header_hash(variant.header)[:16]}.h"
+
+
+def _write_header(variant: Variant, path: Path) -> List[str]:
+    """Write a user build's header to ``path`` (atomically, unless it holds
+    the text already) and return the compiler flags that include it."""
+    if not variant.header:
+        return []
+    if not path.exists() or path.read_text() != variant.header:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        tmp.write_text(variant.header)
+        os.replace(tmp, path)
+    return ["-include", str(path)]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 # seconds from the start of a build until its nvcc finished, per library
@@ -85,47 +142,53 @@ def source_files(name: str) -> List[Path]:
     return files
 
 
-def variant_name(name: str, extended: bool = False) -> str:
-    """The library's name: ``name``, or ``name_ext`` for the extended build."""
-    return f"{name}_ext" if extended else name
+def variant_name(name: str, variant: Union[bool, Variant] = False) -> str:
+    """The library's name: ``name``, ``name_ext`` for the extended build,
+    ``name_u<hash12>`` for a user build."""
+    return name + as_variant(variant).suffix
 
 
-def _flags(extended: bool) -> tuple:
-    return NVCC_FLAGS + EXTENDED_FLAGS if extended else NVCC_FLAGS
+def _flags(variant: Variant) -> tuple:
+    return NVCC_FLAGS + variant.flags
 
 
-def library_path(name: str, extended: bool = False) -> Path:
+def library_path(name: str, variant: Union[bool, Variant] = False) -> Path:
     """Where the library of ``csrc/<name>.cu`` is built: the file name hashes
-    the source, the headers it includes and the flags, so editing any of them
-    rebuilds it."""
-    h = hashlib.sha256(" ".join(_flags(extended)).encode())
+    the source, the headers it includes, the flags and a user build's
+    generated header, so editing any of them rebuilds it."""
+    variant = as_variant(variant)
+    h = hashlib.sha256(" ".join(_flags(variant)).encode())
+    if variant.header:
+        h.update(b"user_ops.h\0" + variant.header.encode())
     for path in source_files(name):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
-    return BUILD_DIR / f"{variant_name(name, extended)}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{variant_name(name, variant)}-{h.hexdigest()[:16]}.so"
 
 
-def build(*names: str, extended: bool = False) -> List[Path]:
-    """Compile each ``csrc/<name>.cu`` (its extended build with ``extended``)
-    unless a library of the same source exists; the ``nvcc`` processes run in
-    parallel, one per source. :data:`build_seconds` and :data:`build_logs`
-    key each by :func:`variant_name`."""
-    outs = [library_path(name, extended) for name in names]
+def build(*names: str, variant: Union[bool, Variant] = False) -> List[Path]:
+    """Compile each ``csrc/<name>.cu`` (in ``variant``'s build: True for the
+    extended one) unless a library of the same source exists; the ``nvcc``
+    processes run in parallel, one per source. :data:`build_seconds` and
+    :data:`build_logs` key each by :func:`variant_name`."""
+    variant = as_variant(variant)
+    outs = [library_path(name, variant) for name in names]
     todo = []
     for name, out in zip(names, outs):
         if out.exists():
-            build_seconds.setdefault(variant_name(name, extended), 0.0)
+            build_seconds.setdefault(variant_name(name, variant), 0.0)
         else:
             todo.append((name, out))
     if not todo:
         return outs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
+    include = _write_header(variant, header_path(variant))
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         jobs = []
         for name, out in todo:
             tmp_out = Path(tmp) / out.name
-            cmd = [nvcc, *_flags(extended), "-o", str(tmp_out), str(CSRC_DIR / f"{name}.cu")]
+            cmd = [nvcc, *_flags(variant), *include, "-o", str(tmp_out), str(CSRC_DIR / f"{name}.cu")]
             log = open(Path(tmp) / f"{name}.log", "w+")  # a file, so no pipe fills up
             jobs.append((name, out, tmp_out, cmd, log,
                          subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, text=True)))
@@ -133,7 +196,7 @@ def build(*names: str, extended: bool = False) -> List[Path]:
         while pending:
             time.sleep(0.05)
             for name, out, tmp_out, cmd, log, proc in [j for j in pending if j[-1].poll() is not None]:
-                key = variant_name(name, extended)
+                key = variant_name(name, variant)
                 build_seconds[key] = time.perf_counter() - t0
                 log.seek(0)
                 build_logs[key] = log.read()
@@ -149,33 +212,35 @@ def build(*names: str, extended: bool = False) -> List[Path]:
     return outs
 
 
-def load(name: str, extended: bool = False) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``, its extended build with
-    ``extended``; cached per process.
+def load(name: str, variant: Union[bool, Variant] = False) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu`` in ``variant``'s build
+    (True: the extended one); cached per process.
 
     Every library exports ``const char* mtgp_error_string(int)``."""
-    key = variant_name(name, extended)
+    key = variant_name(name, variant)
     if key not in _loaded:
-        lib = ctypes.CDLL(str(build(name, extended=extended)[0]))
+        lib = ctypes.CDLL(str(build(name, variant=variant)[0]))
         lib.mtgp_error_string.argtypes = [ctypes.c_int]
         lib.mtgp_error_string.restype = ctypes.c_char_p
         _loaded[key] = lib
     return _loaded[key]
 
 
-def build_host(name: str, out_dir: Path, extended: bool = False) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` (its extended build with ``extended``) for
-    the host with the C++ compiler and load it. Without ``__CUDACC__`` the
-    source builds its per-lane code into a plain lane loop (``<name>_host``),
-    so tests can check the kernel's logic against its plain version where
-    there is no card. Contraction is off (``-ffp-contract=off``) as on the
-    card."""
+def build_host(name: str, out_dir: Path, variant: Union[bool, Variant] = False) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` (in ``variant``'s build: True for the
+    extended one; a user build's header is written to ``out_dir``) for the
+    host with the C++ compiler and load it. Without ``__CUDACC__`` the source
+    builds its per-lane code into a plain lane loop (``<name>_host``), so
+    tests can check the kernel's logic against its plain version where there
+    is no card. Contraction is off (``-ffp-contract=off``) as on the card."""
+    variant = as_variant(variant)
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         raise RuntimeError("no host C++ compiler found")
-    out = Path(out_dir) / f"{variant_name(name, extended)}_host.so"
+    out = Path(out_dir) / f"{variant_name(name, variant)}_host.so"
+    include = _write_header(variant, Path(out_dir) / header_path(variant).name)
     cmd = [cxx, "-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
-           *(EXTENDED_FLAGS if extended else ()), "-o", str(out), str(CSRC_DIR / f"{name}.cu")]
+           *variant.flags, *include, "-o", str(out), str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"host build of {name}.cu failed:\n{proc.stderr}")

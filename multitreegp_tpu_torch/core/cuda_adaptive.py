@@ -243,7 +243,7 @@ def _adaptive_cuda(kind, trees, x0s, ts, ys, fset, rtol, atol, budget, method, s
     alive = torch.empty((p, b), dtype=torch.bool, device=dev)
     steps = torch.empty((p, b), dtype=torch.int32, device=dev)
 
-    lib = _build.load("sr_adaptive", fset.extended)
+    lib = _build.load("sr_adaptive", fset.variant)
     fn = lib.sr_adaptive_launch
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                    + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p])

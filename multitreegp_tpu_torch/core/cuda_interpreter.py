@@ -27,11 +27,13 @@ vouches for those checks; the cotangent and the device type are checked on
 every call. The entry points' ``ctypes`` types are set once per library.
 
 A function set with an operator past ``+ - * / sin cos`` launches the
-library's extended build (``_build.load("interpreter", fset.extended)``);
-the layout words carry the device op table, whose ids each build's
-``make_params`` checks against the operators it computes, and whether the
-set has unary operators (the instance without the unary rows' code
-otherwise).
+library's extended build, one with user operators the user build of its
+generated header (``_build.load("interpreter", fset.variant)``); the layout
+words carry the device op table, whose ids each build's ``make_params``
+checks against the operators it computes, and whether the set has unary
+operators (the instance without the unary rows' code otherwise). The
+layout cache keys on the header's hash too: two sets may share device op
+ids and differ in their user code.
 
 The plain versions (``core/interpreter.py``) and the autograd ``Function``
 that picks between them live beside the dispatcher in ``interpreter.py``.
@@ -111,7 +113,7 @@ def _signature(trees: TreeTensors, data: torch.Tensor, fset: FunctionSet) -> tup
     ops, c2, cst = trees.ops, trees.c2, trees.const
     return (ops.shape, ops.stride(), ops.dtype, ops.device, c2.shape, c2.stride(), c2.dtype,
             c2.device, cst.shape, cst.stride(), cst.dtype, cst.device, data.shape, data.stride(),
-            data.dtype, data.device, fset.device_op_ids, fset.arities)
+            data.dtype, data.device, fset.device_op_ids, fset.arities, fset.user_hash)
 
 
 def _make_layout(trees: TreeTensors, data: torch.Tensor, fset: FunctionSet) -> Layout:
@@ -225,7 +227,7 @@ def _require_cuda(trees: TreeTensors) -> torch.device:
 def evaluate_trees_cuda(trees: TreeTensors, data: torch.Tensor, fset: FunctionSet) -> torch.Tensor:
     """Launch the forward kernel: float32 roots of the joint batch shape."""
     dev = _require_cuda(trees)
-    lib = _build.load("interpreter", fset.extended)
+    lib = _build.load("interpreter", fset.variant)
     status, out = run_forward(lib.interpret_fwd, trees, data, fset,
                               torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, status, "interpreter forward kernel launch")
@@ -242,7 +244,7 @@ def evaluate_trees_vjp_cuda(
     """Launch the reverse-sweep kernel: ``(dconst like trees.const, ddata
     like data)`` for the roots' cotangent ``g``."""
     dev = _require_cuda(trees)
-    lib = _build.load("interpreter", fset.extended)
+    lib = _build.load("interpreter", fset.variant)
     status, dconst, ddata = run_backward(lib.interpret_bwd, trees, data, g, fset,
                                          torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, status, "interpreter backward kernel launch")

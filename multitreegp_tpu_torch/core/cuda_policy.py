@@ -408,7 +408,7 @@ def _cuda_launch(kind: int, trees: TreeTensors, b: int, fset: FunctionSet):
     dev = trees.ops.device
     if dev.type != "cuda":
         raise ValueError(f"the policy kernels take CUDA tensors, got {dev}")
-    lib = _build.load("policy", fset.extended)
+    lib = _build.load("policy", fset.variant)
     fn = lib.policy_launch
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int

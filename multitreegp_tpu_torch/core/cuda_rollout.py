@@ -185,7 +185,7 @@ def sr_fitness_cuda(
     err = torch.empty((p, b), dtype=torch.float32, device=dev)
     alive = torch.empty((p, b), dtype=torch.bool, device=dev)
 
-    lib = _build.load("sr_fitness", fset.extended)
+    lib = _build.load("sr_fitness", fset.variant)
     fn = lib.sr_fitness_launch
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -351,7 +351,7 @@ def sr_rollout_cuda(
     xs = torch.empty((t_steps, p, b, d), dtype=torch.float32, device=dev)
     alive = torch.empty((p, b), dtype=torch.bool, device=dev)
 
-    lib = _build.load("sr_rollout", fset.extended)
+    lib = _build.load("sr_rollout", fset.variant)
     fn = lib.sr_rollout_launch
     if fn.argtypes is None:  # once per loaded library
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float] * 3

@@ -14,23 +14,30 @@ has a fixed device op id in :data:`DEVICE_OPS`: ``+ - * / sin cos``, and
 ``log(0)`` is ``-inf``, ``pow`` of a negative base to a non-integral power is
 NaN, ``max``/``min`` propagate NaN). Every tree kernel receives an
 ``opcode - OP_START -> device op id`` table (:meth:`FunctionSet.device_ops`).
-The kernels come in two builds: the default one knows ``+ - * / sin cos``
-only, so those sets run exactly the code they always ran, and a function set
-with any later operator (:attr:`FunctionSet.extended`) loads the extended
-build (``csrc`` compiled with ``MTGP_EXT_OPS``). An operator outside the table
-(a user's callable under another name, or under a table name but computing
-something else, as a protected ``log``: :func:`table_agrees`) still runs on
-the CPU, through its torch function; every CUDA kernel given such a function
-set raises, and never falls back to the plain version.
+The default build of the kernels knows ``+ - * / sin cos`` only, so those
+sets run exactly the code they always ran, and a function set with any later
+operator (:attr:`FunctionSet.extended`) loads the extended build (``csrc``
+compiled with ``MTGP_EXT_OPS``). A torch callable outside the
+table (a user's callable under another name, or under a table name but
+computing something else, as a protected ``log``: :func:`table_agrees`) is
+traced into generated device code (:mod:`.user_ops`) and takes device op id
+``USER_FROM + k``, the k-th such operator of the set; a set with any of them
+loads the third build of each tree source (``_build.user_variant``), keyed
+by the hash of its generated header. A callable the emitter refuses runs on
+the CPU only, through its torch function; every CUDA kernel given such a
+function set raises with the reason, and never falls back to the plain
+version.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from functools import lru_cache
+from functools import cached_property, lru_cache
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from .. import _build
+from . import user_ops
 from .trees import CONST, EMPTY, OP_START
 
 # Operators the port knows by name: arity and torch function (x, y) -> value
@@ -64,6 +71,7 @@ DEVICE_OPS: Dict[str, int] = {
     "pow": 14, "max": 15, "min": 16,
 }
 EXTENDED_FROM = DEVICE_OPS["exp"]  # the first device op id of the extended build
+USER_FROM = user_ops.USER_FROM  # the first user operator's device op id
 UNKNOWN_DEVICE_OP = -1
 
 
@@ -106,7 +114,8 @@ def _table_agrees(name: str, fn: Callable) -> bool:
         import numpy as np
 
         try:
-            got = np.array(fn(*(a.numpy() for a in args)), dtype=np.float32)
+            with np.errstate(all="ignore"):  # a protected operator's unselected branch
+                got = np.array(fn(*(a.numpy() for a in args)), dtype=np.float32)
         except Exception as exc:  # noqa: BLE001
             raise ValueError(f"operator {name!r}: the given function could not be evaluated "
                              f"on float32 tensors or arrays: {exc}") from exc
@@ -132,11 +141,15 @@ class FunctionSet:
         operator_fns: torch functions ``(x, y) -> value`` (unary ones ignore y).
         arities: operator arities (1 or 2).
         operator_probs: unnormalised sampling probabilities.
-        device_op_ids: device op id per operator, ``-1`` outside the table.
+        device_op_ids: device op id per operator: the table's, ``USER_FROM +
+            k`` for the k-th traced user operator, ``-1`` for a refused one.
         variable_names: flat variable names, opcode ``var_start + v``.
         variable_mask: float32 ``(num_trees, num_variables)`` per-tree leaf
             weights (1 where the tree's layer may use the variable).
         layer_sizes: trees per layer.
+        user_header: the generated header of the traced user operators
+            (``""`` without any).
+        refusals: ``(name, reason)`` of each operator without a device op.
     """
 
     operator_names: Tuple[str, ...]
@@ -149,6 +162,8 @@ class FunctionSet:
     layer_sizes: Tuple[int, ...]
     string_to_op: Dict[str, int] = field(repr=False)
     op_to_string: Dict[int, str] = field(repr=False)
+    user_header: str = field(default="", repr=False)
+    refusals: Tuple[Tuple[str, str], ...] = ()
 
     @property
     def num_operators(self) -> int:
@@ -194,10 +209,26 @@ class FunctionSet:
 
     @property
     def extended(self) -> bool:
-        """Whether any operator lies past ``+ - * / sin cos``: the tree
-        kernels then run their extended build (``_build.load(name,
-        extended=True)``)."""
+        """Whether any operator lies past ``+ - * / sin cos`` (a user
+        operator too): the tree kernels then run a build other than the
+        default one (:attr:`variant`)."""
         return any(i >= EXTENDED_FROM for i in self.device_op_ids)
+
+    @cached_property
+    def user_hash(self) -> str:
+        """sha256 of :attr:`user_header` (``""`` without user operators): two
+        sets with the same device op ids may differ in their user code."""
+        return _build.header_hash(self.user_header) if self.user_header else ""
+
+    @cached_property
+    def variant(self) -> "_build.Variant":
+        """The build of the tree kernels this set runs: the user build of its
+        generated header where it has user operators, else the extended
+        build where it has an operator past ``+ - * / sin cos``, else the
+        default one (``_build.load(name, fset.variant)``)."""
+        if self.user_header:
+            return _build.user_variant(self.user_header)
+        return _build.EXTENDED if self.extended else _build.DEFAULT
 
     def slots(self, device=None) -> torch.Tensor:
         """int32 arity per opcode: 0 for EMPTY/CONST/variables (cached per
@@ -220,17 +251,15 @@ class FunctionSet:
         return device_table(self.device_op_ids, torch.int32, torch.device(device or "cpu"))
 
     def require_device_ops(self) -> None:
-        """Raise unless every operator has a device op id (the CUDA kernels'
-        precondition)."""
-        missing = [
-            n for n, i in zip(self.operator_names, self.device_op_ids)
-            if i == UNKNOWN_DEVICE_OP
-        ]
-        if missing:
+        """Raise ``NotImplementedError`` unless every operator has a device op
+        id (the CUDA kernels' precondition), naming each refused operator and
+        why the emitter refused it."""
+        if self.refusals:
+            why = "; ".join(f"{name!r}: {reason}" for name, reason in self.refusals)
             raise NotImplementedError(
-                f"operators {missing} have no device implementation; the CUDA "
-                f"kernels implement {sorted(DEVICE_OPS)}"
-            )
+                f"operators without a device implementation ({why}); the CUDA kernels "
+                f"implement {sorted(DEVICE_OPS)} and torch callables that trace to the "
+                f"aten ops of core/user_ops.py")
 
 
 def build_function_set(
@@ -247,10 +276,13 @@ def build_function_set(
     first evaluated on :data:`PROBE_VALUES` (:func:`table_agrees`): where it
     agrees with the table's, the table's function and device op id are used;
     a torch callable that does not (a protected ``log``, say) is kept as
-    given and runs on the CPU only, like any name outside the table; any
-    other callable that does not agree raises ``ValueError``, since it
-    cannot run on torch tensors. Other names need a torch callable ``fn``,
-    and run on the CPU only.
+    given, like any name outside the table; any other callable that does not
+    agree raises ``ValueError``, since it cannot run on torch tensors. Other
+    names need a torch callable ``fn``. Such a kept callable is traced
+    (:func:`.user_ops.compile_op`): the k-th one that the emitter takes has
+    device op id ``USER_FROM + k`` (up to 63), a refused one none (it runs
+    on the CPU only, and :meth:`FunctionSet.require_device_ops` gives the
+    reason).
     """
     layer_sizes = tuple(int(s) for s in layer_sizes)
     if len(layer_sizes) != len(variable_list):
@@ -262,6 +294,7 @@ def build_function_set(
         raise ValueError("operator_list must not be empty")
 
     names, fns, arities, probs, dev_ids = [], [], [], [], []
+    traced, refusals = [], []
     string_to_op: Dict[str, int] = {}
     for entry in operator_list:
         name = entry[0]
@@ -282,8 +315,12 @@ def build_function_set(
             fn, dev_id = OPERATORS[name][1], DEVICE_OPS[name]
         elif fn is None:
             raise ValueError(f"operator {name!r} is not in OPERATORS and has no function")
-        elif arity == 1:
-            fn = (lambda f: (lambda x, y: f(x)))(fn)
+        else:
+            if arity == 1:
+                fn = (lambda f: (lambda x, y: f(x)))(fn)
+            dev_id, reason = _user_device_op(name, fn, arity, traced)
+            if reason is not None:
+                refusals.append((name, reason))
         string_to_op[name] = OP_START + len(names)
         names.append(name)
         fns.append(fn)
@@ -323,7 +360,22 @@ def build_function_set(
         layer_sizes=layer_sizes,
         string_to_op=string_to_op,
         op_to_string=op_to_string,
+        user_header=user_ops.header(traced) if traced else "",
+        refusals=tuple(refusals),
     )
+
+
+def _user_device_op(name: str, fn: Callable, arity: int, traced: list):
+    """``(device op id, None)`` for a callable the emitter takes (appended to
+    ``traced``), ``(UNKNOWN_DEVICE_OP, reason)`` for one it refuses."""
+    if USER_FROM + len(traced) > user_ops.MAX_DEVICE_OP:
+        return UNKNOWN_DEVICE_OP, (f"device op ids stop at {user_ops.MAX_DEVICE_OP} "
+                                   f"({user_ops.MAX_DEVICE_OP - USER_FROM + 1} user operators)")
+    try:
+        traced.append(user_ops.compile_op(name, fn, arity))
+    except user_ops.Refused as exc:
+        return UNKNOWN_DEVICE_OP, str(exc)
+    return USER_FROM + len(traced) - 1, None
 
 
 def default_sr_operators():
@@ -336,4 +388,48 @@ def default_sr_operators():
         ("-", torch.subtract, 2, 0.1),
         ("*", torch.multiply, 2, 0.5),
         ("/", torch.divide, 2, 0.1),
+    ]
+
+
+def protected_division(x, y):
+    """gplearn's ``_protected_division``: ``x / y`` where ``|y| > 0.001``, else 1."""
+    return torch.where(torch.abs(y) > 0.001, x / y, 1.0)
+
+
+def protected_log(x):
+    """gplearn's ``_protected_log``: ``log|x|`` where ``|x| > 0.001``, else 0."""
+    return torch.where(torch.abs(x) > 0.001, torch.log(torch.abs(x)), 0.0)
+
+
+def protected_sqrt(x):
+    """gplearn's ``_protected_sqrt``: ``sqrt|x|``."""
+    return torch.sqrt(torch.abs(x))
+
+
+def protected_inverse(x):
+    """gplearn's ``_protected_inverse``: ``1 / x`` where ``|x| > 0.001``, else 0."""
+    return torch.where(torch.abs(x) > 0.001, 1.0 / x, 0.0)
+
+
+def sigmoid(x):
+    """gplearn's ``_sigmoid``: ``1 / (1 + exp(-x))``."""
+    return 1 / (1 + torch.exp(-x))
+
+
+def gplearn_operators():
+    """``+ - *`` and gplearn's protected operators (``gplearn/functions.py``)
+    as torch callables under the names ``/``, ``log``, ``sqrt``, ``inv`` and
+    ``sig``, with the SymbolicRegression notebook's probabilities for ``+ -
+    * /`` and 0.1 for the rest. ``/``, ``log`` and ``sqrt`` are table names
+    whose table functions these callables are not: with ``inv`` and ``sig``
+    they become user operators (:mod:`.user_ops`)."""
+    return [
+        ("+", torch.add, 2, 0.5),
+        ("-", torch.subtract, 2, 0.1),
+        ("*", torch.multiply, 2, 0.5),
+        ("/", protected_division, 2, 0.1),
+        ("log", protected_log, 1, 0.1),
+        ("sqrt", protected_sqrt, 1, 0.1),
+        ("inv", protected_inverse, 1, 0.1),
+        ("sig", sigmoid, 1, 0.1),
     ]

@@ -55,7 +55,8 @@
 // Numerics: the forward runs the plain version's float32 operations; the
 // backward uses the expressions PyTorch autograd uses for them (d/dy of x/y
 // is -g * ((x / y) / y), d/dx of sin x is g * cos(x); the extended build's
-// in unary_vjp and binary_vjp), and accumulates each
+// in unary_vjp and binary_vjp; a user build's in the VJP generated from
+// autograd's graph of each user operator), and accumulates each
 // cotangent in the order the autograd engine does: a row's sum from the rows
 // above that read it as their second operand, top-down, then its parent's dx
 // (then that parent's dy where c2 == i-1); variable rows top-down. Built with
@@ -313,6 +314,13 @@ MTGP_HD inline float tanh_grad(float r) { return fmaf(-r, r, 1.0f); }
 // pow(x, 2)) on the row's operand x and its value r: the unary rows' dx
 // (for sin and cos, as below)...
 MTGP_HD inline float unary_vjp(int id, float g, float x, float r) {
+#ifdef MTGP_USER_OPS
+  if (id >= kUserFrom) {  // the generated VJP, which recomputes what it needs from x
+    float dx;
+    mtgp_user::vjp_unary(id - kUserFrom, g, x, dx);
+    return dx;
+  }
+#endif
   switch (id) {
     case kSin: return g * cosf(x);
     case kCos: return g * -sinf(x);
@@ -331,6 +339,12 @@ MTGP_HD inline float unary_vjp(int id, float g, float x, float r) {
 // (0 where the exponent is 0, and where the base is 0 and the exponent
 // >= 0), maximum / minimum (half to each on a tie).
 MTGP_HD inline void binary_vjp(int id, float g, float x, float y, float r, float& dx, float& dy) {
+#ifdef MTGP_USER_OPS
+  if (id >= kUserFrom) {  // the generated VJP, which recomputes what it needs from x, y
+    mtgp_user::vjp_binary(id - kUserFrom, g, x, y, dx, dy);
+    return;
+  }
+#endif
   if (id == kPow) {
     dx = y == 0.0f ? 0.0f : g * (y * powf(x, y - 1.0f));
     dy = g * (x == 0.0f && y >= 0.0f ? 0.0f : r * logf(x));

@@ -26,6 +26,14 @@
 // NaN-first `fmaxf`/`fminf`. Without the macro none of that is compiled, so
 // the six-operator sets run exactly the code they ran before it existed.
 //
+// A third kind of build, with MTGP_USER_OPS besides MTGP_EXT_OPS (the
+// `_u<hash>` libraries), compiles a function set's user operators: the
+// build includes a header generated by core/user_ops.py before the source
+// (`-include`), whose namespace mtgp_user holds each traced torch callable's
+// forward and VJP as float32 code. Device op ids from kUserFrom on dispatch
+// to them: a unary one as the unary operators, a binary one beside pow, max
+// and min.
+//
 // Everything here is plain C++ under MTGP_HD, so each including file also
 // compiles for the host (without __CUDACC__) into a lane loop that tests run
 // against the plain versions on machines without a card.
@@ -69,7 +77,10 @@ constexpr int kSquare = 13;
 constexpr int kPow = 14;
 constexpr int kMax = 15;
 constexpr int kMin = 16;
-#ifdef MTGP_EXT_OPS
+#if defined(MTGP_USER_OPS)
+constexpr int kUserFrom = 17;  // core/user_ops.py USER_FROM: user op k is kUserFrom + k
+constexpr int kLastOp = kUserFrom + mtgp_user::kCount - 1;  // the largest id this build computes
+#elif defined(MTGP_EXT_OPS)
 constexpr int kLastOp = kMin;  // the largest device op id this build computes
 #else
 constexpr int kLastOp = kCos;
@@ -106,9 +117,17 @@ MTGP_HD inline float apply_unary(int id, float a) {
   return id == kSin ? sinf(a) : cosf(a);
 }
 #else
-MTGP_HD inline bool is_unary(int id) { return id >= kSin && id < kPow; }
+MTGP_HD inline bool is_unary(int id) {
+#ifdef MTGP_USER_OPS
+  if (id >= kUserFrom) return mtgp_user::unary(id - kUserFrom);
+#endif
+  return id >= kSin && id < kPow;
+}
 
 MTGP_HD inline float apply_unary(int id, float a) {
+#ifdef MTGP_USER_OPS
+  if (id >= kUserFrom) return mtgp_user::forward_unary(id - kUserFrom, a);
+#endif
   switch (id) {
     case kSin: return sinf(a);
     case kCos: return cosf(a);
@@ -123,9 +142,12 @@ MTGP_HD inline float apply_unary(int id, float a) {
   }
 }
 
-// kPow, kMax, kMin. torch.maximum / torch.minimum on the card: the first NaN
-// operand, else fmaxf / fminf.
+// kPow, kMax, kMin (and the binary user operators). torch.maximum /
+// torch.minimum on the card: the first NaN operand, else fmaxf / fminf.
 MTGP_HD inline float apply_binary(int id, float a, float b) {
+#ifdef MTGP_USER_OPS
+  if (id >= kUserFrom) return mtgp_user::forward_binary(id - kUserFrom, a, b);
+#endif
   if (id == kPow) return powf(a, b);
   if (isnan(a)) return a;
   if (isnan(b)) return b;

@@ -30,8 +30,12 @@ Acrobot at N <= 32, of the adaptive SR kernels and the trajectory kernel at
 state dim 2, of the interpreter kernels and of the probe. Every process
 prints a digest of each library's machine code (``cuobjdump -sass``, its
 kernels' instructions), so that two versions whose builds compiled to the
-same code show the same digests. Two versions compare only within one such
-run.
+same code show the same digests: every library's default build, the tree
+libraries' extended build (``_ext``) and, where the package has user
+operators, their user build of gplearn's protected set (``_user``). Two
+versions compare only within one such run. With ``--sass`` the script runs
+OTHER, then this, and prints the builds' ``nvcc`` seconds and the digests
+only.
 """
 from __future__ import annotations
 
@@ -46,8 +50,9 @@ from pathlib import Path
 THIS_ROOT = Path(__file__).resolve().parent.parent
 
 
-def time_kernels(root: Path) -> str:
-    """One line of times for the package under ``root``."""
+def time_kernels(root: Path, sass_only: bool = False) -> str:
+    """One line of times for the package under ``root`` (with ``sass_only``,
+    the builds and digests alone)."""
     sys.path.insert(0, str(root))
     import torch
 
@@ -61,7 +66,7 @@ def time_kernels(root: Path) -> str:
 
     if Path(pkg.__file__).resolve().parent.parent != root:
         raise RuntimeError(f"imported {pkg.__file__}, not the package under {root}")
-    pkg._build.build(*LIBRARIES)  # in parallel
+    variants = build_variants(pkg)
     built = {k: v for k, v in pkg._build.build_seconds.items() if v > 0}
     if built:  # printed before the runs, so a run that fails leaves it
         line = "nvcc " + ", ".join(f"{k} {v:.1f} s" for k, v in built.items())
@@ -75,7 +80,9 @@ def time_kernels(root: Path) -> str:
                     f"{k} {r} registers {st} B stack {sp} B spilled"
                     for k, r, st, sp in ptxas_report(pkg._build.build_logs[name]) if keep(k))
         print(line, flush=True)
-    print(sass_digests(pkg._build), flush=True)
+    print(sass_digests(pkg._build, variants), flush=True)
+    if sass_only:
+        return "sass only"
     dev = torch.device("cuda")
     fset = build_function_set([("+", 2, 0.5), ("-", 2, 0.1), ("*", 2, 0.5), ("/", 2, 0.1)],
                               [["x0", "x1"]], [2])
@@ -154,28 +161,60 @@ def time_kernels(root: Path) -> str:
 
 LIBRARIES = ("sr_fitness", "reproduce", "sr_rollout", "sr_adaptive", "policy", "interpreter",
              "branch_probe")
+# the sources with an extended and a user build (the tree kernels #1, #3-#9)
+TREE_LIBRARIES = ("sr_fitness", "sr_rollout", "sr_adaptive", "policy", "interpreter")
+
+
+def build_variants(pkg) -> dict:
+    """Build every library of ``pkg`` (a package under its root), the tree
+    libraries also in their extended build and, where the package has user
+    operators, in the user build of gplearn's protected set
+    (``registry.gplearn_operators``): every ``nvcc`` at once. Returns ``{tag:
+    variant}`` of the builds made besides the default one."""
+    from concurrent.futures import ThreadPoolExecutor
+    import inspect
+
+    build = pkg._build
+    # an older checkout's build() names its flag `extended`
+    kw = "variant" if "variant" in inspect.signature(build.build).parameters else "extended"
+    variants = {"ext": True}
+    registry = __import__(f"{pkg.__name__}.core.registry", fromlist=["registry"])
+    if hasattr(registry, "gplearn_operators"):
+        fset = registry.build_function_set(registry.gplearn_operators(), [["x0", "x1"]], [2])
+        variants["user"] = fset.variant
+    with ThreadPoolExecutor(len(variants)) as pool:
+        jobs = [pool.submit(build.build, *TREE_LIBRARIES, **{kw: v}) for v in variants.values()]
+        build.build(*LIBRARIES)
+        for job in jobs:
+            job.result()
+    return variants
 
 
 _INSTRUCTION = re.compile(r"/\*[0-9a-f]{4,}\*/\s+([^;]*;)")
 
 
-def sass_digests(build) -> str:
+def sass_digests(build, variants=None) -> str:
     """One line: per library of ``build`` (a package's ``_build`` module),
     its kernel count and a digest of their instructions as ``cuobjdump
     -sass`` prints them: each kernel's instruction lines only (its name
     carries a hash of the source's path, in its anonymous namespace), the
-    kernels' digests sorted."""
+    kernels' digests sorted; then the same of the tree libraries in each of
+    ``variants`` (``{tag: variant}``, :func:`build_variants`), as
+    ``<name>_<tag>``."""
     tool = Path(build.find_nvcc()).parent / "cuobjdump"
     if not tool.is_file():
         return f"sass: no {tool}"
+    libraries = [(name, name, False) for name in LIBRARIES]
+    for tag, variant in (variants or {}).items():
+        libraries += [(f"{name}_{tag}", name, variant) for name in TREE_LIBRARIES]
     parts = []
-    for name in LIBRARIES:
-        text = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
-                              capture_output=True, text=True).stdout
+    for label, name, variant in libraries:
+        path = build.library_path(name, variant) if variant is not False else build.library_path(name)
+        text = subprocess.run([str(tool), "-sass", str(path)], capture_output=True, text=True).stdout
         kernels = sorted(hashlib.sha256("\n".join(_INSTRUCTION.findall(k)).encode()).hexdigest()
                          for k in re.split(r"\n\s*Function : ", text)[1:])
         digest = hashlib.sha256("".join(kernels).encode()).hexdigest()[:16]
-        parts.append(f"{name} {len(kernels)} kernels {digest}")
+        parts.append(f"{label} {len(kernels)} kernels {digest}")
     return "sass " + ", ".join(parts)
 
 
@@ -288,16 +327,22 @@ def policy_launches(g):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("other", help="root of the other checkout")
+    parser.add_argument("--sass", action="store_true",
+                        help="build and print the machine code digests only (other, this)")
     parser.add_argument("--time", action="store_true", help=argparse.SUPPRESS)
     opts = parser.parse_args(argv)
     if opts.time:
-        print(time_kernels(Path(opts.other).resolve()), flush=True)
+        print(time_kernels(Path(opts.other).resolve(), opts.sass), flush=True)
         return 0
     other = Path(opts.other).resolve()
-    for label, root in (("other", other), ("this", THIS_ROOT), ("this", THIS_ROOT), ("other", other)):
+    order = (("other", other), ("this", THIS_ROOT))
+    if not opts.sass:
+        order += order[::-1]
+    for label, root in order:
         # this file, run as a script, times the package under `root`
-        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), str(root), "--time"],
-                              cwd=root, capture_output=True, text=True)
+        cmd = [sys.executable, str(Path(__file__).resolve()), str(root), "--time"]
+        proc = subprocess.run(cmd + (["--sass"] if opts.sass else []), cwd=root, capture_output=True,
+                              text=True)
         for line in proc.stdout.strip().splitlines():
             print(f"kernel_ab {label} ({root}): {line}", flush=True)
         if proc.returncode != 0:

@@ -2,7 +2,7 @@
 tan abs neg square pow max min``) on every path that evaluates a tree.
 
 The kernels compute them only in their extended build (``csrc`` compiled with
-``MTGP_EXT_OPS``, ``_build.load(name, extended=True)``), which a function set
+``MTGP_EXT_OPS``, ``_build.load(name, True)``), which a function set
 with any of them selects (``FunctionSet.extended``).
 
 Tolerances, and why:
@@ -57,7 +57,7 @@ from multitreegp_tpu_torch.core.cuda_reproduction import reproduce_lanes, reprod
 from multitreegp_tpu_torch.core.interpreter import (
     evaluate_trees, evaluate_trees_plain, evaluate_trees_vjp_plain,
 )
-from multitreegp_tpu_torch.core.registry import DEVICE_OPS, EXTENDED_FROM, build_function_set
+from multitreegp_tpu_torch.core.registry import DEVICE_OPS, EXTENDED_FROM, USER_FROM, build_function_set
 from multitreegp_tpu_torch.core.trees import CONST, EMPTY, TreeTensors, rebuild_pointers
 from multitreegp_tpu_torch.models import environments as tenvs
 from multitreegp_tpu_torch.models.environments import VanDerPolOscillator
@@ -124,22 +124,24 @@ def protected_log(x):
 
 @pytest.mark.parametrize("name,fn,device_id", [
     ("log", None, DEVICE_OPS["log"]), ("log", torch.log, DEVICE_OPS["log"]),
-    ("log", lambda x: x.log(), DEVICE_OPS["log"]), ("log", protected_log, -1),
-    ("sqrt", lambda x: torch.sqrt(x.abs()), -1)])
+    ("log", lambda x: x.log(), DEVICE_OPS["log"]), ("log", protected_log, USER_FROM),
+    ("sqrt", lambda x: torch.sqrt(x.abs()), USER_FROM), ("log", lambda x: torch.erf(x), -1)])
 def test_torch_callable_under_a_table_name(name, fn, device_id):
     """A torch callable under a table name takes the table's device op only
     where it computes the table's function; a protected one is kept, runs on
-    the CPU as given and is refused by the kernels."""
+    the CPU as given, and is traced into a user operator (``USER_FROM``), or
+    refused by the kernels where the emitter refuses it (``erf``)."""
     entry = (name, 1) if fn is None else (name, fn, 1)
     fset = build_function_set([("+", 2), entry], [["x0"]], [1])
     assert fset.device_op_ids == (0, device_id) and fset.extended == (device_id != -1)
+    assert bool(fset.user_header) == (device_id == USER_FROM)
     ops, const = tree_rows((name, "x0"), fset, 4)
     ops_t = torch.tensor([ops], dtype=torch.int32)
     trees = TreeTensors(ops_t, *rebuild_pointers(ops_t, fset.slots()), torch.tensor([const]))
     x = torch.tensor([[-2.0], [0.0], [3.0]])[:, None]
     got = evaluate_trees(trees.map(lambda a: a[None].expand((3,) + a.shape)), x, fset)[:, 0]
     want = (fn or torch.log)(x[:, 0, 0])
-    assert not torch.isnan(want).any() or device_id != -1
+    assert not torch.isnan(want).any() or device_id not in (-1, USER_FROM)
     assert same_bits(got, want)
     if device_id == -1:
         with pytest.raises(NotImplementedError):
@@ -165,7 +167,7 @@ def test_jax_callable_under_a_table_name():
     from multitreegp_tpu.core.registry import build_function_set as jax_function_set
 
     protected = jax_function_set([("+", jnp.add, 2), ("log", safe_log, 1)], [["x0"]], [1])
-    with pytest.raises(ValueError, match="differs from the table"):
+    with pytest.raises(ValueError, match="give its torch counterpart"):
         function_set_from_jax(protected)
 
 
@@ -376,7 +378,7 @@ def ext_host(tmp_path_factory):
     if shutil.which("g++") is None and shutil.which("c++") is None:
         pytest.skip("no host C++ compiler")
     out = tmp_path_factory.mktemp("ext_host")
-    return lambda name: _build.build_host(name, out, extended=True)
+    return lambda name: _build.build_host(name, out, True)
 
 
 @pytest.fixture(scope="module")

@@ -227,6 +227,16 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     ext_checks = {k["name"]: set(k["extended"]["checks"]) for k in out["kernels"][:-1]}
     assert "interpreter_round" in ext_checks["interpret_fwd"] and ext_checks["reproduce"] == {"reproduce"}
     assert all("extended" in k for k in out["kernels"][:-1])
+    user = out["user"]  # phase 25: gplearn's protected operators as user operators
+    assert len(user["generations"]) == 2 and len(user["policy"]["generations"]) == 2
+    assert user["round"]["refined_sum"] <= user["round"]["unrefined_sum"] and user["user_rows"] > 0
+    assert set(user["checks"]) == {"sr_fitness", "sr_rollout", "sr_adaptive_global", "sr_adaptive_interval",
+                                   "policy_static", "policy_dynamic", "policy_adaptive_static",
+                                   "interpreter_round", "reproduce"}
+    assert all(c.get("identical", 1.0) == 1.0 for c in user["checks"].values())
+    assert all(user["checks"]["interpreter_round"]["bit_equal"].values())
+    assert user["checks"]["reproduce"]["ops_identical"] == 1.0
+    assert all("user" in k for k in out["kernels"][:-1])
     sde = out["sde"]
     assert sde["rows"]["bits_equal"] and max(sde["rows"]["ulp_gap"].values()) == 0
     assert sde["fitness_kicks"]["identical"] == 1.0 and out["kernels"][0]["kicks"]["lanes"] == 32 * 4

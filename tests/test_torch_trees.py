@@ -81,12 +81,16 @@ def test_function_set_matches_jax_numbering(population):
     assert tf.device_op_ids == (0, 1, 2, 3, 4)
     tf.require_device_ops()
     # an operator outside DEVICE_OPS (a user's callable under its own name)
-    # has none, and the kernels refuse it
+    # is traced into a user operator, or has none where the emitter refuses
+    # it (a reduction over the lanes), and the kernels refuse it
     user_set = build_function_set([("+", 2), ("softsign", lambda x: x / (1 + x.abs()), 1)],
                                   [["x0"]], [1])
-    assert user_set.device_op_ids == (0, -1) and not user_set.extended
-    with pytest.raises(NotImplementedError):
-        user_set.require_device_ops()
+    assert user_set.device_op_ids == (0, 17) and user_set.extended
+    user_set.require_device_ops()
+    refused = build_function_set([("+", 2), ("centred", lambda x: x - x.mean(), 1)], [["x0"]], [1])
+    assert refused.device_op_ids == (0, -1) and not refused.extended
+    with pytest.raises(NotImplementedError, match="reduces"):
+        refused.require_device_ops()
 
 
 def test_unknown_operator_needs_a_function():

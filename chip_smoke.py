@@ -159,8 +159,8 @@ workload (phases 12-14). Phases, one line or a few each:
    population #1 and #3 (T = 10) and #5 / #4 (phase 17's cut: T = 4, budget
    40 / 8 per interval) against their plain versions, every lane identical;
    the static Acrobot loop with ``+ - * tanh sin cos`` at 4096 x 16, T = 250,
-   RK4 x 4, 5 generations (#6, #2), then #6 static and dynamic (T = 26) and #7
-   static (T = 11) against their plain versions; #8/#9 in the round's layout
+   RK4 x 4, 5 generations (#6, #2), then #6 static and dynamic (T = 11) and #7
+   static (T = 5) against their plain versions; #8/#9 in the round's layout
    (its top 50 x 16 x 2 lanes) and on chains of 255, 127
    and 63 rows at N = 256 (phase 17's 256 x 16 lanes) and of 1023, 127 and 63
    rows at N = 1024 (16 a tree), every operator in the chains, every lane
@@ -181,11 +181,29 @@ workload (phases 12-14). Phases, one line or a few each:
    against their plain versions, every lane identical, and #2 on one
    generation's lanes; the static Acrobot loop with ``+ - * sin cos`` and the
    protected ``/`` at 4096 x 16, T = 250, RK4 x 4, 5 generations (#6, #2),
-   then #6 static and dynamic (T = 26) and #7 static (T = 11) against their
+   then #6 static and dynamic (T = 11) and #7 static (T = 5) against their
    plain versions; #1, #5 and #9 on phase 2's trees through the extended
    library (the table's ``/``; also its instance with the unary rows' code)
    and the user library (the protected ``/``) in turns, what the generated
    code costs; the user builds' ``nvcc`` seconds.
+26. the emitter's vocabulary (``registry.vocabulary_operators``: the sigmoid,
+   ``erf``, clamps, ``maximum``/``minimum``, powers by any scalar and by a
+   tensor, ``relu``, the inverse and hyperbolic functions, ``log1p``/``expm1``,
+   rounding, ``fmod``/``remainder``, rounded divisions, comparisons cast to
+   float32, in-place forms), traced by this machine's torch: #8/#9 through
+   the two sweep sets' user build against PyTorch's own CUDA ops
+   (``tools/op_sweep``), each unary operator on all 2^32 float32 inputs
+   (``SWEEP_STRIDE``; equal bits, NaN as NaN) and its VJP on every 256th
+   with two cotangents, the binary ones on a 4096 x 4096 grid stratified by
+   exponent plus the edges; phase 4's ``gen`` workload with the PySR-style
+   set (``registry.pysr_operators``), 5 generations (#1, #2), a round of
+   the top 50 (#8/#9), ``evaluate_candidate`` (#3), every launch counted;
+   #1, #3 (T = 10) and #8/#9 (the round's layout) against their plain
+   versions on its last population, every lane identical; #1 on phase 2's
+   trees through ``_ext`` and the vocabulary's library in turns; the
+   vocabulary builds' ``nvcc`` seconds. #4-#7's vocabulary builds are not
+   made here (``pytest -m cuda tests/test_torch_user_vocab.py`` makes and
+   checks them).
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last lines are a JSON line of per-kernel numbers, the card's name and
@@ -389,7 +407,7 @@ def main_data(device, s):
 
 
 def run(device, sizes=FULL) -> dict:
-    """Phases 2-25 on ``device``; returns the numbers the script prints."""
+    """Phases 2-26 on ``device``; returns the numbers the script prints."""
     import torch
 
     from multitreegp_tpu_torch import GeneticProgramming
@@ -534,6 +552,7 @@ def run(device, sizes=FULL) -> dict:
     out.update(examples_phase(device, s))
     out.update(extended_phase(device, s, data, trees, fset, ps))
     out.update(user_phase(device, s, data, trees, fset, ps))
+    out.update(vocabulary_phase(device, s, data, trees, fset))
 
     # -- the kernels line --------------------------------------------------------
     times = out.get("times_ms", {})
@@ -710,6 +729,24 @@ def run(device, sizes=FULL) -> dict:
             checks={c: user["checks"][c] for c in checked},
             device_ms={f"{t}_{tag}": user.get("device_ms", {}).get(f"{t}_{tag}")
                        for t in timed for tag in ("ext", "ext_unary", "user")})
+    voc = out["vocabulary"]
+    vocab_of = dict(sr_fitness=("sr_fitness", ("sr_fitness",)), sr_rollout=("sr_rollout", ("sr_rollout",)),
+                    interpret_fwd=("interpreter", ("interpreter_round",)),
+                    interpret_bwd=("interpreter", ("interpreter_round",)))
+    for k in out["kernels"]:  # phase 26: the vocabulary's user build on its path
+        if k["name"] not in vocab_of:
+            continue
+        source, checked = vocab_of[k["name"]]
+        k["vocabulary"] = dict(
+            launches=voc["launches"].get(k["name"], 0),
+            nvcc_s={lib: sec for lib, sec in voc.get("nvcc_s", {}).items() if lib.startswith(f"{source}_u")},
+            checks={c: voc["checks"][c] for c in checked},
+            device_ms={t: v for t, v in voc.get("device_ms", {}).items() if k["name"] == "sr_fitness"})
+        if source == "interpreter":
+            k["vocabulary"]["sweep"] = {
+                name: dict(lanes=r["lanes"], mismatches=r["mismatches"], vjp_lanes=r["vjp_lanes"],
+                           vjp_mismatches={t: v["mismatches"] for t, v in r["vjp"].items()})
+                for name, r in voc["sweep"].items()}
     pb = out["probe"]
     always = pb["modes"]["always"]
     out["kernels"].append(
@@ -3356,9 +3393,9 @@ def extended_phase(device, s, data, trees6, fset6, ps) -> dict:
     dyn_trees = make_population_sampler(dyn_fset, s["depth"], s["policy_nodes"])(
         g, s["islands"] * s["pop"])[0]
     for key, kind, trees_, fset_, state_size, t_cut in (
-            ("policy_static", "fixed", pflat, pfset, 0, s["policy_fixed_t"]),
-            ("policy_dynamic", "fixed", dyn_trees, dyn_fset, 2, s["policy_fixed_t"]),
-            ("policy_adaptive_static", "adaptive", pflat, pfset, 0, s["policy_adaptive_t"])):
+            ("policy_static", "fixed", pflat, pfset, 0, s["legs_t"]),
+            ("policy_dynamic", "fixed", dyn_trees, dyn_fset, 2, s["legs_t"]),
+            ("policy_adaptive_static", "adaptive", pflat, pfset, 0, s["trig_adaptive_t"])):
         c = checks[key] = policy_pair(device, kind, trees_, pdata, env, fset_, state_size, t_cut,
                                       substeps=s["policy_substeps"])
         phase_line(f"phase 24 {key} extended vs plain, T={t_cut}, {c['lanes']} lanes: identical "
@@ -3661,9 +3698,9 @@ def user_phase(device, s, data, trees6, fset6, ps) -> dict:
     dyn_trees = make_population_sampler(dyn_fset, s["depth"], s["policy_nodes"])(
         g, s["islands"] * s["pop"])[0]
     for key, kind, trees_, fset_, state_size, t_cut in (
-            ("policy_static", "fixed", pflat, pfset, 0, s["policy_fixed_t"]),
-            ("policy_dynamic", "fixed", dyn_trees, dyn_fset, 2, s["policy_fixed_t"]),
-            ("policy_adaptive_static", "adaptive", pflat, pfset, 0, s["policy_adaptive_t"])):
+            ("policy_static", "fixed", pflat, pfset, 0, s["legs_t"]),
+            ("policy_dynamic", "fixed", dyn_trees, dyn_fset, 2, s["legs_t"]),
+            ("policy_adaptive_static", "adaptive", pflat, pfset, 0, s["trig_adaptive_t"])):
         c = checks[key] = policy_pair(device, kind, trees_, pdata, env, fset_, state_size, t_cut,
                                       substeps=s["policy_substeps"])
         phase_line(f"phase 25 {key} user operators vs plain, T={t_cut}, {c['lanes']} lanes: identical "
@@ -3713,6 +3750,195 @@ def user_phase(device, s, data, trees6, fset6, ps) -> dict:
     return {"user": res}
 
 
+VOCAB_GEN_KERNELS = ("sr_fitness", "interpreter", "sr_rollout")  # phase 26's path: #1, #3, #8/#9
+SWEEP_STRIDE = 1  # phase 26's forward sweep: every bit pattern
+SWEEP_SIDE = 4096  # phase 26's binary grid: 4096 x 4096 plus the edges
+
+
+def vocabulary_sets():
+    """``(gen set, unary sweep set, binary sweep set)`` of phase 26: the
+    PySR-style set (``registry.pysr_operators``) over phase 4's variables and
+    the two sets of ``registry.vocabulary_operators`` (built before the
+    kernels, so that their user libraries are compiled in the parallel
+    prelude; traced by this machine's torch, which must refuse none)."""
+    from multitreegp_tpu_torch.core.registry import build_function_set, pysr_operators
+    from multitreegp_tpu_torch.tools.op_sweep import sweep_sets
+
+    gen = build_function_set(pysr_operators(), [["x0", "x1"]], [2])
+    check(gen.refusals == (), f"PySR-style operators refused: {gen.refusals}")
+    return (gen,) + sweep_sets()
+
+
+def with_vocabulary_set(trees, fset):
+    """``(trees, fset)`` of phase 2's ``+ - * /`` trees in the PySR-style set,
+    whose first four operators are ``+ - * /`` (variable opcodes shift past
+    its seven user operators, which no tree uses): the same trees through
+    its user library, which holds the vocabulary's code."""
+    import torch
+
+    from multitreegp_tpu_torch.core.registry import build_function_set, pysr_operators
+
+    vocab = build_function_set(pysr_operators(), [list(fset.variable_names)], list(fset.layer_sizes))
+    check(vocab.operator_names[:4] == fset.operator_names and vocab.variable_names == fset.variable_names,
+          "the PySR-style set's first operators are + - * /")
+    shift = vocab.var_start - fset.var_start
+    return trees._replace(ops=torch.where(trees.ops >= fset.var_start, trees.ops + shift, trees.ops)), vocab
+
+
+def vocabulary_phase(device, s, data, trees6, fset6) -> dict:
+    """Phase 26: the emitter's vocabulary (``registry.vocabulary_operators``,
+    traced by this torch) on the card. #8/#9 through the two sweep sets' user
+    build against PyTorch's own CUDA ops (``tools/op_sweep``): each unary
+    operator on every ``SWEEP_STRIDE``-th of the 2^32 float32 bit patterns
+    (equal bits, NaN as NaN), its VJP on every 256th with the cotangent 1
+    and a normal one (equal values); the binary ones on a ``SWEEP_SIDE``
+    square grid stratified by exponent plus the edges. Then the main path
+    with the PySR-style set: phase 4's ``gen`` workload, 5 generations (#1,
+    #2), a round of the top 50 (#8/#9) and ``evaluate_candidate`` (#3),
+    every launch counted between zeroed counters; on the last population #1,
+    #3 and #8/#9 against their plain versions, every lane identical; #1's
+    device time on phase 2's trees through the vocabulary's library and
+    through ``_ext``, in turns (``trees6``, ``fset6``: phase 2's population)."""
+    import torch
+
+    from multitreegp_tpu_torch import GeneticProgramming, _build
+    from multitreegp_tpu_torch.core import cuda_interpreter as ci
+    from multitreegp_tpu_torch.core import cuda_reproduction as cr
+    from multitreegp_tpu_torch.core import cuda_rollout as cf
+    from multitreegp_tpu_torch.core.registry import pysr_operators
+    from multitreegp_tpu_torch.core.trees import validate_host
+    from multitreegp_tpu_torch.models.evaluators import SREvaluator
+    from multitreegp_tpu_torch.tools import op_sweep
+
+    t_start = time.perf_counter()
+    on_card = device.type == "cuda"
+    x0s, ts_full, ys_full, _ = data
+    n, b, t_steps = s["max_nodes"], s["batch"], ts_full.shape[0]
+    _, unary_set, binary_set = vocabulary_sets()
+    res = dict(torch=torch.__version__, sweep={}, checks={})
+
+    # the sweep (checks: these launches are not the main path's)
+    if on_card:
+        for fset in (unary_set, binary_set):
+            for r in op_sweep.sweep_set(fset, device, SWEEP_STRIDE, SWEEP_SIDE):
+                res["sweep"][r["name"]] = r
+                vjp = " ".join(f"{k} {v['mismatches']} (zero sign {v['zero_sign']})" for k, v in r["vjp"].items())
+                phase_line(f"phase 26 sweep {r['name']}: {r['lanes']} lanes, mismatches {r['mismatches']} "
+                           f"{r['first']}; VJP on {r['vjp_lanes']}: {vjp}; {r['s']:.2f} s")
+        bad = {k: (r["first"], r["vjp"]) for k, r in res["sweep"].items() if not r["ok"]}
+        check(not bad, f"phase 26 sweep mismatches: {bad}")
+        check(len(res["sweep"]) == unary_set.num_operators + binary_set.num_operators,
+              f"phase 26 swept {len(res['sweep'])} operators")
+    res["sweep_s"] = time.perf_counter() - t_start
+
+    # the main path with the PySR-style set
+    gp = GeneticProgramming(
+        num_generations=s["generations"], population_size=s["pop"],
+        fitness_function=SREvaluator(substeps=1), operator_list=pysr_operators(),
+        variable_list=[["x0", "x1"]], layer_sizes=[2], num_populations=s["islands"], max_nodes=n,
+        max_init_depth=s["depth"], gradient_steps=s["gradient_steps"],
+        coefficient_opt_top_k=s["top_k"], elite_percentage=s["elite"], device=device)
+    fset = gp.fset
+    check(fset.refusals == () and fset.user_hash != "", f"phase 26's set: {fset.refusals}")
+    counters = dict(sr_fitness=cf.sr_fitness_cuda, reproduce=cr.reproduce_lanes_cuda,
+                    interpret_fwd=ci.evaluate_trees_cuda, interpret_bwd=ci.evaluate_trees_vjp_cuda,
+                    sr_rollout=cf.sr_rollout_cuda)
+    validate = lambda pops: validate_host(pops.map(lambda a: a.reshape(-1, n)), fset.slots(device))
+    r = loop_generations(gp, data, device, s["generations"], 26, counters, validate)
+    pops = r["pops"]
+    fitness = gp._evaluate(pops, data)
+    flat = pops.map(lambda a: a.reshape((-1,) + a.shape[2:]))
+    user_rows = int(((flat.ops >= 2 + 4) & (flat.ops < fset.var_start)).sum())
+    top = torch.argsort(fitness.reshape(-1), stable=True)[: gp.coefficient_opt_top_k]
+    sync(device)
+    t0 = time.perf_counter()
+    refined, _ = gp.optimise(flat[top], data)
+    sync(device)
+    round_ms = (time.perf_counter() - t0) * 1e3
+    unrefined = fitness.reshape(-1)[top]
+    check(not bool((refined > unrefined * (1 + 1e-6)).any()), "refinement made a candidate worse")
+    best = flat[int(torch.argmin(fitness.reshape(-1)))]
+    cand_fit, pred = SREvaluator(fset=fset, substeps=1).evaluate_candidate(best, data)
+    check(pred.shape == (b, t_steps, 2) and bool(torch.isfinite(cand_fit).all()),
+          "evaluate_candidate of the best candidate")
+    launches = {k: fn.launches for k, fn in counters.items()}  # zeroed by loop_generations
+    if on_card:
+        check(all(v >= 1 for v in launches.values()), f"phase 26 path launches {launches}")
+        need = s["gradient_steps"] * (t_steps - 1) * 4  # rk4, one substep: drift calls
+        check(launches["interpret_fwd"] >= need and launches["interpret_bwd"] >= need,
+              f"phase 26 round launches {launches} < {need}")
+    gen_ms = [g_["eval_ms"] + g_["evolve_ms"] for g_ in r["generations"]]
+    phase_line(f"phase 26 gen with the PySR-style set ({' '.join(fset.operator_names)}, device ids "
+               f"{list(fset.device_op_ids)}, library suffix {fset.variant.suffix}): {s['islands']}x"
+               f"{s['pop']} candidates, {user_rows} user rows in the last population, ms per generation "
+               f"{[round(v, 3) for v in gen_ms]} (median {statistics.median(gen_ms):.3f}), best "
+               f"{[round(v, 6) for v in r['best']]}; round of top {top.numel()}: {round_ms:.1f} ms, "
+               f"fitness sum {float(unrefined.sum()):.6g} -> {float(refined.sum()):.6g}; launches on the "
+               f"path (loop, round, evaluate_candidate) {launches}")
+    res.update(generations=r["generations"], ms_per_generation=gen_ms, launches=launches,
+               user_rows=user_rows, round=dict(ms=round_ms, unrefined_sum=float(unrefined.sum()),
+                                               refined_sum=float(refined.sum())))
+
+    # #1 and #3 against their plain versions on the last population at T = 10,
+    # #8/#9 in the round's layout
+    checks = res["checks"]
+    t_fix = s["adaptive_short_t"]
+    ts_, ys_ = ts_full[:t_fix], ys_full[:, :t_fix].contiguous()
+    mse, alive = (cf.sr_fitness_cuda if on_card else cf.sr_fitness_plain)(flat, x0s, ts_, ys_, fset, "rk4", 1)
+    (ref, ref_alive), plain_ms = timed_plain(
+        lambda: cf.sr_fitness_plain(flat, x0s, ts_, ys_, fset, "rk4", 1), device)
+    same = float(lanes_identical(mse, alive, ref, ref_alive).float().mean())
+    check(same == 1.0, f"#1 vocabulary: {same:.6f} of lanes identical")
+    fin = torch.isfinite(mse) & torch.isfinite(ref)
+    checks["sr_fitness"] = dict(identical=same, alive=float(alive.float().mean()), plain_ms=plain_ms,
+                                lanes=alive.numel(), t_steps=t_fix,
+                                max_abs_err=float((mse - ref).abs()[fin].max()))
+    xs, xalive = (cf.sr_rollout_cuda if on_card else cf.sr_rollout_plain)(flat, x0s, ts_, fset, "rk4", 1)
+    (rxs, rxalive), plain_ms = timed_plain(lambda: cf.sr_rollout_plain(flat, x0s, ts_, fset, "rk4", 1),
+                                           device)
+    same, max_abs = rollout_identical(xs, xalive, rxs, rxalive)
+    check(same == 1.0, f"#3 vocabulary: {same:.6f} of lanes identical")
+    checks["sr_rollout"] = dict(identical=same, max_abs_err=max_abs, plain_ms=plain_ms,
+                                lanes=xalive[-1].numel(), t_steps=t_fix)
+    gc = torch.Generator(device=device).manual_seed(262)
+    checks["interpreter_round"] = lanes_check(*shape_case(device, flat[top], b, gc), fset,
+                                              "#8/#9 vocabulary, the round's layout")
+    for key in ("sr_fitness", "sr_rollout", "interpreter_round"):
+        c = checks[key]
+        phase_line(f"phase 26 {key} vocabulary vs plain on the last population ({c['lanes']} lanes"
+                   f"{', T=' + str(c['t_steps']) if 't_steps' in c else ''}): identical "
+                   f"{c.get('identical', c.get('bit_equal'))}, max abs {c['max_abs_err']:.3e}, plain "
+                   f"{c['plain_ms']:.1f} ms")
+
+    if on_card:
+        check(all(_build.variant_name(k, fset.variant) in _build._loaded for k in VOCAB_GEN_KERNELS),
+              f"vocabulary builds loaded: {sorted(_build._loaded)}")
+        # #1 on phase 2's trees through _ext (an unused max appended; with an
+        # unused exp too, its unary instance) and through the vocabulary's
+        # library, in turns
+        ys_c = ys_full.contiguous()
+        tr_x, fs_x = with_unused_max(trees6, fset6)
+        tr_xu, fs_xu = with_unused_max(trees6, fset6, (("max", 2, 0.1), ("exp", 1, 0.1)))
+        tr_v, fs_v = with_vocabulary_set(trees6, fset6)
+        fit = lambda tr, fs: (lambda: cf.sr_fitness_cuda(tr, x0s, ts_full, ys_c, fs, "rk4", 1))
+        cases = [("sr_fitness_ext", fit(tr_x, fs_x), "sr_fitness_kernel"),
+                 ("sr_fitness_vocab", fit(tr_v, fs_v), "sr_fitness_kernel"),
+                 ("sr_fitness_ext_unary", fit(tr_xu, fs_xu), "sr_fitness_kernel"),
+                 ("sr_fitness_vocab", fit(tr_v, fs_v), "sr_fitness_kernel")]
+        times = res["device_ms"] = in_turns(cases, 3, torch)
+        x, xu, v = times["sr_fitness_ext"], times["sr_fitness_ext_unary"], times["sr_fitness_vocab"]
+        phase_line(f"phase 26 #1 phase 2's trees, device ms a launch (_ext, vocabulary library, vocabulary, "
+                   f"_ext): {x[0]:.4f}, {v[0]:.4f}, {v[1]:.4f}, {x[1]:.4f}; (_ext unary, vocabulary, "
+                   f"vocabulary, _ext unary): {xu[0]:.4f}, {v[2]:.4f}, {v[3]:.4f}, {xu[1]:.4f}")
+        libs = [_build.variant_name(k, v_.variant) for k, v_ in
+                [(k, fset) for k in VOCAB_GEN_KERNELS] + [("interpreter", unary_set), ("interpreter", binary_set)]]
+        res["nvcc_s"] = {k: _build.build_seconds.get(k) for k in libs}
+        phase_line(f"phase 26 vocabulary builds' nvcc seconds (beside the other builds): {res['nvcc_s']}")
+    res["seconds"] = time.perf_counter() - t_start
+    phase_line(f"phase 26 took {res['seconds']:.1f} s (the sweep {res['sweep_s']:.1f} s)")
+    return {"vocabulary": res}
+
+
 def sync(device) -> None:
     import torch
 
@@ -3742,13 +3968,15 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kernels = SHARDED_KERNELS if opts.sharded_only else KERNELS
     # one nvcc per library, all started together: the default builds, phase
-    # 24's extended ones and phase 25's user ones (its function sets are
-    # traced first)
+    # 24's extended ones, phase 25's and phase 26's user ones (their function
+    # sets are traced first)
     extra = []
     if not opts.sharded_only:
         gen_set, control_set = user_sets()
+        vocab_gen, sweep_unary, sweep_binary = vocabulary_sets()
         extra = [(EXTENDED_KERNELS, True), (USER_GEN_KERNELS, gen_set.variant),
-                 (USER_CONTROL_KERNELS, control_set.variant)]
+                 (USER_CONTROL_KERNELS, control_set.variant), (VOCAB_GEN_KERNELS, vocab_gen.variant),
+                 (("interpreter",), sweep_unary.variant), (("interpreter",), sweep_binary.variant)]
     with ThreadPoolExecutor(max(1, len(extra))) as pool:
         jobs = [pool.submit(_build.build, *names, variant=v) for names, v in extra]
         _build.build(*kernels)

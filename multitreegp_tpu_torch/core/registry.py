@@ -433,3 +433,59 @@ def gplearn_operators():
         ("inv", protected_inverse, 1, 0.1),
         ("sig", sigmoid, 1, 0.1),
     ]
+
+
+def clamped_exp(x):
+    """``exp(clamp(x, max=10))``: an exponential protected against overflow."""
+    return torch.exp(torch.clamp(x, max=10.0))
+
+
+def pysr_operators():
+    """``+ - * /`` and PySR-style operators (the "Operators" page of the
+    PySR docs) as torch callables: ``sigmoid``, ``atan``, ``log1p``,
+    ``expm1``, a square root written ``x ** 0.5``, ``maximum`` and an
+    exponential protected by a clamp, with the SymbolicRegression notebook's
+    probabilities for ``+ - * /`` and 0.1 for the rest. Their names are not
+    table names, so each is a user operator (:mod:`.user_ops`)."""
+    return default_sr_operators() + [
+        ("sigmoid", torch.sigmoid, 1, 0.1),
+        ("atan", torch.atan, 1, 0.1),
+        ("log1p", torch.log1p, 1, 0.1),
+        ("expm1", torch.expm1, 1, 0.1),
+        ("sqrt_pow", lambda x: x ** 0.5, 1, 0.1),
+        ("maximum", torch.maximum, 2, 0.1),
+        ("exp_clamped", clamped_exp, 1, 0.1),
+    ]
+
+
+def vocabulary_operators():
+    """``(unary set, binary set)``: one callable for each aten op that the
+    emitter compiles past ``+ - * /``, the comparisons and ``where``, each
+    traced into generated code with its VJP, in the ``(name, fn, arity)``
+    form of :func:`build_function_set`; two sets of at most 32 operators
+    (the interpreter kernel's limit), for sweeping every op on the card."""
+    unary = [
+        ("sigmoid", torch.sigmoid), ("erf", torch.erf), ("erfc", torch.erfc), ("relu", torch.relu),
+        ("atan", torch.atan), ("asin", torch.asin), ("acos", torch.acos), ("asinh", torch.asinh),
+        ("acosh", torch.acosh), ("atanh", torch.atanh), ("sinh", torch.sinh), ("cosh", torch.cosh),
+        ("log1p", torch.log1p), ("log2", torch.log2), ("log10", torch.log10), ("expm1", torch.expm1),
+        ("exp2", torch.exp2), ("rsqrt", torch.rsqrt), ("floor", torch.floor), ("ceil", torch.ceil),
+        ("round", torch.round), ("trunc", torch.trunc),
+        ("clamp", lambda x: torch.clamp(x, -1.5, 2.0)), ("exp_clamped", clamped_exp),
+        ("clamp_min", lambda x: torch.clamp(x, min=0.5)), ("sqrt_pow", lambda x: x ** 0.5),
+        ("rsqrt_pow", lambda x: x ** -0.5), ("inv_pow", lambda x: x ** -1),
+        ("inv_square", lambda x: x ** -2), ("pow4", lambda x: x ** 4), ("pow1_5", lambda x: x ** 1.5)]
+    binary = [
+        ("maximum", torch.maximum, 2), ("minimum", torch.minimum, 2), ("pow_tensor", torch.pow, 2),
+        ("atan2", torch.atan2, 2), ("hypot", torch.hypot, 2), ("fmod", torch.fmod, 2),
+        ("remainder", torch.remainder, 2), ("greater", lambda x, y: (x > y).float(), 2),
+        ("logical_or", lambda x, y: ((x > 0) | (y > 0)).float(), 2),
+        ("logical_and", lambda x, y: ((x > 0) & (y > 0)).float(), 2),
+        ("mul_inplace", lambda x, y: x.clone().mul_(y), 2),
+        ("div_floor", lambda x, y: torch.div(x, y, rounding_mode="floor"), 2),
+        ("div_trunc", lambda x, y: torch.div(x, y, rounding_mode="trunc"), 2),
+        # PySR's atanh_clip: atanh(mod(x + 1, 2) - 1)
+        ("atanh_clip", lambda x: torch.atanh(torch.remainder(x + 1.0, 2.0) - 1.0), 1),
+        ("fmod_scalar", lambda x: torch.fmod(x, 1.5), 1),
+        ("remainder_scalar", lambda x: torch.remainder(x, -1.5), 1)]
+    return [(name, fn, 1) for name, fn in unary], binary

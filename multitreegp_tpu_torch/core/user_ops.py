@@ -13,21 +13,30 @@ compiles in; ``csrc/tree_eval.cuh`` dispatches a device op id of
 
 * **Trace.** ``make_fx`` of ``fn(x, y)`` (a unary operator's ``fn`` ignores
   ``y``) on float32 CPU tensors of shape ``(8,)``, and of ``lambda x, y, g:
-  torch.func.vjp(fn, x, y)[1](g)``: the backward graph holds autograd's own
-  formulas, which autograd runs through the same callable in the plain
-  versions.
+  torch.func.vjp(fn, x, y)[1](g)``, each functionalised
+  (``torch.func.functionalize``, mutations and views removed: ``mul_``
+  becomes ``mul``): the backward graph holds autograd's own formulas, which
+  autograd runs through the same callable in the plain versions.
 * **Check.** Every node is an aten op of :data:`EMITTERS`, every value
   float32 (a comparison's bool only as a ``where`` condition or a logical
   operand), every tensor value per lane (shape ``(8,)``) or a constant.
   Refused, with the reason: a callable that does not trace (Python control
-  flow on values, ``.item()``, numpy), that draws random numbers, that
-  reduces over the lanes, that holds a tensor constant, or that has a node
-  outside the table. A refused callable runs on the CPU only.
+  flow on values, ``.item()``, numpy), that writes into its own inputs,
+  that draws random numbers, that reduces over the lanes, that holds a
+  tensor constant, or that has a node outside the table (among them the
+  special functions whose CUDA form is PyTorch's own series, ``lgamma``,
+  whose VJP is ``digamma``, and ``torch.special.i0``). A refused callable
+  runs on the CPU only.
 * **Emit.** One statement per aten node, one float32 rounding each, as
   PyTorch's CUDA elementwise kernel for that node computes it (a division by
   a Python scalar multiplies by its float32 reciprocal, as the CUDA kernel
   does; the CPU one divides); constants as float32 bit patterns; both sides
-  of a ``where`` are computed and one is selected.
+  of a ``where`` are computed and one is selected. Math functions are the
+  CUDA library's calls PyTorch's kernels make (``erff``, ``atan2f``,
+  ``powf``, ...), the host build's the C library's; where PyTorch's CPU and
+  CUDA kernels compute a node by other formulas (``rsqrt``: ``rsqrtf`` on
+  the card, ``1 / sqrt`` on the CPU), the header's prelude holds both under
+  ``__CUDA_ARCH__``, so that each build agrees with PyTorch on its device.
 
 The header's text is the same for the same code, so its sha256 names the
 library (``_build.header_hash``): function sets that trace to the same code
@@ -81,13 +90,16 @@ def _div_scalar(a: str, s) -> str:
 
 
 def _pow_scalar(a: str, e) -> str:
-    # PyTorch's pow(tensor, scalar): exponent 0 fills 1, 1 copies, 2 and 3 are
-    # the products base * base (* base) on the CPU and the card alike; others
-    # call powf or other kernels, which are not matched here
-    products = {0.0: _f32(1.0), 1.0: a, 2.0: f"{a} * {a}", 3.0: f"{a} * {a} * {a}"}
-    if _scalar(e) not in products:
-        raise Refused(f"a power with exponent {e} (only 0, 1, 2 and 3 are emitted)")
-    return products[_scalar(e)]
+    # PyTorch's pow(tensor, scalar) for a float32 base (PowKernel.cu, and
+    # the CPU's pow_tensor_scalar_kernel with the same cases): exponent 0
+    # fills 1, 1 copies, 0.5 is sqrt, -0.5 rsqrt, -1 the reciprocal, 2 and 3
+    # the products base * base (* base), -2 one over base * base; any other
+    # exponent, rounded to float32, goes to powf
+    e = _scalar(e)
+    special = {0.0: _f32(1.0), 1.0: a, 0.5: f"sqrtf({a})", -0.5: f"mtgp_user::rsqrt({a})",
+               -1.0: f"1.0f / {a}", 2.0: f"{a} * {a}", 3.0: f"{a} * {a} * {a}",
+               -2.0: f"1.0f / ({a} * {a})"}
+    return special.get(e, f"powf({a}, {_f32(e)})")
 
 
 def _alpha_one(kwargs) -> None:
@@ -99,6 +111,32 @@ def _float_kwarg(kwargs) -> None:
     dtype = kwargs.get("dtype")
     if dtype is not None and dtype != torch.float32:
         raise Refused(f"a constant of dtype {dtype}")
+
+
+def _clamp(a, lo, hi) -> str:
+    # clamp, clamp_min, clamp_max by Python scalars (TensorCompare.cu): NaN
+    # propagates from the value, then ::min(::max(v, lo), hi), fmaxf/fminf
+    if lo is None and hi is None:
+        raise Refused("a clamp without bounds")
+    inner = a if lo is None else f"fmaxf({a}, {lo})"
+    inner = inner if hi is None else f"fminf({inner}, {hi})"
+    return f"({a} != {a} ? {a} : {inner})"
+
+
+def _nan_first(fn: str):
+    # maximum / minimum (MaxMinElementwiseKernel.cu): a if it is NaN, else b
+    # if it is NaN, else fmaxf / fminf
+    return lambda a, k: f"({a[0]} != {a[0]} ? {a[0]} : ({a[1]} != {a[1]} ? {a[1]} : {fn}({a[0]}, {a[1]})))"
+
+
+def _bool_to_float(a, k) -> str:
+    if set(k) - {"dtype", "layout", "device", "pin_memory"} or k.get("dtype") != torch.float32:
+        raise Refused(f"a copy to {k.get('dtype')} (only bool to float32 is emitted)")
+    return f"static_cast<float>({a[0]})"
+
+
+def _call(fn: str):
+    return lambda a, k: f"{fn}({', '.join(a)})"
 
 
 _AT = torch.ops.aten
@@ -128,7 +166,7 @@ EMITTERS: Dict[object, Callable] = {
     _AT.sub.Tensor: lambda a, k: (_alpha_one(k), f"{a[0]} - {a[1]}")[1],
     _AT.sub.Scalar: lambda a, k: (_alpha_one(k), f"{a[0]} - {a[1]}")[1],
     _AT.rsub.Scalar: lambda a, k: (_alpha_one(k), f"{a[1]} - {a[0]}")[1],
-    _AT.pow.Tensor_Scalar: "pow",  # by an exponent 0-3: see _pow_scalar
+    _AT.pow.Tensor_Scalar: "pow",  # by a Python scalar: see _pow_scalar
     _AT.mul.Tensor: lambda a, k: f"{a[0]} * {a[1]}",
     _AT.mul.Scalar: lambda a, k: f"{a[0]} * {a[1]}",
     _AT.div.Tensor: "div",  # by a tensor or by a Python scalar: see _emit_node
@@ -159,15 +197,54 @@ EMITTERS: Dict[object, Callable] = {
     _AT.zeros_like.default: lambda a, k: (_float_kwarg(k), _f32(0.0))[1],
     _AT.ones_like.default: lambda a, k: (_float_kwarg(k), _f32(1.0))[1],
     _AT.full_like.default: lambda a, k: (_float_kwarg(k), a[1])[1],
+    # the CUDA library's calls that PyTorch's kernels make for float32
+    # (UnaryOpsKernel.cu, UnarySpecialOpsKernel.cu, UnaryGeometric*Kernel.cu,
+    # BinaryMiscOpsKernels.cu, PowKernel.cu, ...)
+    **{getattr(_AT, op).default: _call(fn) for op, fn in (
+        ("erf", "erff"), ("erfc", "erfcf"), ("atan", "atanf"), ("asin", "asinf"), ("acos", "acosf"),
+        ("sinh", "sinhf"), ("cosh", "coshf"), ("asinh", "asinhf"), ("acosh", "acoshf"),
+        ("atanh", "atanhf"), ("log1p", "log1pf"), ("log2", "log2f"), ("log10", "log10f"),
+        ("expm1", "expm1f"), ("exp2", "exp2f"), ("atan2", "atan2f"), ("hypot", "hypotf"),
+        ("floor", "floorf"), ("ceil", "ceilf"), ("trunc", "truncf"),
+        # round half to even: std::nearbyint
+        ("round", "nearbyintf"),
+        # rsqrtf on the card, 1 / sqrt on the CPU: the prelude's
+        ("rsqrt", "mtgp_user::rsqrt"))},
+    _AT.fmod.Tensor: _call("fmodf"),
+    _AT.fmod.Scalar: _call("fmodf"),
+    _AT.pow.Tensor_Tensor: _call("powf"),
+    # fmod, then the divisor added where the result is non-zero and lies on
+    # the other side of 0 from the divisor (both devices)
+    _AT.remainder.Tensor: _call("mtgp_user::remainder"),
+    _AT.remainder.Scalar: _call("mtgp_user::remainder"),
+    _AT.div.Tensor_mode: "div",  # floor or trunc, by a tensor: see _emit_node
+    # one / (one + exp(-x)); its backward a * (one - b) * b
+    _AT.sigmoid.default: lambda a, k: f"1.0f / (1.0f + expf(-{a[0]}))",
+    _AT.sigmoid_backward.default: lambda a, k: f"{a[0]} * (1.0f - {a[1]}) * {a[1]}",
+    _AT.clamp.default: lambda a, k: _clamp(*(a + [None, None])[:3]),
+    _AT.clamp_min.default: lambda a, k: _clamp(a[0], a[1], None),
+    _AT.clamp_max.default: lambda a, k: _clamp(a[0], None, a[1]),
+    # relu is clamp_min(x, 0) on the card; its backward threshold_backward
+    # (x <= threshold ? 0 : grad), with the forward's result as x
+    _AT.relu.default: lambda a, k: _clamp(a[0], _f32(0.0), None),
+    _AT.threshold_backward.default: lambda a, k: f"{a[1]} <= {a[2]} ? {_f32(0.0)} : {a[0]}",
+    _AT.maximum.default: _nan_first("fmaxf"),
+    _AT.minimum.default: _nan_first("fminf"),
+    _AT.masked_fill.Scalar: lambda a, k: f"{a[1]} ? {a[2]} : {a[0]}",
+    _AT._to_copy.default: _bool_to_float,
+    # functionalised ``torch.empty_like(x).fill_(v)``: the constant v
+    _AT.empty_like.default: lambda a, k: (_float_kwarg(k), _f32(0.0))[1],
+    _AT.fill.Scalar: lambda a, k: a[1],
     _AT.clone.default: lambda a, k: a[0],
     _AT.alias.default: lambda a, k: a[0],
     _AT.detach.default: lambda a, k: a[0],
 }
 # ops whose value is a constant (a 0-dim tensor or a tensor like the lanes)
 _CONSTANT_MAKERS = {_AT.scalar_tensor.default, _AT.zeros_like.default, _AT.ones_like.default,
-                    _AT.full_like.default}
+                    _AT.full_like.default, _AT.empty_like.default, _AT.fill.Scalar}
 # ops whose first argument is read only for its shape
-_SHAPE_ONLY = {_AT.zeros_like.default, _AT.ones_like.default, _AT.full_like.default}
+_SHAPE_ONLY = {_AT.zeros_like.default, _AT.ones_like.default, _AT.full_like.default,
+               _AT.empty_like.default, _AT.fill.Scalar}
 _BOOL_OPS = {op for op in EMITTERS if str(op).split(".")[1] in
              ("gt", "ge", "lt", "le", "eq", "ne", "logical_and", "logical_or", "logical_not",
               "bitwise_and", "bitwise_or", "bitwise_not")}
@@ -180,15 +257,20 @@ def trace(fn: Callable) -> Tuple[torch.fx.GraphModule, torch.fx.GraphModule]:
     from torch.fx.experimental.proxy_tensor import make_fx
 
     x, y, g = (torch.zeros(TRACE_LANES, dtype=torch.float32) for _ in range(3))
-    try:
-        fwd = make_fx(fn)(x, y)
-        bwd = make_fx(lambda x, y, g: torch.func.vjp(fn, x, y)[1](g))(x, y, g)
-    except Exception as exc:  # noqa: BLE001 - any failure to trace refuses the callable
-        first = str(exc).strip().splitlines()[0] if str(exc).strip() else ""
-        raise Refused(f"it does not trace to an aten graph ({type(exc).__name__}: {first[:160]})") from exc
-    for gm in (fwd, bwd):
+    pure = lambda f: torch.func.functionalize(f, remove="mutations_and_views")
+    graphs = []
+    for f, args in ((fn, (x, y)), (lambda x, y, g: torch.func.vjp(fn, x, y)[1](g), (x, y, g))):
+        try:
+            gm = make_fx(pure(f))(*args)
+        except Exception as exc:  # noqa: BLE001 - any failure to trace refuses the callable
+            first = str(exc).strip().splitlines()[0] if str(exc).strip() else ""
+            raise Refused(f"it does not trace to an aten graph ({type(exc).__name__}: {first[:160]})") from exc
+        # functionalisation writes a mutated input back with copy_
+        if any(n.target == _AT.copy_.default for n in gm.graph.nodes):
+            raise Refused("it writes into its own inputs (aten.copy_)")
         gm.graph.eliminate_dead_code()
-    return fwd, bwd
+        graphs.append(gm)
+    return tuple(graphs)
 
 
 def _check_value(node, what: str) -> None:
@@ -249,9 +331,15 @@ def _emit_node(node, names: Dict, lines: List[str]) -> None:
     if emitter is None:
         raise Refused(f"it has an aten op outside the emitter's table ({what})")
     _check_value(node, what)
+    if target == _AT.empty_like.default and any(u.target != _AT.fill.Scalar for u in node.users):
+        raise Refused(f"it reads an uninitialised tensor ({what})")
+    if target == _AT._to_copy.default and node.args[0].meta["val"].dtype != torch.bool:
+        raise Refused(f"a copy from {node.args[0].meta['val'].dtype} (only bool to float32 is emitted)")
     skip_first = target in _SHAPE_ONLY
 
     def arg(a, i):
+        if a is None:  # an absent optional argument (a clamp's bound)
+            return None
         if isinstance(a, torch.fx.Node):
             if skip_first and i == 0:
                 return None
@@ -265,11 +353,18 @@ def _emit_node(node, names: Dict, lines: List[str]) -> None:
         expr = _pow_scalar(names[a], e)
     elif emitter == "div":
         a, b = node.args[:2]
-        if node.kwargs.get("rounding_mode") is not None:
-            raise Refused(f"a division with rounding_mode ({what})")
+        mode = node.kwargs.get("rounding_mode")
         if not isinstance(a, torch.fx.Node):
             raise Refused(f"a division of a scalar ({what})")
-        expr = f"{names[a]} / {names[b]}" if isinstance(b, torch.fx.Node) else _div_scalar(names[a], b)
+        if mode is None:
+            expr = f"{names[a]} / {names[b]}" if isinstance(b, torch.fx.Node) else _div_scalar(names[a], b)
+        elif not isinstance(b, torch.fx.Node):
+            # by a scalar the card multiplies by its reciprocal, the CPU divides
+            raise Refused(f"a rounded division by a scalar ({what})")
+        elif mode == "floor":  # c10::div_floor_floating
+            expr = f"mtgp_user::div_floor({names[a]}, {names[b]})"
+        else:  # trunc: std::trunc(a / b)
+            expr = f"truncf({names[a]} / {names[b]})"
     else:
         try:
             expr = emitter([arg(a, i) for i, a in enumerate(node.args)], dict(node.kwargs))
@@ -321,6 +416,39 @@ MTGP_USER_HD inline float bits(uint32_t u) {
   memcpy(&f, &u, sizeof f);
   return f;
 #endif
+}
+
+// PyTorch's rsqrt: ::rsqrt on the card (rsqrtf), 1 / sqrt on the CPU
+MTGP_USER_HD inline float rsqrt(float x) {
+#ifdef __CUDA_ARCH__
+  return rsqrtf(x);
+#else
+  return 1.0f / sqrtf(x);
+#endif
+}
+
+// PyTorch's remainder of floats: fmod, moved by the divisor where the
+// result is non-zero and lies on the other side of 0 from the divisor
+MTGP_USER_HD inline float remainder(float a, float b) {
+  float mod = fmodf(a, b);
+  if ((mod != 0.0f) && ((b < 0.0f) != (mod < 0.0f))) mod += b;
+  return mod;
+}
+
+// c10::div_floor_floating: a / b rounded down, as Python's a // b
+MTGP_USER_HD inline float div_floor(float a, float b) {
+  if (b == 0.0f) return a / b;
+  float mod = fmodf(a, b);
+  float div = (a - mod) / b;
+  if ((mod != 0.0f) && ((b < 0.0f) != (mod < 0.0f))) div -= 1.0f;
+  float floordiv;
+  if (div != 0.0f) {
+    floordiv = floorf(div);
+    if (div - floordiv > 0.5f) floordiv += 1.0f;
+  } else {  // 0 on the quotient's side of 0 (here |a| < |b|: a / b is finite)
+    floordiv = (a / b) * 0.0f;
+  }
+  return floordiv;
 }
 """
 

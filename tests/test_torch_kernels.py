@@ -76,7 +76,7 @@ INTERP_OPS = [("+", 2, 0.5), ("-", 2, 0.1), ("*", 2, 0.5), ("/", 2, 0.4)]
 # an operator without a device implementation (a user's callable with an
 # aten op outside the emitter's table, core/user_ops.py): the kernels refuse
 # a function set with it
-NO_DEVICE_OP = ("erf", lambda x: torch.erf(x), 1, 0.1)
+NO_DEVICE_OP = ("i0", lambda x: torch.special.i0(x), 1, 0.1)
 
 _VMATH_SRC = r"""
 #include <math.h>
@@ -91,15 +91,27 @@ void vpowff(const float* x, const float* e, float* y, long n) {
 void vtanh_grad(const float* x, float* y, long n) {
   for (long i = 0; i < n; ++i) y[i] = fmaf(-x[i], x[i], 1.0f);
 }
+MAP(erff) MAP(erfcf) MAP(atanf) MAP(asinf) MAP(acosf) MAP(sinhf) MAP(coshf) MAP(asinhf)
+MAP(acoshf) MAP(atanhf) MAP(log1pf) MAP(log2f) MAP(log10f) MAP(expm1f) MAP(exp2f)
+static float sigmoidf(float x) { return 1.0f / (1.0f + expf(-x)); }
+MAP(sigmoidf)
+#define MAP2(F) void v##F(const float* x, const float* e, float* y, long n) { \
+  for (long i = 0; i < n; ++i) y[i] = F(x[i], e[i]); }
+MAP2(atan2f) MAP2(hypotf) MAP2(fmodf)
 """
 _VMATH = []
-_VMATH_UNARY = ("vsinf", "vcosf", "vexpf", "vlogf", "vtanhf", "vtanf", "vtanh_grad")
+# the C library's functions that patch_host_math puts under PyTorch's CPU
+# kernels of the same aten ops (array function: aten op)
+_LIBM_UNARY = {f"v{op}f": op for op in ("sin", "cos", "exp", "log", "tanh", "tan", "erf", "erfc", "atan",
+                                         "asin", "acos", "sinh", "cosh", "asinh", "acosh", "atanh",
+                                         "log1p", "log2", "log10", "expm1", "exp2", "sigmoid")}
+_LIBM_BINARY = {"vatan2f": "atan2", "vhypotf": "hypot", "vfmodf": "fmod.Tensor", "vpowff": "pow.Tensor_Tensor"}
 
 
 def host_vmath() -> ctypes.CDLL:
-    """The C library's ``sinf``/``cosf``/``expf``/``logf``/``tanhf``/``tanf``
-    and ``powf`` over arrays (compiled once, scalar calls: no vector math
-    library)."""
+    """The C library's math functions of :data:`_LIBM_UNARY` and
+    :data:`_LIBM_BINARY`, ``powf`` by a scalar and tanh's VJP factor over
+    arrays (compiled once, scalar calls: no vector math library)."""
     if not _VMATH:
         out = Path(tempfile.mkdtemp(prefix="mtgp_vmath_"))
         (out / "vmath.c").write_text(_VMATH_SRC)
@@ -107,10 +119,11 @@ def host_vmath() -> ctypes.CDLL:
         subprocess.run([cc, "-x", "c", "-O1", "-fno-builtin", "-shared", "-fPIC", "-o",
                         str(out / "vmath.so"), str(out / "vmath.c"), "-lm"], check=True)
         lib = ctypes.CDLL(str(out / "vmath.so"))
-        for name in _VMATH_UNARY:
+        for name in ("vtanh_grad", *_LIBM_UNARY):
             getattr(lib, name).argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long]
         lib.vpowf.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p, ctypes.c_long]
-        lib.vpowff.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_long]
+        for name in _LIBM_BINARY:
+            getattr(lib, name).argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_long]
         _VMATH.append(lib)
     return _VMATH[0]
 
@@ -123,7 +136,7 @@ def _host_map(name, x, *extra):
     a = _f32_array(x)
     out = np.empty_like(a)
     getattr(host_vmath(), name)(a.ctypes.data, *extra, out.ctypes.data, a.size)
-    return torch.from_numpy(out)
+    return torch.from_numpy(out).reshape(x.shape)
 
 
 def host_pow(base, exponent):
@@ -131,168 +144,98 @@ def host_pow(base, exponent):
     return _host_map("vpowf", base, ctypes.c_float(exponent))
 
 
-def host_pow_tensors(base, exponent):
-    """``torch.pow(tensor, tensor)`` (broadcast) by ``powf``, elementwise."""
-    x, e = torch.broadcast_tensors(base, exponent)
-    e = _f32_array(e)
-    return _host_map("vpowff", x, e.ctypes.data)
+def _libm_kernel(name, arity):
+    """A CPU kernel of an aten op that calls the C library's function
+    ``name`` on each float32 element (both operands broadcast; another dtype
+    is refused)."""
+
+    def kernel(*args):
+        if arity == 2:  # a Python number arrives for a wrapped scalar
+            x, y = torch.broadcast_tensors(*(a if isinstance(a, torch.Tensor) else torch.tensor(
+                a, dtype=torch.float32) for a in args))
+            y = _f32_array(y)  # kept alive across the call
+            extra = (y.ctypes.data,)
+        else:
+            (x,), extra = args, ()
+        if x.dtype != torch.float32:
+            raise TypeError(f"host math {name}: float32 only, got {x.dtype}")
+        return _host_map(name, x, *extra)
+
+    return kernel
 
 
-class _HostSin(torch.autograd.Function):
-    """``torch.sin`` by the C library's ``sinf``; backward autograd's own
-    formula, ``g * cos(x)``, with ``cosf``."""
-
-    @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
-        return _host_map("vsinf", x)
-
-    @staticmethod
-    def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        return g * _host_map("vcosf", x)
-
-
-class _HostCos(torch.autograd.Function):
-    """``torch.cos`` by ``cosf``; backward ``g * -sin(x)``, as autograd."""
-
-    @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
-        return _host_map("vcosf", x)
-
-    @staticmethod
-    def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        return g * -_host_map("vsinf", x)
+def _pow_scalar_kernel(x, e):
+    """PyTorch's ``pow(tensor, scalar)`` on the CPU, its special cases kept
+    (0 fills 1, 1 copies, 0.5 sqrt, -0.5 one over sqrt, -1 the reciprocal, 2
+    and 3 products, -2 one over the square), any other exponent by
+    ``powf``."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"host math pow: float32 only, got {x.dtype}")
+    a, e = _f32_array(x), float(e)
+    with np.errstate(all="ignore"):
+        special = {0.0: lambda: np.ones_like(a), 1.0: lambda: a.copy(), 0.5: lambda: np.sqrt(a),
+                   -0.5: lambda: np.float32(1) / np.sqrt(a), -1.0: lambda: np.float32(1) / a,
+                   2.0: lambda: a * a, 3.0: lambda: a * a * a, -2.0: lambda: np.float32(1) / (a * a)}
+        if e in special:
+            return torch.from_numpy(np.asarray(special[e](), np.float32)).reshape(x.shape)
+    return host_pow(x, e)
 
 
-class _HostExp(torch.autograd.Function):
-    """``torch.exp`` by ``expf``; backward ``g * result``, as autograd."""
-
-    @staticmethod
-    def forward(ctx, x):
-        r = _host_map("vexpf", x)
-        ctx.save_for_backward(r)
-        return r
-
-    @staticmethod
-    def backward(ctx, g):
-        (r,) = ctx.saved_tensors
-        return g * r
+def _sqrt_kernel(x):
+    """``sqrt`` correctly rounded (numpy's float32 square root, as ``sqrtf``;
+    PyTorch's CPU one may round an ulp away)."""
+    with np.errstate(invalid="ignore"):
+        return torch.from_numpy(np.sqrt(_f32_array(x))).reshape(x.shape)
 
 
-class _HostLog(torch.autograd.Function):
-    """``torch.log`` by ``logf``; backward ``g / x``, as autograd."""
-
-    @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
-        return _host_map("vlogf", x)
-
-    @staticmethod
-    def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        return g / x
+def _tanh_backward_kernel(g, r):
+    """``tanh_backward(g, r)``: ``g * (1 - r * r)`` with ``1 - r * r`` one
+    fused multiply-add, as PyTorch's CUDA kernel and the kernels'
+    ``tanh_grad`` compute it."""
+    return g * _host_map("vtanh_grad", r)
 
 
-class _HostTanh(torch.autograd.Function):
-    """``torch.tanh`` by ``tanhf``; backward ``tanh_backward(g, r)``, ``g *
-    (1 - r * r)`` with ``1 - r * r`` one fused multiply-add, as PyTorch's
-    CUDA kernel and the kernels' ``tanh_grad`` compute it."""
+class _AtenHostMath:
+    """The aten ops' CPU kernels replaced while an instance lives (a
+    ``torch.library`` registration, removed when it is freed): autograd's own
+    formulas, which call these ops inside PyTorch, then run with the C
+    library's functions too."""
 
-    @staticmethod
-    def forward(ctx, x):
-        r = _host_map("vtanhf", x)
-        ctx.save_for_backward(r)
-        return r
+    def __init__(self):
+        import warnings
 
-    @staticmethod
-    def backward(ctx, g):
-        (r,) = ctx.saved_tensors
-        return g * _host_map("vtanh_grad", r)
-
-
-class _HostTan(torch.autograd.Function):
-    """``torch.tan`` by ``tanf``; backward ``g * (1 + r.pow(2))``, as
-    autograd."""
-
-    @staticmethod
-    def forward(ctx, x):
-        r = _host_map("vtanf", x)
-        ctx.save_for_backward(r)
-        return r
-
-    @staticmethod
-    def backward(ctx, g):
-        (r,) = ctx.saved_tensors
-        return g * (1 + r * r)
+        self.lib = torch.library.Library("aten", "IMPL")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # "overriding a previously registered kernel"
+            for name, op in _LIBM_UNARY.items():
+                self.lib.impl(op, _libm_kernel(name, 1), "CPU")
+            for name, op in _LIBM_BINARY.items():
+                self.lib.impl(op, _libm_kernel(name, 2), "CPU")
+            self.lib.impl("pow.Tensor_Scalar", _pow_scalar_kernel, "CPU")
+            self.lib.impl("sqrt", _sqrt_kernel, "CPU")
+            self.lib.impl("tanh_backward", _tanh_backward_kernel, "CPU")
 
 
-class _HostSqrt(torch.autograd.Function):
-    """``torch.sqrt`` correctly rounded (numpy's float32 square root, as
-    ``sqrtf``; PyTorch's CPU one may round an ulp away); backward ``g / (2 *
-    r)``, as autograd."""
-
-    @staticmethod
-    def forward(ctx, x):
-        with np.errstate(invalid="ignore"):
-            r = torch.from_numpy(np.sqrt(_f32_array(x)))
-        ctx.save_for_backward(r)
-        return r
-
-    @staticmethod
-    def backward(ctx, g):
-        (r,) = ctx.saved_tensors
-        return g / (2 * r)
-
-
-class _HostPow(torch.autograd.Function):
-    """``torch.pow(tensor, tensor)`` by ``powf``; backward autograd's
-    ``pow_backward_self`` and ``pow_backward_exponent`` with ``powf`` and
-    ``logf``."""
-
-    @staticmethod
-    def forward(ctx, x, y):
-        r = host_pow_tensors(x, y)
-        ctx.save_for_backward(x, y, r)
-        return r
-
-    @staticmethod
-    def backward(ctx, g):
-        x, y, r = ctx.saved_tensors
-        zero = torch.zeros((), dtype=g.dtype)
-        dx = torch.where(y == 0, zero, g * (y * host_pow_tensors(x, y - 1)))
-        dy = g * torch.where((x == 0) & (y >= 0), zero, r * _host_map("vlogf", x))
-        return dx, dy
-
-
-def _host_pow_any(base, exponent):
-    """``torch.pow`` with the C library's ``powf``: a float exponent as
-    :func:`host_pow` (forward only), a tensor one through :class:`_HostPow`."""
-    if isinstance(exponent, torch.Tensor):
-        return _HostPow.apply(base, exponent)
-    return host_pow(base, exponent)
+_ATEN_HOST_MATH = type("_Holder", (), {"math": None})
 
 
 def patch_host_math(m) -> None:
-    """Make ``torch.sin``, ``torch.cos``, ``torch.exp``, ``torch.log``,
-    ``torch.tanh``, ``torch.tan`` and ``torch.pow`` compute as the host build
-    of a kernel does, with the C library's ``sinf``, ``cosf``, ``expf``,
-    ``logf``, ``tanhf``, ``tanf`` and ``powf``, and ``torch.sqrt`` correctly
-    rounded, each differentiable by autograd's formulas (``m`` a
-    ``monkeypatch`` context). PyTorch's vectorised CPU versions round an ulp
-    or a few away from them on some inputs; on the card PyTorch's and the
-    kernels' are the same CUDA functions. ``abs``, ``neg``, ``square``,
-    ``maximum`` and ``minimum`` are exact on both, and stay."""
-    m.setattr(torch, "sin", _HostSin.apply)
-    m.setattr(torch, "cos", _HostCos.apply)
-    m.setattr(torch, "exp", _HostExp.apply)
-    m.setattr(torch, "log", _HostLog.apply)
-    m.setattr(torch, "tanh", _HostTanh.apply)
-    m.setattr(torch, "tan", _HostTan.apply)
-    m.setattr(torch, "sqrt", _HostSqrt.apply)
-    m.setattr(torch, "pow", _host_pow_any)
+    """Make PyTorch's CPU kernels compute as the host build of a kernel does
+    while ``m`` (a ``monkeypatch`` context) is active: the aten ops' CPU
+    kernels are replaced (:class:`_AtenHostMath`) by the C library's ``sinf
+    cosf expf logf tanhf tanf erff erfcf atanf asinf acosf sinhf coshf asinhf
+    acoshf atanhf log1pf log2f log10f expm1f exp2f atan2f hypotf fmodf
+    powf``, the sigmoid ``1 / (1 + expf(-x))``, ``pow`` by a scalar with
+    PyTorch's special cases around ``powf``, a correctly rounded ``sqrt``
+    and tanh's VJP with ``1 - r * r`` one ``fmaf`` (PyTorch's CUDA
+    ``tanh_backward`` is contracted; the kernels write it). So autograd's
+    formulas, which call these ops inside PyTorch (``erf``'s VJP calls
+    ``exp``, ``pow``'s calls ``log``), use them too. PyTorch's vectorised CPU
+    versions round an ulp or a few away from them on some inputs; on the
+    card PyTorch's and the kernels' are the same CUDA functions. ``abs``,
+    ``neg``, ``square``, ``maximum``, ``minimum``, the clamps and the
+    roundings are exact on both, and stay."""
+    m.setattr(_ATEN_HOST_MATH, "math", _AtenHostMath())
 
 
 def chain_rows(n: int, rows: int, var_start: int):

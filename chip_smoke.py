@@ -48,7 +48,7 @@ workload (phases 12-14). Phases, one line or a few each:
 10. the adaptive path: 5 generations of the 8 x 512 host loop with
    ``SREvaluator(method="adaptive", adaptive_method="dopri5")``, the
    attempted-step telemetry of both budgets (``adaptive_solver_stats`` and
-   the global kernel's), one ``optimise`` call (top-k 50, 3 Adam steps: the
+   the global kernel's), one ``optimise`` call (top-k 50, 2 Adam steps: the
    recompute takes ~4 s an epoch) through the adaptive gradient, and
    ``evaluate_candidate`` of the best under the RK4 evaluator; all seven
    launch counters read around it; then #3 at that inspection shape (one
@@ -61,10 +61,10 @@ workload (phases 12-14). Phases, one line or a few each:
 12. the closed-loop policy kernels (#6 fixed step, #7 adaptive) against
    their plain versions per lane on the control path's full width (Acrobot,
    8 x 512 policies x 16 trajectories, operators + - * sin cos; #6 RK4 with
-   4 substeps at T = 26, #7 Dormand-Prince with 8 steps per interval at
-   T = 11: the horizon is cut because the plain versions launch thousands
+   4 substeps at T = 14, #7 Dormand-Prince with 8 steps per interval at
+   T = 6: the horizon is cut because the plain versions launch thousands
    of kernels per interval), static and dynamic (``state_size=2``); every
-   other plant, series parameters and noise rows at 512 x 16, T = 11; every
+   other plant, series parameters and noise rows at 512 x 16, T = 6; every
    lane identical (states, controls, alive count, attempted steps); and
    the sin/cos repair: #1, #5, #8/#9 with + - * / sin cos and #2 with the
    policy function sets;
@@ -72,7 +72,7 @@ workload (phases 12-14). Phases, one line or a few each:
    loop each with the static (#6), dynamic (#6) and adaptive static (#7)
    evaluators, ``evaluate_candidate`` of the best static policy (replay
    through #8) and one ``optimise`` of its loop's top 8 (2 Adam steps, the
-   horizon cut to T = 125: the recompute is host-bound, ~40 s at T = 250)
+   horizon cut to T = 60: the recompute is host-bound, ~40 s at T = 250)
    through ``PolicyRollout`` (#8/#9 in the backward);
 14. #6 and #7 times at T = 250 (CUDA events, and the device time per
    launch by torch.profiler), with bounds counted from the run, the alive
@@ -87,7 +87,7 @@ workload (phases 12-14). Phases, one line or a few each:
    adaptive evaluation through the general path (per-lane draws, no #7),
    the horizon cut to T = 6 (the general path launches #8 per stage); #6
    against its plain version on the port's rows (RK4 observation rows, Euler
-   observation + kick rows) on all 65,536 lanes at T = 26 (phase 12's cut),
+   observation + kick rows) on all 65,536 lanes at T = 14 (phase 12's cut),
    every lane identical; #1's and #6's times with and without noise, and
    the rows' build time;
 16. the branch probe (#10, ``python -m multitreegp_tpu_torch.tools.branch_probe``):
@@ -99,11 +99,11 @@ workload (phases 12-14). Phases, one line or a few each:
    and 63 rows among them) x 16 trajectories at T = 6, RK4 and
    Euler-Maruyama with kick rows; #3 on the same lanes (RK4); #8/#9 on the
    same trees against 16 states each in the recompute's layout; #5 (budget
-   40) and #4 (8 per interval), dopri5, on the same lanes at T = 4; #2 on
+   16) and #4 (8 per interval), dopri5, on the same lanes at T = 4; #2 on
    one island's 462 lanes of those parents; #6 (dynamic, RK4 x 2: the
    readout and the two state trees) and #7 (static, dopri5, 8 steps per
    interval) on 256 Acrobot policies of 256 rows, chained the same way, x
-   16 trajectories at T = 3 (the plain
+   16 trajectories at T = 2 (the plain
    versions sweep all 256 rows at every stage; the card tests hold the
    other two pairs);
 18. the reproduction path without the fused kernel (``fused_reproduction=
@@ -112,14 +112,19 @@ workload (phases 12-14). Phases, one line or a few each:
    path on the same initial population: ms per generation and evolve ms,
    every child valid (``validate_host``), the best never increasing, #2
    never launched;
-19. past the fused kernels' 256 rows: phase 4's workload at
-   ``max_nodes=512``, ``max_init_depth=7``, default routing (the non-fused
-   evolve; the SR evaluator's general path with #8 as the drift), 5
-   generations and one constant-optimisation round (top-k 50, 10 Adam
-   steps, #9 in the backward), #8/#9 launches read around each step; #8/#9
-   at 512 and 1024 rows (the instance's limit) against their plain versions,
-   every lane identical, with 16 trajectories a tree and with one data
-   vector a tree; their events and device time per launch at 512 rows;
+19. past the fixed interpreter instances' 1024 rows: phase 4's workload at
+   ``max_nodes=2048``, ``max_init_depth=10``, default routing (the non-fused
+   evolve; the SR evaluator's general path with #8's wide instance as the
+   drift), 3 generations and one constant-optimisation round (top-k 50, 10
+   Adam steps, #9 in the backward), #8/#9 launches read around each step;
+   #8/#9 against their plain versions, every lane identical, with 16
+   trajectories a tree and with one data vector a tree: at 512 and 1024 rows
+   (the fixed instance) on chains of N - 1, 127 and 63 rows; at 2048 and
+   4096 rows (the wide instance) the roots on chains of N - 1 rows (one of
+   them the zigzag whose second operands reach row N - 3), roots and
+   cotangents on chains of 1023 rows in trees of N rows; at 2048 rows on the
+   evaluation's and the round's shapes; their events, device time per
+   launch and bounds on each case;
 20. ``gen_deep`` (``bench.py``: ``max_nodes=128``, ``max_init_depth=7``) on
    the fused path: 5 generations, ms per generation, #1's and #2's device
    time per launch;
@@ -157,10 +162,10 @@ workload (phases 12-14). Phases, one line or a few each:
    host loop (#1, #2), one constant-optimisation round of the top 50 (10 Adam
    steps; #8/#9) and ``evaluate_candidate`` of the best (#3); on its last
    population #1 and #3 (T = 10) and #5 / #4 (phase 17's cut: T = 4, budget
-   40 / 8 per interval) against their plain versions, every lane identical;
+   16 / 8 per interval) against their plain versions, every lane identical;
    the static Acrobot loop with ``+ - * tanh sin cos`` at 4096 x 16, T = 250,
-   RK4 x 4, 5 generations (#6, #2), then #6 static and dynamic (T = 11) and #7
-   static (T = 5) against their plain versions; #8/#9 in the round's layout
+   RK4 x 4, 5 generations (#6, #2), then #6 static and dynamic (T = 6) and #7
+   static (T = 4) against their plain versions; #8/#9 in the round's layout
    (its top 50 x 16 x 2 lanes) and on chains of 255, 127
    and 63 rows at N = 256 (phase 17's 256 x 16 lanes) and of 1023, 127 and 63
    rows at N = 1024 (16 a tree), every operator in the chains, every lane
@@ -181,7 +186,7 @@ workload (phases 12-14). Phases, one line or a few each:
    against their plain versions, every lane identical, and #2 on one
    generation's lanes; the static Acrobot loop with ``+ - * sin cos`` and the
    protected ``/`` at 4096 x 16, T = 250, RK4 x 4, 5 generations (#6, #2),
-   then #6 static and dynamic (T = 11) and #7 static (T = 5) against their
+   then #6 static and dynamic (T = 6) and #7 static (T = 4) against their
    plain versions; #1, #5 and #9 on phase 2's trees through the extended
    library (the table's ``/``; also its instance with the unary rows' code)
    and the user library (the protected ``/``) in turns, what the generated
@@ -204,6 +209,19 @@ workload (phases 12-14). Phases, one line or a few each:
    vocabulary builds' ``nvcc`` seconds. #4-#7's vocabulary builds are not
    made here (``pytest -m cuda tests/test_torch_user_vocab.py`` makes and
    checks them).
+27. past 32 variables and past 32 operators: Lorenz-96 (Lorenz 1996; 40
+   states, F = 8; its data made here by a float64 RK4 from a seeded normal
+   around F) as symbolic regression with 40 trees a candidate of
+   ``max_nodes=32``, ``+ - * /``, 8 x 512 candidates x 16 trajectories,
+   T = 50 saves 0.05 apart, RK4 x 1: the SR evaluator's general path (#8 on 2,621,440 lanes
+   a drift call, each reading a 40-wide state) and the fused reproduction
+   (#2), 3 generations and one round of the top 50 (#8/#9); then phase 4's
+   workload with 33 operators (the table's 17 and 16 of
+   ``registry.vocabulary_operators()``) through the general path, one
+   evaluation and one round of the top 50 (#8/#9 in the wide instance of
+   the set's user build); #8/#9 against their plain versions at each
+   workload's shapes, every lane identical, with events, device time and
+   bounds.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last lines are a JSON line of per-kernel numbers, the card's name and
@@ -222,17 +240,19 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 FULL = dict(islands=8, pop=512, max_nodes=32, depth=4, batch=16, horizon=10.0, dt=0.2,
-            generations=5, timing_runs=5, plain_runs=3,
+            generations=5, timing_runs=5, plain_runs=1,
             fit_generations=20, top_k=50, gradient_steps=10, elite=0.1, interp_runs=20,
             adaptive_budget=500, adaptive_interval_steps=32, adaptive_short_t=10,
-            adaptive_opt_steps=3,
+            adaptive_opt_steps=2,
             policy_horizon=50.0, policy_nodes=30, policy_substeps=4, policy_adaptive_substeps=8,
-            policy_fixed_t=26, policy_adaptive_t=11, legs_pop=512, legs_t=11, trig_adaptive_t=5,
-            policy_opt_top_k=8, policy_opt_steps=2, policy_opt_t=125,
-            noise=0.05, noisy_adaptive_t=6, ab_runs=20, probe_reps=256,
-            deep_nodes=256, deep_depth=7, deep_pop=256, deep_t=6, deep_rep_pop=512, deep_policy_t=3,
-            deep_adaptive_t=4, deep_adaptive_budget=40, deep_interval_steps=8,
-            wide_nodes=512, wide_depth=7, wide_check_nodes=(512, 1024), deep_gen_nodes=128,
+            policy_fixed_t=14, policy_adaptive_t=6, legs_pop=512, legs_t=6, trig_adaptive_t=4,
+            policy_opt_top_k=8, policy_opt_steps=2, policy_opt_t=60,
+            noise=0.05, noisy_adaptive_t=6, ab_runs=10, probe_reps=256,
+            deep_nodes=256, deep_depth=7, deep_pop=256, deep_t=6, deep_rep_pop=512, deep_policy_t=2,
+            deep_adaptive_t=4, deep_adaptive_budget=16, deep_interval_steps=8,
+            wide_nodes=2048, wide_depth=10, wide_generations=3, wide_check_nodes=(512, 1024, 2048, 4096),
+            lorenz_states=40, lorenz_forcing=8.0, lorenz_depth=2, lorenz_dt=0.05, ext_chain_nodes=1024,
+            deep_gen_nodes=128,
             deep_gen_depth=7, chain_k=10, shard_generations=15,
             example_sizes=None, example_t=None, example_check_t=11, example_check_adaptive_t=4, example_check_budget=40)
 KERNELS = ("sr_fitness", "reproduce", "interpreter", "sr_adaptive", "sr_rollout",
@@ -407,7 +427,7 @@ def main_data(device, s):
 
 
 def run(device, sizes=FULL) -> dict:
-    """Phases 2-26 on ``device``; returns the numbers the script prints."""
+    """Phases 2-27 on ``device``; returns the numbers the script prints."""
     import torch
 
     from multitreegp_tpu_torch import GeneticProgramming
@@ -553,6 +573,7 @@ def run(device, sizes=FULL) -> dict:
     out.update(extended_phase(device, s, data, trees, fset, ps))
     out.update(user_phase(device, s, data, trees, fset, ps))
     out.update(vocabulary_phase(device, s, data, trees, fset))
+    out.update(many_phase(device, s, data))
 
     # -- the kernels line --------------------------------------------------------
     times = out.get("times_ms", {})
@@ -584,18 +605,25 @@ def run(device, sizes=FULL) -> dict:
     wide, gd = out["wide"], out["gen_deep"]
     wide_times = wide.get("times", {})
 
-    def wide_row(key):
-        """The instance past 256 rows (phase 19): launches on its path, the
-        bit-equal checks, and on each case the events, device time, plain
-        version and bound."""
-        launches = sum(g["eval_launches"][key] for g in wide["generations"]) + wide["round"]["launches"][key]
+    def case_row(res, key):
+        """A phase's #8/#9 launches on its path (loop and round), its
+        bit-equal checks, and on each timed case the events, device time,
+        plain version and bound."""
+        launches = sum(g["eval_launches"][key] for g in res["generations"]) + res["round"]["launches"][key]
         kind = key.split("_")[1]
-        shapes = {name: dict(lanes=t["lanes"], rows_max=t["rows_max"], ms=t[f"{kind}_kernel"],
-                             device_ms=t[f"{kind}_device"], plain_ms=t.get(f"{kind}_plain"),
+        shapes = {name: dict(instance=t["instance"], lanes=t["lanes"], rows_max=t["rows_max"],
+                             ms=t[f"{kind}_kernel"], device_ms=t[f"{kind}_device"], plain_ms=t.get(f"{kind}_plain"),
                              plain_fwd_vjp_per_lane_ms=t["plain_fwd_vjp_per_lane"],
                              bound_ms=t[f"{kind}_bound"][0], bound_by=t[f"{kind}_bound"][1])
-                  for name, t in wide_times.items()}
-        return dict(n=s["wide_nodes"], launches=launches, checks=wide["checks"], **shapes)
+                  for name, t in res.get("times", {}).items() if f"{kind}_kernel" in t}
+        return dict(launches=launches, checks=res["checks"], **shapes)
+
+    def wide_row(key):
+        """The wide instance on its paths: phase 19 (2048 rows), phase 27
+        (Lorenz-96's 40 variables on the fixed instance, 33 operators on the
+        wide one)."""
+        return dict(n=s["wide_nodes"], **case_row(wide, key), lorenz96=case_row(out["lorenz96"], key),
+                    ops33=case_row(out["ops33"], key))
 
     gen_deep = dict(n=s["deep_gen_nodes"], ms_per_generation=gd["ms_per_generation"])
     shard = out["sharded"]["ranks"]
@@ -1180,9 +1208,9 @@ def host_split(trees, states, cot, fset, torch, calls=200) -> dict:
         bwd_wrapper=per_call_us(lambda: ci.evaluate_trees_vjp_cuda(trees, states, cot, fset)),
         dispatch_fwd=per_call_us(lambda: EvaluateTrees.apply(*trees, states, fset)),
         operands=per_call_us(lambda: ci._operands(trees, states, fset)),
-        fwd_ctypes=per_call_us(lambda: fwd(*ptrs, out.data_ptr(), stream)),
+        fwd_ctypes=per_call_us(lambda: fwd(*ptrs, out.data_ptr(), None, 0, layout.lanes, stream)),
         bwd_ctypes=per_call_us(lambda: bwd(*ptrs, g.data_ptr(), dconst.data_ptr(),
-                                           ddata.data_ptr(), stream)),
+                                           ddata.data_ptr(), None, 0, layout.lanes, stream)),
         stream=per_call_us(lambda: torch.cuda.current_stream(states.device).cuda_stream),
         empty=per_call_us(lambda: torch.empty(batch, dtype=torch.float32, device=states.device)),
         sums=per_call_us(sums))
@@ -1726,7 +1754,7 @@ def policy_kernels_phase(device, s, ps, trees_sr, fset_sr, x0s, ts_sr, ys_sr) ->
     check(agree1 >= 0.999 and eq1 >= 0.999, f"#1 sin/cos: alive agreement {agree1}, identical {eq1}")
     t5 = s["trig_adaptive_t"]
     a_args = (tt, x0s, ts_sr[:t5], ys_sr[:, :t5].contiguous(), trig, 1e-4, 1e-6,
-              s["adaptive_budget"], "dopri5", 0.9)
+              s["deep_adaptive_budget"], "dopri5", 0.9)
     got5 = (ca.sr_fitness_adaptive_global_cuda if on_card else ca.sr_fitness_adaptive_global_plain)(*a_args)
     same5, _, _, rel5, _ = compare_adaptive(got5, ca.sr_fitness_adaptive_global_plain(*a_args))
     check(same5 == 1.0, f"#5 sin/cos: {same5} of lanes identical")
@@ -2232,23 +2260,49 @@ def probe_phase(device, s) -> dict:
     return {"probe": dict(modes=modes, launches=launches, max_abs_err=err, early_device_ms=early_ms)}
 
 
-def chain_trees(trees, fset, lengths):
+def stack_pointers(ops, slots):
+    """``(c1, c2)`` of one tree's opcodes (a list) by a postorder stack, in
+    O(N) (``rebuild_pointers`` holds an N x N table per tree)."""
+    c1, c2, stack = [-1] * len(ops), [-1] * len(ops), []
+    for i, op in enumerate(ops):
+        if op == 0:  # EMPTY
+            continue
+        arity = slots[op] if op < len(slots) else 0
+        for _ in range(arity):
+            below = stack.pop()
+        if arity:
+            c1[i] = i - 1
+        if arity == 2:
+            c2[i] = below
+        stack.append(i)
+    return c1, c2
+
+
+def chain_trees(trees, fset, lengths, zigzag=()):
     """``trees (P, m, n)`` with candidate i's trees replaced by a chain of
     ``lengths[i]`` rows: k + 1 leaves then k operators ``+``/``-``, whose
-    stack holds k + 1 values, the most a tree of that many rows can."""
+    stack holds k + 1 values, the most a tree of that many rows can; a
+    candidate in ``zigzag`` gets ``op_k(op_k-1(...), leaf_k)`` instead, each
+    operator's second operand the operator two rows below it (second
+    operands up to row n - 3)."""
     import torch
 
-    from multitreegp_tpu_torch.core.trees import CONST, EMPTY, OP_START, TreeTensors, rebuild_pointers
+    from multitreegp_tpu_torch.core.trees import CONST, EMPTY, OP_START, TreeTensors
 
     n = trees.max_nodes
-    ops = trees.ops.clone()
+    ops, c1, c2 = (t.clone() for t in (trees.ops, trees.c1, trees.c2))
+    slots = fset.slots().tolist()
     for i, rows in enumerate(lengths):
         k = (rows - 1) // 2
         leaves = [fset.var_start + j % 2 if j % 3 else CONST for j in range(k + 1)]
-        ops[i] = torch.tensor([EMPTY] * (n - 2 * k - 1) + leaves + [OP_START + j % 2 for j in range(k)],
-                              dtype=torch.int32)
+        opers = [OP_START + j % 2 for j in range(k)]
+        body = ([leaves[0]] + [r for j in range(k) for r in (leaves[j + 1], opers[j])]
+                if i in zigzag else leaves + opers)
+        tree = [EMPTY] * (n - 2 * k - 1) + body
+        p1, p2 = stack_pointers(tree, slots)
+        ops[i] = torch.tensor(tree, dtype=torch.int32)
+        c1[i], c2[i] = torch.tensor(p1, dtype=torch.int32), torch.tensor(p2, dtype=torch.int32)
     const = torch.where(ops == CONST, torch.where(trees.ops == CONST, trees.const, 0.5), 0.0)
-    c1, c2 = rebuild_pointers(ops, fset.slots(ops.device))
     return TreeTensors(ops, c1, c2, const)
 
 
@@ -2257,11 +2311,11 @@ def deep_phase(device, s, ps) -> dict:
     rows against their plain versions. #1: 256 candidates of 2 trees of 256
     rows grown to depth 7, the first three chains of 255, 127 and 63 rows
     (the deepest stacks), x 16 VdP trajectories at T = 6, RK4 and Euler x 4
-    with kick rows; #3 on the same lanes, RK4; #5 (budget 40) and #4 (8 steps per interval), dopri5, on
+    with kick rows; #3 on the same lanes, RK4; #5 (budget 16) and #4 (8 steps per interval), dopri5, on
     the same lanes at T = 4; #2: one island's 462 lanes of those parents, fresh trees
     at depth 7; #6 on 256 dynamic Acrobot policies (RK4 x 2) and #7 on 256
     static ones (dopri5, 8 steps per interval), of 256 rows grown and
-    chained the same way, x 16 trajectories at T = 3. Every lane identical
+    chained the same way, x 16 trajectories at T = 2. Every lane identical
     (#2: its opcodes)."""
     import torch
 
@@ -2480,40 +2534,54 @@ def nonfused_phase(device, s, data) -> dict:
     return {"non_fused": res}
 
 
-def wide_interpreter_case(device, trees, fset, g, members):
-    """:func:`shape_case` of the first three candidates chained (N - 1, 127
-    and 63 rows: the longest tapes); ``members = 1`` is one data vector a
-    tree."""
+def wide_interpreter_case(device, trees, fset, g, members, lengths=None, zigzag=()):
+    """:func:`shape_case` of the first candidates chained (``lengths``, by
+    default N - 1, 127 and 63 rows: the longest tapes; ``zigzag`` as in
+    :func:`chain_trees`); ``members = 1`` is one data vector a tree."""
     n = trees.max_nodes
-    return shape_case(device, chain_trees(trees, fset, [n - 1, 127, 63]), members, g)
+    return shape_case(device, chain_trees(trees, fset, lengths or [n - 1, 127, 63], zigzag), members, g)
 
 
-def shape_case(device, cands, members, g):
-    """``(trees (K, 1, m, N), states (K, members, 1, 2), cotangent)`` of
-    ``cands`` against ``members`` random states each."""
+def shape_case(device, cands, members, g, x0s=None):
+    """``(trees (K, 1, m, N), states (K, members, 1, V), cotangent)`` of
+    ``cands`` against ``members`` random states each (V = 2), or against the
+    rows of ``x0s (members, V)`` (every candidate the same), the cotangent
+    from ``g`` (a fixed seed without one)."""
     import torch
 
     k, m = cands.ops.shape[:2]
-    states = torch.randn((k, members, 1, 2), generator=g, device=device) * 2
+    if g is None:
+        g = torch.Generator(device=device).manual_seed(0)
+    if x0s is None:
+        states = torch.randn((k, members, 1, 2), generator=g, device=device) * 2
+    else:
+        states = x0s[None, :members, None].expand(k, members, 1, x0s.shape[-1])
     cot = torch.randn((k, members, m), generator=g, device=device)
     return cands.map(lambda a: a[:, None]), states, cot
 
 
-def lanes_check(trees_b, states, cot, fset, label) -> dict:
+def lanes_check(trees_b, states, cot, fset, label, vjp=True) -> dict:
     """#8's roots and #9's per-lane cotangents for ``trees_b`` broadcast
     against ``states`` (consecutive lanes share a tree) against the plain
-    versions on one tree and one state per lane: every lane bit-equal."""
+    versions on one tree and one state per lane: every lane bit-equal (with
+    ``vjp`` false the roots alone)."""
     import torch
 
+    from multitreegp_tpu_torch.core import cuda_interpreter as ci
     from multitreegp_tpu_torch.core.interpreter import evaluate_trees_plain, evaluate_trees_vjp_plain
 
-    got = grouped_per_lane(trees_b, states, cot, fset)
     batch = cot.shape
     full = trees_b.map(lambda a: a.expand(batch + a.shape[-1:]).contiguous())
-    x = states.expand(batch + (2,)).contiguous()
-    ref, plain_ms = timed_plain(
-        lambda: (evaluate_trees_plain(full, x, fset),) + evaluate_trees_vjp_plain(full, x, cot, fset),
-        states.device)
+    x = states.expand(batch + states.shape[-1:]).contiguous()
+    if vjp:
+        got = grouped_per_lane(trees_b, states, cot, fset)
+        ref, plain_ms = timed_plain(
+            lambda: (evaluate_trees_plain(full, x, fset),) + evaluate_trees_vjp_plain(full, x, cot, fset),
+            states.device)
+    else:
+        got = (ci.evaluate_trees_cuda(trees_b, states, fset) if states.device.type == "cuda"
+               else evaluate_trees_plain(full, x, fset),)
+        ref, plain_ms = timed_plain(lambda: (evaluate_trees_plain(full, x, fset),), states.device)
     same = [bool(same_bits(a, r)) for a, r in zip(got, ref)]
     check(all(same), f"{label}: bit-equal forward, dconst, ddata {same}")
     return dict(lanes=cot.numel(), members=cot.shape[1], bit_equal=dict(zip(("fwd", "dconst", "ddata"), same)),
@@ -2524,31 +2592,36 @@ def lanes_check(trees_b, states, cot, fset, label) -> dict:
 
 
 def wide_phase(device, s, data) -> dict:
-    """Phase 19: past the fused kernels' 256 rows. Phase 4's workload at
-    ``max_nodes=512``, ``max_init_depth=7`` with default routing, which takes
-    the non-fused evolve and the evaluators' general path (the integrator
-    with #8 as the drift): 5 generations, then one constant-optimisation
-    round of the top 50 (10 Adam steps; #9 in the backward); #8/#9 launches
-    read around each step. Then #8/#9 against their plain versions, every
-    lane bit-equal: at 512 rows (and 1024, the stated limit) on chains of N
-    - 1, 127 and 63 rows in the recompute's layout (16 trajectories a tree)
-    and with one data vector a tree, and at 512 rows on the general path's
-    evaluation shape (the population x 16) and the round's (its top 50 x
-    16); and on each of those cases their times and bounds."""
+    """Phase 19: past the fixed instances' 1024 rows. Phase 4's workload at
+    ``max_nodes=2048``, ``max_init_depth=10`` with default routing, which
+    takes the non-fused evolve and the evaluators' general path (the
+    integrator with #8's wide instance as the drift): 3 generations, then one
+    constant-optimisation round of the top 50 (10 Adam steps; #9 in the
+    backward); #8/#9 launches read around each step. Then #8/#9 against
+    their plain versions, every lane bit-equal, in the recompute's layout (16
+    trajectories a tree) and with one data vector a tree: at 512 and 1024
+    rows (the fixed instance) on chains of N - 1, 127 and 63 rows; at 2048
+    and 4096 rows (the wide one) the roots on chains of N - 1 rows (one the
+    zigzag whose second operands reach row N - 3), and roots and cotangents
+    on chains of 1023 rows (one the zigzag) in trees of N rows (the plain
+    VJP's time grows with the square of its rows; ``pytest -m cuda``'s
+    ``test_interpreter_wide_match_plain_on_card`` holds the chains of N - 1
+    rows); and at 2048 rows on the evaluation's shape (the population x 16)
+    and the round's (its top 50 x 16); on each case their times and
+    bounds."""
     import torch
 
     from multitreegp_tpu_torch import GeneticProgramming
     from multitreegp_tpu_torch.core import cuda_interpreter as ci
     from multitreegp_tpu_torch.core import cuda_reproduction as cr
     from multitreegp_tpu_torch.core import cuda_rollout as cf
-    from multitreegp_tpu_torch.core.registry import build_function_set
     from multitreegp_tpu_torch.ops.initialization import make_population_sampler
     from multitreegp_tpu_torch.models.evaluators import SREvaluator
 
-    n, b = s["wide_nodes"], s["batch"]
+    n, b, gens = s["wide_nodes"], s["batch"], s["wide_generations"]
     t_steps = data[1].shape[0]
     gp = GeneticProgramming(
-        num_generations=s["generations"], population_size=s["pop"],
+        num_generations=gens, population_size=s["pop"],
         fitness_function=SREvaluator(substeps=1), operator_list=OPERATORS,
         variable_list=[["x0", "x1"]], layer_sizes=[2], num_populations=s["islands"], max_nodes=n,
         max_init_depth=s["wide_depth"], gradient_steps=s["gradient_steps"],
@@ -2556,10 +2629,62 @@ def wide_phase(device, s, data) -> dict:
     check(not gp.fused_reproduction, "N > 256 must take the non-fused path")
     counters = dict(sr_fitness=cf.sr_fitness_cuda, reproduce=cr.reproduce_lanes_cuda,
                     interpret_fwd=ci.evaluate_trees_cuda, interpret_bwd=ci.evaluate_trees_vjp_cuda)
-    r = loop_generations(gp, data, device, s["generations"], 19, counters)
-    drift_calls = (t_steps - 1) * 4  # rk4, one substep
-    # the round: the top-k of the last evaluated generation, refined
-    pops, fitness = r["pops"], gp._evaluate(r["pops"], data)
+    r = loop_generations(gp, data, device, gens, 19, counters)
+    pops = r["pops"]
+    res = round_phase(gp, pops, data, device, counters, t_steps, f"phase 19 N={n}")
+    sizes = (pops.ops != 0).sum(-1)
+    if device.type == "cuda":
+        for i, gen in enumerate(r["generations"]):
+            ev = gen["eval_launches"]
+            check(ev["interpret_fwd"] >= (t_steps - 1) * 4 and ev["sr_fitness"] == 0 and ev["reproduce"] == 0,
+                  f"gen {i} evaluate launches {ev}")
+            check(not any(gen["evolve_launches"].values()), f"gen {i} evolve launches {gen['evolve_launches']}")
+    for i, gen in enumerate(r["generations"]):
+        phase_line(f"phase 19 N={n} gen {i}: eval {gen['eval_ms']:.3f} ms, evolve {gen['evolve_ms']:.3f} ms, "
+                   f"best fitness {gen['best']:.6g}; launches in evaluate {gen['eval_launches']}, in evolve "
+                   f"{gen['evolve_launches']}")
+    phase_line(f"phase 19 N={n} tree rows mean {float(sizes.float().mean()):.1f} max {int(sizes.max())}")
+
+    # #8/#9 against the plain versions past 256 rows, every lane
+    fset, flat, top = gp.fset, res.pop("flat"), res.pop("top")
+    g = torch.Generator(device=device).manual_seed(190)
+    cases = {}
+    for nodes in s["wide_check_nodes"]:
+        depth = s["wide_depth"] if nodes >= 2 ** s["wide_depth"] else s["deep_depth"]
+        cands = (flat[top] if nodes == n else
+                 make_population_sampler(fset, depth, nodes)(g, top.numel())[0])
+        for members, layout in ((b, "recompute"), (1, "one_member")):
+            if nodes <= ci.FIXED_ROWS:
+                cases[f"n{nodes}_{layout}"] = (wide_interpreter_case(device, cands, fset, g, members), True)
+                continue
+            cases[f"n{nodes}_{layout}_roots"] = (wide_interpreter_case(
+                device, cands, fset, g, members, [nodes - 1, nodes - 1, 127], zigzag=(1,)), False)
+            cases[f"n{nodes}_{layout}"] = (wide_interpreter_case(
+                device, cands, fset, g, members, [min(511, nodes - 1)] * 2 + [63], zigzag=(1,)), True)
+    cases[f"n{n}_population"] = (shape_case(device, flat, b, g), True)
+    cases[f"n{n}_round"] = (shape_case(device, flat[top], b, g), True)
+    checks = {}
+    for key, (case, vjp) in cases.items():
+        checks[key] = c = lanes_check(*case, fset, f"#8/#9 {key}", vjp=vjp)
+        phase_line(f"phase 19 #8/#9 {key} vs plain ({c['lanes']} lanes, {c['members']} a tree, trees of up "
+                   f"to {c['rows_max']} rows, second operands up to row {c['c2_max']}): bit-equal "
+                   f"{c['bit_equal']}, finite {c['finite']:.4f}, plain {c['plain_ms']:.1f} ms")
+    res.update(generations=r["generations"], launches=r["launches"], rows_mean=float(sizes.float().mean()),
+               rows_max=int(sizes.max()), checks=checks)
+    if device.type == "cuda":
+        res["times"] = interpreter_case_times(s, cases, checks, fset, "phase 19")
+    return {"wide": res}
+
+
+def round_phase(gp, pops, data, device, counters, t_steps, label) -> dict:
+    """One constant-optimisation round of ``gp`` on the top-k of ``pops``
+    (evaluated again), with ``counters`` read around it; at least
+    ``gradient_steps`` x the drift calls of #8 and #9 on the card, nothing
+    made worse. Returns the round's record, with the flat population and
+    the top-k's indices under ``flat`` and ``top``."""
+    import torch
+
+    fitness = gp._evaluate(pops, data)
     flat = pops.map(lambda a: a.reshape((-1,) + a.shape[2:]))
     top = torch.argsort(fitness.reshape(-1), stable=True)[: gp.coefficient_opt_top_k]
     before = {k: fn.launches for k, fn in counters.items()}
@@ -2568,85 +2693,55 @@ def wide_phase(device, s, data) -> dict:
     refined, _ = gp.optimise(flat[top], data)
     sync(device)
     round_ms = (time.perf_counter() - t0) * 1e3
-    round_launches = {k: fn.launches - before[k] for k, fn in counters.items()}
+    launches = {k: fn.launches - before[k] for k, fn in counters.items()}
     unrefined = fitness.reshape(-1)[top]
-    check(not bool((refined > unrefined * (1 + 1e-6)).any()), "refinement made a candidate worse")
-    sizes = (pops.ops != 0).sum(-1)
+    check(not bool((refined > unrefined * (1 + 1e-6)).any()), f"{label}: refinement made a candidate worse")
     if device.type == "cuda":
-        for i, gen in enumerate(r["generations"]):
-            ev = gen["eval_launches"]
-            check(ev["interpret_fwd"] >= drift_calls and ev["sr_fitness"] == 0 and ev["reproduce"] == 0,
-                  f"gen {i} evaluate launches {ev}")
-            check(not any(gen["evolve_launches"].values()), f"gen {i} evolve launches {gen['evolve_launches']}")
-        need = s["gradient_steps"] * drift_calls
-        check(round_launches["interpret_fwd"] >= need and round_launches["interpret_bwd"] >= need,
-              f"round launches {round_launches} < {need}")
-    for i, gen in enumerate(r["generations"]):
-        phase_line(f"phase 19 N={n} gen {i}: eval {gen['eval_ms']:.3f} ms, evolve {gen['evolve_ms']:.3f} ms, "
-                   f"best fitness {gen['best']:.6g}; launches in evaluate {gen['eval_launches']}, in evolve "
-                   f"{gen['evolve_launches']}")
-    phase_line(f"phase 19 N={n} round: top-k {top.numel()}, {gp.gradient_steps} Adam steps, {round_ms:.1f} ms, "
-               f"launches {round_launches}; top-k fitness sum {float(unrefined.sum()):.6g} -> "
-               f"{float(refined.sum()):.6g}; tree rows mean {float(sizes.float().mean()):.1f} max {int(sizes.max())}")
-
-    # #8/#9 against the plain versions past 256 rows, every lane: chains of
-    # N - 1, 127 and 63 rows in two layouts, and the evaluation's and the
-    # round's shapes
-    fset = gp.fset
-    g = torch.Generator(device=device).manual_seed(190)
-    cases, checks = {}, {}
-    for nodes in s["wide_check_nodes"]:
-        cands = (flat[top] if nodes == n else
-                 make_population_sampler(fset, s["wide_depth"], nodes)(g, top.numel())[0])
-        for members, layout in ((b, "recompute"), (1, "one_member")):
-            cases[f"n{nodes}_{layout}"] = wide_interpreter_case(device, cands, fset, g, members)
-    cases[f"n{n}_population"] = shape_case(device, flat, b, g)
-    cases[f"n{n}_round"] = shape_case(device, flat[top], b, g)
-    for key, case in cases.items():
-        checks[key] = c = lanes_check(*case, fset, f"#8/#9 {key}")
-        phase_line(f"phase 19 #8/#9 {key} vs plain ({c['lanes']} lanes, {c['members']} a tree, trees of up "
-                   f"to {c['rows_max']} rows, second operands up to row {c['c2_max']}): bit-equal "
-                   f"{c['bit_equal']}, finite {c['finite']:.4f}, plain {c['plain_ms']:.1f} ms")
-    res = dict(generations=r["generations"], launches=r["launches"], round=dict(ms=round_ms, launches=round_launches,
-                                                  unrefined_sum=float(unrefined.sum()),
-                                                  refined_sum=float(refined.sum())),
-               rows_mean=float(sizes.float().mean()), rows_max=int(sizes.max()), checks=checks)
-    if device.type == "cuda":
-        res["times"] = wide_interpreter_times(s, cases, checks, fset)
-    return {"wide": res}
+        need = gp.gradient_steps * (t_steps - 1) * 4  # rk4, one substep
+        check(launches["interpret_fwd"] >= need and launches["interpret_bwd"] >= need,
+              f"{label} round launches {launches} < {need}")
+    phase_line(f"{label} round: top-k {top.numel()}, {gp.gradient_steps} Adam steps, {round_ms:.1f} ms, "
+               f"launches {launches}; top-k fitness sum {float(unrefined.sum()):.6g} -> {float(refined.sum()):.6g}")
+    return dict(round=dict(ms=round_ms, launches=launches, unrefined_sum=float(unrefined.sum()),
+                           refined_sum=float(refined.sum())), flat=flat, top=top)
 
 
-def wide_interpreter_times(s, cases, checks, fset) -> dict:
-    """#8/#9 past 256 rows on each of phase 19's cases: events and device
-    time per launch, and the bounds (:func:`interp_bounds`); the plain
-    versions' events at the evaluation's and the round's shapes, elsewhere
-    the per-lane plain run of the check (forward and VJP)."""
+def interpreter_case_times(s, cases, checks, fset, label) -> dict:
+    """#8/#9 on each of ``cases`` (``{name: ((trees, states, cot), vjp)}``):
+    events and device time per launch, and the bounds (:func:`interp_bounds`);
+    the plain versions' events at the evaluation's and the round's shapes,
+    elsewhere the per-lane plain run of the check; #9 only where ``vjp``."""
     import torch
 
     from multitreegp_tpu_torch.core import cuda_interpreter as ci
     from multitreegp_tpu_torch.core.interpreter import evaluate_trees_plain, evaluate_trees_vjp_plain
 
     out = {}
-    for name, (trees_b, states, cot) in cases.items():
+    for name, ((trees_b, states, cot), vjp) in cases.items():
         fwd = lambda: ci.evaluate_trees_cuda(trees_b, states, fset)
         bwd = lambda: ci.evaluate_trees_vjp_cuda(trees_b, states, cot, fset)
         t = dict(lanes=cot.numel(), rows_max=checks[name]["rows_max"],
                  fwd_kernel=cuda_time_ms(fwd, s["interp_runs"], torch),
-                 bwd_kernel=cuda_time_ms(bwd, s["interp_runs"], torch),
                  plain_fwd_vjp_per_lane=checks[name]["plain_ms"])
+        kind = "wide" if ci._operands(trees_b, states, fset)[-1].wide else "kernel"
+        t["instance"] = kind
+        timed = [("fwd_device", fwd, f"interpret_fwd_{kind}")]
+        if vjp:
+            t["bwd_kernel"] = cuda_time_ms(bwd, s["interp_runs"], torch)
+            timed.append(("bwd_device", bwd, f"interpret_bwd_{kind}"))
         if name.endswith(("_population", "_round")):
             t["fwd_plain"] = cuda_time_ms(lambda: evaluate_trees_plain(trees_b, states, fset), 1, torch)
             t["bwd_plain"] = cuda_time_ms(lambda: evaluate_trees_vjp_plain(trees_b, states, cot, fset), 1, torch)
-        t.update(kernel_device_ms((("fwd_device", fwd, "interpret_fwd_kernel"),
-                                   ("bwd_device", bwd, "interpret_bwd_kernel")), s["interp_runs"], torch))
+        t.update(kernel_device_ms(timed, s["interp_runs"], torch))
         t["fwd_bound"], t["bwd_bound"] = interp_bounds(trees_b, states, cot, fset)
         out[name] = t
         plain = (f"plain {t['fwd_plain']:.2f} / {t['bwd_plain']:.2f}" if "fwd_plain" in t else
-                 f"plain forward + VJP per lane {t['plain_fwd_vjp_per_lane']:.1f}")
-        phase_line(f"phase 19 #8/#9 {name} times, {t['lanes']} lanes, trees up to {t['rows_max']} rows (median "
+                 f"plain {'forward + VJP' if vjp else 'forward'} per lane {t['plain_fwd_vjp_per_lane']:.1f}")
+        vjp_part = (f"VJP kernel {t['bwd_kernel']:.4f} (device {t['bwd_device']:.4f}, bound "
+                    f"{t['bwd_bound'][0]:.7f} by {t['bwd_bound'][1]})" if vjp else "forward only")
+        phase_line(f"{label} #8/#9 {name} times ({kind} instance), {t['lanes']} lanes, trees up to {t['rows_max']} rows (median "
                    f"ms): forward kernel {t['fwd_kernel']:.4f} (device {t['fwd_device']:.4f}, bound "
-                   f"{t['fwd_bound'][0]:.7f} by {t['fwd_bound'][1]}); VJP kernel {t['bwd_kernel']:.4f} (device "
-                   f"{t['bwd_device']:.4f}, bound {t['bwd_bound'][0]:.7f} by {t['bwd_bound'][1]}); {plain}")
+                   f"{t['fwd_bound'][0]:.7f} by {t['fwd_bound'][1]}); {vjp_part}; {plain}")
     return out
 
 
@@ -3404,7 +3499,7 @@ def extended_phase(device, s, data, trees6, fset6, ps) -> dict:
 
     # #8/#9 on chains holding every operator: 256 rows (phase 17's 256 x 16
     # lanes) and 1024 rows (16 a tree)
-    for nodes, count in ((s["deep_nodes"], s["deep_pop"]), (max(s["wide_check_nodes"]), 12)):
+    for nodes, count in ((s["deep_nodes"], s["deep_pop"]), (s["ext_chain_nodes"], 12)):
         cands = make_population_sampler(fset, s["deep_depth"], nodes)(g, count)[0]
         cands = ext_chain_trees(cands, fset, [nodes - 1, min(127, nodes - 1), min(63, nodes - 1)])
         key = f"interpreter_n{nodes}"
@@ -3939,6 +4034,169 @@ def vocabulary_phase(device, s, data, trees6, fset6) -> dict:
     return {"vocabulary": res}
 
 
+# phase 27: a system of 40 states, and a set of 33 operators
+def lorenz96_data(device, s, seed=27):
+    """``(x0s, ts, ys, None)``: Lorenz-96 (Lorenz 1996), ``dx_i/dt = (x_{i+1}
+    - x_{i-2}) x_{i-1} - x_i + F`` with ``s["lorenz_states"]`` states and F =
+    ``s["lorenz_forcing"]``, ``s["batch"]`` trajectories from ``x0 ~ F +
+    N(0, 1)`` (numpy, ``seed``), integrated in float64 by RK4 at a tenth of
+    the save step and saved as many times as the main path's grid has points,
+    ``s["lorenz_dt"]`` apart (0.05, the usual step of this system: at the
+    main path's 0.2, RK4 x 1 diverges on Lorenz-96 itself); float32 on
+    ``device``. Test data, made here, not an environment of the package."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    f = s["lorenz_forcing"]
+    x = f + rng.normal(size=(s["batch"], s["lorenz_states"]))
+
+    def drift(v):
+        return (np.roll(v, -1, -1) - np.roll(v, 2, -1)) * np.roll(v, 1, -1) - v + f
+
+    ts = np.arange(round(s["horizon"] / s["dt"])) * s["lorenz_dt"]
+    sub, h = 10, s["lorenz_dt"] / 10
+    ys = [x]
+    for _ in range((ts.shape[0] - 1) * sub):
+        k1 = drift(x)
+        k2 = drift(x + h / 2 * k1)
+        k3 = drift(x + h / 2 * k2)
+        x = x + h / 6 * (k1 + 2 * k2 + 2 * k3 + drift(x + h * k3))
+        ys.append(x)
+    ys = np.stack(ys[::sub], 1).astype(np.float32)
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return as_t(ys[:, 0]), as_t(ts.astype(np.float32)), as_t(ys), None
+
+
+def many_operators():
+    """Phase 27's 33 operators: the 17 of the table (``+ - * /`` at the main
+    path's probabilities, the rest 0.1) and the first 16 unary callables of
+    ``registry.vocabulary_operators()`` (user operators, ids 17-32), at 0.1."""
+    from multitreegp_tpu_torch.core.registry import DEVICE_OPS, vocabulary_operators
+
+    binary = ("+", "-", "*", "/", "pow", "max", "min")
+    table = OPERATORS + [(name, 2 if name in binary else 1, 0.1) for name in DEVICE_OPS
+                         if name not in ("+", "-", "*", "/")]
+    return table + [(name, fn, 1, 0.1) for name, fn, _ in vocabulary_operators()[0][:16]]
+
+
+def many_operator_set():
+    """The function set of :func:`many_operators` (traced before the kernels
+    are built, so that its user library is compiled in the parallel
+    prelude)."""
+    from multitreegp_tpu_torch.core.registry import build_function_set
+
+    return build_function_set(many_operators(), [["x0", "x1"]], [2])
+
+
+def many_phase(device, s, data) -> dict:
+    """Phase 27: the interpreter past 32 variables and past 32 operators.
+    Lorenz-96 with 40 states (:func:`lorenz96_data`): 40 trees a candidate
+    of ``max_nodes=32``, ``+ - * /``, grown to depth 2 (deeper random trees
+    diverge on nearly every lane), 8 x 512 candidates x 16 trajectories,
+    T = 50 saves 0.05 apart, RK4 x 1: the SR evaluator's general path (d = 40 > 4) with #8 as
+    the drift on 2,621,440 lanes a call, the fused reproduction (#2), 3
+    generations, then one round of the top 50 (10 Adam steps; #8/#9 on
+    32,000 lanes a call). Then phase 4's VdP workload with the 33 operators
+    of :func:`many_operators` through the general path
+    (``interpreter="gather"``: the round runs #8/#9 alone, in the wide
+    instance of the set's user build): one evaluation of 8 x 512 candidates
+    and one round of the top 50. #8/#9 against their plain versions, every
+    lane bit-equal, at each workload's evaluation and round shapes, with
+    events, device time and bounds."""
+    import torch
+
+    from multitreegp_tpu_torch import GeneticProgramming, _build
+    from multitreegp_tpu_torch.core import cuda_interpreter as ci
+    from multitreegp_tpu_torch.core import cuda_reproduction as cr
+    from multitreegp_tpu_torch.core import cuda_rollout as cf
+    from multitreegp_tpu_torch.models.evaluators import SREvaluator
+
+    t0 = time.perf_counter()
+    b, n = s["batch"], s["max_nodes"]
+    counters = dict(sr_fitness=cf.sr_fitness_cuda, reproduce=cr.reproduce_lanes_cuda,
+                    interpret_fwd=ci.evaluate_trees_cuda, interpret_bwd=ci.evaluate_trees_vjp_cuda)
+    names = [f"x{i}" for i in range(s["lorenz_states"])]
+    lorenz = lorenz96_data(device, s)
+    t_steps = lorenz[1].shape[0]
+    gp = GeneticProgramming(
+        num_generations=s["wide_generations"], population_size=s["pop"],
+        fitness_function=SREvaluator(substeps=1), operator_list=OPERATORS, variable_list=[names],
+        layer_sizes=[len(names)], num_populations=s["islands"], max_nodes=n,
+        max_init_depth=s["lorenz_depth"], gradient_steps=s["gradient_steps"],
+        coefficient_opt_top_k=s["top_k"], elite_percentage=s["elite"], device=device)
+    check(gp.fused_reproduction, "Lorenz-96 at max_nodes=32 takes the fused reproduction")
+    r = loop_generations(gp, lorenz, device, s["wide_generations"], 27, counters)
+    res = round_phase(gp, r["pops"], lorenz, device, counters, t_steps, "phase 27 Lorenz-96")
+    if device.type == "cuda":
+        for i, gen in enumerate(r["generations"]):
+            ev, evo = gen["eval_launches"], gen["evolve_launches"]
+            check(ev["interpret_fwd"] >= (t_steps - 1) * 4 and ev["sr_fitness"] == 0 and evo["reproduce"] >= 1,
+                  f"Lorenz-96 gen {i} launches {ev} {evo}")
+    for i, gen in enumerate(r["generations"]):
+        phase_line(f"phase 27 Lorenz-96 ({len(names)} states, {s['islands']}x{s['pop']} candidates of "
+                   f"{len(names)} trees) gen {i}: eval {gen['eval_ms']:.3f} ms, evolve {gen['evolve_ms']:.3f} ms, "
+                   f"best fitness {gen['best']:.6g}; launches in evaluate {gen['eval_launches']}, in evolve "
+                   f"{gen['evolve_launches']}")
+    flat, top = res.pop("flat"), res.pop("top")
+    x0s = lorenz[0]
+    cases = {"population": (shape_case(device, flat, b, None, x0s), True),
+             "round": (shape_case(device, flat[top], b, None, x0s), True)}
+    checks = {}
+    for key, (case, vjp) in cases.items():
+        checks[key] = c = lanes_check(*case, gp.fset, f"Lorenz-96 #8/#9 {key}", vjp=vjp)
+        phase_line(f"phase 27 Lorenz-96 #8/#9 {key} vs plain ({c['lanes']} lanes, {c['members']} a tree, "
+                   f"{len(names)} variables): bit-equal {c['bit_equal']}, finite {c['finite']:.4f}, plain "
+                   f"{c['plain_ms']:.1f} ms")
+    res.update(generations=r["generations"], launches=r["launches"], checks=checks, states=len(names))
+    if device.type == "cuda":
+        res["times"] = interpreter_case_times(s, cases, checks, gp.fset, "phase 27 Lorenz-96")
+    out = {"lorenz96": res}
+
+    # the 33-operator round on the VdP workload, through the general path
+    gp = GeneticProgramming(
+        num_generations=1, population_size=s["pop"],
+        fitness_function=SREvaluator(substeps=1, interpreter="gather"), operator_list=many_operators(),
+        variable_list=[["x0", "x1"]], layer_sizes=[2], num_populations=s["islands"], max_nodes=n,
+        max_init_depth=s["depth"], gradient_steps=s["gradient_steps"],
+        coefficient_opt_top_k=s["top_k"], elite_percentage=s["elite"], device=device)
+    fset = gp.fset
+    check(fset.num_operators == 33 and not fset.refusals, f"the 33-operator set: {fset.refusals}")
+    t_steps = data[1].shape[0]
+    pops = gp.initialize_population(torch.Generator(device=device).manual_seed(270))
+    before = {k: fn.launches for k, fn in counters.items()}
+    sync(device)
+    t1 = time.perf_counter()
+    fitness = gp._evaluate(pops, data)
+    sync(device)
+    eval_ms = (time.perf_counter() - t1) * 1e3
+    ev = {k: fn.launches - before[k] for k, fn in counters.items()}
+    check(bool(torch.isfinite(fitness).all()), "33 operators: non-finite fitness")
+    if device.type == "cuda":
+        check(ev["interpret_fwd"] >= (t_steps - 1) * 4 and ev["sr_fitness"] == 0, f"33 operators: launches {ev}")
+        check(_build.variant_name("interpreter", fset.variant) in _build._loaded, "33 operators: user build")
+    res = round_phase(gp, pops, data, device, counters, t_steps, "phase 27 33 operators")
+    flat, top = res.pop("flat"), res.pop("top")
+    user_rows = int(((flat.ops >= 2 + 17) & (flat.ops < fset.var_start)).sum())
+    phase_line(f"phase 27 33 operators ({' '.join(fset.operator_names)}; device ids {list(fset.device_op_ids)}): "
+               f"{s['islands']}x{s['pop']} candidates, {user_rows} user rows, evaluation {eval_ms:.1f} ms, "
+               f"launches {ev}, best {float(fitness.min()):.6g}")
+    g = torch.Generator(device=device).manual_seed(271)
+    cases = {"round": (shape_case(device, flat[top], b, g), True)}
+    checks = {"round": lanes_check(*cases["round"][0], fset, "33 operators #8/#9 round")}
+    c = checks["round"]
+    phase_line(f"phase 27 33 operators #8/#9 round vs plain ({c['lanes']} lanes): bit-equal {c['bit_equal']}, "
+               f"finite {c['finite']:.4f}, plain {c['plain_ms']:.1f} ms")
+    res.update(generations=[dict(eval_ms=eval_ms, eval_launches=ev)], checks=checks, user_rows=user_rows,
+               device_op_ids=list(fset.device_op_ids))
+    if device.type == "cuda":
+        res["times"] = interpreter_case_times(s, cases, checks, fset, "phase 27 33 operators")
+    out["ops33"] = res
+    out["lorenz96"]["seconds"] = out["ops33"]["seconds"] = time.perf_counter() - t0
+    phase_line(f"phase 27 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def sync(device) -> None:
     import torch
 
@@ -3968,7 +4226,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kernels = SHARDED_KERNELS if opts.sharded_only else KERNELS
     # one nvcc per library, all started together: the default builds, phase
-    # 24's extended ones, phase 25's and phase 26's user ones (their function
+    # 24's extended ones, phase 25's, 26's and 27's user ones (their function
     # sets are traced first)
     extra = []
     if not opts.sharded_only:
@@ -3976,7 +4234,8 @@ def main(argv=None) -> int:
         vocab_gen, sweep_unary, sweep_binary = vocabulary_sets()
         extra = [(EXTENDED_KERNELS, True), (USER_GEN_KERNELS, gen_set.variant),
                  (USER_CONTROL_KERNELS, control_set.variant), (VOCAB_GEN_KERNELS, vocab_gen.variant),
-                 (("interpreter",), sweep_unary.variant), (("interpreter",), sweep_binary.variant)]
+                 (("interpreter",), sweep_unary.variant), (("interpreter",), sweep_binary.variant),
+                 (("interpreter",), many_operator_set().variant)]
     with ThreadPoolExecutor(max(1, len(extra))) as pool:
         jobs = [pool.submit(_build.build, *names, variant=v) for names, v in extra]
         _build.build(*kernels)

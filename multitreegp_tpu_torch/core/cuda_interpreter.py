@@ -26,6 +26,16 @@ checks, the joint batch, the dimension order and the layout words. A hit
 vouches for those checks; the cotangent and the device type are checked on
 every call. The entry points' ``ctypes`` types are set once per library.
 
+Instances. Trees of up to 1,024 rows, on up to 63 variables, with up to 32
+operators, run the fixed instances (their row arrays in local memory). Any
+other size runs the wide instance (the layout's ``wide`` word): its values
+and tape lie in a scratch buffer allocated here, ``[row][lane]`` over the
+lanes of one launch, and the lanes are split into launches so that the
+scratch stays within :data:`SCRATCH_BYTES`; each launch counts in the
+wrappers' ``launches``. Its limit is what that budget holds: one block of
+:data:`THREADS` lanes' tape, :data:`MAX_NODES` rows; past it, and past
+:data:`MAX_VARS` variables, ``NotImplementedError``.
+
 A function set with an operator past ``+ - * / sin cos`` launches the
 library's extended build, one with user operators the user build of its
 generated header (``_build.load("interpreter", fset.variant)``); the layout
@@ -50,29 +60,56 @@ from .. import _build
 from .registry import FunctionSet
 from .trees import TreeTensors
 
-MAX_NODES = 1024  # csrc/interpreter.cu kMaxRows
-MAX_VARS = 32  # kMaxVars
-MAX_OPS = 32  # kMaxOps
+# the fixed instances' limits (csrc/interpreter.cu kMaxRows, kRowVars, kMaxOps)
+FIXED_ROWS = 1024
+FIXED_VARS = 63
+FIXED_OPS = 32
+DEVICE_OPS = 64  # kDeviceOps: the op table's entries, device op ids 0-63
+THREADS = 32  # kThreads: a block's lanes; a wide launch runs whole blocks
+# the wide instance's scratch per launch: the forward's values (4 B) or the
+# VJP's tape (8 B) of each row of each lane of the launch
+SCRATCH_BYTES = 1 << 30
+MAX_NODES = SCRATCH_BYTES // (THREADS * 8)  # one block's tape in the budget
+MAX_VARS = (1 << 28) - 1  # kWideMaxVars: the decoded row's data slot
 MAX_DIMS = 8  # kMaxDims: rank of the joint batch
 MAX_LANES = 2**31 - 1  # lanes and shapes are indexed in 32 bits
-LAYOUT_WORDS = 7 + 5 * MAX_DIMS + MAX_OPS  # the header, 5 per dimension, the op table
+LAYOUT_WORDS = 8 + 5 * MAX_DIMS + DEVICE_OPS  # the header, 5 per dimension, the op table
 MAX_LAYOUTS = 64  # operand signatures kept; the oldest goes first
 
-_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # ops, c2, cst, data, layout; then out (forward) or g, dconst, ddata
-# (backward); then the stream
-_ARGTYPES = {"interpret_fwd": [_PTR] * 7, "interpret_bwd": [_PTR] * 9}
+# (backward); then the scratch, the launch's first lane and lane count, and
+# the stream
+_ARGTYPES = {"interpret_fwd": [_PTR] * 7 + [_I64, _I64, _PTR],
+             "interpret_bwd": [_PTR] * 9 + [_I64, _I64, _PTR]}
 
 
 class Layout(NamedTuple):
     """What one operand signature needs: which operands to copy (their last
-    dimension strided), the joint batch, and the kernel's layout words."""
+    dimension strided), the joint batch, the kernel's layout words, and the
+    lanes a launch runs (all of them, but for the wide instance)."""
 
     copy: Tuple[bool, bool, bool, bool]  # ops, c2, const, data
     batch: torch.Size
     lanes: int
     words: ctypes.Array  # kept alive for `address`
     address: int
+    wide: bool
+    fwd_step: int  # lanes a forward launch runs
+    bwd_step: int  # ... a VJP launch
+
+
+def takes_fixed(n: int, nvar: int, nops: int) -> bool:
+    """Whether the fixed instances take trees of ``n`` rows on ``nvar``
+    variables with ``nops`` operators (else the wide instance runs)."""
+    return n <= FIXED_ROWS and nvar <= FIXED_VARS and nops <= FIXED_OPS
+
+
+def _step(lanes: int, n: int, row_bytes: int) -> int:
+    """Lanes a wide launch runs: whole blocks whose scratch of ``row_bytes``
+    per row and lane fits :data:`SCRATCH_BYTES`, at most all of them."""
+    per = max(THREADS, SCRATCH_BYTES // (n * row_bytes) // THREADS * THREADS)
+    return min(per, lanes)
 
 
 _layouts: Dict[tuple, Layout] = {}
@@ -126,14 +163,16 @@ def _make_layout(trees: TreeTensors, data: torch.Tensor, fset: FunctionSet) -> L
             raise ValueError(f"{name}: expected {dtype} on {dev}, got {t.dtype} on {t.device}")
     if trees.c2.shape != trees.ops.shape or trees.const.shape[-1] != n:
         raise ValueError("ops, c2 and const must describe the same trees")
-    if n > MAX_NODES:
-        raise NotImplementedError(f"max_nodes {n} > {MAX_NODES}, the interpreter kernel's limit")
+    if n * THREADS * 8 > SCRATCH_BYTES:
+        raise NotImplementedError(
+            f"max_nodes {n}: one block's tape ({THREADS} lanes x {n} rows x 8 B) exceeds the "
+            f"interpreter kernel's scratch of {SCRATCH_BYTES} B ({SCRATCH_BYTES // (THREADS * 8)} rows)")
     nvar = data.shape[-1]
     if nvar > MAX_VARS:
         raise NotImplementedError(f"{nvar} variables > {MAX_VARS}, the interpreter kernel's limit")
     fset.require_device_ops()
-    if fset.num_operators > MAX_OPS:
-        raise NotImplementedError(f"{fset.num_operators} operators > {MAX_OPS}")
+    if fset.num_operators > DEVICE_OPS:  # a set's device op ids are distinct: at most 64
+        raise NotImplementedError(f"{fset.num_operators} operators > {DEVICE_OPS}")
     batch = _broadcast([trees.ops.shape[:-1], trees.const.shape[:-1], data.shape[:-1]])
     if len(batch) > MAX_DIMS:
         raise NotImplementedError(f"batch rank {len(batch)} > {MAX_DIMS}")
@@ -158,11 +197,14 @@ def _make_layout(trees: TreeTensors, data: torch.Tensor, fset: FunctionSet) -> L
         return [v[k] for k in order] + [0] * (MAX_DIMS - len(order))
 
     ids = list(fset.device_op_ids)
+    wide = not takes_fixed(n, nvar, fset.num_operators)
     words = (ctypes.c_int64 * LAYOUT_WORDS)(
-        len(order), len(group), n, nvar, fset.var_start, fset.num_operators, fset.has_unary,
+        len(order), len(group), n, nvar, fset.var_start, fset.num_operators, fset.has_unary, wide,
         *per_dim(batch), *per_dim(tree), *per_dim(cs), *per_dim(xs),
-        *per_dim(out), *ids, *[0] * (MAX_OPS - len(ids)))
-    return Layout(tuple(copy), torch.Size(batch), lanes, words, ctypes.addressof(words))
+        *per_dim(out), *ids, *[0] * (DEVICE_OPS - len(ids)))
+    steps = (_step(lanes, n, 4), _step(lanes, n, 8)) if wide and lanes else (lanes, lanes)
+    return Layout(tuple(copy), torch.Size(batch), lanes, words, ctypes.addressof(words), wide,
+                  *steps)
 
 
 def _operands(trees: TreeTensors, data: torch.Tensor, fset: FunctionSet):
@@ -181,40 +223,69 @@ def _operands(trees: TreeTensors, data: torch.Tensor, fset: FunctionSet):
     return operands + (layout,)
 
 
+def _launches(fn, layout: Layout, step: int, row_floats: int, device, args: tuple, stream):
+    """Call ``fn(*args, scratch, lane0, count, stream)`` once (the fixed
+    instances) or once per ``step`` lanes (the wide one, with a scratch of
+    ``row_floats`` floats per row and lane); returns ``(status, launches)``,
+    stopping at the first launch that fails."""
+    if not layout.wide:
+        return fn(*args, None, 0, layout.lanes, stream), 1
+    n = layout.words[2]
+    scratch = torch.empty(step * n * row_floats, dtype=torch.float32, device=device)
+    launches = 0
+    for lane0 in range(0, layout.lanes, step):
+        status = fn(*args, scratch.data_ptr(), lane0, min(step, layout.lanes - lane0), stream)
+        launches += 1
+        if status:
+            break
+    return status, launches
+
+
+def _forward(fn, ops, c2, cst, x, layout: Layout, stream):
+    """``(status, roots shaped like the joint batch, launches)``."""
+    out = torch.empty(layout.batch, dtype=torch.float32, device=ops.device)
+    if not layout.lanes:
+        return 0, out, 0
+    args = (ops.data_ptr(), c2.data_ptr(), cst.data_ptr(), x.data_ptr(), layout.address,
+            out.data_ptr())
+    status, launches = _launches(_bind(fn, "interpret_fwd"), layout, layout.fwd_step, 1,
+                                 ops.device, args, stream)
+    return status, out, launches
+
+
+def _backward(fn, ops, c2, cst, x, layout: Layout, n: int, g: torch.Tensor, stream):
+    """``(status, dconst (*batch, N), ddata (*batch, V), launches)`` per lane
+    (views of the lane-minor outputs)."""
+    batch, lanes = layout.batch, layout.lanes
+    if g.shape != batch or g.dtype != torch.float32 or g.device != ops.device:
+        raise ValueError(f"cotangent {tuple(g.shape)} {g.dtype}: expected {tuple(batch)} float32")
+    g = g.contiguous()
+    # one allocation for both outputs (each torch.empty is ~9 us of host time
+    # on the card's host, PERF.md §6)
+    both = torch.empty((n + x.shape[-1], lanes), dtype=torch.float32, device=ops.device)
+    dconst, ddata = both[:n], both[n:]
+    status, launches = 0, 0
+    if lanes:
+        args = (ops.data_ptr(), c2.data_ptr(), cst.data_ptr(), x.data_ptr(), layout.address,
+                g.data_ptr(), dconst.data_ptr(), ddata.data_ptr())
+        status, launches = _launches(_bind(fn, "interpret_bwd"), layout, layout.bwd_step, 2,
+                                     ops.device, args, stream)
+    per_lane = lambda t: t.view((t.shape[0],) + tuple(batch)).movedim(0, -1)
+    return status, per_lane(dconst), per_lane(ddata), launches
+
+
 def run_forward(fn, trees: TreeTensors, data: torch.Tensor, fset: FunctionSet,
                 stream=None) -> torch.Tensor:
     """Call ``interpret_fwd`` (of the CUDA library, or of the host build on
     CPU tensors); returns ``(status, roots shaped like the joint batch)``."""
-    ops, c2, cst, x, layout = _operands(trees, data, fset)
-    out = torch.empty(layout.batch, dtype=torch.float32, device=ops.device)
-    if not layout.lanes:
-        return 0, out
-    status = _bind(fn, "interpret_fwd")(ops.data_ptr(), c2.data_ptr(), cst.data_ptr(),
-                                        x.data_ptr(), layout.address, out.data_ptr(), stream)
-    return status, out
+    return _forward(fn, *_operands(trees, data, fset), stream)[:2]
 
 
 def run_backward(fn, trees: TreeTensors, data: torch.Tensor, g: torch.Tensor, fset: FunctionSet,
                  stream=None):
     """Call ``interpret_bwd``; returns ``(status, dconst (*batch, N), ddata
     (*batch, V))`` per lane (views of the lane-minor outputs)."""
-    ops, c2, cst, x, layout = _operands(trees, data, fset)
-    batch, lanes = layout.batch, layout.lanes
-    if g.shape != batch or g.dtype != torch.float32 or g.device != ops.device:
-        raise ValueError(f"cotangent {tuple(g.shape)} {g.dtype}: expected {tuple(batch)} float32")
-    g = g.contiguous()
-    n = trees.max_nodes
-    # one allocation for both outputs (each torch.empty is ~9 us of host time
-    # on the card's host, PERF.md §6)
-    both = torch.empty((n + x.shape[-1], lanes), dtype=torch.float32, device=ops.device)
-    dconst, ddata = both[:n], both[n:]
-    status = 0
-    if lanes:
-        status = _bind(fn, "interpret_bwd")(
-            ops.data_ptr(), c2.data_ptr(), cst.data_ptr(), x.data_ptr(), layout.address,
-            g.data_ptr(), dconst.data_ptr(), ddata.data_ptr(), stream)
-    per_lane = lambda t: t.view((t.shape[0],) + tuple(batch)).movedim(0, -1)
-    return status, per_lane(dconst), per_lane(ddata)
+    return _backward(fn, *_operands(trees, data, fset), trees.max_nodes, g, stream)[:3]
 
 
 def _require_cuda(trees: TreeTensors) -> torch.device:
@@ -228,10 +299,10 @@ def evaluate_trees_cuda(trees: TreeTensors, data: torch.Tensor, fset: FunctionSe
     """Launch the forward kernel: float32 roots of the joint batch shape."""
     dev = _require_cuda(trees)
     lib = _build.load("interpreter", fset.variant)
-    status, out = run_forward(lib.interpret_fwd, trees, data, fset,
-                              torch.cuda.current_stream(dev).cuda_stream)
+    status, out, launches = _forward(lib.interpret_fwd, *_operands(trees, data, fset),
+                                     torch.cuda.current_stream(dev).cuda_stream)
+    evaluate_trees_cuda.launches += launches
     _build.check(lib, status, "interpreter forward kernel launch")
-    evaluate_trees_cuda.launches += 1
     return out
 
 
@@ -245,10 +316,11 @@ def evaluate_trees_vjp_cuda(
     like data)`` for the roots' cotangent ``g``."""
     dev = _require_cuda(trees)
     lib = _build.load("interpreter", fset.variant)
-    status, dconst, ddata = run_backward(lib.interpret_bwd, trees, data, g, fset,
-                                         torch.cuda.current_stream(dev).cuda_stream)
+    status, dconst, ddata, launches = _backward(
+        lib.interpret_bwd, *_operands(trees, data, fset), trees.max_nodes, g,
+        torch.cuda.current_stream(dev).cuda_stream)
+    evaluate_trees_vjp_cuda.launches += launches
     _build.check(lib, status, "interpreter backward kernel launch")
-    evaluate_trees_vjp_cuda.launches += 1
     return dconst.sum_to_size(trees.const.shape), ddata.sum_to_size(data.shape)
 
 

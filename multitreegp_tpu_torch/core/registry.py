@@ -463,7 +463,7 @@ def vocabulary_operators():
     emitter compiles past ``+ - * /``, the comparisons and ``where``, each
     traced into generated code with its VJP, in the ``(name, fn, arity)``
     form of :func:`build_function_set`; two sets of at most 32 operators
-    (the interpreter kernel's limit), for sweeping every op on the card."""
+    (the interpreter's fixed instances), for sweeping every op on the card."""
     unary = [
         ("sigmoid", torch.sigmoid), ("erf", torch.erf), ("erfc", torch.erfc), ("relu", torch.relu),
         ("atan", torch.atan), ("asin", torch.asin), ("acos", torch.acos), ("asinh", torch.asinh),

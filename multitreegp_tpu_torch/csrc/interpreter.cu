@@ -73,6 +73,29 @@
 // staging. Layouts whose groups have several members (the recompute's 16 a
 // tree: at most 3 groups a block) keep 32 lanes at every N.
 //
+// Everything past those three instances (more than kMaxRows rows, more than
+// kRowVars variables, more than kMaxOps operators) runs the wide instance,
+// whose sizes are runtime values (the wrapper sets the layout's `wide` word):
+// * the lane's values (forward) and tape (backward) lie in a scratch buffer
+//   that the wrapper allocates, lane-minor ([row][lane] of the launch's
+//   lanes), so a group's members read and write one row's entries
+//   coalesced; the wrapper splits the lanes into launches whose scratch
+//   stays under its budget (core/cuda_interpreter.py SCRATCH_BYTES);
+// * a block stages its groups' rows in chunks of WideParams::chunk rows
+//   (kWideStage bytes of shared memory, whatever the tree's size): the rows
+//   run in order, bottom to top forward and top to bottom backward, and a
+//   row's second operand is a value of the tape, not a row, so the block
+//   stages a chunk, runs it, and stages the next; each tree's first live
+//   row is found while the forward stages (a group's rows run from the
+//   chunk that holds it), and a padding row's c2 and constant are not read;
+// * a decoded row (WideRow) keeps the device op id or data slot in 30 bits
+//   and c2 + 1 (or the constant) in a word of its own;
+// * the data vector is read where it lies, and ddata accumulated where the
+//   wrapper reads it;
+// * the device op table holds every id (kDeviceOps).
+// Per lane it runs the same float32 operations in the same order as the
+// other instances, so it is bit-equal to the plain version too.
+//
 // The per-thread code is plain C++ under MTGP_HD, so the same file also
 // compiles for the host (without __CUDACC__): a loop over the blocks runs
 // each phase's threads one after the other, with the same entry points,
@@ -80,21 +103,31 @@
 #include "tree_eval.cuh"  // op ids, apply_binary, apply_unary
 
 #ifndef __CUDACC__
+#include <string.h>
+
 #include <vector>
 #endif
 
 namespace {
 
-constexpr int kMaxVars = 32;
+// the fixed instances' limits: variables (the decoded row's 6-bit slot holds
+// them and the zero column), operators (Params::devop) and rows
+constexpr int kRowVars = 63;
 constexpr int kMaxOps = 32;
+constexpr int kMaxRows = 1024;
 constexpr int kMaxDims = 8;
 constexpr int kThreads = 32;  // threads per block, and its most lanes
-constexpr int kMaxRows = 1024;  // rows per tree
 constexpr size_t kMaxShared = 227 * 1024;  // a block's shared memory, opted in
-// layout words: [ndim, ngroup, n, nvar, var_start, nops, unary], then shape,
-// tree, const, data and out strides (kMaxDims each), then the device op
-// table (kMaxOps)
-constexpr int kHeader = 7;
+// the wide instance: the device op ids (0-63, core/user_ops.py
+// MAX_DEVICE_OP), the rows a block stages at once (bytes), and the most
+// variables its decoded slot holds
+constexpr int kDeviceOps = 64;
+constexpr int kWideStage = 6 * 1024;
+constexpr int kWideMaxVars = (1 << 28) - 1;
+// layout words: [ndim, ngroup, n, nvar, var_start, nops, unary, wide], then
+// shape, tree, const, data and out strides (kMaxDims each), then the device
+// op table (kDeviceOps)
+constexpr int kHeader = 8;
 
 // decoded row kinds (bits 0-1 of Row::meta); EMPTY and unknown rows decode
 // to a variable leaf of the zero column
@@ -426,6 +459,228 @@ MTGP_HD inline void backward_lane(const Params& p, const Block& b, int tid, cons
   for (int v = 0; v < p.nvar; ++v) ddata[v * static_cast<int64_t>(p.lanes) + at.out] = dd[v * kThreads];
 }
 
+// ---------------------------------------------------------------------------
+// The wide instance (see the top of the file).
+
+// A decoded row: `meta` holds the kind (bits 0-1) and the device op id or
+// data slot (bits 2-31); `word` c2 + 1 on a binary row whose second operand
+// is row c2 (else 0), the constant's bits on a CONST row.
+struct alignas(8) WideRow {
+  int meta;
+  int word;
+};
+
+// The layout, the whole op table, and this launch's lanes.
+struct WideParams {
+  Params p;                // p.devop unused; p.block == kThreads
+  int op[kDeviceOps];      // opcode - kOpStart -> device op id
+  int64_t lane0;           // the launch's first lane (a multiple of kThreads)
+  int64_t count;           // its lanes: the scratch's row stride
+  int chunk;               // rows a block stages at once
+};
+
+struct WideShared {
+  WideRow* rows;    // max_groups chunks of `chunk` rows
+  int64_t* toff;    // each group's element offset in ops and c2
+  int64_t* coff;    // ... in const
+  int* start;       // each group's first live row (n until staged)
+};
+
+MTGP_HD inline size_t wide_shared_bytes(const WideParams& w) {
+  const size_t g = w.p.max_groups;
+  return g * w.chunk * sizeof(WideRow) + g * (2 * sizeof(int64_t) + sizeof(int));
+}
+
+MTGP_HD inline WideShared wide_carve(const WideParams& w, void* base) {
+  WideShared s;
+  s.rows = static_cast<WideRow*>(base);
+  s.toff = reinterpret_cast<int64_t*>(s.rows + w.p.max_groups * w.chunk);
+  s.coff = s.toff + w.p.max_groups;
+  s.start = reinterpret_cast<int*>(s.coff + w.p.max_groups);
+  return s;
+}
+
+MTGP_HD inline float bits_float(int b) {
+#ifdef __CUDA_ARCH__
+  return __int_as_float(b);
+#else
+  float f;
+  memcpy(&f, &b, sizeof f);
+  return f;
+#endif
+}
+
+MTGP_HD inline int float_bits(float f) {
+#ifdef __CUDA_ARCH__
+  return __float_as_int(f);
+#else
+  int b;
+  memcpy(&b, &f, sizeof b);
+  return b;
+#endif
+}
+
+// Block b of the launch (b counted from lane 0 of the batch).
+MTGP_HD inline Block wide_block(const WideParams& w, int64_t b) {
+  return block_of(w.p, static_cast<int>(b), kThreads);
+}
+
+// The first phase of thread tid: a group's offsets (tid < ngroups) and its
+// lane's place; group -1 past the launch's last lane.
+MTGP_HD inline LaneAt wide_lane(const WideParams& w, const Block& b, int tid,
+                                const WideShared& s) {
+  stage_group(w.p, b, tid, Shared{nullptr, s.toff, s.coff, s.start, nullptr, nullptr});
+  const int64_t lane = static_cast<int64_t>(b.first) + tid;
+  if (lane >= w.p.lanes || lane >= w.lane0 + w.count) return LaneAt{-1, 0, 0};
+  return lane_at(w.p, static_cast<int>(lane));
+}
+
+// Thread t's row of the chunk [c0, c0 + len): row c0 + t % len of group
+// t / len, decoded; a padding row reads its opcode alone. With `find`, a
+// live row lowers its group's first live row.
+MTGP_HD inline void wide_stage_row(const WideParams& w, int t, int c0, int len, bool find,
+                                   const int* ops, const int* c2, const float* cst,
+                                   const WideShared& s) {
+  const int q = t / len, i = c0 + t - q * len;
+  const int64_t at = s.toff[q] + i;
+  const int op = ops[at];
+  int meta = kLeafVar | w.p.nvar << 2, word = 0;  // EMPTY and unknown rows read 0
+  if (op == kConst) {
+    meta = kLeafConst;
+    word = float_bits(cst[s.coff[q] + i]);
+  } else if (op >= w.p.var_start) {
+    const int var = op - w.p.var_start;  // a variable past the data's width reads 0
+    meta = kLeafVar | (var < w.p.nvar ? var : w.p.nvar) << 2;
+  } else if (op >= kOpStart) {
+    const int id = w.op[op - kOpStart];
+    if (is_unary(id)) {
+      meta = kUnary | id << 2;
+    } else {
+      const int second = c2[at];
+      meta = kBinary | id << 2;
+      word = second >= 0 && second < i ? second + 1 : 0;
+    }
+  }
+  s.rows[q * w.chunk + (i - c0)] = WideRow{meta, word};
+  if (find && op != kEmpty) shared_min(s.start + q, i);
+}
+
+// Rows max(from, start)..to-1 of one tree, continuing from the first operand
+// v (row from-1's value), each row's value into tape[i * stride]; the lane's
+// data is x[0..nvar). forward_rows' operations, row for row (written apart
+// from it, and wide_backward_rows from backward_rows, so that the fixed
+// instances compile to the code they did).
+template <bool U, typename E>
+MTGP_HD inline float wide_forward_rows(int from, int to, const WideRow* rows, int start,
+                                       const float* x, int nvar, E* tape, int64_t stride,
+                                       float v) {
+  for (int i = from > start ? from : start; i < to; ++i) {
+    const WideRow w = rows[i - from];
+    const int kind = w.meta & 3, arg = w.meta >> 2, sec = kind == kBinary ? w.word : 0;
+    const float xv = v;
+    const float y = sec > start ? value(tape[(sec - 1) * stride]) : 0.0f;
+    float r = arg == kAdd ? xv + y : arg == kSub ? xv - y : xv * y;
+    if (kind == kBinary && arg == kDiv) r = xv / y;
+#ifdef MTGP_EXT_OPS
+    if (kind == kBinary && arg >= kPow) r = apply_binary(arg, xv, y);
+#endif
+    if (U && kind == kUnary) r = apply_unary(arg, xv);
+    const float leaf = kind == kLeafVar ? (arg < nvar ? x[arg] : 0.0f) : bits_float(w.word);
+    v = kind >= kBinary ? r : leaf;
+    put(tape[i * stride], v);
+  }
+  return v;
+}
+
+// Rows to-1 down to max(from, start) of the sweep from row to-1's cotangent
+// g; returns row from-1's: backward_rows' operations, row for row, with
+// ddata accumulated in dd[v * L] (the zero column's dropped) and dconst[i *
+// L] written.
+template <bool U>
+MTGP_HD inline float wide_backward_rows(int from, int to, const WideRow* rows, int start,
+                                        float g, Tape* tape, int64_t stride, int nvar,
+                                        float* dd, float* dconst, int64_t L) {
+  for (int i = to - 1; i >= (from > start ? from : start); --i) {
+    const WideRow w = rows[i - from];
+    const int kind = w.meta & 3, arg = w.meta >> 2, sec = kind == kBinary ? w.word : 0;
+    const Tape below = i > start ? tape[(i - 1) * stride] : Tape{0.0f, 0.0f};
+    const float x = below.v;
+    const float y = sec > start ? tape[(sec - 1) * stride].v : 0.0f;
+    float dx = arg == kMul ? g * y : g;
+    float dy = arg == kAdd ? g : arg == kSub ? -g : g * x;
+    if (kind == kBinary && arg == kDiv) {
+      dx = g / y;
+      dy = -g * ((x / y) / y);
+    }
+#ifdef MTGP_EXT_OPS
+    if (kind == kBinary && arg >= kPow) binary_vjp(arg, g, x, y, tape[i * stride].v, dx, dy);
+    if (U && kind == kUnary) dx = unary_vjp(arg, g, x, tape[i * stride].v);
+#else
+    if (U && kind == kUnary) dx = arg == kSin ? g * cosf(x) : g * -sinf(x);
+#endif
+    float next = below.g;
+    if (kind >= kBinary) {
+      next = next + dx;
+      if (sec > start) {
+        if (sec == i) next = next + dy;  // c2 == i-1
+        else tape[(sec - 1) * stride].g += dy;
+      }
+    }
+    if (kind == kLeafVar && arg < nvar) dd[arg * L] += g;
+    dconst[i * L] = kind == kLeafConst ? g : 0.0f;
+    g = next;
+  }
+  return g;
+}
+
+// Thread tid's lane (at) over the staged chunk [c0, c1): the forward's next
+// rows into its scratch column, continuing from v.
+template <bool U, typename E>
+MTGP_HD inline float wide_forward_chunk(const WideParams& w, const Block& b, int tid,
+                                        const LaneAt& at, int c0, int c1, float v,
+                                        const float* data, E* scratch, const WideShared& s) {
+  if (at.group < 0) return v;
+  const int q = at.group - b.g0;
+  const int64_t col = b.first + tid - w.lane0;
+  return wide_forward_rows<U>(c0, c1, s.rows + q * w.chunk, s.start[q], data + at.data,
+                              w.p.nvar, scratch + col, w.count, v);
+}
+
+// ... and the sweep's rows of the chunk, from the cotangent g of row c1-1.
+template <bool U>
+MTGP_HD inline float wide_backward_chunk(const WideParams& w, const Block& b, int tid,
+                                         const LaneAt& at, int c0, int c1, float g,
+                                         Tape* scratch, float* dconst, float* ddata,
+                                         const WideShared& s) {
+  if (at.group < 0) return g;
+  const int q = at.group - b.g0;
+  const int64_t col = b.first + tid - w.lane0;
+  return wide_backward_rows<U>(c0, c1, s.rows + q * w.chunk, s.start[q], g, scratch + col,
+                               w.count, w.p.nvar, ddata + at.out, dconst + at.out, w.p.lanes);
+}
+
+// The lowest first live row of the block's groups (the backward's last chunk).
+MTGP_HD inline int wide_block_start(const WideParams& w, const Block& b, const WideShared& s) {
+  int lo = w.p.n;
+  for (int q = 0; q < b.ngroups; ++q) lo = s.start[q] < lo ? s.start[q] : lo;
+  return lo;
+}
+
+// Thread tid's lane before the backward's sweep: its ddata column zeroed
+// (the sweep accumulates into it); after it, dconst of the rows below its
+// tree's first live row.
+MTGP_HD inline void wide_zero_ddata(const WideParams& w, const LaneAt& at, float* ddata) {
+  if (at.group < 0) return;
+  for (int v = 0; v < w.p.nvar; ++v) ddata[v * static_cast<int64_t>(w.p.lanes) + at.out] = 0.0f;
+}
+
+MTGP_HD inline void wide_zero_below(const WideParams& w, const Block& b, const LaneAt& at,
+                                    float* dconst, const WideShared& s) {
+  if (at.group < 0) return;
+  const int start = s.start[at.group - b.g0];
+  for (int i = 0; i < start; ++i) dconst[i * static_cast<int64_t>(w.p.lanes) + at.out] = 0.0f;
+}
+
 #ifdef __CUDACC__
 template <int N, bool U>
 __global__ void __launch_bounds__(kThreads)
@@ -458,6 +713,69 @@ __global__ void __launch_bounds__(kThreads)
   backward_lane<N, U>(p, b, threadIdx.x, at, g, dconst, ddata, s);
 }
 
+// The wide instance's kernels: a block stages its groups' rows a chunk at a
+// time between barriers; the forward runs each chunk as it is staged, the
+// VJP runs the forward into its tape, then the sweep top-down over the
+// chunks again (the top one is still staged).
+template <bool U>
+__global__ void __launch_bounds__(kThreads)
+    interpret_fwd_wide(const __grid_constant__ WideParams w, const int* __restrict__ ops,
+                       const int* __restrict__ c2, const float* __restrict__ cst,
+                       const float* __restrict__ data, float* __restrict__ out,
+                       float* __restrict__ scratch) {
+  extern __shared__ int64_t smem[];
+  const WideShared s = wide_carve(w, smem);
+  const Block b = wide_block(w, w.lane0 / kThreads + blockIdx.x);
+  const LaneAt at = wide_lane(w, b, threadIdx.x, s);
+  float v = 0.0f;
+  for (int c0 = 0; c0 < w.p.n; c0 += w.chunk) {
+    const int c1 = c0 + w.chunk < w.p.n ? c0 + w.chunk : w.p.n;
+    __syncthreads();
+    for (int t = threadIdx.x; t < b.ngroups * (c1 - c0); t += kThreads)
+      wide_stage_row(w, t, c0, c1 - c0, true, ops, c2, cst, s);
+    __syncthreads();
+    v = wide_forward_chunk<U>(w, b, threadIdx.x, at, c0, c1, v, data, scratch, s);
+  }
+  if (at.group >= 0) out[at.out] = v;
+}
+
+template <bool U>
+__global__ void __launch_bounds__(kThreads)
+    interpret_bwd_wide(const __grid_constant__ WideParams w, const int* __restrict__ ops,
+                       const int* __restrict__ c2, const float* __restrict__ cst,
+                       const float* __restrict__ data, const float* __restrict__ g,
+                       float* __restrict__ dconst, float* __restrict__ ddata,
+                       Tape* __restrict__ scratch) {
+  extern __shared__ int64_t smem[];
+  const WideShared s = wide_carve(w, smem);
+  const Block b = wide_block(w, w.lane0 / kThreads + blockIdx.x);
+  const LaneAt at = wide_lane(w, b, threadIdx.x, s);
+  wide_zero_ddata(w, at, ddata);
+  float v = 0.0f;
+  const int last = (w.p.n - 1) / w.chunk * w.chunk;  // the top chunk's first row
+  for (int c0 = 0; c0 < w.p.n; c0 += w.chunk) {
+    const int c1 = c0 + w.chunk < w.p.n ? c0 + w.chunk : w.p.n;
+    __syncthreads();
+    for (int t = threadIdx.x; t < b.ngroups * (c1 - c0); t += kThreads)
+      wide_stage_row(w, t, c0, c1 - c0, true, ops, c2, cst, s);
+    __syncthreads();
+    v = wide_forward_chunk<U>(w, b, threadIdx.x, at, c0, c1, v, data, scratch, s);
+  }
+  float cot = at.group >= 0 ? g[at.out] : 0.0f;
+  const int lo = wide_block_start(w, b, s);
+  for (int c0 = last; c0 >= 0 && c0 + w.chunk > lo; c0 -= w.chunk) {
+    const int c1 = c0 + w.chunk < w.p.n ? c0 + w.chunk : w.p.n;
+    if (c0 != last) {
+      __syncthreads();
+      for (int t = threadIdx.x; t < b.ngroups * (c1 - c0); t += kThreads)
+        wide_stage_row(w, t, c0, c1 - c0, false, ops, c2, cst, s);
+      __syncthreads();
+    }
+    cot = wide_backward_chunk<U>(w, b, threadIdx.x, at, c0, c1, cot, scratch, dconst, ddata, s);
+  }
+  wide_zero_below(w, b, at, dconst, s);
+}
+
 // Launch `kernel` on `stream` with the block's shared memory, opting in
 // above 48 KB (at N = 256 a block whose lanes share no tree stages 64 KB at
 // 32 lanes; at N = 1024, 131 KB at 16); returns cudaGetLastError() of the
@@ -475,28 +793,33 @@ int launch(Kernel kernel, const Params& p, bool bwd, void* stream, Args... args)
 }
 #endif
 
-// Reads the layout words; returns 1 on arguments the kernels do not take.
-int make_params(const int64_t* w, Params* p, int* unary) {
-  const int64_t ndim = w[0], ngroup = w[1], n = w[2], nvar = w[3], var_start = w[4],
-                nops = w[5];
-  if (ndim < 0 || ndim > kMaxDims || ngroup < 0 || ngroup > ndim || n <= 0 || n > kMaxRows ||
-      nvar < 0 || nvar > kMaxVars || nops < 0 || nops > kMaxOps ||
+// Reads the layout words into w (w->p the fixed instances' Params, w->op
+// the whole op table; the launch's lanes are set by the caller), and the
+// header's `unary` and `wide`; returns 1 on words the kernels do not take.
+int make_params(const int64_t* words, WideParams* w, int* unary, int* wide) {
+  Params* p = &w->p;
+  const int64_t ndim = words[0], ngroup = words[1], n = words[2], nvar = words[3],
+                var_start = words[4], nops = words[5];
+  *unary = words[6] != 0;
+  *wide = words[7] != 0;
+  if (ndim < 0 || ndim > kMaxDims || ngroup < 0 || ngroup > ndim || n <= 0 ||
+      n >= 0x7fffffff || nvar < 0 || nvar > kWideMaxVars || nops < 0 || nops > kDeviceOps ||
       var_start != kOpStart + nops)
     return 1;
+  if (!*wide && (n > kMaxRows || nvar > kRowVars || nops > kMaxOps)) return 1;
   p->ndim = static_cast<int>(ndim);
   p->ngroup = static_cast<int>(ngroup);
   p->n = static_cast<int>(n);
   p->nvar = static_cast<int>(nvar);
   p->var_start = static_cast<int>(var_start);
-  *unary = w[6] != 0;
   int64_t lanes = 1, members = 1;
   for (int k = 0; k < kMaxDims; ++k) {
-    const int64_t size = w[kHeader + k];
+    const int64_t size = words[kHeader + k];
     p->shape[k] = static_cast<unsigned>(size);
-    p->tree[k] = w[kHeader + kMaxDims + k];
-    p->cst[k] = w[kHeader + 2 * kMaxDims + k];
-    p->data[k] = w[kHeader + 3 * kMaxDims + k];
-    p->out[k] = w[kHeader + 4 * kMaxDims + k];
+    p->tree[k] = words[kHeader + kMaxDims + k];
+    p->cst[k] = words[kHeader + 2 * kMaxDims + k];
+    p->data[k] = words[kHeader + 3 * kMaxDims + k];
+    p->out[k] = words[kHeader + 4 * kMaxDims + k];
     if (k < ndim) {
       if (size <= 0 || size > 0x7fffffff) return 1;
       lanes *= size;
@@ -504,15 +827,24 @@ int make_params(const int64_t* w, Params* p, int* unary) {
       if (lanes > 0x7fffffff) return 1;
     }
   }
-  for (int k = 0; k < kMaxOps; ++k) {
-    p->devop[k] = k < nops ? static_cast<int>(w[kHeader + 5 * kMaxDims + k]) : 0;
-    if (k < nops && (p->devop[k] < kAdd || p->devop[k] > kLastOp)) return 1;
+  for (int k = 0; k < kDeviceOps; ++k) {
+    w->op[k] = k < nops ? static_cast<int>(words[kHeader + 5 * kMaxDims + k]) : 0;
+    if (k < nops && (w->op[k] < kAdd || w->op[k] > kLastOp)) return 1;
+    if (k < kMaxOps) p->devop[k] = w->op[k];
   }
   p->lanes = static_cast<int>(lanes);
   p->members = static_cast<int>(members);
+  const int64_t groups = lanes / members;
+  if (*wide) {  // 32 lanes a block, their rows staged `chunk` at a time
+    const int64_t span = (kThreads - 1) / members + 2, mg = kThreads < groups ? kThreads : groups;
+    p->block = kThreads;
+    p->max_groups = static_cast<int>(span < mg ? span : mg);
+    const int64_t chunk = kWideStage / (sizeof(WideRow) * p->max_groups);
+    w->chunk = static_cast<int>(chunk < n ? chunk : n);
+    return 0;
+  }
   // the most lanes a block can run with its groups' rows staged (both
   // kernels: the VJP's staging is the larger)
-  const int64_t groups = lanes / members;
   for (int block = kThreads; block >= 1; block /= 2) {
     const int64_t span = (block - 1) / members + 2, mg = block < groups ? block : groups;
     p->block = block;
@@ -523,15 +855,33 @@ int make_params(const int64_t* w, Params* p, int* unary) {
   return 1;
 }
 
-#ifndef __CUDACC__
+// The launch's lanes [lane0, lane0 + count): the whole batch for the fixed
+// instances; for the wide one a run of whole blocks (the last may end the
+// batch) with its scratch. Returns 1 on a range the instance does not take.
+int set_lanes(WideParams* w, int wide, const void* scratch, int64_t lane0, int64_t count) {
+  w->lane0 = lane0;
+  w->count = count;
+  if (!wide) return lane0 != 0 || count != w->p.lanes;
+  return scratch == nullptr || lane0 < 0 || lane0 % kThreads != 0 || count <= 0 ||
+         lane0 + count > w->p.lanes || (lane0 + count < w->p.lanes && count % kThreads != 0);
+}
+
+#ifdef __CUDACC__
+// The wide instance's launch: the launch's blocks, its shared memory
+// (within 48 KB: kWideStage of rows).
+template <typename Kernel, typename... Args>
+int launch_wide(Kernel kernel, const WideParams& w, void* stream, Args... args) {
+  const int64_t grid = (w.count + kThreads - 1) / kThreads;
+  kernel<<<static_cast<unsigned>(grid), kThreads, wide_shared_bytes(w),
+           static_cast<cudaStream_t>(stream)>>>(w, args...);
+  return static_cast<int>(cudaGetLastError());
+}
+#else
 // The host build's launch: each block's phases run their threads one after
 // the other; returns 1 on bad arguments.
 template <typename LaneFn>
 int host_blocks(const int* ops, const int* c2, const float* cst, const float* data,
-                const int64_t* layout, bool bwd, LaneFn lane_fn) {
-  Params p;
-  int unary;
-  if (make_params(layout, &p, &unary)) return 1;
+                const Params& p, bool bwd, bool unary, LaneFn lane_fn) {
   std::vector<int64_t> smem((shared_bytes(p, bwd) + 7) / 8);
   const Shared s = carve(p, smem.data(), bwd);
   std::vector<LaneAt> at(kThreads);
@@ -539,9 +889,60 @@ int host_blocks(const int* ops, const int* c2, const float* cst, const float* da
     const Block b = block_of(p, blk, p.block);
     for (int tid = 0; tid < kThreads; ++tid) at[tid] = stage_lane(p, b, tid, data, s);
     for (int t = 0; t < b.ngroups * p.n; ++t) stage_row(p, t, ops, c2, cst, s);
-    for (int tid = 0; tid < kThreads; ++tid) lane_fn(p, b, tid, at[tid], s, unary != 0);
+    for (int tid = 0; tid < kThreads; ++tid) lane_fn(p, b, tid, at[tid], s, unary);
   }
   return 0;
+}
+
+// ... and of the wide instance: per block of the launch, each chunk's
+// staging, then its rows thread by thread; `sweep` also runs the VJP's
+// top-down pass over the chunks.
+template <bool U>
+void host_wide(const WideParams& w, const int* ops, const int* c2, const float* cst,
+               const float* data, float* out, const float* g, float* dconst, float* ddata,
+               void* scratch) {
+  std::vector<int64_t> smem((wide_shared_bytes(w) + 7) / 8);
+  const WideShared s = wide_carve(w, smem.data());
+  std::vector<LaneAt> at(kThreads);
+  std::vector<float> v(kThreads), cot(kThreads);
+  const bool sweep = g != nullptr;
+  const int n = w.p.n, last = (n - 1) / w.chunk * w.chunk;
+  const int64_t first = w.lane0 / kThreads, end = first + (w.count + kThreads - 1) / kThreads;
+  for (int64_t blk = first; blk < end; ++blk) {
+    const Block b = wide_block(w, blk);
+    for (int tid = 0; tid < kThreads; ++tid) {
+      at[tid] = wide_lane(w, b, tid, s);
+      v[tid] = 0.0f;
+      if (sweep) wide_zero_ddata(w, at[tid], ddata);
+    }
+    for (int c0 = 0; c0 < n; c0 += w.chunk) {
+      const int c1 = c0 + w.chunk < n ? c0 + w.chunk : n;
+      for (int t = 0; t < b.ngroups * (c1 - c0); ++t)
+        wide_stage_row(w, t, c0, c1 - c0, true, ops, c2, cst, s);
+      for (int tid = 0; tid < kThreads; ++tid)
+        v[tid] = sweep ? wide_forward_chunk<U>(w, b, tid, at[tid], c0, c1, v[tid], data,
+                                                static_cast<Tape*>(scratch), s)
+                       : wide_forward_chunk<U>(w, b, tid, at[tid], c0, c1, v[tid], data,
+                                                static_cast<float*>(scratch), s);
+    }
+    if (!sweep) {
+      for (int tid = 0; tid < kThreads; ++tid)
+        if (at[tid].group >= 0) out[at[tid].out] = v[tid];
+      continue;
+    }
+    for (int tid = 0; tid < kThreads; ++tid) cot[tid] = at[tid].group >= 0 ? g[at[tid].out] : 0.0f;
+    const int lo = wide_block_start(w, b, s);
+    for (int c0 = last; c0 >= 0 && c0 + w.chunk > lo; c0 -= w.chunk) {
+      const int c1 = c0 + w.chunk < n ? c0 + w.chunk : n;
+      if (c0 != last)
+        for (int t = 0; t < b.ngroups * (c1 - c0); ++t)
+          wide_stage_row(w, t, c0, c1 - c0, false, ops, c2, cst, s);
+      for (int tid = 0; tid < kThreads; ++tid)
+        cot[tid] = wide_backward_chunk<U>(w, b, tid, at[tid], c0, c1, cot[tid],
+                                          static_cast<Tape*>(scratch), dconst, ddata, s);
+    }
+    for (int tid = 0; tid < kThreads; ++tid) wide_zero_below(w, b, at[tid], dconst, s);
+  }
 }
 #endif
 
@@ -552,20 +953,30 @@ extern "C" {
 // ops/c2 int32 and cst float32 trees, data float32 vectors, each addressed
 // per lane through the layout words (rows and variables contiguous).
 // Forward: out (L,). Backward: g (L,) -> dconst (n, L) and ddata (nvar, L),
-// lane-minor, L the joint batch in row-major order.
+// lane-minor, L the joint batch in row-major order. The lanes [lane0, lane0
+// + count) run: all of them (lane0 = 0, count = L) for the fixed instances;
+// for the wide one (the layout's `wide` word) a run of whole blocks, with
+// `scratch` the values (forward: count * n floats) or the tape (backward:
+// count * n (value, cotangent) pairs) of those lanes, [row][lane].
 #ifdef __CUDACC__
 const char* mtgp_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
 // Launch on `stream`; return cudaGetLastError() of the launch. Instances: the
-// main path's N <= 32, everything up to 256, and up to kMaxRows, with unary
-// operators or without.
+// main path's N <= 32, everything up to 256, up to kMaxRows, and the wide
+// one, with unary operators or without.
 int interpret_fwd(const int* ops, const int* c2, const float* cst, const float* data,
-                  const int64_t* layout, float* out, void* stream) {
-  Params p;
-  int unary;
-  if (make_params(layout, &p, &unary)) return static_cast<int>(cudaErrorInvalidValue);
+                  const int64_t* layout, float* out, float* scratch, int64_t lane0,
+                  int64_t count, void* stream) {
+  WideParams w;
+  int unary, wide;
+  if (make_params(layout, &w, &unary, &wide) || set_lanes(&w, wide, scratch, lane0, count))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Params& p = w.p;
+  if (wide)
+    return unary ? launch_wide(interpret_fwd_wide<true>, w, stream, ops, c2, cst, data, out, scratch)
+                 : launch_wide(interpret_fwd_wide<false>, w, stream, ops, c2, cst, data, out, scratch);
 #define MTGP_FWD(N, U) launch(interpret_fwd_kernel<N, U>, p, false, stream, ops, c2, cst, data, out)
   if (p.n <= 32) return unary ? MTGP_FWD(32, true) : MTGP_FWD(32, false);
   if (p.n <= kMaxNodes) return unary ? MTGP_FWD(kMaxNodes, true) : MTGP_FWD(kMaxNodes, false);
@@ -575,10 +986,18 @@ int interpret_fwd(const int* ops, const int* c2, const float* cst, const float* 
 
 int interpret_bwd(const int* ops, const int* c2, const float* cst, const float* data,
                   const int64_t* layout, const float* g, float* dconst, float* ddata,
-                  void* stream) {
-  Params p;
-  int unary;
-  if (make_params(layout, &p, &unary)) return static_cast<int>(cudaErrorInvalidValue);
+                  float* scratch, int64_t lane0, int64_t count, void* stream) {
+  WideParams w;
+  int unary, wide;
+  if (make_params(layout, &w, &unary, &wide) || set_lanes(&w, wide, scratch, lane0, count))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Params& p = w.p;
+  Tape* tape = reinterpret_cast<Tape*>(scratch);
+  if (wide)
+    return unary ? launch_wide(interpret_bwd_wide<true>, w, stream, ops, c2, cst, data, g, dconst,
+                               ddata, tape)
+                 : launch_wide(interpret_bwd_wide<false>, w, stream, ops, c2, cst, data, g, dconst,
+                               ddata, tape);
 #define MTGP_BWD(N, U) \
   launch(interpret_bwd_kernel<N, U>, p, true, stream, ops, c2, cst, data, g, dconst, ddata)
   if (p.n <= 32) return unary ? MTGP_BWD(32, true) : MTGP_BWD(32, false);
@@ -594,9 +1013,18 @@ const char* mtgp_error_string(int status) {
 }
 
 int interpret_fwd(const int* ops, const int* c2, const float* cst, const float* data,
-                  const int64_t* layout, float* out, void* stream) {
+                  const int64_t* layout, float* out, float* scratch, int64_t lane0,
+                  int64_t count, void* stream) {
   (void)stream;
-  return host_blocks(ops, c2, cst, data, layout, false,
+  WideParams w;
+  int unary, wide;
+  if (make_params(layout, &w, &unary, &wide) || set_lanes(&w, wide, scratch, lane0, count)) return 1;
+  if (wide) {
+    unary ? host_wide<true>(w, ops, c2, cst, data, out, nullptr, nullptr, nullptr, scratch)
+          : host_wide<false>(w, ops, c2, cst, data, out, nullptr, nullptr, nullptr, scratch);
+    return 0;
+  }
+  return host_blocks(ops, c2, cst, data, w.p, false, unary != 0,
                      [&](const Params& p, const Block& b, int tid, const LaneAt& at,
                          const Shared& s, bool unary) {
     if (p.n <= 32) unary ? forward_lane<32, true>(p, b, tid, at, out, s)
@@ -610,9 +1038,17 @@ int interpret_fwd(const int* ops, const int* c2, const float* cst, const float* 
 
 int interpret_bwd(const int* ops, const int* c2, const float* cst, const float* data,
                   const int64_t* layout, const float* g, float* dconst, float* ddata,
-                  void* stream) {
+                  float* scratch, int64_t lane0, int64_t count, void* stream) {
   (void)stream;
-  return host_blocks(ops, c2, cst, data, layout, true,
+  WideParams w;
+  int unary, wide;
+  if (make_params(layout, &w, &unary, &wide) || set_lanes(&w, wide, scratch, lane0, count)) return 1;
+  if (wide) {
+    unary ? host_wide<true>(w, ops, c2, cst, data, nullptr, g, dconst, ddata, scratch)
+          : host_wide<false>(w, ops, c2, cst, data, nullptr, g, dconst, ddata, scratch);
+    return 0;
+  }
+  return host_blocks(ops, c2, cst, data, w.p, true, unary != 0,
                      [&](const Params& p, const Block& b, int tid, const LaneAt& at,
                          const Shared& s, bool unary) {
     if (p.n <= 32) unary ? backward_lane<32, true>(p, b, tid, at, g, dconst, ddata, s)

@@ -191,6 +191,8 @@ def build_variants(pkg) -> dict:
 
 
 _INSTRUCTION = re.compile(r"/\*[0-9a-f]{4,}\*/\s+([^;]*;)")
+# an interpreter kernel's name and template arguments in its mangled name
+_INTERP_INSTANCE = re.compile(r"(interpret_(?:fwd|bwd)_(?:kernel|wide))I((?:L[a-z]\d+E)+)E")
 
 
 def sass_digests(build, variants=None) -> str:
@@ -200,7 +202,9 @@ def sass_digests(build, variants=None) -> str:
     carries a hash of the source's path, in its anonymous namespace), the
     kernels' digests sorted; then the same of the tree libraries in each of
     ``variants`` (``{tag: variant}``, :func:`build_variants`), as
-    ``<name>_<tag>``."""
+    ``<name>_<tag>``; for the interpreter libraries also each instance's
+    digest (``interpret_fwd_kernel<32,1>``), so that an instance whose code
+    is unchanged shows it beside a new one."""
     tool = Path(build.find_nvcc()).parent / "cuobjdump"
     if not tool.is_file():
         return f"sass: no {tool}"
@@ -211,10 +215,20 @@ def sass_digests(build, variants=None) -> str:
     for label, name, variant in libraries:
         path = build.library_path(name, variant) if variant is not False else build.library_path(name)
         text = subprocess.run([str(tool), "-sass", str(path)], capture_output=True, text=True).stdout
+        functions = re.split(r"\n\s*Function : ", text)[1:]
         kernels = sorted(hashlib.sha256("\n".join(_INSTRUCTION.findall(k)).encode()).hexdigest()
-                         for k in re.split(r"\n\s*Function : ", text)[1:])
+                         for k in functions)
         digest = hashlib.sha256("".join(kernels).encode()).hexdigest()[:16]
         parts.append(f"{label} {len(kernels)} kernels {digest}")
+        if name == "interpreter":
+            instances = []
+            for k in functions:
+                m = _INTERP_INSTANCE.search(k.split("\n", 1)[0])
+                if m:
+                    args = ",".join(re.findall(r"L[a-z](\d+)E", m.group(2)))
+                    code = hashlib.sha256("\n".join(_INSTRUCTION.findall(k)).encode()).hexdigest()[:12]
+                    instances.append(f"{m.group(1)}<{args}> {code}")
+            parts.append(f"{label} instances [{'; '.join(sorted(instances))}]")
     return "sass " + ", ".join(parts)
 
 

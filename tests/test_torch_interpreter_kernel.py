@@ -52,10 +52,12 @@ from multitreegp_tpu_torch.core.interpreter import (
 )
 from multitreegp_tpu_torch.core.registry import build_function_set
 from multitreegp_tpu_torch.core.trees import CONST, EMPTY
+from multitreegp_tpu_torch.core.trees import OP_START
 from test_torch_kernels import (
     DEEP_INTERP_MEMBERS, DEEP_INTERP_SIZES, INTERP_LAYOUTS, INTERP_OPS, INTERP_SIZES, NO_DEVICE_OP,
-    TRIG, c2_case, deep_interp_case, interp_layout_case, lanes_case, patch_host_math,
-    per_lane_operands, reproduce_case, same_bits,
+    TRIG, c2_case, deep_interp_case, interp_layout_case, lanes_case, many_operator_case,
+    many_operator_set, patch_host_math, per_lane_operands, reproduce_case, same_bits,
+    wide_interp_case,
 )
 
 torch.set_num_threads(1)
@@ -192,19 +194,138 @@ def test_host_build_deep_trig_bit_exact(host_lib, monkeypatch):
     assert same_bits(out, ref) and same_bits(dconst, ref_c) and same_bits(ddata, ref_d)
 
 
-def test_host_build_refuses_past_its_limit(host_lib):
-    """Past 1024 rows the wrapper raises ``NotImplementedError``; the
-    kernel's own check refuses the layout words too."""
-    fset, trees, data, g = deep_interp_case(ci.MAX_NODES + 1, 1, k=3)
-    with pytest.raises(NotImplementedError):
+@pytest.fixture
+def wide_only(monkeypatch):
+    """Every layout through the wide instance (the fixed instances take no
+    tree), the layout cache emptied around the test."""
+    monkeypatch.setattr(ci, "FIXED_ROWS", 0)
+    ci._layouts.clear()
+    yield
+    ci._layouts.clear()
+
+
+@pytest.mark.parametrize("trig", [False, True], ids=["arith", "trig"])
+@pytest.mark.parametrize("n,depth", INTERP_SIZES[::3])
+@pytest.mark.parametrize("layout", INTERP_LAYOUTS)
+def test_host_build_wide_layouts_bit_exact(host_lib, monkeypatch, wide_only, layout, n, depth, trig):
+    """The wide instance in each caller's layout (lanes grouped by the tree
+    they share, groups that do not divide a block or span blocks, one tree
+    per lane) at N = 32 and 256, with and without ``sin``/``cos``: roots,
+    ``dconst`` and ``ddata`` bit for bit per lane."""
+    fset, trees, data, g = interp_layout_case(layout, n=n, depth=depth, trig=trig)
+    with monkeypatch.context() as m:
+        patch_host_math(m)
+        ref = plain_per_lane(trees, data, g, fset)
+    got = host_per_lane(host_lib, trees, data, g, fset)
+    assert ci._operands(trees, data, fset)[-1].wide
+    assert all(same_bits(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.parametrize("members", [1, 16, 31, 33])
+def test_host_build_wide_block_edges_bit_exact(host_lib, wide_only, members):
+    """The wide instance on the recompute's layout with groups of 1, 16, 31
+    and 33 lanes (groups that straddle blocks, a last block part full)."""
+    fset, trees, data, g = interp_layout_case("recompute")
+    rng = np.random.default_rng(members)
+    k, v = data.shape[0], data.shape[-1]
+    data = torch.from_numpy(rng.normal(size=(k, members, 1, v)).astype(np.float32) * 2)
+    g = torch.from_numpy(rng.normal(size=(k, members, trees.ops.shape[-2])).astype(np.float32))
+    ref = plain_per_lane(trees, data, g, fset)
+    assert all(same_bits(a, b) for a, b in zip(host_per_lane(host_lib, trees, data, g, fset), ref))
+
+
+def test_host_build_wide_c2_semantics(host_lib, monkeypatch, wide_only):
+    """The wide instance reads row ``c2`` as the plain version does on the
+    hand-made trees a postorder stack would evaluate otherwise."""
+    fset, trees, data, g = c2_case()
+    with monkeypatch.context() as m:
+        patch_host_math(m)
+        ref = plain_per_lane(trees, data, g, fset)
+    assert all(same_bits(a, b) for a, b in zip(host_per_lane(host_lib, trees, data, g, fset), ref))
+
+
+def wide_reference(n, members, k, nvar=2, monkeypatch=None):
+    """:func:`test_torch_kernels.wide_interp_case` and the plain version's
+    per-lane roots and cotangents on it."""
+    case = wide_interp_case(n, members, k=k, nvar=nvar)
+    with monkeypatch.context() as m:
+        patch_host_math(m)
+        return case, plain_per_lane(*case[1:], case[0])
+
+
+@pytest.mark.parametrize("n,nvar", [(32, 33), (32, 40), (32, 70), (1025, 40)])
+def test_host_build_many_variables_bit_exact(host_lib, monkeypatch, n, nvar):
+    """Data of 33, 40 and 70 variables: up to 63 the fixed instance (its
+    decoded row's 6-bit slot holds them and the zero column), 70 and past
+    1024 rows the wide one (a 30-bit slot, the data read where it lies, the
+    cotangents accumulated in the output); the chains' leaves cycle through
+    variables. Roots, ``dconst`` and ``ddata`` bit for bit per lane."""
+    (fset, trees, data, g), ref = wide_reference(n, 16 if n == 32 else 2, 6 if n == 32 else 3,
+                                                 nvar=nvar, monkeypatch=monkeypatch)
+    assert ci._operands(trees, data, fset)[-1].wide == (n > ci.FIXED_ROWS or nvar > ci.FIXED_VARS)
+    got = host_per_lane(host_lib, trees, data, g, fset)
+    assert all(same_bits(a, b) for a, b in zip(got, ref))
+    assert (ref[2][..., 32:] != 0).any()  # variables past the old limit read
+
+
+@pytest.fixture(scope="module")
+def many_ops_lib(tmp_path_factory):
+    if shutil.which("g++") is None and shutil.which("c++") is None:
+        pytest.skip("no host C++ compiler")
+    return _build.build_host("interpreter", tmp_path_factory.mktemp("many_ops"),
+                             many_operator_set().variant)
+
+
+def test_host_build_many_operators_bit_exact(many_ops_lib, monkeypatch):
+    """A set of 33 operators (the table's 17 and 16 user operators, device
+    ids 0-32): the wide instance of the set's user build, in the
+    recompute's layout; roots, ``dconst`` and ``ddata`` bit for bit per lane
+    with the C library's math on both sides."""
+    fset, trees, data, g = many_operator_case()
+    assert fset.num_operators == 33 and ci._operands(trees, data, fset)[-1].wide
+    user = (trees.ops >= OP_START + 17) & (trees.ops < fset.var_start)
+    assert int(user.sum()) > 20
+    with monkeypatch.context() as m:
+        patch_host_math(m)
+        ref = plain_per_lane(trees, data, g, fset)
+    got = host_per_lane(many_ops_lib, trees, data, g, fset)
+    assert all(same_bits(a, b) for a, b in zip(got, ref))
+    assert (ref[1] != 0).any() and torch.isfinite(ref[0]).float().mean() > 0.5
+
+
+def test_host_build_refuses_past_its_limit(host_lib, monkeypatch):
+    """The limit memory sets: past the rows whose tape one block of lanes
+    holds in the scratch budget (``MAX_NODES`` at ``SCRATCH_BYTES``), the
+    wrapper raises ``NotImplementedError``; at it, the wide instance runs.
+    The kernel's own check refuses malformed layout words and launch
+    ranges."""
+    assert ci.MAX_NODES == ci.SCRATCH_BYTES // (ci.THREADS * 8) == 4_194_304
+    monkeypatch.setattr(ci, "SCRATCH_BYTES", 1500 * ci.THREADS * 8)
+    ci._layouts.clear()
+    fset, trees, data, g = wide_interp_case(1501, 1, k=3)
+    with pytest.raises(NotImplementedError, match="1500 rows"):
         ci.run_forward(host_lib.interpret_fwd, trees, data, fset)
-    ok = deep_interp_case(ci.MAX_NODES, 1, k=3)
+    ok = wide_interp_case(1500, 1, k=3)
+    status, _ = ci.run_forward(host_lib.interpret_fwd, *ok[1:3], ok[0])
+    assert status == 0
     layout = ci._make_layout(ok[1], ok[2], ok[0])
-    layout.words[2] = ci.MAX_NODES + 1  # the row count, past kMaxRows
+    ci._layouts.clear()
     out = torch.empty(layout.batch)
+    scratch = torch.empty(layout.lanes * 1500)
     ptrs = [t.data_ptr() for t in (ok[1].ops, ok[1].c2, ok[1].const, ok[2])]
-    assert ci._bind(host_lib.interpret_fwd, "interpret_fwd")(*ptrs, layout.address,
-                                                            out.data_ptr(), None) == 1
+    fwd = ci._bind(host_lib.interpret_fwd, "interpret_fwd")
+    call = lambda lane0=0, count=layout.lanes, buf=scratch.data_ptr(): fwd(
+        *ptrs, layout.address, out.data_ptr(), buf, lane0, count, None)
+    assert call() == 0
+    assert call(buf=None) == 1  # the wide instance without its scratch
+    assert call(lane0=1, count=1) == 1  # a launch that is not whole blocks
+    layout.words[7] = 0  # the fixed instances: at most 1024 rows
+    assert call() == 1
+    layout.words[2] = 1024
+    layout.words[7] = 1
+    layout.words[5] = ci.DEVICE_OPS + 1  # more operators than device op ids
+    layout.words[4] = OP_START + ci.DEVICE_OPS + 1
+    assert call() == 1
 
 
 def postorder_roots(trees, data, fset):

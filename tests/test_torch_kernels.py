@@ -413,6 +413,126 @@ def deep_interp_case(n, members, device="cpu", k=12, trig=False, seed=0):
     return fset, pop.map(lambda a: a[:, None]), data, g_out
 
 
+# the wide instance (csrc/interpreter.cu: past 1024 rows, 63 variables, 32
+# operators): N, data widths, and the layouts of deep_interp_case
+WIDE_INTERP_SIZES = (1025, 2048, 4096)
+WIDE_INTERP_VARS = (33, 40, 70)
+
+
+def stack_pointers(ops, slots):
+    """``(c1, c2)`` of one tree's opcodes (a list) by a postorder stack, in
+    O(N): ``rebuild_pointers`` holds an N x N table per tree."""
+    c1, c2, stack = [-1] * len(ops), [-1] * len(ops), []
+    for i, op in enumerate(ops):
+        arity = int(slots[op]) if 0 <= op < len(slots) else 0
+        if op == EMPTY:
+            continue
+        for _ in range(arity):
+            below = stack.pop()
+        if arity:
+            c1[i] = i - 1
+        if arity == 2:
+            c2[i] = below
+        stack.append(i)
+    return c1, c2
+
+
+def wide_chain_rows(n, rows, var_start, nvar, zigzag):
+    """Opcodes of a tree of ``rows`` rows (odd) padded to ``n``: with
+    ``zigzag``, ``op_k(op_k-1(...), leaf_k)`` (each operator's second operand
+    the operator two rows below it, so second operands reach row n - 3), else
+    :func:`chain_rows`' shape (k + 1 leaves, then k operators: the deepest
+    stack, second operands down to the first leaf); leaves cycle through
+    constants and the ``nvar`` variables, the last first."""
+    k = (rows - 1) // 2
+    leaf = [var_start + (nvar - i % nvar) % nvar if i % 3 else CONST for i in range(k + 1)]
+    opers = [OP_START + i % 2 for i in range(k)]
+    body = ([leaf[0]] + [r for i in range(k) for r in (leaf[i + 1], opers[i])] if zigzag
+            else leaf + opers)
+    return [EMPTY] * (n - 2 * k - 1) + body
+
+
+def wide_interp_case(n, members, device="cpu", k=6, trig=False, nvar=2, seed=0):
+    """``(fset, trees (k, 1, 2, n), data (k, members, 1, nvar), g)`` for the
+    wide instance: trees grown to depth 7 over ``nvar`` variables, the first
+    three candidates chains of ``n - 1`` rows (the deepest stack; the zigzag,
+    whose second operands reach row n - 3) and 127 rows, every third
+    candidate's constants near or at 0 (``/`` makes huge, inf and NaN
+    lanes)."""
+    names = [f"x{i}" for i in range(nvar)]
+    fset = build_function_set(INTERP_OPS + (TRIG if trig else []), [names], [2])
+    gen = torch.Generator().manual_seed(seed)
+    pop = make_population_sampler(fset, 7 if n >= 127 else 4, n)(gen, k)[0]
+    ops, c1, c2 = (t.clone() for t in (pop.ops, pop.c1, pop.c2))
+    slots = fset.slots().tolist()
+    for i, (rows, zigzag) in enumerate(((n - 1, False), (n - 1, True), (min(127, n - 1), False))):
+        for j in range(2):
+            tree = wide_chain_rows(n, rows, fset.var_start, nvar, zigzag)
+            ops[i, j] = torch.tensor(tree, dtype=torch.int32)
+            p1, p2 = stack_pointers(tree, slots)
+            c1[i, j], c2[i, j] = torch.tensor(p1), torch.tensor(p2)
+    rng = np.random.default_rng(seed)
+    const = torch.where(ops == CONST, torch.where(pop.ops == CONST, pop.const, 0.5), 0.0)
+    small = torch.from_numpy(rng.normal(size=const.shape).astype(np.float32) * 1e-3)
+    small[torch.from_numpy(rng.random(const.shape) < 0.1)] = 0.0
+    every_third = (torch.arange(k) % 3 == 0)[:, None, None]
+    const = torch.where((ops == CONST) & every_third, small, const)
+    trees = TreeTensors(ops, c1, c2, const).map(lambda a: a[:, None].to(device))
+    data = torch.from_numpy(rng.normal(size=(k, members, 1, nvar)).astype(np.float32) * 2).to(device)
+    g_out = torch.from_numpy(rng.normal(size=(k, members, 2)).astype(np.float32)).to(device)
+    return fset, trees, data, g_out
+
+
+def many_operator_set(nvar=2):
+    """A set of 33 operators: the 17 of the table and the first 16 unary
+    callables of ``registry.vocabulary_operators()`` (user operators,
+    device ids 17-32), on ``nvar`` variables, 2 trees."""
+    from multitreegp_tpu_torch.core.registry import DEVICE_OPS, vocabulary_operators
+
+    table = [(name, 2 if name in ("+", "-", "*", "/", "pow", "max", "min") else 1, 1.0)
+             for name in DEVICE_OPS]
+    ops = table + [(name, fn, 1, 1.0) for name, fn, _ in vocabulary_operators()[0][:16]]
+    return build_function_set(ops, [[f"x{i}" for i in range(nvar)]], [2])
+
+
+def many_operator_case(device="cpu", k=24, b=5, n=32, depth=5, seed=0):
+    """``(fset, trees (k, 1, 2, n), data (k, b, 1, 2), g)``: the recompute's
+    layout with :func:`many_operator_set`'s 33 operators, trees grown to
+    ``depth``."""
+    fset = many_operator_set()
+    gen = torch.Generator().manual_seed(seed)
+    pop = make_population_sampler(fset, depth, n)(gen, k)[0]
+    rng = np.random.default_rng(seed)
+    data = torch.from_numpy(rng.normal(size=(k, b, 1, 2)).astype(np.float32) * 1.5).to(device)
+    g_out = torch.from_numpy(rng.normal(size=(k, b, 2)).astype(np.float32)).to(device)
+    return fset, pop.map(lambda a: a[:, None].to(device)), data, g_out
+
+
+def lorenz96_data(b, t_steps, dim=40, forcing=8.0, dt=0.05, seed=0):
+    """``(x0s (b, dim), ts (t_steps,), ys (b, t_steps, dim))`` float32:
+    Lorenz-96 (Lorenz 1996), ``dx_i/dt = (x_{i+1} - x_{i-2}) x_{i-1} - x_i
+    + F``, from ``x0 ~ F + N(0, 1)`` (numpy, ``seed``), integrated in float64
+    by RK4 at ``dt`` and saved every 0.2 (the main path's grid)."""
+    rng = np.random.default_rng(seed)
+    x = forcing + rng.normal(size=(b, dim))
+
+    def drift(v):
+        return (np.roll(v, -1, -1) - np.roll(v, 2, -1)) * np.roll(v, 1, -1) - v + forcing
+
+    save = round(0.2 / dt)
+    ys = [x]
+    for _ in range((t_steps - 1) * save):
+        k1 = drift(x)
+        k2 = drift(x + dt / 2 * k1)
+        k3 = drift(x + dt / 2 * k2)
+        k4 = drift(x + dt * k3)
+        x = x + dt / 6 * (k1 + 2 * k2 + 2 * k3 + k4)
+        ys.append(x)
+    ys = np.stack(ys[::save], 1).astype(np.float32)
+    ts = (np.arange(t_steps) * 0.2).astype(np.float32)
+    return torch.from_numpy(ys[:, 0].copy()), torch.from_numpy(ts), torch.from_numpy(ys)
+
+
 def per_lane_operands(trees, data):
     """Trees and data expanded to one per lane of their joint batch and
     copied, so the plain VJP's cotangents are per lane, summed over nothing."""
@@ -777,10 +897,92 @@ def test_interpreter_deep_trig_on_card(cuda):
 
 
 @pytest.mark.cuda
-def test_interpreter_refuses_past_its_limit_on_card(cuda):
-    fset, trees, data, _ = deep_interp_case(ci.MAX_NODES + 1, 1, cuda, k=3)
+def test_interpreter_refuses_past_its_limit_on_card(cuda, monkeypatch):
+    """Past the rows one block's tape holds in the scratch budget the
+    wrapper raises ``NotImplementedError``; at the limit the wide instance
+    runs, bit for bit."""
+    monkeypatch.setattr(ci, "SCRATCH_BYTES", 1500 * ci.THREADS * 8)
+    ci._layouts.clear()
+    fset, trees, data, _ = wide_interp_case(1501, 1, cuda, k=3)
     with pytest.raises(NotImplementedError):
         ci.evaluate_trees_cuda(trees, data, fset)
+    check_interpreter_on_card(*wide_interp_case(1500, 1, cuda, k=3))
+    ci._layouts.clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("members", DEEP_INTERP_MEMBERS)
+@pytest.mark.parametrize("n", WIDE_INTERP_SIZES)
+def test_interpreter_wide_match_plain_on_card(cuda, n, members):
+    """#8 and #9's wide instance past 1024 rows (N = 1025, 2048, 4096;
+    chains of N - 1 rows, second operands up to row N - 3) in the
+    recompute's layout and with one data vector a tree: roots and per-lane
+    ``dconst``/``ddata`` bit for bit, one launch each."""
+    check_interpreter_on_card(*wide_interp_case(n, members, cuda, k=6 if n < 4096 else 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,nvar", [(32, 40), (32, 70), (2048, 40)])
+def test_interpreter_many_variables_on_card(cuda, n, nvar):
+    """40 variables (the fixed instance at N = 32, the wide one at 2048) and
+    70 (the wide one): bit for bit per lane."""
+    check_interpreter_on_card(*wide_interp_case(n, 16, cuda, k=6, nvar=nvar))
+
+
+@pytest.mark.cuda
+def test_interpreter_many_operators_on_card(cuda):
+    """A set of 33 operators (17 of the table, 16 user operators) through
+    the wide instance of its user build: bit for bit per lane."""
+    check_interpreter_on_card(*many_operator_case(cuda, k=256, b=16))
+
+
+def wide_sr_case(device, kind):
+    """``(fset, trees, data)`` of the SR evaluator past the fixed instances:
+    ``"n2048"`` VdP at ``max_nodes=2048`` (grown to depth 10), ``"lorenz96"``
+    40 trees of 32 rows grown to depth 2 on Lorenz-96 data
+    (:func:`lorenz96_data`; deeper random trees diverge on all of it),
+    ``"ops33"`` VdP with :func:`many_operator_set`'s 33 operators."""
+    g = torch.Generator(device=device).manual_seed(7)
+    if kind == "lorenz96":
+        fset = build_function_set(ARITH, [[f"x{i}" for i in range(40)]], [40])
+        x0s, ts, ys = lorenz96_data(2, 6, seed=7)
+        trees = make_population_sampler(fset, 2, 32)(g, 8)[0]
+        return fset, trees, tuple(t.to(device) for t in (x0s, ts, ys)) + (None,)
+    fset = many_operator_set() if kind == "ops33" else build_function_set(ARITH, [["x0", "x1"]], [2])
+    n, depth = (2048, 10) if kind == "n2048" else (32, 4)
+    trees = make_population_sampler(fset, depth, n)(g, 8)[0]
+    ts = torch.arange(0.0, 1.2, 0.2, device=device)
+    x0s, _, ys, _ = generate_sr_data(VanDerPolOscillator(), g, ts, batch_size=4)
+    return fset, trees, (x0s, ts, ys, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["n2048", "lorenz96", "ops33"])
+def test_sr_evaluator_wide_on_card(cuda, kind):
+    """``SREvaluator`` past the fixed instances (2048 rows; 40 states and
+    trees; 33 operators, with ``interpreter="gather"``) takes the general
+    path on the card, #8 as the drift, and equals the same evaluation on CPU copies (the plain versions)
+    to the general path's tolerance (rtol 1e-5); its gradient runs #9."""
+    fset, trees, data = wide_sr_case(cuda, kind)
+    # the 33-operator VdP case fits the fused gate (#1): "gather" asks for the
+    # general path, as the 2048-row and the 40-state cases take it by default
+    ev = SREvaluator(fset, substeps=1, interpreter="gather" if kind == "ops33" else "auto")
+    assert not ev._fused(trees, data[0])
+    fwd0, bwd0 = ci.evaluate_trees_cuda.launches, ci.evaluate_trees_vjp_cuda.launches
+    fitness = ev.evaluate_population(trees, data)
+    torch.cuda.synchronize()
+    assert ci.evaluate_trees_cuda.launches > fwd0
+    cpu = ev.evaluate_population(trees.map(lambda a: a.cpu()),
+                                 tuple(t.cpu() if t is not None else t for t in data))
+    fin = torch.isfinite(cpu)
+    assert torch.equal(torch.isfinite(fitness.cpu()), fin) and bool(fin.any())
+    torch.testing.assert_close(fitness.cpu()[fin], cpu[fin], rtol=1e-5, atol=0)
+    const = trees.const.clone().requires_grad_(True)
+    with torch.enable_grad():
+        fit = ev.evaluate_population(trees._replace(const=const), data)
+        torch.autograd.grad(torch.where(torch.isfinite(fit), fit, 0.0).sum(), const)
+    torch.cuda.synchronize()
+    assert ci.evaluate_trees_vjp_cuda.launches > bwd0
 
 
 @pytest.mark.cuda

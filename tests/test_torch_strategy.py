@@ -149,10 +149,15 @@ def test_impl_keyword_matches_jax_surface():
             evaluate_trees(cand, x[:, None, :], gp.fset, impl=bad)
 
 
-def test_chip_smoke_phases_rehearse_on_cpu():
+def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     """``chip_smoke.run`` at a tiny size on CPU tensors, where every wrapper
-    takes its plain version: the phases' control flow and checks hold."""
+    takes its plain version: the phases' control flow and checks hold (the
+    fixed instances' rows cut to 256, so phase 19's 300 rows take the wide
+    instance's cases)."""
     import chip_smoke
+    from multitreegp_tpu_torch.core import cuda_interpreter as ci
+
+    monkeypatch.setattr(ci, "FIXED_ROWS", 256)
 
     tiny = dict(islands=2, pop=16, max_nodes=16, depth=3, batch=4, horizon=1.0, dt=0.2,
                 generations=2, timing_runs=1, plain_runs=1,
@@ -165,7 +170,9 @@ def test_chip_smoke_phases_rehearse_on_cpu():
                 noise=0.05, noisy_adaptive_t=3, ab_runs=1, probe_reps=2,
                 deep_nodes=64, deep_depth=5, deep_pop=8, deep_t=3, deep_rep_pop=16, deep_policy_t=3,
                 deep_adaptive_t=3, deep_adaptive_budget=40, deep_interval_steps=8,
-                wide_nodes=300, wide_depth=5, wide_check_nodes=(300,), deep_gen_nodes=64,
+                wide_nodes=300, wide_depth=5, wide_generations=2, wide_check_nodes=(300,),
+                lorenz_states=40, lorenz_forcing=8.0, lorenz_depth=2, lorenz_dt=0.05, ext_chain_nodes=300,
+                deep_gen_nodes=64,
                 deep_gen_depth=5, chain_k=2, shard_generations=15,
                 example_sizes=dict(generations=2, population=20, islands=2), example_t=3,
                 example_check_t=3, example_check_adaptive_t=3, example_check_budget=40)
@@ -254,12 +261,23 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     assert all(len(nf[k]["generations"]) == 2 for k in ("non_fused", "fused"))
     wide = out["wide"]
     assert len(wide["generations"]) == 2 and wide["round"]["refined_sum"] <= wide["round"]["unrefined_sum"]
-    assert set(wide["checks"]) == {"n300_recompute", "n300_one_member", "n300_population", "n300_round"}
+    assert set(wide["checks"]) == {"n300_recompute", "n300_one_member", "n300_recompute_roots",
+                                   "n300_one_member_roots", "n300_population", "n300_round"}
     assert all(all(c["bit_equal"].values()) for c in wide["checks"].values())
     assert wide["checks"]["n300_one_member"]["lanes"] == 4 * 2
     assert wide["checks"]["n300_population"]["lanes"] == 32 * 4 * 2
-    assert wide["checks"]["n300_recompute"]["rows_max"] == 299
+    assert wide["checks"]["n300_recompute_roots"]["rows_max"] == 299
+    assert wide["checks"]["n300_recompute_roots"]["c2_max"] == 297
+    assert set(wide["checks"]["n300_recompute_roots"]["bit_equal"]) == {"fwd"}
     assert out["kernels"][2]["wide"]["n"] == 300 and len(out["gen_deep"]["generations"]) == 2
+    lorenz, ops33 = out["lorenz96"], out["ops33"]  # phase 27
+    assert lorenz["states"] == 40 and len(lorenz["generations"]) == 2
+    assert lorenz["round"]["refined_sum"] <= lorenz["round"]["unrefined_sum"]
+    assert lorenz["checks"]["population"]["lanes"] == 32 * 4 * 40
+    assert ops33["round"]["refined_sum"] <= ops33["round"]["unrefined_sum"] and ops33["user_rows"] > 0
+    assert ops33["device_op_ids"] == list(range(33))
+    assert all(all(c["bit_equal"].values()) for r in (lorenz, ops33) for c in r["checks"].values())
+    assert set(out["kernels"][3]["wide"]["ops33"]["checks"]) == {"round"}
     chained = out["chained"]
     assert all(chained[k]["identical"] == 1.0 and chained[k]["candidates"] == 32 for k in ("ode", "sde"))
     sharded = out["sharded"]

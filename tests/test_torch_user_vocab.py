@@ -68,7 +68,7 @@ UNARY, BINARY = vocabulary_operators()
 PYSR = pysr_operators()
 ARITH = [("+", 2), ("-", 2), ("*", 2)]
 # the host-build sets: + - * (the templates use * and -) and at most 29
-# vocabulary operators each (the interpreter's 32)
+# vocabulary operators each (within the interpreter's fixed instances, 32)
 SETS = {"unary_a": ARITH + UNARY[:15], "unary_b": ARITH + UNARY[15:], "binary": ARITH + BINARY}
 # every vocabulary operator in one set (user ids 17-63, the most a set holds):
 # the tree kernels #1, #3, #4/#5 and #6/#7, which have no operator limit
@@ -176,7 +176,7 @@ def test_vocabulary_sets_take_user_ids():
     a user operator (ids 17 and up), none refused, the header's prelude with
     the device/host split of ``rsqrt``."""
     unary, binary = vocabulary_operators()
-    assert len(unary) <= ci.MAX_OPS and len(binary) <= ci.MAX_OPS
+    assert len(unary) <= ci.FIXED_OPS and len(binary) <= ci.FIXED_OPS
     for ops in (unary, binary):
         fset = build_function_set(ops, [["x0", "x1"]], [1])
         assert fset.refusals == ()

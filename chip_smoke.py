@@ -99,7 +99,7 @@ workload (phases 12-14). Phases, one line or a few each:
    and 63 rows among them) x 16 trajectories at T = 6, RK4 and
    Euler-Maruyama with kick rows; #3 on the same lanes (RK4); #8/#9 on the
    same trees against 16 states each in the recompute's layout; #5 (budget
-   16) and #4 (8 per interval), dopri5, on the same lanes at T = 4; #2 on
+   8) and #4 (8 per interval), dopri5, on the same lanes at T = 4; #2 on
    one island's 462 lanes of those parents; #6 (dynamic, RK4 x 2: the
    readout and the two state trees) and #7 (static, dopri5, 8 steps per
    interval) on 256 Acrobot policies of 256 rows, chained the same way, x
@@ -162,7 +162,7 @@ workload (phases 12-14). Phases, one line or a few each:
    host loop (#1, #2), one constant-optimisation round of the top 50 (10 Adam
    steps; #8/#9) and ``evaluate_candidate`` of the best (#3); on its last
    population #1 and #3 (T = 10) and #5 / #4 (phase 17's cut: T = 4, budget
-   16 / 8 per interval) against their plain versions, every lane identical;
+   8 / 8 per interval) against their plain versions, every lane identical;
    the static Acrobot loop with ``+ - * tanh sin cos`` at 4096 x 16, T = 250,
    RK4 x 4, 5 generations (#6, #2), then #6 static and dynamic (T = 6) and #7
    static (T = 4) against their plain versions; #8/#9 in the round's layout
@@ -209,13 +209,23 @@ workload (phases 12-14). Phases, one line or a few each:
    vocabulary builds' ``nvcc`` seconds. #4-#7's vocabulary builds are not
    made here (``pytest -m cuda tests/test_torch_user_vocab.py`` makes and
    checks them).
-27. past 32 variables and past 32 operators: Lorenz-96 (Lorenz 1996; 40
-   states, F = 8; its data made here by a float64 RK4 from a seeded normal
-   around F) as symbolic regression with 40 trees a candidate of
-   ``max_nodes=32``, ``+ - * /``, 8 x 512 candidates x 16 trajectories,
-   T = 50 saves 0.05 apart, RK4 x 1: the SR evaluator's general path (#8 on 2,621,440 lanes
-   a drift call, each reading a 40-wide state) and the fused reproduction
-   (#2), 3 generations and one round of the top 50 (#8/#9); then phase 4's
+27. past four states, 1024 trajectories, 32 variables and 32 operators:
+   Lorenz-96 (Lorenz 1996; 40 states, F = 8; its data made here by a
+   float64 RK4 from a seeded normal around F) as symbolic regression with 40
+   trees a candidate of ``max_nodes=32``, ``+ - * /``, 8 x 512 candidates x
+   16 trajectories, T = 50 saves 0.05 apart, RK4 x 1: the SR evaluator's
+   fused path through #1's wide instance (one launch an evaluation, no #8)
+   and the fused reproduction (#2), 3 generations and one round of the top
+   50 (#1 wide forward, #8/#9 in the recompute); one evaluation of the last
+   population through the general path (#8 on 2,621,440 lanes a drift call)
+   beside the fused one: clamp agreement and survivor Spearman; #1, #3, #5
+   and #4 wide against their plain versions on every lane at T = 6; the
+   same population under ``method="adaptive"`` (dopri5, budget 500: #5
+   wide), ``adaptive_solver_stats`` (#4 wide) and ``evaluate_candidate``
+   (#3 wide), each wide kernel's events, device time and bound; VdP with
+   phase 2's population on 2,048 trajectories (#1 wide at d = 2, against
+   plain at T = 6, timed at T = 50) and, on the main path's 16, the wide
+   instance against the fixed one (bit-equal, device time in turns); then phase 4's
    workload with 33 operators (the table's 17 and 16 of
    ``registry.vocabulary_operators()``) through the general path, one
    evaluation and one round of the top 50 (#8/#9 in the wide instance of
@@ -249,9 +259,10 @@ FULL = dict(islands=8, pop=512, max_nodes=32, depth=4, batch=16, horizon=10.0, d
             policy_opt_top_k=8, policy_opt_steps=2, policy_opt_t=60,
             noise=0.05, noisy_adaptive_t=6, ab_runs=10, probe_reps=256,
             deep_nodes=256, deep_depth=7, deep_pop=256, deep_t=6, deep_rep_pop=512, deep_policy_t=2,
-            deep_adaptive_t=4, deep_adaptive_budget=16, deep_interval_steps=8,
+            deep_adaptive_t=4, deep_adaptive_budget=8, deep_interval_steps=8,
             wide_nodes=2048, wide_depth=10, wide_generations=3, wide_check_nodes=(512, 1024, 2048, 4096),
             lorenz_states=40, lorenz_forcing=8.0, lorenz_depth=2, lorenz_dt=0.05, ext_chain_nodes=1024,
+            wide_batch=2048, wide_check_t=6, wide_check_budget=8, wide_check_interval_steps=4,
             deep_gen_nodes=128,
             deep_gen_depth=7, chain_k=10, shard_generations=15,
             example_sizes=None, example_t=None, example_check_t=11, example_check_adaptive_t=4, example_check_budget=40)
@@ -260,6 +271,13 @@ KERNELS = ("sr_fitness", "reproduce", "interpreter", "sr_adaptive", "sr_rollout"
 # the sources with an extended build (the tree kernels: #1, #3-#9), phase 24's
 EXTENDED_KERNELS = ("sr_fitness", "interpreter", "sr_adaptive", "sr_rollout", "policy")
 SHARDED_KERNELS = ("sr_fitness", "reproduce", "interpreter")  # phase 22's path
+# the sources with a wide-state build (#1, #3, #4/#5; phase 27's path)
+WIDE_KERNELS = ("sr_fitness", "sr_rollout", "sr_adaptive")
+# the wide instances' rows of the kernels line: (name, source, TPU kernel)
+WIDE_ROWS = (("sr_fitness_wide", "sr_fitness.cu", "multitreegp_tpu/core/pallas_rollout.py:279"),
+             ("sr_rollout_wide", "sr_rollout.cu", "multitreegp_tpu/core/pallas_rollout.py:163"),
+             ("sr_adaptive_global_wide", "sr_adaptive.cu", "multitreegp_tpu/core/pallas_rollout.py:1828"),
+             ("sr_adaptive_interval_wide", "sr_adaptive.cu", "multitreegp_tpu/core/pallas_rollout.py:1277"))
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, float32 FLOP/s outside the tensor
 # cores (both at the full 700 W power limit). The FLOP/s count an FMA as two
 # operations; a multiply or an add alone (the kernels are built with
@@ -573,7 +591,7 @@ def run(device, sizes=FULL) -> dict:
     out.update(extended_phase(device, s, data, trees, fset, ps))
     out.update(user_phase(device, s, data, trees, fset, ps))
     out.update(vocabulary_phase(device, s, data, trees, fset))
-    out.update(many_phase(device, s, data))
+    out.update(many_phase(device, s, data, trees, fset))
 
     # -- the kernels line --------------------------------------------------------
     times = out.get("times_ms", {})
@@ -775,6 +793,12 @@ def run(device, sizes=FULL) -> dict:
                 name: dict(lanes=r["lanes"], mismatches=r["mismatches"], vjp_lanes=r["vjp_lanes"],
                            vjp_mismatches={t: v["mismatches"] for t, v in r["vjp"].items()})
                 for name, r in voc["sweep"].items()}
+    wk = out["lorenz96"]["wide_state"]
+    for name, source, replaces in WIDE_ROWS:  # phase 27: the wide-state instances on their paths
+        k = wk["kernels"][name]
+        out["kernels"].append(row(name, source, replaces, k.pop("launches"), k.pop("max_abs_err"),
+                                  k.pop("ms"), k.pop("plain_ms"), k.pop("bound"), **k))
+    out["kernels"][-4]["trajectories"] = out["trajectories"]
     pb = out["probe"]
     always = pb["modes"]["always"]
     out["kernels"].append(
@@ -2311,7 +2335,7 @@ def deep_phase(device, s, ps) -> dict:
     rows against their plain versions. #1: 256 candidates of 2 trees of 256
     rows grown to depth 7, the first three chains of 255, 127 and 63 rows
     (the deepest stacks), x 16 VdP trajectories at T = 6, RK4 and Euler x 4
-    with kick rows; #3 on the same lanes, RK4; #5 (budget 16) and #4 (8 steps per interval), dopri5, on
+    with kick rows; #3 on the same lanes, RK4; #5 (budget 8) and #4 (8 steps per interval), dopri5, on
     the same lanes at T = 4; #2: one island's 462 lanes of those parents, fresh trees
     at depth 7; #6 on 256 dynamic Acrobot policies (RK4 x 2) and #7 on 256
     static ones (dopri5, 8 steps per interval), of 256 rows grown and
@@ -4089,24 +4113,29 @@ def many_operator_set():
     return build_function_set(many_operators(), [["x0", "x1"]], [2])
 
 
-def many_phase(device, s, data) -> dict:
-    """Phase 27: the interpreter past 32 variables and past 32 operators.
-    Lorenz-96 with 40 states (:func:`lorenz96_data`): 40 trees a candidate
-    of ``max_nodes=32``, ``+ - * /``, grown to depth 2 (deeper random trees
+def many_phase(device, s, data, trees2, fset2) -> dict:
+    """Phase 27: the SR kernels past four states and 1024 trajectories, and
+    the interpreter past 32 variables and past 32 operators. Lorenz-96 with
+    40 states (:func:`lorenz96_data`): 40 trees a candidate of
+    ``max_nodes=32``, ``+ - * /``, grown to depth 2 (deeper random trees
     diverge on nearly every lane), 8 x 512 candidates x 16 trajectories,
-    T = 50 saves 0.05 apart, RK4 x 1: the SR evaluator's general path (d = 40 > 4) with #8 as
-    the drift on 2,621,440 lanes a call, the fused reproduction (#2), 3
-    generations, then one round of the top 50 (10 Adam steps; #8/#9 on
-    32,000 lanes a call). Then phase 4's VdP workload with the 33 operators
-    of :func:`many_operators` through the general path
-    (``interpreter="gather"``: the round runs #8/#9 alone, in the wide
-    instance of the set's user build): one evaluation of 8 x 512 candidates
-    and one round of the top 50. #8/#9 against their plain versions, every
-    lane bit-equal, at each workload's evaluation and round shapes, with
-    events, device time and bounds."""
+    T = 50 saves 0.05 apart, RK4 x 1: the SR evaluator's fused path through
+    #1's wide instance (one launch an evaluation, no #8), the fused
+    reproduction (#2), 3 generations, then one round of the top 50 (10 Adam
+    steps; the recompute's #8/#9 on 32,000 lanes a call); #8/#9 against
+    their plain versions at the evaluation's and the round's shapes; the
+    wide-state kernels on the last population (:func:`wide_state_phase`);
+    VdP at 2,048 trajectories (:func:`trajectories_phase`). Then phase 4's
+    VdP workload with the 33 operators of :func:`many_operators` through the
+    general path (``interpreter="gather"``: the round runs #8/#9 alone, in
+    the wide instance of the set's user build): one evaluation of 8 x 512
+    candidates and one round of the top 50. #8/#9 against their plain
+    versions, every lane bit-equal, at each workload's evaluation and round
+    shapes, with events, device time and bounds."""
     import torch
 
     from multitreegp_tpu_torch import GeneticProgramming, _build
+    from multitreegp_tpu_torch.core import cuda_adaptive as ca
     from multitreegp_tpu_torch.core import cuda_interpreter as ci
     from multitreegp_tpu_torch.core import cuda_reproduction as cr
     from multitreegp_tpu_torch.core import cuda_rollout as cf
@@ -4115,7 +4144,10 @@ def many_phase(device, s, data) -> dict:
     t0 = time.perf_counter()
     b, n = s["batch"], s["max_nodes"]
     counters = dict(sr_fitness=cf.sr_fitness_cuda, reproduce=cr.reproduce_lanes_cuda,
-                    interpret_fwd=ci.evaluate_trees_cuda, interpret_bwd=ci.evaluate_trees_vjp_cuda)
+                    interpret_fwd=ci.evaluate_trees_cuda, interpret_bwd=ci.evaluate_trees_vjp_cuda,
+                    sr_fitness_wide=cf.sr_fitness_wide_cuda, sr_rollout_wide=cf.sr_rollout_wide_cuda,
+                    sr_adaptive_global_wide=ca.sr_fitness_adaptive_global_wide_cuda,
+                    sr_adaptive_interval_wide=ca.sr_fitness_adaptive_interval_wide_cuda)
     names = [f"x{i}" for i in range(s["lorenz_states"])]
     lorenz = lorenz96_data(device, s)
     t_steps = lorenz[1].shape[0]
@@ -4131,8 +4163,8 @@ def many_phase(device, s, data) -> dict:
     if device.type == "cuda":
         for i, gen in enumerate(r["generations"]):
             ev, evo = gen["eval_launches"], gen["evolve_launches"]
-            check(ev["interpret_fwd"] >= (t_steps - 1) * 4 and ev["sr_fitness"] == 0 and evo["reproduce"] >= 1,
-                  f"Lorenz-96 gen {i} launches {ev} {evo}")
+            check(ev["sr_fitness_wide"] == 1 and ev["interpret_fwd"] == 0 and ev["sr_fitness"] == 0
+                  and evo["reproduce"] >= 1, f"Lorenz-96 gen {i} launches {ev} {evo}")
     for i, gen in enumerate(r["generations"]):
         phase_line(f"phase 27 Lorenz-96 ({len(names)} states, {s['islands']}x{s['pop']} candidates of "
                    f"{len(names)} trees) gen {i}: eval {gen['eval_ms']:.3f} ms, evolve {gen['evolve_ms']:.3f} ms, "
@@ -4151,7 +4183,10 @@ def many_phase(device, s, data) -> dict:
     res.update(generations=r["generations"], launches=r["launches"], checks=checks, states=len(names))
     if device.type == "cuda":
         res["times"] = interpreter_case_times(s, cases, checks, gp.fset, "phase 27 Lorenz-96")
-    out = {"lorenz96": res}
+    res["wide_state"] = wide_state_phase(device, s, gp, flat, lorenz, counters)
+    res["wide_state"]["kernels"]["sr_fitness_wide"]["launches"] = (
+        r["launches"]["sr_fitness_wide"] + res["round"]["launches"]["sr_fitness_wide"])
+    out = {"lorenz96": res, "trajectories": trajectories_phase(device, s, trees2, fset2, data, counters)}
 
     # the 33-operator round on the VdP workload, through the general path
     gp = GeneticProgramming(
@@ -4197,6 +4232,247 @@ def many_phase(device, s, data) -> dict:
     return out
 
 
+def spearman(a, b) -> float:
+    """Spearman's rank correlation of two 1-d tensors (ties ranked in
+    order)."""
+    import torch
+
+    ra, rb = (torch.argsort(torch.argsort(x, stable=True)).double() for x in (a, b))
+    ra, rb = ra - ra.mean(), rb - rb.mean()
+    return float((ra * rb).sum() / (ra.norm() * rb.norm()).clamp(min=1e-30))
+
+
+def zeroed(counters) -> dict:
+    """Every counter set to 0 (before the path it reads)."""
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+def wide_state_phase(device, s, gp, flat, lorenz, counters) -> dict:
+    """Phase 27's wide-state kernels on Lorenz-96's last population (40
+    states, 4096 candidates x 16 trajectories): one evaluation through the
+    fused path (#1 wide) beside one through the general path
+    (``interpreter="gather"``: the integrator and #8), judged as ROADMAP.md's
+    rule for long chaotic rollouts (clamp agreement, survivor Spearman >=
+    0.997); #1 (RK4), #3 (RK4), #5 and #4 (dopri5) wide against their plain
+    versions on every lane at the cut horizon ``wide_check_t`` (#5's budget
+    ``wide_check_budget``, #4's ``wide_check_interval_steps``); the same
+    population under ``method="adaptive"`` (dopri5, budget
+    ``adaptive_budget``: #5 wide), ``adaptive_solver_stats`` (T =
+    ``adaptive_short_t``, ``adaptive_interval_steps`` per interval: #4 wide)
+    and ``evaluate_candidate`` of the best (#3 wide), every launch counted
+    between zeroed counters; each wide kernel's events, device time per
+    launch and bound at its path's shape."""
+    import torch
+
+    from multitreegp_tpu_torch.core import cuda_adaptive as ca
+    from multitreegp_tpu_torch.core import cuda_rollout as cf
+    from multitreegp_tpu_torch.models.evaluators import SREvaluator
+
+    on_card = device.type == "cuda"
+    fset, ev = gp.fset, gp.evaluator
+    x0s, ts, ys, _ = lorenz
+    p, d, t_steps = flat.ops.shape[0], x0s.shape[1], ts.shape[0]
+    top = ev.max_fitness
+
+    def counted(fn):
+        zeroed(counters)
+        sync(device)
+        t0 = time.perf_counter()
+        value = fn()
+        sync(device)
+        return value, (time.perf_counter() - t0) * 1e3, {k: c.launches for k, c in counters.items()}
+
+    # the fused path against the general one on the same population
+    fused, fused_ms, l_fused = counted(lambda: ev.evaluate_population(flat, lorenz))
+    general_ev = SREvaluator(fset, top, substeps=ev.substeps, interpreter="gather")
+    general, general_ms, l_general = counted(lambda: general_ev.evaluate_population(flat, lorenz))
+    if on_card:
+        check(l_fused["sr_fitness_wide"] == 1 and l_fused["interpret_fwd"] == 0, f"fused {l_fused}")
+        check(l_general["sr_fitness_wide"] == 0 and l_general["interpret_fwd"] >= (t_steps - 1) * 4,
+              f"general {l_general}")
+    clamp = float(((fused >= top) == (general >= top)).float().mean())
+    surv = (fused < top) & (general < top)
+    rho = spearman(fused[surv], general[surv]) if int(surv.sum()) > 1 else 1.0
+    rel = ((fused - general).abs() / general.abs().clamp(min=1e-30))[surv]
+    out = dict(fused_vs_general=dict(
+        candidates=p, clamp_agreement=clamp, survivors=int(surv.sum()), spearman=rho,
+        max_rel=float(rel.max()) if rel.numel() else 0.0, fused_ms=fused_ms, general_ms=general_ms,
+        launches_fused=l_fused, launches_general=l_general))
+    check(clamp >= 0.999 and rho >= 0.997, f"Lorenz-96 fused vs general: {out['fused_vs_general']}")
+    phase_line(f"phase 27 Lorenz-96 fused (#1 wide) vs general path (#8) on {p} candidates: clamp agreement "
+               f"{clamp:.6f}, {int(surv.sum())} survivors, Spearman {rho:.6f}, max rel {out['fused_vs_general']['max_rel']:.3e}; "
+               f"evaluation {fused_ms:.1f} ms fused, {general_ms:.1f} ms general")
+
+    # the wide kernels against their plain versions at the cut horizon
+    t_cut = s["wide_check_t"]
+    tc, yc = ts[:t_cut], ys[:, :t_cut].contiguous()
+    budget, per_interval = s["wide_check_budget"], s["wide_check_interval_steps"]
+    a5 = (flat, x0s, tc, yc, fset, 1e-4, 1e-6, budget, "dopri5", 0.9)
+    a4 = (flat, x0s, tc, yc, fset, 1e-4, 1e-6, per_interval, "dopri5", 0.9)
+    pairs = dict(
+        sr_fitness_wide=(lambda: cf.sr_fitness_wide_cuda(flat, x0s, tc, yc, fset, "rk4", 1),
+                         lambda: cf.sr_fitness_plain(flat, x0s, tc, yc, fset, "rk4", 1)),
+        sr_rollout_wide=(lambda: cf.sr_rollout_wide_cuda(flat, x0s, tc, fset, "rk4", 1),
+                         lambda: cf.sr_rollout_plain(flat, x0s, tc, fset, "rk4", 1)),
+        sr_adaptive_global_wide=(lambda: ca.sr_fitness_adaptive_global_wide_cuda(*a5),
+                                 lambda: ca.sr_fitness_adaptive_global_plain(*a5)),
+        sr_adaptive_interval_wide=(lambda: ca.sr_fitness_adaptive_interval_wide_cuda(*a4),
+                                   lambda: ca.sr_fitness_adaptive_interval_plain(*a4)))
+    kernels = {}
+    for name, (kernel, plain) in pairs.items():
+        got = kernel() if on_card else plain()
+        ref, plain_ms = timed_plain(plain, device)
+        if name == "sr_fitness_wide":
+            same = float(lanes_identical(*got, *ref).float().mean())
+            fin = torch.isfinite(got[0]) & torch.isfinite(ref[0])
+            max_abs = float((got[0] - ref[0]).abs()[fin].max()) if bool(fin.any()) else 0.0
+        elif name == "sr_rollout_wide":
+            same, max_abs = rollout_identical(*got, *ref)
+        else:
+            same, _, _, _, max_abs = compare_adaptive(got, ref)
+        check(same == 1.0, f"{name} vs plain at T={t_cut}: {same:.6f} of lanes identical")
+        kernels[name] = dict(check=dict(identical=same, t_steps=t_cut, lanes=p * x0s.shape[0]),
+                             max_abs_err=max_abs, plain_ms=plain_ms, plain_t_steps=t_cut)
+        phase_line(f"phase 27 {name} vs plain, d={d}, T={t_cut}, {p * x0s.shape[0]} lanes: identical {same:.6f}, "
+                   f"max abs {max_abs:.3e}, plain {plain_ms:.1f} ms")
+
+    # the paths that launch #5, #4 and #3 wide
+    ev_ad = SREvaluator(fset, top, substeps=ev.substeps, method="adaptive", adaptive_method="dopri5",
+                        adaptive_budget=s["adaptive_budget"])
+    fit_ad, ad_ms, l_ad = counted(lambda: ev_ad.evaluate_population(flat, lorenz))
+    t_short = s["adaptive_short_t"]
+    ts_s, ys_s = ts[:t_short], ys[:, :t_short].contiguous()
+    stats, stats_ms, l_stats = counted(lambda: ca.adaptive_solver_stats(
+        flat, x0s, ts_s, ys_s, fset, max_steps=s["adaptive_interval_steps"], method="dopri5"))
+    best = int(torch.argmin(fused))
+    cand = flat[best:best + 1]
+    (cand_fit, _), cand_ms, l_cand = counted(lambda: ev.evaluate_candidate(flat[best], lorenz))
+    check(bool(torch.isfinite(fit_ad).all()) and bool(((fit_ad >= 0) & (fit_ad <= top)).all()),
+          "adaptive Lorenz-96 fitness outside [0, max]")
+    if on_card:
+        check(l_ad["sr_adaptive_global_wide"] == 1 and l_ad["interpret_fwd"] == 0, f"adaptive {l_ad}")
+        check(l_stats["sr_adaptive_interval_wide"] == 1, f"solver stats {l_stats}")
+        check(l_cand["sr_rollout_wide"] == 1 and l_cand["interpret_fwd"] == 0, f"evaluate_candidate {l_cand}")
+    kernels["sr_fitness_wide"]["launches"] = None  # the loop's and round's, set by the caller
+    kernels["sr_adaptive_global_wide"]["launches"] = l_ad["sr_adaptive_global_wide"]
+    kernels["sr_adaptive_interval_wide"]["launches"] = l_stats["sr_adaptive_interval_wide"]
+    kernels["sr_rollout_wide"]["launches"] = l_cand["sr_rollout_wide"]
+    phase_line(f"phase 27 Lorenz-96 adaptive (dopri5, budget {s['adaptive_budget']}): evaluation {ad_ms:.1f} ms, "
+               f"best {float(fit_ad.min()):.6g}, launches {l_ad}; solver stats T={t_short}: {stats_ms:.1f} ms, "
+               f"attempted steps per lane max {int(stats[2].max())}; evaluate_candidate of the best "
+               f"({float(fused[best]):.6g}): {cand_ms:.1f} ms, launches {l_cand}")
+
+    # each wide kernel at its path's shape: events, device time, bound
+    rows = ((flat.ops >= 2) & (flat.ops < fset.var_start)).sum(dim=(1, 2))
+    fit_args = (flat, x0s, ts, ys, fset, "rk4", 1)
+    mse, alive = (cf.sr_fitness_wide_cuda if on_card else cf.sr_fitness_plain)(*fit_args)
+    steps1 = torch.where(alive, t_steps - 1, 1)
+    shapes = dict(
+        sr_fitness_wide=(lambda: cf.sr_fitness_wide_cuda(*fit_args), "sr_fitness_wide_kernel", t_steps,
+                         bound(nbytes(flat.ops, flat.const, x0s, ts, ys) + alive.numel() * 5,
+                               float((steps1 * (4 * rows[:, None] + 16 * d)).sum()))),
+        sr_rollout_wide=(lambda: cf.sr_rollout_wide_cuda(cand, x0s, ts, fset, "rk4", 1),
+                         "sr_rollout_wide_kernel", t_steps, None),
+        sr_adaptive_global_wide=(lambda: ca.sr_fitness_adaptive_global_wide_cuda(
+            flat, x0s, ts, ys, fset, budget=s["adaptive_budget"]), "adaptive_global_wide_kernel", t_steps, None),
+        sr_adaptive_interval_wide=(lambda: ca.sr_fitness_adaptive_interval_wide_cuda(
+            flat, x0s, ts_s, ys_s, fset, max_steps=s["adaptive_interval_steps"], method="dopri5"),
+            "adaptive_interval_wide_kernel", t_short, None))
+    for name, (fn, kernel, t, bnd) in shapes.items():
+        k = kernels[name]
+        k.update(t_steps=t, ms=None, device_ms=None)
+        if name == "sr_rollout_wide":
+            xs, r_alive = (fn() if on_card else cf.sr_rollout_plain(cand, x0s, ts, fset, "rk4", 1))
+            bnd = bound(nbytes(cand.ops, cand.const, x0s, ts, xs) + r_alive[-1].numel(),
+                        rollout_ops(cand, fset, r_alive[-1], t, d))
+            k["shape"] = "inspection: one candidate x 16"
+        elif name.startswith("sr_adaptive"):
+            got = fn() if on_card else (ca.sr_fitness_adaptive_global_plain(flat, x0s, ts, ys, fset, budget=s["adaptive_budget"])
+                                        if "global" in name else stats)
+            tt = ts if "global" in name else ts_s
+            bnd = bound(nbytes(flat.ops, flat.const, x0s, tt, ys[:, :t]) + got[1].numel() * 9,
+                        adaptive_ops(flat, fset, got[2], d, t))
+            k.update(steps_max=int(got[2].max()), steps_total=int(got[2].sum()),
+                     alive=float(got[1].float().mean()))
+        k["bound"] = bnd
+        if on_card:  # #5's budget-long launches (~0.6 s each) timed over fewer runs
+            runs = 2 if name == "sr_adaptive_global_wide" else s["timing_runs"]
+            k["ms"] = cuda_time_ms(fn, runs, torch)
+            k["device_ms"] = kernel_device_ms(((name, fn, kernel),), runs, torch)[name]
+        phase_line(f"phase 27 {name} at T={t}: " + (f"{k['ms']:.4f} ms events, device {k['device_ms']:.4f} ms, "
+                                                   if on_card else "") + f"bound {bnd[0]:.6f} ms ({bnd[1]})")
+    return dict(out, kernels=kernels, adaptive=dict(ms=ad_ms, launches=l_ad, best=float(fit_ad.min())),
+                solver_stats=dict(ms=stats_ms, launches=l_stats, steps_max=int(stats[2].max())),
+                candidate=dict(ms=cand_ms, launches=l_cand, fitness=float(cand_fit.mean())))
+
+
+def trajectories_phase(device, s, trees, fset, data, counters) -> dict:
+    """Phase 27, past 1024 trajectories: phase 2's population (the main
+    path's 8 x 512 VdP candidates of 2 trees) on ``wide_batch`` (2,048) VdP
+    trajectories over the main path's grid, one ``evaluate_population``
+    (#1's wide instance at d = 2, one launch), #1 wide against its plain
+    version on every lane at ``wide_check_t``, its events and device time
+    at T = 50 beside its bound; and on the main path's 16 trajectories the
+    wide instance against the fixed one (its instance of the main path) at
+    d = 2: every lane bit-equal, device time in turns (fixed, wide, wide,
+    fixed), the cost of the wide form where the fixed one runs."""
+    import torch
+
+    from multitreegp_tpu_torch.core import cuda_rollout as cf
+    from multitreegp_tpu_torch.models.environments import VanDerPolOscillator
+    from multitreegp_tpu_torch.models.evaluators import SREvaluator, generate_sr_data
+
+    on_card = device.type == "cuda"
+    ts = data[1]
+    g = torch.Generator(device=device).manual_seed(272)
+    x0s, _, ys, _ = generate_sr_data(VanDerPolOscillator(), g, ts, batch_size=s["wide_batch"])
+    ev = SREvaluator(fset, substeps=1)
+    zeroed(counters)
+    sync(device)
+    t0 = time.perf_counter()
+    fitness = ev.evaluate_population(trees, (x0s, ts, ys, None))
+    sync(device)
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: c.launches for k, c in counters.items()}
+    check(bool(torch.isfinite(fitness).all()), "B=2048: non-finite fitness")
+    if on_card:
+        check(launches["sr_fitness_wide"] == 1 and launches["sr_fitness"] == 0, f"B=2048 launches {launches}")
+    t_cut = s["wide_check_t"]
+    cut = (trees, x0s, ts[:t_cut], ys[:, :t_cut].contiguous(), fset, "rk4", 1)
+    got = cf.sr_fitness_wide_cuda(*cut) if on_card else cf.sr_fitness_plain(*cut)
+    ref, plain_ms = timed_plain(lambda: cf.sr_fitness_plain(*cut), device)
+    same = float(lanes_identical(*got, *ref).float().mean())
+    check(same == 1.0, f"#1 wide at B={x0s.shape[0]}: {same:.6f} of lanes identical")
+    full = (trees, x0s, ts, ys, fset, "rk4", 1)
+    mse, alive = cf.sr_fitness_wide_cuda(*full) if on_card else cf.sr_fitness_plain(*full)
+    rows = ((trees.ops >= 2) & (trees.ops < fset.var_start)).sum(dim=(1, 2))
+    steps = torch.where(alive, ts.shape[0] - 1, 1)
+    bnd = bound(nbytes(trees.ops, trees.const, x0s, ts, ys) + alive.numel() * 5,
+                float((steps * (4 * rows[:, None] + 16 * 2)).sum()))
+    out = dict(trajectories=x0s.shape[0], lanes=alive.numel(), eval_ms=eval_ms, launches=launches,
+               identical=same, plain_ms=plain_ms, plain_t_steps=t_cut, bound_ms=bnd[0], bound_by=bnd[1],
+               ms=None, device_ms=None, fixed_vs_wide=None)
+    if on_card:
+        fn = lambda: cf.sr_fitness_wide_cuda(*full)
+        out["ms"] = cuda_time_ms(fn, s["timing_runs"], torch)
+        out["device_ms"] = kernel_device_ms((("b2048", fn, "sr_fitness_wide_kernel"),), s["timing_runs"], torch)["b2048"]
+        main = (trees, data[0], ts, data[2], fset, "rk4", 1)
+        fixed, wide = cf.sr_fitness_cuda(*main), cf.sr_fitness_wide_cuda(*main)
+        check(same_bits(fixed[0], wide[0]) and torch.equal(fixed[1], wide[1]), "wide != fixed at d = 2")
+        turns = in_turns((("fixed", lambda: cf.sr_fitness_cuda(*main), "sr_fitness_kernel"),
+                          ("wide", lambda: cf.sr_fitness_wide_cuda(*main), "sr_fitness_wide_kernel")),
+                         s["ab_runs"], torch)
+        out["fixed_vs_wide"] = dict(bit_equal=True, lanes=fixed[1].numel(), device_ms=turns)
+    phase_line(f"phase 27 VdP at {x0s.shape[0]} trajectories ({alive.numel()} lanes): evaluation {eval_ms:.1f} ms, "
+               f"launches {launches}; #1 wide vs plain at T={t_cut}: identical {same:.6f}, plain {plain_ms:.1f} ms; "
+               + (f"#1 wide T={ts.shape[0]} {out['ms']:.4f} ms events, device {out['device_ms']:.4f} ms; "
+                  f"fixed vs wide at d=2 (device ms, in turns) {out['fixed_vs_wide']['device_ms']}; " if on_card else "")
+               + f"bound {bnd[0]:.6f} ms ({bnd[1]})")
+    return out
+
+
 def sync(device) -> None:
     import torch
 
@@ -4235,7 +4511,7 @@ def main(argv=None) -> int:
         extra = [(EXTENDED_KERNELS, True), (USER_GEN_KERNELS, gen_set.variant),
                  (USER_CONTROL_KERNELS, control_set.variant), (VOCAB_GEN_KERNELS, vocab_gen.variant),
                  (("interpreter",), sweep_unary.variant), (("interpreter",), sweep_binary.variant),
-                 (("interpreter",), many_operator_set().variant)]
+                 (("interpreter",), many_operator_set().variant), (WIDE_KERNELS, _build.widened(False))]
     with ThreadPoolExecutor(max(1, len(extra))) as pool:
         jobs = [pool.submit(_build.build, *names, variant=v) for names, v in extra]
         _build.build(*kernels)

@@ -23,7 +23,12 @@ _build/user_ops_<hash16>.h``, the library ``<name>_u<hash12>``, the hash the
 header's sha256; ``core/user_ops.py`` writes the header's text). A function
 set within ``+ - * / sin cos`` never loads another build, so it runs the code
 it always ran; the others are made at the first use of a set that needs
-them.
+them. Each of the three has a wide-state form (:func:`widened`: its flags
+and ``-DMTGP_WIDE_STATE``, the library ``<name>..._wide``) in which the SR
+sources (``sr_fitness``, ``sr_rollout``, ``sr_adaptive``) compile their
+instance for any state dim and trajectory count instead of the fixed ones
+(``csrc/tree_prog_wide.cuh``), made at the first use of a configuration the
+fixed instances do not take.
 """
 from __future__ import annotations
 
@@ -51,6 +56,7 @@ NVCC_FLAGS = (
 
 EXTENDED_FLAGS = ("-DMTGP_EXT_OPS",)  # the extended build's extra flags (nvcc and g++)
 USER_FLAGS = EXTENDED_FLAGS + ("-DMTGP_USER_OPS",)  # a user build's, besides its -include
+WIDE_FLAGS = ("-DMTGP_WIDE_STATE",)  # a wide-state build's, besides its variant's
 
 
 @dataclass(frozen=True)
@@ -71,6 +77,14 @@ EXTENDED = Variant("_ext", EXTENDED_FLAGS)
 def user_variant(header: str) -> Variant:
     """The user build of a generated header (``<name>_u<hash12>``)."""
     return Variant("_u" + header_hash(header)[:12], USER_FLAGS, header)
+
+
+def widened(variant: Union[bool, "Variant"]) -> Variant:
+    """The wide-state form of ``variant`` (the SR sources' instance for any
+    state dim and trajectory count): its flags and ``-DMTGP_WIDE_STATE``,
+    its suffix and ``_wide``, its header."""
+    variant = as_variant(variant)
+    return Variant(variant.suffix + "_wide", variant.flags + WIDE_FLAGS, variant.header)
 
 
 def header_hash(header: str) -> str:
@@ -144,7 +158,8 @@ def source_files(name: str) -> List[Path]:
 
 def variant_name(name: str, variant: Union[bool, Variant] = False) -> str:
     """The library's name: ``name``, ``name_ext`` for the extended build,
-    ``name_u<hash12>`` for a user build."""
+    ``name_u<hash12>`` for a user build, and ``_wide`` after either for its
+    wide-state form."""
     return name + as_variant(variant).suffix
 
 

@@ -18,9 +18,12 @@ error against the ground truth at the save points. Two step budgets:
 
 Each returns ``mse (P, B)``, ``alive (P, B)`` and, where asked,
 ``lane_steps (P, B)``, the attempted steps per lane. CUDA tensors launch the
-kernel, or raise for an operator outside ``DEVICE_OPS``, ``N > 256`` or
-``d > 4``; CPU tensors run the plain version (the same computation in plain
-PyTorch, in the kernel's float32 expression order). Nothing falls back.
+kernel (a fixed instance, or past them, ``cuda_rollout.takes_fixed``, the
+wide one: ``*_wide_cuda``), or raise for an operator outside
+``DEVICE_OPS``, ``N > 256`` or a candidate's program past a block's shared
+memory (``cuda_rollout.lanes_refusal``); CPU tensors run the plain version
+(the same computation in plain PyTorch, in the kernel's float32 expression
+order). Nothing falls back.
 
 :class:`SRFitnessAdaptive` is the counterpart of the two ``custom_vjp``s:
 the forward is the dispatcher; the backward recomputes the unfused MSE with
@@ -39,13 +42,14 @@ from ..models.integrators import (
     BS_A, BS_B_LOW, DP_A, DP_B4, DP_B5, ERROR_EXPONENT, _f32, _f32_expr, finite,
     integrate_adaptive, tableau_sum,
 )
-from .cuda_rollout import check_lanes, kernel_operands
+from .cuda_rollout import check_lanes, kernel_operands, takes_fixed, wide_operands
 from .interpreter import evaluate_trees, evaluate_trees_plain
 from .registry import FunctionSet
 from .trees import TreeTensors
 
 METHODS = {"bosh3": 0, "dopri5": 1}  # csrc/sr_adaptive.cu AdaptiveMethod
 GLOBAL, INTERVAL = 0, 1  # csrc/sr_adaptive.cu Budget
+ADAPTIVE_VECTORS = 10  # csrc/sr_adaptive.cu kAdaptiveVectors: the wide lane's vectors
 # The plain versions look every this many iterations whether any lane is
 # still active, and leave their loop if none is (the rest would be no-ops).
 CHECK_EVERY = 8
@@ -228,13 +232,20 @@ def sr_fitness_adaptive_interval_plain(
     return ln.err / ts.shape[0], ln.alive, ln.steps
 
 
-def _adaptive_cuda(kind, trees, x0s, ts, ys, fset, rtol, atol, budget, method, safety):
+def _adaptive_cuda(kind, counter, wide, trees, x0s, ts, ys, fset, rtol, atol, budget, method,
+                   safety):
+    """Launch ``kind``'s kernel of ``csrc/sr_adaptive.cu`` (the wide instance
+    with ``wide``), adding one to ``counter.launches`` a launch."""
     _check_method(method)
     if budget < 0:
         raise ValueError(f"step budget {budget} < 0")
     check_lanes(trees, x0s, ts, fset, ys)
-    (ops, cst, x0c, tsc, ysc), devop, cpb = kernel_operands(
-        trees, fset, ("x0s", x0s), ("ts", ts), ("ys", ys))
+    named = (("x0s", x0s), ("ts", ts), ("ys", ys))
+    if wide:
+        (ops, cst, x0c, tsc, ysc), devop, cpb, launches, scratch = wide_operands(
+            trees, fset, ADAPTIVE_VECTORS, *named)
+    else:
+        (ops, cst, x0c, tsc, ysc), devop, cpb = kernel_operands(trees, fset, *named)
     dev = ops.device
     p, m, n = ops.shape
     b, d = x0s.shape
@@ -243,19 +254,35 @@ def _adaptive_cuda(kind, trees, x0s, ts, ys, fset, rtol, atol, budget, method, s
     alive = torch.empty((p, b), dtype=torch.bool, device=dev)
     steps = torch.empty((p, b), dtype=torch.int32, device=dev)
 
-    lib = _build.load("sr_adaptive", fset.variant)
-    fn = lib.sr_adaptive_launch
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
-                   + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    status = fn(
-        kind, ops.data_ptr(), cst.data_ptr(), devop.data_ptr(), x0c.data_ptr(), tsc.data_ptr(),
-        ysc.data_ptr(), err.data_ptr(), alive.data_ptr(), steps.data_ptr(),
-        p, d, n, b, t_steps, fset.var_start, fset.has_unary, METHODS[method], budget,
-        _f32(rtol), _f32(atol), _f32(safety), cpb, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(lib, status, "sr_adaptive kernel launch")
+    args = (kind, ops.data_ptr(), cst.data_ptr(), devop.data_ptr(), x0c.data_ptr(), tsc.data_ptr(),
+            ysc.data_ptr(), err.data_ptr(), alive.data_ptr(), steps.data_ptr(),
+            p, d, n, b, t_steps, fset.var_start, fset.has_unary, METHODS[method], budget,
+            _f32(rtol), _f32(atol), _f32(safety))
+    types = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float] * 3)
+    if wide:
+        lib = _build.load("sr_adaptive", _build.widened(fset.variant))
+        fn = lib.sr_adaptive_wide_launch
+        fn.argtypes = types + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for c0, count in launches:
+            status = fn(*args, scratch.data_ptr(), c0, count, cpb, stream)
+            _build.check(lib, status, "sr_adaptive wide kernel launch")
+            counter.launches += 1
+    else:
+        lib = _build.load("sr_adaptive", fset.variant)
+        fn = lib.sr_adaptive_launch
+        fn.argtypes = types + [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.check(lib, fn(*args, cpb, stream), "sr_adaptive kernel launch")
+        counter.launches += 1
     return err / t_steps, alive, steps
+
+
+def _fixed(x0s, fset) -> bool:
+    b, d = x0s.shape
+    return takes_fixed(d, b, fset.num_variables)
 
 
 def sr_fitness_adaptive_global_cuda(
@@ -263,13 +290,31 @@ def sr_fitness_adaptive_global_cuda(
     fset: FunctionSet, rtol: float = 1e-4, atol: float = 1e-6, budget: int = 500,
     method: str = "dopri5", safety: float = 0.9,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch ``adaptive_global_kernel``; ``(mse, alive, lane_steps)``."""
-    out = _adaptive_cuda(GLOBAL, trees, x0s, ts, ys, fset, rtol, atol, budget, method, safety)
-    sr_fitness_adaptive_global_cuda.launches += 1
-    return out
+    """Launch ``adaptive_global_kernel`` (past the fixed instances
+    :func:`sr_fitness_adaptive_global_wide_cuda`); ``(mse, alive,
+    lane_steps)``."""
+    if not _fixed(x0s, fset):
+        return sr_fitness_adaptive_global_wide_cuda(trees, x0s, ts, ys, fset, rtol, atol, budget,
+                                                    method, safety)
+    return _adaptive_cuda(GLOBAL, sr_fitness_adaptive_global_cuda, False, trees, x0s, ts, ys,
+                          fset, rtol, atol, budget, method, safety)
 
 
 sr_fitness_adaptive_global_cuda.launches = 0
+
+
+def sr_fitness_adaptive_global_wide_cuda(
+    trees: TreeTensors, x0s: torch.Tensor, ts: torch.Tensor, ys: torch.Tensor,
+    fset: FunctionSet, rtol: float = 1e-4, atol: float = 1e-6, budget: int = 500,
+    method: str = "dopri5", safety: float = 0.9,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch ``adaptive_global_wide_kernel``, the wide instance (any d and
+    B within ``lanes_refusal``); ``(mse, alive, lane_steps)``."""
+    return _adaptive_cuda(GLOBAL, sr_fitness_adaptive_global_wide_cuda, True, trees, x0s, ts, ys,
+                          fset, rtol, atol, budget, method, safety)
+
+
+sr_fitness_adaptive_global_wide_cuda.launches = 0
 
 
 def sr_fitness_adaptive_interval_cuda(
@@ -277,14 +322,31 @@ def sr_fitness_adaptive_interval_cuda(
     fset: FunctionSet, rtol: float = 1e-4, atol: float = 1e-6, max_steps: int = 32,
     method: str = "bosh3", safety: float = 0.9,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch ``adaptive_interval_kernel``; ``(mse, alive, lane_steps)``."""
-    out = _adaptive_cuda(INTERVAL, trees, x0s, ts, ys, fset, rtol, atol, max_steps, method,
-                         safety)
-    sr_fitness_adaptive_interval_cuda.launches += 1
-    return out
+    """Launch ``adaptive_interval_kernel`` (past the fixed instances
+    :func:`sr_fitness_adaptive_interval_wide_cuda`); ``(mse, alive,
+    lane_steps)``."""
+    if not _fixed(x0s, fset):
+        return sr_fitness_adaptive_interval_wide_cuda(trees, x0s, ts, ys, fset, rtol, atol,
+                                                      max_steps, method, safety)
+    return _adaptive_cuda(INTERVAL, sr_fitness_adaptive_interval_cuda, False, trees, x0s, ts, ys,
+                          fset, rtol, atol, max_steps, method, safety)
 
 
 sr_fitness_adaptive_interval_cuda.launches = 0
+
+
+def sr_fitness_adaptive_interval_wide_cuda(
+    trees: TreeTensors, x0s: torch.Tensor, ts: torch.Tensor, ys: torch.Tensor,
+    fset: FunctionSet, rtol: float = 1e-4, atol: float = 1e-6, max_steps: int = 32,
+    method: str = "bosh3", safety: float = 0.9,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch ``adaptive_interval_wide_kernel``, the wide instance;
+    ``(mse, alive, lane_steps)``."""
+    return _adaptive_cuda(INTERVAL, sr_fitness_adaptive_interval_wide_cuda, True, trees, x0s, ts,
+                          ys, fset, rtol, atol, max_steps, method, safety)
+
+
+sr_fitness_adaptive_interval_wide_cuda.launches = 0
 
 
 def _dispatch(cuda_fn, plain_fn, trees, *args):

@@ -18,7 +18,14 @@ paths:
 
 CUDA tensors launch the hand-written kernel, or raise when the call is
 outside what it implements; CPU tensors run the plain version, the same
-computation in plain PyTorch in the kernel's float32 expression order.
+computation in plain PyTorch in the kernel's float32 expression order. Each
+kernel has fixed instances (state dim d <= 4, B <= 1024 trajectories, 63
+variables: :func:`takes_fixed`) and a wide-state instance for the rest
+(``csrc/tree_prog_wide.cuh``, the ``_wide`` builds): :func:`sr_fitness_wide_cuda`
+and :func:`sr_rollout_wide_cuda`, with a scratch buffer of lane vectors that
+the wrapper allocates, split into launches of at most :data:`SCRATCH_BYTES`.
+Its one limit, :func:`lanes_refusal`'s, is a candidate's decoded program in
+a block's shared memory.
 
 :class:`SRFitness` and :class:`SRRollout` make them differentiable in the
 constants and the initial states, as the JAX functions' ``custom_vjp``s do:
@@ -42,10 +49,23 @@ from .trees import TreeTensors
 
 METHODS = {"euler": 0, "heun": 1, "rk4": 2}
 MAX_NODES = 256  # csrc/sr_fitness.cu kMaxNodes
-MAX_STATE_DIM = 4  # template instances of the kernel
-MAX_TRAJECTORIES = 1024  # B lanes of one candidate share a block
+# The fixed instances take d <= 4 (their template instances), B <= 1024 (#1:
+# a candidate's trajectories in one block) and 63 variables (tree_prog.cuh's
+# decoded slot); past any of these the wide instance runs.
+FIXED_STATE_DIM = 4
+FIXED_TRAJECTORIES = 1024
+FIXED_VARS = 63
 THREADS_PER_BLOCK = 128  # target block size: 128 // B candidates per block
 SHARED_BYTES = 48 * 1024  # static shared-memory budget of one block
+BLOCK_SHARED_BYTES = 227 * 1024  # the most a block can hold, opted in (H100)
+WIDE_LANES = 128  # csrc/tree_prog_wide.cuh kWideLanes: a candidate's trajectories a block
+ROW_BYTES = 8  # a decoded row (Row, WideRow)
+# the wide instance's scratch per launch: its lane vectors, d floats each per
+# lane (FITNESS_VECTORS, ROLLOUT_VECTORS; core/cuda_adaptive.py's
+# ADAPTIVE_VECTORS); a population past it launches in parts
+SCRATCH_BYTES = 1 << 30
+FITNESS_VECTORS = 4  # csrc/sr_fitness.cu kFitnessVectors
+ROLLOUT_VECTORS = 4  # csrc/sr_rollout.cu kRolloutVectors
 
 
 class SDENoise(NamedTuple):
@@ -112,28 +132,40 @@ def check_kicks(kick_rows, ts, b: int, d: int, substeps: int) -> None:
         raise ValueError(f"kick rows {tuple(kick_rows.shape)}: expected (T, B, substeps * d) = {want}")
 
 
+def program_bytes(d: int, n: int) -> int:
+    """Shared memory of one candidate's decoded program: ``d`` trees of ``n``
+    rows and each tree's first live row."""
+    return d * (n * ROW_BYTES + 4)
+
+
 def lanes_refusal(m: int, n: int, d: int, b: int) -> Optional[str]:
     """Why the per-lane kernels (#1, #3, #4, #5) do not take candidates of
     ``m`` trees of ``n`` rows on ``b`` trajectories of state dim ``d``, or
     None when they do: the limits :func:`check_lanes` enforces, decided from
-    the configuration alone (the SR evaluator's gate; on the CPU too).
-    Operators outside ``DEVICE_OPS`` are not part of it: they raise on CUDA
-    on every path."""
+    the configuration alone (the SR evaluator's gate; on the CPU too). Any
+    ``d`` and ``b`` whose program fits a block's shared memory run, the wide
+    instance past the fixed ones (:func:`takes_fixed`). Operators outside
+    ``DEVICE_OPS`` are not part of it: they raise on CUDA on every path."""
     if m != d:
         return f"{m} trees per candidate for state dim {d}: the kernel needs m == d"
     if n > MAX_NODES:
         return f"max_nodes {n} > {MAX_NODES}, the fitness kernel's limit"
-    if d > MAX_STATE_DIM:
-        return f"state dim {d} > {MAX_STATE_DIM}, the kernel's instances"
-    if b > MAX_TRAJECTORIES:
-        return f"{b} trajectories > {MAX_TRAJECTORIES} threads of one block"
+    if program_bytes(d, n) > BLOCK_SHARED_BYTES:
+        return (f"one candidate's {d} trees of {n} rows take {program_bytes(d, n)} B of decoded "
+                f"rows > the {BLOCK_SHARED_BYTES} B of shared memory a block holds")
     return None
+
+
+def takes_fixed(d: int, b: int, nvar: int) -> bool:
+    """Whether the fixed instances take state dim ``d``, ``b`` trajectories
+    and ``nvar`` variables (else the wide instance runs)."""
+    return d <= FIXED_STATE_DIM and b <= FIXED_TRAJECTORIES and nvar <= FIXED_VARS
 
 
 def check_lanes(trees: TreeTensors, x0s, ts, fset: FunctionSet, ys=None) -> None:
     """Raise unless the per-lane kernels take these operands: ``m == d``
-    trees, ``N <= 256``, ``d <= 4``, ``B <= 1024`` (:func:`lanes_refusal`)
-    and the device operators."""
+    trees, ``N <= 256``, a candidate's program within a block's shared
+    memory (:func:`lanes_refusal`) and the device operators."""
     p, m, n = trees.ops.shape
     b, d = x0s.shape
     reason = lanes_refusal(m, n, d, b)
@@ -144,23 +176,63 @@ def check_lanes(trees: TreeTensors, x0s, ts, fset: FunctionSet, ys=None) -> None
     fset.require_device_ops()
 
 
-def kernel_operands(trees: TreeTensors, fset: FunctionSet, *named):
+def _typed(trees: TreeTensors, fset: FunctionSet, *named):
     """Contiguous operands for a per-lane kernel, checked to lie with the
-    trees on one device with the kernel's types, then the device op table and
-    the candidates per block: a block is ``cpb`` candidates x B lanes, at
-    most ``THREADS_PER_BLOCK`` threads, their trees in ``SHARED_BYTES``."""
+    trees on one device with the kernel's types, then the device op table."""
     dev = trees.ops.device
-    p, m, n = trees.ops.shape
     for name, t, dtype in (("ops", trees.ops, torch.int32), ("const", trees.const, torch.float32),
                            *((nm, t, torch.float32) for nm, t in named)):
         if t.device != dev or t.dtype != dtype:
             raise ValueError(f"{name}: expected {dtype} on {dev}, got {t.dtype} on {t.device}")
     if trees.const.shape != trees.ops.shape:
         raise ValueError("ops and const shapes differ")
-    b = named[0][1].shape[0]  # x0s (B, d) comes first
-    cpb = max(1, min(THREADS_PER_BLOCK // b, SHARED_BYTES // (m * n * 8)))
     tensors = [t.contiguous() for t in (trees.ops, trees.const)] + [t.contiguous() for _, t in named]
-    return tensors, fset.device_ops(dev), cpb
+    return tensors, fset.device_ops(dev)
+
+
+def kernel_operands(trees: TreeTensors, fset: FunctionSet, *named):
+    """Operands of a fixed instance (:func:`_typed`) and its candidates per
+    block: a block is ``cpb`` candidates x B lanes, at most
+    ``THREADS_PER_BLOCK`` threads, their trees in ``SHARED_BYTES``. Refuses
+    a set of more than ``FIXED_VARS`` variables: the fixed instances' decoded
+    row would read variable 63 for any past it."""
+    if fset.num_variables > FIXED_VARS:
+        raise NotImplementedError(
+            f"{fset.num_variables} variables > {FIXED_VARS}, the fixed instances' limit "
+            "(csrc/tree_prog.cuh's 6-bit slot); the wide instance takes any")
+    p, m, n = trees.ops.shape
+    b = named[0][1].shape[0]  # x0s (B, d) comes first
+    cpb = max(1, min(THREADS_PER_BLOCK // b, SHARED_BYTES // (m * n * ROW_BYTES)))
+    tensors, devop = _typed(trees, fset, *named)
+    return tensors, devop, cpb
+
+
+def wide_launches(p: int, b: int, d: int, vectors: int):
+    """The wide instance's launches over ``p`` candidates: ``(c0, count)``
+    each, whose scratch of ``vectors`` lane vectors of ``d`` floats per lane
+    fits :data:`SCRATCH_BYTES` (at least one candidate a launch)."""
+    step = max(1, SCRATCH_BYTES // (vectors * d * b * 4))
+    return [(c0, min(step, p - c0)) for c0 in range(0, p, step)]
+
+
+def wide_cpb(b: int, d: int, n: int) -> int:
+    """Candidates a block of the wide instance holds: at most
+    ``THREADS_PER_BLOCK`` threads of at most ``WIDE_LANES`` trajectories a
+    candidate, their programs in ``SHARED_BYTES`` (one candidate's up to
+    ``BLOCK_SHARED_BYTES``, opted in)."""
+    return max(1, min(THREADS_PER_BLOCK // min(b, WIDE_LANES), SHARED_BYTES // program_bytes(d, n)))
+
+
+def wide_operands(trees: TreeTensors, fset: FunctionSet, vectors: int, *named):
+    """Operands of a wide launch (:func:`_typed`), its candidates per block,
+    its launches (:func:`wide_launches`) and the scratch of the largest."""
+    p, m, n = trees.ops.shape
+    b, d = named[0][1].shape  # x0s (B, d) comes first
+    tensors, devop = _typed(trees, fset, *named)
+    launches = wide_launches(p, b, d, vectors)
+    scratch = torch.empty(vectors * d * launches[0][1] * b, dtype=torch.float32,
+                          device=trees.ops.device)
+    return tensors, devop, wide_cpb(b, d, n), launches, scratch
 
 
 def sr_fitness_cuda(
@@ -168,19 +240,22 @@ def sr_fitness_cuda(
     fset: FunctionSet, method: str = "rk4", substeps: int = 1,
     kick_rows: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/sr_fitness.cu``; ``(mse (P, B), alive (P, B))``."""
+    """Launch ``csrc/sr_fitness.cu``; ``(mse (P, B), alive (P, B))``: a fixed
+    instance, or past them (:func:`takes_fixed`) :func:`sr_fitness_wide_cuda`."""
     _check_method(method)
     if substeps < 1:
         raise ValueError("substeps must be >= 1")
     check_lanes(trees, x0s, ts, fset, ys)
     check_kicks(kick_rows, ts, *x0s.shape, substeps)
+    b, d = x0s.shape
+    if not takes_fixed(d, b, fset.num_variables):
+        return sr_fitness_wide_cuda(trees, x0s, ts, ys, fset, method, substeps, kick_rows)
     named = [("x0s", x0s), ("ts", ts), ("ys", ys)]
     if kick_rows is not None:
         named.append(("kick_rows", kick_rows))
     (ops, cst, x0c, tsc, ysc, *kicks), devop, cpb = kernel_operands(trees, fset, *named)
     dev = ops.device
     p, m, n = ops.shape
-    b, d = x0s.shape
     t_steps = ts.shape[0]
     err = torch.empty((p, b), dtype=torch.float32, device=dev)
     alive = torch.empty((p, b), dtype=torch.bool, device=dev)
@@ -201,6 +276,53 @@ def sr_fitness_cuda(
 
 
 sr_fitness_cuda.launches = 0
+
+
+def sr_fitness_wide_cuda(
+    trees: TreeTensors, x0s: torch.Tensor, ts: torch.Tensor, ys: torch.Tensor,
+    fset: FunctionSet, method: str = "rk4", substeps: int = 1,
+    kick_rows: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the wide instance of ``csrc/sr_fitness.cu`` (the ``_wide``
+    build of the set's library; any d and B within :func:`lanes_refusal`);
+    ``(mse (P, B), alive (P, B))``. One launch per :func:`wide_launches`
+    part, each counted."""
+    _check_method(method)
+    if substeps < 1:
+        raise ValueError("substeps must be >= 1")
+    check_lanes(trees, x0s, ts, fset, ys)
+    check_kicks(kick_rows, ts, *x0s.shape, substeps)
+    named = [("x0s", x0s), ("ts", ts), ("ys", ys)]
+    if kick_rows is not None:
+        named.append(("kick_rows", kick_rows))
+    (ops, cst, x0c, tsc, ysc, *kicks), devop, cpb, launches, scratch = wide_operands(
+        trees, fset, FITNESS_VECTORS, *named)
+    dev = ops.device
+    p, m, n = ops.shape
+    b, d = x0s.shape
+    t_steps = ts.shape[0]
+    err = torch.empty((p, b), dtype=torch.float32, device=dev)
+    alive = torch.empty((p, b), dtype=torch.bool, device=dev)
+
+    lib = _build.load("sr_fitness", _build.widened(fset.variant))
+    fn = lib.sr_fitness_wide_launch
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for c0, count in launches:
+        status = fn(
+            ops.data_ptr(), cst.data_ptr(), devop.data_ptr(), x0c.data_ptr(), tsc.data_ptr(),
+            ysc.data_ptr(), kicks[0].data_ptr() if kicks else None, err.data_ptr(),
+            alive.data_ptr(), p, d, n, b, t_steps, fset.var_start, fset.has_unary,
+            METHODS[method], substeps, scratch.data_ptr(), c0, count, cpb, stream,
+        )
+        _build.check(lib, status, "sr_fitness wide kernel launch")
+        sr_fitness_wide_cuda.launches += 1
+    return err / t_steps, alive
+
+
+sr_fitness_wide_cuda.launches = 0
 
 
 def sr_fitness(
@@ -340,13 +462,16 @@ def sr_rollout_cuda(
     trees: TreeTensors, x0s: torch.Tensor, ts: torch.Tensor, fset: FunctionSet,
     method: str = "rk4", substeps: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/sr_rollout.cu``; ``(xs (T, P, B, d), alive (T, P, B))``."""
+    """Launch ``csrc/sr_rollout.cu``; ``(xs (T, P, B, d), alive (T, P, B))``:
+    a fixed instance, or past them :func:`sr_rollout_wide_cuda`."""
     h, h_final = rollout_step(ts, method, substeps)
     check_lanes(trees, x0s, ts, fset)
+    b, d = x0s.shape
+    if not takes_fixed(d, b, fset.num_variables):
+        return sr_rollout_wide_cuda(trees, x0s, ts, fset, method, substeps)
     (ops, cst, x0c), devop, cpb = kernel_operands(trees, fset, ("x0s", x0s))
     dev = ops.device
     p, m, n = ops.shape
-    b, d = x0s.shape
     t_steps = ts.shape[0]
     xs = torch.empty((t_steps, p, b, d), dtype=torch.float32, device=dev)
     alive = torch.empty((p, b), dtype=torch.bool, device=dev)
@@ -369,6 +494,45 @@ def sr_rollout_cuda(
 
 
 sr_rollout_cuda.launches = 0
+
+
+def sr_rollout_wide_cuda(
+    trees: TreeTensors, x0s: torch.Tensor, ts: torch.Tensor, fset: FunctionSet,
+    method: str = "rk4", substeps: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the wide instance of ``csrc/sr_rollout.cu``; ``(xs (T, P, B,
+    d), alive (T, P, B))``. One launch per :func:`wide_launches` part, each
+    counted."""
+    h, h_final = rollout_step(ts, method, substeps)
+    check_lanes(trees, x0s, ts, fset)
+    (ops, cst, x0c), devop, cpb, launches, scratch = wide_operands(
+        trees, fset, ROLLOUT_VECTORS, ("x0s", x0s))
+    dev = ops.device
+    p, m, n = ops.shape
+    b, d = x0s.shape
+    t_steps = ts.shape[0]
+    xs = torch.empty((t_steps, p, b, d), dtype=torch.float32, device=dev)
+    alive = torch.empty((p, b), dtype=torch.bool, device=dev)
+
+    lib = _build.load("sr_rollout", _build.widened(fset.variant))
+    fn = lib.sr_rollout_wide_launch
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float] * 3
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for c0, count in launches:
+        status = fn(
+            ops.data_ptr(), cst.data_ptr(), devop.data_ptr(), x0c.data_ptr(), xs.data_ptr(),
+            alive.data_ptr(), p, d, n, b, t_steps, fset.var_start, fset.has_unary,
+            METHODS[method], substeps, _f32(h * 0.5), _f32(h), h_final, scratch.data_ptr(), c0,
+            count, cpb, stream,
+        )
+        _build.check(lib, status, "sr_rollout wide kernel launch")
+        sr_rollout_wide_cuda.launches += 1
+    return xs, alive[None].expand(t_steps, p, b)
+
+
+sr_rollout_wide_cuda.launches = 0
 
 
 def sr_rollout(

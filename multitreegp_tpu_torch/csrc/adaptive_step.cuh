@@ -101,6 +101,77 @@ MTGP_HD float rk_step(const Drift& f, int method, const float (&x)[D], const flo
   return sqrtf(acc * f32(1.0 / D));
 }
 
+// tableau_sum over stage vectors in memory
+template <class Vec>
+MTGP_HD inline float tableau_sum_n(const float* c, int nk, const Vec* ks, int q) {
+  float s = 0.0f;
+  for (int j = 0; j < nk; ++j) s = s + c[j] * ks[j][q];
+  return s;
+}
+
+// The run-time-d form of rk_step for state vectors in memory (the wide SR
+// kernels, tree_prog_wide.cuh): the same expressions in the same order over
+// any vector type with operator[]. ks[0] holds k1 (the FSAL carry) on entry;
+// ks[1..5] are the stages' scratch; the last stage (= f(x_hi)) is written to
+// ks[6] (bosh3 uses ks[1], ks[2] and ks[6]); xs is the stage inputs'
+// scratch. x_lo is formed per component where the error norm reads it.
+template <class Vec, class Drift>
+MTGP_HD float rk_step_n(const Drift& f, int method, int d, const Vec& x, const Vec* ks, float dt,
+                        float rtol, float atol, const Vec& x_hi, const Vec& xs) {
+  float acc = 0.0f;
+  if (method == kBosh3) {
+    const float a2[3] = {f32(2.0 / 9.0), f32(1.0 / 3.0), f32(4.0 / 9.0)};
+    const float bl[4] = {f32(7.0 / 24.0), f32(0.25), f32(1.0 / 3.0), f32(0.125)};
+    const Vec &k1 = ks[0], &k2 = ks[1], &k3 = ks[2], &k_last = ks[6];
+    const float h2 = 0.5f * dt;
+    for (int q = 0; q < d; ++q) xs[q] = x[q] + h2 * k1[q];
+    f(xs, k2);
+    const float h3 = 0.75f * dt;
+    for (int q = 0; q < d; ++q) xs[q] = x[q] + h3 * k2[q];
+    f(xs, k3);
+    for (int q = 0; q < d; ++q)
+      x_hi[q] = x[q] + dt * ((a2[0] * k1[q] + a2[1] * k2[q]) + a2[2] * k3[q]);
+    f(x_hi, k_last);
+    for (int q = 0; q < d; ++q) {
+      const float x_lo = x[q] + dt * (((bl[0] * k1[q] + bl[1] * k2[q]) + bl[2] * k3[q]) +
+                                      bl[3] * k_last[q]);
+      const float scale = atol + rtol * nan_max(fabsf(x[q]), fabsf(x_hi[q]));
+      const float r = (x_hi[q] - x_lo) / scale;
+      acc = acc + r * r;
+    }
+  } else {
+    // multitreegp_tpu/models/integrators.py _DP_A, _DP_B5, _DP_B4
+    const float a[6][6] = {
+        {f32(0.2)},
+        {f32(3.0 / 40.0), f32(9.0 / 40.0)},
+        {f32(44.0 / 45.0), f32(-56.0 / 15.0), f32(32.0 / 9.0)},
+        {f32(19372.0 / 6561.0), f32(-25360.0 / 2187.0), f32(64448.0 / 6561.0),
+         f32(-212.0 / 729.0)},
+        {f32(9017.0 / 3168.0), f32(-355.0 / 33.0), f32(46732.0 / 5247.0), f32(49.0 / 176.0),
+         f32(-5103.0 / 18656.0)},
+        {f32(35.0 / 384.0), 0.0f, f32(500.0 / 1113.0), f32(125.0 / 192.0),
+         f32(-2187.0 / 6784.0), f32(11.0 / 84.0)},
+    };
+    const float b5[7] = {f32(35.0 / 384.0), 0.0f, f32(500.0 / 1113.0), f32(125.0 / 192.0),
+                         f32(-2187.0 / 6784.0), f32(11.0 / 84.0), 0.0f};
+    const float b4[7] = {f32(5179.0 / 57600.0), 0.0f, f32(7571.0 / 16695.0),
+                         f32(393.0 / 640.0), f32(-92097.0 / 339200.0), f32(187.0 / 2100.0),
+                         f32(1.0 / 40.0)};
+    for (int r = 0; r < 6; ++r) {
+      for (int q = 0; q < d; ++q) xs[q] = x[q] + dt * tableau_sum_n(a[r], r + 1, ks, q);
+      f(xs, ks[r + 1]);
+    }
+    for (int q = 0; q < d; ++q) {
+      x_hi[q] = x[q] + dt * tableau_sum_n(b5, 7, ks, q);
+      const float x_lo = x[q] + dt * tableau_sum_n(b4, 7, ks, q);
+      const float scale = atol + rtol * nan_max(fabsf(x[q]), fabsf(x_hi[q]));
+      const float r = (x_hi[q] - x_lo) / scale;
+      acc = acc + r * r;
+    }
+  }
+  return sqrtf(acc * f32(1.0 / d));
+}
+
 // The I controller's step factor.
 MTGP_HD inline float step_factor(float err, bool ok, float safety, float expo) {
   if (isfinite(err) && err > 0.0f) return clip(safety * powf(err, expo), f32(0.2), f32(5.0));

@@ -63,6 +63,15 @@
 // its stack machine. Built with -fmad=false and IEEE division and square
 // root.
 //
+// The wide-state instance (built with -DMTGP_WIDE_STATE, the `_wide`
+// libraries, and only there) takes any state dim and any number of
+// trajectories: the state, x_hi, the stage input and the seven stages are
+// lane vectors of d floats in a scratch buffer the wrapper allocates, an
+// accepted step swaps x with x_hi and k1 with the last stage, the trees run
+// four at a time (tree_prog_wide.cuh), and the step is adaptive_step.cuh's
+// run-time-d form (rk_step_n): the same expressions, so at d <= 4 it is
+// bit-equal to the fixed instance.
+//
 // The per-lane code is plain C++ under MTGP_HD, so the same file also
 // compiles for the host (without __CUDACC__) into a lane loop that decodes
 // every candidate as a block does and that tests run against the plain
@@ -70,6 +79,9 @@
 #include "adaptive_step.cuh"
 #include "sr_lane.cuh"
 #include "tree_prog.cuh"
+#ifdef MTGP_WIDE_STATE
+#include "tree_prog_wide.cuh"
+#endif
 
 namespace {
 
@@ -326,6 +338,156 @@ bool bad_args(int kind, const Operands& a) {
          (a.c.method != kBosh3 && a.c.method != kDopri5);
 }
 
+#ifdef MTGP_WIDE_STATE
+// A wide lane's vectors: the state, x_hi, the stage input, then the seven
+// stages (ks[0] the FSAL k1, ks[6] the last stage); the wrapper's scratch
+// per lane and component.
+constexpr int kAdaptiveVectors = 10;
+
+struct WideVectors {
+  LaneVec x, x_hi, xs;
+  LaneVec ks[7];
+  // an accepted step: x_hi becomes the state, the last stage k1
+  MTGP_HD void accept() {
+    const LaneVec x0 = x, k0 = ks[0];
+    x = x_hi;
+    x_hi = x0;
+    ks[0] = ks[6];
+    ks[6] = k0;
+  }
+};
+
+// adaptive_global_lane on the wide instance (the same loop, vectors in v)
+template <bool U>
+MTGP_HD void adaptive_global_lane_wide(const WideTrees<U>& f, const LaneIO& io, const Control& c,
+                                       WideVectors v, float* err_out, uint8_t* alive_out,
+                                       int* steps_out) {
+  const int d = f.d;
+  for (int q = 0; q < d; ++q) v.x[q] = io.x0[q];
+  bool alive = finite_vec(v.x, d);
+  float e_sum = sq_err_vec(v.x, io.y, d);
+  const int last = io.T - 1;
+  int idx = 0;
+  int steps = 0;
+  if (io.T > 1) {
+    const float expo = error_exponent(c.method);
+    f(v.x, v.ks[0]);  // the one up-front evaluation FSAL amortises
+    float t = io.ts[0];
+    float dt = (io.ts[1] - io.ts[0]) / 4.0f;
+    for (int s = 0; s < c.budget && alive && idx < last; ++s) {
+      const float t0 = io.ts[idx];
+      const float t1 = io.ts[idx + 1];
+      const float span = t1 - t0;
+      const float dt_c = nan_min(dt, t1 - t);
+      const float err = rk_step_n(f, c.method, d, v.x, v.ks, dt_c, c.rtol, c.atol, v.x_hi, v.xs);
+      const bool ok = finite_vec(v.x_hi, d) && isfinite(err);
+      const bool accept = ok && err <= 1.0f;
+      if (accept) v.accept();
+      const float t_new = accept ? t + dt_c : t;
+      const bool crossed = accept && t_new >= t1 - kCross;
+      t = crossed ? t1 : t_new;
+      float dt_n = clip(dt_c * step_factor(err, ok, c.safety, expo), span * kDtMin, span);
+      const int idx_n = idx + (crossed ? 1 : 0);
+      if (crossed && idx_n < last) {  // entry clamp with the new interval's span
+        const float n_span = io.ts[idx_n + 1] - t1;
+        dt_n = clip(dt_n, n_span * kDtMin, n_span);
+      }
+      dt = dt_n;
+      alive = alive && (ok || dt_c > span * kDtDead);
+      ++steps;
+      if (crossed) e_sum = e_sum + sq_err_vec(v.x, io.y + static_cast<size_t>(idx_n) * d, d);
+      idx = idx_n;
+    }
+  }
+  *err_out = e_sum;
+  *alive_out = (alive && idx >= last) ? 1 : 0;
+  *steps_out = steps;
+}
+
+// adaptive_interval_lane on the wide instance (the same flat loop)
+template <bool U>
+MTGP_HD void adaptive_interval_lane_wide(const WideTrees<U>& f, const LaneIO& io, const Control& c,
+                                         WideVectors v, float* err_out, uint8_t* alive_out,
+                                         int* steps_out) {
+  const int d = f.d;
+  for (int q = 0; q < d; ++q) v.x[q] = io.x0[q];
+  bool alive = finite_vec(v.x, d);
+  float e_sum = sq_err_vec(v.x, io.y, d);
+  int steps = 0;
+  if (io.T > 1) {
+    const float expo = error_exponent(c.method);
+    f(v.x, v.ks[0]);
+    float dt = (io.ts[1] - io.ts[0]) / 4.0f;
+    int ti = 0, s = 0;
+    float t1 = io.ts[1];
+    float span = t1 - io.ts[0];
+    float t = io.ts[0];
+    dt = clip(dt, span * kDtMin, span);
+    while (true) {
+      if (s < c.budget && alive && t < t1 - kCross) {
+        const float dt_c = nan_min(dt, t1 - t);
+        const float err = rk_step_n(f, c.method, d, v.x, v.ks, dt_c, c.rtol, c.atol, v.x_hi, v.xs);
+        const bool ok = finite_vec(v.x_hi, d) && isfinite(err);
+        if (ok && err <= 1.0f) {
+          v.accept();
+          t = t + dt_c;
+        }
+        dt = clip(dt_c * step_factor(err, ok, c.safety, expo), span * kDtMin, span);
+        alive = alive && (ok || dt_c > span * kDtDead);
+        ++s;
+        ++steps;
+      } else {
+        alive = alive && t >= t1 - kReach * nan_max(fabsf(t1), 1.0f);
+        e_sum = e_sum + sq_err_vec(v.x, io.y + static_cast<size_t>(ti + 1) * d, d);
+        if (++ti + 1 >= io.T) break;
+        const float t0 = io.ts[ti];
+        t1 = io.ts[ti + 1];
+        span = t1 - t0;
+        t = t0;
+        dt = clip(dt, span * kDtMin, span);
+        s = 0;
+      }
+    }
+  }
+  *err_out = e_sum;
+  *alive_out = alive ? 1 : 0;
+  *steps_out = steps;
+}
+
+// Trajectory b of candidate c on the wide instance, its vectors at the
+// launch's lane li.
+template <bool U>
+MTGP_HD void run_lane_wide(int kind, const WideSpan& s, const Operands& a, const WideTrees<U>& f,
+                           int c, int b, size_t li) {
+  const int d = s.d;
+  const LaneIO io{a.x0s + static_cast<size_t>(b) * d, a.ts,
+                  a.ys + static_cast<size_t>(b) * a.T * d, a.T};
+  WideVectors v{lane_vec(s, 0, li), lane_vec(s, 1, li), lane_vec(s, 2, li), {}};
+  for (int j = 0; j < 7; ++j) v.ks[j] = lane_vec(s, 3 + j, li);
+  const size_t lane = static_cast<size_t>(c) * a.B + b;
+  if (kind == kGlobal)
+    adaptive_global_lane_wide<U>(f, io, a.c, v, a.err + lane, a.alive + lane, a.steps + lane);
+  else
+    adaptive_interval_lane_wide<U>(f, io, a.c, v, a.err + lane, a.alive + lane, a.steps + lane);
+}
+
+#ifdef __CUDACC__
+template <bool U, int N>
+__global__ void adaptive_global_wide_kernel(WideSpan s, Operands a, int cpb, int bpb) {
+  wide_block<U, N>(s, cpb, bpb, [&](const WideTrees<U>& f, int c, int b, size_t li) {
+    run_lane_wide<U>(kGlobal, s, a, f, c, b, li);
+  });
+}
+
+template <bool U, int N>
+__global__ void adaptive_interval_wide_kernel(WideSpan s, Operands a, int cpb, int bpb) {
+  wide_block<U, N>(s, cpb, bpb, [&](const WideTrees<U>& f, int c, int b, size_t li) {
+    run_lane_wide<U>(kInterval, s, a, f, c, b, li);
+  });
+}
+#endif
+#endif  // MTGP_WIDE_STATE
+
 }  // namespace
 
 #define MTGP_ADAPTIVE_ARGS                                                                  \
@@ -362,7 +524,46 @@ extern "C" {
 const char* mtgp_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
+#endif
 
+#ifdef MTGP_WIDE_STATE
+// The wide instance on candidates c0 .. c0 + count - 1, its scratch
+// kAdaptiveVectors * d * count * B floats (tree_prog_wide.cuh WideSpan).
+#define MTGP_WIDE_OPERANDS                                                      \
+  MTGP_OPERANDS;                                                                \
+  const WideSpan span{ops, cst, devop, var_start, d, n, B, c0, count, scratch}; \
+  const bool bad = bad_args(kind, a) || bad_span(span) || c0 + count > P
+
+#ifdef __CUDACC__
+// Launches on `stream` with `cpb` candidates per block; returns
+// cudaGetLastError() of the launch.
+int sr_adaptive_wide_launch(MTGP_ADAPTIVE_ARGS, float* scratch, int c0, int count, int cpb,
+                            void* stream) {
+  MTGP_WIDE_OPERANDS;
+  if (bad) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define MTGP_CALL(U, N)                                                                  \
+  static_cast<int>(kind == kGlobal                                                      \
+                       ? launch_wide(&adaptive_global_wide_kernel<U, N>, span, a, cpb, st) \
+                       : launch_wide(&adaptive_interval_wide_kernel<U, N>, span, a, cpb, st))
+  return MTGP_WIDE_INSTANCE(MTGP_CALL, n, unary);
+#undef MTGP_CALL
+}
+#else
+int sr_adaptive_wide_host(MTGP_ADAPTIVE_ARGS, float* scratch, int c0, int count) {
+  MTGP_WIDE_OPERANDS;
+  if (bad) return 1;
+#define MTGP_CALL(U, N)                                                                       \
+  (wide_host<U, N>(span, [&](const WideTrees<U>& f, int c, int b, size_t li) {                \
+     run_lane_wide<U>(kind, span, a, f, c, b, li);                                            \
+   }),                                                                                        \
+   0)
+  return MTGP_WIDE_INSTANCE(MTGP_CALL, n, unary);
+#undef MTGP_CALL
+}
+#endif
+#else  // the fixed instances
+#ifdef __CUDACC__
 // Launches on `stream` with `cpb` candidates per block; returns
 // cudaGetLastError() of the launch.
 int sr_adaptive_launch(MTGP_ADAPTIVE_ARGS, int cpb, void* stream) {
@@ -385,5 +586,6 @@ int sr_adaptive_host(MTGP_ADAPTIVE_ARGS) {
   return 1;
 }
 #endif
+#endif  // MTGP_WIDE_STATE
 
 }  // extern "C"

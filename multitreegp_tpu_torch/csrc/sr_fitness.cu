@@ -45,12 +45,25 @@
 // tree row applies the operator of tree_eval.cuh to the same operands. Built
 // with -fmad=false and IEEE division, so x/0 -> inf kills the lane as in JAX.
 //
+// The wide-state instance (built with -DMTGP_WIDE_STATE, the `_wide`
+// libraries of _build.py, and only there): any state dim d and any number of
+// trajectories, for what the fixed instances (d <= 4, B <= 1024, 63
+// variables) do not take. State, stage input, stage and stage sum are lane
+// vectors of d floats in a scratch buffer the wrapper allocates; the d trees
+// run in groups of four; a block holds at most 128 trajectories of a
+// candidate (tree_prog_wide.cuh). The stage sums are the same expressions in
+// the same order, accumulated stage by stage, so a wide lane is bit-equal to
+// the fixed one at d <= 4.
+//
 // The per-lane code (here, in sr_lane.cuh and in tree_prog.cuh) is plain C++
 // under MTGP_HD, so the same file also compiles for the host (without
 // __CUDACC__) into a lane loop that decodes every candidate as a block does
 // and that tests run against the plain version on machines without a card.
 #include "sr_lane.cuh"
 #include "tree_prog.cuh"
+#ifdef MTGP_WIDE_STATE
+#include "tree_prog_wide.cuh"
+#endif
 
 namespace {
 
@@ -197,6 +210,106 @@ bool bad_args(int P, int n, int B, int T, int method, int substeps) {
          method < kEuler || method > kRk4;
 }
 
+#ifdef MTGP_WIDE_STATE
+// What a wide lane reads and writes besides its trees.
+struct FitnessIO {
+  const float* x0s;    // (B, d)
+  const float* ts;     // (T,)
+  const float* ys;     // (B, T, d)
+  const float* kicks;  // (T, B, substeps * d) or null
+  float* err;          // (P, B)
+  uint8_t* alive;      // (P, B)
+  int T, method, substeps;
+};
+
+// fitness_lane on the wide instance: trajectory b of candidate c, whose d
+// trees are f, its vectors x (the state), xs (the stage input; the next
+// state once formed), k (the stage) and acc (the stage sum: k1, k1 + 2k2,
+// ... as the fixed lane's expression adds them).
+template <bool U>
+MTGP_HD void fitness_lane_wide(const WideTrees<U>& f, const FitnessIO& io, int c, int b, int B,
+                               LaneVec x, LaneVec xs, const LaneVec& k, const LaneVec& acc) {
+  const int d = f.d;
+  const float* x0 = io.x0s + static_cast<size_t>(b) * d;
+  for (int q = 0; q < d; ++q) x[q] = x0[q];
+  bool alive = finite_vec(x, d);
+  const float* y = io.ys + static_cast<size_t>(b) * io.T * d;
+  float e_sum = sq_err_vec(x, y, d);
+
+  for (int t = 0; t + 1 < io.T; ++t) {
+    if (alive) {
+      const float h = (io.ts[t + 1] - io.ts[t]) / static_cast<float>(io.substeps);
+      for (int s = 0; s < io.substeps && alive; ++s) {
+        f(x, k);  // k1
+        if (io.method == kEuler) {
+          for (int q = 0; q < d; ++q) xs[q] = x[q] + h * k[q];
+        } else if (io.method == kHeun) {
+          for (int q = 0; q < d; ++q) {
+            acc[q] = k[q];
+            xs[q] = x[q] + h * k[q];
+          }
+          f(xs, k);  // k2
+          const float hh = 0.5f * h;
+          for (int q = 0; q < d; ++q) xs[q] = x[q] + hh * (acc[q] + k[q]);
+        } else {
+          const float hh = 0.5f * h;
+          for (int q = 0; q < d; ++q) {
+            acc[q] = k[q];
+            xs[q] = x[q] + hh * k[q];
+          }
+          f(xs, k);  // k2
+          for (int q = 0; q < d; ++q) {
+            acc[q] = acc[q] + 2.0f * k[q];
+            xs[q] = x[q] + hh * k[q];
+          }
+          f(xs, k);  // k3
+          for (int q = 0; q < d; ++q) {
+            acc[q] = acc[q] + 2.0f * k[q];
+            xs[q] = x[q] + h * k[q];
+          }
+          f(xs, k);  // k4
+          const float h6 = h / 6.0f;
+          for (int q = 0; q < d; ++q) xs[q] = x[q] + h6 * (acc[q] + k[q]);
+        }
+        if (io.kicks != nullptr) {
+          const float* kick =
+              io.kicks + ((static_cast<size_t>(t) * B + b) * io.substeps + s) * d;
+          for (int q = 0; q < d; ++q) xs[q] = xs[q] + kick[q];
+        }
+        alive = finite_vec(xs, d);
+        if (alive) {  // the next state becomes the state
+          const LaneVec old = x;
+          x = xs;
+          xs = old;
+        }
+      }
+    }
+    e_sum = e_sum + sq_err_vec(x, y + static_cast<size_t>(t + 1) * d, d);
+  }
+  const size_t lane = static_cast<size_t>(c) * B + b;
+  io.err[lane] = e_sum;
+  io.alive[lane] = alive ? 1 : 0;
+}
+
+constexpr int kFitnessVectors = 4;  // x, xs, k, acc: the wrapper's scratch per lane and component
+
+template <bool U>
+MTGP_HD void run_fitness_lane(const WideSpan& s, const FitnessIO& io, const WideTrees<U>& f, int c,
+                              int b, size_t li) {
+  fitness_lane_wide<U>(f, io, c, b, s.B, lane_vec(s, 0, li), lane_vec(s, 1, li),
+                       lane_vec(s, 2, li), lane_vec(s, 3, li));
+}
+
+#ifdef __CUDACC__
+template <bool U, int N>
+__global__ void sr_fitness_wide_kernel(WideSpan s, FitnessIO io, int cpb, int bpb) {
+  wide_block<U, N>(s, cpb, bpb, [&](const WideTrees<U>& f, int c, int b, size_t li) {
+    run_fitness_lane<U>(s, io, f, c, b, li);
+  });
+}
+#endif
+#endif  // MTGP_WIDE_STATE
+
 }  // namespace
 
 #define MTGP_FITNESS_ARGS                                                                     \
@@ -215,7 +328,43 @@ extern "C" {
 const char* mtgp_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
+#endif
 
+#ifdef MTGP_WIDE_STATE
+// The wide instance on candidates c0 .. c0 + count - 1, its scratch
+// kFitnessVectors * d * count * B floats (tree_prog_wide.cuh WideSpan).
+#define MTGP_WIDE_OPERANDS                                                        \
+  const WideSpan span{ops, cst, devop, var_start, d, n, B, c0, count, scratch};   \
+  const FitnessIO io{x0s, ts, ys, kicks, err, alive, T, method, substeps};       \
+  const bool bad = bad_args(P, n, B, T, method, substeps) || bad_span(span) || c0 + count > P
+
+#ifdef __CUDACC__
+// Launches on `stream` with `cpb` candidates per block; returns
+// cudaGetLastError() of the launch.
+int sr_fitness_wide_launch(MTGP_FITNESS_ARGS, float* scratch, int c0, int count, int cpb,
+                           void* stream) {
+  MTGP_WIDE_OPERANDS;
+  if (bad) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define MTGP_CALL(U, N) static_cast<int>(launch_wide(&sr_fitness_wide_kernel<U, N>, span, io, cpb, st))
+  return MTGP_WIDE_INSTANCE(MTGP_CALL, n, unary);
+#undef MTGP_CALL
+}
+#else
+int sr_fitness_wide_host(MTGP_FITNESS_ARGS, float* scratch, int c0, int count) {
+  MTGP_WIDE_OPERANDS;
+  if (bad) return 1;
+#define MTGP_CALL(U, N)                                                                       \
+  (wide_host<U, N>(span, [&](const WideTrees<U>& f, int c, int b, size_t li) {                \
+     run_fitness_lane<U>(span, io, f, c, b, li);                                              \
+   }),                                                                                        \
+   0)
+  return MTGP_WIDE_INSTANCE(MTGP_CALL, n, unary);
+#undef MTGP_CALL
+}
+#endif
+#else  // the fixed instances
+#ifdef __CUDACC__
 // Launches on `stream`; returns cudaGetLastError() of the launch.
 int sr_fitness_launch(MTGP_FITNESS_ARGS, int cpb, void* stream) {
   if (bad_args(P, n, B, T, method, substeps) || cpb <= 0 || cpb * B > 1024)
@@ -255,5 +404,6 @@ int sr_fitness_host(MTGP_FITNESS_ARGS) {
 #undef MTGP_CALL
 }
 #endif
+#endif  // MTGP_WIDE_STATE
 
 }  // extern "C"

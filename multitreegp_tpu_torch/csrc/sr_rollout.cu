@@ -39,12 +39,22 @@
 // the operator of tree_eval.cuh to the operands of the postorder stack
 // machine. Built with -fmad=false.
 //
+// The wide-state instance (built with -DMTGP_WIDE_STATE, the `_wide`
+// libraries, and only there) takes any state dim and any number of
+// trajectories: state, stage input, stage and stage sum are lane vectors of
+// d floats in a scratch buffer the wrapper allocates, the trees run four at
+// a time (tree_prog_wide.cuh); the same expressions, so at d <= 4 it is
+// bit-equal to the fixed instance.
+//
 // The per-lane code is plain C++ under MTGP_HD, so the same file also
 // compiles for the host (without __CUDACC__) into a lane loop that decodes
 // every candidate as a block does and that tests run against the plain
 // version on machines without a card.
 #include "sr_lane.cuh"
 #include "tree_prog.cuh"
+#ifdef MTGP_WIDE_STATE
+#include "tree_prog_wide.cuh"
+#endif
 
 namespace {
 
@@ -189,6 +199,72 @@ bool bad_args(const Operands& a) {
          a.method < kEuler || a.method > kRk4;
 }
 
+#ifdef MTGP_WIDE_STATE
+// rollout_lane on the wide instance: trajectory b of candidate c, whose d
+// trees are f, its vectors x (the state), st (the stage input; the next
+// state once formed), k (the stage) and acc (the stage sum); its states at
+// a.xs + t * P * B * d + (c * B + b) * d.
+template <bool U>
+MTGP_HD void rollout_lane_wide(const WideTrees<U>& f, const Operands& a, int c, int b, LaneVec x,
+                               LaneVec st, const LaneVec& k, const LaneVec& acc) {
+  const int d = f.d;
+  const float* x0 = a.x0s + static_cast<size_t>(b) * d;
+  for (int q = 0; q < d; ++q) x[q] = x0[q];
+  bool alive = finite_vec(x, d);
+  const size_t lane = static_cast<size_t>(c) * a.B + b;
+  float* xs = a.xs + lane * d;
+  const size_t row_stride = static_cast<size_t>(a.P) * a.B * d;
+  for (int q = 0; q < d; ++q) xs[q] = x[q];
+  for (int t = 1; t < a.T; ++t) {
+    for (int s = 0; s < a.substeps && alive; ++s) {
+      f(x, k);
+      for (int q = 0; q < d; ++q) acc[q] = 0.0f + 1.0f * k[q];
+      if (a.method == kHeun) {
+        for (int q = 0; q < d; ++q) st[q] = x[q] + a.h.full * k[q];
+        f(st, k);
+        for (int q = 0; q < d; ++q) acc[q] = acc[q] + 1.0f * k[q];
+      } else if (a.method == kRk4) {
+        const float cs[3] = {a.h.half, a.h.half, a.h.full};
+        const float w[3] = {2.0f, 2.0f, 1.0f};
+        for (int stage = 0; stage < 3; ++stage) {
+          for (int q = 0; q < d; ++q) st[q] = x[q] + cs[stage] * k[q];
+          f(st, k);
+          for (int q = 0; q < d; ++q) acc[q] = acc[q] + w[stage] * k[q];
+        }
+      }
+      for (int q = 0; q < d; ++q) st[q] = x[q] + a.h.final_scale * acc[q];
+      alive = finite_vec(st, d);
+      if (alive) {  // the next state becomes the state
+        const LaneVec old = x;
+        x = st;
+        st = old;
+      }
+    }
+    float* row = xs + t * row_stride;
+    for (int q = 0; q < d; ++q) row[q] = x[q];
+  }
+  a.alive[lane] = alive ? 1 : 0;
+}
+
+constexpr int kRolloutVectors = 4;  // x, st, k, acc: the wrapper's scratch per lane and component
+
+template <bool U>
+MTGP_HD void run_rollout_lane(const WideSpan& s, const Operands& a, const WideTrees<U>& f, int c,
+                              int b, size_t li) {
+  rollout_lane_wide<U>(f, a, c, b, lane_vec(s, 0, li), lane_vec(s, 1, li), lane_vec(s, 2, li),
+                       lane_vec(s, 3, li));
+}
+
+#ifdef __CUDACC__
+template <bool U, int N>
+__global__ void sr_rollout_wide_kernel(WideSpan s, Operands a, int cpb, int bpb) {
+  wide_block<U, N>(s, cpb, bpb, [&](const WideTrees<U>& f, int c, int b, size_t li) {
+    run_rollout_lane<U>(s, a, f, c, b, li);
+  });
+}
+#endif
+#endif  // MTGP_WIDE_STATE
+
 }  // namespace
 
 #define MTGP_ROLLOUT_ARGS                                                                   \
@@ -222,7 +298,43 @@ extern "C" {
 const char* mtgp_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
+#endif
 
+#ifdef MTGP_WIDE_STATE
+// The wide instance on candidates c0 .. c0 + count - 1, its scratch
+// kRolloutVectors * d * count * B floats (tree_prog_wide.cuh WideSpan).
+#define MTGP_WIDE_OPERANDS                                                      \
+  MTGP_OPERANDS;                                                                \
+  const WideSpan span{ops, cst, devop, var_start, d, n, B, c0, count, scratch}; \
+  const bool bad = bad_args(a) || bad_span(span) || c0 + count > P
+
+#ifdef __CUDACC__
+// Launches on `stream` with `cpb` candidates per block; returns
+// cudaGetLastError() of the launch.
+int sr_rollout_wide_launch(MTGP_ROLLOUT_ARGS, float* scratch, int c0, int count, int cpb,
+                           void* stream) {
+  MTGP_WIDE_OPERANDS;
+  if (bad) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define MTGP_CALL(U, N) static_cast<int>(launch_wide(&sr_rollout_wide_kernel<U, N>, span, a, cpb, st))
+  return MTGP_WIDE_INSTANCE(MTGP_CALL, n, unary);
+#undef MTGP_CALL
+}
+#else
+int sr_rollout_wide_host(MTGP_ROLLOUT_ARGS, float* scratch, int c0, int count) {
+  MTGP_WIDE_OPERANDS;
+  if (bad) return 1;
+#define MTGP_CALL(U, N)                                                                       \
+  (wide_host<U, N>(span, [&](const WideTrees<U>& f, int c, int b, size_t li) {                \
+     run_rollout_lane<U>(span, a, f, c, b, li);                                               \
+   }),                                                                                        \
+   0)
+  return MTGP_WIDE_INSTANCE(MTGP_CALL, n, unary);
+#undef MTGP_CALL
+}
+#endif
+#else  // the fixed instances
+#ifdef __CUDACC__
 // Launches on `stream` with `cpb` candidates per block; returns
 // cudaGetLastError() of the launch.
 int sr_rollout_launch(MTGP_ROLLOUT_ARGS, int cpb, void* stream) {
@@ -245,5 +357,6 @@ int sr_rollout_host(MTGP_ROLLOUT_ARGS) {
   return 1;
 }
 #endif
+#endif  // MTGP_WIDE_STATE
 
 }  // extern "C"

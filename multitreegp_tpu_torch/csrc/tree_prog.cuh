@@ -61,7 +61,10 @@ MTGP_HD constexpr int stack_slots() { return N / 2; }
 // follows the stack machine's pops and pushes, so a row reads and writes the
 // values that machine would. A malformed tree deeper than the instance's slots (never
 // made by the system) is clamped into them and evaluates to an unspecified
-// value.
+// value. A data slot past 63 would read slot 63: the SR wrappers refuse sets
+// of more than 63 variables (core/cuda_rollout.py kernel_operands), which
+// run the wide instance's 29-bit slot (tree_prog_wide.cuh); the policy
+// kernels' data vector is a plant's few observations and targets.
 template <int N>
 MTGP_HD int decode_tree(Row* rows, int n, const int* __restrict__ devop, int var_start) {
   constexpr int kSlots = stack_slots<N>();

@@ -32,8 +32,10 @@ prints a digest of each library's machine code (``cuobjdump -sass``, its
 kernels' instructions), so that two versions whose builds compiled to the
 same code show the same digests: every library's default build, the tree
 libraries' extended build (``_ext``) and, where the package has user
-operators, their user build of gplearn's protected set (``_user``). Two
-versions compare only within one such run. With ``--sass`` the script runs
+operators, their user build of gplearn's protected set (``_user``), and,
+where the package has the SR sources' wide-state builds, those of the three
+(``_wide``, ``_ext_wide``, ``_user_wide``). Two versions compare only within
+one such run. With ``--sass`` the script runs
 OTHER, then this, and prints the builds' ``nvcc`` seconds and the digests
 only.
 """
@@ -73,7 +75,8 @@ def time_kernels(root: Path, sass_only: bool = False) -> str:
         shown = (("policy", lambda k: "AcrobotEnv<0" in k and k.endswith(",32>")),
                  ("sr_adaptive", lambda k: re.search(r"_kernel<2,", k)),
                  ("sr_rollout", lambda k: re.search(r"_kernel<2,", k)),
-                 ("interpreter", lambda k: True), ("branch_probe", lambda k: True))
+                 ("interpreter", lambda k: True), ("branch_probe", lambda k: True),
+                 *((f"{name}_wide", lambda k: True) for name in WIDE_LIBRARIES))
         for name, keep in shown:
             if name in pkg._build.build_logs:
                 line += f"; ptxas {name} " + ", ".join(
@@ -163,14 +166,22 @@ LIBRARIES = ("sr_fitness", "reproduce", "sr_rollout", "sr_adaptive", "policy", "
              "branch_probe")
 # the sources with an extended and a user build (the tree kernels #1, #3-#9)
 TREE_LIBRARIES = ("sr_fitness", "sr_rollout", "sr_adaptive", "policy", "interpreter")
+# the sources with a wide-state form of each build (#1, #3, #4/#5)
+WIDE_LIBRARIES = ("sr_fitness", "sr_rollout", "sr_adaptive")
+
+
+def variant_libraries(tag: str):
+    """The sources built in the variant ``tag`` of :func:`build_variants`."""
+    return WIDE_LIBRARIES if tag.endswith("wide") else TREE_LIBRARIES
 
 
 def build_variants(pkg) -> dict:
     """Build every library of ``pkg`` (a package under its root), the tree
     libraries also in their extended build and, where the package has user
     operators, in the user build of gplearn's protected set
-    (``registry.gplearn_operators``): every ``nvcc`` at once. Returns ``{tag:
-    variant}`` of the builds made besides the default one."""
+    (``registry.gplearn_operators``), and where it has them the SR sources'
+    wide-state form of each (``_build.widened``): every ``nvcc`` at once.
+    Returns ``{tag: variant}`` of the builds made besides the default one."""
     from concurrent.futures import ThreadPoolExecutor
     import inspect
 
@@ -182,8 +193,12 @@ def build_variants(pkg) -> dict:
     if hasattr(registry, "gplearn_operators"):
         fset = registry.build_function_set(registry.gplearn_operators(), [["x0", "x1"]], [2])
         variants["user"] = fset.variant
+    if hasattr(build, "widened"):
+        variants.update({f"{tag}_wide": build.widened(v) for tag, v in list(variants.items())},
+                        wide=build.widened(False))
     with ThreadPoolExecutor(len(variants)) as pool:
-        jobs = [pool.submit(build.build, *TREE_LIBRARIES, **{kw: v}) for v in variants.values()]
+        jobs = [pool.submit(build.build, *variant_libraries(tag), **{kw: v})
+                for tag, v in variants.items()]
         build.build(*LIBRARIES)
         for job in jobs:
             job.result()
@@ -210,7 +225,7 @@ def sass_digests(build, variants=None) -> str:
         return f"sass: no {tool}"
     libraries = [(name, name, False) for name in LIBRARIES]
     for tag, variant in (variants or {}).items():
-        libraries += [(f"{name}_{tag}", name, variant) for name in TREE_LIBRARIES]
+        libraries += [(f"{name}_{tag}", name, variant) for name in variant_libraries(tag)]
     parts = []
     for label, name, variant in libraries:
         path = build.library_path(name, variant) if variant is not False else build.library_path(name)

@@ -28,8 +28,11 @@ recompute:
 
 The fused kernels take ``interpreter="auto"`` or ``"pallas"`` and what
 ``core.cuda_rollout.lanes_refusal`` admits (one tree per state dimension,
-``N <= 256``, ``d <= 4``, ``B <= 1024``), decided from the configuration
-alone, as the JAX evaluator's ``rollout_available(..., deep_ok=True)``.
+``N <= 256``, any state dim and trajectory count whose candidate's decoded
+program fits a block's shared memory: d up to 894 at N = 32, 113 at
+N = 256; past ``d = 4``, ``B = 1024`` or 63 variables in the kernels' wide
+instance), decided from the configuration alone, as the JAX evaluator's
+``rollout_available(..., deep_ok=True)``.
 Everything else (``interpreter="ladder"`` / ``"gather"`` among it) takes the
 general path: the integrator (``integrate``, ``integrate_sde`` or
 ``integrate_adaptive`` with the per-interval budget) with the dispatching

@@ -1,11 +1,14 @@
 """PyTorch port: which path the evaluators take, against the JAX evaluator (CPU).
 
 * The gate of the per-lane SR kernels (``core.cuda_rollout.lanes_refusal``)
-  refuses one tree per state dimension short of ``m == d``, ``d > 4``,
-  ``B > 1024`` and ``N > 256``, and admits the main path's shapes; the SR
-  evaluator takes the general path there (and for ``interpreter="ladder"``
-  / ``"gather"``), with the fitness of JAX's evaluator with the same
-  keywords on the same population and data, made with numpy and JAX.
+  refuses one tree per state dimension short of ``m == d``, ``N > 256`` and
+  a candidate's decoded program past a block's 227 KB of shared memory
+  (with that reason), and admits the main path's shapes and any state dim
+  and trajectory count within that (d = 5 and 40, B = 1,025 and 2,048: the
+  kernels' wide instance on the card); the SR evaluator takes the general
+  path where it refuses (and for ``interpreter="ladder"`` / ``"gather"``),
+  and the fused one elsewhere, with the fitness of JAX's evaluator with the
+  same keywords on the same population and data, made with numpy and JAX.
 * ``SREvaluator`` takes JAX's ``remat`` and ``interpreter`` keywords.
 * The policy evaluators' gate refuses what ``check_policy`` rejects (more
   than 1024 trajectories, more than 2 targets).
@@ -54,14 +57,22 @@ def shaped_trees(p, m, n):
 
 @pytest.mark.parametrize("m,n,d,b,fused", [
     (2, 32, 2, 16, True),     # the main path
-    (4, 256, 4, 1024, True),  # every limit at its edge
+    (4, 256, 4, 1024, True),  # the fixed instances' limits at their edge
     (1, 32, 2, 16, False),    # m != d
-    (5, 32, 5, 16, False),    # d = 5
-    (2, 32, 2, 1025, False),  # B = 1025
+    (5, 32, 5, 16, True),     # d = 5: the wide instance
+    (2, 32, 2, 1025, True),   # B = 1025: the wide instance
     (2, 257, 2, 16, False),   # N = 257
+    (40, 32, 40, 16, True),   # Lorenz-96's 40 states
+    (2, 32, 2, 2048, True),   # 2,048 trajectories
+    (894, 32, 894, 2, True),  # the largest program a block holds at N = 32
+    (113, 256, 113, 2, True),  # ... at N = 256
+    (895, 32, 895, 2, False),  # past a block's shared memory
+    (114, 256, 114, 2, False),
 ])
 def test_lanes_gate(m, n, d, b, fused):
     assert (lanes_refusal(m, n, d, b) is None) == fused
+    if not fused and m == d and n <= 256:
+        assert "shared memory" in lanes_refusal(m, n, d, b)
     x0s = torch.zeros((b, d))
     assert SREvaluator(substeps=1)._fused(shaped_trees(3, m, n), x0s) == fused
     for interp in ("ladder", "gather"):
@@ -109,9 +120,9 @@ def assert_fitness_close(got, ref, max_rel=1e-4):
 ])
 def test_evaluate_population_matches_jax(m, d, b, kwargs):
     """The port's fitness against JAX's with the same keywords: the general
-    path wherever the gate refuses or the interpreter is not the fused one
-    (``remat=True`` keeps the fused path, whose CPU dispatch is the plain
-    version)."""
+    path wherever the gate refuses or the interpreter is not the fused one,
+    else the fused path, whose CPU dispatch is the plain version (``remat=
+    True``; d = 5 and B = 1025, the wide instance on the card)."""
     jf, pop, data = case(m, d, b)
     jax_kwargs = dict(kwargs)
     if "interpreter" not in jax_kwargs:
@@ -121,7 +132,7 @@ def test_evaluate_population_matches_jax(m, d, b, kwargs):
     trees = trees_from_numpy(*[np.asarray(a) for a in pop])
     tdata = sr_data_from_numpy(*[np.asarray(a) for a in data[:3]])
     fused = ev._fused(trees, tdata[0])
-    assert fused == (m == d and d <= 4 and b <= 1024 and kwargs.get("interpreter", "auto") == "auto")
+    assert fused == (m == d and kwargs.get("interpreter", "auto") == "auto")
     assert_fitness_close(ev.evaluate_population(trees, tdata).numpy(), ref,
                          1e-4 if b <= 16 else 2e-3)
 

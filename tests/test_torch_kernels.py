@@ -788,9 +788,11 @@ def test_reproduce_kernel_deep_matches_plain_on_card(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["m_ne_d", "d5", "b1025"])
 def test_sr_evaluator_general_path_on_card(cuda, case):
-    """Configurations the fused kernels do not take evaluate through the
-    general path on the card, kernel #8 as the drift, not #1; the fitness
-    equals the same evaluation on CPU copies to the general path's
+    """Configurations the fused kernels do not take (``m != d``), and d = 5
+    and B = 1025 with ``interpreter="gather"`` (the fused gate takes them,
+    in #1's wide instance: ``test_torch_wide_state.py``), evaluate through
+    the general path on the card, kernel #8 as the drift, not #1; the
+    fitness equals the same evaluation on CPU copies to the general path's
     tolerance (rtol 1e-5: the card's and the CPU's division round alike,
     their sums over B do not)."""
     d = 5 if case == "d5" else 2
@@ -803,12 +805,14 @@ def test_sr_evaluator_general_path_on_card(cuda, case):
     ts = torch.arange(0.0, 1.0, 0.2, device=cuda)
     x0s = torch.rand((b, d), generator=g, device=cuda)
     ys = torch.rand((b, ts.shape[0], d), generator=g, device=cuda)
-    ev = SREvaluator(fset, substeps=1)
+    ev = SREvaluator(fset, substeps=1, interpreter="auto" if case == "m_ne_d" else "gather")
     assert not ev._fused(trees, x0s)
     fit0, fwd0 = sr_fitness_cuda.launches, ci.evaluate_trees_cuda.launches
+    wide0 = cro.sr_fitness_wide_cuda.launches
     fitness = ev.evaluate_population(trees, (x0s, ts, ys, None))
     torch.cuda.synchronize()
     assert sr_fitness_cuda.launches == fit0 and ci.evaluate_trees_cuda.launches > fwd0
+    assert cro.sr_fitness_wide_cuda.launches == wide0
     cpu = ev.evaluate_population(trees.map(lambda a: a.cpu()), (x0s.cpu(), ts.cpu(), ys.cpu(), None))
     torch.testing.assert_close(fitness.cpu(), cpu, rtol=1e-5, atol=0)
 
@@ -959,14 +963,15 @@ def wide_sr_case(device, kind):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["n2048", "lorenz96", "ops33"])
 def test_sr_evaluator_wide_on_card(cuda, kind):
-    """``SREvaluator`` past the fixed instances (2048 rows; 40 states and
-    trees; 33 operators, with ``interpreter="gather"``) takes the general
-    path on the card, #8 as the drift, and equals the same evaluation on CPU copies (the plain versions)
+    """``SREvaluator`` past the fixed interpreter instances (2048 rows; 40
+    states and trees and 33 operators, with ``interpreter="gather"``) takes
+    the general path on the card, #8 as the drift, and equals the same evaluation on CPU copies (the plain versions)
     to the general path's tolerance (rtol 1e-5); its gradient runs #9."""
     fset, trees, data = wide_sr_case(cuda, kind)
-    # the 33-operator VdP case fits the fused gate (#1): "gather" asks for the
-    # general path, as the 2048-row and the 40-state cases take it by default
-    ev = SREvaluator(fset, substeps=1, interpreter="gather" if kind == "ops33" else "auto")
+    # the 33-operator VdP case and the 40-state one fit the fused gate (#1,
+    # the latter in its wide instance): "gather" asks for the general path,
+    # as the 2048-row case takes it by default
+    ev = SREvaluator(fset, substeps=1, interpreter="auto" if kind == "n2048" else "gather")
     assert not ev._fused(trees, data[0])
     fwd0, bwd0 = ci.evaluate_trees_cuda.launches, ci.evaluate_trees_vjp_cuda.launches
     fitness = ev.evaluate_population(trees, data)

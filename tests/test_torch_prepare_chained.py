@@ -5,8 +5,9 @@ for one population structure whose constants change.
   method without process noise, ``interpreter="ladder"`` / ``"gather"``,
   ``m != d``, ``N > 256``), checked against JAX's own ``prepare_chained``
   in interpret mode, and where the port's ``evaluate_population`` does not
-  take kernel #1 although JAX's would (``d > 4``, ``B > 1024``: the port's
-  own limits).
+  take kernel #1 although JAX's would (a candidate's program past a block's
+  shared memory: the port's own limit; d > 4 and B > 1024 take #1's wide
+  instance, ``test_torch_wide_state.py``).
 * ``step(const)`` equals ``evaluate_population(population._replace(const=
   const), data)`` bit for bit, fitness and gradient, for the ODE (RK4,
   Heun) and the SDE (Euler-Maruyama with the hoisted kick rows), at
@@ -83,9 +84,10 @@ def test_prepare_chained_none_as_jax(name):
             JaxTrees(z, z, z, z.astype(jnp.float32)), jdata) is None
 
 
-@pytest.mark.parametrize("m,n,d,b", [(5, 16, 5, 4), (2, 16, 2, 1025)])
+@pytest.mark.parametrize("m,n,d,b", [(900, 32, 900, 4), (120, 256, 120, 4)])
 def test_prepare_chained_none_past_the_port_limits(m, n, d, b):
-    """``d > 4`` and ``B > 1024``: the port's ``evaluate_population`` takes the
+    """A candidate's decoded program past a block's shared memory (900 trees
+    of 32 rows, 120 of 256): the port's ``evaluate_population`` takes the
     general path there (``lanes_refusal``), so there is no step to prepare."""
     data = (torch.zeros((b, d)), torch.arange(0.0, 1.0, 0.2), torch.zeros((b, 5, d)), None)
     ev = SREvaluator(substeps=1)

@@ -172,6 +172,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
                 deep_adaptive_t=3, deep_adaptive_budget=40, deep_interval_steps=8,
                 wide_nodes=300, wide_depth=5, wide_generations=2, wide_check_nodes=(300,),
                 lorenz_states=40, lorenz_forcing=8.0, lorenz_depth=2, lorenz_dt=0.05, ext_chain_nodes=300,
+                wide_batch=1100, wide_check_t=3, wide_check_budget=8, wide_check_interval_steps=4,
                 deep_gen_nodes=64,
                 deep_gen_depth=5, chain_k=2, shard_generations=15,
                 example_sizes=dict(generations=2, population=20, islands=2), example_t=3,
@@ -188,9 +189,11 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     for kind, policies in (("policy_fixed", "dynamic"), ("policy_adaptive", "static")):
         r = deep[kind]
         assert r["identical"] == 1.0 and r["lanes"] == 8 * 4 and r["policies"] == policies
+    wide_rows = ["sr_fitness_wide", "sr_rollout_wide", "sr_adaptive_global_wide", "sr_adaptive_interval_wide"]
     assert [k["name"] for k in out["kernels"]] == [
         "sr_fitness", "reproduce", "interpret_fwd", "interpret_bwd", "sr_adaptive_global",
-        "sr_adaptive_interval", "sr_rollout", "policy", "policy_adaptive", "branch_probe"]
+        "sr_adaptive_interval", "sr_rollout", "policy", "policy_adaptive", *wide_rows, "branch_probe"]
+    tree_rows = out["kernels"][:-5]  # the fixed instances' rows: phases 24 and 25 add to each
     pk = out["policy_kernels"]
     assert {"fixed_static", "fixed_dynamic", "adaptive_static", "adaptive_dynamic"} <= set(pk)
     assert all(pk[k]["identical"] == 1.0 for k in ("fixed_static", "adaptive_dynamic"))
@@ -231,9 +234,9 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
                for k in ("interpreter_n64", "interpreter_n300", "interpreter_round"))
     assert ext["checks"]["interpreter_round"]["lanes"] == 4 * 4 * 2
     assert ext["checks"]["reproduce"]["ops_identical"] == 1.0
-    ext_checks = {k["name"]: set(k["extended"]["checks"]) for k in out["kernels"][:-1]}
+    ext_checks = {k["name"]: set(k["extended"]["checks"]) for k in tree_rows}
     assert "interpreter_round" in ext_checks["interpret_fwd"] and ext_checks["reproduce"] == {"reproduce"}
-    assert all("extended" in k for k in out["kernels"][:-1])
+    assert all("extended" in k for k in tree_rows)
     user = out["user"]  # phase 25: gplearn's protected operators as user operators
     assert len(user["generations"]) == 2 and len(user["policy"]["generations"]) == 2
     assert user["round"]["refined_sum"] <= user["round"]["unrefined_sum"] and user["user_rows"] > 0
@@ -243,7 +246,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     assert all(c.get("identical", 1.0) == 1.0 for c in user["checks"].values())
     assert all(user["checks"]["interpreter_round"]["bit_equal"].values())
     assert user["checks"]["reproduce"]["ops_identical"] == 1.0
-    assert all("user" in k for k in out["kernels"][:-1])
+    assert all("user" in k for k in tree_rows)
     sde = out["sde"]
     assert sde["rows"]["bits_equal"] and max(sde["rows"]["ulp_gap"].values()) == 0
     assert sde["fitness_kicks"]["identical"] == 1.0 and out["kernels"][0]["kicks"]["lanes"] == 32 * 4
@@ -278,6 +281,12 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     assert ops33["device_op_ids"] == list(range(33))
     assert all(all(c["bit_equal"].values()) for r in (lorenz, ops33) for c in r["checks"].values())
     assert set(out["kernels"][3]["wide"]["ops33"]["checks"]) == {"round"}
+    ws = lorenz["wide_state"]  # phase 27: the SR kernels' wide-state instances
+    assert ws["fused_vs_general"]["clamp_agreement"] >= 0.999 and ws["fused_vs_general"]["spearman"] >= 0.997
+    assert all(ws["kernels"][k]["check"]["identical"] == 1.0 and ws["kernels"][k]["check"]["lanes"] == 32 * 4
+               for k in wide_rows)
+    assert out["trajectories"]["identical"] == 1.0 and out["trajectories"]["lanes"] == 32 * 1100
+    assert all(k["bound_ms"] > 0 and k["launches"] is not None for k in out["kernels"][-5:-1])
     chained = out["chained"]
     assert all(chained[k]["identical"] == 1.0 and chained[k]["candidates"] == 32 for k in ("ode", "sde"))
     sharded = out["sharded"]

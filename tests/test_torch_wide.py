@@ -20,7 +20,8 @@ inputs:
   ``test_torch_deep.ill_conditioned``) and on
   Lorenz-96 data (Lorenz 1996, ``dx_i/dt = (x_{i+1} - x_{i-2}) x_{i-1} - x_i
   + F``, F = 8, 40 states; 40 trees a candidate, 4 candidates of depth 2, 2
-  trajectories, T = 6), fixed-step RK4, against JAX's with
+  trajectories, T = 6; the port's fused path, kernel #1's wide instance on
+  the card, and its general path), fixed-step RK4, against JAX's with
   ``interpreter="gather"``: ``ROADMAP.md``'s rule for rollouts
   (``test_torch_deep.assert_fitness_close``: the same candidates clamped,
   median relative error <= 1e-6 and the largest <= 1e-4; XLA:CPU contracts
@@ -163,16 +164,19 @@ def lorenz96_case(count, depth=2, seed=7):
     return jf, pop, (x0s, ts, ys)
 
 
-def test_sr_evaluator_matches_jax_lorenz96():
-    """Lorenz-96 with 40 states: 40 trees a candidate, the general path
-    (d = 40 > 4) on both."""
+@pytest.mark.parametrize("interpreter", ["auto", "gather"])
+def test_sr_evaluator_matches_jax_lorenz96(interpreter):
+    """Lorenz-96 with 40 states: 40 trees a candidate; with
+    ``interpreter="auto"`` the port's fused path (kernel #1's wide instance on
+    the card, its plain version here), with ``"gather"`` the general path;
+    JAX's general path the reference."""
     jf, pop, (x0s, ts, ys) = lorenz96_case(4)
     jdata = (jnp.asarray(x0s), jnp.asarray(ts), jnp.asarray(ys), None)
     ref = np.asarray(jax.jit(JaxSREvaluator(jf, substeps=1, interpreter="gather").evaluate_population)(
         JaxTrees(*(jnp.asarray(a) for a in pop)), jdata))
-    ev = SREvaluator(function_set_from_jax(jf), substeps=1)
+    ev = SREvaluator(function_set_from_jax(jf), substeps=1, interpreter=interpreter)
     trees, tdata = trees_from_numpy(*pop), sr_data_from_numpy(x0s, ts, ys)
-    assert trees.ops.shape == (4, 40, 32) and not ev._fused(trees, tdata[0])
+    assert trees.ops.shape == (4, 40, 32) and ev._fused(trees, tdata[0]) == (interpreter == "auto")
     assert_fitness_close(ev.evaluate_population(trees, tdata).numpy(), ref)
 
 

@@ -41,7 +41,7 @@ workload (phases 12-14). Phases, one line or a few each:
 9. the adaptive kernels (#5 global budget, #4 per interval; Dormand-Prince
    5(4)) and the trajectory kernel (#3) against their plain versions at the
    full width of 4096 x 16 lanes, every lane identical: #5 with the budget
-   500 at T = 10 and T = 50, #4 with 32 steps per interval at T = 10, #3
+   500 at T = 50 and 40 at T = 10, #4 with 32 steps per interval at T = 10, #3
    RK4 at T = 50 (with its device time per launch by torch.profiler); the
    attempted steps per lane and per warp (the maximum of 32 consecutive
    lanes) and how many warps reach the budget;
@@ -61,7 +61,7 @@ workload (phases 12-14). Phases, one line or a few each:
 12. the closed-loop policy kernels (#6 fixed step, #7 adaptive) against
    their plain versions per lane on the control path's full width (Acrobot,
    8 x 512 policies x 16 trajectories, operators + - * sin cos; #6 RK4 with
-   4 substeps at T = 14, #7 Dormand-Prince with 8 steps per interval at
+   4 substeps at T = 8, #7 Dormand-Prince with 8 steps per interval at
    T = 6: the horizon is cut because the plain versions launch thousands
    of kernels per interval), static and dynamic (``state_size=2``); every
    other plant, series parameters and noise rows at 512 x 16, T = 6; every
@@ -87,7 +87,7 @@ workload (phases 12-14). Phases, one line or a few each:
    adaptive evaluation through the general path (per-lane draws, no #7),
    the horizon cut to T = 6 (the general path launches #8 per stage); #6
    against its plain version on the port's rows (RK4 observation rows, Euler
-   observation + kick rows) on all 65,536 lanes at T = 14 (phase 12's cut),
+   observation + kick rows) on all 65,536 lanes at T = 8 (phase 12's cut),
    every lane identical; #1's and #6's times with and without noise, and
    the rows' build time;
 16. the branch probe (#10, ``python -m multitreegp_tpu_torch.tools.branch_probe``):
@@ -99,7 +99,7 @@ workload (phases 12-14). Phases, one line or a few each:
    and 63 rows among them) x 16 trajectories at T = 6, RK4 and
    Euler-Maruyama with kick rows; #3 on the same lanes (RK4); #8/#9 on the
    same trees against 16 states each in the recompute's layout; #5 (budget
-   8) and #4 (8 per interval), dopri5, on the same lanes at T = 4; #2 on
+   8) and #4 (4 per interval), dopri5, on the same lanes at T = 4; #2 on
    one island's 462 lanes of those parents; #6 (dynamic, RK4 x 2: the
    readout and the two state trees) and #7 (static, dopri5, 8 steps per
    interval) on 256 Acrobot policies of 256 rows, chained the same way, x
@@ -120,7 +120,7 @@ workload (phases 12-14). Phases, one line or a few each:
    #8/#9 against their plain versions, every lane identical, with 16
    trajectories a tree and with one data vector a tree: at 512 and 1024 rows
    (the fixed instance) on chains of N - 1, 127 and 63 rows; at 2048 and
-   4096 rows (the wide instance) the roots on chains of N - 1 rows (one of
+   3072 rows (the wide instance) the roots on chains of N - 1 rows (one of
    them the zigzag whose second operands reach row N - 3), roots and
    cotangents on chains of 1023 rows in trees of N rows; at 2048 rows on the
    evaluation's and the round's shapes; their events, device time per
@@ -162,7 +162,7 @@ workload (phases 12-14). Phases, one line or a few each:
    host loop (#1, #2), one constant-optimisation round of the top 50 (10 Adam
    steps; #8/#9) and ``evaluate_candidate`` of the best (#3); on its last
    population #1 and #3 (T = 10) and #5 / #4 (phase 17's cut: T = 4, budget
-   8 / 8 per interval) against their plain versions, every lane identical;
+   8 / 4 per interval) against their plain versions, every lane identical;
    the static Acrobot loop with ``+ - * tanh sin cos`` at 4096 x 16, T = 250,
    RK4 x 4, 5 generations (#6, #2), then #6 static and dynamic (T = 6) and #7
    static (T = 4) against their plain versions; #8/#9 in the round's layout
@@ -232,6 +232,24 @@ workload (phases 12-14). Phases, one line or a few each:
    the set's user build); #8/#9 against their plain versions at each
    workload's shapes, every lane identical, with events, device time and
    bounds.
+28. the policy kernels past two hidden states, two targets and 1024
+   trajectories: the dynamic Acrobot with ``state_size=8`` (9 trees a
+   candidate, the largest hidden state JAX's VMEM gate fuses at
+   ``max_nodes`` 30 and 32) at phase 13's shape (8 x 512 policies, 16
+   trajectories, T = 250, RK4 x 4, ``max_nodes=30``, ``+ - * sin cos``): 3
+   generations of the host loop through #6's wide instance (one launch an
+   evaluation, no #8) and #2, then one evaluation of the last population
+   through the general path (#8) beside the fused one (clamp agreement,
+   survivor Spearman), on the policy grid and on a grid of equal float32
+   intervals (0.25 apart, T = 200), and one through ``method="adaptive"`` (dopri5, 8
+   steps per interval: #7's wide instance); #6 and #7 wide against their
+   plain versions on every lane at T = 4, each one's events, device time
+   and bound at T = 250; ``StirredTankReactor(n_targets=3)`` (static, 512 x
+   16, T = 6) through #6 and #7 wide against plain; the static Acrobot on
+   2,048 trajectories (1,024 policies, T = 250, xs 8.4 GB) through #6's
+   fixed instance (a candidate spans 16 blocks), against plain at T = 4;
+   and the wide and fixed instances side by side on phase 13's static and
+   dynamic shapes: every lane bit-equal, then device time in turns.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last lines are a JSON line of per-kernel numbers, the card's name and
@@ -252,18 +270,19 @@ from concurrent.futures import ThreadPoolExecutor
 FULL = dict(islands=8, pop=512, max_nodes=32, depth=4, batch=16, horizon=10.0, dt=0.2,
             generations=5, timing_runs=5, plain_runs=1,
             fit_generations=20, top_k=50, gradient_steps=10, elite=0.1, interp_runs=20,
-            adaptive_budget=500, adaptive_interval_steps=32, adaptive_short_t=10,
+            adaptive_budget=500, adaptive_check_budget=40, adaptive_interval_steps=32, adaptive_short_t=10,
             adaptive_opt_steps=2,
             policy_horizon=50.0, policy_nodes=30, policy_substeps=4, policy_adaptive_substeps=8,
-            policy_fixed_t=14, policy_adaptive_t=6, legs_pop=512, legs_t=6, trig_adaptive_t=4,
+            policy_fixed_t=8, policy_adaptive_t=6, legs_pop=512, legs_t=6, trig_adaptive_t=4,
             policy_opt_top_k=8, policy_opt_steps=2, policy_opt_t=60,
             noise=0.05, noisy_adaptive_t=6, ab_runs=10, probe_reps=256,
             deep_nodes=256, deep_depth=7, deep_pop=256, deep_t=6, deep_rep_pop=512, deep_policy_t=2,
-            deep_adaptive_t=4, deep_adaptive_budget=8, deep_interval_steps=8,
-            wide_nodes=2048, wide_depth=10, wide_generations=3, wide_check_nodes=(512, 1024, 2048, 4096),
+            deep_adaptive_t=4, deep_adaptive_budget=8, deep_interval_steps=4,
+            wide_nodes=2048, wide_depth=10, wide_generations=3, wide_check_nodes=(512, 1024, 2048, 3072),
             lorenz_states=40, lorenz_forcing=8.0, lorenz_depth=2, lorenz_dt=0.05, ext_chain_nodes=1024,
             wide_batch=2048, wide_check_t=6, wide_check_budget=8, wide_check_interval_steps=4,
-            deep_gen_nodes=128,
+            deep_gen_nodes=128, wide_policy_states=8, wide_policy_generations=3, wide_policy_check_t=4,
+            wide_policy_pop=1024, wide_policy_runs=3, wide_policy_exact_dt=0.25,
             deep_gen_depth=7, chain_k=10, shard_generations=15,
             example_sizes=None, example_t=None, example_check_t=11, example_check_adaptive_t=4, example_check_budget=40)
 KERNELS = ("sr_fitness", "reproduce", "interpreter", "sr_adaptive", "sr_rollout",
@@ -271,8 +290,9 @@ KERNELS = ("sr_fitness", "reproduce", "interpreter", "sr_adaptive", "sr_rollout"
 # the sources with an extended build (the tree kernels: #1, #3-#9), phase 24's
 EXTENDED_KERNELS = ("sr_fitness", "interpreter", "sr_adaptive", "sr_rollout", "policy")
 SHARDED_KERNELS = ("sr_fitness", "reproduce", "interpreter")  # phase 22's path
-# the sources with a wide-state build (#1, #3, #4/#5; phase 27's path)
-WIDE_KERNELS = ("sr_fitness", "sr_rollout", "sr_adaptive")
+# the sources with a wide-state build (#1, #3, #4/#5; phase 27's path; #6/#7,
+# phase 28's)
+WIDE_KERNELS = ("sr_fitness", "sr_rollout", "sr_adaptive", "policy")
 # the wide instances' rows of the kernels line: (name, source, TPU kernel)
 WIDE_ROWS = (("sr_fitness_wide", "sr_fitness.cu", "multitreegp_tpu/core/pallas_rollout.py:279"),
              ("sr_rollout_wide", "sr_rollout.cu", "multitreegp_tpu/core/pallas_rollout.py:163"),
@@ -592,6 +612,7 @@ def run(device, sizes=FULL) -> dict:
     out.update(user_phase(device, s, data, trees, fset, ps))
     out.update(vocabulary_phase(device, s, data, trees, fset))
     out.update(many_phase(device, s, data, trees, fset))
+    out.update(wide_policy_phase(device, s, ps))
 
     # -- the kernels line --------------------------------------------------------
     times = out.get("times_ms", {})
@@ -799,6 +820,13 @@ def run(device, sizes=FULL) -> dict:
         out["kernels"].append(row(name, source, replaces, k.pop("launches"), k.pop("max_abs_err"),
                                   k.pop("ms"), k.pop("plain_ms"), k.pop("bound"), **k))
     out["kernels"][-4]["trajectories"] = out["trajectories"]
+    wp = out["wide_policy"]
+    for name, replaces in (("policy_wide", "multitreegp_tpu/core/pallas_policy.py:120"),
+                           ("policy_adaptive_wide", "multitreegp_tpu/core/pallas_policy.py:691")):
+        k = dict(wp["kernels"][name])  # phase 28: the wide-state instances on their paths
+        out["kernels"].append(row(name, "policy.cu", replaces, k.pop("launches"), k.pop("max_abs_err"),
+                                  k.pop("ms"), k.pop("plain_ms"), k.pop("bound"), **k))
+    next(k for k in out["kernels"] if k["name"] == "policy")["trajectories"] = wp["trajectories"]
     pb = out["probe"]
     always = pb["modes"]["always"]
     out["kernels"].append(
@@ -1323,7 +1351,8 @@ def adaptive_kernels_phase(device, s, trees, fset, x0s, ts_full, ys_full) -> dic
     budget, per_interval = s["adaptive_budget"], s["adaptive_interval_steps"]
     grid = lambda t: (ts_full[:t], ys_full[:, :t].contiguous())
     cases = [
-        ("global", t_short, ca.sr_fitness_adaptive_global_cuda, ca.sr_fitness_adaptive_global_plain, budget),
+        ("global", t_short, ca.sr_fitness_adaptive_global_cuda, ca.sr_fitness_adaptive_global_plain,
+         s["adaptive_check_budget"]),
         ("global", t_long, ca.sr_fitness_adaptive_global_cuda, ca.sr_fitness_adaptive_global_plain, budget),
         ("interval", t_short, ca.sr_fitness_adaptive_interval_cuda, ca.sr_fitness_adaptive_interval_plain,
          per_interval),
@@ -1837,6 +1866,24 @@ def policy_adaptive_ops(trees, fset, state_size, d_aug, steps, t_steps, env_ops)
     return float((steps * per_step + drift_rows + env_ops + t_steps * readout_rows).sum())
 
 
+def policy_bound(kind, out, trees, fset, state_size, data, substeps):
+    """``(bound, operations, bytes)`` of a #6 (``kind`` "fixed") or #7 run
+    on Acrobot data ``data`` that returned ``out``: its inputs read and its
+    outputs written once, its operations counted from its alive counts
+    (#6) or attempted steps (#7)."""
+    x0, ts, tgt, _, _, par = data
+    t_steps = ts.shape[0]
+    count = out[2].sum(0)
+    nb = (nbytes(trees.ops, trees.const, x0, tgt, ts, *par) + nbytes(out[0], out[1])
+          + count.numel() * 4 * (2 if kind == "adaptive" else 1))
+    d_aug = out[0].shape[-1]
+    if kind == "fixed":
+        ops = policy_fixed_ops(trees, fset, state_size, d_aug, count, t_steps, substeps, ACROBOT_DRIFT_OPS)
+    else:
+        ops = policy_adaptive_ops(trees, fset, state_size, d_aug, out[3], t_steps, ACROBOT_DRIFT_OPS)
+    return bound(nb, ops), ops, nb
+
+
 def policy_path_phase(device, s, ps) -> dict:
     """Phase 13: the control paths at full width through the user's entry
     points: 5 generations of the host loop (``evaluate_population`` +
@@ -1996,18 +2043,9 @@ def policy_times(device, s, ps) -> dict:
                 device_ms = kernel_device_ms([(kind, fn, kernel)], s["timing_runs"], torch)[kind]
             out = fn()
             count = out[2].sum(0)
-            in_bytes = nbytes(trees.ops, trees.const, x0, tgt, ts, *par)
-            out_bytes = nbytes(out[0], out[1]) + count.numel() * 4 * (2 if kind == "adaptive" else 1)
-            d_aug = out[0].shape[-1]
-            if kind == "fixed":
-                ops = policy_fixed_ops(trees, fset, ss, d_aug, count, t_steps, s["policy_substeps"],
-                                       ACROBOT_DRIFT_OPS)
-            else:
-                ops = policy_adaptive_ops(trees, fset, ss, d_aug, out[3], t_steps, ACROBOT_DRIFT_OPS)
-            bnd = bound(in_bytes + out_bytes, ops)
+            bnd, ops, nb = policy_bound(kind, out, trees, fset, ss, ps["data"], s["policy_substeps"])
             r = res[f"{kind}_{name}"] = dict(ms=ms, device_ms=device_ms, bound_ms=bnd[0], bound_by=bnd[1],
-                                             ops=ops, bytes=in_bytes + out_bytes,
-                                             alive=float(out[2][-1].float().mean()))
+                                             ops=ops, bytes=nb, alive=float(out[2][-1].float().mean()))
             if kind == "adaptive":
                 st = out[3].float()
                 r.update(steps_min=int(st.min()), steps_median=float(st.median()), steps_max=int(st.max()))
@@ -2018,7 +2056,7 @@ def policy_times(device, s, ps) -> dict:
                            + (f", attempted steps per lane min {r['steps_min']} median "
                               f"{r['steps_median']:.0f} max {r['steps_max']}" if kind == "adaptive" else "")
                            + f"; bound {bnd[0]:.4f} ms by {bnd[1]} ({ops:.4e} operations, "
-                           f"{(in_bytes + out_bytes) / 1e6:.1f} MB)")
+                           f"{nb / 1e6:.1f} MB)")
     return {"policy_times_ms": res}
 
 
@@ -2335,7 +2373,7 @@ def deep_phase(device, s, ps) -> dict:
     rows against their plain versions. #1: 256 candidates of 2 trees of 256
     rows grown to depth 7, the first three chains of 255, 127 and 63 rows
     (the deepest stacks), x 16 VdP trajectories at T = 6, RK4 and Euler x 4
-    with kick rows; #3 on the same lanes, RK4; #5 (budget 8) and #4 (8 steps per interval), dopri5, on
+    with kick rows; #3 on the same lanes, RK4; #5 (budget 8) and #4 (4 steps per interval), dopri5, on
     the same lanes at T = 4; #2: one island's 462 lanes of those parents, fresh trees
     at depth 7; #6 on 256 dynamic Acrobot policies (RK4 x 2) and #7 on 256
     static ones (dopri5, 8 steps per interval), of 256 rows grown and
@@ -2625,7 +2663,7 @@ def wide_phase(device, s, data) -> dict:
     their plain versions, every lane bit-equal, in the recompute's layout (16
     trajectories a tree) and with one data vector a tree: at 512 and 1024
     rows (the fixed instance) on chains of N - 1, 127 and 63 rows; at 2048
-    and 4096 rows (the wide one) the roots on chains of N - 1 rows (one the
+    and 3072 rows (the wide one) the roots on chains of N - 1 rows (one the
     zigzag whose second operands reach row N - 3), and roots and cotangents
     on chains of 1023 rows (one the zigzag) in trees of N rows (the plain
     VJP's time grows with the square of its rows; ``pytest -m cuda``'s
@@ -4249,6 +4287,17 @@ def zeroed(counters) -> dict:
     return counters
 
 
+def counted_run(fn, counters, device):
+    """``(fn(), host ms, {name: launches})``: every counter zeroed before the
+    call and read after it."""
+    zeroed(counters)
+    sync(device)
+    t0 = time.perf_counter()
+    value = fn()
+    sync(device)
+    return value, (time.perf_counter() - t0) * 1e3, {k: c.launches for k, c in counters.items()}
+
+
 def wide_state_phase(device, s, gp, flat, lorenz, counters) -> dict:
     """Phase 27's wide-state kernels on Lorenz-96's last population (40
     states, 4096 candidates x 16 trajectories): one evaluation through the
@@ -4276,13 +4325,7 @@ def wide_state_phase(device, s, gp, flat, lorenz, counters) -> dict:
     p, d, t_steps = flat.ops.shape[0], x0s.shape[1], ts.shape[0]
     top = ev.max_fitness
 
-    def counted(fn):
-        zeroed(counters)
-        sync(device)
-        t0 = time.perf_counter()
-        value = fn()
-        sync(device)
-        return value, (time.perf_counter() - t0) * 1e3, {k: c.launches for k, c in counters.items()}
+    counted = lambda fn: counted_run(fn, counters, device)
 
     # the fused path against the general one on the same population
     fused, fused_ms, l_fused = counted(lambda: ev.evaluate_population(flat, lorenz))
@@ -4471,6 +4514,225 @@ def trajectories_phase(device, s, trees, fset, data, counters) -> dict:
                   f"fixed vs wide at d=2 (device ms, in turns) {out['fixed_vs_wide']['device_ms']}; " if on_card else "")
                + f"bound {bnd[0]:.6f} ms ({bnd[1]})")
     return out
+
+
+def wide_policy_phase(device, s, ps) -> dict:
+    """Phase 28: the policy kernels past two hidden states, two targets and
+    1024 trajectories. The dynamic Acrobot with ``wide_policy_states`` (8)
+    hidden states at phase 13's shape (``ps``, :func:`policy_setup`): 3
+    generations of the host loop (#6 wide, #2), the last population through
+    the general path (``interpreter="gather"``: #8) beside the fused one, on
+    the policy grid (clamp agreement >= 0.999; #6 steps the whole grid with
+    ``ts[1] - ts[0]``, the integrator each interval with its own float32
+    span, so long chaotic rollouts part) and on a grid of equal float32
+    intervals ``wide_policy_exact_dt`` apart over the same horizon, judged
+    as ROADMAP.md's rule for long chaotic rollouts (clamp agreement 1.0,
+    survivor Spearman >= 0.997), and through ``method="adaptive"`` (dopri5,
+    ``policy_adaptive_substeps`` steps per interval: #7 wide); #6 and #7
+    wide against their plain versions on every lane at ``wide_policy_check_t``
+    save points; each one's events, device time and bound at T = 250 (#7
+    timed once). ``StirredTankReactor(n_targets=3)`` through #6 and #7 wide
+    at phase 12's leg shape. The static Acrobot on ``wide_batch`` (2,048)
+    trajectories with ``wide_policy_pop`` (1,024) policies at T = 250
+    through #6's fixed instance, against plain at the cut horizon. The wide
+    and fixed instances on phase 13's static and dynamic shapes: bit-equal,
+    then device time in turns (fixed, wide, wide, fixed)."""
+    import torch
+
+    from multitreegp_tpu_torch import GeneticProgramming
+    from multitreegp_tpu_torch.core import cuda_interpreter as ci
+    from multitreegp_tpu_torch.core import cuda_policy as cp
+    from multitreegp_tpu_torch.core import cuda_reproduction as cr
+    from multitreegp_tpu_torch.core.registry import build_function_set
+    from multitreegp_tpu_torch.models.environments import StirredTankReactor
+    from multitreegp_tpu_torch.models.evaluators import (
+        DynamicPolicyEvaluator, StaticPolicyEvaluator, generate_control_data,
+    )
+    from multitreegp_tpu_torch.ops.initialization import make_population_sampler
+
+    t0 = time.perf_counter()
+    on_card = device.type == "cuda"
+    env, data = ps["env"], ps["data"]
+    x0, ts, tgt, _, _, par = data
+    t_steps, b, n, ss = ts.shape[0], s["batch"], s["policy_nodes"], s["wide_policy_states"]
+    sub, budget, t_cut = s["policy_substeps"], s["policy_adaptive_substeps"], s["wide_policy_check_t"]
+    counters = dict(policy=cp.policy_rollout_cuda, policy_adaptive=cp.policy_rollout_adaptive_cuda,
+                    policy_wide=cp.policy_rollout_wide_cuda,
+                    policy_adaptive_wide=cp.policy_rollout_adaptive_wide_cuda,
+                    reproduce=cr.reproduce_lanes_cuda, interpret_fwd=ci.evaluate_trees_cuda)
+    counted = lambda fn: counted_run(fn, counters, device)
+    hidden = [f"a{i}" for i in range(ss)]
+    ev = DynamicPolicyEvaluator(env, state_size=ss, substeps=sub)
+    gp = GeneticProgramming(
+        num_generations=s["wide_policy_generations"], population_size=s["pop"], fitness_function=ev,
+        operator_list=POLICY_OPERATORS,
+        variable_list=[[f"y{i}" for i in range(env.n_obs)] + hidden + ["u0"], hidden],
+        layer_sizes=[ss, env.n_control], num_populations=s["islands"], max_nodes=n,
+        max_init_depth=s["depth"], device=device)
+    fset = gp.fset
+    r = loop_generations(gp, data, device, s["wide_policy_generations"], 28, counters)
+    for i, gen in enumerate(r["generations"]):
+        e, evo = gen["eval_launches"], gen["evolve_launches"]
+        if on_card:
+            check(e["policy_wide"] == 1 and e["policy"] == 0 and e["interpret_fwd"] == 0
+                  and evo["reproduce"] >= 1, f"phase 28 gen {i} launches {e} {evo}")
+        phase_line(f"phase 28 dynamic Acrobot ({ss} hidden states, {s['islands']}x{s['pop']} policies of "
+                   f"{ss + 1} trees x {b} trajectories, T={t_steps}) gen {i}: eval {gen['eval_ms']:.3f} ms, "
+                   f"evolve {gen['evolve_ms']:.3f} ms, best fitness {gen['best']:.6g}; launches in evaluate {e}")
+    flat = r["pops"].map(lambda a: a.reshape((-1,) + a.shape[2:]))
+    p = flat.ops.shape[0]
+
+    # the fused path against the general one on the last population: on the
+    # policy grid, where #6 takes one step size for the whole grid (ts[1] -
+    # ts[0]) and the integrator one per interval (arange's float32 intervals
+    # differ by ulps), and on a grid of equal float32 intervals over the same
+    # horizon, where both take the same steps
+    general_ev = DynamicPolicyEvaluator(env, fset, state_size=ss, substeps=sub, interpreter="gather")
+    top = ev.max_fitness
+    exact_ts = torch.arange(0.0, s["policy_horizon"], s["wide_policy_exact_dt"], device=device)
+    fvg = {}
+    for grid, d in (("policy_grid", data), ("exact_grid", (x0, exact_ts) + data[2:])):
+        fused, fused_ms, l_fused = counted(lambda: ev.evaluate_population(flat, d))
+        general, general_ms, l_general = counted(lambda: general_ev.evaluate_population(flat, d))
+        if on_card:
+            check(l_fused["policy_wide"] == 1 and l_fused["interpret_fwd"] == 0, f"fused {l_fused}")
+            check(l_general["policy_wide"] == 0
+                  and l_general["interpret_fwd"] >= (d[1].shape[0] - 1) * sub * 4, f"general {l_general}")
+        clamp = float(((fused >= top) == (general >= top)).float().mean())
+        surv = (fused < top) & (general < top)
+        rho = spearman(fused[surv], general[surv]) if int(surv.sum()) > 1 else 1.0
+        rel = ((fused - general).abs() / general.abs().clamp(min=1e-30))[surv]
+        fvg[grid] = r_ = dict(
+            candidates=p, t_steps=d[1].shape[0], clamp_agreement=clamp, survivors=int(surv.sum()), spearman=rho,
+            max_rel=float(rel.max()) if rel.numel() else 0.0,
+            rel_over_1e3=float((rel > 1e-3).float().mean()) if rel.numel() else 0.0,
+            fused_ms=fused_ms, general_ms=general_ms, launches_fused=l_fused, launches_general=l_general)
+        phase_line(f"phase 28 fused (#6 wide) vs general path (#8), {grid} (T={r_['t_steps']}), {p} policies: "
+                   f"clamp agreement {clamp:.6f}, {r_['survivors']} survivors, Spearman {rho:.8f}, max rel "
+                   f"{r_['max_rel']:.3e} ({r_['rel_over_1e3']:.4f} of survivors past 1e-3); evaluation "
+                   f"{fused_ms:.1f} ms fused, {general_ms:.1f} ms general")
+    check(fvg["policy_grid"]["clamp_agreement"] >= 0.999, f"phase 28 fused vs general: {fvg['policy_grid']}")
+    check(fvg["exact_grid"]["clamp_agreement"] == 1.0 and fvg["exact_grid"]["spearman"] >= 0.997,
+          f"phase 28 fused vs general on equal intervals: {fvg['exact_grid']}")
+    ev_ad = DynamicPolicyEvaluator(env, fset, state_size=ss, method="adaptive", adaptive_method="dopri5",
+                                   substeps=budget)
+    fit_ad, ad_ms, l_ad = counted(lambda: ev_ad.evaluate_population(flat, data))
+    check(bool(torch.isfinite(fit_ad).all()) and bool(((fit_ad >= 0) & (fit_ad <= top)).all()),
+          "phase 28 adaptive fitness outside [0, max]")
+    if on_card:
+        check(l_ad["policy_adaptive_wide"] == 1 and l_ad["interpret_fwd"] == 0, f"adaptive {l_ad}")
+    phase_line(f"phase 28 adaptive evaluation (dopri5, {budget} per interval): {ad_ms:.1f} ms, best "
+               f"{float(fit_ad.min()):.6g}, launches {l_ad}")
+
+    # #6 and #7 wide against plain at the cut horizon, then at T = 250
+    kernels = {}
+    for kind, key in (("fixed", "policy_wide"), ("adaptive", "policy_adaptive_wide")):
+        (res, launches) = counted(lambda: policy_pair(device, kind, flat, data, env, fset, ss, t_cut, sub))[::2]
+        if on_card:
+            check(launches[key] == 1, f"phase 28 {key} check launches {launches}")
+        kernels[key] = dict(check=res, max_abs_err=res["max_abs_err"], plain_ms=res["plain_ms"],
+                            plain_t_steps=t_cut)
+        phase_line(f"phase 28 #{6 if kind == 'fixed' else 7} wide vs plain, {ss} hidden states, T={t_cut}, "
+                   f"{res['lanes']} lanes: identical {res['identical']:.6f}, max abs {res['max_abs_err']:.3e}, "
+                   f"alive {res['alive']:.4f}; plain {res['plain_ms']:.1f} ms")
+    full6 = (flat, x0, ts, tgt, par, env, fset, sub, "rk4", ss)
+    full7 = (flat, x0, ts, tgt, par, env, fset, 1e-4, 1e-4, budget, "dopri5", 0.9, ss)
+    shapes = dict(policy_wide=("fixed", lambda: cp.rollout_policy(*full6), "policy_wide_kernel",
+                               s["wide_policy_runs"]),
+                  policy_adaptive_wide=("adaptive", lambda: cp.rollout_policy_adaptive(*full7, return_steps=True),
+                                        "policy_adaptive_wide_kernel", 1))
+    for key, (kind, fn, kernel, runs) in shapes.items():
+        k = kernels[key]
+        k.update(t_steps=t_steps, ms=None, device_ms=None, runs=runs)
+        if on_card:
+            k["ms"] = cuda_time_ms(fn, runs, torch)
+            k["device_ms"] = kernel_device_ms(((key, fn, kernel),), runs, torch)[key]
+        out = fn()
+        bnd, ops, nb = policy_bound(kind, out, flat, fset, ss, data, sub)
+        k.update(bound=bnd, ops=ops, bytes=nb, alive=float(out[2][-1].float().mean()))
+        if kind == "adaptive":
+            st = out[3].float()
+            k.update(steps_min=int(st.min()), steps_median=float(st.median()), steps_max=int(st.max()))
+        phase_line(f"phase 28 #{6 if kind == 'fixed' else 7} wide T={t_steps}, {out[2][0].numel()} lanes: "
+                   + (f"{k['ms']:.3f} ms events (median of {runs}), device {k['device_ms']:.4f} ms a launch; "
+                      if on_card else "") + f"alive {k['alive']:.4f}; bound {bnd[0]:.4f} ms by {bnd[1]} "
+                   f"({ops:.4e} operations, {nb / 1e6:.1f} MB)")
+    kernels["policy_wide"]["launches"] = sum(g["eval_launches"]["policy_wide"] for g in r["generations"])
+    kernels["policy_adaptive_wide"]["launches"] = l_ad["policy_adaptive_wide"]
+
+    # three targets: the reactor, static, at phase 12's leg shape
+    g = torch.Generator(device=device).manual_seed(282)
+    reactor = StirredTankReactor(n_targets=3)
+    names = [f"y{i}" for i in range(reactor.n_obs)] + [f"tgt{i}" for i in range(reactor.n_targets)]
+    fset3 = build_function_set(POLICY_OPERATORS, [names], [reactor.n_control])
+    ts3 = torch.arange(s["legs_t"], dtype=torch.float32, device=device) * s["dt"]
+    data3 = generate_control_data(reactor, g, ts3, batch_size=b, param_mode="Different")
+    trees3 = make_population_sampler(fset3, s["depth"], n)(g, s["legs_pop"])[0]
+    targets3 = {}
+    for kind, key in (("fixed", "policy_wide"), ("adaptive", "policy_adaptive_wide")):
+        res, _ms, launches = counted(lambda: policy_pair(device, kind, trees3, data3, reactor, fset3, 0,
+                                                         s["legs_t"], 2))
+        if on_card:
+            check(launches[key] == 1, f"phase 28 reactor {key} launches {launches}")
+        targets3[kind] = res
+        kernels[key]["three_targets"] = dict(identical=res["identical"], lanes=res["lanes"], t_steps=s["legs_t"])
+        phase_line(f"phase 28 #{6 if kind == 'fixed' else 7} wide, StirredTankReactor with 3 targets, "
+                   f"{res['lanes']} lanes, T={s['legs_t']}: identical {res['identical']:.6f}; alive {res['alive']:.4f}")
+
+    # 2,048 trajectories: the static Acrobot through #6's fixed instance
+    trees_s, fset_s = ps["trees"]["static"][: s["wide_policy_pop"]], ps["fsets"]["static"]
+    data_b = generate_control_data(env, g, ts, batch_size=s["wide_batch"])
+    ev_s = StaticPolicyEvaluator(env, fset_s, substeps=sub)
+    fit_b, eval_b_ms, l_b = counted(lambda: ev_s.evaluate_population(trees_s, data_b))
+    check(bool(torch.isfinite(fit_b).all()), "phase 28 B=2048: non-finite fitness")
+    if on_card:
+        check(l_b["policy"] == 1 and l_b["policy_wide"] == 0 and l_b["interpret_fwd"] == 0,
+              f"phase 28 B=2048 launches {l_b}")
+    res_b = policy_pair(device, "fixed", trees_s, data_b, env, fset_s, 0, t_cut, sub)
+    many = dict(policies=trees_s.ops.shape[0], trajectories=s["wide_batch"], eval_ms=eval_b_ms, launches=l_b,
+                check=res_b, ms=None, device_ms=None)
+    if on_card:
+        fn = lambda: cp.rollout_policy(trees_s, *data_b[:3], data_b[5], env, fset_s, sub, "rk4", 0)
+        many["ms"] = cuda_time_ms(fn, 1, torch)
+        many["device_ms"] = kernel_device_ms((("b2048", fn, "policy_kernel"),), 1, torch)["b2048"]
+    phase_line(f"phase 28 static Acrobot at {s['wide_batch']} trajectories ({res_b['lanes']} lanes): evaluation "
+               f"{eval_b_ms:.1f} ms at T={t_steps}, launches {l_b}; #6 (fixed instance) vs plain at T={t_cut}: "
+               f"identical {res_b['identical']:.6f}, plain {res_b['plain_ms']:.1f} ms"
+               + (f"; #6 T={t_steps} {many['ms']:.3f} ms events, device {many['device_ms']:.4f} ms"
+                  if on_card else ""))
+
+    # the wide and fixed instances on phase 13's shapes
+    side = {}
+    if on_card:
+        for name in ("static", "dynamic"):
+            trees, fs, ss2 = ps["trees"][name], ps["fsets"][name], ps["state_size"][name]
+            a6 = (trees, x0, ts, tgt, par, env, fs, sub, "rk4", ss2)
+            a7 = (trees, x0, ts, tgt, par, env, fs, 1e-4, 1e-4, budget, "dopri5", 0.9, ss2)
+            pairs = (("fixed", lambda: cp.policy_rollout_cuda(*a6), "policy_kernel"),
+                     ("wide", lambda: cp.policy_rollout_wide_cuda(*a6), "policy_wide_kernel"),
+                     ("adaptive_fixed", lambda: cp.policy_rollout_adaptive_cuda(*a7), "policy_adaptive_kernel"),
+                     ("adaptive_wide", lambda: cp.policy_rollout_adaptive_wide_cuda(*a7),
+                      "policy_adaptive_wide_kernel"))
+            same6 = compare_policy(pairs[1][1](), pairs[0][1]())["identical"]
+            same7 = compare_policy(pairs[3][1](), pairs[2][1]())["identical"]
+            turns = in_turns(pairs, s["wide_policy_runs"], torch)
+            side[name] = dict(bit_equal_fixed=same6, bit_equal_adaptive=same7, device_ms=turns)
+            phase_line(f"phase 28 wide vs fixed, {name} (state_size {ss2}), T={t_steps}: every lane bit-equal "
+                       f"(#6 {same6:.6f}, #7 {same7:.6f}); device ms in turns (fixed, wide, wide, fixed) "
+                       + "; ".join(f"{k_} {[round(v, 4) for v in vs]}" for k_, vs in turns.items()))
+    kernels["policy_wide"]["fixed_vs_wide"] = {k_: dict(bit_equal=v["bit_equal_fixed"],
+                                                        device_ms={t: v["device_ms"][t] for t in ("fixed", "wide")})
+                                               for k_, v in side.items()}
+    kernels["policy_adaptive_wide"]["fixed_vs_wide"] = {
+        k_: dict(bit_equal=v["bit_equal_adaptive"],
+                 device_ms={t: v["device_ms"][f"adaptive_{t}"] for t in ("fixed", "wide")})
+        for k_, v in side.items()}
+    seconds = time.perf_counter() - t0
+    phase_line(f"phase 28 took {seconds:.1f} s")
+    return {"wide_policy": dict(generations=r["generations"], fused_vs_general=fvg,
+                                adaptive=dict(ms=ad_ms, launches=l_ad, best=float(fit_ad.min())),
+                                kernels=kernels, three_targets=targets3, trajectories=many,
+                                fixed_vs_wide=side, seconds=seconds)}
 
 
 def sync(device) -> None:

@@ -26,9 +26,10 @@ it always ran; the others are made at the first use of a set that needs
 them. Each of the three has a wide-state form (:func:`widened`: its flags
 and ``-DMTGP_WIDE_STATE``, the library ``<name>..._wide``) in which the SR
 sources (``sr_fitness``, ``sr_rollout``, ``sr_adaptive``) compile their
-instance for any state dim and trajectory count instead of the fixed ones
-(``csrc/tree_prog_wide.cuh``), made at the first use of a configuration the
-fixed instances do not take.
+instance for any state dim and trajectory count, and ``policy`` its
+instance for any hidden state and number of targets, instead of the fixed
+ones (``csrc/tree_prog_wide.cuh``), made at the first use of a
+configuration the fixed instances do not take.
 """
 from __future__ import annotations
 
@@ -81,8 +82,9 @@ def user_variant(header: str) -> Variant:
 
 def widened(variant: Union[bool, "Variant"]) -> Variant:
     """The wide-state form of ``variant`` (the SR sources' instance for any
-    state dim and trajectory count): its flags and ``-DMTGP_WIDE_STATE``,
-    its suffix and ``_wide``, its header."""
+    state dim and trajectory count, the policy source's for any hidden state
+    and number of targets): its flags and ``-DMTGP_WIDE_STATE``, its suffix
+    and ``_wide``, its header."""
     variant = as_variant(variant)
     return Variant(variant.suffix + "_wide", variant.flags + WIDE_FLAGS, variant.header)
 

@@ -25,11 +25,19 @@ tgt])`` inside the loop, ``da = state_trees([y, a, u, tgt])``. The controls
 at the save points see real observations (``u`` zero-fed).
 
 CUDA tensors launch the kernel, or raise where it does not apply (an
-operator outside ``DEVICE_OPS``, ``N > 256``, ``state_size > 2``, more than
-two targets, an environment without a device drift, process noise with a
-method other than euler, series parameters in the adaptive kernel); CPU
-tensors run the plain version, which computes what the kernel computes in
-plain PyTorch, in its float32 expression order. Nothing falls back.
+operator outside ``DEVICE_OPS``, ``N > 256``, a candidate's decoded program
+past a block's shared memory (:func:`policy_lanes_refusal`), an environment
+without a device drift, process noise with a method other than euler,
+series parameters in the adaptive kernel); CPU tensors run the plain
+version, which computes what the kernel computes in plain PyTorch, in its
+float32 expression order. Nothing falls back. Each kernel has fixed
+instances (``state_size <= 2``, at most two targets: :func:`takes_fixed`)
+for any number of trajectories, and a wide-state instance for any hidden
+state and number of targets (``csrc/tree_prog_wide.cuh``, the ``_wide``
+builds): :func:`policy_rollout_wide_cuda` and
+:func:`policy_rollout_adaptive_wide_cuda`, with a scratch buffer of lane
+vectors that the wrapper allocates, split into launches of at most
+``cuda_rollout.SCRATCH_BYTES``.
 
 :class:`PolicyRollout` is the counterpart of the policy evaluators'
 ``custom_vjp``: the forward is a dispatcher, the backward differentiates the
@@ -52,7 +60,10 @@ from ..models.environments.control_envs import (
 from ..models.integrators import ERROR_EXPONENT, _f32, _f32_expr, finite, substep_time
 from .cuda_adaptive import CHECK_EVERY, CROSS, DT_DEAD, DT_MIN, _rk_step, _step_factor
 from .cuda_adaptive import METHODS as ADAPTIVE_METHODS
-from .cuda_rollout import METHODS, RK_TABLES, SHARED_BYTES, THREADS_PER_BLOCK, rollout_step
+from .cuda_rollout import (
+    BLOCK_SHARED_BYTES, METHODS, RK_TABLES, SHARED_BYTES, THREADS_PER_BLOCK, program_bytes,
+    rollout_step, wide_cpb, wide_launches,
+)
 from .interpreter import evaluate_trees_plain
 from .registry import FunctionSet
 from .trees import TreeTensors
@@ -62,9 +73,18 @@ ENV_IDS = {HarmonicOscillator: 0, ChangingHarmonicOscillator: 1, HarmonicOscilla
            CartPole: 3, Acrobot: 4, Acrobot2: 5, StirredTankReactor: 6}
 FIXED, ADAPTIVE = 0, 1  # csrc/policy.cu Kind
 MAX_NODES = 256  # kMaxNodes
-MAX_STATE_SIZE = 2  # kMaxStateSize: template instances
-MAX_TARGETS = 2  # kMaxTargets: data slots
-MAX_TRAJECTORIES = 1024  # B lanes of one candidate share a block
+# The fixed instances take state_size <= 2 (kMaxStateSize, their template
+# instances), at most two targets (kMaxTargets, their data slots) and a data
+# vector within tree_prog.cuh's 6-bit slot; a candidate's trajectories span
+# gridDim.y blocks of at most 128, so any number. Past these the wide
+# instance runs.
+FIXED_STATE_SIZE = 2
+FIXED_TARGETS = 2
+FIXED_SLOTS = 63
+# the wide instance's lane vectors of latent + state_size floats per lane, by
+# kind (csrc/policy.cu kFixedWideVectors, kAdaptiveWideVectors); the data
+# vector's floats follow them
+WIDE_VECTORS = {FIXED: 5, ADAPTIVE: 10}
 
 
 def _leaves(params) -> Tuple[torch.Tensor, ...]:
@@ -300,12 +320,18 @@ class _Args(ctypes.Structure):
                 + [(f, ctypes.c_float) for f in _ARG_FLOATS])
 
 
+def data_width(env, state_size: int, n_targets: int) -> int:
+    """Length of the kernels' data vector ``[y (latent), a (state_size), u
+    (n_control), targets (n_targets)]``."""
+    return env.latent_size + state_size + env.n_control + n_targets
+
+
 def data_slots(env, fset: FunctionSet, state_size: int) -> torch.Tensor:
     """int32 slot of every variable in the kernels' data vector ``[y
-    (latent), a (state_size), u (n_control), targets (2)]``: the policy's
-    variables are ``[y (n_obs), tgt]`` (static) or ``[y, a, u, tgt]``
-    (dynamic); a variable past that width gets the slot past the vector,
-    which reads 0."""
+    (latent), a (state_size), u (n_control), targets (n_targets)]``: the
+    policy's variables are ``[y (n_obs), tgt]`` (static) or ``[y, a, u,
+    tgt]`` (dynamic); a variable past that width gets the slot past the
+    vector, which reads 0."""
     latent, nc, n_obs, nt = env.latent_size, env.n_control, env.n_obs, env.n_targets
     width = n_obs + (state_size + nc if state_size else 0) + nt
     slots = []
@@ -319,8 +345,32 @@ def data_slots(env, fset: FunctionSet, state_size: int) -> torch.Tensor:
         elif v < width:
             slots.append(latent + state_size + nc + v - (width - nt))
         else:
-            slots.append(latent + state_size + nc + MAX_TARGETS)
+            slots.append(data_width(env, state_size, nt))
     return torch.tensor(slots, dtype=torch.int32)
+
+
+def takes_fixed(env, state_size: int, n_targets: int) -> bool:
+    """Whether the fixed instances take ``state_size`` hidden states and
+    ``n_targets`` targets (else the wide instance runs): their template
+    instances, their target slots, and every data slot (the zero slot past
+    the vector included) within ``tree_prog.cuh``'s 6-bit field."""
+    return (state_size <= FIXED_STATE_SIZE and n_targets <= FIXED_TARGETS
+            and data_width(env, state_size, n_targets) <= FIXED_SLOTS)
+
+
+def policy_lanes_refusal(m: int, n: int) -> Optional[str]:
+    """Why the policy kernels (#6, #7) do not take candidates of ``m`` trees
+    of ``n`` rows, or None when they do, from the configuration alone (the
+    evaluators' gate; on the CPU too): ``N <= 256``, and one candidate's
+    decoded program within a block's shared memory. Any hidden state, number
+    of targets and number of trajectories run, the wide instance past the
+    fixed ones (:func:`takes_fixed`)."""
+    if n > MAX_NODES:
+        return f"max_nodes {n} > {MAX_NODES}, the policy kernels' limit"
+    if program_bytes(m, n) > BLOCK_SHARED_BYTES:
+        return (f"one candidate's {m} trees of {n} rows take {program_bytes(m, n)} B of decoded "
+                f"rows > the {BLOCK_SHARED_BYTES} B of shared memory a block holds")
+    return None
 
 
 def check_policy(trees: TreeTensors, x0, targets, env, fset: FunctionSet, state_size: int) -> None:
@@ -328,27 +378,32 @@ def check_policy(trees: TreeTensors, x0, targets, env, fset: FunctionSet, state_
     p, m, n = trees.ops.shape
     if type(env) not in ENV_IDS:
         raise NotImplementedError(f"{type(env).__name__} has no device drift (csrc/control_envs.cuh)")
-    if n > MAX_NODES:
-        raise NotImplementedError(f"max_nodes {n} > {MAX_NODES}, the policy kernels' limit")
-    if not 0 <= state_size <= MAX_STATE_SIZE:
-        raise NotImplementedError(f"state_size {state_size}: the kernels have 0 to {MAX_STATE_SIZE}")
-    if m != state_size + env.n_control:
+    if state_size < 0 or m != state_size + env.n_control:
         raise ValueError(f"{m} trees for state_size {state_size} + {env.n_control} controls")
-    if targets.shape[-1] > MAX_TARGETS:
-        raise NotImplementedError(f"{targets.shape[-1]} targets > {MAX_TARGETS}")
-    if x0.shape[-1] != env.latent_size or x0.shape[0] > MAX_TRAJECTORIES:
-        raise ValueError(f"x0 {tuple(x0.shape)}: expected (B <= {MAX_TRAJECTORIES}, {env.latent_size})")
+    reason = policy_lanes_refusal(m, n)
+    if reason is not None:
+        raise NotImplementedError(reason)
+    if x0.dim() != 2 or x0.shape[-1] != env.latent_size:
+        raise ValueError(f"x0 {tuple(x0.shape)}: expected (B, {env.latent_size})")
     fset.require_device_ops()
 
 
 def run_policy(launch, kind: int, trees: TreeTensors, x0, ts, targets, params, env,
                fset: FunctionSet, state_size: int = 0, method: str = "rk4", substeps: int = 1,
                obs_noise_rows=None, process_noise_rows=None, max_steps: int = 0,
-               rtol: float = 0.0, atol: float = 0.0, safety: float = 0.0):
+               rtol: float = 0.0, atol: float = 0.0, safety: float = 0.0, wide: bool = False):
     """Build the operands of ``csrc/policy.cu`` and call ``launch(args)``
-    (the CUDA launcher, or the host build on CPU tensors): returns
-    ``(status, xs, us, alive count (P, B), steps (P, B))``."""
+    (a fixed instance: the CUDA launcher, or the host build on CPU tensors),
+    or with ``wide`` ``launch(args, scratch, c0, count)`` once per part of
+    :func:`cuda_rollout.wide_launches` (the wide instance; ``scratch`` its
+    lane vectors, allocated here): returns ``(status, xs, us, alive count
+    (P, B), steps (P, B))``, ``status`` the first non-zero one. The fixed
+    instances refuse what :func:`takes_fixed` does not admit."""
     check_policy(trees, x0, targets, env, fset, state_size)
+    if not wide and not takes_fixed(env, state_size, targets.shape[-1]):
+        raise NotImplementedError(
+            f"state_size {state_size} and {targets.shape[-1]} targets: the fixed instances take "
+            f"state_size <= {FIXED_STATE_SIZE} and <= {FIXED_TARGETS} targets; the wide one takes any")
     dev = trees.ops.device
     p, m, n = trees.ops.shape
     b, t_steps = x0.shape[0], ts.shape[0]
@@ -395,7 +450,17 @@ def run_policy(launch, kind: int, trees: TreeTensors, x0, ts, targets, params, e
         ENV_IDS[type(env)], state_size, p, m, n, b, t_steps)
     args.var_start, args.n_obs, args.n_targets = fset.var_start, env.n_obs, targets.shape[-1]
     args.streamed = int(streamed)
-    status = launch(ctypes.byref(args)) if p * b else 0
+    status = 0
+    if p * b and not wide:
+        status = launch(ctypes.byref(args))
+    elif p * b:
+        per_lane = WIDE_VECTORS[kind] * d_aug + data_width(env, state_size, targets.shape[-1])
+        parts = wide_launches(p, b, per_lane, 1)
+        scratch = torch.empty(per_lane * parts[0][1] * b, dtype=torch.float32, device=dev)
+        for c0, count in parts:
+            status = launch(ctypes.byref(args), scratch.data_ptr(), c0, count)
+            if status:
+                break
     return status, t["xs"], t["us"], t["alive"], t["steps"]
 
 
@@ -404,20 +469,63 @@ def _alive_rows(count: torch.Tensor, t_steps: int) -> torch.Tensor:
     return torch.arange(t_steps, device=count.device)[:, None, None] < count[None]
 
 
-def _cuda_launch(kind: int, trees: TreeTensors, b: int, fset: FunctionSet):
+def _cuda_launch(kind: int, trees: TreeTensors, b: int, fset: FunctionSet, wrapper, wide: bool):
+    """The launcher :func:`run_policy` calls on CUDA tensors: each launch of
+    the set's library (its ``_wide`` form for the wide instance) checked,
+    then counted in ``wrapper.launches``."""
     dev = trees.ops.device
     if dev.type != "cuda":
         raise ValueError(f"the policy kernels take CUDA tensors, got {dev}")
-    lib = _build.load("policy", fset.variant)
-    fn = lib.policy_launch
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     m, n = trees.ops.shape[1:]
-    # a candidate's shared memory: m decoded programs of n 8-byte rows and
-    # their first live rows (csrc/tree_prog.cuh program_smem)
-    cpb = max(1, min(THREADS_PER_BLOCK // b, SHARED_BYTES // (m * (n * 8 + 4))))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    return lib, lambda args: fn(kind, args, cpb, stream)
+    if wide:
+        lib = _build.load("policy", _build.widened(fset.variant))
+        fn = lib.policy_wide_launch
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        cpb = wide_cpb(b, m, n)
+    else:
+        lib = _build.load("policy", fset.variant)
+        fn = lib.policy_launch
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        # a candidate's shared memory: m decoded programs of n 8-byte rows and
+        # their first live rows (csrc/tree_prog.cuh program_smem)
+        cpb = max(1, min(THREADS_PER_BLOCK // b, SHARED_BYTES // (m * (n * 8 + 4))))
+    fn.restype = ctypes.c_int
+    what = f"{'adaptive ' if kind == ADAPTIVE else ''}policy{' wide' if wide else ''} kernel launch"
+
+    def launch(args, *part):  # part: the wide instance's scratch, c0, count
+        _build.check(lib, fn(kind, args, *part, cpb, stream), what)
+        wrapper.launches += 1
+        return 0
+    return launch
+
+
+def _fixed_launch(wrapper, wide: bool, trees, x0, ts, targets, params, env, fset, substeps, method,
+                  state_size, obs_noise_rows, process_noise_rows):
+    """Kernel #6 in the instance ``wide`` names, counted in ``wrapper``."""
+    if method not in METHODS:
+        raise NotImplementedError(f"method {method!r}: the fixed-step kernel has {sorted(METHODS)}")
+    if substeps < 1:
+        raise ValueError("substeps must be >= 1")
+    launch = _cuda_launch(FIXED, trees, x0.shape[0], fset, wrapper, wide)
+    _, xs, us, count, _ = run_policy(
+        launch, FIXED, trees, x0, ts, targets, params, env, fset, state_size, method, substeps,
+        obs_noise_rows, process_noise_rows, wide=wide)
+    return xs, us, _alive_rows(count, ts.shape[0])
+
+
+def _adaptive_launch(wrapper, wide: bool, trees, x0, ts, targets, params, env, fset, rtol, atol,
+                     max_steps, method, safety, state_size):
+    """Kernel #7 in the instance ``wide`` names, counted in ``wrapper``."""
+    if method not in ADAPTIVE_METHODS:
+        raise ValueError(f"unknown adaptive method {method!r}: {sorted(ADAPTIVE_METHODS)}")
+    if max_steps < 0:
+        raise ValueError(f"step budget {max_steps} < 0")
+    launch = _cuda_launch(ADAPTIVE, trees, x0.shape[0], fset, wrapper, wide)
+    _, xs, us, count, steps = run_policy(
+        launch, ADAPTIVE, trees, x0, ts, targets, params, env, fset, state_size, method,
+        max_steps=max_steps, rtol=rtol, atol=atol, safety=safety, wide=wide)
+    return xs, us, _alive_rows(count, ts.shape[0]), steps
 
 
 def policy_rollout_cuda(
@@ -426,21 +534,34 @@ def policy_rollout_cuda(
     obs_noise_rows: Optional[torch.Tensor] = None,
     process_noise_rows: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch ``policy_kernel``; ``(xs, us, alive)`` as the plain version."""
-    if method not in METHODS:
-        raise NotImplementedError(f"method {method!r}: the fixed-step kernel has {sorted(METHODS)}")
-    if substeps < 1:
-        raise ValueError("substeps must be >= 1")
-    lib, launch = _cuda_launch(FIXED, trees, x0.shape[0], fset)
-    status, xs, us, count, _ = run_policy(
-        launch, FIXED, trees, x0, ts, targets, params, env, fset, state_size, method, substeps,
-        obs_noise_rows, process_noise_rows)
-    _build.check(lib, status, "policy kernel launch")
-    policy_rollout_cuda.launches += 1
-    return xs, us, _alive_rows(count, ts.shape[0])
+    """Launch ``policy_kernel``; ``(xs, us, alive)`` as the plain version: a
+    fixed instance, or past them (:func:`takes_fixed`)
+    :func:`policy_rollout_wide_cuda`."""
+    args = (trees, x0, ts, targets, params, env, fset, substeps, method, state_size,
+            obs_noise_rows, process_noise_rows)
+    if not takes_fixed(env, state_size, targets.shape[-1]):
+        return policy_rollout_wide_cuda(*args)
+    return _fixed_launch(policy_rollout_cuda, False, *args)
 
 
 policy_rollout_cuda.launches = 0
+
+
+def policy_rollout_wide_cuda(
+    trees: TreeTensors, x0: torch.Tensor, ts: torch.Tensor, targets: torch.Tensor, params,
+    env, fset: FunctionSet, substeps: int = 1, method: str = "rk4", state_size: int = 0,
+    obs_noise_rows: Optional[torch.Tensor] = None,
+    process_noise_rows: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the wide instance of ``csrc/policy.cu``'s fixed-step kernel
+    (the ``_wide`` build of the set's library; any hidden state, targets and
+    trajectories within :func:`policy_lanes_refusal`); ``(xs, us, alive)``.
+    One launch per :func:`cuda_rollout.wide_launches` part, each counted."""
+    return _fixed_launch(policy_rollout_wide_cuda, True, trees, x0, ts, targets, params, env, fset,
+                         substeps, method, state_size, obs_noise_rows, process_noise_rows)
+
+
+policy_rollout_wide_cuda.launches = 0
 
 
 def policy_rollout_adaptive_cuda(
@@ -448,21 +569,30 @@ def policy_rollout_adaptive_cuda(
     env, fset: FunctionSet, rtol: float = 1e-4, atol: float = 1e-4, max_steps: int = 16,
     method: str = "dopri5", safety: float = 0.9, state_size: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch ``policy_adaptive_kernel``; ``(xs, us, alive, lane_steps)``."""
-    if method not in ADAPTIVE_METHODS:
-        raise ValueError(f"unknown adaptive method {method!r}: {sorted(ADAPTIVE_METHODS)}")
-    if max_steps < 0:
-        raise ValueError(f"step budget {max_steps} < 0")
-    lib, launch = _cuda_launch(ADAPTIVE, trees, x0.shape[0], fset)
-    status, xs, us, count, steps = run_policy(
-        launch, ADAPTIVE, trees, x0, ts, targets, params, env, fset, state_size, method,
-        max_steps=max_steps, rtol=rtol, atol=atol, safety=safety)
-    _build.check(lib, status, "adaptive policy kernel launch")
-    policy_rollout_adaptive_cuda.launches += 1
-    return xs, us, _alive_rows(count, ts.shape[0]), steps
+    """Launch ``policy_adaptive_kernel``; ``(xs, us, alive, lane_steps)``: a
+    fixed instance, or past them :func:`policy_rollout_adaptive_wide_cuda`."""
+    args = (trees, x0, ts, targets, params, env, fset, rtol, atol, max_steps, method, safety,
+            state_size)
+    if not takes_fixed(env, state_size, targets.shape[-1]):
+        return policy_rollout_adaptive_wide_cuda(*args)
+    return _adaptive_launch(policy_rollout_adaptive_cuda, False, *args)
 
 
 policy_rollout_adaptive_cuda.launches = 0
+
+
+def policy_rollout_adaptive_wide_cuda(
+    trees: TreeTensors, x0: torch.Tensor, ts: torch.Tensor, targets: torch.Tensor, params,
+    env, fset: FunctionSet, rtol: float = 1e-4, atol: float = 1e-4, max_steps: int = 16,
+    method: str = "dopri5", safety: float = 0.9, state_size: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the wide instance of ``policy_adaptive_kernel``; ``(xs, us,
+    alive, lane_steps)``, each part's launch counted."""
+    return _adaptive_launch(policy_rollout_adaptive_wide_cuda, True, trees, x0, ts, targets, params,
+                            env, fset, rtol, atol, max_steps, method, safety, state_size)
+
+
+policy_rollout_adaptive_wide_cuda.launches = 0
 
 
 def rollout_policy(

@@ -78,6 +78,21 @@
 // applies the operator of tree_eval.cuh to the operands of its stack machine.
 // Built with -fmad=false and IEEE division and square root.
 //
+// The wide-state instance (built with -DMTGP_WIDE_STATE, the `_wide`
+// libraries, and only there) takes any hidden state size, any number of
+// targets and any number of trajectories, for what the fixed instances
+// (state_size <= 2, <= 2 targets) do not take: the augmented state [x, a],
+// the stage inputs, the stages and their sums (#7: the seven stages, x_hi
+// and the FSAL k1) are lane vectors of latent + state_size floats in a
+// scratch buffer the wrapper allocates, and so is the trees' data vector
+// [y, a, u, tgt] of latent + state_size + n_control + n_targets floats, a
+// leaf reading its slot there through the wide row's 29-bit field; the
+// state trees run four at a time, the readout trees as one group
+// (tree_prog_wide.cuh); the plant's latent block and the controls stay in
+// registers. The same expressions in the same order, so where a fixed
+// instance runs a wide lane is bit-equal to it, and at any size to the
+// plain versions. #7's drift stays out of line, as in its fixed instance.
+//
 // The per-lane code is plain C++ under MTGP_HD, so the same file also
 // compiles for the host (without __CUDACC__) into a lane loop that decodes
 // every candidate as a block does and that tests run against the plain
@@ -85,6 +100,9 @@
 #include "adaptive_step.cuh"
 #include "control_envs.cuh"
 #include "tree_prog.cuh"
+#ifdef MTGP_WIDE_STATE
+#include "tree_prog_wide.cuh"
+#endif
 
 namespace {
 
@@ -514,12 +532,14 @@ int launch(int kind, const PolicyArgs& a) {
 }
 #endif
 
+// `wide`: the wide instance's limits (any state size and targets) instead
+// of the fixed instances'.
 template <class Env>
-bool bad_args(int kind, const PolicyArgs& a) {
+bool bad_args(int kind, const PolicyArgs& a, bool wide) {
   const bool fixed = kind == kFixed;
   return a.P <= 0 || a.n <= 0 || a.n > kMaxNodes || a.B <= 0 || a.T <= 0 ||
-         a.state_size < 0 || a.state_size > kMaxStateSize ||
-         a.m != a.state_size + Env::kControls || a.n_targets < 0 || a.n_targets > kMaxTargets ||
+         a.state_size < 0 || a.m != a.state_size + Env::kControls || a.n_targets < 0 ||
+         (!wide && (a.state_size > kMaxStateSize || a.n_targets > kMaxTargets)) ||
          a.n_obs < 0 || a.n_obs > Env::kLatent ||
          (fixed && (a.method < kEuler || a.method > kRk4 || a.substeps <= 0 ||
                     (a.kick_rows && a.method != kEuler))) ||
@@ -527,34 +547,326 @@ bool bad_args(int kind, const PolicyArgs& a) {
          (!fixed && (a.max_steps < 0 || a.streamed || a.obs_rows || a.kick_rows));
 }
 
+#ifdef MTGP_WIDE_STATE
+// A wide lane's vectors of d_aug = latent + state_size floats: the
+// fixed-step kernel's state, next state, stage input, stage and stage sum;
+// the adaptive kernel's WideVectors (the state, x_hi, the stage input, the
+// seven stages). The data vector [y, a, u, tgt] follows them. The wrapper's
+// scratch per lane (core/cuda_policy.py WIDE_VECTORS).
+constexpr int kFixedWideVectors = 5;
+constexpr int kAdaptiveWideVectors = 10;
+
+// The policy of one wide lane: its decoded trees (the state_size state
+// trees, then the NC readout trees), its data vector `data` [y, a, u, tgt]
+// of `width` floats, whose target slots the lane fills once.
+template <class Env, bool U>
+struct WidePolicy {
+  static constexpr int L = Env::kLatent, NC = Env::kControls, NP = Env::kParams;
+  WideTrees<U> trees;
+  int ss, width, n_obs;
+  LaneVec data;
+
+  MTGP_HD int dim() const { return L + ss; }
+
+  // y = the observation of the latent state x (+ the noise row, if any)
+  MTGP_HD void observe(const LaneVec& x, const float* noise, float (&y)[L]) const {
+#pragma unroll
+    for (int q = 0; q < L; ++q) y[q] = (noise != nullptr && q < n_obs) ? x[q] + noise[q] : x[q];
+    Env::wrap_obs(y);
+  }
+
+  // data = [y or 0, a, u or 0, tgt]
+  MTGP_HD void fill(const float* y, const LaneVec& x, const float* u) const {
+#pragma unroll
+    for (int q = 0; q < L; ++q) data[q] = y ? y[q] : 0.0f;
+    for (int j = 0; j < ss; ++j) data[L + j] = x[L + j];
+#pragma unroll
+    for (int j = 0; j < NC; ++j) data[L + ss + j] = u ? u[j] : 0.0f;
+  }
+
+  // the controls of the readout trees on the data vector
+  MTGP_HD void readout(float (&u)[NC]) const { trees.template group<NC>(ss, data, width, u); }
+
+  // dx = the closed loop's drift at the augmented state x
+  MTGP_HD void drift(const LaneVec& x, const float* p, const float* noise, const LaneVec& dx) const {
+    float y[L], u[NC], xl[L], dxl[L];
+    observe(x, noise, y);
+    // the readout; a dynamic one sees the hidden state and the targets only
+    fill(ss > 0 ? nullptr : y, x, nullptr);
+    readout(u);
+#pragma unroll
+    for (int q = 0; q < L; ++q) xl[q] = x[q];
+    Env::drift(xl, u, p, dxl);
+#pragma unroll
+    for (int q = 0; q < L; ++q) dx[q] = dxl[q];
+    if (ss > 0) {
+      fill(y, x, u);
+      trees.run(0, ss, data, width, LaneVec{&dx[L], dx.s});
+    }
+  }
+
+  // drift() as one out-of-line call (the adaptive kernel's: inlined at its
+  // stages, the fixed instance's card build computed wrong lanes, F7)
+  MTGP_NOINLINE MTGP_HD void drift_call(const LaneVec x, const Vec<NP> p, const LaneVec dx) const {
+    drift(x, p.v, nullptr, dx);
+  }
+
+  // the controls at a save point: real observations, u zero-fed
+  MTGP_HD void controls(const LaneVec& x, const float* noise, float (&u)[NC]) const {
+    float y[L];
+    observe(x, noise, y);
+    fill(y, x, nullptr);
+    readout(u);
+  }
+
+  // the plant's cond_alive on the latent block of x
+  MTGP_HD static bool plant_alive(const LaneVec& x) {
+    float xl[L];
+#pragma unroll
+    for (int q = 0; q < L; ++q) xl[q] = x[q];
+    return Env::alive(xl);
+  }
+
+  // each component finite and below the divergence bound
+  MTGP_HD bool bounded(const LaneVec& x) const {
+    bool good = true;
+    for (int q = 0; q < dim(); ++q) good = good && isfinite(x[q]) && fabsf(x[q]) < kBound;
+    return good;
+  }
+
+  // finite, below the divergence bound, and the plant's cond_alive
+  MTGP_HD bool ok(const LaneVec& x) const { return bounded(x) && plant_alive(x); }
+};
+
+// Writes save row t of a wide lane: the augmented state and the controls.
+template <class Env, bool U>
+MTGP_HD void save_row_wide(const PolicyArgs& a, const WidePolicy<Env, U>& pol, size_t lane, int t,
+                           const LaneVec& x, const float* noise) {
+  constexpr int NC = Env::kControls;
+  const int d = pol.dim();
+  const size_t row = static_cast<size_t>(t) * a.P * a.B + lane;
+  float u[NC];
+  pol.controls(x, noise, u);
+  for (int q = 0; q < d; ++q) a.xs[row * d + q] = x[q];
+#pragma unroll
+  for (int j = 0; j < NC; ++j) a.us[row * NC + j] = u[j];
+}
+
+template <class Env, bool U>
+MTGP_HD void init_state_wide(const PolicyArgs& a, const WidePolicy<Env, U>& pol, int b,
+                             const LaneVec& x) {
+  constexpr int L = Env::kLatent;
+#pragma unroll
+  for (int q = 0; q < L; ++q) x[q] = a.x0[b * L + q];
+  for (int j = 0; j < pol.ss; ++j) x[L + j] = 0.0f;
+}
+
+// policy_lane on the wide instance: the same loop, its vectors x (the
+// state), xn (the next state; swapped with x when it is accepted), xst (the
+// stage input), k (the stage) and acc (the stage sum).
+template <class Env, bool U>
+MTGP_HD void policy_lane_wide(const PolicyArgs& a, const WidePolicy<Env, U>& pol, int b,
+                              size_t lane, LaneVec x, LaneVec xn, const LaneVec& xst,
+                              const LaneVec& k, const LaneVec& acc) {
+  constexpr int L = Env::kLatent, NP = Env::kParams;
+  const int d = pol.dim();
+  const bool rk4 = a.method == kRk4;
+  const int n_stages = rk4 ? 4 : (a.method == kHeun ? 2 : 1);
+  const int k_obs = a.k_obs;
+  const size_t traj = static_cast<size_t>(b);
+
+  init_state_wide<Env, U>(a, pol, b, x);
+  bool alive = pol.ok(x);
+  const float* save_noise = a.obs_rows ? a.obs_rows + traj * k_obs : nullptr;
+  save_row_wide<Env, U>(a, pol, lane, 0, x, save_noise);
+  int count = alive ? 1 : 0;
+  float p[NP];  // per trajectory, or interpolated at every stage when streamed
+#pragma unroll
+  for (int j = 0; j < NP; ++j) p[j] = a.streamed ? 0.0f : a.par[traj * NP + j];
+  for (int t = 0; t + 1 < a.T; ++t) {
+    const float* lo = a.streamed ? a.par + (static_cast<size_t>(t) * a.B + traj) * NP : a.par;
+    const float* hi = a.streamed ? lo + static_cast<size_t>(a.B) * NP : a.par;
+    const float* noise_t = a.obs_rows ? a.obs_rows + (static_cast<size_t>(t) * a.B + traj) * k_obs
+                                      : nullptr;
+    for (int s = 0; s < a.substeps && alive; ++s) {
+      for (int q = 0; q < d; ++q) acc[q] = 0.0f;
+      for (int st = 0; st < n_stages; ++st) {
+        const float c = st == 0 ? 0.0f : (rk4 && st < 3 ? 0.5f : 1.0f);
+        const float w = rk4 && (st == 1 || st == 2) ? 2.0f : 1.0f;
+        const float hc = rk4 && st < 3 ? a.h_half : a.h_full;
+        if (a.streamed) {
+          const float frac = (static_cast<float>(s) + c) * a.inv_sub;
+          const float keep = 1.0f - frac;
+#pragma unroll
+          for (int j = 0; j < NP; ++j) p[j] = lo[j] * keep + hi[j] * frac;
+        }
+        if (st > 0) {
+          for (int q = 0; q < d; ++q) xst[q] = x[q] + hc * k[q];
+        }
+        const float* noise = noise_t ? noise_t + (s * n_stages + st) * a.n_obs : nullptr;
+        pol.drift(st == 0 ? x : xst, p, noise, k);
+        for (int q = 0; q < d; ++q) acc[q] = acc[q] + w * k[q];
+      }
+      for (int q = 0; q < d; ++q) xn[q] = x[q] + a.h_final * acc[q];
+      if (a.kick_rows) {  // Euler-Maruyama: the latent block only
+        const float* kick =
+            a.kick_rows + (static_cast<size_t>(t) * a.B + traj) * a.substeps * L + s * L;
+#pragma unroll
+        for (int q = 0; q < L; ++q) xn[q] = xn[q] + kick[q];
+      }
+      alive = pol.ok(xn);
+      if (alive) {  // the next state becomes the state
+        const LaneVec old = x;
+        x = xn;
+        xn = old;
+      }
+    }
+    const float* noise_save =
+        a.obs_rows ? a.obs_rows + (static_cast<size_t>(t + 1) * a.B + traj) * k_obs : nullptr;
+    save_row_wide<Env, U>(a, pol, lane, t + 1, x, noise_save);
+    count += alive ? 1 : 0;
+  }
+  a.alive[lane] = count;
+}
+
+// rk_step_n's drift: the closed loop at constant params, no noise, out of line
+template <class Env, bool U>
+struct WidePolicyDrift {
+  const WidePolicy<Env, U>& pol;
+  const Vec<Env::kParams>& p;
+  MTGP_HD void operator()(const LaneVec& x, const LaneVec& k) const { pol.drift_call(x, p, k); }
+};
+
+// policy_adaptive_lane on the wide instance: the same flat loop, its
+// vectors in v (an accepted step swaps x with x_hi and k1 with the last
+// stage) and the step of adaptive_step.cuh's rk_step_n.
+template <class Env, bool U>
+MTGP_HD void policy_adaptive_lane_wide(const PolicyArgs& a, const WidePolicy<Env, U>& pol, int b,
+                                       size_t lane, WideVectors v) {
+  constexpr int NP = Env::kParams;
+  const int d = pol.dim();
+  Vec<NP> p;
+#pragma unroll
+  for (int j = 0; j < NP; ++j) p.v[j] = a.par[static_cast<size_t>(b) * NP + j];
+  const WidePolicyDrift<Env, U> f{pol, p};
+
+  init_state_wide<Env, U>(a, pol, b, v.x);
+  bool alive = pol.ok(v.x);
+  save_row_wide<Env, U>(a, pol, lane, 0, v.x, nullptr);
+  int count = alive ? 1 : 0;
+  int steps = 0;
+  if (a.T > 1) {
+    const float expo = error_exponent(a.method);
+    f(v.x, v.ks[0]);  // the one up-front evaluation FSAL amortises
+    float dt = (a.ts[1] - a.ts[0]) / 4.0f;
+    int ti = 0, s = 0;
+    float t1 = a.ts[1];
+    float span = t1 - a.ts[0];
+    float t = a.ts[0];
+    dt = clip(dt, span * kDtMin, span);
+    while (true) {
+      if (s < a.max_steps && alive && t < t1 - kCross) {
+        const float dt_c = nan_min(dt, t1 - t);
+        const float err =
+            rk_step_n(f, a.method, d, v.x, v.ks, dt_c, a.rtol, a.atol, v.x_hi, v.xs);
+        const bool ok = pol.bounded(v.x_hi) && isfinite(err);
+        // cond_alive rejects the step (integrate_adaptive's accept)
+        if (ok && err <= 1.0f && pol.plant_alive(v.x_hi)) {
+          v.accept();
+          t = t + dt_c;
+        }
+        dt = clip(dt_c * step_factor(err, ok, a.safety, expo), span * kDtMin, span);
+        alive = alive && (ok || dt_c > span * kDtDead);
+        ++s;
+        ++steps;
+      } else {
+        alive = alive && t >= t1 - kReach * nan_max(fabsf(t1), 1.0f);
+        save_row_wide<Env, U>(a, pol, lane, ti + 1, v.x, nullptr);
+        count += alive ? 1 : 0;
+        if (++ti + 1 >= a.T) break;
+        const float t0 = a.ts[ti];
+        t1 = a.ts[ti + 1];
+        span = t1 - t0;
+        t = t0;
+        dt = clip(dt, span * kDtMin, span);
+        s = 0;
+      }
+    }
+  }
+  a.alive[lane] = count;
+  a.steps[lane] = steps;
+}
+
+// Trajectory b of candidate c on the wide instance: its policy (the data
+// vector after the kernel's vectors, its targets filled), its vectors at the
+// launch's lane li, its output lane c * B + b.
+template <class Env, bool U>
+MTGP_HD void run_lane_wide(int kind, const WideSpan& s, const PolicyArgs& a,
+                           const WideTrees<U>& f, int c, int b, size_t li) {
+  constexpr int L = Env::kLatent, NC = Env::kControls;
+  const int d = L + a.state_size;
+  const int vectors = kind == kFixed ? kFixedWideVectors : kAdaptiveWideVectors;
+  const WidePolicy<Env, U> pol{f, a.state_size, L + a.state_size + NC + a.n_targets, a.n_obs,
+                               scratch_vec(s, static_cast<size_t>(vectors) * d, li)};
+  for (int j = 0; j < a.n_targets; ++j)
+    pol.data[L + a.state_size + NC + j] = a.tgt[static_cast<size_t>(b) * a.n_targets + j];
+  const size_t lane = static_cast<size_t>(c) * a.B + b;
+  const auto vec = [&](int v) { return scratch_vec(s, static_cast<size_t>(v) * d, li); };
+  if (kind == kFixed) {
+    policy_lane_wide<Env, U>(a, pol, b, lane, vec(0), vec(1), vec(2), vec(3), vec(4));
+  } else {
+    WideVectors v{vec(0), vec(1), vec(2), {}};
+    for (int j = 0; j < 7; ++j) v.ks[j] = vec(3 + j);
+    policy_adaptive_lane_wide<Env, U>(a, pol, b, lane, v);
+  }
+}
+
+// The wide instance takes the unary rows' code always, as the fixed ones do.
+#ifdef __CUDACC__
+template <class Env, int N>
+__global__ void policy_wide_kernel(WideSpan s, PolicyArgs a, int cpb, int bpb) {
+  wide_block<true, N>(s, cpb, bpb, [&](const WideTrees<true>& f, int c, int b, size_t li) {
+    run_lane_wide<Env, true>(kFixed, s, a, f, c, b, li);
+  });
+}
+
+template <class Env, int N>
+__global__ void policy_adaptive_wide_kernel(WideSpan s, PolicyArgs a, int cpb, int bpb) {
+  wide_block<true, N>(s, cpb, bpb, [&](const WideTrees<true>& f, int c, int b, size_t li) {
+    run_lane_wide<Env, true>(kAdaptive, s, a, f, c, b, li);
+  });
+}
+
+template <class Env, int N>
+int launch_policy_wide(int kind, const PolicyArgs& a, const WideSpan& s, int cpb,
+                       cudaStream_t stream) {
+  return static_cast<int>(kind == kFixed
+                              ? launch_wide(&policy_wide_kernel<Env, N>, s, a, cpb, stream)
+                              : launch_wide(&policy_adaptive_wide_kernel<Env, N>, s, a, cpb, stream));
+}
+#else
+template <class Env, int N>
+int launch_policy_wide(int kind, const PolicyArgs& a, const WideSpan& s) {
+  wide_host<true, N>(s, [&](const WideTrees<true>& f, int c, int b, size_t li) {
+    run_lane_wide<Env, true>(kind, s, a, f, c, b, li);
+  });
+  return 0;
+}
+#endif
+#endif  // MTGP_WIDE_STATE
+
 }  // namespace
 
-#ifdef __CUDACC__
-#define MTGP_LAUNCH(ENV, SS, N) launch<ENV, SS, N>(kind, *a, cpb, s)
-#else
-#define MTGP_LAUNCH(ENV, SS, N) launch<ENV, SS, N>(kind, *a)
-#endif
-
-// One instance per plant, state size and tree bound (N <= 32 or 256).
-#define MTGP_STACKS(ENV, SS) (a->n <= 32 ? MTGP_LAUNCH(ENV, SS, 32) : MTGP_LAUNCH(ENV, SS, kMaxNodes))
-#define MTGP_ENV(ENV)                                               \
-  do {                                                              \
-    if (bad_args<ENV>(kind, *a)) return kInvalid;                   \
-    switch (a->state_size) {                                        \
-      case 0: return MTGP_STACKS(ENV, 0);                           \
-      case 1: return MTGP_STACKS(ENV, 1);                           \
-      default: return MTGP_STACKS(ENV, 2);                          \
-    }                                                               \
-  } while (0)
-#define MTGP_ENV_SWITCH                                                         \
+// One case per plant; CALL(ENV) is its launch.
+#define MTGP_ENV_SWITCH(CALL)                                                   \
   switch (a->env) {                                                             \
     case kHarmonicOscillator:                                                   \
-    case kChangingHarmonicOscillator: MTGP_ENV(HarmonicOscillatorEnv);          \
-    case kHarmonicOscillator2: MTGP_ENV(HarmonicOscillator2Env);                \
-    case kCartPole: MTGP_ENV(CartPoleEnv);                                      \
-    case kAcrobot: MTGP_ENV(AcrobotEnv<false>);                                 \
-    case kAcrobot2: MTGP_ENV(AcrobotEnv<true>);                                 \
-    case kStirredTankReactor: MTGP_ENV(StirredTankReactorEnv);                  \
+    case kChangingHarmonicOscillator: CALL(HarmonicOscillatorEnv);              \
+    case kHarmonicOscillator2: CALL(HarmonicOscillator2Env);                    \
+    case kCartPole: CALL(CartPoleEnv);                                          \
+    case kAcrobot: CALL(AcrobotEnv<false>);                                     \
+    case kAcrobot2: CALL(AcrobotEnv<true>);                                     \
+    case kStirredTankReactor: CALL(StirredTankReactorEnv);                      \
     default: return kInvalid;                                                   \
   }
 
@@ -566,30 +878,93 @@ extern "C" {
 const char* mtgp_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
-
-// Launches on `stream`; returns cudaGetLastError() of the launch.
-int policy_launch(int kind, const void* args, int cpb, void* stream) {
-  constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
-  const PolicyArgs* a = static_cast<const PolicyArgs*>(args);
-  if ((kind != kFixed && kind != kAdaptive) || cpb <= 0) return kInvalid;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  MTGP_ENV_SWITCH
-  return kInvalid;
-}
 #else
 // host build of the same per-lane code (tests without a card); 1 reports
 // bad arguments
 const char* mtgp_error_string(int status) {
   return status ? "invalid arguments" : "no error";
 }
+#endif
 
+#ifdef MTGP_WIDE_STATE
+// The wide instance on candidates c0 .. c0 + count - 1, its scratch
+// (kFixedWideVectors or kAdaptiveWideVectors) x d_aug + the data vector's
+// floats per lane, [vector][component][lane] (tree_prog_wide.cuh WideSpan,
+// whose d is the m trees a candidate).
+#define MTGP_WIDE_SPAN                                                                  \
+  const PolicyArgs* a = static_cast<const PolicyArgs*>(args);                           \
+  const WideSpan span{a->ops, a->cst, a->devop, a->var_start, a->m, a->n, a->B, c0, count, \
+                      scratch};                                                         \
+  const bool bad = (kind != kFixed && kind != kAdaptive) || bad_span(span) || c0 + count > a->P
+#define MTGP_WIDE_ENV(ENV)                                                  \
+  do {                                                                      \
+    if (bad_args<ENV>(kind, *a, true)) return kInvalid;                     \
+    return a->n <= 32 ? MTGP_WIDE_LAUNCH(ENV, 32) : MTGP_WIDE_LAUNCH(ENV, kMaxNodes); \
+  } while (0)
+
+#ifdef __CUDACC__
+// Launches on `stream` with `cpb` candidates per block; returns
+// cudaGetLastError() of the launch.
+int policy_wide_launch(int kind, const void* args, float* scratch, int c0, int count, int cpb,
+                       void* stream) {
+  constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
+  MTGP_WIDE_SPAN;
+  if (bad) return kInvalid;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define MTGP_WIDE_LAUNCH(ENV, N) launch_policy_wide<ENV, N>(kind, *a, span, cpb, st)
+  MTGP_ENV_SWITCH(MTGP_WIDE_ENV)
+  return kInvalid;
+#undef MTGP_WIDE_LAUNCH
+}
+#else
+int policy_wide_host(int kind, const void* args, float* scratch, int c0, int count) {
+  constexpr int kInvalid = 1;
+  MTGP_WIDE_SPAN;
+  if (bad) return kInvalid;
+#define MTGP_WIDE_LAUNCH(ENV, N) launch_policy_wide<ENV, N>(kind, *a, span)
+  MTGP_ENV_SWITCH(MTGP_WIDE_ENV)
+  return kInvalid;
+#undef MTGP_WIDE_LAUNCH
+}
+#endif
+#else  // the fixed instances
+#ifdef __CUDACC__
+#define MTGP_LAUNCH(ENV, SS, N) launch<ENV, SS, N>(kind, *a, cpb, s)
+#else
+#define MTGP_LAUNCH(ENV, SS, N) launch<ENV, SS, N>(kind, *a)
+#endif
+
+// One instance per plant, state size and tree bound (N <= 32 or 256).
+#define MTGP_STACKS(ENV, SS) (a->n <= 32 ? MTGP_LAUNCH(ENV, SS, 32) : MTGP_LAUNCH(ENV, SS, kMaxNodes))
+#define MTGP_ENV(ENV)                                               \
+  do {                                                              \
+    if (bad_args<ENV>(kind, *a, false)) return kInvalid;            \
+    switch (a->state_size) {                                        \
+      case 0: return MTGP_STACKS(ENV, 0);                           \
+      case 1: return MTGP_STACKS(ENV, 1);                           \
+      default: return MTGP_STACKS(ENV, 2);                          \
+    }                                                               \
+  } while (0)
+
+#ifdef __CUDACC__
+// Launches on `stream`; returns cudaGetLastError() of the launch.
+int policy_launch(int kind, const void* args, int cpb, void* stream) {
+  constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
+  const PolicyArgs* a = static_cast<const PolicyArgs*>(args);
+  if ((kind != kFixed && kind != kAdaptive) || cpb <= 0) return kInvalid;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  MTGP_ENV_SWITCH(MTGP_ENV)
+  return kInvalid;
+}
+#else
 int policy_host(int kind, const void* args) {
   constexpr int kInvalid = 1;
   const PolicyArgs* a = static_cast<const PolicyArgs*>(args);
   if (kind != kFixed && kind != kAdaptive) return kInvalid;
-  MTGP_ENV_SWITCH
+  MTGP_ENV_SWITCH(MTGP_ENV)
   return kInvalid;
 }
 #endif
+#endif  // MTGP_WIDE_STATE
 
 }  // extern "C"

@@ -339,23 +339,10 @@ bool bad_args(int kind, const Operands& a) {
 }
 
 #ifdef MTGP_WIDE_STATE
-// A wide lane's vectors: the state, x_hi, the stage input, then the seven
-// stages (ks[0] the FSAL k1, ks[6] the last stage); the wrapper's scratch
-// per lane and component.
+// A wide lane's vectors (tree_prog_wide.cuh WideVectors): the state, x_hi,
+// the stage input, then the seven stages; the wrapper's scratch per lane and
+// component.
 constexpr int kAdaptiveVectors = 10;
-
-struct WideVectors {
-  LaneVec x, x_hi, xs;
-  LaneVec ks[7];
-  // an accepted step: x_hi becomes the state, the last stage k1
-  MTGP_HD void accept() {
-    const LaneVec x0 = x, k0 = ks[0];
-    x = x_hi;
-    x_hi = x0;
-    ks[0] = ks[6];
-    ks[6] = k0;
-  }
-};
 
 // adaptive_global_lane on the wide instance (the same loop, vectors in v)
 template <bool U>

@@ -1,32 +1,35 @@
-// The wide-state instance of the SR kernels' tree machine: the fused SR
-// fitness (sr_fitness.cu, #1), the SR trajectory (sr_rollout.cu, #3) and the
-// adaptive SR fitness (sr_adaptive.cu, #4 and #5) for any state dimension d
-// and any number of trajectories, compiled only in their `_wide` builds
-// (-DMTGP_WIDE_STATE, _build.py).
+// The wide-state instance of the tree machine: the fused SR fitness
+// (sr_fitness.cu, #1), the SR trajectory (sr_rollout.cu, #3), the adaptive
+// SR fitness (sr_adaptive.cu, #4 and #5) for any state dimension d and any
+// number of trajectories, and the closed-loop policy kernels (policy.cu, #6
+// and #7) for any hidden state, number of targets and trajectories, compiled
+// only in their `_wide` builds (-DMTGP_WIDE_STATE, _build.py).
 //
 // What differs from tree_prog.cuh's fixed instances, whose state dim is a
 // template parameter and whose state and stages live in registers:
 // * A lane's vectors (the state, the stage inputs, the stages, the stage
-//   sums) have a run-time length d and live in a scratch buffer that the
-//   wrapper allocates, laid out [vector][component][lane] (LaneVec), so the
-//   lanes of a warp touch one component's entries side by side. A tree's
-//   leaf reads its variable there.
+//   sums; a policy's data vector) have a run-time length and live in a
+//   scratch buffer that the wrapper allocates, laid out
+//   [vector][component][lane] (LaneVec), so the lanes of a warp touch one
+//   component's entries side by side. A tree's leaf reads its variable there.
 // * A decoded row is two words (WideRow): the kind, the stack flag and, in
 //   29 bits, the data slot or device op id (a constant leaf: its stack
 //   slot), then the constant's bits (a constant leaf) or the stack slot. So
 //   no field caps the variables: tree_prog.cuh's 6-bit slot reads variable 63
 //   for any variable past it.
-// * A candidate's d trees run in groups of kGroup (run_trees_wide): kGroup
-//   accumulators and kGroup x N/2 stack slots live at once, whatever d.
+// * A candidate's trees run in groups of kGroup (WideTrees): kGroup
+//   accumulators and kGroup x N/2 stack slots live at once, whatever the
+//   number of trees.
 // * A block holds `cpb` candidates x at most kWideLanes of their
 //   trajectories (a candidate with more spans gridDim.y blocks); the
-//   candidates' d x n decoded rows are staged in shared memory, past 48 KB by
-//   opting in, up to the block's 227 KB: the one limit on d (the wrapper's
-//   gate, core/cuda_rollout.py lanes_refusal).
+//   candidates' decoded rows are staged in shared memory, past 48 KB by
+//   opting in, up to the block's 227 KB: the one limit on the trees a
+//   candidate (the wrappers' gates, core/cuda_rollout.py lanes_refusal,
+//   core/cuda_policy.py policy_lanes_refusal).
 //
 // Numerics: each tree's value and each component's stage sum are the fixed
-// instances' float32 expressions in their order, so at d <= 4 a wide lane is
-// bit-equal to the fixed one, and at any d to the plain versions.
+// instances' float32 expressions in their order, so where a fixed instance
+// runs a wide lane is bit-equal to it, and at any size to the plain versions.
 //
 // Plain C++ under MTGP_HD, so the including files' host builds run it.
 #pragma once
@@ -123,10 +126,11 @@ MTGP_HD int decode_tree_wide(WideRow* rows, int n, const int* __restrict__ devop
 }
 
 // row_step of tree_prog.cuh on a WideRow: the same operands, operators and
-// selects; a variable leaf reads component `field` of x (0 past the state's d
+// selects; a variable leaf reads component `field` of x (0 past its `width`
 // components, as in JAX).
 template <bool U>
-MTGP_HD inline void wide_row_step(const WideRow w, const LaneVec& x, int d, float& acc, float* stk) {
+MTGP_HD inline void wide_row_step(const WideRow w, const LaneVec& x, int width, float& acc,
+                                  float* stk) {
   const int kind = w.a & 3;
   const int arg = w.a >> 3;
   const bool op_row = kind & 2;
@@ -139,19 +143,18 @@ MTGP_HD inline void wide_row_step(const WideRow w, const LaneVec& x, int d, floa
   if (op_row && arg >= kPow) r = apply_binary(arg, acc, b);  // unary ids lie below kPow
 #endif
   if (U && kind == kUnary) r = apply_unary(arg, acc);
-  const float v = kind == kLeafVar ? (arg < d ? x[arg] : 0.0f) : bits_float(w.b);
+  const float v = kind == kLeafVar ? (arg < width ? x[arg] : 0.0f) : bits_float(w.b);
   if (!op_row && flag) *slot = acc;
   acc = op_row ? r : v;
 }
 
-// out[q0 + k] = tree k of the K decoded trees at prog (tree k's rows at
-// prog + k * n, its first live row start[k]) on x, row by row in one loop
-// from the first live row of any of them; tree k's stack slots at
-// stk + k * stride.
+// out[k] = tree k of the K decoded trees at prog (tree k's rows at prog + k
+// * n, its first live row start[k]) on the data x of `width` components, row
+// by row in one loop from the first live row of any of them; tree k's stack
+// slots at stk + k * stride.
 template <int K, bool U>
-MTGP_HD inline void run_tree_group(const WideRow* prog, const int* start, int n, int d,
-                                   const LaneVec& x, const LaneVec& out, int q0, float* stk,
-                                   int stride) {
+MTGP_HD inline void run_tree_group(const WideRow* prog, const int* start, int n, int width,
+                                   const LaneVec& x, float (&out)[K], float* stk, int stride) {
   int first = n;
 #pragma unroll
   for (int k = 0; k < K; ++k) first = start[k] < first ? start[k] : first;
@@ -160,16 +163,16 @@ MTGP_HD inline void run_tree_group(const WideRow* prog, const int* start, int n,
   for (int k = 0; k < K; ++k) acc[k] = 0.0f;
   for (int i = first; i < n; ++i) {
 #pragma unroll
-    for (int k = 0; k < K; ++k) wide_row_step<U>(prog[k * n + i], x, d, acc[k], stk + k * stride);
+    for (int k = 0; k < K; ++k) wide_row_step<U>(prog[k * n + i], x, width, acc[k], stk + k * stride);
   }
 #pragma unroll
-  for (int k = 0; k < K; ++k) out[q0 + k] = acc[k];
+  for (int k = 0; k < K; ++k) out[k] = acc[k];
 }
 
 // A candidate's d decoded trees (tree q's rows at prog + q * n, its first
-// live row start[q]) as the drift: out = trees(in), kGroup trees at a time;
-// the stack slots of a group's tree k at stk + k * stride. `out` is never
-// `in`.
+// live row start[q]), kGroup at a time; the stack slots of a group's tree k
+// at stk + k * stride. As the SR drift, out = trees(in) on the data `in` of d
+// components; `out` is never `in`.
 template <bool U>
 struct WideTrees {
   const WideRow* prog;
@@ -177,24 +180,58 @@ struct WideTrees {
   int n, d;
   float* stk;
   int stride;
-  MTGP_HD void operator()(const LaneVec& in, const LaneVec& out) const {
-    int q = 0;
-    for (; q + kGroup <= d; q += kGroup)
-      run_tree_group<kGroup, U>(prog + q * n, start + q, n, d, in, out, q, stk, stride);
-    const int rest = d - q;
+
+  // out[k] = tree t + k on the data x of `width` components, for k < K
+  template <int K>
+  MTGP_HD void group(int t, const LaneVec& x, int width, float (&out)[K]) const {
+    run_tree_group<K, U>(prog + t * n, start + t, n, width, x, out, stk, stride);
+  }
+
+  // out[j] = tree t0 + j on the data x of `width` components, for j < count
+  MTGP_HD void run(int t0, int count, const LaneVec& x, int width, const LaneVec& out) const {
+    int j = 0;
+    for (; j + kGroup <= count; j += kGroup) put<kGroup>(t0 + j, x, width, out, j);
+    const int rest = count - j;
     if (rest == 3)
-      run_tree_group<3, U>(prog + q * n, start + q, n, d, in, out, q, stk, stride);
+      put<3>(t0 + j, x, width, out, j);
     else if (rest == 2)
-      run_tree_group<2, U>(prog + q * n, start + q, n, d, in, out, q, stk, stride);
+      put<2>(t0 + j, x, width, out, j);
     else if (rest == 1)
-      run_tree_group<1, U>(prog + q * n, start + q, n, d, in, out, q, stk, stride);
+      put<1>(t0 + j, x, width, out, j);
+  }
+
+  MTGP_HD void operator()(const LaneVec& in, const LaneVec& out) const { run(0, d, in, d, out); }
+
+ private:
+  template <int K>
+  MTGP_HD void put(int t, const LaneVec& x, int width, const LaneVec& out, int j) const {
+    float v[K];
+    group<K>(t, x, width, v);
+#pragma unroll
+    for (int k = 0; k < K; ++k) out[j + k] = v[k];
+  }
+};
+
+// The vectors of an adaptive wide lane (#4/#5, #7): the state, x_hi, the
+// stage input, then the seven stages (ks[0] the FSAL k1, ks[6] the last
+// stage).
+struct WideVectors {
+  LaneVec x, x_hi, xs;
+  LaneVec ks[7];
+  // an accepted step: x_hi becomes the state, the last stage k1
+  MTGP_HD void accept() {
+    const LaneVec x0 = x, k0 = ks[0];
+    x = x_hi;
+    x_hi = x0;
+    ks[0] = ks[6];
+    ks[6] = k0;
   }
 };
 
 // What every wide launch shares: the trees ((P, d, n) opcodes and
-// constants), the launch's candidates c0 .. c0 + count - 1 of B trajectories
-// each, and its scratch of `vectors` lane vectors of d floats per lane,
-// [vector][component][lane], lane (c - c0) * B + b.
+// constants: d trees a candidate), the launch's candidates c0 .. c0 + count
+// - 1 of B trajectories each, and its scratch, [vector][component][lane],
+// lane (c - c0) * B + b. The SR kernels' lane vectors have d floats each.
 struct WideSpan {
   const int* ops;
   const float* cst;
@@ -203,10 +240,16 @@ struct WideSpan {
   float* scratch;
 };
 
-// Vector v of the launch's lane li.
-MTGP_HD inline LaneVec lane_vec(const WideSpan& s, int v, size_t li) {
+// The launch's lane li's vector whose first component is component q0 of
+// the scratch.
+MTGP_HD inline LaneVec scratch_vec(const WideSpan& s, size_t q0, size_t li) {
   const size_t lanes = static_cast<size_t>(s.count) * s.B;
-  return LaneVec{s.scratch + static_cast<size_t>(v) * s.d * lanes + li, lanes};
+  return LaneVec{s.scratch + q0 * lanes + li, lanes};
+}
+
+// Vector v of the launch's lane li, of d floats.
+MTGP_HD inline LaneVec lane_vec(const WideSpan& s, int v, size_t li) {
+  return scratch_vec(s, static_cast<size_t>(v) * s.d, li);
 }
 
 inline bool bad_span(const WideSpan& s) {

@@ -33,9 +33,10 @@ kernels' instructions), so that two versions whose builds compiled to the
 same code show the same digests: every library's default build, the tree
 libraries' extended build (``_ext``) and, where the package has user
 operators, their user build of gplearn's protected set (``_user``), and,
-where the package has the SR sources' wide-state builds, those of the three
-(``_wide``, ``_ext_wide``, ``_user_wide``). Two versions compare only within
-one such run. With ``--sass`` the script runs
+where the package has wide-state builds, those of each source that compiles
+a wide instance (``_wide``, ``_ext_wide``, ``_user_wide``: the SR sources,
+and ``policy`` since it has one; a source without one is not built wide).
+Two versions compare only within one such run. With ``--sass`` the script runs
 OTHER, then this, and prints the builds' ``nvcc`` seconds and the digests
 only.
 """
@@ -76,7 +77,8 @@ def time_kernels(root: Path, sass_only: bool = False) -> str:
                  ("sr_adaptive", lambda k: re.search(r"_kernel<2,", k)),
                  ("sr_rollout", lambda k: re.search(r"_kernel<2,", k)),
                  ("interpreter", lambda k: True), ("branch_probe", lambda k: True),
-                 *((f"{name}_wide", lambda k: True) for name in WIDE_LIBRARIES))
+                 *((f"{name}_wide", lambda k: "Env" not in k or "AcrobotEnv<0" in k)
+                   for name in wide_libraries(pkg._build)))
         for name, keep in shown:
             if name in pkg._build.build_logs:
                 line += f"; ptxas {name} " + ", ".join(
@@ -166,13 +168,21 @@ LIBRARIES = ("sr_fitness", "reproduce", "sr_rollout", "sr_adaptive", "policy", "
              "branch_probe")
 # the sources with an extended and a user build (the tree kernels #1, #3-#9)
 TREE_LIBRARIES = ("sr_fitness", "sr_rollout", "sr_adaptive", "policy", "interpreter")
-# the sources with a wide-state form of each build (#1, #3, #4/#5)
-WIDE_LIBRARIES = ("sr_fitness", "sr_rollout", "sr_adaptive")
+# the sources that may have a wide-state form of each build (#1, #3, #4/#5,
+# #6/#7): those of a package whose source compiles a wide instance
+WIDE_LIBRARIES = ("sr_fitness", "sr_rollout", "sr_adaptive", "policy")
 
 
-def variant_libraries(tag: str):
+def wide_libraries(build):
+    """The sources of ``build`` (a package's ``_build`` module) whose source
+    compiles a wide-state instance (``MTGP_WIDE_STATE``)."""
+    return tuple(name for name in WIDE_LIBRARIES
+                 if b"MTGP_WIDE_STATE" in (build.CSRC_DIR / f"{name}.cu").read_bytes())
+
+
+def variant_libraries(build, tag: str):
     """The sources built in the variant ``tag`` of :func:`build_variants`."""
-    return WIDE_LIBRARIES if tag.endswith("wide") else TREE_LIBRARIES
+    return wide_libraries(build) if tag.endswith("wide") else TREE_LIBRARIES
 
 
 def build_variants(pkg) -> dict:
@@ -197,7 +207,7 @@ def build_variants(pkg) -> dict:
         variants.update({f"{tag}_wide": build.widened(v) for tag, v in list(variants.items())},
                         wide=build.widened(False))
     with ThreadPoolExecutor(len(variants)) as pool:
-        jobs = [pool.submit(build.build, *variant_libraries(tag), **{kw: v})
+        jobs = [pool.submit(build.build, *variant_libraries(build, tag), **{kw: v})
                 for tag, v in variants.items()]
         build.build(*LIBRARIES)
         for job in jobs:
@@ -225,7 +235,7 @@ def sass_digests(build, variants=None) -> str:
         return f"sass: no {tool}"
     libraries = [(name, name, False) for name in LIBRARIES]
     for tag, variant in (variants or {}).items():
-        libraries += [(f"{name}_{tag}", name, variant) for name in variant_libraries(tag)]
+        libraries += [(f"{name}_{tag}", name, variant) for name in variant_libraries(build, tag)]
     parts = []
     for label, name, variant in libraries:
         path = build.library_path(name, variant) if variant is not False else build.library_path(name)

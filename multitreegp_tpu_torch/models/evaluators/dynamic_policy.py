@@ -11,8 +11,10 @@ readout trees (layer 1). The ODE state is augmented to ``[x, a]`` with
 inside the loop, while the post-hoc control replay feeds real observations
 (the reference's deliberate bottleneck, kept). The trees' variables are
 declared in the order ``[y, a, u, target]``. Dispatch, noise, fitness and
-the gradient are the static evaluator's; kernels #6 and #7 take
-``state_size`` up to 2 (a larger one takes the general path). Process noise
+the gradient are the static evaluator's; kernels #6 and #7 take any
+``state_size`` whose candidate's decoded program fits a block's shared
+memory (``policy_lanes_refusal``; past 2 their wide-state instance, e.g. 8
+hidden states at ``max_nodes=30``). Process noise
 kicks only the plant's latent state, but its increments are drawn over the
 whole ``[x, a]``, as the JAX package draws them.
 """

@@ -16,19 +16,23 @@ the SDE of its diffusion, integrated by Euler-Maruyama whatever ``method``
 says (``integrate_sde``), its increments drawn from the process-noise keys.
 
 Population evaluation takes a fused kernel where the JAX dispatch takes one
-and the kernels' limits (``check_policy``) allow, decided by configuration:
-a fixed-step method (or process noise, which makes it euler), a function
-set whose variables are the data vector ``[y, targets]``, ``N <= 256``, at
-most 1024 trajectories and 2 targets, a plant with a device drift and at
-least two save points take kernel #6, given the noise as rows built up
-front (``noise.py``); the adaptive method with per-trajectory parameters
-and no noise takes kernel #7; everything else (the adaptive method with
+and the kernels' one limit (``policy_lanes_refusal``: ``N <= 256`` and a
+candidate's decoded program within a block's shared memory) allows, decided
+by configuration: a fixed-step method (or process noise, which makes it
+euler), a function set whose variables are the data vector ``[y,
+targets]``, a plant with a device drift and at least two save points take
+kernel #6 (any number of trajectories and targets; past two targets its
+wide-state instance), given the noise as rows built up front
+(``noise.py``); the adaptive method with per-trajectory parameters and no
+noise takes kernel #7; everything else (the adaptive method with
 observation noise, whose draws fall at data-dependent times, and
 ``interpreter="ladder"`` / ``"gather"``) the general path, the integrator
-with ``evaluate_trees`` (kernel #8 on CUDA) as the policy. The fused rollout
-is differentiable in the constants through ``core.cuda_policy.PolicyRollout``
-(the general path's gradient). The JAX VMEM gate is not copied. ``remat``
-is accepted and has no effect (PyTorch keeps the tape).
+with ``evaluate_trees`` (kernel #8 on CUDA) as the policy. A configuration
+the gate admits launches its kernel or raises on CUDA; nothing falls back.
+The fused rollout is differentiable in the constants through
+``core.cuda_policy.PolicyRollout`` (the general path's gradient). The JAX
+VMEM gate is not copied. ``remat`` is accepted and has no effect (PyTorch
+keeps the tape).
 
 Data: ``(x0, ts, targets, process_noise_keys, obs_noise_keys, params)``, as
 ``generate_control_data`` returns it.
@@ -40,8 +44,7 @@ from typing import Tuple
 import torch
 
 from ...core.cuda_policy import (
-    ENV_IDS, MAX_NODES, MAX_STATE_SIZE, MAX_TARGETS, MAX_TRAJECTORIES, PolicyRollout, _series,
-    rollout_policy, rollout_policy_adaptive,
+    ENV_IDS, PolicyRollout, _series, policy_lanes_refusal, rollout_policy, rollout_policy_adaptive,
 )
 from ...core.cuda_rollout import METHODS
 from ...core.interpreter import evaluate_trees
@@ -92,14 +95,14 @@ class StaticPolicyEvaluator:
 
     def _fused_kind(self, population: TreeTensors, data: Tuple):
         """``"fixed"`` (kernel #6), ``"adaptive"`` (#7) or None (the general
-        path), from the configuration alone: the limits ``check_policy``
-        enforces, and a data vector the kernels lay out."""
-        x0, ts, targets, params = data[0], data[1], data[2], data[5]
+        path), from the configuration alone: the kernels' gate
+        (``policy_lanes_refusal``), and a data vector the kernels lay out."""
+        ts, params = data[1], data[5]
+        m, n = population.ops.shape[-2:]
         if (self.interpreter not in ("auto", "pallas")
-                or self.fset.num_variables != self._data_width()
-                or population.max_nodes > MAX_NODES or ts.shape[0] < 2
-                or type(self.env) not in ENV_IDS or self.state_size > MAX_STATE_SIZE
-                or x0.shape[0] > MAX_TRAJECTORIES or targets.shape[-1] > MAX_TARGETS):
+                or self.fset.num_variables != self._data_width() or ts.shape[0] < 2
+                or type(self.env) not in ENV_IDS
+                or policy_lanes_refusal(m, n) is not None):
             return None
         if self.method in METHODS:
             return "fixed"

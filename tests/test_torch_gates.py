@@ -10,8 +10,11 @@
   and the fused one elsewhere, with the fitness of JAX's evaluator with the
   same keywords on the same population and data, made with numpy and JAX.
 * ``SREvaluator`` takes JAX's ``remat`` and ``interpreter`` keywords.
-* The policy evaluators' gate refuses what ``check_policy`` rejects (more
-  than 1024 trajectories, more than 2 targets).
+* The policy evaluators' gate (``core.cuda_policy.policy_lanes_refusal``)
+  admits any trajectory count (1,025), number of targets (3) and hidden
+  state (3, 8, 112 at N = 256) whose candidate's decoded program fits a
+  block's 227 KB of shared memory, and refuses past it (113 state trees +
+  1 readout at N = 256), where the general path evaluates.
 
 Tolerances are those of ``test_torch_sr_evaluator.py``: lanes clamped to
 ``max_fitness`` agree exactly; elsewhere the median relative fitness error
@@ -35,12 +38,13 @@ from multitreegp_tpu.core.registry import build_function_set as jax_function_set
 from multitreegp_tpu.models.evaluators import SREvaluator as JaxSREvaluator
 from multitreegp_tpu.ops.initialization import make_population_sampler as jax_sampler
 from multitreegp_tpu_torch.convert import function_set_from_jax, sr_data_from_numpy, trees_from_numpy
+from multitreegp_tpu_torch.core.cuda_policy import policy_lanes_refusal
 from multitreegp_tpu_torch.core.cuda_rollout import lanes_refusal
 from multitreegp_tpu_torch.core.registry import build_function_set
 from multitreegp_tpu_torch.core.trees import TreeTensors
 from multitreegp_tpu_torch.models.environments import Acrobot
 from multitreegp_tpu_torch.models.evaluators import (
-    SREvaluator, StaticPolicyEvaluator, generate_control_data,
+    DynamicPolicyEvaluator, SREvaluator, StaticPolicyEvaluator, generate_control_data,
 )
 from multitreegp_tpu_torch.ops.initialization import make_population_sampler
 
@@ -137,22 +141,42 @@ def test_evaluate_population_matches_jax(m, d, b, kwargs):
                          1e-4 if b <= 16 else 2e-3)
 
 
-@pytest.mark.parametrize("b,targets,kind", [(16, 0, "fixed"), (16, 2, "fixed"), (1025, 0, None),
-                                             (16, 3, None)])
-def test_policy_gate_refuses_what_check_policy_rejects(b, targets, kind):
+@pytest.mark.parametrize("b,targets,state_size,n,kind", [
+    (16, 0, 0, 8, "fixed"), (16, 2, 0, 8, "fixed"),
+    (1025, 0, 0, 8, "fixed"),    # past 1024 trajectories: the fixed instances (gridDim.y)
+    (16, 3, 0, 8, "fixed"),      # three targets: the wide instance on the card
+    (16, 1, 3, 8, "fixed"),      # state_size 3 and 8: the wide instance
+    (16, 1, 8, 8, "fixed"),
+    (16, 1, 112, 256, "fixed"),  # the largest program a block holds at N = 256 (113 trees)
+    (16, 1, 113, 256, None),     # past a block's shared memory: the general path
+])
+def test_policy_gate_refuses_what_check_policy_rejects(b, targets, state_size, n, kind):
+    """The policy evaluators' gate (``policy_lanes_refusal``) admits any
+    trajectory count, number of targets and hidden state whose candidate's
+    decoded program fits a block's shared memory, and refuses past it, with
+    that reason; where it refuses, the general path evaluates."""
     env = Acrobot()
-    fset = build_function_set([("+", 2), ("*", 2)], [[f"y{i}" for i in range(env.n_obs)]
-                                                     + [f"tgt{i}" for i in range(targets)]],
-                              [env.n_control])
+    ys = [f"y{i}" for i in range(env.n_obs)]
+    tg = [f"tgt{i}" for i in range(targets)]
+    if state_size:
+        a = [f"a{i}" for i in range(state_size)]
+        fset = build_function_set([("+", 2), ("*", 2)], [ys + a + ["u0"] + tg, a + tg],
+                                  [state_size, env.n_control])
+        ev = DynamicPolicyEvaluator(env, fset, state_size=state_size, substeps=1)
+    else:
+        fset = build_function_set([("+", 2), ("*", 2)], [ys + tg], [env.n_control])
+        ev = StaticPolicyEvaluator(env, fset, substeps=1)
     env.n_targets = targets  # the data vector the function set was built for
     g = torch.Generator().manual_seed(0)
     ts = torch.arange(0.0, 0.6, 0.2)
     x0, ts, _, pk, ok, par = generate_control_data(Acrobot(), g, ts, batch_size=b)
     tgt = torch.zeros((b, targets))
-    trees = make_population_sampler(fset, 2, 8)(g, 4)[0]
-    ev = StaticPolicyEvaluator(env, fset, substeps=1)
+    trees = make_population_sampler(fset, 2, n)(g, 4)[0]
     data = (x0, ts, tgt, pk, ok, par)
+    m = state_size + env.n_control
     assert ev._fused_kind(trees, data) == kind
-    if b > 1024:  # the general path evaluates where the kernel would refuse
+    assert (policy_lanes_refusal(m, n) is None) == (kind is not None)
+    if kind is None:  # the general path evaluates where the kernel would refuse
+        assert "shared memory" in policy_lanes_refusal(m, n)
         fitness = ev.evaluate_population(trees, data)
         assert fitness.shape == (4,) and bool(((fitness >= 0) & (fitness <= 1e4)).all())

@@ -14,8 +14,8 @@ Two routes:
   for bit; the branch probe #10 in every mode, bit for bit); the closed-loop policy kernels (#6 fixed
   step, #7 adaptive) per lane bit for bit, states, controls, alive counts
   and steps (also their instances for N <= 256, on chains of 255, 127 and
-  63 rows, and at 1024 trajectories), and the policy evaluators' refusal to run a plain version on
-  CUDA tensors; the interpreter kernels (forward and VJP)
+  63 rows, and at 1024 and 1025 trajectories), and the policy evaluators' general path (#8, never a
+  plain version) on CUDA tensors; the interpreter kernels (forward and VJP)
   through ``evaluate_trees`` and autograd, and in every caller's layout at
   N = 32 to 256 with and without ``sin``/``cos`` (per-lane outputs), and
   their instance past 256 rows at N = 300, 512 and 1024 (16 trajectories a
@@ -819,17 +819,21 @@ def test_sr_evaluator_general_path_on_card(cuda, case):
 
 @pytest.mark.cuda
 def test_policy_evaluator_general_path_on_card(cuda):
-    """1025 trajectories are past #6's block: the static evaluator takes
-    the general path (#8), not #6, and does not raise."""
+    """On 1025 trajectories (a candidate spans gridDim.y blocks) the static
+    evaluator takes #6's fixed instance, one launch and no #8; with
+    ``interpreter="gather"`` the general path (#8), not #6, and does not
+    raise."""
     env, fset, (x0, ts, tgt, pk, ok, par), trees = policy_case(cuda, pop=16, b=1025, t_end=1.0)
-    ev = StaticPolicyEvaluator(env, fset, substeps=2)
     data = (x0, ts, tgt, pk, ok, par)
-    assert ev._fused_kind(trees, data) is None
-    before, fwd = cp.policy_rollout_cuda.launches, ci.evaluate_trees_cuda.launches
-    fitness = ev.evaluate_population(trees, data)
-    torch.cuda.synchronize()
-    assert cp.policy_rollout_cuda.launches == before and ci.evaluate_trees_cuda.launches > fwd
-    assert fitness.shape == (16,) and bool(((fitness >= 0) & (fitness <= 1e4)).all())
+    for interpreter, kind in (("auto", "fixed"), ("gather", None)):
+        ev = StaticPolicyEvaluator(env, fset, substeps=2, interpreter=interpreter)
+        assert ev._fused_kind(trees, data) == kind
+        before, fwd = cp.policy_rollout_cuda.launches, ci.evaluate_trees_cuda.launches
+        fitness = ev.evaluate_population(trees, data)
+        torch.cuda.synchronize()
+        fused = cp.policy_rollout_cuda.launches - before
+        assert (fused, ci.evaluate_trees_cuda.launches > fwd) == ((1, False) if kind else (0, True))
+        assert fitness.shape == (16,) and bool(((fitness >= 0) & (fitness <= 1e4)).all())
 
 
 @pytest.mark.cuda
@@ -1274,8 +1278,8 @@ def test_deep_evaluators_match_plain_on_card(cuda, monkeypatch, kind):
 @pytest.mark.cuda
 def test_policy_kernels_wide_match_plain_on_card(cuda):
     """#6 (RK4 x 2) and #7 (dopri5, 8 steps per interval) on 4 dynamic
-    Acrobot policies x 1024 trajectories, the most a candidate takes (a
-    candidate spans 8 blocks): one launch each, every lane's states,
+    Acrobot policies x 1024 trajectories (a candidate spans 8 blocks): one
+    launch each, every lane's states,
     controls, alive count and attempted steps equal to the plain version."""
     env, fset, (x0, ts, tgt, _, _, par), trees = policy_case(cuda, state_size=2, pop=4, b=1024,
                                                              t_end=1.2)

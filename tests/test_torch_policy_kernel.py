@@ -216,14 +216,22 @@ def test_policy_host_build_without_the_swap(policy_host, kind):
     assert_lanes_agree(hxs, cp._alive_rows(count, ts.shape[0]), xs, alive, share=0.995, tol=1e-3)
 
 
-def test_policy_host_build_refuses_bad_arguments(policy_host):
+def test_policy_host_build_refuses_bad_arguments(policy_host, tmp_path):
     env, fset, (x0, ts, tgt, _, _, par), trees = host_case("Acrobot", "Constant", 0)
     launch = lambda kind: (lambda a: policy_host.policy_host(kind, a))
     with pytest.raises(ValueError):  # process noise needs euler
         cp.run_policy(launch(cp.FIXED), cp.FIXED, trees, x0, ts, tgt, par, env, fset, 0, "rk4", 2,
                       process_noise_rows=torch.zeros((ts.shape[0], 4, 8)))
-    with pytest.raises(NotImplementedError):  # state_size > 2
-        cp.run_policy(launch(cp.FIXED), cp.FIXED, trees, x0, ts, tgt, par, env, fset, 3)
+    # state_size > 2: the fixed launcher refuses it, run_policy takes it to
+    # the wide build (tests/test_torch_wide_policy.py holds its lanes)
+    env3, fset3, (x03, ts3, tgt3, _, _, par3), trees3 = host_case("Acrobot", "Constant", 3)
+    with pytest.raises(NotImplementedError):
+        cp.run_policy(launch(cp.FIXED), cp.FIXED, trees3, x03, ts3, tgt3, par3, env3, fset3, 3)
+    wide = _build.build_host("policy", tmp_path, _build.widened(False)).policy_wide_host
+    wide.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    status, xs, *_ = cp.run_policy(lambda a, *part: wide(cp.FIXED, a, *part), cp.FIXED, trees3, x03,
+                                   ts3, tgt3, par3, env3, fset3, 3, wide=True)
+    assert status == 0 and xs.shape[-1] == env3.latent_size + 3 and bool(torch.isfinite(xs[0]).all())
     with pytest.raises(ValueError):  # the adaptive kernel takes constant parameters
         series = tuple(p[:, None].expand(4, ts.shape[0]) for p in par)
         cp.run_policy(launch(cp.ADAPTIVE), cp.ADAPTIVE, trees, x0, ts, tgt, series, env, fset, 0,

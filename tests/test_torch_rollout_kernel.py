@@ -259,7 +259,7 @@ def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
         "sr_adaptive.cu", "adaptive_step.cuh", "sr_lane.cuh", "tree_prog.cuh", "tree_prog_wide.cuh",
         "tree_eval.cuh"]
     for header, touched in (("sr_lane.cuh", {"sr_fitness", "sr_adaptive", "sr_rollout"}),
-                            ("tree_prog_wide.cuh", {"sr_fitness", "sr_adaptive", "sr_rollout"}),
+                            ("tree_prog_wide.cuh", {"sr_fitness", "sr_adaptive", "sr_rollout", "policy"}),
                             ("tree_prog.cuh", {"sr_fitness", "sr_adaptive", "sr_rollout", "policy"}),
                             ("control_envs.cuh", {"policy"}),
                             ("tree_eval.cuh", set(names) - {"reproduce"})):

@@ -162,7 +162,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     tiny = dict(islands=2, pop=16, max_nodes=16, depth=3, batch=4, horizon=1.0, dt=0.2,
                 generations=2, timing_runs=1, plain_runs=1,
                 fit_generations=20, top_k=4, gradient_steps=2, elite=0.25, interp_runs=1,
-                adaptive_budget=40, adaptive_interval_steps=8, adaptive_short_t=3,
+                adaptive_budget=40, adaptive_check_budget=40, adaptive_interval_steps=8, adaptive_short_t=3,
                 adaptive_opt_steps=2,
                 policy_horizon=1.0, policy_nodes=16, policy_substeps=2, policy_adaptive_substeps=8,
                 policy_fixed_t=4, policy_adaptive_t=3, legs_pop=8, legs_t=3, trig_adaptive_t=3,
@@ -173,7 +173,8 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
                 wide_nodes=300, wide_depth=5, wide_generations=2, wide_check_nodes=(300,),
                 lorenz_states=40, lorenz_forcing=8.0, lorenz_depth=2, lorenz_dt=0.05, ext_chain_nodes=300,
                 wide_batch=1100, wide_check_t=3, wide_check_budget=8, wide_check_interval_steps=4,
-                deep_gen_nodes=64,
+                deep_gen_nodes=64, wide_policy_states=3, wide_policy_generations=2, wide_policy_check_t=3,
+                wide_policy_pop=2, wide_policy_runs=1, wide_policy_exact_dt=0.25,
                 deep_gen_depth=5, chain_k=2, shard_generations=15,
                 example_sizes=dict(generations=2, population=20, islands=2), example_t=3,
                 example_check_t=3, example_check_adaptive_t=3, example_check_budget=40)
@@ -190,10 +191,12 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
         r = deep[kind]
         assert r["identical"] == 1.0 and r["lanes"] == 8 * 4 and r["policies"] == policies
     wide_rows = ["sr_fitness_wide", "sr_rollout_wide", "sr_adaptive_global_wide", "sr_adaptive_interval_wide"]
+    policy_wide_rows = ["policy_wide", "policy_adaptive_wide"]
     assert [k["name"] for k in out["kernels"]] == [
         "sr_fitness", "reproduce", "interpret_fwd", "interpret_bwd", "sr_adaptive_global",
-        "sr_adaptive_interval", "sr_rollout", "policy", "policy_adaptive", *wide_rows, "branch_probe"]
-    tree_rows = out["kernels"][:-5]  # the fixed instances' rows: phases 24 and 25 add to each
+        "sr_adaptive_interval", "sr_rollout", "policy", "policy_adaptive", *wide_rows, *policy_wide_rows,
+        "branch_probe"]
+    tree_rows = out["kernels"][:-7]  # the fixed instances' rows: phases 24 and 25 add to each
     pk = out["policy_kernels"]
     assert {"fixed_static", "fixed_dynamic", "adaptive_static", "adaptive_dynamic"} <= set(pk)
     assert all(pk[k]["identical"] == 1.0 for k in ("fixed_static", "adaptive_dynamic"))
@@ -286,7 +289,13 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     assert all(ws["kernels"][k]["check"]["identical"] == 1.0 and ws["kernels"][k]["check"]["lanes"] == 32 * 4
                for k in wide_rows)
     assert out["trajectories"]["identical"] == 1.0 and out["trajectories"]["lanes"] == 32 * 1100
-    assert all(k["bound_ms"] > 0 and k["launches"] is not None for k in out["kernels"][-5:-1])
+    assert all(k["bound_ms"] > 0 and k["launches"] is not None for k in out["kernels"][-7:-1])
+    wp = out["wide_policy"]  # phase 28: the policy kernels' wide-state instances
+    assert len(wp["generations"]) == 2 and wp["fused_vs_general"]["exact_grid"]["spearman"] >= 0.997
+    assert all(wp["kernels"][k]["check"]["identical"] == 1.0 and wp["kernels"][k]["check"]["lanes"] == 32 * 4
+               and wp["kernels"][k]["three_targets"]["identical"] == 1.0 for k in policy_wide_rows)
+    assert wp["trajectories"]["check"]["identical"] == 1.0 and wp["trajectories"]["check"]["lanes"] == 2 * 1100
+    assert out["kernels"][7]["trajectories"]["trajectories"] == 1100
     chained = out["chained"]
     assert all(chained[k]["identical"] == 1.0 and chained[k]["candidates"] == 32 for k in ("ode", "sde"))
     sharded = out["sharded"]

@@ -26,8 +26,8 @@ On the CPU:
   ``evaluate_population`` bit for bit; a wide build that fails raises.
 
 On the card (marker ``cuda``): each wide kernel against its plain version
-on every lane (d = 5, 40 and 70; B = 1,100), against the fixed instance at
-d = 2 and 4, the dispatchers' launch counters, and ``SREvaluator`` on
+on every lane (d = 5, 40 and 70; B = 1,100; at d = 5 also in the ``_ext``
+and gplearn's user build), against the fixed instance at d = 2 and 4, the dispatchers' launch counters, and ``SREvaluator`` on
 Lorenz-96 (40 states) through #1's wide instance, one launch and no #8.
 
 JAX is imported only inside the tests that use it, so the card's run
@@ -470,6 +470,34 @@ def test_wide_kernels_match_plain_on_card(cuda, d, b):
         for a, r in zip(got, ref):
             assert same_bits(a.float(), r.float())
     assert (cro.sr_fitness_cuda.launches, cro.sr_rollout_cuda.launches) == fixed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ops", ["ext", "gplearn"])
+def test_wide_operator_builds_on_card(cuda, ops):
+    """The wide instances' ``_ext_wide`` build and gplearn's user build's
+    wide form on the card, d = 5: #1 (RK4), #3 (RK4), #5 and #4 (dopri5)
+    bit for bit as their plain versions."""
+    fset, trees, x0s, ts, ys = on(cuda, state_case(5, pop=64, b=16, t_steps=5,
+                                                   ops=EXT if ops == "ext" else gplearn_operators()))
+    checks = (
+        (lambda: cro.sr_fitness_wide_cuda(trees, x0s, ts, ys, fset, "rk4", 1),
+         lambda: cro.sr_fitness_plain(trees, x0s, ts, ys, fset, "rk4", 1)),
+        (lambda: cro.sr_rollout_wide_cuda(trees, x0s, ts, fset, "rk4", 1),
+         lambda: cro.sr_rollout_plain(trees, x0s, ts, fset, "rk4", 1)),
+        (lambda: ca.sr_fitness_adaptive_global_wide_cuda(trees, x0s, ts, ys, fset, budget=40),
+         lambda: ca.sr_fitness_adaptive_global_plain(trees, x0s, ts, ys, fset, budget=40)),
+        (lambda: ca.sr_fitness_adaptive_interval_wide_cuda(trees, x0s, ts, ys, fset, max_steps=8,
+                                                           method="dopri5"),
+         lambda: ca.sr_fitness_adaptive_interval_plain(trees, x0s, ts, ys, fset, max_steps=8,
+                                                       method="dopri5")),
+    )
+    for run, plain in checks:
+        got, ref = run(), plain()
+        torch.cuda.synchronize()
+        for a, r in zip(got, ref):
+            assert same_bits(a.float(), r.float())
+    assert _build.variant_name("sr_adaptive", _build.widened(fset.variant)) in _build._loaded
 
 
 @pytest.mark.cuda

@@ -96,10 +96,10 @@ workload (phases 12-14). Phases, one line or a few each:
    body is a multiply and an add);
 17. the instances of #1-#9 for trees of up to 256 rows against their
    plain versions: #1 on 256 candidates of 256 rows (chains of 255, 127
-   and 63 rows among them) x 16 trajectories at T = 6, RK4 and
+   and 63 rows among them) x 16 trajectories at T = 4, RK4 and
    Euler-Maruyama with kick rows; #3 on the same lanes (RK4); #8/#9 on the
    same trees against 16 states each in the recompute's layout; #5 (budget
-   8) and #4 (4 per interval), dopri5, on the same lanes at T = 4; #2 on
+   8) and #4 (4 per interval), dopri5, on the same lanes at T = 3; #2 on
    one island's 462 lanes of those parents; #6 (dynamic, RK4 x 2: the
    readout and the two state trees) and #7 (static, dopri5, 8 steps per
    interval) on 256 Acrobot policies of 256 rows, chained the same way, x
@@ -119,8 +119,8 @@ workload (phases 12-14). Phases, one line or a few each:
    Adam steps, #9 in the backward), #8/#9 launches read around each step;
    #8/#9 against their plain versions, every lane identical, with 16
    trajectories a tree and with one data vector a tree: at 512 and 1024 rows
-   (the fixed instance) on chains of N - 1, 127 and 63 rows; at 2048 and
-   3072 rows (the wide instance) the roots on chains of N - 1 rows (one of
+   (the fixed instance) on chains of N - 1, 127 and 63 rows; at 2048
+   rows (the wide instance) the roots on chains of N - 1 rows (one of
    them the zigzag whose second operands reach row N - 3), roots and
    cotangents on chains of 1023 rows in trees of N rows; at 2048 rows on the
    evaluation's and the round's shapes; their events, device time per
@@ -161,7 +161,7 @@ workload (phases 12-14). Phases, one line or a few each:
    / exp log sqrt tanh pow max min abs neg square``, 5 generations of the
    host loop (#1, #2), one constant-optimisation round of the top 50 (10 Adam
    steps; #8/#9) and ``evaluate_candidate`` of the best (#3); on its last
-   population #1 and #3 (T = 10) and #5 / #4 (phase 17's cut: T = 4, budget
+   population #1 and #3 (T = 10) and #5 / #4 (phase 17's cut: T = 3, budget
    8 / 4 per interval) against their plain versions, every lane identical;
    the static Acrobot loop with ``+ - * tanh sin cos`` at 4096 x 16, T = 250,
    RK4 x 4, 5 generations (#6, #2), then #6 static and dynamic (T = 6) and #7
@@ -250,6 +250,21 @@ workload (phases 12-14). Phases, one line or a few each:
    fixed instance (a candidate spans 16 blocks), against plain at T = 4;
    and the wide and fixed instances side by side on phase 13's static and
    dynamic shapes: every lane bit-equal, then device time in turns.
+29. user control environments through #6/#7 (``policy.cu``'s
+   user-environment builds, ``policy_e<hash12>``, whose one plant
+   ``core/user_envs.py`` traces from the environment's torch methods): Gym's
+   ``Pendulum-v1`` (:func:`pendulum_env`, defined here) at the ``policy``
+   workload's shape (8 x 512 policies, 16 trajectories, ``max_nodes`` 30,
+   ``+ - * sin cos``, T = 201 save points 0.05 apart, RK4 x 1): 3
+   generations (#6 once an evaluation, no #8; #2), the last population
+   through the general path beside the fused one, a dynamic population
+   (``state_size`` 2), ``method="adaptive"`` (#7) and observation noise (#6
+   with the obs-noise rows); every user-environment instance against its
+   plain version on every lane at T = 6 (#6 static, dynamic, noisy; #7;
+   #6/#7 wide at ``state_size`` 4), #6 and #7 timed at T = 201;
+   ``TracedAcrobot`` (``Acrobot`` under another class, so traced) beside the
+   built-in struct at phase 13's shape cut to T = 26 (#6 and #7), bit-equal,
+   then device time in turns; the new builds' ``nvcc`` seconds.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last lines are a JSON line of per-kernel numbers, the card's name and
@@ -261,6 +276,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -276,15 +292,17 @@ FULL = dict(islands=8, pop=512, max_nodes=32, depth=4, batch=16, horizon=10.0, d
             policy_fixed_t=8, policy_adaptive_t=6, legs_pop=512, legs_t=6, trig_adaptive_t=4,
             policy_opt_top_k=8, policy_opt_steps=2, policy_opt_t=60,
             noise=0.05, noisy_adaptive_t=6, ab_runs=10, probe_reps=256,
-            deep_nodes=256, deep_depth=7, deep_pop=256, deep_t=6, deep_rep_pop=512, deep_policy_t=2,
-            deep_adaptive_t=4, deep_adaptive_budget=8, deep_interval_steps=4,
-            wide_nodes=2048, wide_depth=10, wide_generations=3, wide_check_nodes=(512, 1024, 2048, 3072),
+            deep_nodes=256, deep_depth=7, deep_pop=256, deep_t=4, deep_rep_pop=512, deep_policy_t=2,
+            deep_adaptive_t=3, deep_adaptive_budget=8, deep_interval_steps=4,
+            wide_nodes=2048, wide_depth=10, wide_generations=3, wide_check_nodes=(512, 1024, 2048),
             lorenz_states=40, lorenz_forcing=8.0, lorenz_depth=2, lorenz_dt=0.05, ext_chain_nodes=1024,
             wide_batch=2048, wide_check_t=6, wide_check_budget=8, wide_check_interval_steps=4,
             deep_gen_nodes=128, wide_policy_states=8, wide_policy_generations=3, wide_policy_check_t=4,
             wide_policy_pop=1024, wide_policy_runs=3, wide_policy_exact_dt=0.25,
             deep_gen_depth=7, chain_k=10, shard_generations=15,
-            example_sizes=None, example_t=None, example_check_t=11, example_check_adaptive_t=4, example_check_budget=40)
+            user_env_t=201, user_env_dt=0.05, user_env_generations=3, user_env_check_t=6, user_env_wide_states=4,
+            user_env_acrobot_t=26, user_env_runs=3,
+            example_sizes=None, example_t=None, example_check_t=6, example_check_adaptive_t=4, example_check_budget=40)
 KERNELS = ("sr_fitness", "reproduce", "interpreter", "sr_adaptive", "sr_rollout",
            "policy", "branch_probe")  # csrc/<name>.cu
 # the sources with an extended build (the tree kernels: #1, #3-#9), phase 24's
@@ -613,6 +631,7 @@ def run(device, sizes=FULL) -> dict:
     out.update(vocabulary_phase(device, s, data, trees, fset))
     out.update(many_phase(device, s, data, trees, fset))
     out.update(wide_policy_phase(device, s, ps))
+    out.update(user_env_phase(device, s, ps))
 
     # -- the kernels line --------------------------------------------------------
     times = out.get("times_ms", {})
@@ -827,6 +846,12 @@ def run(device, sizes=FULL) -> dict:
         out["kernels"].append(row(name, "policy.cu", replaces, k.pop("launches"), k.pop("max_abs_err"),
                                   k.pop("ms"), k.pop("plain_ms"), k.pop("bound"), **k))
     next(k for k in out["kernels"] if k["name"] == "policy")["trajectories"] = wp["trajectories"]
+    ue = out["user_env"]
+    for name, replaces in (("policy_user_env", "multitreegp_tpu/core/pallas_policy.py:120"),
+                           ("policy_adaptive_user_env", "multitreegp_tpu/core/pallas_policy.py:691")):
+        k = dict(ue["kernels"][name])  # phase 29: the user-environment builds on their paths
+        out["kernels"].append(row(name, "policy.cu", replaces, k.pop("launches"), k.pop("max_abs_err"),
+                                  k.pop("ms"), k.pop("plain_ms"), k.pop("bound"), **k))
     pb = out["probe"]
     always = pb["modes"]["always"]
     out["kernels"].append(
@@ -1866,11 +1891,12 @@ def policy_adaptive_ops(trees, fset, state_size, d_aug, steps, t_steps, env_ops)
     return float((steps * per_step + drift_rows + env_ops + t_steps * readout_rows).sum())
 
 
-def policy_bound(kind, out, trees, fset, state_size, data, substeps):
+def policy_bound(kind, out, trees, fset, state_size, data, substeps, env_ops=ACROBOT_DRIFT_OPS):
     """``(bound, operations, bytes)`` of a #6 (``kind`` "fixed") or #7 run
-    on Acrobot data ``data`` that returned ``out``: its inputs read and its
-    outputs written once, its operations counted from its alive counts
-    (#6) or attempted steps (#7)."""
+    on data ``data`` that returned ``out``: its inputs read and its outputs
+    written once, its operations counted from its alive counts (#6) or
+    attempted steps (#7), ``env_ops`` a drift of the plant (Acrobot's by
+    default)."""
     x0, ts, tgt, _, _, par = data
     t_steps = ts.shape[0]
     count = out[2].sum(0)
@@ -1878,9 +1904,9 @@ def policy_bound(kind, out, trees, fset, state_size, data, substeps):
           + count.numel() * 4 * (2 if kind == "adaptive" else 1))
     d_aug = out[0].shape[-1]
     if kind == "fixed":
-        ops = policy_fixed_ops(trees, fset, state_size, d_aug, count, t_steps, substeps, ACROBOT_DRIFT_OPS)
+        ops = policy_fixed_ops(trees, fset, state_size, d_aug, count, t_steps, substeps, env_ops)
     else:
-        ops = policy_adaptive_ops(trees, fset, state_size, d_aug, out[3], t_steps, ACROBOT_DRIFT_OPS)
+        ops = policy_adaptive_ops(trees, fset, state_size, d_aug, out[3], t_steps, env_ops)
     return bound(nb, ops), ops, nb
 
 
@@ -2372,9 +2398,9 @@ def deep_phase(device, s, ps) -> dict:
     """Phase 17: the instances of #1-#9 for trees of up to 256
     rows against their plain versions. #1: 256 candidates of 2 trees of 256
     rows grown to depth 7, the first three chains of 255, 127 and 63 rows
-    (the deepest stacks), x 16 VdP trajectories at T = 6, RK4 and Euler x 4
+    (the deepest stacks), x 16 VdP trajectories at T = 4, RK4 and Euler x 4
     with kick rows; #3 on the same lanes, RK4; #5 (budget 8) and #4 (4 steps per interval), dopri5, on
-    the same lanes at T = 4; #2: one island's 462 lanes of those parents, fresh trees
+    the same lanes at T = 3; #2: one island's 462 lanes of those parents, fresh trees
     at depth 7; #6 on 256 dynamic Acrobot policies (RK4 x 2) and #7 on 256
     static ones (dopri5, 8 steps per interval), of 256 rows grown and
     chained the same way, x 16 trajectories at T = 2. Every lane identical
@@ -2663,7 +2689,7 @@ def wide_phase(device, s, data) -> dict:
     their plain versions, every lane bit-equal, in the recompute's layout (16
     trajectories a tree) and with one data vector a tree: at 512 and 1024
     rows (the fixed instance) on chains of N - 1, 127 and 63 rows; at 2048
-    and 3072 rows (the wide one) the roots on chains of N - 1 rows (one the
+    rows (the wide one) the roots on chains of N - 1 rows (one the
     zigzag whose second operands reach row N - 3), and roots and cotangents
     on chains of 1023 rows (one the zigzag) in trees of N rows (the plain
     VJP's time grows with the square of its rows; ``pytest -m cuda``'s
@@ -4735,6 +4761,314 @@ def wide_policy_phase(device, s, ps) -> dict:
                                 fixed_vs_wide=side, seconds=seconds)}
 
 
+# ------------------------------------------------------ user environments
+
+# float32 operations of one Pendulum drift with its observation, counted
+# from the generated plant (the clamp, 11 drift nodes, cos and sin)
+PENDULUM_DRIFT_OPS = 14
+
+
+def pendulum_env(obs_noise: float = 0.0):
+    """Gym's ``Pendulum-v1`` (``gym/envs/classic_control/pendulum.py``) as a
+    user control environment: a ``ControlEnvironmentBase`` subclass defined
+    here (the package has no such class) with ``tile_safe_drift = True``.
+    State ``(theta, theta_dot)``, drift ``(theta_dot, 3 g / (2 l)
+    sin(theta) + 3 / (m l^2) clip(u, -2, 2))``, parameters ``(g, m, l)`` =
+    ``(10, 1, 1)`` (Constant) or drawn per trajectory or as series,
+    observation ``[cos theta, sin theta, theta_dot]``, no targets, cost
+    ``angle_normalize(theta)^2 + 0.1 theta_dot^2 + 0.001 u^2`` summed over
+    the save grid; Gym's speed clip (a discrete-time clip, not an ODE term)
+    is left out. ``tests/test_torch_user_env.py`` holds the same class."""
+    import torch
+
+    from multitreegp_tpu_torch.models.environments.base import ControlEnvironmentBase, time_varying
+    from multitreegp_tpu_torch.models.environments.control_envs import _decay_series, _switch_series
+
+    pi = math.pi
+    ranges = ((8.0, 12.0), (0.8, 1.2), (0.8, 1.2))
+
+    def uniform(shape, g, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device=g.device)
+
+    class Pendulum(ControlEnvironmentBase):
+        tile_safe_drift = True
+
+        def __init__(self, process_noise: float = 0.0, obs_noise: float = 0.0):
+            super().__init__(process_noise, obs_noise, n_var=2, n_control=1, n_dim=1, n_obs=3)
+            self.max_torque = 2.0
+
+        def sample_init_states(self, batch_size, generator):
+            x0 = torch.stack([uniform((batch_size,), generator, -pi, pi),
+                              uniform((batch_size,), generator, -1.0, 1.0)], dim=-1)
+            return x0, torch.zeros((batch_size, 0), device=generator.device)
+
+        def sample_params(self, batch_size, mode, ts, generator):
+            if mode == "Constant":
+                ones = torch.ones(batch_size, device=ts.device)
+                return 10.0 * ones, ones, ones
+            series = dict(Different=lambda lo, hi: uniform((batch_size,), generator, lo, hi),
+                          Switch=lambda lo, hi: _switch_series(generator, batch_size, ts, lo, hi),
+                          Decay=lambda lo, hi: _decay_series(generator, batch_size, ts, lo, hi))[mode]
+            return tuple(series(lo, hi) for lo, hi in ranges)
+
+        def params_at(self, params, ts, t):
+            return tuple(time_varying(p, ts, t) for p in params)
+
+        def drift(self, t, x, u, params):
+            g, m, l = params
+            torque = torch.clamp(u[..., 0], -self.max_torque, self.max_torque)
+            theta_acc = 3.0 * g / (2.0 * l) * torch.sin(x[..., 0]) + 3.0 / (m * l * l) * torque
+            return torch.stack([x[..., 1], theta_acc], dim=-1)
+
+        def obs(self, x):
+            return torch.stack([torch.cos(x[..., 0]), torch.sin(x[..., 0]), x[..., 1]], dim=-1)
+
+        def fitness(self, xs, us, targets, ts, params):
+            theta = torch.remainder(xs[..., 0] + pi, 2 * pi) - pi  # Gym's angle_normalize
+            u = torch.clamp(us[..., 0], -self.max_torque, self.max_torque)
+            return (theta * theta + 0.1 * (xs[..., 1] * xs[..., 1]) + 0.001 * (u * u)).sum(dim=-1)
+
+    return Pendulum(0.0, obs_noise)
+
+
+def traced_acrobot_env():
+    """``class TracedAcrobot(Acrobot): pass``: the built-in plant under
+    another class, so the kernels run its traced build."""
+    from multitreegp_tpu_torch.models.environments import Acrobot
+
+    class TracedAcrobot(Acrobot):
+        pass
+
+    return TracedAcrobot(0.0, 0.0)
+
+
+def user_env_variants() -> list:
+    """Phase 29's builds of ``policy.cu``: the Pendulum's fixed and wide
+    user-environment builds and the traced Acrobot's fixed one (with the
+    default operators, ``+ - * sin cos``)."""
+    import torch
+
+    from multitreegp_tpu_torch import _build
+    from multitreegp_tpu_torch.core import user_envs
+
+    plant = lambda env, n: _build.env_variant(_build.DEFAULT, user_envs.traced(env, (torch.ones(1),) * n).header)
+    pend, acro = plant(pendulum_env(), 3), plant(traced_acrobot_env(), 4)
+    return [pend, _build.widened(pend), acro]
+
+
+def user_env_phase(device, s, ps) -> dict:
+    """Phase 29: user control environments through #6 and #7. Gym's
+    Pendulum (:func:`pendulum_env`) at the ``policy`` workload's shape (8 x
+    512 policies of ``max_nodes`` 30, ``+ - * sin cos``, 16 trajectories,
+    ``user_env_t`` = 201 save points ``user_env_dt`` = 0.05 apart, RK4 x 1):
+    3 generations of the host loop through #6's user-environment build (one
+    launch an evaluation, no #8) and #2; the last population through the
+    general path (``interpreter="gather"``: #8) beside the fused one; a
+    dynamic population (``state_size=2``, #6's fixed instance), the static
+    one under ``method="adaptive"`` (dopri5, ``policy_adaptive_substeps``
+    steps an interval: #7) and with observation noise ``noise`` (#6 with
+    the obs-noise rows), one evaluation each; every user-environment
+    instance against its plain version on every lane at ``user_env_check_t``
+    save points (fixed static and dynamic, adaptive, noisy, and the wide
+    instance with ``user_env_wide_states`` hidden states, #6 and #7); #6 and
+    #7 timed at the full grid with their bounds; ``TracedAcrobot`` beside
+    the built-in ``Acrobot`` at phase 13's shape cut to ``user_env_acrobot_t``
+    save points (#6 static and #7): every lane bit-equal, then device time in
+    turns (built-in, traced, traced, built-in); the ``nvcc`` seconds of the
+    new builds."""
+    import torch
+
+    from multitreegp_tpu_torch import GeneticProgramming, _build
+    from multitreegp_tpu_torch.core import cuda_interpreter as ci
+    from multitreegp_tpu_torch.core import cuda_policy as cp
+    from multitreegp_tpu_torch.core import cuda_reproduction as cr
+    from multitreegp_tpu_torch.core.registry import build_function_set
+    from multitreegp_tpu_torch.models.evaluators import (
+        DynamicPolicyEvaluator, StaticPolicyEvaluator, generate_control_data,
+    )
+    from multitreegp_tpu_torch.models.evaluators.noise import make_obs_noise_rows
+    from multitreegp_tpu_torch.ops.initialization import make_population_sampler
+
+    t0 = time.perf_counter()
+    on_card = device.type == "cuda"
+    env = pendulum_env()
+    b, n, budget = s["batch"], s["policy_nodes"], s["policy_adaptive_substeps"]
+    t_steps, t_cut, wss = s["user_env_t"], s["user_env_check_t"], s["user_env_wide_states"]
+    counters = dict(policy=cp.policy_rollout_cuda, policy_adaptive=cp.policy_rollout_adaptive_cuda,
+                    policy_wide=cp.policy_rollout_wide_cuda,
+                    policy_adaptive_wide=cp.policy_rollout_adaptive_wide_cuda,
+                    reproduce=cr.reproduce_lanes_cuda, interpret_fwd=ci.evaluate_trees_cuda)
+    counted = lambda fn: counted_run(fn, counters, device)
+    only = lambda launches, key: all(v == (1 if k == key else 0) for k, v in launches.items()
+                                     if k != "reproduce")
+    g = torch.Generator(device=device).manual_seed(29)
+    ts = torch.arange(t_steps, dtype=torch.float32, device=device) * s["user_env_dt"]
+    data = generate_control_data(env, g, ts, batch_size=b)
+    x0, _, tgt, _, obs_keys, par = data
+    ys = [f"y{i}" for i in range(env.n_obs)]
+    ev = StaticPolicyEvaluator(env, substeps=1)
+    gp = GeneticProgramming(
+        num_generations=s["user_env_generations"], population_size=s["pop"], fitness_function=ev,
+        operator_list=POLICY_OPERATORS, variable_list=[ys], layer_sizes=[env.n_control],
+        num_populations=s["islands"], max_nodes=n, max_init_depth=s["depth"], device=device)
+    fset = gp.fset
+    library = _build.variant_name("policy", cp.policy_variant(env, par, fset))
+    r = loop_generations(gp, data, device, s["user_env_generations"], 29, counters)
+    for i, gen in enumerate(r["generations"]):
+        e, evo = gen["eval_launches"], gen["evolve_launches"]
+        if on_card:
+            check(only(e, "policy") and evo["reproduce"] >= 1, f"phase 29 gen {i} launches {e} {evo}")
+        phase_line(f"phase 29 Pendulum ({s['islands']}x{s['pop']} policies x {b} trajectories, T={t_steps}, "
+                   f"{library}) gen {i}: eval {gen['eval_ms']:.3f} ms, evolve {gen['evolve_ms']:.3f} ms, best "
+                   f"fitness {gen['best']:.6g}; launches in evaluate {e}")
+    check(ev.env_refusal is None, f"phase 29: the Pendulum was refused: {ev.env_refusal}")
+    if on_card:
+        check(library in _build._loaded, f"phase 29: {library} not loaded")
+    flat = r["pops"].map(lambda a: a.reshape((-1,) + a.shape[2:]))
+    p = flat.ops.shape[0]
+    top = ev.max_fitness
+
+    # the fused path beside the general one on the last population
+    general_ev = StaticPolicyEvaluator(env, fset, substeps=1, interpreter="gather")
+    fused, fused_ms, l_fused = counted(lambda: ev.evaluate_population(flat, data))
+    general, general_ms, l_general = counted(lambda: general_ev.evaluate_population(flat, data))
+    if on_card:
+        check(only(l_fused, "policy"), f"phase 29 fused {l_fused}")
+        check(l_general["policy"] == 0 and l_general["interpret_fwd"] >= (t_steps - 1) * 4,
+              f"phase 29 general {l_general}")
+    clamp = float(((fused >= top) == (general >= top)).float().mean())
+    surv = (fused < top) & (general < top)
+    rho = spearman(fused[surv], general[surv]) if int(surv.sum()) > 1 else 1.0
+    rel = ((fused - general).abs() / general.abs().clamp(min=1e-30))[surv]
+    fvg = dict(candidates=p, clamp_agreement=clamp, survivors=int(surv.sum()), spearman=rho,
+               max_rel=float(rel.max()) if rel.numel() else 0.0,
+               median_rel=float(rel.median()) if rel.numel() else 0.0, fused_ms=fused_ms,
+               general_ms=general_ms, ratio=general_ms / fused_ms, launches_fused=l_fused,
+               launches_general=l_general)
+    check(clamp >= 0.999, f"phase 29 fused vs general: {fvg}")
+    phase_line(f"phase 29 fused (#6, {library}) vs general path (#8), {p} policies, T={t_steps}: clamp "
+               f"agreement {clamp:.6f}, {fvg['survivors']} survivors, Spearman {rho:.8f}, max rel "
+               f"{fvg['max_rel']:.3e}, median rel {fvg['median_rel']:.3e}; evaluation {fused_ms:.1f} ms fused, "
+               f"{general_ms:.1f} ms general ({fvg['ratio']:.1f}x)")
+
+    # the other paths: dynamic (state_size 2), adaptive, observation noise
+    dyn_set = lambda k: build_function_set(
+        POLICY_OPERATORS, [ys + [f"a{i}" for i in range(k)] + ["u0"], [f"a{i}" for i in range(k)]],
+        [k, env.n_control])
+    fset2, fset_w = dyn_set(2), dyn_set(wss)
+    trees2 = make_population_sampler(fset2, s["depth"], n)(g, p)[0]
+    trees_w = make_population_sampler(fset_w, s["depth"], n)(g, s["legs_pop"])[0]
+    noisy_env = pendulum_env(s["noise"])
+    paths = dict(
+        dynamic=(DynamicPolicyEvaluator(env, fset2, state_size=2, substeps=1), trees2, "policy"),
+        adaptive=(StaticPolicyEvaluator(env, fset, method="adaptive", adaptive_method="dopri5",
+                                        substeps=budget), flat, "policy_adaptive"),
+        noisy=(StaticPolicyEvaluator(noisy_env, fset, substeps=1), flat, "policy"))
+    path_res = {}
+    for name, (pev, trees, key) in paths.items():
+        fit, ms, launches = counted(lambda: pev.evaluate_population(trees, data))
+        check(bool(torch.isfinite(fit).all()) and bool(((fit >= 0) & (fit <= top)).all()),
+              f"phase 29 {name}: fitness outside [0, max]")
+        if on_card:
+            check(only(launches, key), f"phase 29 {name} launches {launches}")
+        path_res[name] = dict(ms=ms, launches=launches, best=float(fit.min()))
+        phase_line(f"phase 29 {name} evaluation: {ms:.1f} ms, best {float(fit.min()):.6g}, launches {launches}")
+
+    # every user-environment instance against its plain version at the cut horizon
+    rows = dict(obs_noise_rows=make_obs_noise_rows(noisy_env, ts[:t_cut], par, obs_keys, 1, "rk4"))
+    cases = (("fixed_static", "fixed", flat, env, fset, 0, None, "policy"),
+             ("fixed_dynamic", "fixed", trees2, env, fset2, 2, None, "policy"),
+             ("adaptive_static", "adaptive", flat, env, fset, 0, None, "policy_adaptive"),
+             ("fixed_noisy", "fixed", flat, noisy_env, fset, 0, rows, "policy"),
+             ("wide_fixed", "fixed", trees_w, env, fset_w, wss, None, "policy_wide"),
+             ("wide_adaptive", "adaptive", trees_w, env, fset_w, wss, None, "policy_adaptive_wide"))
+    checks = {}
+    for name, kind, trees, e_, fs, ss, rw, key in cases:
+        res, _ms, launches = counted(lambda: policy_pair(device, kind, trees, data, e_, fs, ss, t_cut, 1,
+                                                         rows=rw))
+        if on_card:
+            check(only(launches, key), f"phase 29 {name} check launches {launches}")
+        checks[name] = res
+        phase_line(f"phase 29 {name} vs plain (state_size {ss}), T={t_cut}, {res['lanes']} lanes: identical "
+                   f"{res['identical']:.6f}, max abs {res['max_abs_err']:.3e}, alive {res['alive']:.4f}; plain "
+                   f"{res['plain_ms']:.1f} ms")
+
+    # #6 and #7 at the full grid: events, device time, bound
+    full6 = (flat, x0, ts, tgt, par, env, fset, 1, "rk4", 0)
+    full7 = (flat, x0, ts, tgt, par, env, fset, 1e-4, 1e-4, budget, "dopri5", 0.9, 0)
+    timed = {}
+    for key, kind, fn, kernel in (
+            ("policy", "fixed", lambda: cp.rollout_policy(*full6), "policy_kernel"),
+            ("policy_adaptive", "adaptive", lambda: cp.rollout_policy_adaptive(*full7, return_steps=True),
+             "policy_adaptive_kernel")):
+        t_ = dict(t_steps=t_steps, ms=None, device_ms=None, runs=s["user_env_runs"])
+        if on_card:
+            t_["ms"] = cuda_time_ms(fn, s["user_env_runs"], torch)
+            t_["device_ms"] = kernel_device_ms(((key, fn, kernel),), s["user_env_runs"], torch)[key]
+        out = fn()
+        bnd, ops, nb = policy_bound(kind, out, flat, fset, 0, data, 1, PENDULUM_DRIFT_OPS)
+        t_.update(bound=bnd, ops=ops, bytes=nb, alive=float(out[2][-1].float().mean()))
+        timed[key] = t_
+        phase_line(f"phase 29 #{6 if kind == 'fixed' else 7} Pendulum T={t_steps}, {out[2][0].numel()} lanes: "
+                   + (f"{t_['ms']:.3f} ms events (median of {t_['runs']}), device {t_['device_ms']:.4f} ms a "
+                      "launch; " if on_card else "") + f"alive {t_['alive']:.4f}; bound {bnd[0]:.5f} ms by "
+                   f"{bnd[1]} ({ops:.4e} operations, {nb / 1e6:.2f} MB)")
+
+    # the traced Acrobot beside the built-in struct at phase 13's shape, cut
+    acro, traced = ps["env"], traced_acrobot_env()
+    a_trees, a_fset = ps["trees"]["static"], ps["fsets"]["static"]
+    ax0, ats, atgt, _, _, apar = ps["data"]
+    ats = ats[: s["user_env_acrobot_t"]]
+    sub = s["policy_substeps"]
+    a6 = lambda e_: (a_trees, ax0, ats, atgt, apar, e_, a_fset, sub, "rk4", 0)
+    a7 = lambda e_: (a_trees, ax0, ats, atgt, apar, e_, a_fset, 1e-4, 1e-4, budget, "dopri5", 0.9, 0)
+    fix = cp.policy_rollout_cuda if on_card else cp.policy_rollout_plain
+    ada = cp.policy_rollout_adaptive_cuda if on_card else cp.policy_rollout_adaptive_plain
+    same = dict(fixed=compare_policy(fix(*a6(traced)), fix(*a6(acro))),
+                adaptive=compare_policy(ada(*a7(traced)), ada(*a7(acro))))
+    turns = {}
+    if on_card:
+        turns = in_turns((("fixed_builtin", lambda: fix(*a6(acro)), "policy_kernel"),
+                          ("fixed_traced", lambda: fix(*a6(traced)), "policy_kernel"),
+                          ("adaptive_builtin", lambda: ada(*a7(acro)), "policy_adaptive_kernel"),
+                          ("adaptive_traced", lambda: ada(*a7(traced)), "policy_adaptive_kernel")),
+                         s["user_env_runs"], torch)
+    acrobot = dict(t_steps=ats.shape[0], lanes=same["fixed"]["lanes"],
+                   bit_equal={k: v["identical"] for k, v in same.items()}, device_ms=turns,
+                   library=_build.variant_name("policy", cp.policy_variant(traced, apar, a_fset)))
+    phase_line(f"phase 29 TracedAcrobot ({acrobot['library']}) vs the built-in Acrobot struct, T={ats.shape[0]}, "
+               f"{acrobot['lanes']} lanes: every lane bit-equal (#6 {same['fixed']['identical']:.6f}, #7 "
+               f"{same['adaptive']['identical']:.6f}); device ms in turns (built-in, traced, traced, built-in) "
+               + "; ".join(f"{k} {[round(v, 4) for v in vs]}" for k, vs in turns.items()))
+
+    nvcc = {k: v for k, v in _build.build_seconds.items() if re.match(r"policy.*_e[0-9a-f]{12}", k)}
+    phase_line(f"phase 29 user-environment builds, nvcc seconds (beside the prelude's other builds): {nvcc}")
+    launches6 = sum(gen["eval_launches"]["policy"] for gen in r["generations"])
+    kernels = dict(
+        policy_user_env=dict(
+            launches=launches6, max_abs_err=checks["fixed_static"]["max_abs_err"], ms=timed["policy"]["ms"],
+            plain_ms=checks["fixed_static"]["plain_ms"], bound=timed["policy"]["bound"],
+            device_ms=timed["policy"]["device_ms"], t_steps=t_steps, plain_t_steps=t_cut, library=library,
+            launches_paths={k: path_res[k]["launches"]["policy"] for k in ("dynamic", "noisy")},
+            checks={k: checks[k]["identical"] for k in ("fixed_static", "fixed_dynamic", "fixed_noisy",
+                                                         "wide_fixed")},
+            traced_acrobot=dict(bit_equal=acrobot["bit_equal"]["fixed"],
+                                device_ms={k: v for k, v in turns.items() if k.startswith("fixed")}),
+            nvcc_s=nvcc),
+        policy_adaptive_user_env=dict(
+            launches=path_res["adaptive"]["launches"]["policy_adaptive"],
+            max_abs_err=checks["adaptive_static"]["max_abs_err"], ms=timed["policy_adaptive"]["ms"],
+            plain_ms=checks["adaptive_static"]["plain_ms"], bound=timed["policy_adaptive"]["bound"],
+            device_ms=timed["policy_adaptive"]["device_ms"], t_steps=t_steps, plain_t_steps=t_cut,
+            checks={k: checks[k]["identical"] for k in ("adaptive_static", "wide_adaptive")},
+            traced_acrobot=dict(bit_equal=acrobot["bit_equal"]["adaptive"],
+                                device_ms={k: v for k, v in turns.items() if k.startswith("adaptive")})))
+    seconds = time.perf_counter() - t0
+    phase_line(f"phase 29 took {seconds:.1f} s")
+    return {"user_env": dict(generations=r["generations"], fused_vs_general=fvg, paths=path_res, checks=checks,
+                             times=timed, traced_acrobot=acrobot, kernels=kernels, seconds=seconds)}
+
+
 def sync(device) -> None:
     import torch
 
@@ -4765,7 +5099,8 @@ def main(argv=None) -> int:
     kernels = SHARDED_KERNELS if opts.sharded_only else KERNELS
     # one nvcc per library, all started together: the default builds, phase
     # 24's extended ones, phase 25's, 26's and 27's user ones (their function
-    # sets are traced first)
+    # sets are traced first), the wide ones and phase 29's user-environment
+    # ones (their plants are traced first)
     extra = []
     if not opts.sharded_only:
         gen_set, control_set = user_sets()
@@ -4774,6 +5109,7 @@ def main(argv=None) -> int:
                  (USER_CONTROL_KERNELS, control_set.variant), (VOCAB_GEN_KERNELS, vocab_gen.variant),
                  (("interpreter",), sweep_unary.variant), (("interpreter",), sweep_binary.variant),
                  (("interpreter",), many_operator_set().variant), (WIDE_KERNELS, _build.widened(False))]
+        extra += [(("policy",), v) for v in user_env_variants()]
     with ThreadPoolExecutor(max(1, len(extra))) as pool:
         jobs = [pool.submit(_build.build, *names, variant=v) for names, v in extra]
         _build.build(*kernels)

@@ -29,7 +29,11 @@ sources (``sr_fitness``, ``sr_rollout``, ``sr_adaptive``) compile their
 instance for any state dim and trajectory count, and ``policy`` its
 instance for any hidden state and number of targets, instead of the fixed
 ones (``csrc/tree_prog_wide.cuh``), made at the first use of a
-configuration the fixed instances do not take.
+configuration the fixed instances do not take. The policy source also has a
+user-environment form of each (:func:`env_variant`: its flags and
+``-DMTGP_USER_ENV -include _build/user_env_<hash16>.h``, the library
+``policy..._e<hash12>``), whose one plant is the struct ``core/user_envs.py``
+generated from a torch environment's methods.
 """
 from __future__ import annotations
 
@@ -58,17 +62,20 @@ NVCC_FLAGS = (
 EXTENDED_FLAGS = ("-DMTGP_EXT_OPS",)  # the extended build's extra flags (nvcc and g++)
 USER_FLAGS = EXTENDED_FLAGS + ("-DMTGP_USER_OPS",)  # a user build's, besides its -include
 WIDE_FLAGS = ("-DMTGP_WIDE_STATE",)  # a wide-state build's, besides its variant's
+ENV_FLAGS = ("-DMTGP_USER_ENV",)  # a user-environment build's, besides its -include
 
 
 @dataclass(frozen=True)
 class Variant:
     """One build of a source: the library name's suffix, the extra flags
-    (nvcc and g++), and for a user build the generated header's text, which
-    the compiler includes before the source."""
+    (nvcc and g++), for a user build the generated operator header's text
+    and for a user-environment build the generated plant's, which the
+    compiler includes before the source (in that order)."""
 
     suffix: str = ""
     flags: Tuple[str, ...] = ()
     header: str = field(default="", repr=False)
+    env_header: str = field(default="", repr=False)
 
 
 DEFAULT = Variant()
@@ -86,7 +93,17 @@ def widened(variant: Union[bool, "Variant"]) -> Variant:
     and number of targets): its flags and ``-DMTGP_WIDE_STATE``, its suffix
     and ``_wide``, its header."""
     variant = as_variant(variant)
-    return Variant(variant.suffix + "_wide", variant.flags + WIDE_FLAGS, variant.header)
+    return Variant(variant.suffix + "_wide", variant.flags + WIDE_FLAGS, variant.header,
+                   variant.env_header)
+
+
+def env_variant(variant: Union[bool, "Variant"], env_header: str) -> Variant:
+    """``variant`` (an operator build) with a generated plant as the policy
+    source's one environment: its flags and ``-DMTGP_USER_ENV``, its suffix
+    and ``_e<hash12>`` (the hash the plant header's sha256)."""
+    variant = as_variant(variant)
+    return Variant(variant.suffix + "_e" + header_hash(env_header)[:12], variant.flags + ENV_FLAGS,
+                   variant.header, env_header)
 
 
 def header_hash(header: str) -> str:
@@ -107,17 +124,32 @@ def header_path(variant: Variant) -> Path:
     return BUILD_DIR / f"user_ops_{header_hash(variant.header)[:16]}.h"
 
 
-def _write_header(variant: Variant, path: Path) -> List[str]:
-    """Write a user build's header to ``path`` (atomically, unless it holds
-    the text already) and return the compiler flags that include it."""
-    if not variant.header:
+def env_header_path(variant: Variant) -> Path:
+    """Where a user-environment build's plant header is written
+    (``_build/``), the same path for the same text."""
+    return BUILD_DIR / f"user_env_{header_hash(variant.env_header)[:16]}.h"
+
+
+def _write_text(text: str, path: Path) -> List[str]:
+    """Write a generated header to ``path`` (atomically, unless it holds the
+    text already) and return the compiler flags that include it."""
+    if not text:
         return []
-    if not path.exists() or path.read_text() != variant.header:
+    if not path.exists() or path.read_text() != text:
         path.parent.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        tmp.write_text(variant.header)
+        # a file of its own per writer: builds of one header run in parallel
+        fd, tmp = tempfile.mkstemp(dir=path.parent, prefix=f"{path.name}.", suffix=".tmp")
+        with os.fdopen(fd, "w") as f:
+            f.write(text)
         os.replace(tmp, path)
     return ["-include", str(path)]
+
+
+def _write_header(variant: Variant, out_dir: Path) -> List[str]:
+    """Write a build's generated headers into ``out_dir`` and return the
+    compiler flags that include them: the operators', then the plant's."""
+    return (_write_text(variant.header, Path(out_dir) / header_path(variant).name)
+            + _write_text(variant.env_header, Path(out_dir) / env_header_path(variant).name))
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 # seconds from the start of a build until its nvcc finished, per library
@@ -160,7 +192,8 @@ def source_files(name: str) -> List[Path]:
 
 def variant_name(name: str, variant: Union[bool, Variant] = False) -> str:
     """The library's name: ``name``, ``name_ext`` for the extended build,
-    ``name_u<hash12>`` for a user build, and ``_wide`` after either for its
+    ``name_u<hash12>`` for a user build, then ``_e<hash12>`` for a
+    user-environment build, and ``_wide`` after any of them for its
     wide-state form."""
     return name + as_variant(variant).suffix
 
@@ -177,6 +210,8 @@ def library_path(name: str, variant: Union[bool, Variant] = False) -> Path:
     h = hashlib.sha256(" ".join(_flags(variant)).encode())
     if variant.header:
         h.update(b"user_ops.h\0" + variant.header.encode())
+    if variant.env_header:
+        h.update(b"user_env.h\0" + variant.env_header.encode())
     for path in source_files(name):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"{variant_name(name, variant)}-{h.hexdigest()[:16]}.so"
@@ -199,7 +234,7 @@ def build(*names: str, variant: Union[bool, Variant] = False) -> List[Path]:
         return outs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
-    include = _write_header(variant, header_path(variant))
+    include = _write_header(variant, BUILD_DIR)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         jobs = []
@@ -245,7 +280,7 @@ def load(name: str, variant: Union[bool, Variant] = False) -> ctypes.CDLL:
 
 def build_host(name: str, out_dir: Path, variant: Union[bool, Variant] = False) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` (in ``variant``'s build: True for the
-    extended one; a user build's header is written to ``out_dir``) for the
+    extended one; a user build's headers are written to ``out_dir``) for the
     host with the C++ compiler and load it. Without ``__CUDACC__`` the source
     builds its per-lane code into a plain lane loop (``<name>_host``), so
     tests can check the kernel's logic against its plain version where there
@@ -255,7 +290,7 @@ def build_host(name: str, out_dir: Path, variant: Union[bool, Variant] = False) 
     if cxx is None:
         raise RuntimeError("no host C++ compiler found")
     out = Path(out_dir) / f"{variant_name(name, variant)}_host.so"
-    include = _write_header(variant, Path(out_dir) / header_path(variant).name)
+    include = _write_header(variant, out_dir)
     cmd = [cxx, "-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
            *variant.flags, *include, "-o", str(out), str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)

@@ -24,10 +24,18 @@ then ``n_control`` readout trees: ``u = readout([0s(n_obs), a, 0s(n_control),
 tgt])`` inside the loop, ``da = state_trees([y, a, u, tgt])``. The controls
 at the save points see real observations (``u`` zero-fed).
 
+The plant is the environment's device drift: a hand-written struct of
+``csrc/control_envs.cuh`` for the seven built-in classes (by exact type,
+:data:`ENV_IDS`), and for any other environment that sets
+``tile_safe_drift = True`` the struct ``core/user_envs.py`` generates from
+its torch methods, compiled as the one plant of a user-environment build
+(``_build.env_variant``; :func:`device_plant`, :func:`policy_variant`).
+
 CUDA tensors launch the kernel, or raise where it does not apply (an
 operator outside ``DEVICE_OPS``, ``N > 256``, a candidate's decoded program
 past a block's shared memory (:func:`policy_lanes_refusal`), an environment
-without a device drift, process noise with a method other than euler,
+with no device plant (not tile-safe, or a refused trace: the reason),
+process noise with a method other than euler,
 series parameters in the adaptive kernel); CPU tensors run the plain
 version, which computes what the kernel computes in plain PyTorch, in its
 float32 expression order. Nothing falls back. Each kernel has fixed
@@ -67,6 +75,7 @@ from .cuda_rollout import (
 from .interpreter import evaluate_trees_plain
 from .registry import FunctionSet
 from .trees import TreeTensors
+from .user_envs import USER_ENV_ID, TracedEnv, refusal, traced
 
 # csrc/control_envs.cuh EnvId: the exact class picks the device drift
 ENV_IDS = {HarmonicOscillator: 0, ChangingHarmonicOscillator: 1, HarmonicOscillator2: 2,
@@ -320,30 +329,67 @@ class _Args(ctypes.Structure):
                 + [(f, ctypes.c_float) for f in _ARG_FLOATS])
 
 
+def plant_refusal(env, params) -> Optional[str]:
+    """Why the kernels have no plant for ``env``, or None: a built-in class
+    has its hand-written one, any other environment a plant traced from its
+    methods unless it is not tile-safe or its trace is refused
+    (``user_envs.refusal``; ``params``: their structure is traced)."""
+    return None if type(env) in ENV_IDS else refusal(env, params)
+
+
+def device_plant(env, params) -> Tuple[int, Optional[TracedEnv]]:
+    """The plant the kernels run for ``env``: ``(its id in
+    csrc/control_envs.cuh, None)`` for a built-in class, ``(USER_ENV_ID,
+    its generated plant)`` for any other; raises ``NotImplementedError``
+    with :func:`plant_refusal`'s reason where there is none."""
+    reason = plant_refusal(env, params)
+    if reason is not None:
+        raise NotImplementedError(f"no device plant: {reason}")
+    if type(env) in ENV_IDS:
+        return ENV_IDS[type(env)], None
+    return USER_ENV_ID, traced(env, params)
+
+
+def policy_variant(env, params, fset: FunctionSet):
+    """The build of ``csrc/policy.cu`` that runs ``env``'s plant with
+    ``fset``'s operators (a fixed instance's; ``_build.widened`` of it for
+    the wide one): the set's own build for a built-in plant, its
+    user-environment form for a generated one."""
+    _, plant = device_plant(env, params)
+    return fset.variant if plant is None else _build.env_variant(fset.variant, plant.header)
+
+
+def obs_width(env) -> int:
+    """The observation's floats in the kernels' data vector: the latent
+    size for a built-in plant (its first ``n_obs`` are read), ``n_obs`` for a
+    generated one."""
+    return env.latent_size if type(env) in ENV_IDS else env.n_obs
+
+
 def data_width(env, state_size: int, n_targets: int) -> int:
-    """Length of the kernels' data vector ``[y (latent), a (state_size), u
-    (n_control), targets (n_targets)]``."""
-    return env.latent_size + state_size + env.n_control + n_targets
+    """Length of the kernels' data vector ``[y (obs_width), a (state_size),
+    u (n_control), targets (n_targets)]``."""
+    return obs_width(env) + state_size + env.n_control + n_targets
 
 
 def data_slots(env, fset: FunctionSet, state_size: int) -> torch.Tensor:
     """int32 slot of every variable in the kernels' data vector ``[y
-    (latent), a (state_size), u (n_control), targets (n_targets)]``: the
+    (obs_width), a (state_size), u (n_control), targets (n_targets)]``: the
     policy's variables are ``[y (n_obs), tgt]`` (static) or ``[y, a, u,
     tgt]`` (dynamic); a variable past that width gets the slot past the
     vector, which reads 0."""
-    latent, nc, n_obs, nt = env.latent_size, env.n_control, env.n_obs, env.n_targets
+    ow, nc, n_obs, nt = obs_width(env), env.n_control, env.n_obs, env.n_targets
     width = n_obs + (state_size + nc if state_size else 0) + nt
     slots = []
     for v in range(fset.num_variables):
         if v < n_obs:
             slots.append(v)
         elif v < n_obs + state_size:
-            slots.append(latent + v - n_obs)
+            slots.append(ow + v - n_obs)
         elif state_size and v < n_obs + state_size + nc:
-            slots.append(latent + v - n_obs)
+            slots.append(ow + v - n_obs)
         elif v < width:
-            slots.append(latent + state_size + nc + v - (width - nt))
+            slots.append(ow + state_size + nc + v - (width - nt))
         else:
             slots.append(data_width(env, state_size, nt))
     return torch.tensor(slots, dtype=torch.int32)
@@ -373,11 +419,12 @@ def policy_lanes_refusal(m: int, n: int) -> Optional[str]:
     return None
 
 
-def check_policy(trees: TreeTensors, x0, targets, env, fset: FunctionSet, state_size: int) -> None:
-    """Raise unless the policy kernels take these operands."""
+def check_policy(trees: TreeTensors, x0, targets, params, env, fset: FunctionSet,
+                 state_size: int) -> int:
+    """Raise unless the policy kernels take these operands; returns the
+    plant's id (:func:`device_plant`)."""
     p, m, n = trees.ops.shape
-    if type(env) not in ENV_IDS:
-        raise NotImplementedError(f"{type(env).__name__} has no device drift (csrc/control_envs.cuh)")
+    env_id, _ = device_plant(env, params)
     if state_size < 0 or m != state_size + env.n_control:
         raise ValueError(f"{m} trees for state_size {state_size} + {env.n_control} controls")
     reason = policy_lanes_refusal(m, n)
@@ -386,6 +433,7 @@ def check_policy(trees: TreeTensors, x0, targets, env, fset: FunctionSet, state_
     if x0.dim() != 2 or x0.shape[-1] != env.latent_size:
         raise ValueError(f"x0 {tuple(x0.shape)}: expected (B, {env.latent_size})")
     fset.require_device_ops()
+    return env_id
 
 
 def run_policy(launch, kind: int, trees: TreeTensors, x0, ts, targets, params, env,
@@ -398,8 +446,10 @@ def run_policy(launch, kind: int, trees: TreeTensors, x0, ts, targets, params, e
     :func:`cuda_rollout.wide_launches` (the wide instance; ``scratch`` its
     lane vectors, allocated here): returns ``(status, xs, us, alive count
     (P, B), steps (P, B))``, ``status`` the first non-zero one. The fixed
-    instances refuse what :func:`takes_fixed` does not admit."""
-    check_policy(trees, x0, targets, env, fset, state_size)
+    instances refuse what :func:`takes_fixed` does not admit. ``launch``
+    is the build of :func:`policy_variant`'s: the plant's id goes in the
+    operands."""
+    env_id = check_policy(trees, x0, targets, params, env, fset, state_size)
     if not wide and not takes_fixed(env, state_size, targets.shape[-1]):
         raise NotImplementedError(
             f"state_size {state_size} and {targets.shape[-1]} targets: the fixed instances take "
@@ -447,7 +497,7 @@ def run_policy(launch, kind: int, trees: TreeTensors, x0, ts, targets, params, e
         args.method, args.max_steps = ADAPTIVE_METHODS[method], max_steps
         args.rtol, args.atol, args.safety = _f32(rtol), _f32(atol), _f32(safety)
     args.env, args.state_size, args.P, args.m, args.n, args.B, args.T = (
-        ENV_IDS[type(env)], state_size, p, m, n, b, t_steps)
+        env_id, state_size, p, m, n, b, t_steps)
     args.var_start, args.n_obs, args.n_targets = fset.var_start, env.n_obs, targets.shape[-1]
     args.streamed = int(streamed)
     status = 0
@@ -469,22 +519,24 @@ def _alive_rows(count: torch.Tensor, t_steps: int) -> torch.Tensor:
     return torch.arange(t_steps, device=count.device)[:, None, None] < count[None]
 
 
-def _cuda_launch(kind: int, trees: TreeTensors, b: int, fset: FunctionSet, wrapper, wide: bool):
+def _cuda_launch(kind: int, trees: TreeTensors, b: int, env, params, fset: FunctionSet, wrapper,
+                 wide: bool):
     """The launcher :func:`run_policy` calls on CUDA tensors: each launch of
-    the set's library (its ``_wide`` form for the wide instance) checked,
-    then counted in ``wrapper.launches``."""
+    the library of :func:`policy_variant` (its ``_wide`` form for the wide
+    instance) checked, then counted in ``wrapper.launches``."""
     dev = trees.ops.device
     if dev.type != "cuda":
         raise ValueError(f"the policy kernels take CUDA tensors, got {dev}")
     m, n = trees.ops.shape[1:]
     stream = torch.cuda.current_stream(dev).cuda_stream
+    variant = policy_variant(env, params, fset)
     if wide:
-        lib = _build.load("policy", _build.widened(fset.variant))
+        lib = _build.load("policy", _build.widened(variant))
         fn = lib.policy_wide_launch
         fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         cpb = wide_cpb(b, m, n)
     else:
-        lib = _build.load("policy", fset.variant)
+        lib = _build.load("policy", variant)
         fn = lib.policy_launch
         fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         # a candidate's shared memory: m decoded programs of n 8-byte rows and
@@ -507,7 +559,7 @@ def _fixed_launch(wrapper, wide: bool, trees, x0, ts, targets, params, env, fset
         raise NotImplementedError(f"method {method!r}: the fixed-step kernel has {sorted(METHODS)}")
     if substeps < 1:
         raise ValueError("substeps must be >= 1")
-    launch = _cuda_launch(FIXED, trees, x0.shape[0], fset, wrapper, wide)
+    launch = _cuda_launch(FIXED, trees, x0.shape[0], env, params, fset, wrapper, wide)
     _, xs, us, count, _ = run_policy(
         launch, FIXED, trees, x0, ts, targets, params, env, fset, state_size, method, substeps,
         obs_noise_rows, process_noise_rows, wide=wide)
@@ -521,7 +573,7 @@ def _adaptive_launch(wrapper, wide: bool, trees, x0, ts, targets, params, env, f
         raise ValueError(f"unknown adaptive method {method!r}: {sorted(ADAPTIVE_METHODS)}")
     if max_steps < 0:
         raise ValueError(f"step budget {max_steps} < 0")
-    launch = _cuda_launch(ADAPTIVE, trees, x0.shape[0], fset, wrapper, wide)
+    launch = _cuda_launch(ADAPTIVE, trees, x0.shape[0], env, params, fset, wrapper, wide)
     _, xs, us, count, steps = run_policy(
         launch, ADAPTIVE, trees, x0, ts, targets, params, env, fset, state_size, method,
         max_steps=max_steps, rtol=rtol, atol=atol, safety=safety, wide=wide)

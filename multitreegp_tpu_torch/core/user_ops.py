@@ -318,7 +318,10 @@ def _emit_graph(gm: torch.fx.GraphModule, inputs: Sequence[str]) -> Tuple[List[s
     return lines, outputs
 
 
-def _emit_node(node, names: Dict, lines: List[str]) -> None:
+def check_op(node, check_value: Callable = None) -> str:
+    """Refuse ``node`` unless the emitter compiles its aten op on values that
+    ``check_value(node, what)`` admits (default: per lane or constant,
+    :func:`_check_value`); returns the op's name."""
     target = node.target
     what = f"{target}" if isinstance(target, torch._ops.OpOverload) else repr(target)
     if isinstance(target, torch._ops.OpOverload):
@@ -327,14 +330,22 @@ def _emit_node(node, names: Dict, lines: List[str]) -> None:
             raise Refused(f"it draws random numbers ({what})")
         if torch.Tag.reduction in tags:
             raise Refused(f"it reduces over the lanes ({what})")
-    emitter = EMITTERS.get(target)
-    if emitter is None:
+    if EMITTERS.get(target) is None:
         raise Refused(f"it has an aten op outside the emitter's table ({what})")
-    _check_value(node, what)
+    (check_value or _check_value)(node, what)
     if target == _AT.empty_like.default and any(u.target != _AT.fill.Scalar for u in node.users):
         raise Refused(f"it reads an uninitialised tensor ({what})")
     if target == _AT._to_copy.default and node.args[0].meta["val"].dtype != torch.bool:
         raise Refused(f"a copy from {node.args[0].meta['val'].dtype} (only bool to float32 is emitted)")
+    return what
+
+
+def node_expr(node, name_of: Callable) -> str:
+    """The C++ expression of one float32 (or bool) rounding of a checked
+    node (:func:`check_op`), its node operands named by ``name_of(node)``."""
+    target = node.target
+    what = f"{target}"
+    emitter = EMITTERS[target]
     skip_first = target in _SHAPE_ONLY
 
     def arg(a, i):
@@ -343,33 +354,36 @@ def _emit_node(node, names: Dict, lines: List[str]) -> None:
         if isinstance(a, torch.fx.Node):
             if skip_first and i == 0:
                 return None
-            return names[a]
+            return name_of(a)
         return _f32(_scalar(a))
 
     if emitter == "pow":
         a, e = node.args[:2]
         if not isinstance(a, torch.fx.Node):
             raise Refused(f"a power of a scalar ({what})")
-        expr = _pow_scalar(names[a], e)
-    elif emitter == "div":
+        return _pow_scalar(name_of(a), e)
+    if emitter == "div":
         a, b = node.args[:2]
         mode = node.kwargs.get("rounding_mode")
         if not isinstance(a, torch.fx.Node):
             raise Refused(f"a division of a scalar ({what})")
         if mode is None:
-            expr = f"{names[a]} / {names[b]}" if isinstance(b, torch.fx.Node) else _div_scalar(names[a], b)
-        elif not isinstance(b, torch.fx.Node):
+            return f"{name_of(a)} / {name_of(b)}" if isinstance(b, torch.fx.Node) else _div_scalar(name_of(a), b)
+        if not isinstance(b, torch.fx.Node):
             # by a scalar the card multiplies by its reciprocal, the CPU divides
             raise Refused(f"a rounded division by a scalar ({what})")
-        elif mode == "floor":  # c10::div_floor_floating
-            expr = f"mtgp_user::div_floor({names[a]}, {names[b]})"
-        else:  # trunc: std::trunc(a / b)
-            expr = f"truncf({names[a]} / {names[b]})"
-    else:
-        try:
-            expr = emitter([arg(a, i) for i, a in enumerate(node.args)], dict(node.kwargs))
-        except Refused as exc:
-            raise Refused(f"{exc} ({what})") from exc
+        if mode == "floor":  # c10::div_floor_floating
+            return f"mtgp_user::div_floor({name_of(a)}, {name_of(b)})"
+        return f"truncf({name_of(a)} / {name_of(b)})"  # trunc: std::trunc(a / b)
+    try:
+        return emitter([arg(a, i) for i, a in enumerate(node.args)], dict(node.kwargs))
+    except Refused as exc:
+        raise Refused(f"{exc} ({what})") from exc
+
+
+def _emit_node(node, names: Dict, lines: List[str]) -> None:
+    check_op(node)
+    expr = node_expr(node, names.__getitem__)
     ctype = "bool" if node.meta["val"].dtype == torch.bool else "float"
     name = f"v{len(lines)}"
     names[node] = name
@@ -389,12 +403,17 @@ def compile_op(name: str, fn: Callable, arity: int) -> UserOp:
     return UserOp(name, arity, forward, vjp)
 
 
-_PRELUDE = """\
+_PRELUDE_HEAD = """\
 // Generated by multitreegp_tpu_torch/core/user_ops.py: the user operators of
 // one function set, device op ids kUserFrom + k. Built into the tree kernels'
 // user libraries with -DMTGP_EXT_OPS -DMTGP_USER_OPS -include <this file>.
 #pragma once
 
+"""
+# the includes and MTGP_USER_HD, and the helpers in namespace mtgp_user, that
+# a generated header defines (core/user_envs.py's too, unless the user
+# operators' header, included first, has)
+INCLUDES = """\
 #include <math.h>
 #include <stdint.h>
 #include <string.h>
@@ -405,9 +424,8 @@ _PRELUDE = """\
 #else
 #define MTGP_USER_HD
 #endif
-
-namespace mtgp_user {
-
+"""
+HELPERS = """\
 MTGP_USER_HD inline float bits(uint32_t u) {
 #ifdef __CUDA_ARCH__
   return __uint_as_float(u);
@@ -451,6 +469,7 @@ MTGP_USER_HD inline float div_floor(float a, float b) {
   return floordiv;
 }
 """
+_PRELUDE = _PRELUDE_HEAD + INCLUDES + "\nnamespace mtgp_user {\n\n" + HELPERS
 
 
 def header(ops: Sequence[UserOp]) -> str:

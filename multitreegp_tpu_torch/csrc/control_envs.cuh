@@ -4,7 +4,13 @@
 // parameters as compile-time constants, the batched torch drift of one lane
 // in the same float32 expression order, its `cond_alive`, and the angle
 // wrapping of its observation (the observation is the first n_obs latent
-// components, plus the noise row where one is given, then wrapped).
+// components, plus the noise row where one is given, then wrapped). Each
+// sets kObs = kLatent (the observation's slots in the trees' data vector)
+// and kTraced = false. A user environment's plant has the same members
+// but its own observation (kTraced = true, kObs = n_obs, `observe(x,
+// noise_or_null, y)` in place of `wrap_obs`); core/user_envs.py generates
+// it, as mtgp_env::UserEnv, into a header that the user-environment build
+// includes (-DMTGP_USER_ENV, environment id kUserEnv).
 //
 // Numerics, as in the torch versions: Python constants are float32 values of
 // the JAX package's doubles (f32(9.81), f32(pi / 2), f32(72750.0 / 8.314));
@@ -30,6 +36,7 @@ enum EnvId {
   kAcrobot = 4,
   kAcrobot2 = 5,
   kStirredTankReactor = 6,
+  kUserEnv = 7,  // core/user_envs.py USER_ENV_ID: the user-environment build's one plant
 };
 
 constexpr double kPi = 3.141592653589793;  // jnp.pi
@@ -51,6 +58,8 @@ MTGP_HD inline float wrap_angle(float a) {
 // parameters, which the kernel interpolates): params (omega, zeta).
 struct HarmonicOscillatorEnv {
   static constexpr int kLatent = 2, kControls = 1, kParams = 2;
+  static constexpr int kObs = kLatent;
+  static constexpr bool kTraced = false;
   MTGP_HD static void drift(const float* x, const float* u, const float* p, float* dx) {
     const float omega = p[0], zeta = p[1];
     dx[0] = x[1];
@@ -63,6 +72,8 @@ struct HarmonicOscillatorEnv {
 // Two coupled oscillators, two controls; params (unused,).
 struct HarmonicOscillator2Env {
   static constexpr int kLatent = 4, kControls = 2, kParams = 1;
+  static constexpr int kObs = kLatent;
+  static constexpr bool kTraced = false;
   MTGP_HD static void drift(const float* x, const float* u, const float*, float* dx) {
     dx[0] = x[1];
     dx[1] = (-x[0] - 0.5f * x[2]) + u[0];
@@ -76,6 +87,8 @@ struct HarmonicOscillator2Env {
 // Cart-pole; params (unused,).
 struct CartPoleEnv {
   static constexpr int kLatent = 4, kControls = 1, kParams = 1;
+  static constexpr int kObs = kLatent;
+  static constexpr bool kTraced = false;
   MTGP_HD static void drift(const float* x, const float* u, const float*, float* dx) {
     const float control = clamp_f(u[0], -1.0f, 1.0f);
     const float theta = x[1], x_dot = x[2], theta_dot = x[3];
@@ -102,6 +115,8 @@ struct CartPoleEnv {
 template <bool kTwoTorques>
 struct AcrobotEnv {
   static constexpr int kLatent = 4, kControls = kTwoTorques ? 2 : 1, kParams = 4;
+  static constexpr int kObs = kLatent;
+  static constexpr bool kTraced = false;
   MTGP_HD static void drift(const float* x, const float* u, const float* p, float* dx) {
     const float l1 = p[0], l2 = p[1], m1 = p[2], m2 = p[3];
     const float torque2 = clamp_f(u[0], -1.0f, 1.0f);
@@ -141,6 +156,8 @@ struct AcrobotEnv {
 // ua, q, tf, tcf, volc).
 struct StirredTankReactorEnv {
   static constexpr int kLatent = 3, kControls = 1, kParams = 8;
+  static constexpr int kObs = kLatent;
+  static constexpr bool kTraced = false;
   MTGP_HD static void drift(const float* x, const float* u, const float* p, float* dx) {
     const float vol = p[0], cp = p[1], dhr = p[2], ua = p[3], q = p[4], tf = p[5], tcf = p[6],
                 volc = p[7];

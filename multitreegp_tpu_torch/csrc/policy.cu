@@ -62,8 +62,8 @@
 // registers. State, stages, t, dt and the FSAL k1 live in registers;
 // templates on the plant, the policy's
 // state size (0 = static, d_aug = latent + state size) and the stack bound
-// (N <= 32 or 256). The tree's data vector has fixed slots [y (latent), a
-// (state size), u (controls), targets (2)], at most 10 wide; the wrapper
+// (N <= 32 or 256). The tree's data vector has fixed slots [y (latent; a
+// user plant's kObs), a (state size), u (controls), targets (2)]; the wrapper
 // rewrites each variable opcode to its slot, so a leaf is a chain of
 // selects over registers whatever n_obs and n_targets are. The TPU kernels'
 // (8, 128) tiles, size sort, row-trip tables, double-buffered row staging,
@@ -92,6 +92,16 @@
 // registers. The same expressions in the same order, so where a fixed
 // instance runs a wide lane is bit-equal to it, and at any size to the
 // plain versions. #7's drift stays out of line, as in its fixed instance.
+//
+// The user-environment build (built with -DMTGP_USER_ENV and -include of a
+// header that core/user_envs.py generates from a torch environment's
+// drift, cond_alive, obs and obs_noisy, the `_e<hash>` libraries) has one
+// plant, mtgp_env::UserEnv, in every instance, fixed and wide, in place of
+// the seven hand-written ones: the role of JAX's kernels tracing any
+// `tile_safe_drift` environment into their body. Its observation is its own
+// `observe` (kObs floats, which may exceed the latent size), so the data
+// vector is [y (kObs), a, u, tgt]; a built-in plant's kObs is its kLatent, and
+// its instances compile as they did.
 //
 // The per-lane code is plain C++ under MTGP_HD, so the same file also
 // compiles for the host (without __CUDACC__) into a lane loop that decodes
@@ -152,9 +162,11 @@ struct PolicyArgs {
 template <class Env, int SS, int N>
 struct LanePolicy {
   static constexpr int L = Env::kLatent, NC = Env::kControls, NP = Env::kParams, D = L + SS;
+  static constexpr int O = Env::kObs;                     // the observation's floats
   static constexpr int M = SS + NC;                       // trees per candidate
   static constexpr int G = NC > SS ? NC : SS;             // trees in the larger group
-  static constexpr int KD = L + SS + NC + kMaxTargets;    // data slots [y, a, u, tgt]
+  static constexpr int KD = O + SS + NC + kMaxTargets;    // data slots [y, a, u, tgt]
+  static_assert(Env::kTraced || O == L, "a built-in plant observes its latent state");
   const Row* prog;  // tree k's rows at prog + k * n
   int n;
   int first_state, first_readout;
@@ -169,27 +181,31 @@ struct LanePolicy {
   }
 
   // y = the observation of the latent state x (+ the noise row, if any)
-  MTGP_HD void observe(const float* x, const float* noise, float (&y)[L]) const {
+  MTGP_HD void observe(const float* x, const float* noise, float (&y)[O]) const {
+    if constexpr (Env::kTraced) {
+      Env::observe(x, noise, y);
+    } else {
 #pragma unroll
-    for (int q = 0; q < L; ++q) y[q] = (noise != nullptr && q < n_obs) ? x[q] + noise[q] : x[q];
-    Env::wrap_obs(y);
+      for (int q = 0; q < L; ++q) y[q] = (noise != nullptr && q < n_obs) ? x[q] + noise[q] : x[q];
+      Env::wrap_obs(y);
+    }
   }
 
   // data = [y or 0, a, u or 0, tgt]
   MTGP_HD void fill(float (&data)[KD], const float* y, const float* x, const float* u) const {
 #pragma unroll
-    for (int q = 0; q < L; ++q) data[q] = y ? y[q] : 0.0f;
+    for (int q = 0; q < O; ++q) data[q] = y ? y[q] : 0.0f;
 #pragma unroll
-    for (int j = 0; j < SS; ++j) data[L + j] = x[L + j];
+    for (int j = 0; j < SS; ++j) data[O + j] = x[L + j];
 #pragma unroll
-    for (int j = 0; j < NC; ++j) data[L + SS + j] = u ? u[j] : 0.0f;
+    for (int j = 0; j < NC; ++j) data[O + SS + j] = u ? u[j] : 0.0f;
 #pragma unroll
-    for (int j = 0; j < kMaxTargets; ++j) data[L + SS + NC + j] = tgt[j];
+    for (int j = 0; j < kMaxTargets; ++j) data[O + SS + NC + j] = tgt[j];
   }
 
   // dx = the closed loop's drift at the augmented state x
   MTGP_HD void drift(const float (&x)[D], const float* p, const float* noise, float (&dx)[D]) const {
-    float y[L], data[KD], u[NC];
+    float y[O], data[KD], u[NC];
     observe(x, noise, y);
     // the readout; a dynamic one sees the hidden state and the targets only
     fill(data, SS > 0 ? nullptr : y, x, nullptr);
@@ -225,7 +241,7 @@ struct LanePolicy {
 
   // the controls at a save point: real observations, u zero-fed
   MTGP_HD void controls(const float (&x)[D], const float* noise, float (&u)[NC]) const {
-    float y[L], data[KD];
+    float y[O], data[KD];
     observe(x, noise, y);
     fill(data, y, x, nullptr);
     run<NC>(SS, first_readout, data, u);
@@ -540,7 +556,7 @@ bool bad_args(int kind, const PolicyArgs& a, bool wide) {
   return a.P <= 0 || a.n <= 0 || a.n > kMaxNodes || a.B <= 0 || a.T <= 0 ||
          a.state_size < 0 || a.m != a.state_size + Env::kControls || a.n_targets < 0 ||
          (!wide && (a.state_size > kMaxStateSize || a.n_targets > kMaxTargets)) ||
-         a.n_obs < 0 || a.n_obs > Env::kLatent ||
+         a.n_obs < 0 || a.n_obs > Env::kObs || (Env::kTraced && a.n_obs != Env::kObs) ||
          (fixed && (a.method < kEuler || a.method > kRk4 || a.substeps <= 0 ||
                     (a.kick_rows && a.method != kEuler))) ||
          (!fixed && (a.method != kBosh3 && a.method != kDopri5)) ||
@@ -562,6 +578,7 @@ constexpr int kAdaptiveWideVectors = 10;
 template <class Env, bool U>
 struct WidePolicy {
   static constexpr int L = Env::kLatent, NC = Env::kControls, NP = Env::kParams;
+  static constexpr int O = Env::kObs;  // the observation's floats
   WideTrees<U> trees;
   int ss, width, n_obs;
   LaneVec data;
@@ -569,19 +586,26 @@ struct WidePolicy {
   MTGP_HD int dim() const { return L + ss; }
 
   // y = the observation of the latent state x (+ the noise row, if any)
-  MTGP_HD void observe(const LaneVec& x, const float* noise, float (&y)[L]) const {
+  MTGP_HD void observe(const LaneVec& x, const float* noise, float (&y)[O]) const {
+    if constexpr (Env::kTraced) {
+      float xl[L];
 #pragma unroll
-    for (int q = 0; q < L; ++q) y[q] = (noise != nullptr && q < n_obs) ? x[q] + noise[q] : x[q];
-    Env::wrap_obs(y);
+      for (int q = 0; q < L; ++q) xl[q] = x[q];
+      Env::observe(xl, noise, y);
+    } else {
+#pragma unroll
+      for (int q = 0; q < L; ++q) y[q] = (noise != nullptr && q < n_obs) ? x[q] + noise[q] : x[q];
+      Env::wrap_obs(y);
+    }
   }
 
   // data = [y or 0, a, u or 0, tgt]
   MTGP_HD void fill(const float* y, const LaneVec& x, const float* u) const {
 #pragma unroll
-    for (int q = 0; q < L; ++q) data[q] = y ? y[q] : 0.0f;
-    for (int j = 0; j < ss; ++j) data[L + j] = x[L + j];
+    for (int q = 0; q < O; ++q) data[q] = y ? y[q] : 0.0f;
+    for (int j = 0; j < ss; ++j) data[O + j] = x[L + j];
 #pragma unroll
-    for (int j = 0; j < NC; ++j) data[L + ss + j] = u ? u[j] : 0.0f;
+    for (int j = 0; j < NC; ++j) data[O + ss + j] = u ? u[j] : 0.0f;
   }
 
   // the controls of the readout trees on the data vector
@@ -589,7 +613,7 @@ struct WidePolicy {
 
   // dx = the closed loop's drift at the augmented state x
   MTGP_HD void drift(const LaneVec& x, const float* p, const float* noise, const LaneVec& dx) const {
-    float y[L], u[NC], xl[L], dxl[L];
+    float y[O], u[NC], xl[L], dxl[L];
     observe(x, noise, y);
     // the readout; a dynamic one sees the hidden state and the targets only
     fill(ss > 0 ? nullptr : y, x, nullptr);
@@ -613,7 +637,7 @@ struct WidePolicy {
 
   // the controls at a save point: real observations, u zero-fed
   MTGP_HD void controls(const LaneVec& x, const float* noise, float (&u)[NC]) const {
-    float y[L];
+    float y[O];
     observe(x, noise, y);
     fill(y, x, nullptr);
     readout(u);
@@ -803,13 +827,13 @@ MTGP_HD void policy_adaptive_lane_wide(const PolicyArgs& a, const WidePolicy<Env
 template <class Env, bool U>
 MTGP_HD void run_lane_wide(int kind, const WideSpan& s, const PolicyArgs& a,
                            const WideTrees<U>& f, int c, int b, size_t li) {
-  constexpr int L = Env::kLatent, NC = Env::kControls;
+  constexpr int L = Env::kLatent, NC = Env::kControls, O = Env::kObs;
   const int d = L + a.state_size;
   const int vectors = kind == kFixed ? kFixedWideVectors : kAdaptiveWideVectors;
-  const WidePolicy<Env, U> pol{f, a.state_size, L + a.state_size + NC + a.n_targets, a.n_obs,
+  const WidePolicy<Env, U> pol{f, a.state_size, O + a.state_size + NC + a.n_targets, a.n_obs,
                                scratch_vec(s, static_cast<size_t>(vectors) * d, li)};
   for (int j = 0; j < a.n_targets; ++j)
-    pol.data[L + a.state_size + NC + j] = a.tgt[static_cast<size_t>(b) * a.n_targets + j];
+    pol.data[O + a.state_size + NC + j] = a.tgt[static_cast<size_t>(b) * a.n_targets + j];
   const size_t lane = static_cast<size_t>(c) * a.B + b;
   const auto vec = [&](int v) { return scratch_vec(s, static_cast<size_t>(v) * d, li); };
   if (kind == kFixed) {
@@ -857,6 +881,14 @@ int launch_policy_wide(int kind, const PolicyArgs& a, const WideSpan& s) {
 
 }  // namespace
 
+#ifdef MTGP_USER_ENV
+// The user-environment build: its one plant, the generated struct.
+#define MTGP_ENV_SWITCH(CALL)                                                   \
+  switch (a->env) {                                                             \
+    case kUserEnv: CALL(mtgp_env::UserEnv);                                     \
+    default: return kInvalid;                                                   \
+  }
+#else
 // One case per plant; CALL(ENV) is its launch.
 #define MTGP_ENV_SWITCH(CALL)                                                   \
   switch (a->env) {                                                             \
@@ -869,6 +901,7 @@ int launch_policy_wide(int kind, const PolicyArgs& a, const WideSpan& s) {
     case kStirredTankReactor: CALL(StirredTankReactorEnv);                      \
     default: return kInvalid;                                                   \
   }
+#endif
 
 extern "C" {
 

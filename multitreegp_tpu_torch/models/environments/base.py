@@ -81,11 +81,31 @@ def time_varying(param: torch.Tensor, ts: torch.Tensor, t) -> torch.Tensor:
 
 
 class ControlEnvironmentBase(abc.ABC):
-    """Controlled ODE environment. ``id`` names the device drift of
-    ``csrc/control_envs.cuh`` (the environment ids of
-    ``core/cuda_policy.ENV_IDS``)."""
+    """Controlled ODE environment.
+
+    The seven built-in classes (``control_envs.py``) run hand-written device
+    plants in the policy kernels #6/#7 (``csrc/control_envs.cuh``, keyed by
+    exact class in ``core/cuda_policy.ENV_IDS``). Any other environment that
+    sets ``tile_safe_drift = True`` runs there too: ``core/user_envs.py``
+    traces its ``drift``, ``cond_alive``, ``obs`` and ``obs_noisy`` (the
+    roles of JAX's ``obs_tiles`` / ``obs_tiles_noisy``) into device code of
+    its own build. A tile-safe environment's methods are elementwise
+    float32 ops over the lanes of indexed state (``x[..., i]``,
+    ``x.unbind(-1)``, slices of the last axis, ``torch.stack`` / ``torch.cat``
+    along it); they do not depend on ``t`` (the kernels pass 0, as JAX's
+    do); they read the physics through ``params`` only (numbers read from
+    ``self`` are baked into the generated code when it is traced); and they
+    hold no tensor constant (no matmul with a constant matrix), no reduction,
+    no random draw and no Python control flow on values. A trace that breaks
+    these rules is refused with its reason, and the evaluators then take the
+    general path (``StaticPolicyEvaluator.env_refusal`` keeps the reason).
+    With ``tile_safe_drift = False`` (the default, as in JAX) the evaluators
+    always take the general path."""
 
     n_targets: int = 0
+    # the tile protocol's flag (JAX ``ControlEnvironmentBase.tile_safe_drift``):
+    # True admits the environment into the fused policy kernels
+    tile_safe_drift: bool = False
 
     def __init__(self, process_noise: float, obs_noise: float, n_var: int, n_control: int,
                  n_dim: int, n_obs: int):
@@ -149,13 +169,16 @@ class ControlEnvironmentBase(abc.ABC):
         return self.obs_noisy(x, self.obs_noise_term(keys, t, params))
 
     def obs(self, x: torch.Tensor) -> torch.Tensor:
-        """Noise-free observation ``(..., n_obs)`` of ``x (..., latent)``.
-        Override alongside ``obs_noisy`` (e.g. angle wrapping)."""
+        """Noise-free observation ``(..., n_obs)`` of ``x (..., latent)``
+        (JAX's ``obs_tiles``; ``n_obs`` may exceed the latent size, e.g.
+        ``[cos, sin]`` of an angle). Override alongside ``obs_noisy`` (e.g.
+        angle wrapping)."""
         return x[..., : self.n_obs]
 
     def obs_noisy(self, x: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
         """The observation with the additive, already scaled draw ``noise
-        (..., n_obs)`` (the rows the fused kernels are given)."""
+        (..., n_obs)`` (the rows the fused kernels are given; JAX's
+        ``obs_tiles_noisy``)."""
         return self.obs(x) + noise
 
     @abc.abstractmethod

@@ -69,6 +69,7 @@ def _squeeze_control(u: torch.Tensor) -> torch.Tensor:
 class HarmonicOscillator(ControlEnvironmentBase):
     """Damped harmonic oscillator with an LQR-style quadratic cost."""
 
+    tile_safe_drift = True
     n_targets = 1
 
     def __init__(self, process_noise: float = 0.0, obs_noise: float = 0.0, n_obs: int = 2):
@@ -145,6 +146,8 @@ class HarmonicOscillator2(ControlEnvironmentBase):
     """Two coupled oscillators, two controls: block-diagonal A with weak
     coupling, written index-wise."""
 
+    tile_safe_drift = True
+
     def __init__(self, process_noise: float = 0.0, obs_noise: float = 0.0, n_obs=None):
         super().__init__(process_noise, obs_noise, n_var=2, n_control=2, n_dim=2, n_obs=n_obs or 4)
         self.n_targets = 2
@@ -186,6 +189,8 @@ class CartPole(ControlEnvironmentBase):
     """Classic cart-pole; the cost counts invalid (diverged) trajectory
     points."""
 
+    tile_safe_drift = True
+
     def __init__(self, process_noise: float = 0.0, obs_noise: float = 0.0, n_obs: int = 4):
         super().__init__(process_noise, obs_noise, n_var=4, n_control=1, n_dim=1, n_obs=n_obs)
         self.init_bound = 0.05
@@ -225,6 +230,8 @@ class Acrobot(ControlEnvironmentBase):
     (tips above 1.5) + the full horizon if never successful + the control
     cost before success; observations wrap both angles into [-pi, pi); a
     velocity bound kills runaway trajectories."""
+
+    tile_safe_drift = True
 
     def __init__(self, process_noise: float = 0.0, obs_noise: float = 0.0, n_obs: int = 4):
         super().__init__(process_noise, obs_noise, n_var=4, n_control=1, n_dim=1, n_obs=n_obs)
@@ -318,6 +325,8 @@ class Acrobot2(Acrobot):
 class StirredTankReactor(ControlEnvironmentBase):
     """Exothermic CSTR with Arrhenius kinetics and coolant control. State
     ``(Tc, T, c)``."""
+
+    tile_safe_drift = True
 
     def __init__(self, process_noise: float = 0.0, obs_noise: float = 0.0, n_obs: int = 3,
                  n_targets: int = 1):

@@ -20,7 +20,12 @@ and the kernels' one limit (``policy_lanes_refusal``: ``N <= 256`` and a
 candidate's decoded program within a block's shared memory) allows, decided
 by configuration: a fixed-step method (or process noise, which makes it
 euler), a function set whose variables are the data vector ``[y,
-targets]``, a plant with a device drift and at least two save points take
+targets]``, a plant with a device drift (a built-in class's hand-written
+one, or for any other environment with ``tile_safe_drift = True`` the one
+``core/user_envs.py`` traces from its methods; a non-tile-safe environment,
+or a refused trace, takes the general path, as JAX's gate sends
+non-tile-safe environments there, and the reason is kept in
+``env_refusal``) and at least two save points take
 kernel #6 (any number of trajectories and targets; past two targets its
 wide-state instance), given the noise as rows built up front
 (``noise.py``); the adaptive method with per-trajectory parameters and no
@@ -44,7 +49,8 @@ from typing import Tuple
 import torch
 
 from ...core.cuda_policy import (
-    ENV_IDS, PolicyRollout, _series, policy_lanes_refusal, rollout_policy, rollout_policy_adaptive,
+    PolicyRollout, _series, plant_refusal, policy_lanes_refusal, rollout_policy,
+    rollout_policy_adaptive,
 )
 from ...core.cuda_rollout import METHODS
 from ...core.interpreter import evaluate_trees
@@ -84,6 +90,9 @@ class StaticPolicyEvaluator:
         self.rtol = rtol
         self.atol = atol
         self.adaptive_method = adaptive_method
+        # why the environment has no device plant (the last gate that asked),
+        # or None
+        self.env_refusal = None
 
     # ------------------------------------------------------------ dispatch
 
@@ -93,15 +102,22 @@ class StaticPolicyEvaluator:
     def _data_width(self) -> int:
         return self.env.n_obs + self.env.n_targets
 
+    def _plant_refusal(self, params):
+        """``cuda_policy.plant_refusal`` (None where the kernels have the
+        environment's plant), kept in ``env_refusal``."""
+        self.env_refusal = plant_refusal(self.env, params)
+        return self.env_refusal
+
     def _fused_kind(self, population: TreeTensors, data: Tuple):
         """``"fixed"`` (kernel #6), ``"adaptive"`` (#7) or None (the general
         path), from the configuration alone: the kernels' gate
-        (``policy_lanes_refusal``), and a data vector the kernels lay out."""
+        (``policy_lanes_refusal``), a data vector the kernels lay out, and a
+        plant they run (:meth:`_plant_refusal`)."""
         ts, params = data[1], data[5]
         m, n = population.ops.shape[-2:]
         if (self.interpreter not in ("auto", "pallas")
                 or self.fset.num_variables != self._data_width() or ts.shape[0] < 2
-                or type(self.env) not in ENV_IDS
+                or self._plant_refusal(params) is not None
                 or policy_lanes_refusal(m, n) is not None):
             return None
         if self.method in METHODS:

@@ -176,6 +176,8 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
                 deep_gen_nodes=64, wide_policy_states=3, wide_policy_generations=2, wide_policy_check_t=3,
                 wide_policy_pop=2, wide_policy_runs=1, wide_policy_exact_dt=0.25,
                 deep_gen_depth=5, chain_k=2, shard_generations=15,
+                user_env_t=5, user_env_dt=0.05, user_env_generations=2, user_env_check_t=3, user_env_wide_states=3,
+                user_env_acrobot_t=3, user_env_runs=1,
                 example_sizes=dict(generations=2, population=20, islands=2), example_t=3,
                 example_check_t=3, example_check_adaptive_t=3, example_check_budget=40)
     out = chip_smoke.run(torch.device("cpu"), tiny)
@@ -192,11 +194,12 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
         assert r["identical"] == 1.0 and r["lanes"] == 8 * 4 and r["policies"] == policies
     wide_rows = ["sr_fitness_wide", "sr_rollout_wide", "sr_adaptive_global_wide", "sr_adaptive_interval_wide"]
     policy_wide_rows = ["policy_wide", "policy_adaptive_wide"]
+    user_env_rows = ["policy_user_env", "policy_adaptive_user_env"]
     assert [k["name"] for k in out["kernels"]] == [
         "sr_fitness", "reproduce", "interpret_fwd", "interpret_bwd", "sr_adaptive_global",
         "sr_adaptive_interval", "sr_rollout", "policy", "policy_adaptive", *wide_rows, *policy_wide_rows,
-        "branch_probe"]
-    tree_rows = out["kernels"][:-7]  # the fixed instances' rows: phases 24 and 25 add to each
+        *user_env_rows, "branch_probe"]
+    tree_rows = out["kernels"][:-9]  # the fixed instances' rows: phases 24 and 25 add to each
     pk = out["policy_kernels"]
     assert {"fixed_static", "fixed_dynamic", "adaptive_static", "adaptive_dynamic"} <= set(pk)
     assert all(pk[k]["identical"] == 1.0 for k in ("fixed_static", "adaptive_dynamic"))
@@ -289,13 +292,23 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     assert all(ws["kernels"][k]["check"]["identical"] == 1.0 and ws["kernels"][k]["check"]["lanes"] == 32 * 4
                for k in wide_rows)
     assert out["trajectories"]["identical"] == 1.0 and out["trajectories"]["lanes"] == 32 * 1100
-    assert all(k["bound_ms"] > 0 and k["launches"] is not None for k in out["kernels"][-7:-1])
+    assert all(k["bound_ms"] > 0 and k["launches"] is not None for k in out["kernels"][-9:-1])
     wp = out["wide_policy"]  # phase 28: the policy kernels' wide-state instances
     assert len(wp["generations"]) == 2 and wp["fused_vs_general"]["exact_grid"]["spearman"] >= 0.997
     assert all(wp["kernels"][k]["check"]["identical"] == 1.0 and wp["kernels"][k]["check"]["lanes"] == 32 * 4
                and wp["kernels"][k]["three_targets"]["identical"] == 1.0 for k in policy_wide_rows)
     assert wp["trajectories"]["check"]["identical"] == 1.0 and wp["trajectories"]["check"]["lanes"] == 2 * 1100
     assert out["kernels"][7]["trajectories"]["trajectories"] == 1100
+    ue = out["user_env"]  # phase 29: user environments through #6/#7
+    assert len(ue["generations"]) == 2 and ue["fused_vs_general"]["clamp_agreement"] >= 0.999
+    assert set(ue["checks"]) == {"fixed_static", "fixed_dynamic", "adaptive_static", "fixed_noisy",
+                                 "wide_fixed", "wide_adaptive"}
+    assert all(c["identical"] == 1.0 for c in ue["checks"].values())
+    assert ue["checks"]["fixed_static"]["lanes"] == 32 * 4 and ue["checks"]["wide_fixed"]["lanes"] == 8 * 4
+    assert set(ue["paths"]) == {"dynamic", "adaptive", "noisy"}
+    assert ue["traced_acrobot"]["bit_equal"] == {"fixed": 1.0, "adaptive": 1.0}
+    assert ue["traced_acrobot"]["library"].startswith("policy_e")
+    assert out["kernels"][-3]["library"].startswith("policy_e")
     chained = out["chained"]
     assert all(chained[k]["identical"] == 1.0 and chained[k]["candidates"] == 32 for k in ("ode", "sde"))
     sharded = out["sharded"]
@@ -332,6 +345,7 @@ def test_package_never_imports_jax():
         "import multitreegp_tpu_torch.tools.inline_drift, multitreegp_tpu_torch.utils.profiling\n"
         "import multitreegp_tpu_torch.examples.symbolic_regression\n"
         "import multitreegp_tpu_torch.examples.static_policy, multitreegp_tpu_torch.examples.dynamic_policy\n"
+        "import multitreegp_tpu_torch.core.user_envs\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'multitreegp_tpu.'))]\n"
         "assert not bad and 'multitreegp_tpu' not in sys.modules, bad\n"
     )

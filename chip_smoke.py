@@ -6,13 +6,15 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU::
     python3 chip_smoke.py [--out results.json]
 
 It builds the hand-written kernels from ``multitreegp_tpu_torch/csrc`` with
-``nvcc`` (one process per source, in parallel) and drives the port's paths at
+``nvcc`` (one process per source, in parallel; the libraries of later phases
+at the lowest CPU priority behind the first phases) and drives the port's paths at
 the full width of the flagship workload (symbolic regression of Van der Pol;
 8 islands x 512 candidates, 2 trees of ``max_nodes=32``, operators + - * /,
 16 trajectories, 50 save points, RK4 with one substep) and of the control
 workload (phases 12-14). Phases, one line or a few each:
 
-1. device: ``nvidia-smi`` name and power limit, torch/CUDA versions, build time;
+1. device: ``nvidia-smi`` name and power limit, torch/CUDA versions, build time
+   (at the end, when the builds behind the phases finished);
 2. fitness kernel vs its plain PyTorch version (T = 5 and T = 50; at T = 50
    every lane identical);
 3. reproduction kernel vs its plain version on the main path's 3696 lanes
@@ -265,6 +267,24 @@ workload (phases 12-14). Phases, one line or a few each:
    ``TracedAcrobot`` (``Acrobot`` under another class, so traced) beside the
    built-in struct at phase 13's shape cut to T = 26 (#6 and #7), bit-equal,
    then device time in turns; the new builds' ``nvcc`` seconds.
+30. the special functions, activations, scalar bases, tensor clamp bounds
+   and 0-d constants (``registry.special_operators``: ``2 ** x``, rounded
+   division and a 0-d tensor constant by a scalar, rounding to decimals,
+   ``lgamma``, ``digamma``, ``polygamma``, ``i0``/``i0e``/``i1``/``i1e``,
+   ``erfcx``, ``erfinv``, ``ndtri``, ``log_ndtr``, ``entr``, ``logit``,
+   ``sinc``, the activations, ``frac``, ``deg2rad``, ``nan_to_num``; clamps
+   by tensors, ``xlogy``, ``logaddexp``, ``copysign``, ``fmax``/``fmin``,
+   ``ldexp``), traced by this machine's torch: #8/#9 through the wide
+   instance of the user build of every vocabulary operator (device op ids
+   to 112) against PyTorch's own CUDA ops as in phase 26 (the polygamma
+   series' negative non-integers below -256 swept apart, every 4096th, with
+   both forwards' times); #1 (T = 10)
+   and #8/#9 (the round's layout) on 4096 candidates sampled from ``+ - * /``
+   and ten special functions, and #8/#9 on 1024 from every vocabulary operator
+   (user device op ids to 112: its wide instance), against their plain
+   versions, every lane identical; #1 on phase 2's trees through
+   ``_ext`` and the special library in turns; the new builds' ``nvcc``
+   seconds.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last lines are a JSON line of per-kernel numbers, the card's name and
@@ -276,10 +296,12 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -483,7 +505,7 @@ def main_data(device, s):
 
 
 def run(device, sizes=FULL) -> dict:
-    """Phases 2-27 on ``device``; returns the numbers the script prints."""
+    """Phases 2-30 on ``device``; returns the numbers the script prints."""
     import torch
 
     from multitreegp_tpu_torch import GeneticProgramming
@@ -632,6 +654,7 @@ def run(device, sizes=FULL) -> dict:
     out.update(many_phase(device, s, data, trees, fset))
     out.update(wide_policy_phase(device, s, ps))
     out.update(user_env_phase(device, s, ps))
+    out.update(special_phase(device, s, data, trees, fset))
 
     # -- the kernels line --------------------------------------------------------
     times = out.get("times_ms", {})
@@ -5042,7 +5065,7 @@ def user_env_phase(device, s, ps) -> dict:
                + "; ".join(f"{k} {[round(v, 4) for v in vs]}" for k, vs in turns.items()))
 
     nvcc = {k: v for k, v in _build.build_seconds.items() if re.match(r"policy.*_e[0-9a-f]{12}", k)}
-    phase_line(f"phase 29 user-environment builds, nvcc seconds (beside the prelude's other builds): {nvcc}")
+    phase_line(f"phase 29 user-environment builds, nvcc seconds (behind the phases, beside the other builds): {nvcc}")
     launches6 = sum(gen["eval_launches"]["policy"] for gen in r["generations"])
     kernels = dict(
         policy_user_env=dict(
@@ -5067,6 +5090,176 @@ def user_env_phase(device, s, ps) -> dict:
     phase_line(f"phase 29 took {seconds:.1f} s")
     return {"user_env": dict(generations=r["generations"], fused_vs_general=fvg, paths=path_res, checks=checks,
                              times=timed, traced_acrobot=acrobot, kernels=kernels, seconds=seconds)}
+
+
+# phase 30: special functions, activations and the rest; a set past 63 ids
+SPECIAL_GEN_NAMES = ("lgamma", "digamma", "i0e", "erfcx", "ndtri", "softplus", "gelu", "silu", "logaddexp",
+                     "hardtanh")
+SPECIAL_KERNELS = ("sr_fitness", "interpreter")  # phase 30's #1 and #8/#9 on a population
+
+
+def special_sets():
+    """``(gen set, every set)`` of phase 30: ``+ - * /`` and ten of
+    ``registry.special_operators`` over phase 4's variables, and every
+    vocabulary operator (user ids to 112) after ``+ - * /``; built before
+    the kernels, so that their user libraries are compiled in the parallel
+    prelude."""
+    from multitreegp_tpu_torch.core.registry import build_function_set, special_operators, whole_vocabulary
+
+    fns = {name: (fn, a) for ops in special_operators() for name, fn, a in ops}
+    base = [("+", 2, 0.5), ("-", 2, 0.1), ("*", 2, 0.5), ("/", 2, 0.1)]
+    gen = build_function_set(base + [(n, fns[n][0], fns[n][1], 0.1) for n in SPECIAL_GEN_NAMES],
+                             [["x0", "x1"]], [2])
+    every = build_function_set(base + [op + (0.1,) for op in whole_vocabulary()], [["x0", "x1"]], [2])
+    check(gen.refusals == () and every.refusals == (), f"phase 30 sets refused: {gen.refusals} {every.refusals}")
+    return gen, every
+
+
+def special_phase(device, s, data, trees6, fset6) -> dict:
+    """Phase 30: the special functions, activations, scalar bases, tensor
+    clamp bounds and 0-d constants (``registry.special_operators``, traced
+    by this torch) on the card. #8/#9 through the every set's user build
+    (its wide instance: ids past 63) against PyTorch's own CUDA ops
+    (``tools/op_sweep``): each new unary operator on every
+    ``SWEEP_STRIDE``-th of the 2^32 bit patterns (the polygamma series'
+    negative non-integers below -256 left out, counted, and every 4096th of
+    them swept apart, forward and VJP, with both forwards' milliseconds),
+    its VJP on every 256th; the binary ones on a ``SWEEP_SIDE`` square grid.
+    Then a population sampled from ``+ - * /`` and ten special functions:
+    #1 at T = 10 and #8/#9 in the round's layout against their plain
+    versions, every lane identical; and one from every vocabulary operator
+    (device op ids to 112, past the fixed instances' 63): #8/#9 through its
+    wide instance, every lane identical, launch counters (#1's wide build of
+    that set takes 374 s of ``nvcc``: ``pytest -m cuda
+    tests/test_torch_special_ops.py`` holds it);
+    #1's device time on phase 2's trees through the special library and
+    through ``_ext``, in turns."""
+    import torch
+
+    from multitreegp_tpu_torch import _build
+    from multitreegp_tpu_torch.core import cuda_interpreter as ci
+    from multitreegp_tpu_torch.core import cuda_rollout as cf
+    from multitreegp_tpu_torch.core.registry import FIXED_MAX_OP, special_operators
+    from multitreegp_tpu_torch.ops.initialization import make_population_sampler
+    from multitreegp_tpu_torch.tools import op_sweep
+
+    t_start = time.perf_counter()
+    on_card = device.type == "cuda"
+    x0s, ts_full, ys_full, _ = data
+    n, b = s["max_nodes"], s["batch"]
+    gen, every = special_sets()
+    names = [name for ops in special_operators() for name, *_ in ops]
+    res = dict(torch=torch.__version__, sweep={}, checks={})
+    if on_card:
+        check(not ci.takes_fixed(4, 2, every.num_operators, every.max_device_op), "phase 30 sweep instance")
+        for fset in (every,):
+            for r in op_sweep.sweep_set(fset, device, SWEEP_STRIDE, SWEEP_SIDE, only=set(names)):
+                res["sweep"][r["name"]] = r
+                vjp = " ".join(f"{k} {v['mismatches']} (zero sign {v['zero_sign']})" for k, v in r["vjp"].items())
+                skipped = f", {r['skipped']} left out (zeta series)" if r.get("skipped") else ""
+                o = r.get("outside")
+                if o:
+                    ovjp = " ".join(f"{k} {v['mismatches']}" for k, v in o["vjp"].items())
+                    skipped += (f" (every {op_sweep.OUTSIDE_STRIDE}th of them apart: {o['lanes']} lanes, "
+                                f"mismatches {o['mismatches']} {o['first']}, VJP {ovjp}; forward "
+                                f"{o['kernel_ms']:.1f} ms kernel, {o['torch_ms']:.1f} ms PyTorch)")
+                phase_line(f"phase 30 sweep {r['name']}: {r['lanes']} lanes{skipped}, mismatches "
+                           f"{r['mismatches']} {r['first']}; VJP on {r['vjp_lanes']}: {vjp}; {r['s']:.2f} s")
+        bad = {k: (r["mismatches"], r["first"], r["vjp"], r.get("outside"))
+               for k, r in res["sweep"].items() if not r["ok"]}
+        check(not bad, f"phase 30 sweep mismatches: {bad}")
+        check(sorted(res["sweep"]) == sorted(names), f"phase 30 swept {len(res['sweep'])} operators")
+    res["sweep_s"] = time.perf_counter() - t_start
+
+    t_fix = s["adaptive_short_t"]
+    ts_, ys_ = ts_full[:t_fix], ys_full[:, :t_fix].contiguous()
+    checks = res["checks"]
+    g = torch.Generator(device=device).manual_seed(30)
+    k_all = s["islands"] * s["pop"]
+    # #1 and #8/#9 on the special set's population (their fixed instances),
+    # #8/#9 on the every set's (its wide instance: ids past 63)
+    for key, fset, k, wide in (("special", gen, k_all, False), ("every", every, min(1024, k_all), True)):
+        pop = make_population_sampler(fset, s["depth"], n)(g, k)[0]
+        rows = int(((pop.ops >= 2 + 4) & (pop.ops < fset.var_start)).sum())
+        check(wide == (fset.max_device_op > FIXED_MAX_OP), f"phase 30 {key}: device op ids {fset.max_device_op}")
+        if not wide:
+            before = cf.sr_fitness_cuda.launches
+            mse, alive = (cf.sr_fitness if on_card else cf.sr_fitness_plain)(pop, x0s, ts_, ys_, fset, "rk4", 1)
+            launched = cf.sr_fitness_cuda.launches - before
+            (ref, ref_alive), plain_ms = timed_plain(
+                lambda: cf.sr_fitness_plain(pop, x0s, ts_, ys_, fset, "rk4", 1), device)
+            same = float(lanes_identical(mse, alive, ref, ref_alive).float().mean())
+            check(same == 1.0, f"phase 30 #1 {key}: {same:.6f} of lanes identical")
+            if on_card:
+                check(launched >= 1, f"phase 30 #1 {key}: {launched} launches")
+            fin = torch.isfinite(mse) & torch.isfinite(ref)
+            checks[f"sr_fitness_{key}"] = dict(identical=same, alive=float(alive.float().mean()),
+                                               plain_ms=plain_ms, lanes=alive.numel(), t_steps=t_fix,
+                                               user_rows=rows, launches=launched,
+                                               max_abs_err=float((mse - ref).abs()[fin].max()) if fin.any() else 0.0)
+        gc = torch.Generator(device=device).manual_seed(301)
+        before = ci.evaluate_trees_cuda.launches
+        checks[f"interpreter_{key}"] = lanes_check(*shape_case(device, pop[:50], b, gc), fset,
+                                                   f"#8/#9 {key}, the round's layout")
+        c = checks[f"interpreter_{key}"]
+        c.update(wide=not ci.takes_fixed(n, 2, fset.num_operators, fset.max_device_op), user_rows=rows,
+                 launches=ci.evaluate_trees_cuda.launches - before)
+        check(c["wide"] == wide, f"phase 30 #8/#9 {key} instance")
+        if on_card:
+            check(c["launches"] >= 1, f"phase 30 #8 {key}: {c['launches']} launches")
+        for name in (f"sr_fitness_{key}", f"interpreter_{key}"):
+            if name not in checks:
+                continue
+            c = checks[name]
+            phase_line(f"phase 30 {name} vs plain ({c['lanes']} lanes"
+                       f"{', T=' + str(c['t_steps']) if 't_steps' in c else ''}; device op ids to "
+                       f"{fset.max_device_op}, library suffix {fset.variant.suffix}"
+                       f"{', wide instance' if wide else ''}): identical {c.get('identical', c.get('bit_equal'))}, "
+                       f"max abs {c['max_abs_err']:.3e}, plain {c['plain_ms']:.1f} ms, "
+                       f"{c['user_rows']} rows past + - * / in the population")
+
+    if on_card:
+        # #1 on phase 2's trees through _ext (an unused max appended) and
+        # through the special set's library (its first four operators are
+        # + - * /), in turns
+        ys_c = ys_full.contiguous()
+        tr_x, fs_x = with_unused_max(trees6, fset6)
+        shift = gen.var_start - fset6.var_start
+        check(gen.operator_names[:4] == fset6.operator_names and gen.variable_names == fset6.variable_names,
+              "phase 30's special set starts with + - * /")
+        tr_s = trees6._replace(ops=torch.where(trees6.ops >= fset6.var_start, trees6.ops + shift, trees6.ops))
+        fit = lambda tr, fs: (lambda: cf.sr_fitness_cuda(tr, x0s, ts_full, ys_c, fs, "rk4", 1))
+        cases = [("sr_fitness_ext", fit(tr_x, fs_x), "sr_fitness_kernel"),
+                 ("sr_fitness_special", fit(tr_s, gen), "sr_fitness_kernel")]
+        times = res["device_ms"] = in_turns(cases, 3, torch)
+        x, sp = times["sr_fitness_ext"], times["sr_fitness_special"]
+        phase_line(f"phase 30 #1 phase 2's trees, device ms a launch (_ext, special library, special, _ext): "
+                   f"{x[0]:.4f}, {sp[0]:.4f}, {sp[1]:.4f}, {x[1]:.4f}")
+        libs = ([_build.variant_name(k, gen.variant) for k in SPECIAL_KERNELS]
+                + [_build.variant_name("interpreter", every.variant)])
+        res["nvcc_s"] = {k: _build.build_seconds.get(k) for k in libs}
+        phase_line(f"phase 30 special builds' nvcc seconds (beside the other builds): {res['nvcc_s']}")
+    res["seconds"] = time.perf_counter() - t_start
+    phase_line(f"phase 30 took {res['seconds']:.1f} s (the sweep {res['sweep_s']:.1f} s)")
+    return {"special": res}
+
+
+BEHIND_DONE = {}  # perf_counter at which each build behind the phases finished
+
+
+def build_behind(names, variant):
+    """``_build.build(*names, variant=variant)`` from a pool thread at the
+    lowest CPU priority (nice is per thread on Linux, and ``nvcc`` inherits
+    it), so that the phases' host code keeps its core while it compiles."""
+    from multitreegp_tpu_torch import _build
+
+    try:
+        os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 19)
+    except OSError as exc:  # then they share the CPU with the phases at one priority
+        phase_line(f"phase 1 builds behind the phases keep their priority: {exc}")
+    out = _build.build(*names, variant=variant)
+    BEHIND_DONE[_build.variant_name(names[0], variant)] = time.perf_counter()
+    return out
 
 
 def sync(device) -> None:
@@ -5097,10 +5290,12 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
     kernels = SHARDED_KERNELS if opts.sharded_only else KERNELS
-    # one nvcc per library, all started together: the default builds, phase
-    # 24's extended ones, phase 25's, 26's and 27's user ones (their function
-    # sets are traced first), the wide ones and phase 29's user-environment
-    # ones (their plants are traced first)
+    # one nvcc per library, all started together: the default builds, and
+    # behind them, at the lowest CPU priority while the first phases run,
+    # the wide ones, phase 24's extended ones, phase 25's, 26's, 27's and
+    # 30's user ones (their function sets are traced first) and phase 29's
+    # user-environment ones (their plants are traced first); a phase that
+    # loads a library still being built waits for it (``_build.build``)
     extra = []
     if not opts.sharded_only:
         gen_set, control_set = user_sets()
@@ -5110,33 +5305,49 @@ def main(argv=None) -> int:
                  (("interpreter",), sweep_unary.variant), (("interpreter",), sweep_binary.variant),
                  (("interpreter",), many_operator_set().variant), (WIDE_KERNELS, _build.widened(False))]
         extra += [(("policy",), v) for v in user_env_variants()]
-    with ThreadPoolExecutor(max(1, len(extra))) as pool:
-        jobs = [pool.submit(_build.build, *names, variant=v) for names, v in extra]
-        _build.build(*kernels)
-        for job in jobs:
-            job.result()
+        special_gen, every = special_sets()
+        extra += [(SPECIAL_KERNELS, special_gen.variant), (("interpreter",), every.variant)]
+    pool = ThreadPoolExecutor(max(1, len(extra)))
+    jobs = [pool.submit(build_behind, names, v) for names, v in extra]
+    _build.build(*kernels)
     for name in kernels:
         _build.load(name)
     build_s = time.perf_counter() - t0
     phase_line(f"phase 1 device: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; kernels built in {build_s:.1f} s "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; default kernels built in {build_s:.1f} s "
         f"(nvcc {', '.join(f'{k} {v:.1f} s' for k, v in _build.build_seconds.items())})")
     from multitreegp_tpu_torch.kernel_ab import ptxas_report
 
-    resources = {name: ptxas_report(log) for name, log in _build.build_logs.items()}
-    for name, rows in resources.items():
-        phase_line(f"phase 1 ptxas {name}: " + "; ".join(
-            f"{k} {r} registers, {st} B stack, {sp} B spilled" for k, r, st, sp in rows))
+    def report_ptxas(names):
+        for name in names:
+            phase_line(f"phase 1 ptxas {name}: " + "; ".join(
+                f"{k} {r} registers, {st} B stack, {sp} B spilled" for k, r, st, sp in resources[name]))
 
+    resources = {name: ptxas_report(log) for name, log in _build.build_logs.items()}
+    report_ptxas(list(resources))
+
+    try:
+        if opts.sharded_only:
+            out = sharded_phase(device, FULL, main_data(device, FULL)[1])
+        else:
+            out = run(device)
+        for job in jobs:  # every build must pass, loaded or not
+            job.result()
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    later = [name for name in _build.build_logs if name not in resources]
+    resources.update({name: ptxas_report(_build.build_logs[name]) for name in later})
+    phase_line(f"phase 1 builds behind the phases finished {max(BEHIND_DONE.values(), default=t0) - t0:.1f} s "
+               f"after the start (nvcc {', '.join(f'{k} {_build.build_seconds[k]:.1f} s' for k in later)})")
+    report_ptxas(later)
     if opts.sharded_only:
-        out = sharded_phase(device, FULL, main_data(device, FULL)[1])
         if opts.out:
             with open(opts.out, "w") as f:
                 json.dump(out, f, indent=1)
     else:
-        out = run(device)
         out["device"] = dict(nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
                              build_s=build_s, nvcc_s=dict(_build.build_seconds), ptxas=resources,
+                             builds_behind_done_s=max(BEHIND_DONE.values(), default=t0) - t0,
                              trace_drops=TRACE_DROPS)
         phase_line(f"traced runs without their kernel: {len(TRACE_DROPS)}")
         if opts.out:

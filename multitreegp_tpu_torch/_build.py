@@ -37,6 +37,7 @@ generated from a torch environment's methods.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -44,6 +45,7 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -157,6 +159,9 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 build_seconds: Dict[str, float] = {}
 # nvcc's output (the ptxas resource report) per library built in this process
 build_logs: Dict[str, str] = {}
+# one lock per library file, held while a thread builds it
+_locks: Dict[Path, threading.Lock] = {}
+_locks_guard = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -220,10 +225,22 @@ def library_path(name: str, variant: Union[bool, Variant] = False) -> Path:
 def build(*names: str, variant: Union[bool, Variant] = False) -> List[Path]:
     """Compile each ``csrc/<name>.cu`` (in ``variant``'s build: True for the
     extended one) unless a library of the same source exists; the ``nvcc``
-    processes run in parallel, one per source. :data:`build_seconds` and
-    :data:`build_logs` key each by :func:`variant_name`."""
+    processes run in parallel, one per source. A thread that asks for a
+    library another thread is building waits for that build.
+    :data:`build_seconds` and :data:`build_logs` key each by
+    :func:`variant_name`."""
     variant = as_variant(variant)
     outs = [library_path(name, variant) for name in names]
+    with contextlib.ExitStack() as held:
+        for out in sorted(set(outs)):
+            with _locks_guard:
+                lock = _locks.setdefault(out, threading.Lock())
+            held.enter_context(lock)
+        _build_missing(names, outs, variant)
+    return outs
+
+
+def _build_missing(names, outs, variant: Variant) -> None:
     todo = []
     for name, out in zip(names, outs):
         if out.exists():
@@ -231,7 +248,7 @@ def build(*names: str, variant: Union[bool, Variant] = False) -> List[Path]:
         else:
             todo.append((name, out))
     if not todo:
-        return outs
+        return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     include = _write_header(variant, BUILD_DIR)
@@ -261,7 +278,6 @@ def build(*names: str, variant: Union[bool, Variant] = False) -> List[Path]:
             pending = [j for j in pending if j[-1].returncode is None]
         if failed:
             raise RuntimeError("\n".join(failed))
-    return outs
 
 
 def load(name: str, variant: Union[bool, Variant] = False) -> ctypes.CDLL:

@@ -282,7 +282,7 @@ def _adaptive_cuda(kind, counter, wide, trees, x0s, ts, ys, fset, rtol, atol, bu
 
 def _fixed(x0s, fset) -> bool:
     b, d = x0s.shape
-    return takes_fixed(d, b, fset.num_variables)
+    return takes_fixed(d, b, fset.num_variables, fset.max_device_op)
 
 
 def sr_fitness_adaptive_global_cuda(

@@ -27,8 +27,9 @@ vouches for those checks; the cotangent and the device type are checked on
 every call. The entry points' ``ctypes`` types are set once per library.
 
 Instances. Trees of up to 1,024 rows, on up to 63 variables, with up to 32
-operators, run the fixed instances (their row arrays in local memory). Any
-other size runs the wide instance (the layout's ``wide`` word): its values
+operators (device op ids up to ``registry.FIXED_MAX_OP``), run the fixed
+instances (their row arrays in local memory). Any other size runs the wide
+instance (the layout's ``wide`` word): its values
 and tape lie in a scratch buffer allocated here, ``[row][lane]`` over the
 lanes of one launch, and the lanes are split into launches so that the
 scratch stays within :data:`SCRATCH_BYTES`; each launch counts in the
@@ -57,14 +58,14 @@ from typing import Dict, NamedTuple, Sequence, Tuple
 import torch
 
 from .. import _build
-from .registry import FunctionSet
+from .registry import FIXED_MAX_OP, USER_FROM, FunctionSet
 from .trees import TreeTensors
 
 # the fixed instances' limits (csrc/interpreter.cu kMaxRows, kRowVars, kMaxOps)
 FIXED_ROWS = 1024
 FIXED_VARS = 63
 FIXED_OPS = 32
-DEVICE_OPS = 64  # kDeviceOps: the op table's entries, device op ids 0-63
+DEVICE_OPS = 64  # kDeviceOps: the op table's entries, at least (a user build: kUserFrom + kCount)
 THREADS = 32  # kThreads: a block's lanes; a wide launch runs whole blocks
 # the wide instance's scratch per launch: the forward's values (4 B) or the
 # VJP's tape (8 B) of each row of each lane of the launch
@@ -73,7 +74,7 @@ MAX_NODES = SCRATCH_BYTES // (THREADS * 8)  # one block's tape in the budget
 MAX_VARS = (1 << 28) - 1  # kWideMaxVars: the decoded row's data slot
 MAX_DIMS = 8  # kMaxDims: rank of the joint batch
 MAX_LANES = 2**31 - 1  # lanes and shapes are indexed in 32 bits
-LAYOUT_WORDS = 8 + 5 * MAX_DIMS + DEVICE_OPS  # the header, 5 per dimension, the op table
+HEADER_WORDS = 8 + 5 * MAX_DIMS  # the layout's header and 5 words per dimension, then the op table
 MAX_LAYOUTS = 64  # operand signatures kept; the oldest goes first
 
 _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -99,10 +100,19 @@ class Layout(NamedTuple):
     bwd_step: int  # ... a VJP launch
 
 
-def takes_fixed(n: int, nvar: int, nops: int) -> bool:
+def takes_fixed(n: int, nvar: int, nops: int, max_op: int) -> bool:
     """Whether the fixed instances take trees of ``n`` rows on ``nvar``
-    variables with ``nops`` operators (else the wide instance runs)."""
-    return n <= FIXED_ROWS and nvar <= FIXED_VARS and nops <= FIXED_OPS
+    variables with ``nops`` operators whose device op ids reach ``max_op``
+    (else the wide instance runs)."""
+    return n <= FIXED_ROWS and nvar <= FIXED_VARS and nops <= FIXED_OPS and max_op <= FIXED_MAX_OP
+
+
+def op_table_words(fset: FunctionSet) -> int:
+    """Entries of the layout's device op table: ``DEVICE_OPS``, or for a
+    user build with more operators than that ``USER_FROM`` plus its user
+    operators (``kDeviceOps``, csrc/interpreter.cu), so that any set's
+    operators fit."""
+    return max(DEVICE_OPS, USER_FROM + fset.user_count)
 
 
 def _step(lanes: int, n: int, row_bytes: int) -> int:
@@ -171,8 +181,6 @@ def _make_layout(trees: TreeTensors, data: torch.Tensor, fset: FunctionSet) -> L
     if nvar > MAX_VARS:
         raise NotImplementedError(f"{nvar} variables > {MAX_VARS}, the interpreter kernel's limit")
     fset.require_device_ops()
-    if fset.num_operators > DEVICE_OPS:  # a set's device op ids are distinct: at most 64
-        raise NotImplementedError(f"{fset.num_operators} operators > {DEVICE_OPS}")
     batch = _broadcast([trees.ops.shape[:-1], trees.const.shape[:-1], data.shape[:-1]])
     if len(batch) > MAX_DIMS:
         raise NotImplementedError(f"batch rank {len(batch)} > {MAX_DIMS}")
@@ -197,11 +205,11 @@ def _make_layout(trees: TreeTensors, data: torch.Tensor, fset: FunctionSet) -> L
         return [v[k] for k in order] + [0] * (MAX_DIMS - len(order))
 
     ids = list(fset.device_op_ids)
-    wide = not takes_fixed(n, nvar, fset.num_operators)
-    words = (ctypes.c_int64 * LAYOUT_WORDS)(
+    wide = not takes_fixed(n, nvar, fset.num_operators, fset.max_device_op)
+    words = (ctypes.c_int64 * (HEADER_WORDS + op_table_words(fset)))(
         len(order), len(group), n, nvar, fset.var_start, fset.num_operators, fset.has_unary, wide,
         *per_dim(batch), *per_dim(tree), *per_dim(cs), *per_dim(xs),
-        *per_dim(out), *ids, *[0] * (DEVICE_OPS - len(ids)))
+        *per_dim(out), *ids, *[0] * (op_table_words(fset) - len(ids)))
     steps = (_step(lanes, n, 4), _step(lanes, n, 8)) if wide and lanes else (lanes, lanes)
     return Layout(tuple(copy), torch.Size(batch), lanes, words, ctypes.addressof(words), wide,
                   *steps)

@@ -39,9 +39,9 @@ process noise with a method other than euler,
 series parameters in the adaptive kernel); CPU tensors run the plain
 version, which computes what the kernel computes in plain PyTorch, in its
 float32 expression order. Nothing falls back. Each kernel has fixed
-instances (``state_size <= 2``, at most two targets: :func:`takes_fixed`)
-for any number of trajectories, and a wide-state instance for any hidden
-state and number of targets (``csrc/tree_prog_wide.cuh``, the ``_wide``
+instances (``state_size <= 2``, at most two targets, device op ids up to
+63: :func:`takes_fixed`) for any number of trajectories, and a wide-state
+instance for any hidden state, number of targets and operator set (``csrc/tree_prog_wide.cuh``, the ``_wide``
 builds): :func:`policy_rollout_wide_cuda` and
 :func:`policy_rollout_adaptive_wide_cuda`, with a scratch buffer of lane
 vectors that the wrapper allocates, split into launches of at most
@@ -73,7 +73,7 @@ from .cuda_rollout import (
     rollout_step, wide_cpb, wide_launches,
 )
 from .interpreter import evaluate_trees_plain
-from .registry import FunctionSet
+from .registry import FIXED_MAX_OP, FunctionSet
 from .trees import TreeTensors
 from .user_envs import USER_ENV_ID, TracedEnv, refusal, traced
 
@@ -395,13 +395,14 @@ def data_slots(env, fset: FunctionSet, state_size: int) -> torch.Tensor:
     return torch.tensor(slots, dtype=torch.int32)
 
 
-def takes_fixed(env, state_size: int, n_targets: int) -> bool:
-    """Whether the fixed instances take ``state_size`` hidden states and
-    ``n_targets`` targets (else the wide instance runs): their template
-    instances, their target slots, and every data slot (the zero slot past
-    the vector included) within ``tree_prog.cuh``'s 6-bit field."""
+def takes_fixed(env, state_size: int, n_targets: int, max_op: int) -> bool:
+    """Whether the fixed instances take ``state_size`` hidden states,
+    ``n_targets`` targets and device op ids up to ``max_op`` (else the wide
+    instance runs): their template instances, their target slots, and every
+    data slot (the zero slot past the vector included) and op id within
+    ``tree_prog.cuh``'s 6-bit field."""
     return (state_size <= FIXED_STATE_SIZE and n_targets <= FIXED_TARGETS
-            and data_width(env, state_size, n_targets) <= FIXED_SLOTS)
+            and data_width(env, state_size, n_targets) <= FIXED_SLOTS and max_op <= FIXED_MAX_OP)
 
 
 def policy_lanes_refusal(m: int, n: int) -> Optional[str]:
@@ -450,10 +451,11 @@ def run_policy(launch, kind: int, trees: TreeTensors, x0, ts, targets, params, e
     is the build of :func:`policy_variant`'s: the plant's id goes in the
     operands."""
     env_id = check_policy(trees, x0, targets, params, env, fset, state_size)
-    if not wide and not takes_fixed(env, state_size, targets.shape[-1]):
+    if not wide and not takes_fixed(env, state_size, targets.shape[-1], fset.max_device_op):
         raise NotImplementedError(
-            f"state_size {state_size} and {targets.shape[-1]} targets: the fixed instances take "
-            f"state_size <= {FIXED_STATE_SIZE} and <= {FIXED_TARGETS} targets; the wide one takes any")
+            f"state_size {state_size}, {targets.shape[-1]} targets and device op id "
+            f"{fset.max_device_op}: the fixed instances take state_size <= {FIXED_STATE_SIZE}, <= "
+            f"{FIXED_TARGETS} targets and ids <= {FIXED_MAX_OP}; the wide one takes any")
     dev = trees.ops.device
     p, m, n = trees.ops.shape
     b, t_steps = x0.shape[0], ts.shape[0]
@@ -591,7 +593,7 @@ def policy_rollout_cuda(
     :func:`policy_rollout_wide_cuda`."""
     args = (trees, x0, ts, targets, params, env, fset, substeps, method, state_size,
             obs_noise_rows, process_noise_rows)
-    if not takes_fixed(env, state_size, targets.shape[-1]):
+    if not takes_fixed(env, state_size, targets.shape[-1], fset.max_device_op):
         return policy_rollout_wide_cuda(*args)
     return _fixed_launch(policy_rollout_cuda, False, *args)
 
@@ -625,7 +627,7 @@ def policy_rollout_adaptive_cuda(
     fixed instance, or past them :func:`policy_rollout_adaptive_wide_cuda`."""
     args = (trees, x0, ts, targets, params, env, fset, rtol, atol, max_steps, method, safety,
             state_size)
-    if not takes_fixed(env, state_size, targets.shape[-1]):
+    if not takes_fixed(env, state_size, targets.shape[-1], fset.max_device_op):
         return policy_rollout_adaptive_wide_cuda(*args)
     return _adaptive_launch(policy_rollout_adaptive_cuda, False, *args)
 

@@ -20,7 +20,8 @@ CUDA tensors launch the hand-written kernel, or raise when the call is
 outside what it implements; CPU tensors run the plain version, the same
 computation in plain PyTorch in the kernel's float32 expression order. Each
 kernel has fixed instances (state dim d <= 4, B <= 1024 trajectories, 63
-variables: :func:`takes_fixed`) and a wide-state instance for the rest
+variables, device op ids up to 63: :func:`takes_fixed`) and a wide-state
+instance for the rest
 (``csrc/tree_prog_wide.cuh``, the ``_wide`` builds): :func:`sr_fitness_wide_cuda`
 and :func:`sr_rollout_wide_cuda`, with a scratch buffer of lane vectors that
 the wrapper allocates, split into launches of at most :data:`SCRATCH_BYTES`.
@@ -44,7 +45,7 @@ import torch
 from .. import _build
 from ..models.integrators import STEPPERS, _f32, finite, integrate, integrate_sde, step_interval
 from .interpreter import evaluate_trees, evaluate_trees_plain
-from .registry import FunctionSet
+from .registry import FIXED_MAX_OP, FunctionSet
 from .trees import TreeTensors
 
 METHODS = {"euler": 0, "heun": 1, "rk4": 2}
@@ -156,10 +157,13 @@ def lanes_refusal(m: int, n: int, d: int, b: int) -> Optional[str]:
     return None
 
 
-def takes_fixed(d: int, b: int, nvar: int) -> bool:
-    """Whether the fixed instances take state dim ``d``, ``b`` trajectories
-    and ``nvar`` variables (else the wide instance runs)."""
-    return d <= FIXED_STATE_DIM and b <= FIXED_TRAJECTORIES and nvar <= FIXED_VARS
+def takes_fixed(d: int, b: int, nvar: int, max_op: int) -> bool:
+    """Whether the fixed instances take state dim ``d``, ``b`` trajectories,
+    ``nvar`` variables and device op ids up to ``max_op`` (else the wide
+    instance runs: a set past ``registry.FIXED_MAX_OP`` user operators'
+    ids too, whose decoded rows hold any id)."""
+    return (d <= FIXED_STATE_DIM and b <= FIXED_TRAJECTORIES and nvar <= FIXED_VARS
+            and max_op <= FIXED_MAX_OP)
 
 
 def check_lanes(trees: TreeTensors, x0s, ts, fset: FunctionSet, ys=None) -> None:
@@ -200,6 +204,10 @@ def kernel_operands(trees: TreeTensors, fset: FunctionSet, *named):
         raise NotImplementedError(
             f"{fset.num_variables} variables > {FIXED_VARS}, the fixed instances' limit "
             "(csrc/tree_prog.cuh's 6-bit slot); the wide instance takes any")
+    if fset.max_device_op > FIXED_MAX_OP:
+        raise NotImplementedError(
+            f"device op id {fset.max_device_op} > {FIXED_MAX_OP}, the fixed instances' limit "
+            "(csrc/tree_prog.cuh's 6-bit field); the wide instance takes any")
     p, m, n = trees.ops.shape
     b = named[0][1].shape[0]  # x0s (B, d) comes first
     cpb = max(1, min(THREADS_PER_BLOCK // b, SHARED_BYTES // (m * n * ROW_BYTES)))
@@ -248,7 +256,7 @@ def sr_fitness_cuda(
     check_lanes(trees, x0s, ts, fset, ys)
     check_kicks(kick_rows, ts, *x0s.shape, substeps)
     b, d = x0s.shape
-    if not takes_fixed(d, b, fset.num_variables):
+    if not takes_fixed(d, b, fset.num_variables, fset.max_device_op):
         return sr_fitness_wide_cuda(trees, x0s, ts, ys, fset, method, substeps, kick_rows)
     named = [("x0s", x0s), ("ts", ts), ("ys", ys)]
     if kick_rows is not None:
@@ -467,7 +475,7 @@ def sr_rollout_cuda(
     h, h_final = rollout_step(ts, method, substeps)
     check_lanes(trees, x0s, ts, fset)
     b, d = x0s.shape
-    if not takes_fixed(d, b, fset.num_variables):
+    if not takes_fixed(d, b, fset.num_variables, fset.max_device_op):
         return sr_rollout_wide_cuda(trees, x0s, ts, fset, method, substeps)
     (ops, cst, x0c), devop, cpb = kernel_operands(trees, fset, ("x0s", x0s))
     dev = ops.device

@@ -36,6 +36,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+import torch.nn.functional as F
+
 from .. import _build
 from . import user_ops
 from .trees import CONST, EMPTY, OP_START
@@ -73,6 +75,10 @@ DEVICE_OPS: Dict[str, int] = {
 EXTENDED_FROM = DEVICE_OPS["exp"]  # the first device op id of the extended build
 USER_FROM = user_ops.USER_FROM  # the first user operator's device op id
 UNKNOWN_DEVICE_OP = -1
+# the largest device op id of the tree kernels' fixed instances, whose
+# decoded rows keep it in 6 bits (csrc/tree_prog.cuh, interpreter.cu); a set
+# with a larger one runs the wide instances, whose rows hold 29 or 30 bits
+FIXED_MAX_OP = 63
 
 
 @lru_cache(maxsize=64)
@@ -214,6 +220,17 @@ class FunctionSet:
         default one (:attr:`variant`)."""
         return any(i >= EXTENDED_FROM for i in self.device_op_ids)
 
+    @property
+    def max_device_op(self) -> int:
+        """The largest device op id of the set (the fixed instances of the
+        tree kernels take at most :data:`FIXED_MAX_OP`)."""
+        return max(self.device_op_ids)
+
+    @property
+    def user_count(self) -> int:
+        """User operators of the set: its header's ``kCount``."""
+        return sum(i >= USER_FROM for i in self.device_op_ids)
+
     @cached_property
     def user_hash(self) -> str:
         """sha256 of :attr:`user_header` (``""`` without user operators): two
@@ -280,9 +297,10 @@ def build_function_set(
     agree raises ``ValueError``, since it cannot run on torch tensors. Other
     names need a torch callable ``fn``. Such a kept callable is traced
     (:func:`.user_ops.compile_op`): the k-th one that the emitter takes has
-    device op id ``USER_FROM + k`` (up to 63), a refused one none (it runs
-    on the CPU only, and :meth:`FunctionSet.require_device_ops` gives the
-    reason).
+    device op id ``USER_FROM + k``, whatever the set's size (past
+    :data:`FIXED_MAX_OP` the tree kernels run their wide instances), a
+    refused one none (it runs on the CPU only, and
+    :meth:`FunctionSet.require_device_ops` gives the reason).
     """
     layer_sizes = tuple(int(s) for s in layer_sizes)
     if len(layer_sizes) != len(variable_list):
@@ -368,9 +386,6 @@ def build_function_set(
 def _user_device_op(name: str, fn: Callable, arity: int, traced: list):
     """``(device op id, None)`` for a callable the emitter takes (appended to
     ``traced``), ``(UNKNOWN_DEVICE_OP, reason)`` for one it refuses."""
-    if USER_FROM + len(traced) > user_ops.MAX_DEVICE_OP:
-        return UNKNOWN_DEVICE_OP, (f"device op ids stop at {user_ops.MAX_DEVICE_OP} "
-                                   f"({user_ops.MAX_DEVICE_OP - USER_FROM + 1} user operators)")
     try:
         traced.append(user_ops.compile_op(name, fn, arity))
     except user_ops.Refused as exc:
@@ -489,3 +504,49 @@ def vocabulary_operators():
         ("fmod_scalar", lambda x: torch.fmod(x, 1.5), 1),
         ("remainder_scalar", lambda x: torch.remainder(x, -1.5), 1)]
     return [(name, fn, 1) for name, fn in unary], binary
+
+
+def special_operators():
+    """``(unary set a, unary set b, binary set)``: one callable for each aten
+    form the emitter compiles past :func:`vocabulary_operators` (a power of
+    a scalar base, clamps by tensors, rounded division by a scalar, rounding
+    to decimals, a 0-d tensor constant, the special functions, the
+    activations, ``logaddexp``, ``copysign``, ``fmax``/``fmin``, ``frac``,
+    ``deg2rad``, ``nan_to_num``, ``ldexp``), each traced into generated code
+    with its VJP, in the ``(name, fn, arity)`` form of
+    :func:`build_function_set`; sets of at most 32 operators (the
+    interpreter's fixed instances), for sweeping every op on the card."""
+    unary = [
+        ("pow_base", lambda x: 2.0 ** x), ("div_floor_scalar", lambda x: torch.div(x, 1.5, rounding_mode="floor")),
+        ("div_trunc_scalar", lambda x: torch.div(x, 1.5, rounding_mode="trunc")),
+        ("round_decimals", lambda x: torch.round(x, decimals=2)), ("tensor_constant", lambda x: x / torch.tensor(3.0)),
+        ("lgamma", torch.lgamma), ("digamma", torch.digamma), ("trigamma", lambda x: torch.polygamma(1, x)),
+        ("polygamma2", lambda x: torch.polygamma(2, x)), ("i0", torch.special.i0), ("i0e", torch.special.i0e),
+        ("i1", torch.special.i1), ("i1e", torch.special.i1e), ("erfcx", torch.special.erfcx),
+        ("erfinv", torch.erfinv), ("ndtri", torch.special.ndtri), ("log_ndtr", torch.special.log_ndtr),
+        ("entr", torch.special.entr), ("logit", torch.logit),
+        ("sinc", torch.sinc), ("softplus", F.softplus), ("gelu", F.gelu),
+        ("gelu_tanh", lambda x: F.gelu(x, approximate="tanh")), ("silu", F.silu), ("mish", F.mish),
+        ("elu", F.elu), ("selu", F.selu), ("celu", lambda x: F.celu(x, 1.5)), ("leaky_relu", F.leaky_relu),
+        ("hardtanh", F.hardtanh), ("hardswish", F.hardswish), ("hardsigmoid", F.hardsigmoid),
+        ("logsigmoid", F.logsigmoid), ("softshrink", F.softshrink), ("frac", torch.frac),
+        ("deg2rad", torch.deg2rad), ("rad2deg", torch.rad2deg), ("nan_to_num", torch.nan_to_num)]
+    binary = [
+        # a torque clip: bounds by tensors
+        ("clamp_tensor", lambda x, y: torch.clamp(x, -torch.abs(y), torch.abs(y))),
+        ("clamp_min_tensor", lambda x, y: torch.clamp(x, min=y)),
+        ("clamp_max_tensor", lambda x, y: torch.clamp(x, max=y)), ("xlogy", torch.special.xlogy),
+        ("xlog1py", torch.special.xlog1py), ("logaddexp", torch.logaddexp), ("logaddexp2", torch.logaddexp2),
+        ("copysign", torch.copysign), ("fmax", torch.fmax), ("fmin", torch.fmin), ("ldexp", torch.ldexp)]
+    half = (len(unary) + 1) // 2
+    return ([(n, f, 1) for n, f in unary[:half]], [(n, f, 1) for n, f in unary[half:]],
+            [(n, f, 2) for n, f in binary])
+
+
+def whole_vocabulary():
+    """Every callable of :func:`vocabulary_operators` and
+    :func:`special_operators` in one list: a set of them has user device op
+    ids past ``FIXED_MAX_OP``, which the tree kernels run in their wide
+    instances."""
+    unary, binary = vocabulary_operators()
+    return unary + binary + [op for ops in special_operators() for op in ops]

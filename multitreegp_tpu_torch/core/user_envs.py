@@ -81,7 +81,7 @@ class _Tuple(tuple):
 
 
 def _shape(node) -> Tuple[int, ...]:
-    val = node.meta.get("val")
+    val = user_ops.value_of(node)
     return tuple(val.shape) if isinstance(val, torch.Tensor) else ()
 
 
@@ -98,7 +98,7 @@ def _check_env_value(node, what: str) -> None:
     bool, per lane as a scalar ``(8,)`` or a vector ``(8, k)``, or a constant
     maker's ``()``; a tensor operand of a vector node is itself a vector (a
     per-lane ``(8,)`` would broadcast along the state axis)."""
-    val = node.meta.get("val")
+    val = user_ops.value_of(node)
     if not isinstance(val, torch.Tensor):
         raise Refused(f"{what} has no tensor value")
     if val.dtype not in (torch.float32, torch.bool):
@@ -170,6 +170,11 @@ class _Emitter:
 
     def _node(self, node):
         target, args = node.target, node.args
+        if target is operator.getitem and getattr(args[0], "target", None) in user_ops._MULTI_OUTPUT:
+            # output 0 is the op's value; the others are not read by any emitted op
+            v = self.values[args[0]]
+            return v if args[1] == 0 else (_Vec([user_ops._f32(0.0)] * len(v)) if isinstance(v, _Vec)
+                                           else user_ops._f32(0.0))
         if target is operator.getitem:
             seq = self.values[args[0]]
             if not isinstance(seq, _Tuple):
@@ -181,7 +186,7 @@ class _Emitter:
         if target in _VIEWS:
             return self._view(node, what)
         user_ops.check_op(node, _check_env_value)
-        ctype = "bool" if node.meta["val"].dtype == torch.bool else "float"
+        ctype = "bool" if user_ops.value_of(node).dtype == torch.bool else "float"
         shape = _shape(node)
         if len(shape) < 2:
             return self._new(ctype, user_ops.node_expr(node, lambda a: self._component(a, 0)))
@@ -334,10 +339,15 @@ def compile_env(env, params) -> TracedEnv:
     observe = (["if (noise == nullptr) {"] + ["  " + ln for ln in o_lines]
                 + [f"  y[{q}] = {v};" for q, v in enumerate(y)] + ["  return;", "}"]
                 + n_lines + [f"y[{q}] = {v};" for q, v in enumerate(yn)])
+    math = user_ops.math_text(user_ops.sections_called("\n".join(d_lines + a_lines + o_lines + n_lines)))
     parts = [_HEAD + user_ops.INCLUDES,
              "// the operator header (-DMTGP_USER_OPS), included first, defines these",
              "#ifndef MTGP_USER_OPS", "namespace mtgp_user {", "", user_ops.HELPERS.rstrip(), "",
-             "}  // namespace mtgp_user", "#endif", "", "namespace mtgp_env {", "",
+             "}  // namespace mtgp_user", "#endif", "",
+             # the formulas the plant calls, each guarded: the operator header may hold them too
+             *(["namespace mtgp_user {", "", math.rstrip(), "", "}  // namespace mtgp_user", ""]
+               if math else []),
+             "namespace mtgp_env {", "",
              "struct UserEnv {",
              "  static constexpr bool kTraced = true;",
              f"  static constexpr int kLatent = {latent}, kControls = {nc}, kParams = {n_par}, "

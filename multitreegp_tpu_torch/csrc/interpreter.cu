@@ -89,7 +89,8 @@
 //   row is found while the forward stages (a group's rows run from the
 //   chunk that holds it), and a padding row's c2 and constant are not read;
 // * a decoded row (WideRow) keeps the device op id or data slot in 30 bits
-//   and c2 + 1 (or the constant) in a word of its own;
+//   and c2 + 1 (or the constant) in a word of its own, so a user build's
+//   ids past 63 (a set of more than 47 user operators) run here;
 // * the data vector is read where it lies, and ddata accumulated where the
 //   wrapper reads it;
 // * the device op table holds every id (kDeviceOps).
@@ -118,10 +119,17 @@ constexpr int kMaxRows = 1024;
 constexpr int kMaxDims = 8;
 constexpr int kThreads = 32;  // threads per block, and its most lanes
 constexpr size_t kMaxShared = 227 * 1024;  // a block's shared memory, opted in
-// the wide instance: the device op ids (0-63, core/user_ops.py
-// MAX_DEVICE_OP), the rows a block stages at once (bytes), and the most
-// variables its decoded slot holds
+// the wide instance: the entries of its device op table (opcode - kOpStart
+// -> id; a set's operators have distinct ids, so 64 hold any set of the
+// default and extended builds, and a user build holds its kUserFrom + kCount
+// where that is more: core/cuda_interpreter.py op_table_words), the rows a
+// block stages at once (bytes), and the most variables its decoded slot
+// holds
+#if defined(MTGP_USER_OPS)
+constexpr int kDeviceOps = kLastOp + 1 > 64 ? kLastOp + 1 : 64;
+#else
 constexpr int kDeviceOps = 64;
+#endif
 constexpr int kWideStage = 6 * 1024;
 constexpr int kWideMaxVars = (1 << 28) - 1;
 // layout words: [ndim, ngroup, n, nvar, var_start, nops, unary, wide], then

@@ -32,7 +32,9 @@
 // (`-include`), whose namespace mtgp_user holds each traced torch callable's
 // forward and VJP as float32 code. Device op ids from kUserFrom on dispatch
 // to them: a unary one as the unary operators, a binary one beside pow, max
-// and min.
+// and min. The dispatch takes any id a set has (kUserFrom + kCount - 1 may
+// pass 63); tree_prog.cuh's fixed instances keep an id in 6 bits, so a set
+// past 63 runs the wide instances, whose rows hold 29 or 30 bits.
 //
 // Everything here is plain C++ under MTGP_HD, so each including file also
 // compiles for the host (without __CUDACC__) into a lane loop that tests run

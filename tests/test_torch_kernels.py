@@ -73,10 +73,10 @@ N = 32
 ARITH = [("+", 2, 0.5), ("-", 2, 0.1), ("*", 2, 0.5), ("/", 2, 0.1)]
 TRIG = [("sin", 1, 0.3), ("cos", 1, 0.3)]
 INTERP_OPS = [("+", 2, 0.5), ("-", 2, 0.1), ("*", 2, 0.5), ("/", 2, 0.4)]
-# an operator without a device implementation (a user's callable with an
-# aten op outside the emitter's table, core/user_ops.py): the kernels refuse
-# a function set with it
-NO_DEVICE_OP = ("i0", lambda x: torch.special.i0(x), 1, 0.1)
+# an operator without a device implementation (a user's callable that the
+# emitter refuses, core/user_ops.py: ``//`` has no autograd derivative): the
+# kernels refuse a function set with it
+NO_DEVICE_OP = ("floordiv", lambda x: x // 2.0, 1, 0.1)
 
 _VMATH_SRC = r"""
 #include <math.h>

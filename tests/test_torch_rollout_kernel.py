@@ -13,12 +13,16 @@ kernel build's source hashing (CPU).
   ``test_torch_integrators.py``.
 * ``SREvaluator.evaluate_candidate`` and ``__call__`` (which now go through
   the trajectory kernel's dispatcher) against the JAX evaluator's: rtol 1e-4.
-* ``_build.library_path`` hashes the headers a source includes.
+* ``_build.library_path`` hashes the headers a source includes; a thread
+  that asks ``_build.build`` for a library another thread is building
+  waits for it (one ``nvcc``, a stand-in script here).
 
 The card checks are in ``test_torch_kernels.py`` (marker ``cuda``).
 """
 import ctypes
 import shutil
+import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -271,3 +275,29 @@ def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
             includes = header in [p.name for p in _build.source_files(n)]
             assert (after[n] != before[n]) == includes, (header, n)
         assert {n for n in names if after[n] != before[n]} == touched, header
+
+
+def test_concurrent_builds_of_one_library_run_one_nvcc(tmp_path, monkeypatch):
+    """Two threads build the same library at once: the second waits for the
+    first's compiler and finds the library, so the compiler runs once."""
+    calls = tmp_path / "calls.log"
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\n"
+                    f"echo run >> {calls}\n"
+                    "sleep 0.5\n"
+                    "prev=\"\"; for a in \"$@\"; do [ \"$prev\" = -o ] && out=\"$a\"; prev=\"$a\"; done\n"
+                    "echo lib > \"$out\"\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "build_seconds", {})
+    monkeypatch.setattr(_build, "build_logs", {})
+    first = []
+    worker = threading.Thread(target=lambda: first.append(_build.build("reproduce")))
+    worker.start()
+    while not calls.exists():  # the first build's compiler has started
+        time.sleep(0.01)
+    second = _build.build("reproduce")
+    worker.join()
+    assert first == [second] and second[0].read_text() == "lib\n"
+    assert calls.read_text().splitlines() == ["run"]

@@ -348,7 +348,7 @@ def test_data_vector_holds_the_observation():
     assert cp.data_slots(pend, fset, 2).tolist() == [0, 1, 2, 3, 4, 5]
     fset = policy_case(quad, 0, pop=2, b=2, t_steps=3)[0]
     assert cp.data_slots(quad, fset, 0).tolist() == [0, 1, 2, 3, 4, 5, 8, 9]
-    assert cp.takes_fixed(pend, 2, 0) and not cp.takes_fixed(pend, 3, 0)
+    assert cp.takes_fixed(pend, 2, 0, fset.max_device_op) and not cp.takes_fixed(pend, 3, 0, fset.max_device_op)
 
 
 # ---------------------------------------------- the host build vs plain
@@ -382,7 +382,7 @@ def run_host(host, kind, env, fset, data, trees, state_size, rows=None, **kw):
     the fixed instances) through ``run_policy``: ``(xs, us, alive (T, P,
     B), steps)``."""
     x0, ts, tgt, _, _, par = data
-    wide = not cp.takes_fixed(env, state_size, tgt.shape[-1])
+    wide = not cp.takes_fixed(env, state_size, tgt.shape[-1], fset.max_device_op)
     variant = cp.policy_variant(env, par, fset)
     lib = host(_build.widened(variant) if wide else variant)
     if wide:

@@ -148,12 +148,20 @@ def test_gplearn_set_takes_user_ids_and_the_user_build():
 
 def test_division_by_a_scalar_emits_the_cuda_rounding():
     """``x / 3.0``: PyTorch's CUDA kernel multiplies by the float32
-    reciprocal of 3 (0x3eaaaaab), which the generated code writes; a true
-    division rounds differently on some inputs."""
+    reciprocal of 3 (0x3eaaaaab), which the generated code writes for the
+    card; its CPU kernel divides, which the host build does (the helper
+    ``div_cpu_scalar`` holds both); the two round differently on some
+    inputs. By a power of 2 the reciprocal is exact: one multiply."""
     fset = build_function_set([("+", 2), ("third", lambda x: x / 3.0, 1)], [["x0"]], [1])
-    assert "x * mtgp_user::bits(0x3eaaaaabu)" in fset.user_header
+    assert "mtgp_user::div_cpu_scalar(x, mtgp_user::bits(0x40400000u), mtgp_user::bits(0x3eaaaaabu))" \
+        in fset.user_header
+    assert "#ifdef __CUDA_ARCH__\n  (void)b;\n  return a * inv_b;\n#else\n  (void)inv_b;\n  return a / b;" \
+        in fset.user_header
     x = torch.from_numpy(np.random.default_rng(1).normal(size=4096).astype(np.float32))
     assert bool((x / 3.0 != x * np.float32(1 / np.float32(3.0))).any())
+    assert bool((x / 3.0 == torch.from_numpy(x.numpy() / np.float32(3.0))).all())
+    half = build_function_set([("+", 2), ("half", lambda x: x / 4.0, 1)], [["x0"]], [1])
+    assert "x * mtgp_user::bits(0x3e800000u)" in half.user_header and "div_cpu_scalar" not in half.user_header
 
 
 def test_header_hash_is_stable_and_follows_the_code():
@@ -208,8 +216,8 @@ def noisy(x):
 
 @pytest.mark.parametrize("fn,reason", [
     (unreadable, "does not trace"), (centred, "reduces"), (noisy, "draws random numbers"),
-    (lambda x: torch.special.i0(x), "outside the emitter's table (aten.i0"),
-    (lambda x: x * torch.tensor(2.0), "tensor constant"),
+    (lambda x: x // 2.0, "does not trace"),
+    (lambda x: x * torch.tensor([2.0]), "tensor constant with a lane axis"),
     (lambda x: (x.double() * 2).float(), "aten._to_copy.default computes in torch.float64")])
 def test_refused_callable_runs_on_the_cpu_only(fn, reason):
     """A callable the emitter refuses keeps no device op: the kernels raise
@@ -230,13 +238,19 @@ def test_refused_callable_runs_on_the_cpu_only(fn, reason):
 
 
 def test_user_ids_stop_at_63():
-    """A decoded row keeps its device op id in 6 bits: the 48th user
-    operator is refused and runs on the CPU only."""
+    """The fixed instances' decoded rows keep the device op id in 6 bits, so
+    their ids stop at 63; a set's ids do not: the 48th user operator takes
+    id 64, none is refused, and the set runs the wide instances."""
+    from multitreegp_tpu_torch.core import cuda_interpreter as ci
+    from multitreegp_tpu_torch.core import cuda_rollout as cr
+    from multitreegp_tpu_torch.core.registry import FIXED_MAX_OP
+
     many = [(f"f{k}", (lambda c: lambda x: x * float(c))(k + 2), 1) for k in range(48)]
     fset = build_function_set([("+", 2)] + many, [["x0"]], [1])
-    assert fset.device_op_ids[-2] == 63 and fset.device_op_ids[-1] == -1
-    with pytest.raises(NotImplementedError, match="stop at 63"):
-        fset.require_device_ops()
+    assert fset.device_op_ids[-2] == FIXED_MAX_OP == 63 and fset.device_op_ids[-1] == 64
+    fset.require_device_ops()
+    assert not cr.takes_fixed(2, 4, 1, fset.max_device_op) and cr.takes_fixed(2, 4, 1, 63)
+    assert not ci.takes_fixed(32, 1, 32, fset.max_device_op) and ci.op_table_words(fset) == 65
 
 
 # ----------------------------------------------- host builds: #8/#9 bit for bit
@@ -545,9 +559,9 @@ def test_scalar_division_matches_plain_on_card(cuda):
 
 @pytest.mark.cuda
 def test_refused_callable_raises_on_card(cuda):
-    fset = build_function_set([("+", 2), ("i0", lambda x: torch.special.i0(x), 1)], [["x0"]], [1])
-    rows, const = tree_rows(("i0", "x0"), fset, 4)
+    fset = build_function_set([("+", 2), ("floordiv", lambda x: x // 2.0, 1)], [["x0"]], [1])
+    rows, const = tree_rows(("floordiv", "x0"), fset, 4)
     ops = torch.tensor([rows], dtype=torch.int32)
     trees = TreeTensors(ops, *rebuild_pointers(ops, fset.slots()), torch.tensor([const]))
-    with pytest.raises(NotImplementedError, match="aten.i0"):
+    with pytest.raises(NotImplementedError, match="floor_divide"):
         evaluate_trees(trees.map(lambda a: a.to(cuda)), torch.zeros((1, 1), device=cuda), fset)

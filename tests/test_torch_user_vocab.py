@@ -212,26 +212,44 @@ def test_functionalised_forms_emit_as_their_pure_ops():
     assert "? mtgp_user::bits(0x3f800000u) : " in op.forward
 
 
+@pytest.mark.parametrize("fn,expr", [
+    (lambda x: torch.special.i0(x), "mtgp_user::t_i0(x)"), (lambda x: torch.lgamma(x), "lgammaf(x)"),
+    (lambda x: torch.digamma(x), "mtgp_user::t_digamma(x)"),
+    (lambda x: torch.special.erfcx(x), "mtgp_user::t_erfcx(x)"),
+    (lambda x: torch.div(x, 2.0, rounding_mode="floor"), "mtgp_user::div_floor_scalar(x, "),
+    (lambda x: 2.0 ** x, "powf(mtgp_user::bits(0x40000000u), x)"),
+    (lambda x: torch.clamp(x, x * 0.5, x + 1.0), "mtgp_user::clamp_tensor(x, v0, v1)"),
+    (lambda x: torch.round(x, decimals=2), "nearbyintf(x * mtgp_user::bits(0x42c80000u))")])
+def test_formerly_refused_forms_compile(fn, expr):
+    """Forms the emitter once refused (the special functions ``i0``,
+    ``lgamma``, whose VJP is ``digamma``, and ``erfcx``; a rounded division
+    by a scalar; a scalar base; tensor bounds; rounding to decimals) compile
+    into a user operator with its VJP."""
+    fset = build_function_set([("+", 2), ("emitted", fn, 1)], [["x0"]], [1])
+    assert fset.device_op_ids == (0, USER_FROM) and fset.refusals == ()
+    assert expr in fset.user_header
+
+
 @pytest.mark.parametrize("fn,reason", [
-    (lambda x: torch.special.i0(x), "outside the emitter's table (aten.i0"),
-    (lambda x: torch.lgamma(x), "outside the emitter's table (aten.lgamma"),
-    (lambda x: torch.digamma(x), "outside the emitter's table (aten.digamma"),
-    (lambda x: torch.special.erfcx(x), "outside the emitter's table (aten.special_erfcx"),
     (lambda x: x.mul_(2.0), "writes into its own inputs"),
-    (lambda x: torch.div(x, 2.0, rounding_mode="floor"), "rounded division by a scalar"),
     (lambda x: x // 2.0, "does not trace"),
-    (lambda x: 2.0 ** x, "outside the emitter's table (aten.pow.Scalar"),
-    (lambda x: torch.clamp(x, x * 0.5, x + 1.0), "outside the emitter's table (aten.clamp.Tensor"),
     (lambda x: (x.double() * 2).float(), "computes in torch.float64"),
     (lambda x: (x > 0).to(torch.int32).float(), "computes in torch.int32"),
-    (lambda x: torch.round(x, decimals=2), "outside the emitter's table (aten.round.decimals")])
+    (lambda x: x * torch.tensor([2.0] * 8), "tensor constant with a lane axis"),
+    (lambda x: x * torch.tensor(2.0, dtype=torch.float64), "tensor constant of dtype torch.float64"),
+    (lambda x: x - x.mean(), "reduces over the lanes"),
+    (lambda x: x + torch.rand_like(x), "draws random numbers"),
+    (lambda x: torch.heaviside(x, x), "derivative for aten::heaviside is not implemented"),
+    (lambda x: torch.special.gammainc(x, x), "does not trace"),
+    (lambda x: torch.special.zeta(x, 2.0), "does not trace"),
+    (lambda x: x if bool(x.sum() > 0) else -x, "does not trace")])
 def test_what_stays_refused(fn, reason):
-    """Special functions whose CUDA form is PyTorch's own series (``i0``,
-    ``lgamma``, whose VJP is ``digamma``, ``erfcx``), writes into the
-    inputs, rounded divisions by a scalar (the card multiplies by the
-    reciprocal, the CPU divides), ``//`` (no derivative), scalar bases, tensor
-    bounds, non-float32 values, rounding to decimals: refused with the
-    reason; the set runs on the CPU only, and the kernels raise."""
+    """What JAX or autograd cannot run either, so the plain VJP could not:
+    writes into the inputs, ops without an autograd derivative (``//``,
+    ``heaviside``, ``igamma``, ``zeta`` in its first argument), non-float32
+    values, tensor constants with a lane axis or of another dtype,
+    reductions, random draws, Python control flow on values: refused with
+    the reason; the set runs on the CPU only, and the kernels raise."""
     fset = build_function_set([("+", 2), ("refused", fn, 1)], [["x0"]], [1])
     assert fset.device_op_ids == (0, -1) and fset.user_header == ""
     with pytest.raises(NotImplementedError, match="refused") as err:

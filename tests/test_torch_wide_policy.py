@@ -241,7 +241,7 @@ def test_wide_host_equals_fixed(host, kind, name, state_size, mode):
     """Where the fixed instances run (two targets: the coupled oscillators),
     the wide one computes the same bits."""
     env, fset, data, trees = policy_case(name, state_size, mode=mode)
-    assert cp.takes_fixed(env, state_size, data[2].shape[-1])
+    assert cp.takes_fixed(env, state_size, data[2].shape[-1], fset.max_device_op)
     kw = fixed_kw() if kind == cp.FIXED else adaptive_kw("dopri5", 6)
     fixed = run_host(host(_build.DEFAULT), kind, env, fset, data, trees, state_size, wide=False, **kw)
     wide = run_host(host(WIDE), kind, env, fset, data, trees, state_size, **kw)
@@ -253,7 +253,7 @@ def test_fixed_launcher_refuses_past_its_limits(host):
     launching; ``run_policy(..., wide=True)`` takes both."""
     for name, state_size, env_kw in (("Acrobot", 3, {}), ("StirredTankReactor", 0, dict(n_targets=3))):
         env, fset, data, trees = policy_case(name, state_size, pop=2, t_steps=3, **env_kw)
-        assert not cp.takes_fixed(env, state_size, data[2].shape[-1])
+        assert not cp.takes_fixed(env, state_size, data[2].shape[-1], fset.max_device_op)
         with pytest.raises(NotImplementedError, match="fixed instances"):
             run_host(host(_build.DEFAULT), cp.FIXED, env, fset, data, trees, state_size, wide=False,
                      **fixed_kw())
@@ -280,7 +280,7 @@ def test_evaluator_past_the_fixed_instances_matches_jax(name, state_size, env_kw
                                                         **env_kw)
     jev, tev = evaluators(jenv, tenv, jf, tf, state_size, substeps=2)
     assert tev._fused_kind(tpop, tdata) == "fixed"
-    assert not cp.takes_fixed(tenv, state_size, tdata[2].shape[-1])
+    assert not cp.takes_fixed(tenv, state_size, tdata[2].shape[-1], tf.max_device_op)
     jxs, jalive = jax.jit(jev._rollout_general)(jpop, jdata)
     xs, alive, _us = tev._rollout(tpop, tdata)
     assert_lanes_agree(xs, alive, jxs, jalive)

@@ -388,7 +388,7 @@ def test_prepare_chained_past_the_fixed_instances():
         fset, trees, x0s, ts, ys = state_case(d, pop=4, b=b, t_steps=3)
         ev = SREvaluator(fset, substeps=1)
         data = (x0s, ts, ys, None)
-        assert ev._fused(trees, x0s) and not cro.takes_fixed(d, b, fset.num_variables)
+        assert ev._fused(trees, x0s) and not cro.takes_fixed(d, b, fset.num_variables, fset.max_device_op)
         step, const0 = ev.prepare_chained(trees, data)
         assert same_bits(step(const0), ev.evaluate_population(trees, data))
 
@@ -399,7 +399,8 @@ def test_fixed_wrappers_refuse_past_63_variables():
     a wrong variable; the dispatchers route such a set to the wide one."""
     fset, trees, x0s, ts, ys = state_case(2)
     wide_set = build_function_set(ARITH, [[f"x{i}" for i in range(64)]], [2])
-    assert cro.takes_fixed(2, 4, fset.num_variables) and not cro.takes_fixed(2, 4, 64)
+    assert (cro.takes_fixed(2, 4, fset.num_variables, fset.max_device_op)
+            and not cro.takes_fixed(2, 4, 64, fset.max_device_op))
     with pytest.raises(NotImplementedError, match="64 variables"):
         cro.kernel_operands(trees, wide_set, ("x0s", x0s))
     cro.kernel_operands(trees, fset, ("x0s", x0s))

@@ -20,7 +20,16 @@ workload (phases 12-14). Phases, one line or a few each:
 3. reproduction kernel vs its plain version on the main path's 3696 lanes
    (every lane's opcodes identical);
 4. the main path: ``initialize_population`` then 5 x (``evaluate_population``
-   + ``evolve``), with the kernels' launch counters read around it;
+   + ``evolve``), with the kernels' launch counters read around it; then
+   ``fit()`` for 20 generations, its generation step run eagerly at each
+   variant's first generation, captured as a CUDA graph at its second and
+   replayed after (migration at generations 9 and 19), beside the same
+   host loop from the same seed, four times: every output and the
+   generator's state bit-equal, the host loop's and a ``fit()`` of replays'
+   ms per generation, the kernels on the device in such a ``fit()``
+   (torch.profiler) equal to the host loop's launches, each graph's capture
+   seconds, nodes, replay ms and device busy time, and a warm step of each
+   variant under ``torch.cuda.set_sync_debug_mode("error")``;
 5. kernel and plain-version times (CUDA events, median of several runs; the
    kernels' own device time per launch by torch.profiler);
 6. interpreter forward and VJP kernels vs their plain versions, per lane, at
@@ -29,11 +38,13 @@ workload (phases 12-14). Phases, one line or a few each:
    on one tree per lane, and in the recompute's layout (trees ``(K, 1, 2,
    N)`` against states ``(K, 16, 1, 2)``: lanes grouped by the tree they
    share) on the VJP's per-lane outputs; every lane identical;
-7. the constant-optimisation path: ``fit()`` for 20 generations with
+7. the constant-optimisation path: the host loop for 20 generations with
    ``coefficient_optimisation=True`` (top-k 50, 10 Adam steps), so rounds run
    at generations 14 and 19; all four launch counters read around it, the
    refined top-k fitness against the unrefined, ms per generation and per
    round (split into the fused forward, the recompute and its backward);
+   then the graphed ``fit()`` beside it as in phase 4 (four variants: the
+   round at 14 and 19, migration at 9 and 19), and the graphed round's ms;
 8. interpreter kernel and plain-version times at both shapes (CUDA events;
    the kernels' device time per launch by torch.profiler), the dispatcher
    ``evaluate_trees`` forward and forward + backward through autograd (what
@@ -605,6 +616,16 @@ def run(device, sizes=FULL) -> dict:
     phase_line(f"phase 4 main path: {islands}x{pop} candidates, launches {launches}, best {best_str}")
     out["main_path"] = dict(generations=gens, launches=launches, best=best_str)
 
+    def make_gen():
+        return GeneticProgramming(
+            num_generations=s["fit_generations"], population_size=pop,
+            fitness_function=SREvaluator(substeps=1), operator_list=OPERATORS,
+            variable_list=[["x0", "x1"]], layer_sizes=[2], num_populations=islands,
+            max_nodes=n, max_init_depth=s["depth"], elite_percentage=s["elite"], device=device)
+
+    loop = loop_generations(make_gen(), data, device, s["fit_generations"], 1, fit_counters())
+    out["main_path"]["graphed"] = graphed_fit(device, s, make_gen, data, 1, loop, "phase 4")
+
     # -- phase 5: kernel vs plain times ----------------------------------------
     ys_c = ys_full.contiguous()
     fit_k = lambda: cf.sr_fitness_cuda(trees, x0s, ts_full, ys_c, fset, "rk4", 1)
@@ -743,6 +764,10 @@ def run(device, sizes=FULL) -> dict:
             deep=out["deep"]["interpreter"], wide=wide_row("interpret_bwd"),
             launches_sharded=shard_launches("interpret_bwd")),
     ]
+    for k in out["kernels"]:  # the kernels on the device in a graphed fit() of replays only
+        k["launches_graphed_fit"] = {
+            phase: res["graphed"].get("graph_launches", {}).get(k["name"])
+            for phase, res in (("gen", out["main_path"]), ("gen_opt", out["const_opt"]))}
     ak, at = out["adaptive_kernels"], out.get("adaptive_times_ms", {})
     g_long, i_short = ak[f"global_t{ts_full.shape[0]}"], ak[f"interval_t{s['adaptive_short_t']}"]
     ro = ak["rollout"]
@@ -1071,6 +1096,211 @@ def grouped_per_lane(trees, states, cot, fset):
     return out, dconst, ddata
 
 
+def fit_counters() -> dict:
+    """The launch counters of the kernels ``fit()``'s step reaches."""
+    from multitreegp_tpu_torch.core import cuda_interpreter as ci
+    from multitreegp_tpu_torch.core import cuda_reproduction as cr
+    from multitreegp_tpu_torch.core import cuda_rollout as cf
+
+    return dict(sr_fitness=cf.sr_fitness_cuda, reproduce=cr.reproduce_lanes_cuda,
+                interpret_fwd=ci.evaluate_trees_cuda, interpret_bwd=ci.evaluate_trees_vjp_cuda)
+
+
+def fit_tensors(out) -> list:
+    best, sols, pops, fitness = out
+    return [best, *sols, *pops, fitness]
+
+
+# the device names of the kernels fit()'s step reaches, as torch.profiler shows them
+FIT_KERNEL_NAMES = dict(sr_fitness=("sr_fitness_kernel", "sr_fitness_wide_kernel"),
+                        reproduce=("reproduce_kernel",),
+                        interpret_fwd=("interpret_fwd_kernel", "interpret_fwd_wide"),
+                        interpret_bwd=("interpret_bwd_kernel", "interpret_bwd_wide"))
+
+
+def fit_plan(gp, gens: int):
+    """The generations a fresh graphed ``fit()`` of ``gens`` generations runs
+    eagerly (each schedule variant's first) and captures (each variant's
+    second; ``multitreegp_tpu_torch/fit_step.py``'s ``GraphedRun``)."""
+    from multitreegp_tpu_torch.fit_step import schedule
+
+    by_variant = {}
+    for gen in range(gens):
+        by_variant.setdefault(schedule(gp, gen), []).append(gen)
+    return ([v[0] for v in by_variant.values()],
+            [v[1] for v in by_variant.values() if len(v) > 1])
+
+
+def device_kernel_counts(fn, torch) -> dict:
+    """Launches of each kernel of :data:`FIT_KERNEL_NAMES` that ran on the
+    device in ``fn()``, by torch.profiler (graph replays included)."""
+    prof = profile_device(fn, torch)
+    return {k: sum(n for name, (n, _) in prof["per_kernel"].items() if any(t in name for t in names))
+            for k, names in FIT_KERNEL_NAMES.items()}
+
+
+def cuda_graph_nodes(graph) -> int:
+    """Nodes of a CUDA graph captured with ``keep_graph=True`` (libcuda's
+    ``cuGraphGetNodes``)."""
+    import ctypes
+
+    get_nodes = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes
+    get_nodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
+    get_nodes.restype = ctypes.c_int
+    count = ctypes.c_size_t(0)
+    status = get_nodes(graph.raw_cuda_graph(), None, ctypes.byref(count))
+    check(status == 0, f"cuGraphGetNodes: CUresult {status}")
+    return count.value
+
+
+def graphed_fit(device, s, make, data, seed, loop, label) -> dict:
+    """The graphed ``fit()`` (``multitreegp_tpu_torch/fit_step.py``: one CUDA
+    graph per schedule variant, migration x round, run eagerly at the
+    variant's first generation, captured at its second and replayed from
+    then on) of ``make()`` from ``seed`` beside ``loop``
+    (:func:`loop_generations` from the same seed): the best-fitness history,
+    best solutions, final populations, final fitness and the generator's
+    final state bit-equal. The launch counters, zeroed before the first
+    run, hold the eager generations' and the captures' launches: the host
+    loop's at those generations. On the card, the same object then runs
+    ``fit()`` three more times on its cached graphs, each equal again: the
+    second captures the variants that came up once; the third, timed,
+    replays only, and no wrapper runs in it; the fourth runs under
+    torch.profiler, whose count of each kernel on the device must equal the
+    host loop's launches. Per variant: capture seconds and nodes (the
+    captures timed and kept by this function), replay ms (CUDA events,
+    median of ``s["timing_runs"]``), one profiled replay's device busy time,
+    and one warm step under ``torch.cuda.set_sync_debug_mode("error")`` (a
+    host synchronisation raises); the graphs' pool's bytes."""
+    import torch
+
+    from multitreegp_tpu_torch import fit_step
+
+    counters = fit_counters()
+    gp = make()
+    gens = gp.num_generations
+    captures = {}
+    capture = fit_step.GraphedRun._capture
+
+    def timed_capture(run, generation):
+        t0 = time.perf_counter()
+        graph = capture(run, generation)
+        captures[fit_step.schedule(run.gp, generation)] = dict(
+            generation=generation, capture_s=time.perf_counter() - t0, nodes=cuda_graph_nodes(graph))
+        return graph
+
+    for fn in counters.values():
+        fn.launches = 0
+    g = torch.Generator(device=device).manual_seed(seed)
+    fit_step.GraphedRun._capture, fit_step.GraphedRun.keep_graph = timed_capture, True
+    try:
+        sync(device)
+        t0 = time.perf_counter()
+        got = gp.fit(g, data)
+        sync(device)
+        first_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        want = fit_tensors(loop["outputs"])
+        equal = all(torch.equal(a, b) for a, b in zip(fit_tensors(got), want))
+        check(equal, f"{label}: graphed fit() differs from the host loop")
+        check(torch.equal(g.get_state(), loop["state"]), f"{label}: the generator ends elsewhere")
+        host_ms = statistics.mean(r["eval_ms"] + r["evolve_ms"] for r in loop["generations"])
+        res = dict(generations=gens, equal=equal, first_fit_s=first_s, host_loop_ms=host_ms,
+                   launches=launches, refusal=gp.fit_refusal)
+        if device.type != "cuda":
+            check(gp.fit_refusal.startswith("cpu"), f"{label}: fit_refusal {gp.fit_refusal!r}")
+            return res
+        check(gp.fit_refusal is None, f"{label}: fit() not graphed: {gp.fit_refusal}")
+        eager, captured = fit_plan(gp, gens)
+        at = [{k: r["eval_launches"][k] + r["evolve_launches"][k] for k in counters}
+              for r in loop["generations"]]
+        planned = {k: sum(at[gen][k] for gen in eager + captured) for k in counters}
+        check(launches == planned, f"{label}: counted launches {launches} != the host loop's at the "
+                                   f"eager generations {eager} and the captures {captured}: {planned}")
+        (run,) = gp._graph_runs.values()
+        variants = {fit_step.schedule(gp, gen) for gen in eager}
+        sync(device)
+        t0 = time.perf_counter()
+        again = gp.fit(torch.Generator(device=device).manual_seed(seed), data)
+        sync(device)
+        second_s = time.perf_counter() - t0
+        check(all(torch.equal(a, b) for a, b in zip(fit_tensors(again), want)),
+              f"{label}: the second fit() differs from the host loop")
+        check(set(run.graphs) == set(captures) == variants,
+              f"{label}: graphs {sorted(run.graphs)}, captures {sorted(captures)}, variants {sorted(variants)}")
+    finally:
+        fit_step.GraphedRun._capture, fit_step.GraphedRun.keep_graph = capture, False
+    for fn in counters.values():
+        fn.launches = 0
+    sync(device)
+    t0 = time.perf_counter()
+    again = gp.fit(torch.Generator(device=device).manual_seed(seed), data)
+    sync(device)
+    graphed_ms = (time.perf_counter() - t0) * 1e3 / gens
+    check(all(torch.equal(a, b) for a, b in zip(fit_tensors(again), want)),
+          f"{label}: the replays' fit() differs from the host loop")
+    idle = {k: fn.launches for k, fn in counters.items()}
+    check(not any(idle.values()), f"{label}: a wrapper ran in a fit() of replays: {idle}")
+    fit_seed = lambda: gp.fit(torch.Generator(device=device).manual_seed(seed), data)
+    for attempt in range(3):  # the tracer may drop events: it cannot add any
+        on_device = device_kernel_counts(fit_seed, torch)
+        if on_device == loop["launches"]:
+            break
+        TRACE_DROPS.append(dict(key=f"{label} graphed fit()", attempt=attempt, traced=on_device))
+    check(on_device == loop["launches"], f"{label}: kernels on the device in a fit() of replays "
+                                         f"{on_device} != the host loop's launches {loop['launches']}")
+    check(on_device["reproduce"] == gens and on_device["sr_fitness"] >= gens,
+          f"{label}: {on_device} over {gens} generations")
+    pool = tuple(run.pool)
+    pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                     if tuple(seg.get("segment_pool_id", ())) == pool)
+    out = {}
+    for variant, graph in run.graphs.items():
+        stats = dict(captures[variant])
+
+        def replay(graph=graph, gen=stats["generation"]):  # the history has room at `gen`
+            run.state.generation.fill_(gen)
+            graph.replay()
+
+        stats["replay_ms"] = cuda_time_ms(replay, s["timing_runs"], torch)
+        prof = profile_device(replay, torch)  # one replay: the device's busy share
+        heavy = sorted(prof["per_kernel"].items(), key=lambda kv: -kv[1][1])[:4]
+        stats.update(replay_wall_ms=prof["wall_ms"], replay_busy_ms=prof["busy_ms"],
+                     replay_kernels=prof["kernels"],
+                     replay_heaviest=[(k[:48], n, ms) for k, (n, ms) in heavy])
+        state = run.state.clone()
+        state.generation.fill_(stats["generation"])
+        rng = torch.Generator(device=device)
+        rng.set_state(run.generator.get_state())
+        sync(device)
+        torch.cuda.set_sync_debug_mode("error")
+        try:  # a warm step: every cache filled
+            fit_step.generation_step(gp, data, state, rng, stats["generation"])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        stats["sync_free"] = True
+        out["migrate={},round={}".format(*variant)] = stats
+    res.update(graphed_ms_per_generation=graphed_ms, second_fit_s=second_s, pool_bytes=pool_bytes,
+               eager_generations=eager,
+               captured_generations=captured, graph_launches=on_device, variants=out)
+    phase_line(f"{label} graphed fit(): {gens} generations equal to the host loop bit for bit "
+               f"(history, solutions, populations, fitness, generator), four times; host loop "
+               f"{host_ms:.3f} ms/generation (mean of its {gens}), graphed {graphed_ms:.3f} ms/generation "
+               f"(mean of a fit() of replays only), first fit() {first_s:.2f} s (eager at {eager}, "
+               f"captures at {captured}), second {second_s:.2f} s (the other captures); pool "
+               f"{pool_bytes} B; counted launches {launches} (eager "
+               f"generations + captures), kernels on the device in a fit() of replays {on_device} "
+               f"(torch.profiler)")
+    for name, v in out.items():
+        phase_line(f"{label} graph {name}: captured at gen {v['generation']} in {v['capture_s']:.3f} s, "
+                   f"{v['nodes']} nodes, replay {v['replay_ms']:.3f} ms "
+                   f"(profiled: wall {v['replay_wall_ms']:.3f} ms, device busy {v['replay_busy_ms']:.3f} ms, "
+                   f"{v['replay_kernels']} kernels; heaviest: "
+                   + "; ".join(f"{k} {n} x, {ms:.3f} ms" for k, n, ms in v["replay_heaviest"])
+                   + "); a warm step under sync debug mode \"error\" made no synchronisation")
+    return res
+
+
 def const_opt_phase(device, s, data) -> dict:
     """Phase 7: ``fit()`` with constant optimisation at full width, with the
     four kernels' launch counters read around it. Timers that synchronise
@@ -1086,13 +1316,17 @@ def const_opt_phase(device, s, data) -> dict:
 
     gens, n, b = s["fit_generations"], s["max_nodes"], s["batch"]
     t_steps = data[1].shape[0]
-    gp = GeneticProgramming(
-        num_generations=gens, population_size=s["pop"], fitness_function=SREvaluator(substeps=1),
-        operator_list=OPERATORS, variable_list=[["x0", "x1"]], layer_sizes=[2],
-        num_populations=s["islands"], max_nodes=n, max_init_depth=s["depth"],
-        coefficient_optimisation=True, gradient_steps=s["gradient_steps"],
-        coefficient_opt_top_k=s["top_k"], elite_percentage=s["elite"], device=device,
-    )
+
+    def make():
+        return GeneticProgramming(
+            num_generations=gens, population_size=s["pop"], fitness_function=SREvaluator(substeps=1),
+            operator_list=OPERATORS, variable_list=[["x0", "x1"]], layer_sizes=[2],
+            num_populations=s["islands"], max_nodes=n, max_init_depth=s["depth"],
+            coefficient_optimisation=True, gradient_steps=s["gradient_steps"],
+            coefficient_opt_top_k=s["top_k"], elite_percentage=s["elite"], device=device,
+        )
+
+    gp = make()
     scheduled = [gen for gen in range(gens) if gp._optimise_due(gen)]
 
     spans = dict(forward=0.0, recompute=0.0, backward=0.0)
@@ -1151,17 +1385,16 @@ def const_opt_phase(device, s, data) -> dict:
     counters = dict(sr_fitness=cf.sr_fitness_cuda, reproduce=cr.reproduce_lanes_cuda,
                     interpret_fwd=ci.evaluate_trees_cuda, interpret_bwd=ci.evaluate_trees_vjp_cuda)
     try:
-        for fn in counters.values():
-            fn.launches = 0
         sync(device)
         t0 = time.perf_counter()
-        best, _, final_pops, _ = gp.fit(torch.Generator(device=device).manual_seed(2), data)
-        launches = {k: fn.launches for k, fn in counters.items()}
+        loop = loop_generations(gp, data, device, gens, 2, counters)
+        launches = loop["launches"]
     finally:
         for mod, name, fn in patched:
             setattr(mod, name, fn)
         cf.SRFitness.backward = staticmethod(backward)
 
+    best, _, final_pops, _ = loop["outputs"]
     drift_calls = (t_steps - 1) * 4  # rk4, one substep
     check([r["generation"] for r in rounds] == scheduled, f"rounds at {rounds} != {scheduled}")
     for r in rounds:
@@ -1210,8 +1443,14 @@ def const_opt_phase(device, s, data) -> dict:
         f"(first {gen_ms[0]:.1f}); with a round "
         f"{', '.join(f'{gen_ms[g_]:.1f}' for g_ in scheduled)}; best fitness "
         f"{best_l[0]:.6g} -> {best_l[-1]:.6g}")
+    graphed = graphed_fit(device, s, make, data, 2, loop, "phase 7")
+    if device.type == "cuda":
+        round_ms = {k: v["replay_ms"] for k, v in graphed["variants"].items() if k.endswith("round=True")}
+        phase_line(f"phase 7 graphed round: replay {', '.join(f'{k} {v:.1f} ms' for k, v in round_ms.items())} "
+                   f"against the host loop's {', '.join(f"{r['ms']:.1f}" for r in summary)} ms a round")
     return {"const_opt": dict(launches=launches, rounds=summary, generation_ms=gen_ms,
-                              best=best_l, drift_calls=drift_calls, round_profile=profile)}
+                              best=best_l, drift_calls=drift_calls, round_profile=profile,
+                              graphed=graphed)}
 
 
 def interpreter_times(device, s, trees, fset, g) -> dict:
@@ -2551,7 +2790,8 @@ def loop_generations(gp, data, device, gens, seed, counters, validate=None) -> d
     fresh population, timed on the host clock around synchronisations, with
     every counter of ``counters`` read around each step; ``validate(pops)``
     checks each generation's children. Checks the fitness and that the best
-    never grows."""
+    never grows. Returns also ``fit()``'s four outputs and the generator's
+    final state."""
     import torch
 
     for fn in counters.values():
@@ -2581,7 +2821,8 @@ def loop_generations(gp, data, device, gens, seed, counters, validate=None) -> d
                          evolve_launches={k: fn.launches - mid[k] for k, fn in counters.items()}))
     check(all(b1 <= b0 for b0, b1 in zip(best, best[1:])), f"best fitness increased: {best}")
     return dict(generations=recs, best=best, pops=pops, fitness=fitness,
-                launches={k: fn.launches for k, fn in counters.items()})
+                launches={k: fn.launches for k, fn in counters.items()},
+                outputs=(gp.best_fitnesses, gp.best_solutions, pops, fitness), state=gen_g.get_state())
 
 
 def nonfused_phase(device, s, data) -> dict:
@@ -3285,6 +3526,10 @@ def examples_phase(device, s) -> dict:
             want = {k: 0 for k in counters}
             want[EXAMPLE_EVAL_KERNEL[label]] = gens
             want["reproduce"] = gens
+            if run_kw.get("fused"):  # graphed fit(): the wrappers run at the eager steps and captures
+                check(strategy.fit_refusal is None, f"{name}: fit() not graphed: {strategy.fit_refusal}")
+                eager, captured = fit_plan(strategy, gens)
+                want = {k: v and len(eager) + len(captured) for k, v in want.items()}
             check(launches == want, f"{name}: launches {launches}, expected {want}")
         summ = timer.summary()
         if "fit" in summ:

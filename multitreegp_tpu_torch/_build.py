@@ -287,11 +287,23 @@ def load(name: str, variant: Union[bool, Variant] = False) -> ctypes.CDLL:
     Every library exports ``const char* mtgp_error_string(int)``."""
     key = variant_name(name, variant)
     if key not in _loaded:
+        refuse_in_capture(f"loading {key}")
         lib = ctypes.CDLL(str(build(name, variant=variant)[0]))
         lib.mtgp_error_string.argtypes = [ctypes.c_int]
         lib.mtgp_error_string.restype = ctypes.c_char_p
         _loaded[key] = lib
     return _loaded[key]
+
+
+def refuse_in_capture(what: str) -> None:
+    """Raise ``RuntimeError`` where ``what`` (a cache miss: a build, a load,
+    a table copied from the host) would run inside a CUDA graph capture. The
+    warm-up step before each capture fills every cache the captured step
+    reads, so a miss there means the captured step differs from it."""
+    import torch
+
+    if torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what} during a CUDA graph capture: the warm-up step missed it")
 
 
 def build_host(name: str, out_dir: Path, variant: Union[bool, Variant] = False) -> ctypes.CDLL:

@@ -221,6 +221,7 @@ def _operands(trees: TreeTensors, data: torch.Tensor, fset: FunctionSet):
     key = _signature(trees, data, fset)
     layout = _layouts.get(key)
     if layout is None:
+        _build.refuse_in_capture("an interpreter layout made")
         layout = _make_layout(trees, data, fset)
         if len(_layouts) >= MAX_LAYOUTS:
             del _layouts[next(iter(_layouts))]

@@ -31,7 +31,7 @@ version.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from functools import cached_property, lru_cache
+from functools import cache, cached_property, lru_cache
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -81,11 +81,14 @@ UNKNOWN_DEVICE_OP = -1
 FIXED_MAX_OP = 63
 
 
-@lru_cache(maxsize=64)
+@cache
 def device_table(values: Tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """``torch.tensor(values, dtype)`` on ``device``, made once per (values,
     dtype, device): the kernels' small constant tables, so that a launch
-    copies nothing from the host. Shared: never write to it."""
+    copies nothing from the host. Kept for the process (a captured CUDA graph
+    reads them at their addresses), and never made during a capture. Shared:
+    never write to it."""
+    _build.refuse_in_capture("a kernel table copied from the host")
     return torch.tensor(values, dtype=dtype, device=device)
 
 
@@ -259,8 +262,11 @@ class FunctionSet:
 
     def variable_mask_on(self, device=None) -> torch.Tensor:
         """:attr:`variable_mask` on ``device`` (cached per device)."""
-        rows = tuple(tuple(r) for r in self.variable_mask.tolist())
-        return device_table(rows, torch.float32, torch.device(device or "cpu"))
+        return device_table(self._mask_rows, torch.float32, torch.device(device or "cpu"))
+
+    @cached_property
+    def _mask_rows(self) -> Tuple[Tuple[float, ...], ...]:
+        return tuple(tuple(r) for r in self.variable_mask.tolist())
 
     def device_ops(self, device=None) -> torch.Tensor:
         """int32 device op id per operator (``opcode - OP_START``), cached per

@@ -24,6 +24,7 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..core import prng
 
@@ -142,9 +143,24 @@ def integrate(
     return _scan(STEPPERS[method], drift, x0, ts, substeps, cond_alive)
 
 
+# save grids -> (their version, their times as Python floats)
+_grid_times = WeakIdKeyDictionary()
+
+
+def host_times(ts: torch.Tensor) -> list:
+    """``ts.tolist()``, read from the device once per grid tensor (again only
+    after it is written): the integrators' Python step times, so that an
+    integration over a grid already read makes no host read (a CUDA graph can
+    capture it)."""
+    hit = _grid_times.get(ts)
+    if hit is None or hit[0] != ts._version:
+        hit = _grid_times[ts] = (ts._version, ts.tolist())
+    return hit[1]
+
+
 def _scan(stepper, drift: Drift, x0: torch.Tensor, ts: torch.Tensor, substeps: int, cond_alive,
           kick: Optional[Kick] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    times = ts.tolist()
+    times = host_times(ts)
     alive = finite(x0)
     if cond_alive is not None:
         alive = alive & cond_alive(times[0], x0)

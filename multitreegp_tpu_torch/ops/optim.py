@@ -13,7 +13,9 @@ the two agree to float32 rounding:
 
 ``torch.optim.Adam`` orders these operations differently, so it is not used.
 The bias corrections are divided as device tensors: PyTorch's CUDA division
-by a Python or CPU scalar multiplies by its reciprocal instead.
+by a Python or CPU scalar multiplies by its reciprocal instead. They are made
+once per step count (``registry.device_table``), so that an update copies
+nothing from the host and can be captured in a CUDA graph.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..core.registry import device_table
 
 
 class AdamState(NamedTuple):
@@ -50,9 +54,9 @@ def adam(learning_rate: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
         nu = (1 - b2) * (grads * grads) + b2 * state.nu
         count = state.count + 1
         one = np.float32(1)
-        corrections = torch.tensor(
-            [one - np.float32(b1) ** np.float32(count), one - np.float32(b2) ** np.float32(count)],
-            dtype=torch.float32, device=grads.device)
+        corrections = device_table(
+            (float(one - np.float32(b1) ** np.float32(count)),
+             float(one - np.float32(b2) ** np.float32(count))), torch.float32, grads.device)
         mu_hat = mu / corrections[0]
         nu_hat = nu / corrections[1]
         updates = mu_hat / (torch.sqrt(nu_hat) + eps)

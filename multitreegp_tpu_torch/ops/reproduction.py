@@ -22,6 +22,17 @@ from ..core.trees import TreeTensors
 from .crossover import crossover_candidates
 
 
+def categorical(probs: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """One category per row of ``probs (R, K)`` (weights, any positive sum):
+    int64 ``(R, 1)``. The draw ``torch.multinomial(probs, 1, generator=
+    generator)`` makes, an exponential race (its single-sample path): the
+    same indices, and the generator left in the same state, without that
+    path's host read of the weights' validity (which a CUDA graph cannot
+    capture)."""
+    race = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / race, dim=-1, keepdim=True)
+
+
 def tournament_select(
     fitness: torch.Tensor,
     tournament_probabilities: torch.Tensor,
@@ -41,7 +52,7 @@ def tournament_select(
     f = torch.gather(fitness, 1, idx.reshape(islands, -1)).reshape(idx.shape)
     ranked = torch.gather(idx, -1, torch.argsort(f, dim=-1, stable=True))
     probs = tournament_probabilities[:, None, :].expand(islands, num, tournament_size)
-    rank = torch.multinomial(probs.reshape(-1, tournament_size), 1, generator=generator)
+    rank = categorical(probs.reshape(-1, tournament_size), generator)
     return torch.gather(ranked, -1, rank.reshape(islands, num, 1))[..., 0]
 
 
@@ -119,6 +130,12 @@ def migrate_ring(
     return out_pop, torch.where(keep[None, :], send_fit, recv_fit)
 
 
+def migration_due(islands: int, migration_period: int, generation: int) -> bool:
+    """Whether ``generation`` migrates: every ``migration_period``
+    generations, with more than one island."""
+    return islands > 1 and (generation + 1) % migration_period == 0
+
+
 def make_evolve_populations(
     evolve_island: Callable,
     migration_period: int,
@@ -134,7 +151,7 @@ def make_evolve_populations(
 
     def evolve_populations(populations: TreeTensors, fitness: torch.Tensor,
                            generator: torch.Generator, generation: int) -> TreeTensors:
-        if fitness.shape[0] > 1 and (generation + 1) % migration_period == 0:
+        if migration_due(fitness.shape[0], migration_period, generation):
             populations, fitness = migrate_ring(populations, fitness, migration_size)
         return evolve_island(populations, fitness, generator, reproduction_type_probabilities,
                              reproduction_probabilities, tournament_probabilities)

@@ -4,10 +4,13 @@ Port of ``multitreegp_tpu/strategy.py``: the same constructor keywords, the
 host-loop methods — ``initialize_population`` / ``evaluate_population`` /
 ``evolve`` / ``get_statistics`` / ``to_string`` — constant optimisation of
 the top-k candidates (``coefficient_optimisation``, ``optimise``), ``fit()``
-with checkpoint/resume, and ``to_callable``. PyTorch runs eagerly, so there
-are no compiled-program caches and ``fit()`` is the host loop itself.
-Randomness comes from explicit ``torch.Generator``s, and every tensor lives
-on the ``device`` given to the constructor.
+with checkpoint/resume, and ``to_callable``. Where JAX runs ``fit()`` as one
+jitted ``lax.scan``, the port runs it as one generation step over device
+state (``fit_step``), captured in CUDA graphs and replayed once a generation
+on the card; the configurations the graphs do not take, and the CPU, run
+the step eagerly (``fit_refusal`` says why). Randomness comes from
+explicit ``torch.Generator``s, and every tensor lives on the ``device`` given
+to the constructor.
 
 Reproduction takes JAX's routing: the fused kernel path (#2,
 ``ops/fused_evolve``) where ``max_nodes <= 256``, the per-tree operators
@@ -30,6 +33,7 @@ from .core.interpreter import check_impl, evaluate_trees, make_candidate_evaluat
 from .core.registry import FunctionSet, build_function_set
 from .core.cuda_reproduction import MAX_NODES as MAX_KERNEL_NODES
 from .core.trees import TreeTensors, tree_sizes
+from .fit_step import GraphedRun, generation_step, new_state, record_best, step_refusal
 from .ops.constant_opt import make_constant_optimiser
 from .ops.fused_evolve import make_reproduce_islands
 from .ops.initialization import make_population_sampler, make_tree_sampler
@@ -39,6 +43,9 @@ from .parallel import collective
 from .parallel.mesh import gather_population, island_sharding, make_mesh
 from .utils.checkpoint import load_checkpoint, save_checkpoint
 from .utils.render import candidate_to_string
+
+
+MAX_GRAPHED_RUNS = 4  # the graphed runs a GeneticProgramming keeps (data x length)
 
 
 class GeneticProgramming:
@@ -173,6 +180,9 @@ class GeneticProgramming:
         self.best_solutions: Optional[TreeTensors] = None
         # the reference-style per-candidate tree evaluator handed to users
         self.tree_evaluator = make_candidate_evaluator(self.fset)
+        # why the last fit() ran without CUDA graphs (None: it replayed them)
+        self.fit_refusal: Optional[str] = None
+        self._graph_runs = {}
 
     def _sample_candidate(self, generator: torch.Generator, shape=()) -> TreeTensors:
         """Fresh candidates of batch ``shape``: each tree grown to
@@ -239,19 +249,27 @@ class GeneticProgramming:
         round when scheduled, then the best candidate recorded."""
         if self._optimise_due(self.current_generation):
             populations, fitness = self._optimise_core(populations, fitness, data)
-        flat_fit = fitness.reshape(-1)
-        best = int(torch.argmin(flat_fit))
-        best_solution = populations.map(lambda x: x.reshape((-1,) + x.shape[2:]))[best]
-        self._record_best(flat_fit[best], best_solution)
+        self._history(populations.map(lambda x: x[0, 0]))
+        at = torch.full((1,), self._history_at(), dtype=torch.int64, device=fitness.device)
+        record_best(self.best_fitnesses, self.best_solutions, at, populations, fitness)
         return fitness, populations
 
-    def _record_best(self, best_fitness: torch.Tensor, best_solution: TreeTensors) -> None:
-        history = self.best_fitnesses.shape[0]
+    def _history(self, candidate: TreeTensors) -> None:
+        """Allocate the best-solution history, of ``candidate``'s shape,
+        where there is none."""
         if self.best_solutions is None:
-            self.best_solutions = best_solution.map(
-                lambda x: torch.zeros((history,) + x.shape, dtype=x.dtype, device=x.device)
-            )
-        gen = min(self.current_generation, history - 1)
+            history = self.best_fitnesses.shape[0]
+            self.best_solutions = candidate.map(
+                lambda x: torch.zeros((history,) + x.shape, dtype=x.dtype, device=x.device))
+
+    def _history_at(self) -> int:
+        """The history index of the current generation (the last one past
+        the history's end)."""
+        return min(self.current_generation, self.best_fitnesses.shape[0] - 1)
+
+    def _record_best(self, best_fitness: torch.Tensor, best_solution: TreeTensors) -> None:
+        self._history(best_solution)
+        gen = self._history_at()
         self.best_fitnesses[gen] = best_fitness
         for hist, value in zip(self.best_solutions, best_solution):
             hist[gen] = value
@@ -304,6 +322,19 @@ class GeneticProgramming:
         """Run the whole evolution: per generation evaluate, refine constants
         when scheduled, record the best, evolve (and checkpoint).
 
+        Each generation is :func:`~.fit_step.generation_step`. On a CUDA
+        device, for the symbolic-regression evaluator with a fixed-step
+        method and no process noise on its fused kernel, with the fused
+        reproduction, the step of each schedule variant (migration x round)
+        runs eagerly at the variant's first generation, is captured as a
+        CUDA graph at its second and replayed from then on; the graphs are
+        cached per data and length, and the evaluator's Python code runs at
+        the eager step and the capture, not at every generation. Every
+        other configuration, and the CPU, runs the step eagerly;
+        ``fit_refusal`` holds why the run was not graphed. Both give the
+        host loop's (``evaluate_population`` + ``evolve``) results bit for
+        bit.
+
         Returns ``(best_fitness_per_gen (G,), best_solutions (G, trees, N),
         final_populations, final_fitness)``; ``final_fitness`` is the last
         evaluated generation's. With ``checkpoint_path`` (``"{gen}"`` in it
@@ -337,14 +368,47 @@ class GeneticProgramming:
             self.current_generation = g
             return self.best_fitnesses, self.best_solutions, populations, self._evaluate(populations, data)
         if shard:
+            self.fit_refusal = ("shard=True: the ranks' collectives (NCCL inside graphs) run on the "
+                                "host loop")
             return self._fit_sharded(generator, data, populations, start, g, checkpoint_path,
                                      checkpoint_every)
+        refusal = step_refusal(self, data)
+        if refusal is None and self.device.type != "cuda":
+            refusal = f"{self.device}: no CUDA graphs off the card; the generation step runs eagerly"
+        self.fit_refusal = refusal
+        if refusal is None:
+            run = self._graphed_run(data, g, populations)
+            state, rng, step = run.state, run.generator, run.step
+            state.load(populations, start, self.best_fitnesses, self.best_solutions)
+            rng.set_state(generator.get_state())
+        else:
+            state, rng = new_state(populations, start, self.best_fitnesses, self.best_solutions), generator
+            step = lambda gen: generation_step(self, data, state, generator, gen)
+        self.best_fitnesses, self.best_solutions = state.best_fitnesses, state.best_solutions
         for gen in range(start, g):
             self.current_generation = gen
-            fitness, populations = self.evaluate_population(populations, data)
-            populations = self.evolve(populations, fitness, generator)
-            self._checkpoint(checkpoint_path, checkpoint_every, gen, populations, generator)
-        return self.best_fitnesses, self.best_solutions, populations, fitness
+            step(gen)
+            self._checkpoint(checkpoint_path, checkpoint_every, gen, state.populations, rng)
+        self.current_generation = g
+        if refusal is None:  # the caller's generator where the eager step leaves it; outputs of their own
+            generator.set_state(rng.get_state())
+            state = state.clone()
+            self.best_fitnesses, self.best_solutions = state.best_fitnesses, state.best_solutions
+        return self.best_fitnesses, self.best_solutions, state.populations, state.fitness
+
+    def _graphed_run(self, data, g: int, populations: TreeTensors) -> GraphedRun:
+        """The :class:`~.fit_step.GraphedRun` of a run of ``g`` generations on
+        ``data``, cached as the JAX package caches its compiled run (the
+        data's tensors by identity and version; at most
+        :data:`MAX_GRAPHED_RUNS`, the oldest dropped first)."""
+        key = (g,) + tuple((id(t), t._version) if isinstance(t, torch.Tensor) else id(t) for t in data)
+        run = self._graph_runs.get(key)
+        if run is None:
+            if len(self._graph_runs) >= MAX_GRAPHED_RUNS:
+                del self._graph_runs[next(iter(self._graph_runs))]
+            state = new_state(populations, 0, self.best_fitnesses, self.best_solutions)
+            run = self._graph_runs[key] = GraphedRun(self, data, state)
+        return run
 
     def _start_run(self, generator: torch.Generator, g: int, resume_from: Optional[str]):
         """``(populations, first generation)`` of a run of ``g`` generations,
